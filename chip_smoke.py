@@ -1,4 +1,5 @@
-"""Drive tell_tpu_torch's serving path once on one NVIDIA GPU.
+"""Drive tell_tpu_torch's serving and training paths once on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -9,15 +10,32 @@ every phase passed):
   2. build: compiles the hand-written kernels of tell_tpu_torch/csrc/ with
      nvcc for sm_90a.
   3. kernel vs plain on the card: kernel A (decode attention) and kernel B
-     (encoder attention) at the serving path's shapes, fp32 and bf16,
-     against their plain PyTorch versions; CUDA-event times of both.
+     (encoder attention) at the serving path's shapes, kernel C (fused
+     dynamic conv) at the training path's (B=16, C=1024, H=16, T=32 with
+     K=3/7/15/31, T=100 and T=15 with K=31), fp32 and bf16, against their
+     plain PyTorch versions, kernel C's gradient through its autograd
+     Function too; CUDA-event times of both, C forward and forward+backward.
   4. full-width service: CaptionerConfig() + RobertaConfig.large() with
      random weights from the seed, served over HTTP on a local port; four
      /caption requests with token ids and features, then one beam search
-     (beam 5, B=8). Both kernels must have launched during this phase.
+     (beam 5, B=8). Kernels A and B must have launched during this phase.
   5. card vs CPU: the same weights on the CPU (plain versions) and on the
      card (kernels), teacher-forced over the first 16 steps of a card
      caption; top-1 agreement >= 15/16.
+  6. training, card vs CPU: full-width CaptionerConfig() weights in fp32,
+     a B=2 batch with precomputed article hiddens [2, 512, 25, 1024]; the
+     deterministic captioner_loss and every gradient on the card (kernel C
+     forward, its Function's backward), on the card with kernel C's plain
+     version, and on the CPU (plain versions). Kernel C against its plain
+     version: each gradient leaf within 1e-4 relative L2. Card against CPU:
+     loss within 1e-5 relative, each leaf within 2e-2 relative L2 and the
+     median leaf within 5e-3 (fp32 summation order; see the limits).
+  7. the trainer on the card: a synthetic shard set, train_from_shards at
+     compute_dtype bfloat16 with the frozen RoBERTa-large and the flagship
+     dropouts, 16 x 512 batches with 32-token captions: two epochs of
+     steps, validation (kernels B and C must launch) and a checkpoint; then
+     a mid-epoch request_stop and a recover in a fresh Trainer, which must
+     restore the saved params exactly and continue at the next batch.
 Then one JSON line describing the kernels and, last, the result line.
 """
 from __future__ import annotations
@@ -26,9 +44,12 @@ import argparse
 import http.client
 import itertools
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -36,7 +57,21 @@ import numpy as np
 import torch
 
 FP32_TOL = dict(atol=1e-5, rtol=1e-4)
+CONV_TOL = dict(atol=2e-5, rtol=2e-5)        # the JAX kernel test's
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_ATOL = 2e-2
+# Phase 6 (training loss and gradients, fp32). Kernel C against its plain
+# version inside the same card run moves no gradient leaf by more than
+# CONV_GRAD_REL_L2. Card against CPU is looser: the network is random-init
+# with a confident softmax (about 21 bits), and two fp32 orders of the same
+# sums differ by 1e-4..6e-3 relative L2 on the worst leaf (CPU fp32 against
+# a float64 CPU run: 1.8e-4; an NVIDIA H100 against the CPU: 1.1e-3 and
+# 5.9e-3 on two seeds, with kernel C or its plain version alike). A wrong
+# gradient is off by O(1).
+TRAIN_LOSS_RTOL = 1e-5
+CONV_GRAD_REL_L2 = 1e-4
+TRAIN_GRAD_REL_L2 = 2e-2
+TRAIN_GRAD_MEDIAN_REL_L2 = 5e-3
 FLAGSHIP_SEGMENTS = (("image", 49), ("article", 512), ("faces", 4),
                      ("obj", 64))
 
@@ -142,6 +177,56 @@ def check_kernel(name, kernel, plain, sets, shape):
             "plain_ms": plain_ms}
 
 
+def check_conv(g, B, T, K, dev, C=1024, H=16):
+    """Kernel C against dynamic_conv_plain: fp32 forward, bf16 forward on
+    the same bf16-rounded inputs, dx and dw through the autograd Function
+    against autograd of the plain version; CUDA-event times of both,
+    forward and forward+backward."""
+    from tell_tpu_torch.ops.kernels.dynamic_conv import (
+        dynamic_conv_plain, fused_dynamic_conv)
+    shape = f"B={B} T={T} C={C} H={H} K={K}"
+    x = torch.randn(B, T, C, generator=g).to(dev)
+    bound = (6.0 / (C + K * H)) ** 0.5
+    w = ((torch.rand(C, K * H, generator=g) * 2 - 1) * bound).to(dev)
+    ref = dynamic_conv_plain(x, w, K, H)
+    out = fused_dynamic_conv(x, w, K, H)
+    torch.cuda.synchronize()
+    err32 = (out - ref).abs().max().item()
+    torch.testing.assert_close(out, ref, **CONV_TOL)
+    out16 = fused_dynamic_conv(x.bfloat16(), w.bfloat16(), K, H)
+    ref16 = dynamic_conv_plain(x.bfloat16().float(), w.bfloat16().float(),
+                               K, H)
+    torch.cuda.synchronize()
+    err16 = (out16.float() - ref16).abs().max().item()
+    if not np.isfinite(err16) or err16 > BF16_ATOL:
+        raise CheckFailed(f"fused_dynamic_conv {shape} bf16: max abs err "
+                          f"{err16} > {BF16_ATOL}")
+    gy = torch.randn(B, T, C, generator=g).to(dev)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+
+    def fwd_bwd(fn):
+        return torch.autograd.grad(fn(xr, wr, K, H), (xr, wr), gy)
+
+    dk = fwd_bwd(fused_dynamic_conv)
+    dp = fwd_bwd(dynamic_conv_plain)
+    torch.cuda.synchronize()
+    errg = max((a - b).abs().max().item() for a, b in zip(dk, dp))
+    for a, b in zip(dk, dp):
+        torch.testing.assert_close(a, b, **GRAD_TOL)
+    ms = cuda_ms(lambda: fused_dynamic_conv(x, w, K, H))
+    plain_ms = cuda_ms(lambda: dynamic_conv_plain(x, w, K, H))
+    fb_ms = cuda_ms(lambda: fwd_bwd(fused_dynamic_conv))
+    plain_fb_ms = cuda_ms(lambda: fwd_bwd(dynamic_conv_plain))
+    log(f"phase 3: fused_dynamic_conv {shape}: fp32 max abs err "
+        f"{err32:.3e}, bf16 max abs err {err16:.3e}, grad max abs err "
+        f"{errg:.3e}; forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+        f"forward+backward kernel {fb_ms:.4f} ms, plain {plain_fb_ms:.4f} "
+        "ms (fp32)")
+    return {"shape": shape, "err32": err32, "err16": err16, "errg": errg,
+            "ms": ms, "plain_ms": plain_ms, "fb_ms": fb_ms,
+            "plain_fb_ms": plain_fb_ms}
+
+
 def phase_kernels(seed: int) -> dict:
     from tell_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, decode_attention_plain)
@@ -149,7 +234,8 @@ def phase_kernels(seed: int) -> dict:
         encoder_attention, encoder_attention_plain)
     g = torch.Generator().manual_seed(seed)
     dev = torch.device("cuda")
-    res = {"decode_attention": [], "encoder_attention": []}
+    res = {"decode_attention": [], "encoder_attention": [],
+           "fused_dynamic_conv": []}
     for MG, article in ((4, 512), (20, 512), (20, 2048)):
         S, sets = _decode_case(g, 8, MG, article, dev)
         res["decode_attention"].append(check_kernel(
@@ -159,6 +245,8 @@ def phase_kernels(seed: int) -> dict:
         res["encoder_attention"].append(check_kernel(
             "encoder_attention", encoder_attention, encoder_attention_plain,
             _encoder_case(g, 4, S, dev), f"B=4 S={S} H=16 hd=64"))
+    for T, K in ((32, 3), (32, 7), (32, 15), (32, 31), (100, 31), (15, 31)):
+        res["fused_dynamic_conv"].append(check_conv(g, 16, T, K, dev))
     return res
 
 
@@ -334,6 +422,262 @@ def phase_cpu_vs_card(svc, req, caption):
     return agree, lp_diff
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training loss and its gradients, card against CPU
+# ---------------------------------------------------------------------------
+
+def _train_batch(rng, cfg, B, caption_len, hiddens_layers=None):
+    """A numpy captioner batch at the flagship's widths: captions of
+    caption_len ids (<s> ... </s> pads), an image grid, faces and objects
+    with absent (NaN) rows, and either precomputed article hiddens
+    [B, 512, L, 1024] with a padded article mask or nothing (the trainer's
+    shards carry context_ids instead)."""
+    dcfg = cfg.decoder
+    spec = {c.name: (c.max_len, c.kv_dim) for c in dcfg.contexts}
+    cap = rng.integers(3, dcfg.vocab_size, size=(B, caption_len))
+    cap[:, 0] = dcfg.bos_id
+    cap[-1, caption_len - 6:] = dcfg.pad_id
+    cap[-1, caption_len - 7] = dcfg.eos_id
+    faces = rng.normal(size=(B,) + spec["faces"]).astype(np.float32)
+    faces[0, 2:] = np.nan
+    objs = rng.normal(size=(B,) + spec["obj"]).astype(np.float32)
+    objs[-1, 20:] = np.nan
+    batch = {"caption_ids": cap.astype(np.int32),
+             "image_grid": rng.normal(size=(B,) + spec["image"]).astype(
+                 np.float32),
+             "face_embeds": faces, "obj_embeds": objs}
+    if hiddens_layers is not None:
+        S, D = spec["article"]
+        batch["article_hiddens"] = rng.normal(
+            size=(B, S, hiddens_layers, D)).astype(np.float32)
+        mask = np.zeros((B, S), bool)
+        mask[-1, 300:] = True
+        batch["article_mask"] = mask
+    return batch
+
+
+def _rel_l2(grads, ref):
+    return [((a.cpu() - b.cpu()).norm() / b.norm().clamp_min(1e-30)).item()
+            for a, b in zip(grads, ref)]
+
+
+def phase_train_cpu_vs_card(seed: int, cfg, dev: str = "cuda") -> dict:
+    """captioner_loss and its gradients (deterministic, fp32) from the same
+    weights and batch three times: on `dev` (the card) through kernel C,
+    on `dev` with kernel C's plain version in its place (which isolates the
+    kernel and its Function), and on the CPU (plain versions)."""
+    from tell_tpu_torch.bridge import (init_captioner, to_torch, tree_leaves,
+                                       tree_map)
+    from tell_tpu_torch.models.captioner import captioner_loss
+    from tell_tpu_torch.ops import dynamic_conv as port_dc
+    from tell_tpu_torch.ops.kernels.dynamic_conv import (
+        dynamic_conv_plain, fused_dynamic_conv)
+    torch.set_num_threads(os.cpu_count() or 1)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    card_params = init_captioner(g, cfg)
+    batch = _train_batch(np.random.default_rng(seed + 1), cfg, 2, 32,
+                         hiddens_layers=cfg.num_bert_layers)
+    out = {}
+    for label, where in (("card", dev), ("card, plain conv", dev),
+                         ("cpu", "cpu")):
+        params = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                          to_torch(card_params, where))
+        tb = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+        launches = fused_dynamic_conv.launches
+        if label == "card, plain conv":
+            port_dc.fused_dynamic_conv = dynamic_conv_plain
+        t = time.perf_counter()
+        try:
+            loss, aux = captioner_loss(params, cfg, tb)
+            loss.backward()
+        finally:
+            port_dc.fused_dynamic_conv = fused_dynamic_conv
+        grads = [p.grad for p in tree_leaves(params)]
+        require(all(x is not None for x in grads), "a leaf got no gradient")
+        if label == "card" and where == "cuda":
+            torch.cuda.synchronize()
+            require(fused_dynamic_conv.launches
+                    == launches + cfg.decoder.num_layers,
+                    "kernel C did not run every layer of the card's loss")
+        out[label] = (loss.item(), grads)
+        log(f"phase 6: captioner_loss + backward, {label} ({where}), in "
+            f"{time.perf_counter() - t:.2f} s: loss {loss.item():.6f} bits "
+            f"over {int(aux['sample_size'])} tokens")
+    (l_card, g_card), (l_plain, g_plain), (l_cpu, g_cpu) = out.values()
+    kernel_rel = _rel_l2(g_card, g_plain)
+    cpu_rel = _rel_l2(g_card, g_cpu)
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"phase 6: {len(cpu_rel)} gradient leaves. Kernel C vs its plain "
+        f"version on the card: loss {l_card:.7f} vs {l_plain:.7f}, largest "
+        f"relative L2 error {max(kernel_rel):.3e} (limit "
+        f"{CONV_GRAD_REL_L2}). Card vs CPU: loss relative difference "
+        f"{loss_rel:.3e} (limit {TRAIN_LOSS_RTOL}), largest relative L2 "
+        f"error {max(cpu_rel):.3e} (leaf {int(np.argmax(cpu_rel))}, limit "
+        f"{TRAIN_GRAD_REL_L2}), median {float(np.median(cpu_rel)):.3e} "
+        f"(limit {TRAIN_GRAD_MEDIAN_REL_L2})")
+    require(math.isfinite(l_card) and loss_rel <= TRAIN_LOSS_RTOL,
+            f"training loss card {l_card} vs CPU {l_cpu}")
+    require(max(kernel_rel) <= CONV_GRAD_REL_L2,
+            f"kernel C moved a gradient leaf by {max(kernel_rel)}")
+    require(max(cpu_rel) <= TRAIN_GRAD_REL_L2
+            and float(np.median(cpu_rel)) <= TRAIN_GRAD_MEDIAN_REL_L2,
+            f"card vs CPU gradients: {max(cpu_rel)} / median "
+            f"{float(np.median(cpu_rel))}")
+    return {"loss_rel": loss_rel, "grad_rel_l2": max(cpu_rel),
+            "kernel_grad_rel_l2": max(kernel_rel)}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the trainer on the card
+# ---------------------------------------------------------------------------
+
+def _write_shards(rng, cfg, vocab, directory, n_train=48, n_valid=16):
+    """Synthetic examples for the (512, 32) bucket: 512 context ids, a
+    caption of 17-32 ids, an image grid (49 x 2048 at the flagship), and
+    0-4 faces x 512 and 0-64 objects x 2048 (the rest absent)."""
+    from tell_tpu_torch.data.records import write_shard
+    dcfg = cfg.decoder
+    spec = {c.name: (c.max_len, c.kv_dim) for c in dcfg.contexts}
+
+    def rows(name):
+        n, dim = spec[name]
+        return rng.normal(size=(int(rng.integers(0, n + 1)), dim)).astype(
+            np.float32)
+
+    def example():
+        # caption ids Zipf-distributed like text, so most land in the
+        # adaptive softmax's head band and the tails stay within capacity
+        words = np.minimum(rng.zipf(1.5, int(rng.integers(15, 31))) + 2,
+                           dcfg.vocab_size - 1)
+        return {
+            "context_ids": np.concatenate(
+                [[0], rng.integers(3, vocab, 510), [2]]).astype(np.int32),
+            "caption_ids": np.concatenate(
+                [[dcfg.bos_id], words, [dcfg.eos_id]]).astype(np.int32),
+            "image_grid": rng.normal(size=spec["image"]).astype(np.float32),
+            "face_embeds": rows("faces"), "obj_embeds": rows("obj")}
+
+    write_shard(os.path.join(directory, "train-00000.npz"),
+                [example() for _ in range(n_train)])
+    write_shard(os.path.join(directory, "valid-00000.npz"),
+                [example() for _ in range(n_valid)])
+
+
+def phase_trainer(seed: int, cfg, rcfg, card: str, dev: str = "cuda"
+                  ) -> dict:
+    from tell_tpu_torch.bridge import init_roberta, tree_leaves
+    from tell_tpu_torch.data.bucketing import BucketingConfig
+    from tell_tpu_torch.ops.kernels.dynamic_conv import fused_dynamic_conv
+    from tell_tpu_torch.ops.kernels.encoder_attention import (
+        encoder_attention)
+    from tell_tpu_torch.training.trainer import (TrainerConfig, make_trainer,
+                                                 train_from_shards)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        t = time.perf_counter()
+        _write_shards(np.random.default_rng(seed + 2), cfg, rcfg.vocab_size,
+                      tmp)
+        g = torch.Generator(device=dev).manual_seed(seed + 2)
+        frozen = {"roberta": init_roberta(g, rcfg), "roberta_cfg": rcfg}
+        faces, objs = cfg.decoder.context("faces"), cfg.decoder.context("obj")
+        bcfg = BucketingConfig(max_faces=faces.max_len, face_dim=faces.kv_dim,
+                               max_objects=objs.max_len,
+                               object_dim=objs.kv_dim)
+        log(f"phase 7: 48 + 16 examples written and RoBERTa "
+            f"{rcfg.num_layers}x{rcfg.dim} initialised in "
+            f"{time.perf_counter() - t:.1f} s")
+
+        def tcfg(num_epochs):
+            return TrainerConfig(serialization_dir=os.path.join(tmp, "run"),
+                                 num_epochs=num_epochs, checkpoint_every=2,
+                                 keep_checkpoints=2, t_total=100,
+                                 seed=seed, log_every=1000)
+
+        on_card = dev == "cuda"
+        encoder_attention.launches = 0
+        fused_dynamic_conv.launches = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        result = train_from_shards(cfg, tcfg(2), bcfg, tmp, frozen,
+                                   device=dev)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        launches = {"encoder_attention": encoder_attention.launches,
+                    "fused_dynamic_conv": fused_dynamic_conv.launches}
+        with open(os.path.join(tmp, "run", "metrics.jsonl")) as f:
+            hist = [json.loads(line) for line in f]
+        require(len(hist) == 2 and all(h["batches"] == 3 for h in hist),
+                f"expected 2 epochs of 3 batches: {hist}")
+        for h in hist:
+            require(math.isfinite(h["loss"]) and math.isfinite(h["val_loss"])
+                    and h["skipped"] == 0, f"non-finite epoch: {h}")
+        ckpts = sorted(os.listdir(os.path.join(tmp, "run", "checkpoints")))
+        require(ckpts == ["best", "ckpt-1"], f"checkpoints {ckpts}")
+        step_ms = 1e3 * hist[1]["epoch_seconds"] / hist[1]["batches"]
+        log(f"phase 7 ({card}): train_from_shards {cfg.compute_dtype}, 2 "
+            f"epochs x 3 steps of 16 x 512 (32-token captions) + validation "
+            f"+ checkpoint in {wall:.1f} s: {step_ms:.1f} ms per train step "
+            f"(epoch 1, after the warm-up epoch), train loss "
+            f"{hist[0]['loss']:.4f} -> {hist[1]['loss']:.4f}, val loss "
+            f"{hist[0]['val_loss']:.4f} -> {hist[1]['val_loss']:.4f} bits; "
+            f"launches {launches}; peak memory {peak / 2**30:.2f} GiB "
+            f"(max_memory_allocated); result {result}")
+        if on_card:
+            for name, n in launches.items():
+                require(n > 0, f"{name} never launched on the training path")
+
+        # a mid-epoch stop, then a fresh Trainer recovers and goes on
+        stopper = make_trainer(cfg, tcfg(3), bcfg, tmp, frozen, device=dev)
+        require(stopper.recover() and stopper.state["epoch"] == 2,
+                "no epoch-2 start to recover")
+        inner = stopper._step_fn
+
+        def stop_after_one(*args):
+            out = inner(*args)
+            stopper.request_stop()
+            return out
+
+        stopper._step_fn = stop_after_one
+        res = stopper.train()
+        require(res.get("preempted") is True, f"not preempted: {res}")
+        resumed = make_trainer(cfg, tcfg(3), bcfg, tmp, frozen, device=dev)
+        require(resumed.recover(), "nothing to recover after the stop")
+        require((resumed.state["epoch"], resumed.state["batch_cursor"],
+                 resumed.state["step"]) == (2, 1, stopper.state["step"]),
+                f"recovered at {resumed.state}")
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(stopper.state["params"]),
+            tree_leaves(resumed.state["params"])))
+        require(same, "recovered params differ from the saved ones")
+        seen = []
+        inner_r = resumed._step_fn
+
+        def record(params, opt, batch, gen, fz):
+            seen.append(batch["caption_ids"].cpu().numpy())
+            return inner_r(params, opt, batch, gen, fz)
+
+        resumed._step_fn = record
+        res = resumed.train()
+        order = [b["caption_ids"] for b in resumed.train_batches(2)]
+        require("preempted" not in res and len(seen) == 2
+                and np.array_equal(seen[0], order[1]),
+                "the resumed run did not continue at the next batch")
+        last = resumed.metrics_history[-1]
+        require(math.isfinite(last["loss"]) and math.isfinite(
+            last["val_loss"]), f"non-finite resumed epoch: {last}")
+        log(f"phase 7: request_stop after step {stopper.state['step']} "
+            "(epoch 2, batch 1 of 3); a fresh Trainer recovered the params "
+            "exactly and trained batches 2-3 of epoch 2 (train loss "
+            f"{last['loss']:.4f}, val loss {last['val_loss']:.4f} bits)")
+        return {"step_ms": step_ms, "peak_bytes": peak,
+                "val_loss": hist[1]["val_loss"], "launches": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -376,13 +720,26 @@ def main() -> int:
         args.seed, CaptionerConfig(), RobertaConfig.large(), "cuda")
     # phase 5
     phase_cpu_vs_card(svc, req0, caption0)
+    del svc
+    torch.cuda.empty_cache()
+    # phase 6
+    phase_train_cpu_vs_card(args.seed, CaptionerConfig())
+    # phase 7
+    trained = phase_trainer(args.seed, CaptionerConfig(
+        compute_dtype="bfloat16"), RobertaConfig.large(), smi)
+    launches["fused_dynamic_conv"] = trained["launches"][
+        "fused_dynamic_conv"]
 
-    main_case = {"decode_attention": 1, "encoder_attention": 1}  # MG=20/S=512
+    # MG=20/S=512, B=4 S=512, K=31 at T=32
+    main_case = {"decode_attention": 1, "encoder_attention": 1,
+                 "fused_dynamic_conv": 3}
     sources = {
         "decode_attention": ("tell_tpu_torch/csrc/decode_attention.cu",
                              "tell_tpu/ops/kernels/decode_attention.py:216"),
         "encoder_attention": ("tell_tpu_torch/csrc/encoder_attention.cu",
                               "tell_tpu/models/backbones/roberta.py:219"),
+        "fused_dynamic_conv": ("tell_tpu_torch/csrc/dynamic_conv.cu",
+                               "tell_tpu/ops/kernels/dynamic_conv.py:83"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -3,6 +3,10 @@
 * to_torch / to_numpy: a numpy param tree (as jax.tree.map(np.asarray,
   params) gives it) to a torch tree on a given device, and back. numpy has
   no bfloat16, so bf16 leaves are staged through fp32 both ways.
+* tree_leaves / tree_map: the nested dicts and lists of tensors that
+  params, gradients and optimizer moments are (jax.tree's counterpart).
+* bert_adam_state: a BertAdamState (step, m, v) from either package, as
+  the port's state on a device, so both optimizers can start from one.
 * ParamTree: an nn.Module that owns such a tree (nested dicts and lists of
   tensors), so .to(device) and state_dict() work on it; tree() gives the
   nested dict back with the module's current tensors.
@@ -23,13 +27,40 @@ from .models.decoder import check_supported
 from .ops.adaptive import band_ranges
 
 
+def tree_leaves(tree) -> list:
+    """The tensors of a nested dict/list/tuple tree, in tree order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def _rebuild(tree, items):
+    """A list, tuple or named tuple of tree's type holding `items`."""
+    items = list(items)
+    return type(tree)(*items) if hasattr(tree, "_fields") \
+        else type(tree)(items)
+
+
+def tree_map(fn, tree, *rest):
+    """fn over corresponding leaves of trees with tree's structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return _rebuild(tree, (tree_map(fn, v, *(r[i] for r in rest))
+                               for i, v in enumerate(tree)))
+    return fn(tree, *rest)
+
+
 def to_torch(tree, device):
     """numpy (or torch) leaves -> torch tensors on `device`; dicts, lists
     and tuples are rebuilt; other leaves (configs, ints) pass through."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_torch(v, device) for v in tree)
+        return _rebuild(tree, (to_torch(v, device) for v in tree))
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     if hasattr(tree, "__array__") and hasattr(tree, "dtype"):
@@ -46,13 +77,24 @@ def to_numpy(tree):
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_numpy(v) for v in tree)
+        return _rebuild(tree, (to_numpy(v) for v in tree))
     if isinstance(tree, torch.Tensor):
         t = tree.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()
     return tree
+
+
+def bert_adam_state(state, device):
+    """A BertAdamState (step, m, v) of either package (numpy, JAX or torch
+    leaves) as the port's BertAdamState on `device`; to_numpy(state) goes
+    back, as a (step, m, v) tuple that tell_tpu's BertAdamState(*...)
+    takes."""
+    from .training.optimizer import BertAdamState
+    step, m, v = state
+    return BertAdamState(to_torch(np.asarray(step, np.int32), device),
+                         to_torch(m, device), to_torch(v, device))
 
 
 class ParamTree(nn.Module):

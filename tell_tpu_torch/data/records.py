@@ -1,0 +1,131 @@
+"""Sharded record storage for preprocessed examples (carried over from
+tell_tpu/data/records.py, numpy only: tell_tpu.data's package imports
+`regex`, and the native C++ shard reader is not ported yet).
+
+One shard is one uncompressed .npz whose members are "<idx>/<field>";
+variable-length fields stay ragged, and the bucketing layer pads them to
+fixed shapes at batch time. The format is tell_tpu's, so either package
+reads the other's shards.
+"""
+from __future__ import annotations
+
+import glob as globlib
+import os
+from typing import Iterator
+
+import numpy as np
+
+
+def write_shard(path: str, examples: list[dict]) -> None:
+    """Write examples (dicts of arrays; None values skipped) to one shard,
+    atomically by rename."""
+    arrays: dict[str, np.ndarray] = {"__len__": np.asarray(len(examples))}
+    for i, ex in enumerate(examples):
+        for k, v in ex.items():
+            if v is not None:
+                arrays[f"{i}/{k}"] = np.asarray(v)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+class ShardReader:
+    """Lazy npz shard access: the index (length, field names) is read once
+    with the file closed again; the handle reopens on first access, and
+    RecordDataset bounds how many stay open."""
+
+    def __init__(self, path: str):
+        self.path = path
+        self._z = None
+        with np.load(path, allow_pickle=False) as z:
+            self._len = int(z["__len__"])
+            self._fields: dict[int, list[str]] = {}
+            for key in z.files:
+                if key != "__len__":
+                    idx, field = key.split("/", 1)
+                    self._fields.setdefault(int(idx), []).append(field)
+
+    def open(self) -> None:
+        if self._z is None:
+            self._z = np.load(self.path, allow_pickle=False)
+
+    def close(self) -> None:
+        if self._z is not None:
+            self._z.close()
+            self._z = None
+
+    def __len__(self) -> int:
+        return self._len
+
+    def fields_of(self, i: int) -> list[str]:
+        return self._fields.get(i, [])
+
+    def read_field(self, i: int, field: str):
+        self.open()
+        v = self._z[f"{i}/{field}"]
+        return str(v) if v.dtype.kind == "U" and v.ndim == 0 else v
+
+    def __getitem__(self, i: int) -> dict:
+        return {f: self.read_field(i, f) for f in self.fields_of(i)}
+
+
+class LazyExample:
+    """Dict-like view of one example that reads a field when it is
+    accessed, so bucket routing reads only the two id fields' lengths."""
+
+    __slots__ = ("reader", "i")
+
+    def __init__(self, reader: ShardReader, i: int):
+        self.reader = reader
+        self.i = i
+
+    def __getitem__(self, field: str):
+        return self.reader.read_field(self.i, field)
+
+    def field_len(self, field: str) -> int:
+        return len(self[field])
+
+    def materialize(self) -> dict:
+        return self.reader[self.i]
+
+
+class RecordDataset:
+    """A set of shards with seeded epoch shuffling at example granularity.
+    (tell_tpu's persistent-RandomState shuffle, `limit` and multi-host
+    striding have no caller in the port yet.)"""
+
+    def __init__(self, pattern: str | list[str], seed: int = 1234):
+        paths = (sorted(globlib.glob(pattern))
+                 if isinstance(pattern, str) else list(pattern))
+        if not paths:
+            raise FileNotFoundError(f"no shards match {pattern}")
+        self.readers = [ShardReader(p) for p in paths]
+        self.index = [(s, i) for s, r in enumerate(self.readers)
+                      for i in range(len(r))]
+        self.seed = seed
+        self._open_lru: list[int] = []   # bounded set of open shard handles
+        self._max_open = 64
+
+    def __len__(self) -> int:
+        return len(self.index)
+
+    def epoch(self, epoch_index: int | None = None,
+              lazy: bool = False) -> Iterator:
+        """Examples in shard order (epoch_index None, as for validation) or
+        shuffled in an order that is a pure function of (seed,
+        epoch_index), the same as tell_tpu's epoch(epoch_index=...): a
+        resumed run reproduces an epoch's order without replaying earlier
+        epochs. lazy yields LazyExample views."""
+        order = np.arange(len(self.index))
+        if epoch_index is not None:
+            np.random.RandomState(
+                [self.seed & 0xFFFFFFFF, epoch_index]).shuffle(order)
+        for o in order:
+            s, i = self.index[o]
+            if s not in self._open_lru:
+                self._open_lru.append(s)
+                if len(self._open_lru) > self._max_open:
+                    self.readers[self._open_lru.pop(0)].close()
+            yield (LazyExample(self.readers[s], i) if lazy
+                   else self.readers[s][i])

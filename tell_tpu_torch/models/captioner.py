@@ -1,7 +1,7 @@
-"""Task model: multi-context news captioner, inference side (counterpart
-of tell_tpu/models/captioner.py: weighted_layer_sum, mask_nan_embeds,
-build_contexts, encode_contexts (article branch), generate and
-predict_forced).
+"""Task model: multi-context news captioner (counterpart of
+tell_tpu/models/captioner.py: weighted_layer_sum, mask_nan_embeds,
+build_contexts, encode_contexts (article branch), captioner_loss,
+captioner_loss_e2e, generate and predict_forced).
 
 The JAX scan / while_loop become Python loops over a fixed-shape step.
 `Captioner` owns the param tree as an nn.Module; its methods call the
@@ -9,13 +9,16 @@ plain functions.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 from ..bridge import ParamTree
 from ..config import CaptionerConfig
 from .backbones.roberta import roberta_encode_windowed
-from .decoder import decoder_step, decoder_top_k, init_decode_state
+from .decoder import (decoder_loss, decoder_step, decoder_top_k,
+                      init_decode_state)
 
 
 def weighted_layer_sum(params: dict, hiddens: torch.Tensor) -> torch.Tensor:
@@ -60,18 +63,44 @@ def build_contexts(params: dict, cfg: CaptionerConfig, batch: dict) -> dict:
 
 def encode_contexts(frozen: dict, cfg: CaptionerConfig, batch: dict) -> dict:
     """Run the RoBERTa article encode for a batch that carries context_ids
-    (frozen = {"roberta": params, "roberta_cfg": RobertaConfig}). Image
-    grids come in precomputed: the vision towers are not ported yet."""
+    (frozen = {"roberta": params, "roberta_cfg": RobertaConfig}). No
+    gradient reaches the tower: it is frozen (tell_tpu stops gradients
+    here, captioner.py:104-107), and kernel B has no backward. Image grids
+    come in precomputed: the vision towers are not ported yet."""
     out = dict(batch)
     if ("context_ids" in batch and "article_hiddens" not in batch
             and "article" not in batch):
         rcfg = frozen["roberta_cfg"]
-        hiddens = roberta_encode_windowed(frozen["roberta"], rcfg,
-                                          batch["context_ids"],
-                                          return_all_hiddens=cfg.weigh_bert)
+        with torch.no_grad():
+            hiddens = roberta_encode_windowed(
+                frozen["roberta"], rcfg, batch["context_ids"],
+                return_all_hiddens=cfg.weigh_bert)
         out["article_hiddens" if cfg.weigh_bert else "article"] = hiddens
         out["article_mask"] = batch["context_ids"] == rcfg.pad_id
     return out
+
+
+def captioner_loss(params: dict, cfg: CaptionerConfig, batch: dict,
+                   gen: torch.Generator | None = None,
+                   deterministic: bool = True) -> tuple[torch.Tensor, dict]:
+    """Mean per-token loss in BITS (loss_sum / ln 2 / non-pad tokens).
+    batch["caption_ids"]: [B, T]. Returns (loss, {"sample_size",
+    "tail_dropped"})."""
+    contexts = build_contexts(params, cfg, batch)
+    loss_sum, size, aux = decoder_loss(params["decoder"], cfg.decoder,
+                                       batch["caption_ids"], contexts, gen,
+                                       deterministic)
+    size = size.clamp_min(1)
+    return loss_sum / math.log(2.0) / size, {"sample_size": size, **aux}
+
+
+def captioner_loss_e2e(params: dict, frozen: dict, cfg: CaptionerConfig,
+                       batch: dict, gen: torch.Generator | None = None,
+                       deterministic: bool = True
+                       ) -> tuple[torch.Tensor, dict]:
+    """The loss including the frozen RoBERTa encode (the full objective)."""
+    return captioner_loss(params, cfg, encode_contexts(frozen, cfg, batch),
+                          gen, deterministic)
 
 
 def _decode_setup(params: dict, cfg: CaptionerConfig, batch: dict,

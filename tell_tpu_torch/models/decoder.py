@@ -1,5 +1,6 @@
-"""DynamicConv caption decoder, decode path with an fp K/V cache
-(counterpart of tell_tpu/models/decoder.py).
+"""DynamicConv caption decoder (counterpart of tell_tpu/models/decoder.py):
+the teacher-forced forward and loss of training, and the decode path with
+an fp K/V cache.
 
 Layer structure (post-norm, as every shipped config):
 
@@ -8,16 +9,20 @@ Layer structure (post-norm, as every shipped config):
     x = context_fc(concat(branches))                           (no residual)
     x - relu(fc1) -> fc2 - +residual -> LN                            (FFN)
 
-All context branches share ONE attention chain per layer: the modalities'
-K/V are concatenated on the source axis and a segment bias keeps each query
-row on its own modality; the modality and beam axes ride the query-row axis
-of kernel A (ops/kernels/decode_attention.py). K/V are stored head-major
-and transposed, [B, H, hd, S], as in the JAX decode state. The step is
-fixed-shape, so it can later be captured as one CUDA graph. The teacher-
-forced forward (training), the int8/int4 K/V caches, attention-map
-payloads, the lightweight conv, learned positions and the pre-norm final
-LayerNorm are not ported yet (see ROADMAP.md); check_supported refuses
-configurations that need them.
+Training (decoder_forward / decoder_loss) runs the layer over the whole
+caption: the conv through dynamic_conv (kernel C where tell_tpu fuses it),
+one cross-attention per context, dropout from an explicit torch.Generator.
+
+Decoding shares ONE attention chain per layer across the context
+branches: the modalities' K/V are concatenated on the source axis and a
+segment bias keeps each query row on its own modality; the modality and
+beam axes ride the query-row axis of kernel A
+(ops/kernels/decode_attention.py). K/V are stored head-major and
+transposed, [B, H, hd, S], as in the JAX decode state. The step is
+fixed-shape, so it can later be captured as one CUDA graph. The int8/int4
+K/V caches, attention-map payloads, the lightweight conv, learned positions
+and the pre-norm final LayerNorm are not ported yet (see ROADMAP.md);
+check_supported refuses configurations that need them.
 """
 from __future__ import annotations
 
@@ -26,10 +31,11 @@ import functools
 import torch
 
 from ..config import DecoderConfig
-from ..ops.adaptive import adaptive_top_k, merged_embed_table
-from ..ops.attention import precompute_kv
-from ..ops.common import glu, layer_norm
-from ..ops.dynamic_conv import dynamic_conv_step, init_conv_state
+from ..ops.adaptive import (adaptive_embed, adaptive_softmax_loss,
+                            adaptive_top_k, merged_embed_table)
+from ..ops.attention import cross_attention_with_kv, precompute_kv
+from ..ops.common import dropout, glu, layer_norm
+from ..ops.dynamic_conv import dynamic_conv, dynamic_conv_step, init_conv_state
 from ..ops.kernels.decode_attention import decode_attention, segment_bias
 from ..ops.linear import gehring_linear
 from ..ops.positional import sinusoidal_embed, sinusoidal_table
@@ -51,6 +57,116 @@ def check_supported(cfg: DecoderConfig) -> None:
             f"decoder only (conv_type={cfg.conv_type!r}, positional="
             f"{cfg.positional!r}, final_norm={cfg.final_norm})")
 
+
+# ---------------------------------------------------------------------------
+# teacher-forced forward and loss (training)
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
+                 gen: torch.Generator | None = None,
+                 deterministic: bool = True) -> torch.Tensor:
+    """Adaptive + sinusoidal positional embeddings of ids [B, T], dropout."""
+    x = adaptive_embed(params["embed"], ids, cfg.full_cutoffs, cfg.embed_dim,
+                       padding_idx=cfg.embed_padding_idx,
+                       scale_embeds=cfg.scale_embeds)
+    table = _pos_table(cfg.max_target_positions + cfg.pad_id + 2,
+                       cfg.embed_dim, cfg.pad_id, ids.device)
+    x = x + sinusoidal_embed(table, ids.long(), cfg.pad_id).to(x.dtype)
+    return dropout(x, cfg.dropout, gen, deterministic)
+
+
+def _conv_block_full(lp: dict, cfg: DecoderConfig, kernel_size: int,
+                     x: torch.Tensor, gen: torch.Generator | None,
+                     deterministic: bool) -> torch.Tensor:
+    residual = x
+    h = dropout(x, cfg.input_dropout, gen, deterministic)
+    h = gehring_linear(lp["linear1"], h)
+    if cfg.glu:
+        h = glu(h)
+    h = dynamic_conv(lp["conv"], h, kernel_size=kernel_size,
+                     num_heads=cfg.num_heads,
+                     weight_softmax=cfg.weight_softmax,
+                     weight_dropout=cfg.weight_dropout, gen=gen,
+                     deterministic=deterministic)
+    h = gehring_linear(lp["linear2"], h)
+    h = dropout(h, cfg.dropout, gen, deterministic)
+    return layer_norm(lp["conv_ln"], residual + h)
+
+
+def _attn_and_ffn(lp: dict, cfg: DecoderConfig, x: torch.Tensor, kv: dict,
+                  gen: torch.Generator | None,
+                  deterministic: bool) -> torch.Tensor:
+    """The cross-attention branches + context_fc + FFN of one layer over the
+    whole sequence, given each context's precomputed K/V."""
+    branches = []
+    for spec in cfg.contexts:
+        k, v, mask = kv[spec.name]
+        out, _ = cross_attention_with_kv(
+            lp["attn"][spec.name], x, k, v, mask, num_heads=cfg.num_heads,
+            attn_dropout=cfg.attention_dropout, gen=gen,
+            deterministic=deterministic)
+        out = dropout(out, cfg.dropout, gen, deterministic)
+        branches.append(layer_norm(lp["attn_ln"][spec.name], x + out))
+    h = gehring_linear(lp["context_fc"], torch.cat(branches, dim=-1))
+    residual = h
+    h = torch.relu(gehring_linear(lp["fc1"], h))
+    h = dropout(h, cfg.relu_dropout, gen, deterministic)
+    h = gehring_linear(lp["fc2"], h)
+    h = dropout(h, cfg.dropout, gen, deterministic)
+    return layer_norm(lp["final_ln"], residual + h)
+
+
+def precompute_context_kv(params: dict, cfg: DecoderConfig,
+                          contexts: dict) -> list[dict]:
+    """Per-layer, per-context projected K/V (+bias/zero columns) and masks.
+    contexts: {name: (features [B, S, D], padding mask [B, S] True = pad)}."""
+    return [{spec.name: precompute_kv(lp["attn"][spec.name],
+                                      *contexts[spec.name])
+             for spec in cfg.contexts}
+            for lp in params["layers"]]
+
+
+def decoder_forward(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
+                    contexts: dict, gen: torch.Generator | None = None,
+                    deterministic: bool = True) -> torch.Tensor:
+    """Teacher-forced forward. ids: [B, T] -> features [B, T, E]. (tell_tpu
+    also returns attention maps for its demo; no caller of the port needs
+    them yet.)"""
+    check_supported(cfg)
+    x = embed_tokens(params, cfg, ids, gen, deterministic)
+    kvs = precompute_context_kv(params, cfg, contexts)
+    for lp, k, kv in zip(params["layers"], cfg.kernel_sizes, kvs):
+        x = _conv_block_full(lp, cfg, k, x, gen, deterministic)
+        x = _attn_and_ffn(lp, cfg, x, kv, gen, deterministic)
+    return x
+
+
+def decoder_loss(params: dict, cfg: DecoderConfig, caption_ids: torch.Tensor,
+                 contexts: dict, gen: torch.Generator | None = None,
+                 deterministic: bool = True
+                 ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Adaptive-softmax loss on right-shifted targets. caption_ids: [B, T] =
+    <s> tokens </s> pads; inputs ids[:, :-1], targets ids[:, 1:].
+    Returns (loss_sum in nats, sample_size, aux)."""
+    inputs = caption_ids[:, :-1]
+    targets = caption_ids[:, 1:]
+    feats = decoder_forward(params, cfg, inputs, contexts, gen,
+                            deterministic)
+    B, T, E = feats.shape
+    cap = None
+    if cfg.tail_capacity_frac is not None:
+        cap = tuple(max(int(B * T * f), 8) for f in cfg.tail_capacity_frac)
+    return adaptive_softmax_loss(
+        params["adaptive_softmax"], params["embed"], feats.reshape(B * T, E),
+        targets.reshape(-1), cfg.full_cutoffs, pad_id=cfg.pad_id,
+        padding_idx=cfg.embed_padding_idx, tail_capacity=cap,
+        drop_rate=cfg.adaptive_softmax_dropout, gen=gen,
+        deterministic=deterministic)
+
+
+# ---------------------------------------------------------------------------
+# decode path
+# ---------------------------------------------------------------------------
 
 def precompute_context_kv_cat(params: dict, cfg: DecoderConfig,
                               contexts: dict, beam: int = 1) -> list[dict]:

@@ -1,19 +1,21 @@
-"""Adaptive input embeddings and adaptive softmax, decode side only
-(counterpart of tell_tpu/ops/adaptive.py: band_ranges, merged_embed_table,
-_head_logits, _tail_logits and the EXACT path of adaptive_top_k).
+"""Adaptive input embeddings and adaptive softmax (counterpart of
+tell_tpu/ops/adaptive.py: band_ranges, adaptive_embed, merged_embed_table,
+_head_logits, _tail_logits, _xent, adaptive_softmax_loss with dense tails
+or tail-capacity compaction, and the EXACT path of adaptive_top_k).
 
 Weights are tied as in the JAX package: the softmax reads the embedding's
-band tables. Every band's row `padding_idx` is pinned to zero; in the
-softmax that is done by multiplying the logits with a 0/1 column mask, so
-the padding column's logit is exactly 0 (not -inf), as in JAX
-(adaptive.py:187-207). Approximate top-k, the merged decode vocab table
-and the int8 tables are not ported (see ROADMAP.md).
+band tables. Every band's row `padding_idx` is pinned to zero: in the
+embedding by zeroing the row (which also zeroes its gradient), in the
+softmax by multiplying the logits with a 0/1 column mask, so the padding
+column's logit is exactly 0 (not -inf), as in JAX (adaptive.py:187-207).
+Approximate top-k, the merged decode vocab table, adaptive_log_probs and
+the int8 tables are not ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import torch
 
-from .common import top_k
+from .common import dropout, top_k
 from .linear import linear
 
 
@@ -27,6 +29,37 @@ def band_ranges(cutoffs: tuple[int, ...]) -> list[tuple[int, int]]:
     return out
 
 
+def _pinned_table(table: torch.Tensor, padding_idx: int) -> torch.Tensor:
+    """The band table with row padding_idx zeroed when the band has it
+    (index_fill: the pinned row also gets a zero gradient)."""
+    if not 0 <= padding_idx < table.shape[0]:
+        return table
+    return table.index_fill(0, torch.tensor([padding_idx],
+                                            device=table.device), 0)
+
+
+def adaptive_embed(params: dict, ids: torch.Tensor, cutoffs: tuple[int, ...],
+                   output_dim: int, padding_idx: int = 0,
+                   scale_embeds: bool = True) -> torch.Tensor:
+    """ids: int tensor of any shape -> [..., output_dim] in the params'
+    dtype; each band's rows are gathered, projected and summed in fp32."""
+    out_dtype = params["bands"][0]["proj"].dtype
+    ids = ids.long()
+    result = torch.zeros(ids.shape + (output_dim,), dtype=torch.float32,
+                         device=ids.device)
+    for i, (lo, hi) in enumerate(band_ranges(cutoffs)):
+        band = params["bands"][i]
+        table = _pinned_table(band["embed"], padding_idx)
+        e = table[(ids - lo).clamp(0, hi - lo - 1)]
+        in_band = ((ids >= lo) & (ids < hi))[..., None]
+        e = torch.where(in_band, e, torch.zeros((), dtype=e.dtype,
+                                                device=e.device))
+        result = result + torch.matmul(e, band["proj"]).float()
+    if scale_embeds:
+        result = result * (output_dim ** 0.5)
+    return result.to(out_dtype)
+
+
 def merged_embed_table(params: dict, cutoffs: tuple[int, ...],
                        output_dim: int, padding_idx: int = 0,
                        scale_embeds: bool = True) -> torch.Tensor:
@@ -36,10 +69,7 @@ def merged_embed_table(params: dict, cutoffs: tuple[int, ...],
     rows = []
     for i, (lo, hi) in enumerate(band_ranges(cutoffs)):
         band = params["bands"][i]
-        table = band["embed"]
-        if 0 <= padding_idx < hi - lo:
-            table = table.index_fill(0, torch.tensor([padding_idx],
-                                                     device=table.device), 0)
+        table = _pinned_table(band["embed"], padding_idx)
         rows.append(torch.matmul(table, band["proj"]).float())
     full = torch.cat(rows, dim=0)
     if scale_embeds:
@@ -70,13 +100,72 @@ def _head_logits(sm: dict, emb: dict, x: torch.Tensor,
 
 
 def _tail_logits(sm: dict, emb: dict, x: torch.Tensor, i: int,
-                 padding_idx: int = 0) -> torch.Tensor:
+                 padding_idx: int = 0, drop_rate: float = 0.0,
+                 gen: torch.Generator | None = None,
+                 deterministic: bool = True) -> torch.Tensor:
     """Tail cluster i (band i+1) logits for rows x: [N, band_size]."""
     h = linear(sm["tail_projs"][i], x)
+    h = dropout(h, drop_rate, gen, deterministic)
     table = emb["bands"][i + 1]["embed"]
     out = torch.matmul(h, table.T).float()
     m = _pad_col_mask(table.shape[0], padding_idx, x.device)
     return out if m is None else out * m
+
+
+def _xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-row cross entropy in fp32. targets: [N] int64."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    picked = torch.gather(logits, -1, targets[:, None])[:, 0]
+    return lse - picked.float()
+
+
+def adaptive_softmax_loss(sm: dict, emb: dict, x: torch.Tensor,
+                          targets: torch.Tensor, cutoffs: tuple[int, ...],
+                          pad_id: int = 1, padding_idx: int = 0,
+                          tail_capacity: tuple[int, ...] | None = None,
+                          drop_rate: float = 0.0,
+                          gen: torch.Generator | None = None,
+                          deterministic: bool = True
+                          ) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Summed cross entropy over the head and the tail clusters.
+    x: [N, D] decoder outputs, targets: [N] token ids. Returns (loss_sum,
+    sample_size = non-pad token count, {"tail_dropped": overflow rows}).
+
+    tail_capacity: static per-tail row budgets. In-band rows are compacted
+    to the front with a stable argsort and gathered, so the tail matmul
+    runs on `cap` rows instead of N; rows past the budget keep only their
+    head loss and are counted in tail_dropped (tell_tpu's compaction,
+    adaptive.py:271-284). None: dense tails over every row."""
+    ranges = band_ranges(cutoffs)
+    c0 = ranges[0][1]
+    targets = targets.long()
+    not_pad = targets != pad_id
+    x = dropout(x, drop_rate, gen, deterministic)
+    # head: targets in tail band i are remapped to class slot c0 + i
+    head_t = targets
+    for i, (lo, hi) in enumerate(ranges[1:]):
+        head_t = torch.where((targets >= lo) & (targets < hi), c0 + i,
+                             head_t)
+    head_ce = _xent(_head_logits(sm, emb, x, padding_idx), head_t)
+    loss = (head_ce * not_pad).sum()
+    n_dropped = torch.zeros((), dtype=torch.long, device=x.device)
+    for i, (lo, hi) in enumerate(ranges[1:]):
+        in_band = (targets >= lo) & (targets < hi) & not_pad
+        if tail_capacity is None:
+            tl = _tail_logits(sm, emb, x, i, padding_idx, drop_rate, gen,
+                              deterministic)
+            ce = _xent(tl, (targets - lo).clamp(0, hi - lo - 1))
+            loss = loss + (ce * in_band).sum()
+            continue
+        cap = tail_capacity[i]
+        idx = torch.argsort((~in_band).int(), stable=True)[:cap]
+        valid = in_band[idx]
+        tl = _tail_logits(sm, emb, x[idx], i, padding_idx, drop_rate, gen,
+                          deterministic)
+        ce = _xent(tl, (targets[idx] - lo).clamp(0, hi - lo - 1))
+        loss = loss + (ce * valid).sum()
+        n_dropped = n_dropped + (in_band.sum() - cap).clamp_min(0)
+    return loss, not_pad.sum(), {"tail_dropped": n_dropped}
 
 
 def adaptive_top_k(sm: dict, emb: dict, x: torch.Tensor,

@@ -1,11 +1,24 @@
 """Shared functional building blocks (counterpart of tell_tpu/ops/common.py).
 
-Params are the JAX package's nested dicts, holding torch tensors. Decode
-never trains, so there is no dropout here.
+Params are the JAX package's nested dicts, holding torch tensors. Dropout
+draws from an explicit torch.Generator (the JAX rng key's counterpart) and
+has no global training mode: it is off when `deterministic` is set, the
+rate is 0 or no generator is given.
 """
 from __future__ import annotations
 
 import torch
+
+
+def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout with a keep mask drawn from `gen` (on x's device).
+    The bits differ from JAX's for the same seed; the semantics do not."""
+    if deterministic or rate == 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5

@@ -30,6 +30,8 @@ _SIGNATURES = {
     "tt_decode_attention": [_P] * 5 + [_I] * 6 + [_P],
     # q, k, v, key_pad, out, B, S, H, hd, scale, dtype, stream
     "tt_encoder_attention": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
+    # x, w_km, out, B, T, C, H, K, HB, weight_softmax, dtype, stream
+    "tt_dynamic_conv": [_P] * 3 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

@@ -32,7 +32,10 @@ from tell_tpu_torch.models.backbones.roberta import (RobertaConfig,
                                                      RobertaEncoder)
 from tell_tpu_torch.models.captioner import Captioner, encode_contexts
 from tell_tpu_torch.ops.kernels.decode_attention import decode_attention
+from tell_tpu_torch.ops.kernels.dynamic_conv import fused_dynamic_conv
 from tell_tpu_torch.ops.kernels.encoder_attention import encoder_attention
+from tell_tpu_torch.training.optimizer import bert_adam
+from tell_tpu_torch.training.train_step import make_train_step
 cfg = small_test_config(gen_len=3)
 dec = dataclasses.replace(cfg.decoder, contexts=tuple(
     dataclasses.replace(c, kv_dim=32) if c.name == "article" else c
@@ -49,12 +52,19 @@ batch = {"context_ids": torch.randint(3, 500, (2, 16), generator=g),
          "obj_embeds": torch.randn(2, 8, 32, generator=g)}
 with torch.inference_mode():
     out = cap.generate(encode_contexts(enc.frozen(), cfg, batch))
+opt = bert_adam(t_total=10)
+params = init_captioner(g, cfg)
+batch["caption_ids"] = torch.randint(3, 500, (2, 6), generator=g)
+_, _, m = make_train_step(cfg, opt)(params, opt.init(params), batch, g,
+                                    enc.frozen())
 print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "jax_loaded": "jax" in sys.modules
                                 and sys.modules["jax"] is not None,
                   "token_ids": list(out["token_ids"].shape),
+                  "train_loss_finite": bool(torch.isfinite(m["loss"])),
                   "launches": [decode_attention.launches,
-                               encoder_attention.launches]}))
+                               encoder_attention.launches,
+                               fused_dynamic_conv.launches]}))
 """
 
 
@@ -68,7 +78,13 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "tell_tpu_torch.serving.server" in res["modules"]
     assert "tell_tpu_torch.models.beam" in res["modules"]
+    for name in ("ops.kernels.dynamic_conv", "training.optimizer",
+                 "training.train_step", "training.checkpoint",
+                 "training.trainer", "data.records", "data.bucketing",
+                 "data.prefetch"):
+        assert f"tell_tpu_torch.{name}" in res["modules"]
     assert res["jax_package"] == ["tell_tpu", "tell_tpu.config"]
     assert res["jax_loaded"] is False
     assert res["token_ids"] == [2, 4]
-    assert res["launches"] == [0, 0]
+    assert res["train_loss_finite"] is True
+    assert res["launches"] == [0, 0, 0]
