@@ -12,9 +12,14 @@ every phase passed):
   3. kernel vs plain on the card: kernel A (decode attention) and kernel B
      (encoder attention) at the serving path's shapes, kernel C (fused
      dynamic conv) at the training path's (B=16, C=1024, H=16, T=32 with
-     K=3/7/15/31, T=100 and T=15 with K=31), fp32 and bf16, against their
-     plain PyTorch versions, kernel C's gradient through its autograd
-     Function too; CUDA-event times of both, C forward and forward+backward.
+     K=3/7/15/31, T=100 and T=15 with K=31), kernel D (decode attention over
+     the int8/int4 K/V cache; B=8, MG=20, S=637 and 2173) and kernel E
+     (streamed top-k; N=40 and 640, D=1024, V=5000/15000/30265, k=5, and
+     k=8 once) at the engine's, fp32 and bf16, against their plain PyTorch
+     versions, kernel C's gradient through its autograd Function too;
+     kernels A, B and D also 100 times on the same input, bit for bit
+     (a race would vary); kernel E's ids held by the logit at each id;
+     CUDA-event times of both, C forward and forward+backward.
   4. full-width service: CaptionerConfig() + RobertaConfig.large() with
      random weights from the seed, served over HTTP on a local port; four
      /caption requests with token ids and features, then one beam search
@@ -36,6 +41,22 @@ every phase passed):
      steps, validation (kernels B and C must launch) and a checkpoint; then
      a mid-epoch request_stop and a recover in a fresh Trainer, which must
      restore the saved params exactly and continue at the next batch.
+  8. the engine service at full width: CaptionService(engine_slots=8,
+     engine_beam=5, engine_buckets=True, kv_cache="int8",
+     fused_topk=True) over HTTP, warmed up; 16 requests with articles of
+     40-512 tokens in four staggered bursts (10 in the 128 bucket, so its
+     8 slots are reused). Each answer against a one-shot beam_search with
+     the same numerics on the same encoded features: equal tokens, or a
+     near tie (the first differing token's two log-probs within 1e-4; that
+     gap and the two final scores' gap are printed). Kernels B, D and E must
+     launch on that run and kernel A must not; then one int4 beam_search at
+     B=8 must launch kernel D on the packed cache. Prints captions/s, the
+     p50/max request latency and /status.
+  9. the numerics gate at full width: teacher-forced top-1 agreement with
+     the fp path (fp cache, exact top-k) over four requests' greedy
+     captions, for each lever (CaptionService.numerics_ab): int8 K/V >=
+     0.95 (tell_tpu's floor), fused top-k >= 15/16 (it is exact), int4 K/V
+     reported without a floor. Defaults stay fp and exact.
 Then one JSON line describing the kernels and, last, the result line.
 """
 from __future__ import annotations
@@ -60,6 +81,11 @@ FP32_TOL = dict(atol=1e-5, rtol=1e-4)
 CONV_TOL = dict(atol=2e-5, rtol=2e-5)        # the JAX kernel test's
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_ATOL = 2e-2
+TOPK_TOL = dict(atol=1e-5, rtol=1e-5)        # fp32 sums in another order
+NEAR_TIE = 1e-4     # phase 8: engine and one-shot may swap candidates closer
+REPEATS = 100       # phase 3: bit-for-bit repeats of kernels A, B and D
+KV8_FLOOR = 0.95    # phase 9: tell_tpu's gate (BENCH_r05.json)
+FUSED_TOPK_FLOOR = 15 / 16
 # Phase 6 (training loss and gradients, fp32). Kernel C against its plain
 # version inside the same card run moves no gradient leaf by more than
 # CONV_GRAD_REL_L2. Card against CPU is looser: the network is random-init
@@ -144,19 +170,35 @@ def _encoder_case(g, B, S, dev):
                for _ in range(3))
     lens = [S, (3 * S) // 4, S // 3, 1][:B]
     key_pad = torch.arange(S)[None, :] >= torch.tensor(lens)[:, None]
-    return [[q, k, v, key_pad.to(dev)]]
+    return [[q, k, v, key_pad.to(dev)], [k, v, q, key_pad.to(dev)]]
+
+
+def check_repeats(name, kernel, sets, shape, n=REPEATS):
+    """n launches on sets[0], each after one on sets[1] (so shared memory
+    and the L2 hold other data in between), must all equal the first
+    output bit for bit: a race between a block's phases shows as an output
+    that changes from launch to launch."""
+    first = kernel(*sets[0])
+    bad = torch.zeros((), dtype=torch.long, device=first.device)
+    for _ in range(n):
+        kernel(*sets[1])
+        bad += (kernel(*sets[0]) != first).sum()
+    require(bad.item() == 0, f"{name} {shape}: {bad.item()} outputs changed "
+            f"over {n} launches on the same inputs")
 
 
 def check_kernel(name, kernel, plain, sets, shape):
-    """fp32: kernel vs plain on the same inputs; bf16: kernel on bf16
-    inputs vs plain in fp32 on the same bf16-rounded inputs. Returns the
-    fp32 error and both times (ms per call, CUDA events)."""
+    """fp32: kernel vs plain on the same inputs, and bit-for-bit repeats;
+    bf16: kernel on bf16 inputs vs plain in fp32 on the same bf16-rounded
+    inputs. Returns the fp32 error and both times (ms per call, CUDA
+    events)."""
     args = sets[0]
     ref = plain(*args)
     out = kernel(*args)
     torch.cuda.synchronize()
     err32 = (out - ref).abs().max().item()
     torch.testing.assert_close(out, ref, **FP32_TOL)
+    check_repeats(name, kernel, sets, shape)
     args16 = [a.to(torch.bfloat16) if a.is_floating_point() and i < 3 else a
               for i, a in enumerate(args)]
     out16 = kernel(*args16)
@@ -227,6 +269,110 @@ def check_conv(g, B, T, K, dev, C=1024, H=16):
             "plain_fb_ms": plain_fb_ms}
 
 
+def check_q8(g, B, MG, article_len, dev, mode):
+    """Kernel D against decode_attention_q8_plain on _decode_case's inputs
+    with K/V quantised as the decode state stores them: q fp32 (FP32_TOL,
+    and bit-for-bit repeats), q bf16 (against the plain version in fp32 on the same bf16 query,
+    BF16_ATOL); CUDA-event times of both with q fp32."""
+    from tell_tpu_torch.models.decoder import quantize_kv, quantize_kv4
+    from tell_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_q8, decode_attention_q8_plain)
+    quant = quantize_kv4 if mode == "int4" else quantize_kv
+    S, fp_sets = _decode_case(g, B, MG, article_len, dev)
+    sets = [[q, *quant(k), *quant(v), bias] for q, k, v, bias in fp_sets]
+    shape = f"{mode} B={B} H=16 hd=64 MG={MG} S={S}"
+    args = sets[0]
+    ref = decode_attention_q8_plain(*args)
+    out = decode_attention_q8(*args)
+    torch.cuda.synchronize()
+    err32 = (out - ref).abs().max().item()
+    torch.testing.assert_close(out, ref, **FP32_TOL)
+    check_repeats("decode_attention_q8", decode_attention_q8, sets, shape)
+    q16 = args[0].to(torch.bfloat16)
+    out16 = decode_attention_q8(q16, *args[1:])
+    ref16 = decode_attention_q8_plain(q16.float(), *args[1:])
+    torch.cuda.synchronize()
+    err16 = (out16.float() - ref16).abs().max().item()
+    if not np.isfinite(err16) or err16 > BF16_ATOL:
+        raise CheckFailed(f"decode_attention_q8 {shape} bf16: max abs err "
+                          f"{err16} > {BF16_ATOL}")
+    cycle = itertools.cycle(sets)
+    ms = cuda_ms(lambda: decode_attention_q8(*next(cycle)))
+    plain_ms = cuda_ms(lambda: decode_attention_q8_plain(*next(cycle)))
+    log(f"phase 3: decode_attention_q8 {shape}: fp32 max abs err "
+        f"{err32:.3e}, bf16 max abs err {err16:.3e}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms (fp32 q)")
+    return {"shape": shape, "err32": err32, "err16": err16, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def _topk_agree(out, ref, x, table, zero_row, what):
+    """Values and lse within TOPK_TOL of the plain version's. The ids are
+    held on their own: distinct within each row, and the fp32 logit at each
+    returned id, recomputed from x @ table.T, within TOPK_TOL of the value
+    the kernel returned beside it. So a wrong id fails even where its value
+    is right, and an id may differ from the plain version's only at a near
+    tie. Returns (max abs err over values and lse, differing ids)."""
+    (v, i, l), (rv, ri, rl) = out, ref
+    torch.testing.assert_close(v, rv, **TOPK_TOL)
+    torch.testing.assert_close(l, rl, **TOPK_TOL)
+    ids = i.long()
+    require(bool(((ids >= 0) & (ids < table.shape[0])).all()),
+            f"topk_logits {what}: ids outside the vocabulary")
+    srt = ids.sort(dim=1).values
+    require(bool((srt[:, 1:] != srt[:, :-1]).all()),
+            f"topk_logits {what}: an id repeats within a row")
+    logits = x.float() @ table.float().T
+    logits[:, zero_row] = 0.0
+    at_ids = logits.gather(1, ids)
+    id_err = (at_ids - v).abs().max().item()
+    torch.testing.assert_close(at_ids, v, **TOPK_TOL,
+                               msg=lambda m: f"topk_logits {what}: the "
+                               f"logits at the kernel's ids: {m}")
+    diff = i != ri
+    n_diff = int(diff.sum())
+    if n_diff:
+        log(f"phase 3: topk_logits {what}: {n_diff} ids differ from the "
+            "plain version's, each a near tie (value gap <= "
+            f"{(v - rv)[diff].abs().max().item():.3e}, logit at the "
+            f"kernel's id within {id_err:.3e} of its value)")
+    err = max((v - rv).abs().max().item(), (l - rl).abs().max().item())
+    return err, n_diff
+
+
+def check_topk(g, N, V, k, dev, D=1024):
+    """Kernel E against topk_logits_plain at the engine's shapes (N = slots
+    x beam rows of step features, a band's table [V, D] at the tables'
+    init scale, the padding row 1 pinned): fp32, and bf16 against the plain
+    version on the same bf16 values, ids held as _topk_agree says; CUDA-event times of both in fp32, over
+    table copies that together exceed the L2 cache."""
+    from tell_tpu_torch.ops.kernels.topk_logits import (topk_logits,
+                                                        topk_logits_plain)
+    shape = f"N={N} V={V} D={D} k={k}"
+    x = torch.randn(N, D, generator=g).to(dev)
+    n_copies = min(4, max(2, -(-200 * 2**20 // (V * D * 4))))
+    tables = [(torch.randn(V, D, generator=g) * D ** -0.5).to(dev)
+              for _ in range(n_copies)]
+    ref = topk_logits_plain(x, tables[0], k, 1)
+    out = topk_logits(x, tables[0], k, 1)
+    torch.cuda.synchronize()
+    err32, n_diff = _topk_agree(out, ref, x, tables[0], 1, f"{shape} fp32")
+    x16, t16 = x.bfloat16(), tables[0].bfloat16()
+    out16 = topk_logits(x16, t16, k, 1)
+    ref16 = topk_logits_plain(x16.float(), t16.float(), k, 1)
+    torch.cuda.synchronize()
+    err16, n_diff16 = _topk_agree(out16, ref16, x16, t16, 1,
+                                  f"{shape} bf16")
+    cycle = itertools.cycle(tables)
+    ms = cuda_ms(lambda: topk_logits(x, next(cycle), k, 1))
+    plain_ms = cuda_ms(lambda: topk_logits_plain(x, next(cycle), k, 1))
+    log(f"phase 3: topk_logits {shape}: fp32 max abs err {err32:.3e}, bf16 "
+        f"max abs err {err16:.3e}, ids differing {n_diff}/{n_diff16} of "
+        f"{N * k}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (fp32)")
+    return {"shape": shape, "err32": err32, "err16": err16, "ms": ms,
+            "plain_ms": plain_ms}
+
+
 def phase_kernels(seed: int) -> dict:
     from tell_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, decode_attention_plain)
@@ -235,7 +381,8 @@ def phase_kernels(seed: int) -> dict:
     g = torch.Generator().manual_seed(seed)
     dev = torch.device("cuda")
     res = {"decode_attention": [], "encoder_attention": [],
-           "fused_dynamic_conv": []}
+           "fused_dynamic_conv": [], "decode_attention_q8": [],
+           "topk_logits": []}
     for MG, article in ((4, 512), (20, 512), (20, 2048)):
         S, sets = _decode_case(g, 8, MG, article, dev)
         res["decode_attention"].append(check_kernel(
@@ -247,6 +394,14 @@ def phase_kernels(seed: int) -> dict:
             _encoder_case(g, 4, S, dev), f"B=4 S={S} H=16 hd=64"))
     for T, K in ((32, 3), (32, 7), (32, 15), (32, 31), (100, 31), (15, 31)):
         res["fused_dynamic_conv"].append(check_conv(g, 16, T, K, dev))
+    for mode in ("int8", "int4"):
+        for article in (512, 2048):
+            res["decode_attention_q8"].append(
+                check_q8(g, 8, 20, article, dev, mode))
+    for N in (40, 640):
+        for V in (5000, 15000, 30265):
+            res["topk_logits"].append(check_topk(g, N, V, 5, dev))
+    res["topk_logits"].append(check_topk(g, 40, 30265, 8, dev))
     return res
 
 
@@ -678,6 +833,214 @@ def phase_trainer(seed: int, cfg, rcfg, card: str, dev: str = "cuda"
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the engine service at full width
+# ---------------------------------------------------------------------------
+
+def _token_log_probs(dparams, dcfg, feats, tokens) -> list[float]:
+    """log p(tokens[r] | step features feats[r]) under the full adaptive
+    softmax, by the plain ops: the near-tie check's measure."""
+    from tell_tpu_torch.ops.adaptive import (_head_logits, _tail_logits,
+                                             band_ranges)
+    sm, emb, pad = dparams["adaptive_softmax"], dparams["embed"], \
+        dcfg.embed_padding_idx
+    ranges = band_ranges(dcfg.full_cutoffs)
+    c0 = ranges[0][1]
+    head = torch.log_softmax(_head_logits(sm, emb, feats, pad).float(), -1)
+    out = []
+    for r, tok in enumerate(int(t) for t in tokens):
+        if tok < c0:
+            out.append(head[r, tok].item())
+            continue
+        i = next(i for i, (lo, hi) in enumerate(ranges[1:]) if tok < hi)
+        tail = torch.log_softmax(_tail_logits(
+            sm, emb, feats[r:r + 1], i, pad).float(), -1)
+        out.append((head[r, c0 + i] + tail[0, tok - ranges[i + 1][0]]
+                    ).item())
+    return out
+
+
+def _divergence_gap(params, cfg, enc, path_a, path_b, kv_cache):
+    """(t, gap): the first position where two caption paths differ, and
+    the difference of the two tokens' log-probs there given their shared
+    prefix, decoded teacher-forced with the same K/V numerics."""
+    from tell_tpu_torch.models.captioner import build_contexts
+    from tell_tpu_torch.models.decoder import decoder_step, init_decode_state
+    t = int(np.flatnonzero(np.asarray(path_a) != np.asarray(path_b))[0])
+    dparams, dcfg = params["decoder"], cfg.decoder
+    state = init_decode_state(dparams, dcfg, build_contexts(params, cfg, enc),
+                              1, kv_cache=kv_cache)
+    dev = enc["article"].device
+    for j in range(t):
+        feats, state = decoder_step(dparams, dcfg, torch.tensor(
+            [int(path_a[j])], device=dev), state)
+    lp = _token_log_probs(dparams, dcfg, feats.expand(2, -1),
+                          [path_a[t], path_b[t]])
+    return t, abs(lp[0] - lp[1])
+
+
+ENGINE_ARTICLES = (40, 512, 64, 300, 90, 128, 200, 100,
+                   50, 480, 110, 256, 70, 120, 160, 80)
+
+
+def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda"):
+    """The engine service over HTTP (see the module docstring, phase 8).
+    Returns the service, the requests and the kernels' launch counts."""
+    from tell_tpu_torch.bridge import init_captioner, init_roberta
+    from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
+    from tell_tpu_torch.models.beam import beam_search
+    from tell_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, decode_attention_q8)
+    from tell_tpu_torch.ops.kernels.encoder_attention import (
+        encoder_attention)
+    from tell_tpu_torch.ops.kernels.topk_logits import topk_logits
+    from tell_tpu_torch.serving import CaptionService, serve
+    from tell_tpu_torch.serving.server import _cfg_at
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    svc = CaptionService(init_captioner(g, cfg),
+                         RobertaEncoder(init_roberta(g, rcfg), rcfg), cfg,
+                         dev, article_len=512, engine_slots=8, engine_beam=5,
+                         engine_buckets=True, encode_batch=8,
+                         kv_cache="int8", fused_topk=True)
+    warm = svc.warmup()
+    log(f"phase 8: engine service up in {time.perf_counter() - t0:.1f} s "
+        f"(warm-up {warm['seconds']:.1f} s over widths {warm['widths']})")
+    rng = np.random.default_rng(seed + 3)
+    reqs = [_request(rng, cfg, n, int(rng.integers(0, 5)),
+                     int(rng.integers(0, 65)), rcfg.vocab_size)
+            for n in ENGINE_ARTICLES]
+    httpd = serve(svc, port=0, block=False)
+    port = httpd.server_address[1]
+    answers, latencies = [None] * len(reqs), [None] * len(reqs)
+
+    def post(i):
+        t = time.perf_counter()
+        answers[i] = _post(port, "/caption", reqs[i])
+        latencies[i] = time.perf_counter() - t
+
+    counters = (decode_attention, encoder_attention, decode_attention_q8,
+                topk_logits)
+    for fn in counters:
+        fn.launches = 0
+    before = {w: e.stats["requests"] for w, e in svc.engines.items()}
+    t_serve = time.perf_counter()
+    threads = []
+    for burst in range(4):          # four bursts of four, staggered
+        for i in range(4 * burst, 4 * burst + 4):
+            threads.append(threading.Thread(target=post, args=(i,)))
+            threads[-1].start()
+        time.sleep(0.25)
+    for t in threads:
+        t.join(timeout=900)
+    serve_s = time.perf_counter() - t_serve
+    launches = {fn.__name__: fn.launches for fn in counters}
+    require(not any(t.is_alive() for t in threads), "requests did not finish")
+    status = json.loads(_get(port, "/status"))
+    lat = np.asarray(latencies)
+    log(f"phase 8: {len(reqs)} /caption answers in {serve_s:.3f} s: "
+        f"{len(reqs) / serve_s:.3f} captions/s, latency p50 "
+        f"{np.median(lat):.3f} s, max {lat.max():.3f} s; launches "
+        f"{launches}")
+    log(f"phase 8: /status {json.dumps(status)}")
+    on_card = dev == "cuda"
+    if on_card:
+        require(launches["decode_attention"] == 0,
+                "kernel A launched on the int8 engine path")
+        for name in ("encoder_attention", "decode_attention_q8",
+                     "topk_logits"):
+            require(launches[name] > 0, f"{name} never launched on the "
+                    "engine path")
+    routed = {w: e.stats["requests"] - before[w]
+              for w, e in svc.engines.items()}
+    require(routed == {128: 10, 256: 3, 512: 3}, routed)
+
+    exact, gaps = 0, []
+    params = svc.model.tree()
+    for i, (req, (code, body)) in enumerate(zip(reqs, answers)):
+        require(code == 200 and "error" not in body, (i, code, body))
+        batch, errors = svc._pack([req], bucketed=True)
+        require(errors == [None], errors)
+        cfg_w = _cfg_at(cfg, batch["context_ids"].shape[1])
+        with torch.inference_mode():
+            enc = svc._encode_many(batch)
+            ref = beam_search(params, cfg_w, enc, beam_size=5,
+                              kv_cache="int8", fused_topk=True)
+            ref_ids = ref["token_ids"][0, 0].cpu().numpy()
+            ids = np.asarray(body["token_ids"])
+            require(ids.shape == ref_ids.shape and len(body["alternatives"])
+                    == 4, (ids.shape, len(body["alternatives"])))
+            if np.array_equal(ids, ref_ids):
+                exact += 1
+                continue
+            t, gap = _divergence_gap(params, cfg_w, enc, ids, ref_ids,
+                                     "int8")
+        score_gap = abs(body["score"] - ref["scores"][0, 0].item())
+        gaps.append((i, t, gap, score_gap))
+        log(f"phase 8: request {i}: engine and one-shot differ first at "
+            f"token {t}: log-prob gap {gap:.3e}, final score gap "
+            f"{score_gap:.3e}")
+        require(gap < NEAR_TIE, f"request {i}: engine vs one-shot differ "
+                f"at token {t} by a log-prob gap {gap:.3e} >= {NEAR_TIE}")
+    log(f"phase 8: engine vs one-shot beam_search: {exact}/{len(reqs)} "
+        f"best beams equal, {len(gaps)} near ties")
+
+    status_code, _ = _post(port, "/shutdown", {})
+    require(status_code == 200, f"/shutdown answered {status_code}")
+    httpd.server_close()
+
+    # int4: one beam_search at B=8 on the packed cache
+    batch, _ = svc._pack(reqs[:8])
+    n0, n4 = decode_attention_q8.launches, decode_attention_q8.int4_launches
+    with torch.inference_mode():
+        t = time.perf_counter()
+        enc = svc._encode_many(batch)
+        out = svc.model.beam_search(enc, beam_size=5, kv_cache="int4",
+                                    fused_topk=True)
+        ok = bool(torch.isfinite(out["scores"]).all())
+        beam_s = time.perf_counter() - t
+    int4 = decode_attention_q8.int4_launches - n4
+    log(f"phase 8: int4 beam_search beam=5 B=8 in {beam_s:.3f} s "
+        f"({8 / beam_s:.3f} captions/s, encode included); kernel D int4 "
+        f"launches {int4} of {decode_attention_q8.launches - n0}")
+    require(ok, "non-finite int4 beam scores")
+    if on_card:
+        require(int4 > 0 and int4 == decode_attention_q8.launches - n0,
+                "the int4 beam search did not run kernel D on a packed "
+                "cache")
+    return svc, reqs, launches
+
+
+def _get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        require(resp.status == 200, f"GET {path}: {resp.status}")
+        return resp.read()
+    finally:
+        conn.close()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the numerics gate
+# ---------------------------------------------------------------------------
+
+def phase_numerics(svc, reqs) -> dict:
+    report = svc.numerics_ab(reqs[:4])
+    log(f"phase 9: teacher-forced top-1 agreement with the fp path over "
+        f"{report['tokens']} tokens: int8 K/V "
+        f"{report['kv8_token_agreement']:.4f} (floor {KV8_FLOOR}), fused "
+        f"top-k {report['fused_topk_token_agreement']:.4f} (floor "
+        f"{FUSED_TOPK_FLOOR:.4f}), int4 K/V "
+        f"{report['kv4_token_agreement']:.4f} (no floor); "
+        f"{report['seconds']:.1f} s")
+    require(report["kv8_token_agreement"] >= KV8_FLOOR, report)
+    require(report["fused_topk_token_agreement"] >= FUSED_TOPK_FLOOR, report)
+    return report
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -729,10 +1092,19 @@ def main() -> int:
         compute_dtype="bfloat16"), RobertaConfig.large(), smi)
     launches["fused_dynamic_conv"] = trained["launches"][
         "fused_dynamic_conv"]
+    torch.cuda.empty_cache()
+    # phase 8
+    svc, reqs, eng_launches = phase_engine(
+        args.seed, CaptionerConfig(), RobertaConfig.large())
+    for name in ("decode_attention_q8", "topk_logits"):
+        launches[name] = eng_launches[name]
+    # phase 9
+    phase_numerics(svc, reqs)
 
-    # MG=20/S=512, B=4 S=512, K=31 at T=32
+    # MG=20/S=512, B=4 S=512, K=31 at T=32, int8 S=637, N=40 V=30265 k=5
     main_case = {"decode_attention": 1, "encoder_attention": 1,
-                 "fused_dynamic_conv": 3}
+                 "fused_dynamic_conv": 3, "decode_attention_q8": 0,
+                 "topk_logits": 2}
     sources = {
         "decode_attention": ("tell_tpu_torch/csrc/decode_attention.cu",
                              "tell_tpu/ops/kernels/decode_attention.py:216"),
@@ -740,6 +1112,11 @@ def main() -> int:
                               "tell_tpu/models/backbones/roberta.py:219"),
         "fused_dynamic_conv": ("tell_tpu_torch/csrc/dynamic_conv.cu",
                                "tell_tpu/ops/kernels/dynamic_conv.py:83"),
+        "decode_attention_q8": (
+            "tell_tpu_torch/csrc/decode_attention.cu",
+            "tell_tpu/ops/kernels/decode_attention.py:399"),
+        "topk_logits": ("tell_tpu_torch/csrc/topk_logits.cu",
+                        "tell_tpu/ops/kernels/topk_logits.py:126"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -26,6 +26,42 @@ from .captioner import _decode_setup
 from .decoder import decoder_step, decoder_top_k
 
 
+def beam_select(scores, finished, lengths, cand_lp, cand_ids, fin_lp,
+                pad_id: int, eos_id: int, frozen=None):
+    """One beam step's selection over [B, K] beams: each beam's K
+    candidates (cand_lp, cand_ids [B*K, K]) extend its score, a frozen beam
+    (default: a finished one) keeps a single <pad> at fin_lp (0, then
+    -inf), and the K best of the K*K totals survive. Returns (scores,
+    parent, tokens, finished, lengths), each [B, K]; tokens is <pad> under
+    a frozen parent, finished is the parent's flag or an <eos> token, and
+    lengths counts the tokens emitted before freezing."""
+    B, K = scores.shape
+    if frozen is None:
+        frozen = finished
+    cand_lp = torch.where(frozen[:, :, None], fin_lp,
+                          cand_lp.reshape(B, K, K))
+    cand_ids = torch.where(frozen[:, :, None], pad_id,
+                           cand_ids.reshape(B, K, K))
+    total = scores[:, :, None] + cand_lp                          # [B,K,K]
+    scores, top_flat = top_k(total.reshape(B, K * K), K)
+    parent = top_flat // K                                        # [B, K]
+    tok = torch.gather(cand_ids.reshape(B, K * K), 1, top_flat)
+    was_frozen = torch.gather(frozen, 1, parent)
+    finished = torch.gather(finished, 1, parent) | (tok == eos_id)
+    lengths = torch.gather(lengths, 1, parent) + (~was_frozen).long()
+    return (scores, parent, torch.where(was_frozen, pad_id, tok), finished,
+            lengths)
+
+
+def length_normalised(scores, lengths, length_penalty: float):
+    """Scores ranked under the length penalty ((5 + length) / 6) ** lp
+    (none at lp <= 0). Torch tensors or numpy arrays; lengths as floats of
+    the scores' dtype."""
+    if length_penalty <= 0:
+        return scores
+    return scores / ((5.0 + lengths) / 6.0) ** length_penalty
+
+
 def beam_search_core(step_fn: Callable, state0, B: int, K: int,
                      gen_len: int, bos_id: int, eos_id: int, pad_id: int,
                      device: torch.device, length_penalty: float = 0.0,
@@ -65,28 +101,14 @@ def beam_search_core(step_fn: Callable, state0, B: int, K: int,
             break
         cand_lp, cand_ids, state = step_fn(tokens.reshape(B * K), state,
                                            prev_parent)
-        cand_lp = cand_lp.reshape(B, K, K)
-        cand_ids = cand_ids.reshape(B, K, K)
-        # finished beams: a single <pad> continuation at no cost
-        cand_lp = torch.where(finished[:, :, None], fin_lp, cand_lp)
-        cand_ids = torch.where(finished[:, :, None], pad_id, cand_ids)
-        total = scores[:, :, None] + cand_lp                      # [B,K,K]
-        scores, top_flat = top_k(total.reshape(B, K * K), K)
-        parent = top_flat // K                                    # [B, K]
-        tok = torch.gather(cand_ids.reshape(B, K * K), 1, top_flat)
-        was_finished = torch.gather(finished, 1, parent)
-        finished = was_finished | (tok == eos_id)
-        lengths = torch.gather(lengths, 1, parent) + (~was_finished).long()
-        tokens = torch.where(was_finished, pad_id, tok)
+        scores, parent, tokens, finished, lengths = beam_select(
+            scores, finished, lengths, cand_lp, cand_ids, fin_lp, pad_id,
+            eos_id)
         parents_buf[t] = parent
         toks_buf[t] = tokens
         prev_parent = (parent + row_base).reshape(B * K)
 
-    if length_penalty > 0:
-        norm = ((5.0 + lengths.float()) / 6.0) ** length_penalty
-        ranked = scores / norm
-    else:
-        ranked = scores
+    ranked = length_normalised(scores, lengths.float(), length_penalty)
     order = torch.argsort(-ranked, dim=1, stable=True)
     # backtrack: seeding the ancestry walk with `order` rebuilds the paths
     # best-first
@@ -105,17 +127,22 @@ def beam_search_core(step_fn: Callable, state0, B: int, K: int,
 
 def beam_search(params: dict, cfg: CaptionerConfig, batch: dict,
                 beam_size: int = 5, length_penalty: float = 0.0,
-                early_stop: bool = True) -> dict:
+                early_stop: bool = True, kv_cache: str = "fp",
+                fused_topk: bool = False) -> dict:
     """Flagship-captioner beam decode (see beam_search_core). A `row_live`
-    bool vector in the batch marks filler rows as finished from step 0."""
+    bool vector in the batch marks filler rows as finished from step 0.
+    kv_cache and fused_topk are the decode numerics levers (see
+    captioner.generate)."""
     dcfg = cfg.decoder
     K = beam_size
-    B, device, state = _decode_setup(params, cfg, batch, beam=K)
+    B, device, state = _decode_setup(params, cfg, batch, beam=K,
+                                     kv_cache=kv_cache)
 
     def step_fn(tokens, dyn, row_gather):
         feats, new_state = decoder_step(params["decoder"], dcfg, tokens, dyn,
                                         row_gather=row_gather)
-        cand_lp, cand_ids = decoder_top_k(params["decoder"], dcfg, feats, K)
+        cand_lp, cand_ids = decoder_top_k(params["decoder"], dcfg, feats, K,
+                                          fused_topk)
         return cand_lp, cand_ids, new_state
 
     finished0 = ~batch["row_live"] if "row_live" in batch else None

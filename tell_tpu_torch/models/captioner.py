@@ -104,7 +104,8 @@ def captioner_loss_e2e(params: dict, frozen: dict, cfg: CaptionerConfig,
 
 
 def _decode_setup(params: dict, cfg: CaptionerConfig, batch: dict,
-                  beam: int = 1, steps: int | None = None):
+                  beam: int = 1, steps: int | None = None,
+                  kv_cache: str = "fp"):
     """Contexts and the decode state for `steps` (default gen_len) steps.
     Raises where the positional table would run out: JAX's jnp.take
     quietly fills NaN there, and the port's lookup would fail mid-decode
@@ -117,13 +118,17 @@ def _decode_setup(params: dict, cfg: CaptionerConfig, batch: dict,
     feat0 = next(iter(contexts.values()))[0]
     B = feat0.shape[0]
     state = init_decode_state(params["decoder"], cfg.decoder, contexts, B,
-                              beam=beam, dtype=feat0.dtype)
+                              beam=beam, dtype=feat0.dtype,
+                              kv_cache=kv_cache)
     return B, feat0.device, state
 
 
 def generate(params: dict, cfg: CaptionerConfig, batch: dict,
-             early_stop: bool = True) -> dict:
+             early_stop: bool = True, kv_cache: str = "fp",
+             fused_topk: bool = False) -> dict:
     """Greedy generation (sampling_topk == 1, every shipped config).
+    kv_cache ("fp", "int8", "int4") and fused_topk are the decode numerics
+    levers of decoder.init_decode_state and decoder.decoder_top_k.
 
     Returns {token_ids [B, gen_len+1] incl. the seed <s>, log_probs
     [B, gen_len], finished [B]}. early_stop ends the loop once every row
@@ -134,7 +139,7 @@ def generate(params: dict, cfg: CaptionerConfig, batch: dict,
         raise NotImplementedError("top-k sampling is not ported; the port "
                                   "decodes greedily (sampling_topk=1)")
     dcfg = cfg.decoder
-    B, device, state = _decode_setup(params, cfg, batch)
+    B, device, state = _decode_setup(params, cfg, batch, kv_cache=kv_cache)
     tokens = torch.full((B,), dcfg.bos_id, dtype=torch.long, device=device)
     if "row_live" in batch:
         finished = ~batch["row_live"]
@@ -147,7 +152,8 @@ def generate(params: dict, cfg: CaptionerConfig, batch: dict,
         if early_stop and bool(finished.all()):
             break
         feats, state = decoder_step(params["decoder"], dcfg, tokens, state)
-        top_lp, top_idx = decoder_top_k(params["decoder"], dcfg, feats, 1)
+        top_lp, top_idx = decoder_top_k(params["decoder"], dcfg, feats, 1,
+                                        fused_topk)
         sampled = top_idx[:, 0]
         tokens = torch.where(finished, dcfg.pad_id, sampled)
         lps[t] = torch.where(finished, 0.0, top_lp[:, 0])
@@ -159,7 +165,8 @@ def generate(params: dict, cfg: CaptionerConfig, batch: dict,
 
 
 def predict_forced(params: dict, cfg: CaptionerConfig, batch: dict,
-                   token_ids: torch.Tensor, with_log_probs: bool = False):
+                   token_ids: torch.Tensor, with_log_probs: bool = False,
+                   kv_cache: str = "fp", fused_topk: bool = False):
     """Teacher-forced next-token argmax for a KNOWN sequence: feeds
     token_ids[:, t] through the incremental decode path and records each
     step's top-1 without letting it steer the next step (the numerics-gate
@@ -167,12 +174,13 @@ def predict_forced(params: dict, cfg: CaptionerConfig, batch: dict,
     Returns [B, T] predictions; with_log_probs also their log-probs."""
     dcfg = cfg.decoder
     _, _, state = _decode_setup(params, cfg, batch,
-                                steps=token_ids.shape[1] - 1)
+                                steps=token_ids.shape[1] - 1,
+                                kv_cache=kv_cache)
     preds, lps = [], []
     for t in range(token_ids.shape[1] - 1):
         feats, state = decoder_step(params["decoder"], dcfg,
                                     token_ids[:, t], state)
-        lp, idx = decoder_top_k(params["decoder"], dcfg, feats, 1)
+        lp, idx = decoder_top_k(params["decoder"], dcfg, feats, 1, fused_topk)
         preds.append(idx[:, 0])
         lps.append(lp[:, 0])
     preds = torch.stack(preds, dim=1)
@@ -191,17 +199,20 @@ class Captioner(nn.Module):
     def tree(self) -> dict:
         return self.params.tree()
 
-    def generate(self, batch: dict, early_stop: bool = True) -> dict:
-        return generate(self.tree(), self.cfg, batch, early_stop)
+    def generate(self, batch: dict, early_stop: bool = True,
+                 kv_cache: str = "fp", fused_topk: bool = False) -> dict:
+        return generate(self.tree(), self.cfg, batch, early_stop, kv_cache,
+                        fused_topk)
 
     def beam_search(self, batch: dict, beam_size: int = 5,
-                    length_penalty: float = 0.0,
-                    early_stop: bool = True) -> dict:
+                    length_penalty: float = 0.0, early_stop: bool = True,
+                    kv_cache: str = "fp", fused_topk: bool = False) -> dict:
         from .beam import beam_search
         return beam_search(self.tree(), self.cfg, batch, beam_size,
-                           length_penalty, early_stop)
+                           length_penalty, early_stop, kv_cache, fused_topk)
 
     def predict_forced(self, batch: dict, token_ids: torch.Tensor,
-                       with_log_probs: bool = False):
+                       with_log_probs: bool = False, kv_cache: str = "fp",
+                       fused_topk: bool = False):
         return predict_forced(self.tree(), self.cfg, batch, token_ids,
-                              with_log_probs)
+                              with_log_probs, kv_cache, fused_topk)

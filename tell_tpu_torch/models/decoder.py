@@ -18,9 +18,11 @@ branches: the modalities' K/V are concatenated on the source axis and a
 segment bias keeps each query row on its own modality; the modality and
 beam axes ride the query-row axis of kernel A
 (ops/kernels/decode_attention.py). K/V are stored head-major and
-transposed, [B, H, hd, S], as in the JAX decode state. The step is
-fixed-shape, so it can later be captured as one CUDA graph. The int8/int4
-K/V caches, attention-map payloads, the lightweight conv, learned positions
+transposed, [B, H, hd, S], as in the JAX decode state, in fp or, with
+kv_cache="int8"/"int4", quantised per source column and head with fp32
+scales (kernel D; tell_tpu's TELL_TPU_KV8/TELL_TPU_KV4, off by default as
+off the TPU). The step is fixed-shape, so it can later be captured as one
+CUDA graph. Attention-map payloads, the lightweight conv, learned positions
 and the pre-norm final LayerNorm are not ported yet (see ROADMAP.md);
 check_supported refuses configurations that need them.
 """
@@ -36,7 +38,9 @@ from ..ops.adaptive import (adaptive_embed, adaptive_softmax_loss,
 from ..ops.attention import cross_attention_with_kv, precompute_kv
 from ..ops.common import dropout, glu, layer_norm
 from ..ops.dynamic_conv import dynamic_conv, dynamic_conv_step, init_conv_state
-from ..ops.kernels.decode_attention import decode_attention, segment_bias
+from ..ops.kernels.decode_attention import (decode_attention,
+                                            decode_attention_q8,
+                                            segment_bias)
 from ..ops.linear import gehring_linear
 from ..ops.positional import sinusoidal_embed, sinusoidal_table
 
@@ -168,17 +172,66 @@ def decoder_loss(params: dict, cfg: DecoderConfig, caption_ids: torch.Tensor,
 # decode path
 # ---------------------------------------------------------------------------
 
+KV_CACHE_MODES = ("fp", "int8", "int4")
+
+
+def quantize_kv(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """t: [B, H, hd, S] -> (int8 values, fp32 scales [B, H, 1, S]): one
+    symmetric scale per source column and head (tell_tpu's _quantize_kv;
+    torch.round and jnp.round both round half to even, so the bytes are
+    JAX's)."""
+    t32 = t.float()
+    scale = t32.abs().amax(dim=2, keepdim=True).clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(t32 / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_kv4(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """t: [B, H, hd, S] -> (nibble-packed int8 [B, H, hd/2, S], fp32 scales
+    [B, H, 1, S]) (tell_tpu's _quantize_kv4): byte d packs rows d and
+    d + hd/2 as two's-complement low/high nibbles in [-7, 7], the layout
+    unpack_int4 restores. The nibble arithmetic runs in int32 and is masked
+    to 8 bits before the cast (JAX shifts in int8)."""
+    hd = t.shape[2]
+    if hd % 2:
+        raise ValueError(f"int4 packing needs an even head dim, not {hd}")
+    t32 = t.float()
+    scale = t32.abs().amax(dim=2, keepdim=True).clamp_min(1e-8) / 7.0
+    q = torch.clamp(torch.round(t32 / scale), -7, 7).to(torch.int32)
+    packed = (q[:, :, :hd // 2] & 0x0F) | ((q[:, :, hd // 2:] << 4) & 0xF0)
+    return torch.where(packed > 127, packed - 256, packed).to(torch.int8), \
+        scale
+
+
+def _store_kv(cat: dict, kt: torch.Tensor, vt: torch.Tensor,
+              kv_cache: str) -> None:
+    """K/V [B, H, hd, S] into the layer's cat in the cache's numerics,
+    contiguous (elementwise ops keep a permuted view's strides)."""
+    kt, vt = kt.contiguous(), vt.contiguous()
+    if kv_cache == "fp":
+        cat["k"], cat["v"] = kt, vt
+        return
+    quant = quantize_kv4 if kv_cache == "int4" else quantize_kv
+    cat["k"], cat["k_scale"] = quant(kt)
+    cat["v"], cat["v_scale"] = quant(vt)
+
+
 def precompute_context_kv_cat(params: dict, cfg: DecoderConfig,
-                              contexts: dict, beam: int = 1) -> list[dict]:
+                              contexts: dict, beam: int = 1,
+                              kv_cache: str = "fp") -> list[dict]:
     """Per-layer K/V of all contexts, concatenated on the source axis with
     segment ids: the JAX package's single stacked chain (its
     context_groups() returns one group, tell_tpu/models/decoder.py:284-295).
 
     contexts: {name: (features [B, S, D], padding mask [B, S] True = pad)}.
-    Returns per layer {k, v: [B, H, hd, S] contiguous, mask: [B, S]
-    True = masked, seg: [S] modality index, the stacked per-modality
-    q/out projections and branch LayerNorms, and the segment bias
-    [B, M*beam, S], built once for all decode steps}."""
+    Returns per layer {k, v: [B, H, hd, S] contiguous (kv_cache "fp"), or
+    int8 [B, H, hd, S] ("int8") or packed int4 [B, H, hd/2, S] ("int4")
+    with k_scale, v_scale: fp32 [B, H, 1, S]; mask: [B, S] True = masked,
+    seg: [S] modality index, the stacked per-modality q/out projections and
+    branch LayerNorms, and the segment bias [B, M*beam, S], built once for
+    all decode steps}."""
+    if kv_cache not in KV_CACHE_MODES:
+        raise ValueError(f"kv_cache {kv_cache!r} not in {KV_CACHE_MODES}")
     H = cfg.num_heads
     names = [spec.name for spec in cfg.contexts]
     kvs = []
@@ -197,8 +250,6 @@ def precompute_context_kv_cat(params: dict, cfg: DecoderConfig,
         B, S, E = k.shape
         ap = lp["attn"]
         cat = {
-            "k": k.reshape(B, S, H, E // H).permute(0, 2, 3, 1).contiguous(),
-            "v": v.reshape(B, S, H, E // H).permute(0, 2, 3, 1).contiguous(),
             "mask": torch.cat(masks, dim=1),
             "seg": torch.cat(segs),
             "wq": torch.stack([ap[n]["q_proj"]["w"] for n in names]),
@@ -208,6 +259,8 @@ def precompute_context_kv_cat(params: dict, cfg: DecoderConfig,
             "ln_s": torch.stack([lp["attn_ln"][n]["scale"] for n in names]),
             "ln_b": torch.stack([lp["attn_ln"][n]["bias"] for n in names]),
         }
+        _store_kv(cat, k.reshape(B, S, H, E // H).permute(0, 2, 3, 1),
+                  v.reshape(B, S, H, E // H).permute(0, 2, 3, 1), kv_cache)
         cat["bias"] = segment_bias(cat["seg"], cat["mask"], len(names), beam)
         kvs.append(cat)
     return kvs
@@ -224,8 +277,9 @@ def _ln_stacked(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
 def stacked_attention_core(num_heads: int, x: torch.Tensor, cat: dict
                            ) -> torch.Tensor:
     """Per-modality q/out projections stacked over a modality axis around
-    one segment-masked attention chain over the concatenated K/V (kernel A
-    on CUDA, its plain version on the CPU).
+    one segment-masked attention chain over the concatenated K/V: kernel A
+    over an fp cache, kernel D over an int8/int4 one (the cat holds
+    scales), each on CUDA, their plain versions on the CPU.
     x: [B, G, E] -> out [B, M, G, E] before the residual."""
     B, G, E = x.shape
     M = cat["wq"].shape[0]
@@ -236,7 +290,12 @@ def stacked_attention_core(num_heads: int, x: torch.Tensor, cat: dict
     # fold the modality axis into the query rows: K/V are read once for
     # all M branches
     qh = q.reshape(B, M * G, H, hd).transpose(1, 2).contiguous()
-    out = decode_attention(qh, cat["k"], cat["v"], cat["bias"])  # [B,H,MG,hd]
+    if "k_scale" in cat:
+        out = decode_attention_q8(qh, cat["k"], cat["k_scale"], cat["v"],
+                                  cat["v_scale"], cat["bias"])
+    else:
+        out = decode_attention(qh, cat["k"], cat["v"], cat["bias"])
+    # out: [B, H, MG, hd]
     out = out.transpose(1, 2).reshape(B, M, G, E)
     out = torch.einsum("bmge,mef->bmgf", out, cat["wo"].to(x.dtype))
     return out + cat["bo"].to(x.dtype)[None, :, None, :]
@@ -266,27 +325,33 @@ def _attn_and_ffn_cat(lp: dict, cfg: DecoderConfig, x: torch.Tensor,
 
 
 def decoder_top_k(params: dict, cfg: DecoderConfig, feats: torch.Tensor,
-                  k: int) -> tuple[torch.Tensor, torch.Tensor]:
+                  k: int, fused_topk: bool = False
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k next-token log-probs from step features [B, E]; the
-    [B, V] distribution is never built."""
+    [B, V] distribution is never built. fused_topk streams each cluster's
+    logits through kernel E (tell_tpu's TELL_TPU_TOPK, off by default)."""
     return adaptive_top_k(params["adaptive_softmax"], params["embed"],
                           feats, cfg.full_cutoffs, k,
-                          padding_idx=cfg.embed_padding_idx)
+                          padding_idx=cfg.embed_padding_idx,
+                          fused=fused_topk)
 
 
 def init_decode_state(params: dict, cfg: DecoderConfig, contexts: dict,
                       batch: int, beam: int = 1,
-                      dtype: torch.dtype = torch.float32) -> dict:
+                      dtype: torch.dtype = torch.float32,
+                      kv_cache: str = "fp") -> dict:
     """Fixed-shape decode state: conv windows + static K/V + step.
 
     K/V are stored once per batch element and shared by its beams (the
-    beams ride the attention query rows); conv windows are per row
+    beams ride the attention query rows), in the numerics kv_cache names
+    (see precompute_context_kv_cat); conv windows are per row
     [batch * beam, K-1, C]."""
     check_supported(cfg)
     device = next(iter(contexts.values()))[0].device
     R = batch * beam
     return {
-        "kv": precompute_context_kv_cat(params, cfg, contexts, beam=beam),
+        "kv": precompute_context_kv_cat(params, cfg, contexts, beam=beam,
+                                        kv_cache=kv_cache),
         # dense projected embedding table: one gather per decode step
         "embed_table": merged_embed_table(
             params["embed"], cfg.full_cutoffs, cfg.embed_dim,

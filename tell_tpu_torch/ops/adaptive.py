@@ -8,14 +8,17 @@ band tables. Every band's row `padding_idx` is pinned to zero: in the
 embedding by zeroing the row (which also zeroes its gradient), in the
 softmax by multiplying the logits with a 0/1 column mask, so the padding
 column's logit is exactly 0 (not -inf), as in JAX (adaptive.py:187-207).
-Approximate top-k, the merged decode vocab table, adaptive_log_probs and
-the int8 tables are not ported (see ROADMAP.md).
+adaptive_top_k(fused=True) is tell_tpu's TELL_TPU_TOPK route through
+kernel E (_adaptive_top_k_fused). Approximate top-k, the merged decode
+vocab table, adaptive_log_probs and the int8 tables are not ported (see
+ROADMAP.md).
 """
 from __future__ import annotations
 
 import torch
 
 from .common import dropout, top_k
+from .kernels.topk_logits import MAX_K, topk_logits
 from .linear import linear
 
 
@@ -169,13 +172,21 @@ def adaptive_softmax_loss(sm: dict, emb: dict, x: torch.Tensor,
 
 
 def adaptive_top_k(sm: dict, emb: dict, x: torch.Tensor,
-                   cutoffs: tuple[int, ...], k: int, padding_idx: int = 0
+                   cutoffs: tuple[int, ...], k: int, padding_idx: int = 0,
+                   fused: bool = False
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of the full factored distribution without building the
     [N, V] log-probs: per-cluster top-k on raw logits, each shifted by its
     cluster's log-normaliser and prior, then a top-k over the candidates.
+    fused (k <= 8, as in JAX) streams each cluster through kernel E
+    instead, so not even one cluster's logits reach device memory.
     Returns (log_probs [N, k] fp32, token_ids [N, k] int64)."""
     ranges = band_ranges(cutoffs)
+    # tell_tpu also requires N * 2048 * 4 bytes < 8 MiB, a TPU VMEM bound
+    # on its tile of logits (adaptive.py:440-443); kernel E's partials live
+    # in device memory, so the port drops that condition.
+    if fused and k <= MAX_K:
+        return _adaptive_top_k_fused(sm, emb, x, ranges, k, padding_idx)
     c0 = ranges[0][1]
     head_logits = _head_logits(sm, emb, x, padding_idx).float()
     head_lse = torch.logsumexp(head_logits, dim=-1)
@@ -189,6 +200,36 @@ def adaptive_top_k(sm: dict, emb: dict, x: torch.Tensor,
         prior = head_logits[:, c0 + i] - head_lse
         all_vals.append(tv - lse[:, None] + prior[:, None])
         all_ids.append(ti + lo)
+    cat_vals = torch.cat(all_vals, dim=-1)
+    cat_ids = torch.cat(all_ids, dim=-1)
+    final_vals, pos = top_k(cat_vals, k)
+    return final_vals, torch.gather(cat_ids, -1, pos)
+
+
+def _adaptive_top_k_fused(sm: dict, emb: dict, x: torch.Tensor, ranges,
+                          k: int, padding_idx: int
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tell_tpu's _adaptive_top_k_fused: per cluster, kernel E's streamed
+    logits + top-k + logsumexp (topk_logits_plain on the CPU). The head's
+    tail-cluster logits are a small [N, n_tails] matmul that folds into the
+    head normaliser with one logaddexp. Each band's padding row is zeroed by
+    index inside the kernel (zero_row) rather than in a copy of the table."""
+    c0 = ranges[0][1]
+    table0 = emb["bands"][0]["embed"].to(x.dtype)
+    wv, wi, lse_w = topk_logits(x.contiguous(), table0.contiguous(), k,
+                                zero_row=padding_idx)
+    cls = linear(sm["class_proj"], x).float()             # [N, n_tails]
+    head_lse = torch.logaddexp(lse_w, torch.logsumexp(cls, dim=-1))
+    all_vals = [wv - head_lse[:, None]]
+    all_ids = [wi.long()]
+    for i, (lo, hi) in enumerate(ranges[1:]):
+        h = linear(sm["tail_projs"][i], x)
+        table = emb["bands"][i + 1]["embed"].to(h.dtype)
+        tv, ti, lse_t = topk_logits(h.contiguous(), table.contiguous(),
+                                    min(k, hi - lo), zero_row=padding_idx)
+        prior = cls[:, i] - head_lse
+        all_vals.append(tv - lse_t[:, None] + prior[:, None])
+        all_ids.append(ti.long() + lo)
     cat_vals = torch.cat(all_vals, dim=-1)
     cat_ids = torch.cat(all_ids, dim=-1)
     final_vals, pos = top_k(cat_vals, k)

@@ -28,10 +28,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, bias, out, B, H, MG, hd, S, dtype, stream
     "tt_decode_attention": [_P] * 5 + [_I] * 6 + [_P],
+    # q, k8, k_scale, v8, v_scale, bias, out, B, H, MG, hd, S, packed4,
+    # dtype, stream
+    "tt_decode_attention_q8": [_P] * 7 + [_I] * 7 + [_P],
     # q, k, v, key_pad, out, B, S, H, hd, scale, dtype, stream
     "tt_encoder_attention": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     # x, w_km, out, B, T, C, H, K, HB, weight_softmax, dtype, stream
     "tt_dynamic_conv": [_P] * 3 + [_I] * 8 + [_P],
+    # x, table, pv, pi, pm, ps, vals, ids, lse, N, V, D, k, zero_row,
+    # dtype, stream
+    "tt_topk_logits": [_P] * 9 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,9 +1,12 @@
-"""Kernel A: fused multi-context decode cross-attention.
+"""Kernels A and D: fused multi-context decode cross-attention over an fp
+K/V cache (A) or an int8 / nibble-packed int4 one (D).
 
-Replaces tell_tpu/ops/kernels/decode_attention.py::fused_decode_attention
-(pallas_call at :216) AND its S-tiled online-softmax form
-_tiled_decode_attention (pallas_call at :177) with one CUDA kernel,
-tell_tpu_torch/csrc/decode_attention.cu.
+Kernel A replaces tell_tpu/ops/kernels/decode_attention.py::
+fused_decode_attention (pallas_call at :216) AND its S-tiled
+online-softmax form _tiled_decode_attention (pallas_call at :177) with one
+CUDA kernel; kernel D replaces fused_decode_attention_q8 (:399) and
+_tiled_decode_attention_q8 (:347), int8 and int4, with a second
+instantiation of the same body (tell_tpu_torch/csrc/decode_attention.cu).
 
 Semantics (decoder.py's stacked attention): query row x = m*G + g of
 batch row b attends the source columns s with bias[b, x, s] == 0 (its own
@@ -14,7 +17,9 @@ per decode step (H=16, hd=64, S=637 at the flagship). The design reads each
 (b, h) K/V stripe once for all M*G query rows in one block, walking S in
 64-column tiles with an online softmax, so one path covers every S; the
 JAX layout [B, H, hd, S] is kept, and threads run along S, its contiguous
-axis. See the source's header for what is left for later work.
+axis. Kernel D streams one byte per element (int8) or half a byte (int4)
+plus two fp32 scales per column, and dequantises on load. See the source's
+header for what is left for later work.
 """
 from __future__ import annotations
 
@@ -84,3 +89,87 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+
+def unpack_int4(x8: torch.Tensor, dtype: torch.dtype = torch.int8
+                ) -> torch.Tensor:
+    """Packed int4 [..., hd/2, S] -> `dtype` [..., hd, S] (tell_tpu's
+    unpack_int4): byte d holds row d in its low nibble and row d + hd/2 in
+    its high nibble, both two's complement in [-7, 7]. The shifts run in
+    int32, which sign-extends the same way on every backend."""
+    xi = x8.to(torch.int32)
+    lo = (xi << 28) >> 28
+    hi = (xi << 24) >> 28
+    return torch.cat([lo, hi], dim=-2).to(dtype)
+
+
+def decode_attention_q8_plain(q: torch.Tensor, k8: torch.Tensor,
+                              k_scale: torch.Tensor, v8: torch.Tensor,
+                              v_scale: torch.Tensor, bias: torch.Tensor
+                              ) -> torch.Tensor:
+    """Plain PyTorch version (tell_tpu's reference_decode_attention_q8):
+    the scales factor out of both contractions. fp32 scores times k_scale
+    plus the bias, softmax, the normalised probabilities times v_scale cast
+    to q's dtype before the value contraction, fp32 accumulation. Packed
+    int4 K/V are unpacked first."""
+    if k8.shape[2] != q.shape[3]:
+        k8, v8 = unpack_int4(k8), unpack_int4(v8)
+    scores = torch.einsum("bhxd,bhds->bhxs", q.float(), k8.float())
+    scores = scores * k_scale + bias[:, None]
+    p = torch.softmax(scores, dim=-1) * v_scale
+    out = torch.einsum("bhxs,bhds->bhxd", p.to(q.dtype).float(), v8.float())
+    return out.to(q.dtype)
+
+
+def decode_attention_q8(q: torch.Tensor, k8: torch.Tensor,
+                        k_scale: torch.Tensor, v8: torch.Tensor,
+                        v_scale: torch.Tensor, bias: torch.Tensor
+                        ) -> torch.Tensor:
+    """q: [B, H, MG, hd] fp32 or bf16; k8, v8: int8 [B, H, hd, S] or
+    nibble-packed int4 [B, H, hd/2, S]; k_scale, v_scale: fp32 [B, H, 1, S];
+    bias: [B, MG, S] fp32. Returns [B, H, MG, hd] in q's dtype.
+    CUDA tensors launch kernel D (counted in decode_attention_q8.launches,
+    the packed int4 form also in .int4_launches); CPU tensors take
+    decode_attention_q8_plain."""
+    if not use_kernel(q, k8, k_scale, v8, v_scale, bias):
+        return decode_attention_q8_plain(q, k8, k_scale, v8, v_scale, bias)
+    B, H, MG, hd = q.shape
+    hd_store, S = k8.shape[2], k8.shape[3]
+    packed4 = hd_store != hd
+    if packed4 and 2 * hd_store != hd:
+        raise ValueError(f"decode_attention_q8: k8 holds {hd_store} rows, "
+                         f"neither hd={hd} (int8) nor hd/2 (packed int4)")
+    if k8.shape != (B, H, hd_store, S) or v8.shape != k8.shape:
+        raise ValueError(f"decode_attention_q8: k8 {tuple(k8.shape)} / v8 "
+                         f"{tuple(v8.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.shape != (B, H, 1, S):
+            raise ValueError(f"decode_attention_q8: {name} "
+                             f"{tuple(t.shape)} is not {(B, H, 1, S)}")
+    if bias.shape != (B, MG, S):
+        raise ValueError(f"decode_attention_q8: bias {tuple(bias.shape)} "
+                         f"is not {(B, MG, S)}")
+    f32 = (torch.float32,)
+    check_kernel_args("decode_attention_q8",
+                      {"q": q, "k8": k8, "k_scale": k_scale, "v8": v8,
+                       "v_scale": v_scale, "bias": bias},
+                      {"q": tuple(_DTYPE_CODE), "k8": (torch.int8,),
+                       "v8": (torch.int8,), "k_scale": f32, "v_scale": f32,
+                       "bias": f32})
+    out = torch.empty_like(q)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        code = lib.tt_decode_attention_q8(
+            q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(), v8.data_ptr(),
+            v_scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, MG,
+            hd, S, int(packed4), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    check_launch(lib, "decode_attention_q8", code)
+    decode_attention_q8.launches += 1
+    decode_attention_q8.int4_launches += int(packed4)
+    return out
+
+
+decode_attention_q8.launches = 0
+decode_attention_q8.int4_launches = 0

@@ -1,3 +1,6 @@
-"""Micro-batched HTTP caption service (counterpart of tell_tpu/serving/)."""
+"""HTTP caption service, micro-batched or through the continuous-batching
+decode engine (counterpart of tell_tpu/serving/)."""
 from .batcher import MicroBatcher
+from .encode_batcher import EncodeBatcher
+from .engine import DecodeEngine
 from .server import CaptionService, serve

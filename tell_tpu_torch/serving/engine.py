@@ -1,0 +1,380 @@
+"""Continuous-batching beam-decode engine (counterpart of tell_tpu/serving/
+engine.py's DecodeEngine, for the flagship captioner on one device).
+
+The engine keeps ONE resident fixed-shape beam-search state with `slots`
+request slots; requests join and leave at chunk boundaries:
+
+* admissions coalesce: up to `admit_batch` queued requests are encoded
+  into context K/V in one pass (padded to a power-of-two ladder by
+  duplicating the last request: same slot id, same rows, so the order of
+  the duplicate writes does not matter) and written into their slot rows
+  in place with index_copy_ (what JAX's buffer donation gives it);
+* a chunk advances every slot by `chunk_steps` beam-search steps: the
+  selection of models/beam.py (beam_select, shared with the one-shot
+  search) with a per-slot step counter `t` feeding per-row positions;
+* a finished slot freezes (its only candidate is a zero-cost <pad>, and
+  `t` stops at gen_len), so it is inert: the chunk runs all its steps
+  rather than reading "all done" on the host each step (JAX's while_loop
+  exits early; the results are the same), and "done" is read only from
+  the harvest report;
+* harvest is pipelined: each chunk packs its bookkeeping into two report
+  tensors whose device-to-host copies go to pinned memory with
+  non_blocking=True behind a recorded CUDA event; the host reads a report
+  once its event has completed, up to `max_lag` chunks later. A per-slot
+  admission generation keeps a report that predates a slot's re-admission
+  from resolving the new request.
+
+A slot's caption never depends on which other requests share the engine:
+tests/test_torch_engine.py holds every schedule to the port's one-shot
+beam_search. Not ported here (see ROADMAP.md): LLMDecodeEngine, the mesh
+path, and the DEC8 / merged-vocab levers (None, as in JAX by default).
+"""
+from __future__ import annotations
+
+import collections
+import queue as _queue
+import threading
+from concurrent.futures import Future
+
+import numpy as np
+import torch
+
+from ..models.beam import beam_select, length_normalised
+from ..models.captioner import build_contexts
+from ..models.decoder import (decoder_step, decoder_top_k,
+                              init_decode_state, precompute_context_kv_cat)
+
+# K/V-cache leaves that carry no slot axis: admissions leave them alone.
+# Classified by name, not by shape (a [S] leaf could equal the slot count).
+_SHARED_KV = frozenset(("seg", "wq", "bq", "wo", "bo", "ln_s", "ln_b"))
+
+
+def _to_host(t: torch.Tensor) -> tuple[torch.Tensor, object]:
+    """Start t's copy to the host: (host tensor, CUDA event or None). On
+    CUDA the copy goes to pinned memory without blocking; it is ordered on
+    the stream before any later in-place write to t."""
+    if t.device.type != "cuda":
+        return t.clone(), None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _ready(event) -> bool:
+    return event is None or event.query()
+
+
+class DecodeEngine:
+    """Slot-based continuous beam decode for the flagship captioner.
+
+    params: the captioner's param tree, its tensors on `device`; cfg: a
+    CaptionerConfig. Feature batches (image_grid, article or
+    article_hiddens, article_mask, face_embeds, obj_embeds; leading dim 1;
+    numpy or torch) go in through `submit`; a Future resolving to
+    {"token_ids": [beam, gen_len+1], "scores": [beam], "finished": [beam]}
+    (numpy, best first) comes back: beam_search's result minus the batch
+    dim. kv_cache ("fp", "int8", "int4") and fused_topk are the decode
+    numerics levers of models/decoder.py. The state is fp32, as the
+    flagship serves."""
+
+    def __init__(self, params: dict, cfg, device, *, slots: int = 8,
+                 beam: int = 5, chunk_steps: int = 8,
+                 length_penalty: float = 0.0, max_lag: int = 8,
+                 admit_batch: int = 16, kv_cache: str = "fp",
+                 fused_topk: bool = False):
+        if slots < 2:
+            raise ValueError("a 1-slot engine is just beam_search")
+        if cfg.gen_len > cfg.decoder.max_target_positions:
+            raise ValueError(f"gen_len {cfg.gen_len} exceeds "
+                             f"max_target_positions "
+                             f"{cfg.decoder.max_target_positions}")
+        self.cfg, self.dcfg = cfg, cfg.decoder
+        self.device = torch.device(device)
+        self.params = params
+        self.slots, self.beam = slots, beam
+        self.chunk_steps = chunk_steps
+        self.length_penalty = length_penalty
+        self.kv_cache, self.fused_topk = kv_cache, fused_topk
+        B, K, L = slots, beam, cfg.gen_len
+        dcfg = self.dcfg
+        with torch.inference_mode():
+            # slots start empty: zero contexts, every slot finished
+            contexts0 = build_contexts(params, cfg, self._zero_batch())
+            dstate = init_decode_state(params["decoder"], dcfg, contexts0, B,
+                                       beam=K, kv_cache=kv_cache)
+            dev = self.device
+            self._embed_table = dstate["embed_table"]
+            self.state = {
+                "kv": dstate["kv"], "conv": dstate["conv"],
+                "t": torch.full((B,), L, dtype=torch.long, device=dev),
+                "tokens": torch.full((B, K), dcfg.bos_id, dtype=torch.long,
+                                     device=dev),
+                "scores": torch.zeros(B, K, device=dev),
+                "finished": torch.ones(B, K, dtype=torch.bool, device=dev),
+                "lengths": torch.zeros(B, K, dtype=torch.long, device=dev),
+                "paths": torch.full((B, K, L + 1), dcfg.pad_id,
+                                    dtype=torch.long, device=dev),
+            }
+            self._scores0 = torch.tensor([0.0] + [-1e9] * (K - 1),
+                                         device=dev)
+            self._paths0 = torch.full((K, L + 1), dcfg.pad_id,
+                                      dtype=torch.long, device=dev)
+            self._paths0[:, 0] = dcfg.bos_id
+            self._fin_lp = torch.full((K,), float("-inf"), device=dev)
+            self._fin_lp[0] = 0.0
+            self._row_base = torch.arange(B, device=dev)[:, None] * K
+            self._positions = torch.arange(L + 1, device=dev)
+        # admission bursts coalesce up to this many requests (floored to a
+        # power of two, so burst padding and warm() meet the same sizes)
+        cap = max(1, min(slots, admit_batch))
+        self._admit_cap = 1 << (cap.bit_length() - 1)
+
+        self.max_lag = max_lag
+        self.free: list[int] = list(range(slots))
+        self.pending: dict[int, Future] = {}
+        self.queue: "_queue.Queue[tuple[dict, Future]]" = _queue.Queue()
+        self.stats = {"requests": 0, "chunks": 0}
+        self._poisoned: BaseException | None = None
+        self._lock = threading.Lock()
+        # submit() must not wait behind tick(); poison() takes both locks
+        # (_lock first), so a put can never land after poison() drained
+        self._submit_lock = threading.Lock()
+        # per-slot admission generation + in-flight reports, oldest first:
+        # (report_i, report_f, event, gen-at-chunk-time)
+        self._gen = np.zeros(slots, np.int64)
+        self._reports: collections.deque = collections.deque()
+
+    # ------------------------------------------------------------------
+    # device programs
+    # ------------------------------------------------------------------
+
+    def _zero_batch(self) -> dict:
+        """Empty contexts for every slot (articles all padding); the
+        article enters as mixed features, which build_contexts takes."""
+        B, dev = self.slots, self.device
+        batch = {}
+        for spec in self.dcfg.contexts:
+            z = torch.zeros(B, spec.max_len, spec.kv_dim, device=dev)
+            if spec.name == "image":
+                batch["image_grid"] = z
+            elif spec.name == "article":
+                batch["article"] = z
+                batch["article_mask"] = torch.ones(B, spec.max_len,
+                                                   dtype=torch.bool,
+                                                   device=dev)
+            elif spec.name == "faces":
+                batch["face_embeds"] = z
+            elif spec.name == "obj":
+                batch["obj_embeds"] = z
+        return batch
+
+    def _admit(self, batchN: dict, bs: torch.Tensor) -> None:
+        """Encode N requests' features into context K/V and write them,
+        with fresh beam bookkeeping, into slots `bs` [N], in place."""
+        K, st = self.beam, self.state
+        contexts = build_contexts(self.params, self.cfg, batchN)
+        kvN = precompute_context_kv_cat(self.params["decoder"], self.dcfg,
+                                        contexts, beam=K,
+                                        kv_cache=self.kv_cache)
+        for full, new in zip(st["kv"], kvN):
+            for name, leaf in full.items():
+                if name not in _SHARED_KV:
+                    leaf.index_copy_(0, bs, new[name].to(leaf.dtype))
+        for buf in st["conv"]:
+            buf.view(self.slots, K, *buf.shape[1:]).index_fill_(0, bs, 0)
+        N = bs.shape[0]
+        st["t"].index_fill_(0, bs, 0)
+        st["tokens"].index_fill_(0, bs, self.dcfg.bos_id)
+        st["scores"].index_copy_(0, bs, self._scores0.repeat(N, 1))
+        st["finished"].index_fill_(0, bs, False)
+        st["lengths"].index_fill_(0, bs, 0)
+        st["paths"].index_copy_(0, bs, self._paths0.repeat(N, 1, 1))
+
+    def _step(self) -> None:
+        """One beam step over all slots: models/beam.py's beam_select with a
+        per-slot step counter. No host synchronisation."""
+        dcfg, st = self.dcfg, self.state
+        B, K, L = self.slots, self.beam, self.cfg.gen_len
+        t, finished = st["t"], st["finished"]
+        # a slot at the length cap freezes exactly like a finished beam
+        eff_finished = finished | (t >= L)[:, None]
+        dyn = {"kv": st["kv"], "conv": st["conv"],
+               "embed_table": self._embed_table,
+               "step": t.repeat_interleave(K)}
+        feats, dstate = decoder_step(self.params["decoder"], dcfg,
+                                     st["tokens"].reshape(B * K), dyn)
+        cand_lp, cand_ids = decoder_top_k(self.params["decoder"], dcfg,
+                                          feats, K, self.fused_topk)
+        top_scores, parent, tok, new_finished, new_lengths = beam_select(
+            st["scores"], finished, st["lengths"], cand_lp, cand_ids,
+            self._fin_lp, dcfg.pad_id, dcfg.eos_id, frozen=eff_finished)
+        # write at per-slot position t+1 (past the cap nothing matches)
+        write = self._positions[None, None, :] == (t + 1)[:, None, None]
+        paths = torch.gather(st["paths"], 1,
+                             parent[:, :, None].expand(-1, -1, L + 1))
+        flat = (parent + self._row_base).reshape(B * K)
+        st.update({
+            "conv": [buf[flat] for buf in dstate["conv"]],
+            "t": torch.clamp(t + 1, max=L), "tokens": tok,
+            "scores": top_scores, "finished": new_finished,
+            "lengths": new_lengths,
+            "paths": torch.where(write, tok[:, :, None], paths),
+        })
+
+    def _chunk(self) -> tuple:
+        """chunk_steps steps, then the packed report, copied to the host
+        asynchronously: (report_i, report_f, event)."""
+        for _ in range(self.chunk_steps):
+            self._step()
+        st, B = self.state, self.slots
+        report_i = torch.cat(
+            [st["t"][:, None], st["finished"].long(), st["lengths"],
+             st["paths"].reshape(B, -1)], dim=1)
+        host_i, _ = _to_host(report_i)
+        host_f, event = _to_host(st["scores"])
+        return host_i, host_f, event
+
+    # ------------------------------------------------------------------
+    # host loop
+    # ------------------------------------------------------------------
+
+    def warm(self, batch1: dict) -> None:
+        """Drive every admission-ladder size + a chunk through the
+        production path (submit that many copies of batch1 in one burst,
+        drain), so first launches, allocator growth and cuBLAS handles
+        happen before traffic. Must be called before serving."""
+        if self.pending or not self.queue.empty():
+            raise RuntimeError("warm() must run before traffic")
+        rung = 1
+        while True:
+            futs = [self.submit(batch1) for _ in range(rung)]
+            self.run_until_drained()
+            for f in futs:
+                f.result(timeout=900)
+            if rung >= self._admit_cap:
+                break
+            rung = min(rung * 2, self._admit_cap)
+
+    def submit(self, batch1: dict) -> Future:
+        """batch1: feature dict with leading dim 1 (one request)."""
+        fut: Future = Future()
+        with self._submit_lock:
+            if self._poisoned is not None:
+                fut.set_exception(self._poisoned)
+                return fut
+            self.queue.put((batch1, fut))
+            self.stats["requests"] += 1
+        return fut
+
+    def poison(self, exc: BaseException) -> None:
+        """Fail every pending and queued request now (the tick loop died),
+        and every later submit."""
+        with self._lock, self._submit_lock:
+            self._poisoned = exc
+            for fut in self.pending.values():
+                if not fut.done():
+                    fut.set_exception(exc)
+            self.pending.clear()
+            while not self.queue.empty():
+                try:
+                    _, fut = self.queue.get_nowait()
+                except _queue.Empty:
+                    break
+                if not fut.done():
+                    fut.set_exception(exc)
+
+    def _admit_queued(self) -> None:
+        while self.free and not self.queue.empty():
+            grabbed = []          # (slot, batch1, fut)
+            while self.free and len(grabbed) < self._admit_cap:
+                try:
+                    batch1, fut = self.queue.get_nowait()
+                except _queue.Empty:
+                    break
+                grabbed.append((self.free.pop(), batch1, fut))
+            if not grabbed:
+                return
+            n = len(grabbed)
+            padded = 1
+            while padded < n:
+                padded *= 2
+            bs = [b for b, _, _ in grabbed]
+            reqs = [r for _, r, _ in grabbed]
+            if padded > n:   # pad to the ladder by duplicating the last
+                bs += [bs[-1]] * (padded - n)
+                reqs += [reqs[-1]] * (padded - n)
+            batchN = {k: torch.cat([torch.as_tensor(r[k]).to(self.device)
+                                    for r in reqs])
+                      for k in reqs[0]}
+            self._admit(batchN, torch.tensor(bs, device=self.device))
+            for b, _, fut in grabbed:
+                self._gen[b] += 1
+                self.pending[b] = fut
+
+    def _harvest_report(self, report_i, report_f, gen) -> None:
+        """Resolve futures from one report that reached the host. `gen`:
+        the slots' admission generations at the report's chunk; a slot
+        re-admitted since is skipped."""
+        K, L = self.beam, self.cfg.gen_len
+        ri = report_i.numpy()
+        scores_all = report_f.numpy().astype(np.float32)
+        t = ri[:, 0]
+        fin = ri[:, 1:1 + K].astype(bool)
+        lengths_all = ri[:, 1 + K:1 + 2 * K]
+        paths_all = ri[:, 1 + 2 * K:].reshape(self.slots, K, L + 1)
+        done = fin.all(axis=1) | (t >= L)
+        for b in [b for b in self.pending
+                  if done[b] and gen[b] == self._gen[b]]:
+            fut = self.pending.pop(b)
+            ranked = length_normalised(
+                scores_all[b], lengths_all[b].astype(np.float32),
+                self.length_penalty)
+            order = np.argsort(-ranked, kind="stable")
+            fut.set_result({"token_ids": paths_all[b][order],
+                            "scores": ranked[order],
+                            "finished": fin[b][order]})
+            self.free.append(b)
+
+    def _drain_reports(self, block_first: bool = False) -> None:
+        """Harvest every report that reached the host; block_first waits
+        for the oldest (bounds the pipeline, flushes at drain time)."""
+        while self._reports:
+            report_i, report_f, event, gen = self._reports[0]
+            if not block_first and not _ready(event):
+                return
+            if event is not None:
+                event.synchronize()
+            self._reports.popleft()
+            self._harvest_report(report_i, report_f, gen)
+            block_first = False
+
+    def tick(self) -> bool:
+        """Harvest arrived reports -> admit -> chunk (async report copy).
+        Returns True while any slot, report or queued request is in
+        flight."""
+        with self._lock, torch.inference_mode():
+            self._drain_reports()
+            if not self.pending:
+                # every future is resolved; reports in flight settle nothing
+                self._reports.clear()
+            self._admit_queued()
+            if self.pending:
+                self._reports.append((*self._chunk(), self._gen.copy()))
+                self.stats["chunks"] += 1
+                if len(self._reports) > self.max_lag:
+                    self._drain_reports(block_first=True)
+                    # the blocking drain may have freed slots: refill them
+                    self._admit_queued()
+            # queued requests are in-flight work too: the backpressure
+            # drain can settle every report while the queue still holds
+            # requests
+            return (bool(self.pending) or bool(self._reports)
+                    or not self.queue.empty())
+
+    def run_until_drained(self) -> None:
+        """Tick until the queue, the slots and the reports are empty."""
+        while not self.queue.empty() or self.pending or self._reports:
+            if not self.tick():
+                break

@@ -1,20 +1,35 @@
-"""HTTP caption service, micro-batch path (counterpart of the
-engine_slots=0 path of tell_tpu/serving/server.py).
+"""HTTP caption service (counterpart of tell_tpu/serving/server.py).
 
 POST /caption takes token ids (`context_ids`) or, when the service was
 given a tokenizer, text (`context`), plus optional precomputed image grid,
-face and object features; POST /shutdown stops the server. A
-ThreadingHTTPServer feeds a MicroBatcher, which packs up to max_batch
-requests, pads the batch with filler rows (row_live = False), runs the
-RoBERTa encode and greedy generate on the service's device, and answers
-each request with its token ids. Engine slots, article-width buckets,
-attention payloads, the vision pipeline and /scrape are not ported.
+face and object features; GET /status and /healthz report on the service;
+POST /shutdown stops the server. Two decode modes:
+
+* micro-batch (engine_slots=0): a MicroBatcher packs up to max_batch
+  requests, pads the batch with filler rows (row_live = False), runs the
+  RoBERTa encode and greedy generate, and answers each request with its
+  token ids;
+* engine (engine_slots > 0): an EncodeBatcher coalesces concurrent
+  requests' article encodes (the 25 hidden layers mixed in before
+  admission), and a resident continuous-batching DecodeEngine runs beam
+  search; with engine_buckets, one engine per article width (128/256/512
+  for a 512-token article), each request routed to the smallest that fits.
+  The answer is the best beam, its score and the other beams.
+
+kv_cache ("fp", "int8", "int4") and fused_topk are the decode numerics
+levers (tell_tpu's TELL_TPU_KV8 / TELL_TPU_KV4 / TELL_TPU_TOPK, off by
+default as off the TPU); numerics_ab() measures each one's teacher-forced
+agreement with the fp path. Attention payloads, the vision pipeline,
+/metrics and /scrape are not ported.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
+import queue as _queue
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -23,24 +38,46 @@ import torch
 from ..bridge import to_torch
 from ..config import CaptionerConfig
 from ..models.backbones.roberta import RobertaEncoder
-from ..models.captioner import Captioner, encode_contexts
+from ..models.captioner import (Captioner, encode_contexts,
+                                weighted_layer_sum)
 from .batcher import MicroBatcher
+from .encode_batcher import EncodeBatcher
+from .engine import DecodeEngine
 
 log = logging.getLogger("tell_tpu_torch.serving")
 
 
+def _cfg_at(cfg: CaptionerConfig, width: int) -> CaptionerConfig:
+    """cfg with the article context capped at `width` tokens."""
+    dcfg = cfg.decoder
+    contexts = tuple(dataclasses.replace(c, max_len=width)
+                     if c.name == "article" else c for c in dcfg.contexts)
+    return dataclasses.replace(
+        cfg, decoder=dataclasses.replace(dcfg, contexts=contexts))
+
+
 class CaptionService:
-    """Model worker: batches of raw requests -> captions.
+    """Model worker: raw requests -> captions.
 
     params: the captioner's param tree (numpy or torch leaves); roberta: a
     RobertaEncoder; device: where the model runs (explicit, no default).
     tokenizer: optional, anything with encode(text, max_len=...) and
     decode(ids), used only for requests that carry text and to add a
-    "caption" string to the answers."""
+    "caption" string to the answers.
+
+    engine_slots > 0 serves through the continuous-batching engine
+    (engine_beam beams, engine_length_penalty; engine_buckets: one engine
+    per article width); encode_batch caps the rows of one batched article
+    encode in front of it."""
 
     def __init__(self, params: dict, roberta: RobertaEncoder,
                  cfg: CaptionerConfig, device, tokenizer=None,
-                 max_batch: int = 8, article_len: int = 512):
+                 max_batch: int = 8, article_len: int = 512,
+                 engine_slots: int = 0, engine_beam: int = 5,
+                 engine_length_penalty: float = 0.0,
+                 engine_buckets: bool = False, encode_batch: int = 8,
+                 kv_cache: str = "fp",
+                 fused_topk: bool = False):
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = Captioner(to_torch(params, self.device), cfg)
@@ -48,6 +85,11 @@ class CaptionService:
         self.tokenizer = tokenizer
         self.max_batch = max_batch
         self.article_len = article_len
+        self.kv_cache, self.fused_topk = kv_cache, fused_topk
+        self._article_buckets = tuple(sorted(
+            {max(16, article_len // 4), max(16, article_len // 2),
+             article_len}))  # 512 -> (128, 256, 512)
+        self.ab_report: dict | None = None
         dcfg = cfg.decoder
 
         def spec_of(name):
@@ -59,6 +101,62 @@ class CaptionService:
         self._spec = {"faces": spec_of("faces"), "obj": spec_of("obj"),
                       "image": spec_of("image")}
         self.batcher = MicroBatcher(self._run, max_batch=max_batch)
+        self._close_lock = threading.Lock()
+        self._closed = False
+        self.engine = None
+        if engine_slots:
+            self._start_engines(engine_slots, engine_beam,
+                                engine_length_penalty, engine_buckets,
+                                encode_batch)
+
+    def _start_engines(self, slots: int, beam: int, length_penalty: float,
+                       buckets: bool, encode_batch: int) -> None:
+        widths = self._article_buckets if buckets else (self.article_len,)
+        params = self.model.tree()
+        self.engines = {
+            w: DecodeEngine(params, _cfg_at(self.cfg, w), self.device,
+                            slots=slots, beam=beam,
+                            length_penalty=length_penalty,
+                            kv_cache=self.kv_cache,
+                            fused_topk=self.fused_topk)
+            for w in widths}
+        self.engine = self.engines[max(widths)]
+        self.enc_batchers = {
+            w: EncodeBatcher(self._encode_many, self.engines[w].submit,
+                             max_batch=max(1, encode_batch))
+            for w in widths}
+        self._eng_stop = threading.Event()
+        self._eng_thread = threading.Thread(target=self._tick_loop,
+                                            daemon=True)
+        self._eng_thread.start()
+
+    def _tick_loop(self) -> None:
+        engines = list(self.engines.values())
+        while not self._eng_stop.is_set():
+            try:
+                live = [e.tick() for e in engines]
+            except Exception as e:  # noqa: BLE001 - fail pending requests
+                # fast: a dead tick loop must not leave clients hanging
+                log.exception("engine tick loop died")
+                for eng in engines:
+                    eng.poison(e)
+                return
+            if not any(live):
+                time.sleep(0.002)
+
+    def _encode_many(self, batch: dict) -> dict:
+        """Numpy payload rows -> features on the device: the RoBERTa
+        encode with the hidden layers mixed in (weighted_layer_sum), so only
+        [n, S, 1024] article features reach admission."""
+        with torch.inference_mode():
+            tb = {k: torch.from_numpy(v).to(self.device)
+                  for k, v in batch.items()}
+            out = encode_contexts(self.roberta.frozen(), self.cfg, tb)
+            if "article_hiddens" in out:
+                out["article"] = weighted_layer_sum(
+                    self.model.tree(), out.pop("article_hiddens"))
+            out.pop("context_ids")
+        return out
 
     def _request_ids(self, req: dict) -> np.ndarray:
         """The article's token ids: context_ids as given, or the
@@ -79,20 +177,28 @@ class CaptionService:
                 req["context"], max_len=self.article_len), np.int64)
         return np.zeros(0, np.int64)
 
-    def _pack(self, requests: list[dict]) -> tuple[dict, list]:
+    def _pack(self, requests: list[dict], bucketed: bool = False
+              ) -> tuple[dict, list]:
         """Returns (numpy batch, errors): errors[i] is None or a message
         for request i. A malformed request degrades to an empty context of
-        its own instead of failing the micro-batch it shares."""
+        its own instead of failing the batch it shares. The article ids
+        are article_len wide, or with `bucketed` the smallest article
+        bucket that holds the longest one."""
         B = len(requests)
         errors: list = [None] * B
-        ids = np.full((B, self.article_len), self.roberta.cfg.pad_id,
-                      np.int64)
+        all_toks = []
         for i, req in enumerate(requests):
             try:
-                toks = self._request_ids(req)
+                all_toks.append(self._request_ids(req))
             except ValueError as e:
                 errors[i] = f"bad context: {e}"
-                continue
+                all_toks.append(np.zeros(0, np.int64))
+        width = self.article_len
+        if bucketed:
+            longest = max(len(t) for t in all_toks)
+            width = next(w for w in self._article_buckets if longest <= w)
+        ids = np.full((B, width), self.roberta.cfg.pad_id, np.int64)
+        for i, toks in enumerate(all_toks):
             ids[i, : len(toks)] = toks
         batch = {"context_ids": ids}
         n_img, img_dim = self._spec["image"]
@@ -145,11 +251,166 @@ class CaptionService:
         return results
 
     def caption(self, request: dict) -> dict:
+        if self.engine is not None:
+            return self._caption_continuous(request)
         return self.batcher(request)
 
-    def close(self) -> None:
-        """Stop the micro-batcher; queued requests fail."""
-        self.batcher.shutdown()
+    def _caption_continuous(self, request: dict) -> dict:
+        """Engine path: this request's encode joins a batched encode, its
+        features join the resident engine at the next chunk boundary; the
+        answer is the best beam, its score and the other beams."""
+        batch, errors = self._pack([request],
+                                   bucketed=len(self.engines) > 1)
+        if errors[0]:   # don't spend a decode slot on an empty context
+            return {"token_ids": [], "score": 0.0, "error": errors[0]}
+        width = batch["context_ids"].shape[1]
+        eng_fut, _ = self.enc_batchers[width](batch)
+        out = eng_fut.result(timeout=600)
+        result = self._answer(out["token_ids"][0], out["scores"][0])
+        result["alternatives"] = [self._answer(t, s) for t, s in
+                                  zip(out["token_ids"][1:],
+                                      out["scores"][1:])]
+        return result
+
+    def _answer(self, token_ids: np.ndarray, score) -> dict:
+        r = {"token_ids": token_ids.tolist(), "score": float(score)}
+        if self.tokenizer is not None:
+            r["caption"] = self.tokenizer.decode(token_ids)
+        return r
+
+    def warmup(self) -> dict:
+        """Drive dummy requests through the decode path before traffic, so
+        first launches, allocator growth and cuBLAS handles happen then:
+        in engine mode every encode ladder size, one request through each
+        engine's batcher and every admission size; in micro-batch mode one
+        request. Returns {"widths", "seconds"}."""
+        t0 = time.perf_counter()
+        dummy = {"context_ids": [0, 2]}
+        if self.engine is None:
+            self.caption(dummy)
+            return {"widths": [self.article_len],
+                    "seconds": time.perf_counter() - t0}
+        for w, batcher in sorted(self.enc_batchers.items()):
+            batch, _ = self._pack([dummy])
+            batch["context_ids"] = batch["context_ids"][:, :w]
+            for size in batcher.warmup_sizes():
+                self._encode_many({k: np.repeat(v, size, axis=0)
+                                   for k, v in batch.items()})
+            eng_fut, enc1 = batcher(batch)
+            eng_fut.result(timeout=600)
+            self.engines[w].warm(enc1)
+        return {"widths": sorted(self.enc_batchers),
+                "seconds": time.perf_counter() - t0}
+
+    def numerics_ab(self, requests: list[dict] | None = None) -> dict:
+        """The numerics gate: greedy tokens on the fp path (fp K/V cache,
+        exact top-k), then each lever's teacher-forced top-1 agreement with
+        them through predict_forced (no greedy cascade): the int8 cache
+        (kv8_token_agreement, tell_tpu's gate), the int4 cache and the
+        fused top-k. Counted over the live (non-pad) target tokens of
+        `requests` (default: one canned request) at full article width.
+        The result also lands in /status under "numerics_ab"."""
+        t0 = time.perf_counter()
+        if requests is None:
+            requests = [{"context": "the mayor spoke in the city today"}
+                        if self.tokenizer is not None else
+                        {"context_ids": [0] + list(range(100, 140)) + [2]}]
+        batch, errors = self._pack(requests)
+        bad = [e for e in errors if e]
+        if bad:
+            raise ValueError(f"numerics_ab: bad request: {bad[0]}")
+        with torch.inference_mode():
+            tb = {k: torch.from_numpy(v).to(self.device)
+                  for k, v in batch.items()}
+            enc = encode_contexts(self.roberta.frozen(), self.cfg, tb)
+            ref = self.model.generate(enc)["token_ids"]
+            target = ref[:, 1:]
+            live = target != self.cfg.decoder.pad_id
+            if not bool(live.any()):
+                live = torch.ones_like(live)
+            report = {"kv_cache_mode": self.kv_cache,
+                      "topk_mode": self._topk_mode(),
+                      "method": "forced_per_step",
+                      "tokens": int(live.sum())}
+            for key, lever in (
+                    ("kv8_token_agreement", {"kv_cache": "int8"}),
+                    ("kv4_token_agreement", {"kv_cache": "int4"}),
+                    ("fused_topk_token_agreement", {"fused_topk": True})):
+                preds = self.model.predict_forced(enc, ref, **lever)
+                report[key] = float((preds == target)[live].float().mean())
+        report["seconds"] = time.perf_counter() - t0
+        self.ab_report = report
+        return report
+
+    def _topk_mode(self) -> str:
+        return "fused" if self.fused_topk else "exact"
+
+    def status(self) -> dict:
+        """The /status payload: counters, configuration, numerics modes,
+        the engines' stats and the last numerics_ab report."""
+        payload = {
+            "statistics": self.batcher.stats,
+            "config": {
+                "max_batch": self.max_batch,
+                "article_len": self.article_len,
+                "contexts": [c.name for c in self.cfg.decoder.contexts],
+                "gen_len": self.cfg.gen_len,
+                "device": str(self.device),
+                "kv_cache_mode": self.kv_cache,
+                "topk_mode": self._topk_mode(),
+            },
+        }
+        if self.ab_report is not None:
+            payload["numerics_ab"] = self.ab_report
+        if self.engine is not None:
+            eng = self.engine
+            payload["engine"] = {**eng.stats, "slots": eng.slots,
+                                 "beam": eng.beam,
+                                 "free_slots": len(eng.free)}
+            if len(self.engines) > 1:
+                payload["engine_buckets"] = {
+                    str(w): {**e.stats, "free_slots": len(e.free)}
+                    for w, e in sorted(self.engines.items())}
+        return payload
+
+    def close(self, drain_s: float = 60.0) -> None:
+        """Stop the service (idempotent). Engine mode: the encode batchers
+        stop first, in-flight requests drain (up to drain_s), then the tick
+        loop stops and whatever is left fails. Then the micro-batcher
+        stops; its queued requests fail."""
+        with self._close_lock:
+            if self._closed:
+                return
+            if self.engine is not None:
+                for b in self.enc_batchers.values():
+                    b.shutdown()
+                engines = list(self.engines.values())
+                deadline = time.time() + drain_s
+                while time.time() < deadline:
+                    busy = False
+                    for eng in engines:
+                        with eng._lock:
+                            busy |= bool(eng.pending) \
+                                or not eng.queue.empty()
+                    if not busy:
+                        break
+                    time.sleep(0.05)
+                self._eng_stop.set()
+                self._eng_thread.join(timeout=30)
+                leftovers = []
+                for eng in engines:
+                    with eng._lock:
+                        leftovers += list(eng.pending.values())
+                        eng.pending.clear()
+                        try:
+                            while True:
+                                leftovers.append(eng.queue.get_nowait()[1])
+                        except _queue.Empty:
+                            pass
+                for fut in leftovers:
+                    fut.set_exception(RuntimeError("service closed"))
+            self.batcher.shutdown()
+            self._closed = True
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -165,6 +426,14 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
+
+    def do_GET(self):
+        if self.path == "/healthz":
+            self._send(200, {"status": "ok"})
+        elif self.path in ("/stats", "/status"):
+            self._send(200, self.service.status())
+        else:
+            self._send(404, {"error": "not found"})
 
     def do_POST(self):
         length = int(self.headers.get("Content-Length", 0))
@@ -196,10 +465,10 @@ class _Handler(BaseHTTPRequestHandler):
 
 def serve(service: CaptionService, port: int = 5558, block: bool = True,
           host: str = "127.0.0.1") -> ThreadingHTTPServer:
-    """Serve /caption and /shutdown. host defaults to loopback: /shutdown
-    is unauthenticated. port=0 picks a free port (read it from the
-    returned server's server_address). block=False serves from a daemon
-    thread and returns at once."""
+    """Serve /caption, /status, /healthz and /shutdown. host defaults to
+    loopback: /shutdown is unauthenticated. port=0 picks a free port (read
+    it from the returned server's server_address). block=False serves from
+    a daemon thread and returns at once."""
     handler = type("Handler", (_Handler,), {"service": service})
     httpd = ThreadingHTTPServer((host, port), handler)
     if block:

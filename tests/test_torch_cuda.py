@@ -1,9 +1,13 @@
-"""Kernels A, B and C on the card against their plain versions, at edge
-shapes the main paths do not reach (S below and across one tile, single
-query rows, other head dims for kernel A; T=1, T<K, T across a time tile
-and a ragged last tile, 8 and 16 heads, no softmax for kernel C), kernel
-C's gradient through its autograd Function, and the inputs the wrappers
-must refuse. Marked `cuda`: each test skips without a GPU.
+"""Kernels A-E on the card against their plain versions, at edge shapes
+the main paths do not reach (S below and across one tile, single query
+rows, other head dims for kernel A; T=1, T<K, T across a time tile and a
+ragged last tile, 8 and 16 heads, no softmax for kernel C; S=1 segments, a
+ragged last tile, an all-padded article, int4 against int8 and bf16 for
+kernel D; V below and across one chunk, k=1 and 8, equal logits and N=1
+for kernel E), kernels A and D repeating bit for bit over 200 launches,
+kernel C's gradient through its autograd Function, and the
+inputs the wrappers must refuse. Marked `cuda`: each test skips without a
+GPU.
 
 This file imports no JAX, so it also runs where JAX is absent (the card's
 machine; tests/conftest.py imports JAX, hence --noconftest):
@@ -12,20 +16,24 @@ machine; tests/conftest.py imports JAX, hence --noconftest):
 
 Tolerances: A and B fp32 atol 1e-5, rtol 1e-4 (online vs two-pass
 softmax, other summation order); C fp32 atol = rtol = 2e-5 (the JAX kernel
-test's), C gradients 1e-4; bf16 inputs: 2e-2 absolute against the plain
-version in fp32 on the same bf16-rounded inputs (for C without softmax,
-2e-2 of the output's largest magnitude: the raw tap logits are not
-normalised, and bf16 output rounding is relative).
+test's), C gradients 1e-4; D as A; E 1e-5 on values and lse (the same
+fp32 products summed in another order), ids equal; bf16 inputs: 2e-2
+absolute against the plain version in fp32 on the same bf16-rounded inputs
+(for C without softmax, 2e-2 of the output's largest magnitude: the raw
+tap logits are not normalised, and bf16 output rounding is relative).
 """
 import pytest
 import torch
 
 from tell_tpu_torch.ops.kernels.decode_attention import (
-    decode_attention, decode_attention_plain, segment_bias)
+    decode_attention, decode_attention_plain, decode_attention_q8,
+    decode_attention_q8_plain, segment_bias)
 from tell_tpu_torch.ops.kernels.dynamic_conv import (
     dynamic_conv_plain, fused_dynamic_conv)
 from tell_tpu_torch.ops.kernels.encoder_attention import (
     encoder_attention, encoder_attention_plain)
+from tell_tpu_torch.ops.kernels.topk_logits import (topk_logits,
+                                                    topk_logits_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -174,3 +182,181 @@ def test_dynamic_conv_refuses_what_the_kernel_does_not_take(gen):
                            torch.randn(66, 12, device="cuda"), 3, 4)
     with pytest.raises(ValueError, match="w_km"):
         fused_dynamic_conv(x, w_km[:, :-1].contiguous(), 3, 4)
+
+
+def _q8_inputs(gen, B, H, M, G, S, hd, dtype, packed4=False, seg=None,
+               pad=None):
+    """Kernel D inputs: random int8 (or packed int4 bytes) K/V with positive
+    per-column scales and a segment bias."""
+    lim = 8 if packed4 else 128
+    rows = hd // 2 if packed4 else hd
+    q = torch.randn(B, H, M * G, hd, generator=gen, device="cuda") * hd ** -0.5
+    k8, v8 = (torch.randint(-lim, lim, (B, H, rows, S), generator=gen,
+                            device="cuda").to(torch.int8) for _ in range(2))
+    if packed4:   # two nibbles in [-7, 7] per byte
+        k8, v8 = (_pack4(torch.randint(-7, 8, (B, H, hd, S), generator=gen,
+                                       device="cuda")) for _ in range(2))
+    ks, vs = (torch.rand(B, H, 1, S, generator=gen, device="cuda") * 0.05
+              + 1e-3 for _ in range(2))
+    if seg is None:
+        seg = torch.sort(torch.randint(0, M, (S,), generator=gen,
+                                       device="cuda")).values
+    if pad is None:
+        pad = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+    return [q.to(dtype), k8, ks, v8, vs, segment_bias(seg, pad, M, G)]
+
+
+def _pack4(vals):
+    """int values in [-7, 7] [B, H, hd, S] -> packed bytes [B, H, hd/2, S]
+    (row d in the low nibble, row d + hd/2 in the high one)."""
+    hd = vals.shape[2]
+    lo = vals[:, :, :hd // 2].to(torch.int32) & 0x0F
+    hi = (vals[:, :, hd // 2:].to(torch.int32) << 4) & 0xFF
+    b = lo | hi
+    return torch.where(b > 127, b - 256, b).to(torch.int8)
+
+
+def _check_q8(args, dtype):
+    launches = decode_attention_q8.launches
+    out = decode_attention_q8(*args)
+    torch.cuda.synchronize()
+    assert decode_attention_q8.launches == launches + 1
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    ref = decode_attention_q8_plain(args[0].float(), *args[1:])
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
+    else:
+        assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("packed4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("B,H,M,G,S,hd", [
+    (1, 1, 1, 1, 1, 64),        # one column
+    (2, 4, 4, 5, 65, 64),       # one column past a tile
+    (2, 16, 4, 5, 637, 64),     # the flagship's source, ragged last tile
+    (1, 2, 3, 2, 300, 32),      # other hd
+])
+def test_decode_attention_q8_kernel_matches_plain(gen, B, H, M, G, S, hd,
+                                                  packed4, dtype):
+    _check_q8(_q8_inputs(gen, B, H, M, G, S, hd, dtype, packed4), dtype)
+
+
+def test_decode_attention_q8_single_column_segments_and_padded_article(gen):
+    """Segments of one column each beside a 62-column article whose rows
+    are all padding: that modality keeps only its bias column."""
+    M, S = 4, 65
+    seg = torch.tensor([0, 1] + [2] * 62 + [3], device="cuda")
+    pad = torch.zeros(2, S, dtype=torch.bool, device="cuda")
+    pad[:, 2:63] = True                       # column 63 plays the bias one
+    for packed4 in (False, True):
+        _check_q8(_q8_inputs(gen, 2, 4, M, 5, S, 64, torch.float32, packed4,
+                             seg=seg, pad=pad), torch.float32)
+
+
+def test_decode_attention_int4_equals_int8_on_nibble_values(gen):
+    """Values in [-7, 7] stored as int8 and as packed int4 give the same
+    output: the nibble unpack is exact."""
+    B, H, M, G, S, hd = 2, 4, 4, 5, 200, 64
+    q, _, ks, _, vs, bias = _q8_inputs(gen, B, H, M, G, S, hd, torch.float32)
+    kv = [torch.randint(-7, 8, (B, H, hd, S), generator=gen, device="cuda")
+          for _ in range(2)]
+    out8 = decode_attention_q8(q, kv[0].to(torch.int8), ks,
+                               kv[1].to(torch.int8), vs, bias)
+    out4 = decode_attention_q8(q, _pack4(kv[0]), ks, _pack4(kv[1]), vs, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out4, out8, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8", "int4"])
+def test_decode_attention_repeats_bit_for_bit(gen, kv):
+    """Kernels A (fp) and D at the greedy path's shape (B=8, H=16, MG=4,
+    S=637): 200 launches on one input, each after a launch on another
+    input, all equal the first output bit for bit, which holds the plain
+    version's value. A race between the block's phases would show as
+    outputs that change from launch to launch."""
+    B, H, M, G, S, hd = 8, 16, 4, 1, 637, 64
+    if kv == "fp":
+        fn, plain = decode_attention, decode_attention_plain
+        a, b = (_decode_inputs(gen, B, H, M, G, S, hd, torch.float32)
+                for _ in range(2))
+    else:
+        fn, plain = decode_attention_q8, decode_attention_q8_plain
+        a, b = (_q8_inputs(gen, B, H, M, G, S, hd, torch.float32,
+                           packed4=kv == "int4") for _ in range(2))
+    first = fn(*a)
+    torch.testing.assert_close(first, plain(*a), atol=1e-5, rtol=1e-4)
+    changed = torch.zeros((), dtype=torch.long, device="cuda")
+    for _ in range(200):
+        fn(*b)
+        changed += (fn(*a) != first).sum()
+    assert changed.item() == 0
+
+
+def test_decode_attention_q8_refuses_what_the_kernel_does_not_take(gen):
+    q, k8, ks, v8, vs, bias = _q8_inputs(gen, 2, 2, 2, 1, 40, 64,
+                                         torch.float32)
+    with pytest.raises(ValueError, match="neither"):
+        decode_attention_q8(q, k8[:, :, :31].contiguous(), ks,
+                            v8[:, :, :31].contiguous(), vs, bias)
+    with pytest.raises(ValueError, match="k_scale"):
+        decode_attention_q8(q, k8, ks[..., :-1].contiguous(), v8, vs, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention_q8(q, k8.transpose(2, 3).contiguous().transpose(
+            2, 3), ks, v8, vs, bias)
+    with pytest.raises(TypeError, match="k8"):
+        decode_attention_q8(q, k8.float(), ks, v8, vs, bias)
+    with pytest.raises(TypeError, match="v_scale"):
+        decode_attention_q8(q, k8, ks, v8, vs.double(), bias)
+
+
+def _check_topk(x, table, k, zero_row=-1):
+    launches = topk_logits.launches
+    vals, ids, lse = topk_logits(x, table, k, zero_row)
+    torch.cuda.synchronize()
+    assert topk_logits.launches == launches + 1
+    assert ids.dtype == torch.int32 and vals.shape == ids.shape == (
+        x.shape[0], k)
+    rv, ri, rl = topk_logits_plain(x, table, k, zero_row)
+    torch.testing.assert_close(vals, rv, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(lse, rl, atol=1e-5, rtol=1e-5)
+    assert torch.equal(ids, ri)
+    return vals, ids
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,V,D,k", [
+    (1, 5, 16, 1),          # V below one chunk, one row
+    (3, 64, 40, 5),         # exactly one chunk, ragged depth
+    (70, 130, 64, 8),       # V and N past a chunk and a row tile
+    (40, 5000, 1024, 5),    # the flagship's head band at N = 8 x 5
+])
+def test_topk_logits_kernel_matches_plain(gen, N, V, D, k, dtype):
+    x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
+    table = (torch.randn(V, D, generator=gen, device="cuda") * 0.05).to(dtype)
+    _check_topk(x, table, k, zero_row=V // 2)
+
+
+def test_topk_logits_equal_logits_lower_id_first(gen):
+    """Duplicated table rows across and inside chunks give equal logits:
+    the lower id must come first."""
+    x = torch.randn(4, 32, generator=gen, device="cuda")
+    table = torch.randn(300, 32, generator=gen, device="cuda")
+    table[[3, 70, 200, 201]] = table[250].clone()  # 5 equal rows
+    x[0] = table[250] * 10                        # row 0: those win
+    vals, ids = _check_topk(x, table, 8)
+    assert ids[0, :5].tolist() == [3, 70, 200, 201, 250]
+    assert torch.equal(vals[0, :5], vals[0, :1].expand(5))
+
+
+def test_topk_logits_refuses_what_the_kernel_does_not_take(gen):
+    x = torch.randn(4, 32, generator=gen, device="cuda")
+    table = torch.randn(100, 32, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="k=9"):
+        topk_logits(x, table, 9)
+    with pytest.raises(TypeError, match="table"):
+        topk_logits(x, table.to(torch.bfloat16), 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        topk_logits(x, table.T.contiguous().T, 5)
+    with pytest.raises(ValueError, match="not"):
+        topk_logits(x, table[:, :16].contiguous(), 5)

@@ -3,8 +3,9 @@
 A fresh interpreter with jax blocked (sys.modules["jax"] = None makes any
 `import jax` raise) imports every tell_tpu_torch module, checks that the
 only tell_tpu module loaded is the dataclass-only tell_tpu.config, then runs
-the slice on CPU tensors at a tiny size and checks that the plain paths ran:
-the kernels' launch counters stay 0.
+the slices on CPU tensors at a tiny size (greedy generate, a train step, and
+the continuous-batching engine with the int8 K/V cache and the fused top-k)
+and checks that the plain paths ran: the kernels' launch counters stay 0.
 """
 import json
 import os
@@ -31,9 +32,12 @@ from tell_tpu_torch.config import small_test_config
 from tell_tpu_torch.models.backbones.roberta import (RobertaConfig,
                                                      RobertaEncoder)
 from tell_tpu_torch.models.captioner import Captioner, encode_contexts
-from tell_tpu_torch.ops.kernels.decode_attention import decode_attention
+from tell_tpu_torch.ops.kernels.decode_attention import (decode_attention,
+                                                        decode_attention_q8)
 from tell_tpu_torch.ops.kernels.dynamic_conv import fused_dynamic_conv
 from tell_tpu_torch.ops.kernels.encoder_attention import encoder_attention
+from tell_tpu_torch.ops.kernels.topk_logits import topk_logits
+from tell_tpu_torch.serving.engine import DecodeEngine
 from tell_tpu_torch.training.optimizer import bert_adam
 from tell_tpu_torch.training.train_step import make_train_step
 cfg = small_test_config(gen_len=3)
@@ -57,14 +61,26 @@ params = init_captioner(g, cfg)
 batch["caption_ids"] = torch.randint(3, 500, (2, 6), generator=g)
 _, _, m = make_train_step(cfg, opt)(params, opt.init(params), batch, g,
                                     enc.frozen())
+eng = DecodeEngine(cap.tree(), cfg, "cpu", slots=2, beam=2, chunk_steps=2,
+                   kv_cache="int8", fused_topk=True)
+with torch.inference_mode():
+    enc1 = encode_contexts(enc.frozen(), cfg,
+                           {k: v[:1] for k, v in batch.items()
+                            if k != "caption_ids"})
+fut = eng.submit({k: v for k, v in enc1.items() if k != "context_ids"})
+eng.run_until_drained()
+beams = fut.result(timeout=0)["token_ids"]
 print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "jax_loaded": "jax" in sys.modules
                                 and sys.modules["jax"] is not None,
                   "token_ids": list(out["token_ids"].shape),
                   "train_loss_finite": bool(torch.isfinite(m["loss"])),
+                  "engine_beams": list(beams.shape),
                   "launches": [decode_attention.launches,
                                encoder_attention.launches,
-                               fused_dynamic_conv.launches]}))
+                               fused_dynamic_conv.launches,
+                               decode_attention_q8.launches,
+                               topk_logits.launches]}))
 """
 
 
@@ -78,7 +94,9 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "tell_tpu_torch.serving.server" in res["modules"]
     assert "tell_tpu_torch.models.beam" in res["modules"]
-    for name in ("ops.kernels.dynamic_conv", "training.optimizer",
+    for name in ("ops.kernels.dynamic_conv", "ops.kernels.topk_logits",
+                 "serving.engine", "serving.encode_batcher",
+                 "training.optimizer",
                  "training.train_step", "training.checkpoint",
                  "training.trainer", "data.records", "data.bucketing",
                  "data.prefetch"):
@@ -87,4 +105,5 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
     assert res["jax_loaded"] is False
     assert res["token_ids"] == [2, 4]
     assert res["train_loss_finite"] is True
-    assert res["launches"] == [0, 0, 0]
+    assert res["engine_beams"] == [2, 4]
+    assert res["launches"] == [0, 0, 0, 0, 0]

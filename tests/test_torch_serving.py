@@ -1,9 +1,16 @@
-"""The port's micro-batch CaptionService over a real local HTTP socket.
+"""The port's CaptionService over a real local HTTP socket.
 
-Three concurrent POST /caption requests with context_ids and features
-(some faces/objects NaN) must come back with exactly the token ids of the
-port's own generate on the same batch. Bad requests are reported per
-request without failing their micro-batch.
+Micro-batch mode: three concurrent POST /caption requests with context_ids
+and features (some faces/objects NaN) must come back with exactly the
+token ids of the port's own generate on the same batch; bad requests are
+reported per request without failing their micro-batch.
+
+Engine mode (int8 K/V cache, fused top-k, article buckets 16/32/64):
+concurrent requests of three widths must come back, best beam and
+alternatives, with exactly the token ids of the port's one-shot
+beam_search on the same encoded features and numerics, each routed to the
+smallest bucket that holds it; GET /status and /healthz report, and
+numerics_ab gives each lever's agreement.
 """
 import dataclasses
 import http.client
@@ -19,8 +26,10 @@ from tell_tpu_torch.bridge import init_captioner, init_roberta
 from tell_tpu_torch.config import ContextSpec, small_test_config
 from tell_tpu_torch.models.backbones.roberta import (RobertaConfig,
                                                      RobertaEncoder)
+from tell_tpu_torch.models.beam import beam_search
 from tell_tpu_torch.models.captioner import encode_contexts
 from tell_tpu_torch.serving import CaptionService, MicroBatcher, serve
+from tell_tpu_torch.serving.server import _cfg_at
 
 torch.set_num_threads(2)
 _base = small_test_config(gen_len=6)
@@ -69,15 +78,34 @@ def _requests():
     return reqs
 
 
-def _post(port, path, payload):
+def _post(port, path, payload, method="POST"):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
     try:
-        conn.request("POST", path, json.dumps(payload),
-                     {"Content-Type": "application/json"})
+        if method == "POST":
+            conn.request("POST", path, json.dumps(payload),
+                         {"Content-Type": "application/json"})
+        else:
+            conn.request("GET", path)
         resp = conn.getresponse()
         return resp.status, json.loads(resp.read())
     finally:
         conn.close()
+
+
+def _concurrent(port, reqs):
+    answers = [None] * len(reqs)
+
+    def post(i):
+        answers[i] = _post(port, "/caption", reqs[i])
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    return answers
 
 
 def test_microbatcher_coalesces():
@@ -157,3 +185,70 @@ def test_text_requests_with_a_tokenizer_and_shutdown(service):
         time.sleep(0.05)
     assert not svc.batcher._thread.is_alive()
     httpd.server_close()
+
+
+@pytest.fixture(scope="module")
+def engine_service():
+    g = torch.Generator().manual_seed(2)
+    svc = CaptionService(init_captioner(g, CFG),
+                         RobertaEncoder(init_roberta(g, RCFG), RCFG), CFG,
+                         "cpu", article_len=64, engine_slots=2,
+                         engine_beam=2, engine_buckets=True, encode_batch=2,
+                         kv_cache="int8", fused_topk=True)
+    yield svc
+    svc.close()
+
+
+def test_engine_http_answers_match_one_shot_beam_search(engine_service):
+    svc = engine_service
+    reqs = _requests()
+    rng = np.random.default_rng(1)
+    # articles of 60, 16, 9 and 3 ids: buckets 64, 16, 16, 16
+    reqs[0]["context_ids"] = [0] + rng.integers(3, 500, 59).tolist()
+    reqs.append({"context_ids": [0, 5, 9]})
+    reqs[1]["context_ids"] = reqs[1]["context_ids"] + [7] * 14  # 30: 32
+    httpd = serve(svc, port=0, block=False)
+    port = httpd.server_address[1]
+    try:
+        answers = _concurrent(port, reqs)
+        status = _post(port, "/status", None, method="GET")
+        health = _post(port, "/healthz", None, method="GET")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    for req, (code, body) in zip(reqs, answers):
+        assert code == 200 and "error" not in body, body
+        batch, errors = svc._pack([req], bucketed=True)
+        assert errors == [None]
+        width = batch["context_ids"].shape[1]
+        with torch.inference_mode():
+            ref = beam_search(svc.model.tree(), _cfg_at(CFG, width),
+                              svc._encode_many(batch), beam_size=2,
+                              kv_cache="int8", fused_topk=True)
+        beams = [body] + body["alternatives"]
+        assert [b["token_ids"] for b in beams] == ref["token_ids"][0].tolist()
+        np.testing.assert_allclose([b["score"] for b in beams],
+                                   ref["scores"][0].numpy(), rtol=1e-5)
+    assert health == (200, {"status": "ok"})
+    code, st = status
+    assert code == 200
+    assert st["config"]["kv_cache_mode"] == "int8"
+    assert st["config"]["topk_mode"] == "fused"
+    assert st["engine"]["slots"] == 2 and st["engine"]["beam"] == 2
+    routed = {w: b["requests"] for w, b in st["engine_buckets"].items()}
+    assert routed == {"16": 2, "32": 1, "64": 1}
+
+
+def test_engine_numerics_ab_reports_each_lever(engine_service):
+    report = engine_service.numerics_ab(_requests()[:2])
+    for key in ("kv8_token_agreement", "kv4_token_agreement",
+                "fused_topk_token_agreement"):
+        assert 0.0 <= report[key] <= 1.0
+    assert report["fused_topk_token_agreement"] == 1.0   # exact route
+    assert report["tokens"] > 0 and report["method"] == "forced_per_step"
+    assert engine_service.status()["numerics_ab"] is report
+
+
+def test_engine_bad_request_is_reported(engine_service):
+    out = engine_service.caption({"context_ids": [0, 7, 10 ** 6]})
+    assert "outside" in out["error"] and out["token_ids"] == []
