@@ -17,13 +17,24 @@ every phase passed):
      (streamed top-k; N=40 and 640, D=1024, V=5000/15000/30265, k=5, and
      k=8 once) at the engine's, fp32 and bf16, against their plain PyTorch
      versions, kernel C's gradient through its autograd Function too;
-     kernels A, B and D also 100 times on the same input, bit for bit
-     (a race would vary); kernel E's ids held by the logit at each id;
-     CUDA-event times of both, C forward and forward+backward.
+     kernel F (single-shot decode attention; B=8, MG=20, S=637 and 2173,
+     bb 1, 2 and 4, and its int4-split form) against the same plain
+     versions as A and D, and its refusal of S=4096 (the score row does
+     not fit a block's shared memory); kernels A, B, D and F also 100
+     times on the same input, bit for bit (a race would vary); kernel E's
+     ids held by the logit at each id; CUDA-event times of both, C forward
+     and forward+backward. Beside each fp32 case: its bound (the larger of
+     the bytes it must move over 3.35 TB/s and its operations over the
+     67 TFLOP/s fp32 peak, and which one bounds it) and, where one PyTorch
+     call computes the same function, that call's time (A, B, F:
+     scaled_dot_product_attention on pre-transposed copies; a yardstick
+     only, the port never calls it).
   4. full-width service: CaptionerConfig() + RobertaConfig.large() with
-     random weights from the seed, served over HTTP on a local port; four
-     /caption requests with token ids and features, then one beam search
-     (beam 5, B=8). Kernels A and B must have launched during this phase.
+     random weights from the seed, served over HTTP on a local port (the
+     service built without article_len takes 512 from the article
+     context); four /caption requests with token ids and features, then
+     one beam search (beam 5, B=8). Kernels A and B must have launched
+     during this phase.
   5. card vs CPU: the same weights on the CPU (plain versions) and on the
      card (kernels), teacher-forced over the first 16 steps of a card
      caption; top-1 agreement >= 15/16.
@@ -46,22 +57,51 @@ every phase passed):
      fused_topk=True) over HTTP, warmed up; 16 requests with articles of
      40-512 tokens in four staggered bursts (10 in the 128 bucket, so its
      8 slots are reused). Each answer against a one-shot beam_search with
-     the same numerics on the same encoded features: equal tokens, or a
-     near tie (the first differing token's two log-probs within 1e-4; that
-     gap and the two final scores' gap are printed). Kernels B, D and E must
-     launch on that run and kernel A must not; then one int4 beam_search at
-     B=8 must launch kernel D on the packed cache. Prints captions/s, the
-     p50/max request latency and /status.
+     the same numerics on the same encoded features (the engine's own row
+     of its batched encode, itself held to the request encoded alone
+     within FEATURE_TOL): equal tokens, or a near tie shown where the two
+     searches split (at the first step where an engine beam's prefix
+     leaves the one-shot's survivors, that prefix within TIE_TOL of the
+     one-shot's 5th candidate; the step and the margins are printed).
+     Kernels B, D and E must launch on that run and kernel A must not;
+     then one int4 beam_search at B=8 must launch kernel D on the packed
+     cache. Prints captions/s, the p50/max request latency, /status and
+     the rows of each encode and admission.
   9. the numerics gate at full width: teacher-forced top-1 agreement with
      the fp path (fp cache, exact top-k) over four requests' greedy
      captions, for each lever (CaptionService.numerics_ab): int8 K/V >=
      0.95 (tell_tpu's floor), fused top-k >= 15/16 (it is exact), int4 K/V
      reported without a floor. Defaults stay fp and exact.
+ 10. the long-article configuration (expt/nytimes/11_long_article.yaml:
+     the flagship with a 2048-token article, served in fp32) with
+     RobertaConfig.large(): phases 4 and 5 again, the service built
+     without article_len so it must take 2048, with four 1500-2048-token
+     articles; kernel A must attend a source of >= 2048 columns and kernel
+     B must encode four 512-token windows per article row; card vs CPU
+     >= 15/16. Then the engine service (8 slots, beam 5, buckets
+     512/1024/2048, fp cache, exact top-k): 8 requests over the three
+     buckets, each held to a one-shot beam_search as in phase 8, with no
+     near tie allowed: every answer equal; kernels A and B must launch, D
+     and E must not.
+ 11. the measurement tools on the card (tell_tpu_torch/tools):
+     kernel_variants with every variant at its defaults (B=64, S=640,
+     bf16), longctx_variants' single1, dispatch and jnp at S=2048, and
+     profile_decode at its defaults (B=320, K=1, S=512, bf16, 100 steps
+     per ablation); every variant within its error limit, and kernel F
+     (both forms), A and D launched.
 Then one JSON line describing the kernels and, last, the result line.
+
+    python3 chip_smoke.py --engine-repeats N
+
+runs phases 1-2, then only the engine checks of phases 8 and 10, N times
+over the seeds seed, seed+1, ... (the first failure ends it); it prints no
+result line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import http.client
 import itertools
 import json
@@ -77,13 +117,28 @@ import time
 import numpy as np
 import torch
 
+from tell_tpu_torch.tools.timing import FP32_FLOPS, HBM_BYTES_PER_S, device_ms
+
 FP32_TOL = dict(atol=1e-5, rtol=1e-4)
 CONV_TOL = dict(atol=2e-5, rtol=2e-5)        # the JAX kernel test's
 GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_ATOL = 2e-2
 TOPK_TOL = dict(atol=1e-5, rtol=1e-5)        # fp32 sums in another order
-NEAR_TIE = 1e-4     # phase 8: engine and one-shot may swap candidates closer
-REPEATS = 100       # phase 3: bit-for-bit repeats of kernels A, B and D
+# Phases 8 and 10: the features the engine was given (its batched encode's
+# row for a request) against the request encoded alone: within 1.2e-5 over
+# 15 runs on an H100 (another encode batch sums in another order); a wrong
+# row is off by O(1).
+FEATURE_TOL = dict(atol=1e-4, rtol=1e-4)
+# Phase 8: on those same features the engine decodes 40 rows a step (8
+# slots x 5 beams) and the one-shot search 5, so their sums still differ in
+# the last bits: an equal beam's final score differed by up to 3.5e-3 over
+# 8 runs on an H100 (int8 cache, fused top-k; 1.2e-4 with the fp cache).
+# A differing answer passes only where that drift explains it: at the
+# first step where an engine beam's prefix leaves the one-shot's
+# survivors, that prefix lies within TIE_TOL (twice the drift, rounded up)
+# of the one-shot's 5th candidate. Phase 10 allows no differing answer.
+TIE_TOL = 1e-2
+REPEATS = 100       # phase 3: bit-for-bit repeats of kernels A, B, D and F
 KV8_FLOOR = 0.95    # phase 9: tell_tpu's gate (BENCH_r05.json)
 FUSED_TOPK_FLOOR = 15 / 16
 # Phase 6 (training loss and gradients, fp32). Kernel C against its plain
@@ -100,6 +155,7 @@ TRAIN_GRAD_REL_L2 = 2e-2
 TRAIN_GRAD_MEDIAN_REL_L2 = 5e-3
 FLAGSHIP_SEGMENTS = (("image", 49), ("article", 512), ("faces", 4),
                      ("obj", 64))
+LONG_ARTICLE = 2048     # expt/nytimes/11_long_article.yaml
 
 
 class CheckFailed(Exception):
@@ -115,19 +171,56 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call from CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+# mean ms per call from CUDA events around 20 calls after 3 warm-ups
+cuda_ms = functools.partial(device_ms, device="cuda", calls=20)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes: int, flops: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the least time the card could take for a call
+    that must read its inputs and write its outputs once (nbytes) and do
+    flops fp32 operations, whichever of the two takes longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def decode_flops(q, S) -> float:
+    """q . K and p . V over S columns: 2 x 2 x B*H*MG*hd*S operations."""
+    return 4.0 * q.numel() * S
+
+
+def _sdpa_decode_sets(sets):
+    """Kernel A/F inputs as one scaled_dot_product_attention call takes
+    them: K and V transposed to [B, H, S, hd] and the bias broadcast over
+    heads. The copies are made here, outside any timed window."""
+    return [[q, k.transpose(2, 3).contiguous(), v.transpose(2, 3).contiguous(),
+             bias[:, None]] for q, k, v, bias in sets]
+
+
+def _sdpa_decode(q, kt, vt, mask):
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, kt, vt, attn_mask=mask, scale=1.0)
+
+
+def _sdpa_encoder_sets(sets):
+    """Kernel B inputs [B, S, H, hd] as [B, H, S, hd] copies with the
+    einsum path's additive -1e9 key-padding mask."""
+    out = []
+    for q, k, v, key_pad in sets:
+        neg = torch.zeros(key_pad.shape, device=key_pad.device)
+        neg.masked_fill_(key_pad, -1e9)
+        out.append([t.transpose(1, 2).contiguous() for t in (q, k, v)]
+                   + [neg[:, None, None, :]])
+    return out
+
+
+def _sdpa_encoder(q, k, v, mask):
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask)
 
 
 # ---------------------------------------------------------------------------
@@ -187,17 +280,32 @@ def check_repeats(name, kernel, sets, shape, n=REPEATS):
             f"over {n} launches on the same inputs")
 
 
-def check_kernel(name, kernel, plain, sets, shape):
+def library_time(library, ref) -> tuple[float | None, float | None]:
+    """(ms per call, max abs error against the plain version's output) of
+    the one PyTorch call that computes a kernel's function: library is
+    (call, its argument sets, a map of its output to the kernel's layout),
+    or None where no single call does (then (None, None))."""
+    if library is None:
+        return None, None
+    fn, lib_sets, back = library
+    err = (back(fn(*lib_sets[0])) - ref).abs().max().item()
+    cycle = itertools.cycle(lib_sets)
+    return cuda_ms(lambda: fn(*next(cycle))), err
+
+
+def check_kernel(name, kernel, plain, sets, shape, flops, library=None):
     """fp32: kernel vs plain on the same inputs, and bit-for-bit repeats;
     bf16: kernel on bf16 inputs vs plain in fp32 on the same bf16-rounded
-    inputs. Returns the fp32 error and both times (ms per call, CUDA
-    events)."""
+    inputs. Returns the fp32 error, both times (ms per call, CUDA events),
+    the bound of the fp32 call (flops operations) and the library call's
+    time (library_time)."""
     args = sets[0]
     ref = plain(*args)
     out = kernel(*args)
     torch.cuda.synchronize()
     err32 = (out - ref).abs().max().item()
     torch.testing.assert_close(out, ref, **FP32_TOL)
+    bound_ms, bound_by = bound(_nbytes(args) + _nbytes([out]), flops)
     check_repeats(name, kernel, sets, shape)
     args16 = [a.to(torch.bfloat16) if a.is_floating_point() and i < 3 else a
               for i, a in enumerate(args)]
@@ -212,11 +320,15 @@ def check_kernel(name, kernel, plain, sets, shape):
     cycle = itertools.cycle(sets)
     ms = cuda_ms(lambda: kernel(*next(cycle)))
     plain_ms = cuda_ms(lambda: plain(*next(cycle)))
+    library_ms, lib_err = library_time(library, ref)
     log(f"phase 3: {name} {shape}: fp32 max abs err {err32:.3e}, bf16 "
         f"max abs err {err16:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-        "ms (fp32)")
+        f"ms, bound {bound_ms:.4f} ms ({bound_by}), library "
+        + ("none" if library_ms is None else
+           f"{library_ms:.4f} ms (max abs err {lib_err:.3e})") + " (fp32)")
     return {"shape": shape, "err32": err32, "err16": err16, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def check_conv(g, B, T, K, dev, C=1024, H=16):
@@ -228,8 +340,8 @@ def check_conv(g, B, T, K, dev, C=1024, H=16):
         dynamic_conv_plain, fused_dynamic_conv)
     shape = f"B={B} T={T} C={C} H={H} K={K}"
     x = torch.randn(B, T, C, generator=g).to(dev)
-    bound = (6.0 / (C + K * H)) ** 0.5
-    w = ((torch.rand(C, K * H, generator=g) * 2 - 1) * bound).to(dev)
+    w_bound = (6.0 / (C + K * H)) ** 0.5
+    w = ((torch.rand(C, K * H, generator=g) * 2 - 1) * w_bound).to(dev)
     ref = dynamic_conv_plain(x, w, K, H)
     out = fused_dynamic_conv(x, w, K, H)
     torch.cuda.synchronize()
@@ -259,51 +371,64 @@ def check_conv(g, B, T, K, dev, C=1024, H=16):
     plain_ms = cuda_ms(lambda: dynamic_conv_plain(x, w, K, H))
     fb_ms = cuda_ms(lambda: fwd_bwd(fused_dynamic_conv))
     plain_fb_ms = cuda_ms(lambda: fwd_bwd(dynamic_conv_plain))
+    # forward: the tap logits x . W (2*B*T*C*K*H) and the K-tap sum
+    # (2*B*T*C*K); no single PyTorch call computes it
+    bound_ms, bound_by = bound(_nbytes([x, w, out]),
+                               2.0 * B * T * C * K * (H + 1))
     log(f"phase 3: fused_dynamic_conv {shape}: fp32 max abs err "
         f"{err32:.3e}, bf16 max abs err {err16:.3e}, grad max abs err "
-        f"{errg:.3e}; forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+        f"{errg:.3e}; forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), library none; "
         f"forward+backward kernel {fb_ms:.4f} ms, plain {plain_fb_ms:.4f} "
         "ms (fp32)")
     return {"shape": shape, "err32": err32, "err16": err16, "errg": errg,
             "ms": ms, "plain_ms": plain_ms, "fb_ms": fb_ms,
-            "plain_fb_ms": plain_fb_ms}
+            "plain_fb_ms": plain_fb_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
-def check_q8(g, B, MG, article_len, dev, mode):
-    """Kernel D against decode_attention_q8_plain on _decode_case's inputs
-    with K/V quantised as the decode state stores them: q fp32 (FP32_TOL,
-    and bit-for-bit repeats), q bf16 (against the plain version in fp32 on the same bf16 query,
-    BF16_ATOL); CUDA-event times of both with q fp32."""
+def check_q8(g, B, MG, article_len, dev, mode, name="decode_attention_q8",
+             kernel=None):
+    """Kernel D (or `kernel`, e.g. kernel F's int4-split form) against
+    decode_attention_q8_plain on _decode_case's inputs with K/V quantised
+    as the decode state stores them: q fp32 (FP32_TOL, and bit-for-bit
+    repeats), q bf16 (against the plain version in fp32 on the same bf16
+    query, BF16_ATOL); CUDA-event times of both with q fp32, and the
+    bound (no single PyTorch call computes it)."""
     from tell_tpu_torch.models.decoder import quantize_kv, quantize_kv4
     from tell_tpu_torch.ops.kernels.decode_attention import (
         decode_attention_q8, decode_attention_q8_plain)
+    kernel = kernel or decode_attention_q8
     quant = quantize_kv4 if mode == "int4" else quantize_kv
     S, fp_sets = _decode_case(g, B, MG, article_len, dev)
     sets = [[q, *quant(k), *quant(v), bias] for q, k, v, bias in fp_sets]
     shape = f"{mode} B={B} H=16 hd=64 MG={MG} S={S}"
     args = sets[0]
     ref = decode_attention_q8_plain(*args)
-    out = decode_attention_q8(*args)
+    out = kernel(*args)
     torch.cuda.synchronize()
     err32 = (out - ref).abs().max().item()
     torch.testing.assert_close(out, ref, **FP32_TOL)
-    check_repeats("decode_attention_q8", decode_attention_q8, sets, shape)
+    bound_ms, bound_by = bound(_nbytes(args) + _nbytes([out]),
+                               decode_flops(args[0], S))
+    check_repeats(name, kernel, sets, shape)
     q16 = args[0].to(torch.bfloat16)
-    out16 = decode_attention_q8(q16, *args[1:])
+    out16 = kernel(q16, *args[1:])
     ref16 = decode_attention_q8_plain(q16.float(), *args[1:])
     torch.cuda.synchronize()
     err16 = (out16.float() - ref16).abs().max().item()
     if not np.isfinite(err16) or err16 > BF16_ATOL:
-        raise CheckFailed(f"decode_attention_q8 {shape} bf16: max abs err "
-                          f"{err16} > {BF16_ATOL}")
+        raise CheckFailed(f"{name} {shape} bf16: max abs err {err16} > "
+                          f"{BF16_ATOL}")
     cycle = itertools.cycle(sets)
-    ms = cuda_ms(lambda: decode_attention_q8(*next(cycle)))
+    ms = cuda_ms(lambda: kernel(*next(cycle)))
     plain_ms = cuda_ms(lambda: decode_attention_q8_plain(*next(cycle)))
-    log(f"phase 3: decode_attention_q8 {shape}: fp32 max abs err "
-        f"{err32:.3e}, bf16 max abs err {err16:.3e}; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms (fp32 q)")
+    log(f"phase 3: {name} {shape}: fp32 max abs err {err32:.3e}, bf16 max "
+        f"abs err {err16:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}), library none (fp32 q)")
     return {"shape": shape, "err32": err32, "err16": err16, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 def _topk_agree(out, ref, x, table, zero_row, what):
@@ -344,8 +469,9 @@ def check_topk(g, N, V, k, dev, D=1024):
     """Kernel E against topk_logits_plain at the engine's shapes (N = slots
     x beam rows of step features, a band's table [V, D] at the tables'
     init scale, the padding row 1 pinned): fp32, and bf16 against the plain
-    version on the same bf16 values, ids held as _topk_agree says; CUDA-event times of both in fp32, over
-    table copies that together exceed the L2 cache."""
+    version on the same bf16 values, ids held as _topk_agree says;
+    CUDA-event times of both in fp32, over table copies that together
+    exceed the L2 cache."""
     from tell_tpu_torch.ops.kernels.topk_logits import (topk_logits,
                                                         topk_logits_plain)
     shape = f"N={N} V={V} D={D} k={k}"
@@ -366,32 +492,69 @@ def check_topk(g, N, V, k, dev, D=1024):
     cycle = itertools.cycle(tables)
     ms = cuda_ms(lambda: topk_logits(x, next(cycle), k, 1))
     plain_ms = cuda_ms(lambda: topk_logits_plain(x, next(cycle), k, 1))
+    # x . table^T (2*N*V*D); no single PyTorch call computes the top-k and
+    # the lse of a product
+    bound_ms, bound_by = bound(_nbytes([x, tables[0], *out]),
+                               2.0 * N * V * D)
     log(f"phase 3: topk_logits {shape}: fp32 max abs err {err32:.3e}, bf16 "
         f"max abs err {err16:.3e}, ids differing {n_diff}/{n_diff16} of "
-        f"{N * k}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (fp32)")
+        f"{N * k}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), library none (fp32)")
     return {"shape": shape, "err32": err32, "err16": err16, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def check_single_refusal(dev) -> None:
+    """Kernel F refuses, before any launch, a source whose [MG, S] score
+    row does not fit a block's shared memory (S=4096 at MG=20, hd=64)."""
+    from tell_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_single)
+    q = torch.zeros(1, 1, 20, 64, device=dev)
+    kv = torch.zeros(1, 1, 64, 4096, device=dev)
+    launches = decode_attention_single.launches
+    try:
+        decode_attention_single(q, kv, kv, torch.zeros(1, 20, 4096,
+                                                       device=dev))
+    except ValueError as e:
+        require("does not fit" in str(e), e)
+        require(decode_attention_single.launches == launches,
+                "kernel F launched on a refused shape")
+        log(f"phase 3: decode_attention_single refuses S=4096: {e}")
+        return
+    raise CheckFailed("kernel F took S=4096 at MG=20 without refusing")
 
 
 def phase_kernels(seed: int) -> dict:
     from tell_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention, decode_attention_plain)
+        decode_attention, decode_attention_plain, decode_attention_q4split,
+        decode_attention_single)
     from tell_tpu_torch.ops.kernels.encoder_attention import (
         encoder_attention, encoder_attention_plain)
     g = torch.Generator().manual_seed(seed)
     dev = torch.device("cuda")
     res = {"decode_attention": [], "encoder_attention": [],
            "fused_dynamic_conv": [], "decode_attention_q8": [],
-           "topk_logits": []}
+           "topk_logits": [], "decode_attention_single": [],
+           "decode_attention_q4split": []}
+    identity = lambda o: o  # noqa: E731
     for MG, article in ((4, 512), (20, 512), (20, 2048)):
         S, sets = _decode_case(g, 8, MG, article, dev)
         res["decode_attention"].append(check_kernel(
             "decode_attention", decode_attention, decode_attention_plain,
-            sets, f"B=8 H=16 hd=64 MG={MG} S={S}"))
+            sets, f"B=8 H=16 hd=64 MG={MG} S={S}",
+            decode_flops(sets[0][0], S),
+            (_sdpa_decode, _sdpa_decode_sets(sets), identity)))
     for S in (128, 512):
+        sets = _encoder_case(g, 4, S, dev)
+        q, key_pad = sets[0][0], sets[0][3]
+        # every query row (pads included) attends the real keys of its row
+        flops = 4.0 * S * q.shape[2] * q.shape[3] * int((~key_pad).sum())
         res["encoder_attention"].append(check_kernel(
             "encoder_attention", encoder_attention, encoder_attention_plain,
-            _encoder_case(g, 4, S, dev), f"B=4 S={S} H=16 hd=64"))
+            sets, f"B=4 S={S} H=16 hd=64", flops,
+            (_sdpa_encoder, _sdpa_encoder_sets(sets),
+             lambda o: o.transpose(1, 2))))
     for T, K in ((32, 3), (32, 7), (32, 15), (32, 31), (100, 31), (15, 31)):
         res["fused_dynamic_conv"].append(check_conv(g, 16, T, K, dev))
     for mode in ("int8", "int4"):
@@ -402,6 +565,20 @@ def phase_kernels(seed: int) -> dict:
         for V in (5000, 15000, 30265):
             res["topk_logits"].append(check_topk(g, N, V, 5, dev))
     res["topk_logits"].append(check_topk(g, 40, 30265, 8, dev))
+    for article in (512, 2048):
+        S, sets = _decode_case(g, 8, 20, article, dev)
+        lib = (_sdpa_decode, _sdpa_decode_sets(sets), identity)
+        for bb in (1, 2, 4):
+            res["decode_attention_single"].append(check_kernel(
+                f"decode_attention_single bb={bb}",
+                functools.partial(decode_attention_single, bb=bb),
+                decode_attention_plain, sets, f"B=8 H=16 hd=64 MG=20 S={S}",
+                decode_flops(sets[0][0], S), lib))
+        del lib
+        res["decode_attention_q4split"].append(check_q8(
+            g, 8, 20, article, dev, "int4", "decode_attention_q4split bb=2",
+            functools.partial(decode_attention_q4split, bb=2)))
+    check_single_refusal(dev)
     return res
 
 
@@ -436,9 +613,19 @@ def _post(port, path, payload):
         conn.close()
 
 
-def phase_service(seed: int, cfg, rcfg, dev: str):
-    """Serve cfg/rcfg with random weights on `dev`; returns the service,
-    the first request, its caption and the kernels' launch counts."""
+SERVICE_ARTICLES = (512, 300, 120, 40)                 # phase 4
+BEAM_ARTICLES = (512, 480, 400, 300, 256, 200, 128, 64)
+LONG_SERVICE_ARTICLES = (2048, 1500, 1800, 1650)       # phase 10
+LONG_BEAM_ARTICLES = (2048, 2000, 1900, 1800, 1700, 1600, 1550, 1500)
+
+
+def phase_service(seed: int, cfg, rcfg, dev: str, label: str = "phase 4",
+                  articles=SERVICE_ARTICLES, beam_articles=BEAM_ARTICLES):
+    """Serve cfg/rcfg with random weights on `dev` (the service built
+    without article_len, so it must take the article context's max_len);
+    returns the service, the first request, its caption and the kernels'
+    launch counts, with the widest source kernel A attended and the
+    article windows kernel B encoded per launch."""
     from tell_tpu_torch.bridge import init_captioner, init_roberta
     from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
     from tell_tpu_torch.models.captioner import encode_contexts
@@ -451,16 +638,18 @@ def phase_service(seed: int, cfg, rcfg, dev: str):
     g = torch.Generator(device=dev).manual_seed(seed)
     params = init_captioner(g, cfg)
     roberta = RobertaEncoder(init_roberta(g, rcfg), rcfg)
+    svc = CaptionService(params, roberta, cfg, dev, max_batch=8)
     article_len = cfg.decoder.context("article").max_len
-    svc = CaptionService(params, roberta, cfg, dev, max_batch=8,
-                         article_len=article_len)
-    log(f"phase 4: random-init weights on {dev} in {time.time() - t0:.1f} s"
-        f" (E={cfg.decoder.embed_dim}, RoBERTa {rcfg.num_layers}x{rcfg.dim})")
+    require(svc.article_len == article_len,
+            f"the service took article_len {svc.article_len}, not the "
+            f"article context's {article_len}")
+    log(f"{label}: random-init weights on {dev} in {time.time() - t0:.1f} s"
+        f" (E={cfg.decoder.embed_dim}, RoBERTa {rcfg.num_layers}x{rcfg.dim}"
+        f"); article_len {svc.article_len}, buckets {svc._article_buckets}")
     rng = np.random.default_rng(seed)
     vocab = rcfg.vocab_size
     reqs = [_request(rng, cfg, n, f, o, vocab)
-            for n, f, o in ((512, 4, 64), (300, 2, 20), (120, 1, 0),
-                            (40, 0, 5))]
+            for n, f, o in zip(articles, (4, 2, 1, 0), (64, 20, 0, 5))]
     httpd = serve(svc, port=0, block=False)
     port = httpd.server_address[1]
     answers = [None] * len(reqs)
@@ -475,8 +664,8 @@ def phase_service(seed: int, cfg, rcfg, dev: str):
     status, body = _post(port, "/caption", reqs[3])
     require(status == 200 and "error" not in body, body)
 
-    decode_attention.launches = 0
-    encoder_attention.launches = 0
+    decode_attention.launches = decode_attention.max_columns = 0
+    encoder_attention.launches = encoder_attention.sequences = 0
     t_serve = time.perf_counter()
     threads = [threading.Thread(target=post, args=(i,))
                for i in range(len(reqs))]
@@ -496,16 +685,21 @@ def phase_service(seed: int, cfg, rcfg, dev: str):
                 f"token ids outside the vocabulary: {ids}")
         captions.append(ids)
     lengths = [int((ids[1:] != cfg.decoder.pad_id).sum()) for ids in captions]
-    log("phase 4: 4 /caption answers, token ids of length "
+    windows = encoder_attention.sequences / max(1, encoder_attention.launches)
+    log(f"{label}: {len(reqs)} /caption answers (articles of "
+        f"{list(articles)} tokens), token ids of length "
         f"{cfg.gen_len + 1} within the vocab, {lengths} tokens before "
         "padding; latencies (s) "
         + ", ".join(f"{x:.3f}" for x in latencies)
         + f"; {len(reqs) / serve_s:.3f} captions/s over {serve_s:.3f} s "
-        f"(batches served: {svc.batcher.stats['batches']})")
+        f"(batches served: {svc.batcher.stats['batches']}); kernel A "
+        f"attended up to {decode_attention.max_columns} source columns, "
+        f"kernel B encoded {windows:g} sequences per launch "
+        f"({windows / svc.max_batch:g} windows per article row)")
+    max_columns = decode_attention.max_columns
 
     # beam search, beam 5, B=8, on the same weights
-    beam_reqs = [_request(rng, cfg, n, 4, 64, vocab)
-                 for n in (512, 480, 400, 300, 256, 200, 128, 64)]
+    beam_reqs = [_request(rng, cfg, n, 4, 64, vocab) for n in beam_articles]
     batch, errors = svc._pack(beam_reqs)
     require(errors == [None] * 8, errors)
     with torch.inference_mode():
@@ -522,12 +716,21 @@ def phase_service(seed: int, cfg, rcfg, dev: str):
             "beam scores not best-first")
     launches = {"decode_attention": decode_attention.launches,
                 "encoder_attention": encoder_attention.launches}
-    log(f"phase 4: beam_search beam=5 B=8 in {beam_s:.3f} s "
+    log(f"{label}: beam_search beam=5 B=8 in {beam_s:.3f} s "
         f"({8 / beam_s:.3f} captions/s, encode included); launches "
         f"{launches}")
     if dev == "cuda":
         for name, n in launches.items():
             require(n > 0, f"{name} never launched on the main path")
+        S = sum(c.max_len + 2 for c in cfg.decoder.contexts)
+        require(max_columns == S, f"kernel A attended at most {max_columns} "
+                f"source columns on /caption, not the {S} of this config")
+        n_windows = -(-article_len // (rcfg.max_positions - 2))
+        require(windows == n_windows * svc.max_batch,
+                f"kernel B encoded {windows} sequences per launch, not "
+                f"{n_windows} windows x {svc.max_batch} rows")
+    launches["max_columns"] = max_columns
+    launches["windows_per_row"] = windows / svc.max_batch
 
     status, _ = _post(port, "/shutdown", {})
     require(status == 200, f"/shutdown answered {status}")
@@ -542,7 +745,7 @@ def phase_service(seed: int, cfg, rcfg, dev: str):
 # phase 5: the same weights on the CPU and on the card
 # ---------------------------------------------------------------------------
 
-def phase_cpu_vs_card(svc, req, caption):
+def phase_cpu_vs_card(svc, req, caption, label: str = "phase 5"):
     from tell_tpu_torch.bridge import to_torch
     from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
     from tell_tpu_torch.models.captioner import Captioner, encode_contexts
@@ -555,22 +758,22 @@ def phase_cpu_vs_card(svc, req, caption):
     cpu_model = Captioner(to_torch(svc.model.tree(), "cpu"), cfg)
     cpu_roberta = RobertaEncoder(
         to_torch(svc.roberta.frozen()["roberta"], "cpu"), svc.roberta.cfg)
-    for label, model, enc in (("card", svc.model, svc.roberta),
+    for where, model, enc in (("card", svc.model, svc.roberta),
                               ("cpu", cpu_model, cpu_roberta)):
-        dev = svc.device if label == "card" else torch.device("cpu")
+        dev = svc.device if where == "card" else torch.device("cpu")
         t = time.perf_counter()
         with torch.inference_mode():
             tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
             e = encode_contexts(enc.frozen(), cfg, tb)
             p, lp = model.predict_forced(e, tokens.to(dev),
                                          with_log_probs=True)
-        preds[label], lps[label] = p.cpu()[0], lp.cpu()[0]
-        log(f"phase 5: predict_forced on the {label} ({dev}) in "
+        preds[where], lps[where] = p.cpu()[0], lp.cpu()[0]
+        log(f"{label}: encode + predict_forced on the {where} ({dev}) in "
             f"{time.perf_counter() - t:.2f} s")
     agree = int((preds["cpu"] == preds["card"]).sum())
     lp_diff = (lps["cpu"] - lps["card"]).abs().max().item()
     follows = int((preds["card"] == tokens[0, 1:]).sum())
-    log(f"phase 5: card vs CPU top-1 agreement {agree}/16, max abs "
+    log(f"{label}: card vs CPU top-1 agreement {agree}/16, max abs "
         f"log-prob difference {lp_diff:.3e}; the card's forced top-1 "
         f"matches its own greedy caption at {follows}/16 steps")
     require(agree >= 15, f"card vs CPU agreement {agree}/16 < 15/16")
@@ -837,56 +1040,135 @@ def phase_trainer(seed: int, cfg, rcfg, card: str, dev: str = "cuda"
 # phase 8: the engine service at full width
 # ---------------------------------------------------------------------------
 
-def _token_log_probs(dparams, dcfg, feats, tokens) -> list[float]:
-    """log p(tokens[r] | step features feats[r]) under the full adaptive
-    softmax, by the plain ops: the near-tie check's measure."""
-    from tell_tpu_torch.ops.adaptive import (_head_logits, _tail_logits,
-                                             band_ranges)
-    sm, emb, pad = dparams["adaptive_softmax"], dparams["embed"], \
-        dcfg.embed_padding_idx
-    ranges = band_ranges(dcfg.full_cutoffs)
-    c0 = ranges[0][1]
-    head = torch.log_softmax(_head_logits(sm, emb, feats, pad).float(), -1)
-    out = []
-    for r, tok in enumerate(int(t) for t in tokens):
-        if tok < c0:
-            out.append(head[r, tok].item())
+def _record_engine_inputs(svc) -> dict:
+    """Wraps the service's batched encodes and its engines' admissions to
+    record what the engine was given: each request's row of the encoded
+    features (keyed by its article ids), and the rows of every encode and
+    every admission, in order."""
+    seen = {"features": {}, "encodes": [], "admissions": []}
+    for batcher in svc.enc_batchers.values():
+        def encode(stacked, encode_many=batcher.encode_many):
+            enc = encode_many(stacked)
+            ids = stacked["context_ids"]
+            seen["encodes"].append(len(ids))
+            for r in range(len(ids)):
+                seen["features"][ids[r].tobytes()] = {
+                    k: v[r:r + 1] for k, v in enc.items()}
+            return enc
+        batcher.encode_many = encode
+    for eng in svc.engines.values():
+        def admit(batchN, bs, admit_fn=eng._admit):
+            seen["admissions"].append(int(bs.shape[0]))
+            admit_fn(batchN, bs)
+        eng._admit = admit
+    return seen
+
+
+def _feature_err(enc, ref) -> tuple[float, bool]:
+    """(max abs difference, within FEATURE_TOL) of two encoded feature
+    dicts; masks must be equal, and so must the NaNs of absent rows."""
+    err, ok = 0.0, True
+    for k, v in ref.items():
+        if v.dtype == torch.bool:
+            ok &= torch.equal(enc[k], v)
             continue
-        i = next(i for i, (lo, hi) in enumerate(ranges[1:]) if tok < hi)
-        tail = torch.log_softmax(_tail_logits(
-            sm, emb, feats[r:r + 1], i, pad).float(), -1)
-        out.append((head[r, c0 + i] + tail[0, tok - ranges[i + 1][0]]
-                    ).item())
-    return out
+        err = max(err, (enc[k] - v).abs().nan_to_num(0.0).max().item())
+        ok &= torch.allclose(enc[k], v, equal_nan=True, **FEATURE_TOL)
+    return err, ok
 
 
-def _divergence_gap(params, cfg, enc, path_a, path_b, kv_cache):
-    """(t, gap): the first position where two caption paths differ, and
-    the difference of the two tokens' log-probs there given their shared
-    prefix, decoded teacher-forced with the same K/V numerics."""
-    from tell_tpu_torch.models.captioner import build_contexts
-    from tell_tpu_torch.models.decoder import decoder_step, init_decode_state
-    t = int(np.flatnonzero(np.asarray(path_a) != np.asarray(path_b))[0])
-    dparams, dcfg = params["decoder"], cfg.decoder
-    state = init_decode_state(dparams, dcfg, build_contexts(params, cfg, enc),
-                              1, kv_cache=kv_cache)
-    dev = enc["article"].device
-    for j in range(t):
-        feats, state = decoder_step(dparams, dcfg, torch.tensor(
-            [int(path_a[j])], device=dev), state)
-    lp = _token_log_probs(dparams, dcfg, feats.expand(2, -1),
-                          [path_a[t], path_b[t]])
-    return t, abs(lp[0] - lp[1])
+@contextlib.contextmanager
+def _beam_trace():
+    """Records each step of the one-shot beam search (batch row 0): the
+    candidate pool its selection ranks ([K, K] totals and token ids, a
+    frozen beam offering one <pad>), and the survivors' parents and
+    tokens."""
+    from tell_tpu_torch.models import beam
+    select, steps = beam.beam_select, []
+
+    def traced(scores, finished, lengths, cand_lp, cand_ids, fin_lp,
+               pad_id, eos_id, frozen=None):
+        out = select(scores, finished, lengths, cand_lp, cand_ids, fin_lp,
+                     pad_id, eos_id, frozen)
+        K = scores.shape[1]
+        fr = (finished if frozen is None else frozen)[0, :, None]
+        steps.append({
+            "total": (scores[0, :, None] + torch.where(
+                fr, fin_lp, cand_lp[:K])).cpu().numpy(),
+            "ids": torch.where(fr, pad_id, cand_ids[:K]).cpu().numpy(),
+            "parent": out[1][0].cpu().numpy(),
+            "tok": out[2][0].cpu().numpy()})
+        return out
+
+    beam.beam_select = traced
+    try:
+        yield steps
+    finally:
+        beam.beam_select = select
+
+
+def _beam_split(steps, paths) -> dict | None:
+    """Where the engine's final beams (paths [K, L+1], <s> first) leave the
+    one-shot search traced in `steps`: the first step whose survivors lack
+    an engine beam's prefix, the largest gap there between the one-shot's
+    K-th candidate total and such a prefix's own total in its pool (inf
+    when the prefix was not a candidate), the K-th to (K+1)-th margin
+    there, and the smallest margin up to there with its step. None when
+    every engine prefix survives every step."""
+    K = paths.shape[0]
+    prefixes = [()] * K
+    margins = []
+    for t, st in enumerate(steps):
+        pool: dict = {}
+        for j in range(K):
+            for c in range(K):
+                key = prefixes[j] + (int(st["ids"][j, c]),)
+                pool[key] = max(pool.get(key, -math.inf),
+                                float(st["total"][j, c]))
+        ranked = np.sort(st["total"].reshape(-1))[::-1]
+        kth = float(ranked[K - 1])
+        margin = kth - float(ranked[K])
+        margins.append(margin if math.isfinite(margin) else math.inf)
+        prefixes = [prefixes[int(p)] + (int(tok),)
+                    for p, tok in zip(st["parent"], st["tok"])]
+        missing = {tuple(int(x) for x in path[1:t + 2])
+                   for path in paths} - set(prefixes)
+        if missing:
+            low = int(np.argmin(margins))
+            return {"step": t, "margin": margins[-1],
+                    "gap": max(kth - pool.get(m, -math.inf)
+                               for m in missing),
+                    "min_margin": margins[low], "min_margin_step": low}
+    return None
 
 
 ENGINE_ARTICLES = (40, 512, 64, 300, 90, 128, 200, 100,
                    50, 480, 110, 256, 70, 120, 160, 80)
+ENGINE_ROUTED = {128: 10, 256: 3, 512: 3}
+LONG_ENGINE_ARTICLES = (300, 2048, 900, 1500, 450, 1100, 2000, 700)
+LONG_ENGINE_ROUTED = {512: 2, 1024: 2, 2048: 4}
+# phase 10's engine: fp cache, exact top-k, every answer equal
+LONG_ENGINE = dict(label="phase 10", articles=LONG_ENGINE_ARTICLES,
+                   routed_want=LONG_ENGINE_ROUTED, kv_cache="fp",
+                   fused_topk=False, int4=False, tie_tol=None)
 
 
-def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda"):
-    """The engine service over HTTP (see the module docstring, phase 8).
-    Returns the service, the requests and the kernels' launch counts."""
+def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda",
+                 label: str = "phase 8", articles=ENGINE_ARTICLES,
+                 routed_want=ENGINE_ROUTED, kv_cache: str = "int8",
+                 fused_topk: bool = True, int4: bool = True,
+                 tie_tol: float | None = TIE_TOL):
+    """The engine service over HTTP (see the module docstring, phases 8
+    and 10): built without article_len, engine_buckets on, the requests in
+    staggered bursts of four, each answer held to a one-shot beam_search
+    with the same numerics on the features the engine was given: equal,
+    or (tie_tol not None) a near tie within tie_tol where the two beam
+    searches split (_beam_split). Kernel A launches exactly where the
+    cache is fp, kernel D where it is quantised, kernel E where
+    fused_topk is on; kernel B always. With int4, one int4 beam_search
+    at B=8 after. Returns the service, the requests and the kernels' launch counts."""
     from tell_tpu_torch.bridge import init_captioner, init_roberta
+    from tell_tpu_torch.config import with_article_len
     from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
     from tell_tpu_torch.models.beam import beam_search
     from tell_tpu_torch.ops.kernels.decode_attention import (
@@ -895,22 +1177,23 @@ def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda"):
         encoder_attention)
     from tell_tpu_torch.ops.kernels.topk_logits import topk_logits
     from tell_tpu_torch.serving import CaptionService, serve
-    from tell_tpu_torch.serving.server import _cfg_at
 
     t0 = time.perf_counter()
     g = torch.Generator(device=dev).manual_seed(seed + 3)
     svc = CaptionService(init_captioner(g, cfg),
                          RobertaEncoder(init_roberta(g, rcfg), rcfg), cfg,
-                         dev, article_len=512, engine_slots=8, engine_beam=5,
+                         dev, engine_slots=8, engine_beam=5,
                          engine_buckets=True, encode_batch=8,
-                         kv_cache="int8", fused_topk=True)
+                         kv_cache=kv_cache, fused_topk=fused_topk)
     warm = svc.warmup()
-    log(f"phase 8: engine service up in {time.perf_counter() - t0:.1f} s "
-        f"(warm-up {warm['seconds']:.1f} s over widths {warm['widths']})")
+    log(f"{label}: engine service up in {time.perf_counter() - t0:.1f} s "
+        f"(warm-up {warm['seconds']:.1f} s over widths {warm['widths']}; "
+        f"{kv_cache} cache, {'fused' if fused_topk else 'exact'} top-k)")
     rng = np.random.default_rng(seed + 3)
     reqs = [_request(rng, cfg, n, int(rng.integers(0, 5)),
                      int(rng.integers(0, 65)), rcfg.vocab_size)
-            for n in ENGINE_ARTICLES]
+            for n in articles]
+    seen = _record_engine_inputs(svc)
     httpd = serve(svc, port=0, block=False)
     port = httpd.server_address[1]
     answers, latencies = [None] * len(reqs), [None] * len(reqs)
@@ -927,8 +1210,8 @@ def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda"):
     before = {w: e.stats["requests"] for w, e in svc.engines.items()}
     t_serve = time.perf_counter()
     threads = []
-    for burst in range(4):          # four bursts of four, staggered
-        for i in range(4 * burst, 4 * burst + 4):
+    for first in range(0, len(reqs), 4):     # bursts of four, staggered
+        for i in range(first, min(first + 4, len(reqs))):
             threads.append(threading.Thread(target=post, args=(i,)))
             threads[-1].start()
         time.sleep(0.25)
@@ -939,56 +1222,91 @@ def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda"):
     require(not any(t.is_alive() for t in threads), "requests did not finish")
     status = json.loads(_get(port, "/status"))
     lat = np.asarray(latencies)
-    log(f"phase 8: {len(reqs)} /caption answers in {serve_s:.3f} s: "
+    log(f"{label}: {len(reqs)} /caption answers in {serve_s:.3f} s: "
         f"{len(reqs) / serve_s:.3f} captions/s, latency p50 "
         f"{np.median(lat):.3f} s, max {lat.max():.3f} s; launches "
         f"{launches}")
-    log(f"phase 8: /status {json.dumps(status)}")
+    log(f"{label}: /status {json.dumps(status)}")
     on_card = dev == "cuda"
     if on_card:
-        require(launches["decode_attention"] == 0,
-                "kernel A launched on the int8 engine path")
-        for name in ("encoder_attention", "decode_attention_q8",
-                     "topk_logits"):
-            require(launches[name] > 0, f"{name} never launched on the "
+        expect = {"decode_attention": kv_cache == "fp",
+                  "encoder_attention": True,
+                  "decode_attention_q8": kv_cache != "fp",
+                  "topk_logits": fused_topk}
+        for name, want in expect.items():
+            require((launches[name] > 0) == want,
+                    f"{name} launched {launches[name]} times on the "
+                    f"{kv_cache}/{'fused' if fused_topk else 'exact'} "
                     "engine path")
     routed = {w: e.stats["requests"] - before[w]
               for w, e in svc.engines.items()}
-    require(routed == {128: 10, 256: 3, 512: 3}, routed)
+    require(routed == routed_want, routed)
 
-    exact, gaps = 0, []
+    exact, differing, score_diff, feat_err = 0, [], 0.0, 0.0
     params = svc.model.tree()
     for i, (req, (code, body)) in enumerate(zip(reqs, answers)):
         require(code == 200 and "error" not in body, (i, code, body))
         batch, errors = svc._pack([req], bucketed=True)
         require(errors == [None], errors)
-        cfg_w = _cfg_at(cfg, batch["context_ids"].shape[1])
+        cfg_w = with_article_len(cfg, batch["context_ids"].shape[1])
+        beams = [body] + body["alternatives"]
+        require(len(beams) == 5, f"request {i}: {len(beams)} beams")
+        enc = seen["features"][batch["context_ids"][0].tobytes()]
         with torch.inference_mode():
-            enc = svc._encode_many(batch)
-            ref = beam_search(params, cfg_w, enc, beam_size=5,
-                              kv_cache="int8", fused_topk=True)
-            ref_ids = ref["token_ids"][0, 0].cpu().numpy()
-            ids = np.asarray(body["token_ids"])
-            require(ids.shape == ref_ids.shape and len(body["alternatives"])
-                    == 4, (ids.shape, len(body["alternatives"])))
-            if np.array_equal(ids, ref_ids):
-                exact += 1
-                continue
-            t, gap = _divergence_gap(params, cfg_w, enc, ids, ref_ids,
-                                     "int8")
-        score_gap = abs(body["score"] - ref["scores"][0, 0].item())
-        gaps.append((i, t, gap, score_gap))
-        log(f"phase 8: request {i}: engine and one-shot differ first at "
-            f"token {t}: log-prob gap {gap:.3e}, final score gap "
-            f"{score_gap:.3e}")
-        require(gap < NEAR_TIE, f"request {i}: engine vs one-shot differ "
-                f"at token {t} by a log-prob gap {gap:.3e} >= {NEAR_TIE}")
-    log(f"phase 8: engine vs one-shot beam_search: {exact}/{len(reqs)} "
-        f"best beams equal, {len(gaps)} near ties")
+            err, ok = _feature_err(enc, svc._encode_many(batch))
+            feat_err = max(feat_err, err)
+            require(ok, f"request {i}: the engine's features are {err:.3e} "
+                    "off the request encoded alone")
+            with _beam_trace() as steps:
+                ref = beam_search(params, cfg_w, enc, beam_size=5,
+                                  kv_cache=kv_cache, fused_topk=fused_topk)
+        ref_ids = ref["token_ids"][0].cpu().numpy()
+        paths = np.stack([b["token_ids"] for b in beams])
+        require(paths.shape == ref_ids.shape, (paths.shape, ref_ids.shape))
+        if np.array_equal(paths[0], ref_ids[0]):
+            exact += 1
+            same = (paths == ref_ids).all(axis=1)
+            diff = np.abs(np.asarray([b["score"] for b in beams])
+                          - ref["scores"][0].cpu().numpy())[same]
+            score_diff = max(score_diff, float(diff.max()))
+            continue
+        t = int(np.flatnonzero(paths[0] != ref_ids[0])[0])
+        split = _beam_split(steps, paths)
+        if split is None:       # the same beams, ranked otherwise
+            j = np.flatnonzero((ref_ids == paths[0]).all(axis=1))
+            gap = (ref["scores"][0, 0] - ref["scores"][0, j[0]]).item() \
+                if len(j) else math.inf
+            where = (f"the same 5 beams, the engine's best {gap:.3e} below "
+                     "the one-shot's best")
+        else:
+            gap = split["gap"]
+            where = (f"the beam sets split at step {split['step']}: an "
+                     f"engine prefix {gap:.3e} below the one-shot's 5th "
+                     f"candidate, whose margin to the 6th is "
+                     f"{split['margin']:.3e} (smallest margin up to there "
+                     f"{split['min_margin']:.3e}, step "
+                     f"{split['min_margin_step']})")
+        differing.append((i, gap))
+        log(f"{label}: request {i}: engine and one-shot best beams differ "
+            f"first at token {t} (final scores {body['score']:.4f} and "
+            f"{ref['scores'][0, 0].item():.4f}); {where}")
+    log(f"{label}: engine vs one-shot beam_search on the engine's "
+        f"features: {exact}/{len(reqs)} best beams equal (largest score "
+        f"difference of an equal beam {score_diff:.3e}), differing "
+        f"{[i for i, _ in differing]}; the features vs the request encoded "
+        f"alone: max abs err {feat_err:.3e}; rows per encode "
+        f"{seen['encodes']}, per admission {seen['admissions']}")
+    for i, gap in differing:
+        require(tie_tol is not None and gap <= tie_tol,
+                f"request {i}: the engine's answer differs from the "
+                f"one-shot beam search with a gap of {gap:.3e} where they "
+                f"split (near tie allowed: {tie_tol})")
 
     status_code, _ = _post(port, "/shutdown", {})
     require(status_code == 200, f"/shutdown answered {status_code}")
     httpd.server_close()
+    if not int4:
+        return svc, reqs, launches
 
     # int4: one beam_search at B=8 on the packed cache
     batch, _ = svc._pack(reqs[:8])
@@ -1000,13 +1318,13 @@ def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda"):
                                     fused_topk=True)
         ok = bool(torch.isfinite(out["scores"]).all())
         beam_s = time.perf_counter() - t
-    int4 = decode_attention_q8.int4_launches - n4
-    log(f"phase 8: int4 beam_search beam=5 B=8 in {beam_s:.3f} s "
+    n_int4 = decode_attention_q8.int4_launches - n4
+    log(f"{label}: int4 beam_search beam=5 B=8 in {beam_s:.3f} s "
         f"({8 / beam_s:.3f} captions/s, encode included); kernel D int4 "
-        f"launches {int4} of {decode_attention_q8.launches - n0}")
+        f"launches {n_int4} of {decode_attention_q8.launches - n0}")
     require(ok, "non-finite int4 beam scores")
     if on_card:
-        require(int4 > 0 and int4 == decode_attention_q8.launches - n0,
+        require(n_int4 > 0 and n_int4 == decode_attention_q8.launches - n0,
                 "the int4 beam search did not run kernel D on a packed "
                 "cache")
     return svc, reqs, launches
@@ -1041,9 +1359,75 @@ def phase_numerics(svc, reqs) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the measurement tools
+# ---------------------------------------------------------------------------
+
+def phase_tools(seed: int, dev: str = "cuda", small: bool = False) -> dict:
+    """kernel_variants (every variant), longctx_variants (single1,
+    dispatch, jnp at S=2048) and profile_decode at their defaults (small:
+    CPU-sized shapes for a rehearsal). Every variant must be within its
+    error limit and, on the card, kernels A, D and F's two forms must have
+    launched. Returns the tools' results and the launch counts."""
+    from tell_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, decode_attention_q4split, decode_attention_q8,
+        decode_attention_single)
+    from tell_tpu_torch.tools import (kernel_variants, longctx_variants,
+                                      profile_decode)
+    kv_shape = dict(B=4, S=70) if small else {}
+    long_shape = dict(B=2, S=130) if small else dict(S=LONG_ARTICLE)
+    counters = (decode_attention, decode_attention_q8,
+                decode_attention_single, decode_attention_q4split)
+    for fn in counters:
+        fn.launches = 0
+    t = time.perf_counter()
+    with torch.inference_mode():
+        variants = [kernel_variants.run(v, device=dev, seed=seed, **kv_shape)
+                    for v in kernel_variants.VARIANTS]
+        long = [longctx_variants.run(v, device=dev, seed=seed, **long_shape)
+                for v in ("single1", "dispatch", "jnp")]
+    prof = profile_decode.run(device=dev, seed=seed, small=small,
+                              **(dict(B=2, K=2, S=12) if small else {}))
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"phase 11: the three tools in {time.perf_counter() - t:.1f} s; "
+        f"launches {launches}")
+    for r in variants + long:
+        require(r["ok"], f"phase 11: {r['variant']} outside its limit: {r}")
+    require(long[0]["fits"], "phase 11: kernel F refused single1 at "
+            f"S={long[0]['S']}")
+    if dev == "cuda":
+        for name, n in launches.items():
+            require(n > 0, f"{name} never launched by the tools")
+    return {"variants": variants, "long": long, "profile": prof,
+            "launches": launches}
+
+
+def engine_repeats(seed: int, n: int) -> None:
+    """The engine checks of phases 8 and 10 over seeds seed..seed+n-1 (the
+    int4 beam search left out); the first failure raises."""
+    from tell_tpu_torch.config import CaptionerConfig, with_article_len
+    from tell_tpu_torch.models.backbones.roberta import RobertaConfig
+    long_cfg = with_article_len(CaptionerConfig(), LONG_ARTICLE)
+    for s in range(seed, seed + n):
+        t = time.perf_counter()
+        svc, _, _ = phase_engine(s, CaptionerConfig(), RobertaConfig.large(),
+                                 label=f"phase 8 seed {s}", int4=False)
+        del svc
+        torch.cuda.empty_cache()
+        svc, _, _ = phase_engine(s + 10, long_cfg, RobertaConfig.large(),
+                                 **{**LONG_ENGINE,
+                                    "label": f"phase 10 seed {s}"})
+        del svc
+        torch.cuda.empty_cache()
+        log(f"engine repeats: seed {s} in {time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine-repeats", type=int, default=0,
+                    help="after the build, only the engine checks of "
+                    "phases 8 and 10, this many times (no result line)")
     args = ap.parse_args()
 
     # phase 1
@@ -1074,6 +1458,9 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("phase 2: ptxas: " + line.strip())
 
+    if args.engine_repeats:
+        engine_repeats(args.seed, args.engine_repeats)
+        return 0
     # phase 3
     res = phase_kernels(args.seed)
     # phase 4
@@ -1100,11 +1487,35 @@ def main() -> int:
         launches[name] = eng_launches[name]
     # phase 9
     phase_numerics(svc, reqs)
+    del svc
+    torch.cuda.empty_cache()
+    # phase 10: the long-article configuration
+    from tell_tpu_torch.config import with_article_len
+    long_cfg = with_article_len(CaptionerConfig(), LONG_ARTICLE)
+    svc, req0, caption0, long_launches = phase_service(
+        args.seed + 10, long_cfg, RobertaConfig.large(), "cuda", "phase 10",
+        LONG_SERVICE_ARTICLES, LONG_BEAM_ARTICLES)
+    phase_cpu_vs_card(svc, req0, caption0, "phase 10")
+    del svc
+    torch.cuda.empty_cache()
+    svc, _, long_eng = phase_engine(args.seed + 10, long_cfg,
+                                    RobertaConfig.large(), **LONG_ENGINE)
+    log(f"phase 10: launches: micro-batch service {long_launches}, engine "
+        f"{long_eng}")
+    del svc
+    torch.cuda.empty_cache()
+    # phase 11: the measurement tools
+    tools = phase_tools(args.seed)
+    for name in ("decode_attention_single", "decode_attention_q4split"):
+        launches[name] = tools["launches"][name]
 
-    # MG=20/S=512, B=4 S=512, K=31 at T=32, int8 S=637, N=40 V=30265 k=5
+    # MG=20/S=637, B=4 S=512, K=31 at T=32, int8 S=637, N=40 V=30265 k=5,
+    # F bb=2 S=637, F int4-split S=637
     main_case = {"decode_attention": 1, "encoder_attention": 1,
                  "fused_dynamic_conv": 3, "decode_attention_q8": 0,
-                 "topk_logits": 2}
+                 "topk_logits": 2, "decode_attention_single": 1,
+                 "decode_attention_q4split": 0}
+    single = "tell_tpu_torch/csrc/decode_attention_single.cu"
     sources = {
         "decode_attention": ("tell_tpu_torch/csrc/decode_attention.cu",
                              "tell_tpu/ops/kernels/decode_attention.py:216"),
@@ -1117,15 +1528,24 @@ def main() -> int:
             "tell_tpu/ops/kernels/decode_attention.py:399"),
         "topk_logits": ("tell_tpu_torch/csrc/topk_logits.cu",
                         "tell_tpu/ops/kernels/topk_logits.py:126"),
+        # kernel F: bb=2/4 replaces fused_batched, bb=1 the inline fn
+        "decode_attention_single": (single, "tools/kernel_variants.py:51"),
+        "decode_attention_q4split": (single,
+                                     "tools/kernel_variants.py:111"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
         case = res[name][main_case[name]]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(c["err32"] for c in res[name]),
-            "ms": case["ms"], "plain_ms": case["plain_ms"]})
+            "ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"]}
+        if name == "decode_attention_single":
+            entry["also_replaces"] = "tools/longctx_variants.py:52"
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

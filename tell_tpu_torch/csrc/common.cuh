@@ -28,6 +28,16 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// bf16 storage rounds an fp32 value as it would be stored; fp32 keeps it.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
+
+// A two's-complement nibble (0..15) as a signed int in [-8, 7]; packed
+// int4 K/V hold row d in a byte's low nibble and row d + hd/2 in its high.
+__device__ __forceinline__ int nibble(int n) { return n - ((n & 8) << 1); }
+
 // Opt a kernel into more than 48 KB of dynamic shared memory when a launch
 // needs it (Hopper allows up to 227 KB per block).
 template <typename Kernel>

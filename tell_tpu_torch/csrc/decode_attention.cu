@@ -59,9 +59,6 @@ static_assert(kTile == 64, "the softmax step gives each lane 2 columns");
 // How K/V are stored: the query's dtype (kernel A), int8, or packed int4.
 enum KvMode { kKvFp = 0, kKvInt8 = 1, kKvInt4 = 2 };
 
-// A two's-complement nibble (0..15) as a signed int in [-8, 7].
-__device__ __forceinline__ int nibble(int n) { return n - ((n & 8) << 1); }
-
 template <typename T, int kKv>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const T* __restrict__ q, const void* __restrict__ k,
@@ -117,10 +114,10 @@ decode_attention_kernel(const T* __restrict__ q, const void* __restrict__ k,
           kx = kb[(size_t)d * S + s] & 0xff;
           vx = vb[(size_t)d * S + s] & 0xff;
         }
-        ks[d * kTileP + j] = (float)nibble(kx & 15);
-        ks[(d + hd_store) * kTileP + j] = (float)nibble(kx >> 4);
-        vs[d * kTileP + j] = (float)nibble(vx & 15);
-        vs[(d + hd_store) * kTileP + j] = (float)nibble(vx >> 4);
+        ks[d * kTileP + j] = (float)tt::nibble(kx & 15);
+        ks[(d + hd_store) * kTileP + j] = (float)tt::nibble(kx >> 4);
+        vs[d * kTileP + j] = (float)tt::nibble(vx & 15);
+        vs[(d + hd_store) * kTileP + j] = (float)tt::nibble(vx >> 4);
       }
     } else {
       for (int i = tid; i < hd * kTile; i += kThreads) {

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels of tell_tpu_torch/csrc/.
 
-nvcc compiles every csrc/*.cu for sm_90a into one shared library with a
+nvcc compiles every csrc/*.cu for sm_90a, one process per source, all
+started together, and links the objects into one shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers, so the build
 takes seconds). The library lands in tell_tpu_torch/build/ (listed in
 .gitignore) under a name keyed on a hash of the sources and flags, so an
@@ -21,8 +22,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas=-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -31,6 +33,11 @@ _SIGNATURES = {
     # q, k8, k_scale, v8, v_scale, bias, out, B, H, MG, hd, S, packed4,
     # dtype, stream
     "tt_decode_attention_q8": [_P] * 7 + [_I] * 7 + [_P],
+    # q, k, v, bias, out, B, H, MG, hd, S, bb, dtype, stream
+    "tt_decode_attention_single": [_P] * 5 + [_I] * 7 + [_P],
+    # q, k4, k_scale, v4, v_scale, bias, out, B, H, MG, hd, S, bb, dtype,
+    # stream
+    "tt_decode_attention_q4split": [_P] * 7 + [_I] * 7 + [_P],
     # q, k, v, key_pad, out, B, S, H, hd, scale, dtype, stream
     "tt_encoder_attention": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     # x, w_km, out, B, T, C, H, K, HB, weight_softmax, dtype, stream
@@ -66,23 +73,41 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtell_tpu_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise if any fails, else return their
+    stderr (nvcc's -Xptxas=-v report) in order."""
+    procs = [subprocess.Popen(c, stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    errs = [p.communicate()[1] for p in procs]
+    for cmd, p, err in zip(cmds, procs, errs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{err}")
+    return "".join(errs)
+
+
 def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists.
-    nvcc's -Xptxas=-v report (registers, shared memory, spills per kernel)
-    is kept beside the library as <name>.log."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per source in parallel, then one link. nvcc's -Xptxas=-v report
+    (registers, shared memory, spills per kernel) is kept beside the
+    library as <name>.log."""
     out = library_path()
     if out.exists():
         return out
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stderr)
+    tag = f"{out.stem}.{os.getpid()}"
+    objdir = BUILD_DIR / tag
+    objdir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [objdir / f"{src.stem}.o" for src in srcs]
+    report = _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                   for src, obj in zip(srcs, objs)])
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+    out.with_suffix(".log").write_text(report)
     os.replace(tmp, out)
+    shutil.rmtree(objdir, ignore_errors=True)
     return out
 
 

@@ -1,5 +1,6 @@
 """Kernels A and D: fused multi-context decode cross-attention over an fp
-K/V cache (A) or an int8 / nibble-packed int4 one (D).
+K/V cache (A) or an int8 / nibble-packed int4 one (D); kernel F: the
+single-shot form of the same attention, with its int4-split form.
 
 Kernel A replaces tell_tpu/ops/kernels/decode_attention.py::
 fused_decode_attention (pallas_call at :216) AND its S-tiled
@@ -20,6 +21,16 @@ JAX layout [B, H, hd, S] is kept, and threads run along S, its contiguous
 axis. Kernel D streams one byte per element (int8) or half a byte (int4)
 plus two fp32 scales per column, and dequantises on load. See the source's
 header for what is left for later work.
+
+Kernel F (tell_tpu_torch/csrc/decode_attention_single.cu) replaces the
+single-shot Pallas kernels of the JAX package's measurement tools:
+tools/kernel_variants.py::fused_batched (pallas_call at :51) and
+fused_q4split (:111), and the BB=1 inline fn of
+tools/longctx_variants.py:52. It holds the whole [MG, S] score row in
+shared memory, takes an exact max/sum softmax and rounds the normalised
+probabilities to q's dtype before the PV product; `bb` batch rows share a
+block, the variants' knob. Its plain versions are decode_attention_plain
+and decode_attention_q8_plain, which compute the same functions.
 """
 from __future__ import annotations
 
@@ -66,16 +77,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return decode_attention_plain(q, k, v, bias)
     B, H, MG, hd = q.shape
     S = k.shape[3]
-    if k.shape != (B, H, hd, S) or v.shape != k.shape:
-        raise ValueError(f"decode_attention: k {tuple(k.shape)} / v "
-                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    if bias.shape != (B, MG, S):
-        raise ValueError(f"decode_attention: bias {tuple(bias.shape)} is not "
-                         f"{(B, MG, S)}")
-    check_kernel_args("decode_attention",
-                      {"q": q, "k": k, "v": v, "bias": bias},
-                      {"q": tuple(_DTYPE_CODE), "k": (q.dtype,),
-                       "v": (q.dtype,), "bias": (torch.float32,)})
+    _check_fp_args("decode_attention", q, k, v, bias)
     out = torch.empty_like(q)
     lib = load_library()
     with torch.cuda.device(q.device):
@@ -85,10 +87,28 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     check_launch(lib, "decode_attention", code)
     decode_attention.launches += 1
+    decode_attention.max_columns = max(decode_attention.max_columns, S)
     return out
 
 
 decode_attention.launches = 0
+decode_attention.max_columns = 0   # the widest source S a launch attended
+
+
+def _check_fp_args(name: str, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, bias: torch.Tensor) -> None:
+    """Shapes, dtypes and contiguity of kernels A and F over an fp cache."""
+    B, H, MG, hd = q.shape
+    S = k.shape[3]
+    if k.shape != (B, H, hd, S) or v.shape != k.shape:
+        raise ValueError(f"{name}: k {tuple(k.shape)} / v {tuple(v.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if bias.shape != (B, MG, S):
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} is not "
+                         f"{(B, MG, S)}")
+    check_kernel_args(name, {"q": q, "k": k, "v": v, "bias": bias},
+                      {"q": tuple(_DTYPE_CODE), "k": (q.dtype,),
+                       "v": (q.dtype,), "bias": (torch.float32,)})
 
 
 def unpack_int4(x8: torch.Tensor, dtype: torch.dtype = torch.int8
@@ -134,29 +154,9 @@ def decode_attention_q8(q: torch.Tensor, k8: torch.Tensor,
     if not use_kernel(q, k8, k_scale, v8, v_scale, bias):
         return decode_attention_q8_plain(q, k8, k_scale, v8, v_scale, bias)
     B, H, MG, hd = q.shape
-    hd_store, S = k8.shape[2], k8.shape[3]
-    packed4 = hd_store != hd
-    if packed4 and 2 * hd_store != hd:
-        raise ValueError(f"decode_attention_q8: k8 holds {hd_store} rows, "
-                         f"neither hd={hd} (int8) nor hd/2 (packed int4)")
-    if k8.shape != (B, H, hd_store, S) or v8.shape != k8.shape:
-        raise ValueError(f"decode_attention_q8: k8 {tuple(k8.shape)} / v8 "
-                         f"{tuple(v8.shape)} do not match q "
-                         f"{tuple(q.shape)}")
-    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-        if t.shape != (B, H, 1, S):
-            raise ValueError(f"decode_attention_q8: {name} "
-                             f"{tuple(t.shape)} is not {(B, H, 1, S)}")
-    if bias.shape != (B, MG, S):
-        raise ValueError(f"decode_attention_q8: bias {tuple(bias.shape)} "
-                         f"is not {(B, MG, S)}")
-    f32 = (torch.float32,)
-    check_kernel_args("decode_attention_q8",
-                      {"q": q, "k8": k8, "k_scale": k_scale, "v8": v8,
-                       "v_scale": v_scale, "bias": bias},
-                      {"q": tuple(_DTYPE_CODE), "k8": (torch.int8,),
-                       "v8": (torch.int8,), "k_scale": f32, "v_scale": f32,
-                       "bias": f32})
+    S = k8.shape[3]
+    packed4 = _check_q8_args("decode_attention_q8", q, k8, k_scale, v8,
+                             v_scale, bias)
     out = torch.empty_like(q)
     lib = load_library()
     with torch.cuda.device(q.device):
@@ -173,3 +173,128 @@ def decode_attention_q8(q: torch.Tensor, k8: torch.Tensor,
 
 decode_attention_q8.launches = 0
 decode_attention_q8.int4_launches = 0
+
+
+def _check_q8_args(name: str, q: torch.Tensor, k8: torch.Tensor,
+                   k_scale: torch.Tensor, v8: torch.Tensor,
+                   v_scale: torch.Tensor, bias: torch.Tensor) -> bool:
+    """Shapes, dtypes and contiguity of kernels D and F over a quantised
+    cache; returns True for packed int4 K/V, False for int8."""
+    B, H, MG, hd = q.shape
+    hd_store, S = k8.shape[2], k8.shape[3]
+    packed4 = hd_store != hd
+    if packed4 and 2 * hd_store != hd:
+        raise ValueError(f"{name}: k8 holds {hd_store} rows, neither hd={hd} "
+                         "(int8) nor hd/2 (packed int4)")
+    if k8.shape != (B, H, hd_store, S) or v8.shape != k8.shape:
+        raise ValueError(f"{name}: k8 {tuple(k8.shape)} / v8 "
+                         f"{tuple(v8.shape)} do not match q {tuple(q.shape)}")
+    for arg, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.shape != (B, H, 1, S):
+            raise ValueError(f"{name}: {arg} {tuple(t.shape)} is not "
+                             f"{(B, H, 1, S)}")
+    if bias.shape != (B, MG, S):
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} is not "
+                         f"{(B, MG, S)}")
+    f32 = (torch.float32,)
+    check_kernel_args(name, {"q": q, "k8": k8, "k_scale": k_scale, "v8": v8,
+                             "v_scale": v_scale, "bias": bias},
+                      {"q": tuple(_DTYPE_CODE), "k8": (torch.int8,),
+                       "v8": (torch.int8,), "k_scale": f32, "v_scale": f32,
+                       "bias": f32})
+    return packed4
+
+
+# ---------------------------------------------------------------------------
+# kernel F: single-shot decode attention
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448   # bytes of shared memory one block may use (H100)
+
+
+def single_shot_smem_bytes(MG: int, hd: int, S: int) -> int:
+    """Kernel F's dynamic shared memory: the fp32 [MG, S] score row, q and
+    the accumulator [MG, hd], and one [hd, 65] K/V tile."""
+    return 4 * (MG * S + 2 * MG * hd + hd * 65)
+
+
+def _check_single(name: str, B: int, MG: int, hd: int, S: int,
+                  bb: int) -> None:
+    """Kernel F's own refusals, on every device so that a CPU run follows
+    the card's rule: bb must divide B (the TPU grid is B // BB steps), and
+    the score row must fit a block's shared memory (the TPU's _pick_bb
+    finds no fit past VMEM)."""
+    if bb < 1 or B % bb:
+        raise ValueError(f"{name}: B={B} is not a multiple of bb={bb}")
+    need = single_shot_smem_bytes(MG, hd, S)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"{name}: does not fit: the [MG={MG}, S={S}] score "
+                         f"row needs {need} bytes of shared memory, over the "
+                         f"{SMEM_LIMIT} a block may use")
+
+
+def decode_attention_single(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, bias: torch.Tensor,
+                            bb: int = 1) -> torch.Tensor:
+    """Single-shot decode attention, kernel A's function (q [B, H, MG, hd];
+    k, v [B, H, hd, S]; bias [B, MG, S] fp32) with bb batch rows per block.
+    Raises ValueError where bb does not divide B or the score row does not
+    fit (single_shot_smem_bytes > SMEM_LIMIT). CUDA tensors launch kernel
+    F (counted in decode_attention_single.launches); CPU tensors take
+    decode_attention_plain, which computes the same function."""
+    B, H, MG, hd = q.shape
+    S = k.shape[3]
+    _check_single("decode_attention_single", B, MG, hd, S, bb)
+    if not use_kernel(q, k, v, bias):
+        return decode_attention_plain(q, k, v, bias)
+    _check_fp_args("decode_attention_single", q, k, v, bias)
+    out = torch.empty_like(q)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        code = lib.tt_decode_attention_single(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), B, H, MG, hd, S, bb, _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    check_launch(lib, "decode_attention_single", code)
+    decode_attention_single.launches += 1
+    return out
+
+
+decode_attention_single.launches = 0
+
+
+def decode_attention_q4split(q: torch.Tensor, k4: torch.Tensor,
+                             k_scale: torch.Tensor, v4: torch.Tensor,
+                             v_scale: torch.Tensor, bias: torch.Tensor,
+                             bb: int = 1) -> torch.Tensor:
+    """Single-shot decode attention over a nibble-packed int4 cache (k4, v4
+    int8 [B, H, hd/2, S]; k_scale, v_scale fp32 [B, H, 1, S]), each nibble
+    half contracted against its half of q, with bb batch rows per block;
+    the refusals of decode_attention_single. CUDA tensors launch kernel F's
+    int4-split form (counted in decode_attention_q4split.launches); CPU
+    tensors take decode_attention_q8_plain, which computes the same
+    function."""
+    B, H, MG, hd = q.shape
+    S = k4.shape[3]
+    if 2 * k4.shape[2] != hd:
+        raise ValueError(f"decode_attention_q4split: k4 holds {k4.shape[2]} "
+                         f"rows, not hd/2 = {hd / 2} (packed int4)")
+    _check_single("decode_attention_q4split", B, MG, hd, S, bb)
+    if not use_kernel(q, k4, k_scale, v4, v_scale, bias):
+        return decode_attention_q8_plain(q, k4, k_scale, v4, v_scale, bias)
+    _check_q8_args("decode_attention_q4split", q, k4, k_scale, v4, v_scale,
+                   bias)
+    out = torch.empty_like(q)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        code = lib.tt_decode_attention_q4split(
+            q.data_ptr(), k4.data_ptr(), k_scale.data_ptr(), v4.data_ptr(),
+            v_scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, MG,
+            hd, S, bb, _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    check_launch(lib, "decode_attention_q4split", code)
+    decode_attention_q4split.launches += 1
+    return out
+
+
+decode_attention_q4split.launches = 0

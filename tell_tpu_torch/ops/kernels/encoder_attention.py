@@ -46,7 +46,9 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       key_pad: torch.Tensor) -> torch.Tensor:
     """q, k, v: [B, S, H, hd]; key_pad: [B, S] bool, True = pad.
     Returns [B, S, H, hd]. CUDA tensors launch kernel B (counted in
-    encoder_attention.launches); CPU tensors take encoder_attention_plain."""
+    encoder_attention.launches; .sequences adds the B sequences, e.g.
+    article windows, of each launch); CPU tensors take
+    encoder_attention_plain."""
     if not use_kernel(q, k, v, key_pad):
         return encoder_attention_plain(q, k, v, key_pad)
     B, S, H, hd = q.shape
@@ -72,7 +74,9 @@ def encoder_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     check_launch(lib, "encoder_attention", code)
     encoder_attention.launches += 1
+    encoder_attention.sequences += B
     return out
 
 
 encoder_attention.launches = 0
+encoder_attention.sequences = 0

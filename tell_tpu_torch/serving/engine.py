@@ -308,10 +308,11 @@ class DecodeEngine:
             batchN = {k: torch.cat([torch.as_tensor(r[k]).to(self.device)
                                     for r in reqs])
                       for k in reqs[0]}
-            self._admit(batchN, torch.tensor(bs, device=self.device))
+            # pending first: if the admission raises, poison() fails these
             for b, _, fut in grabbed:
                 self._gen[b] += 1
                 self.pending[b] = fut
+            self._admit(batchN, torch.tensor(bs, device=self.device))
 
     def _harvest_report(self, report_i, report_f, gen) -> None:
         """Resolve futures from one report that reached the host. `gen`:

@@ -13,7 +13,8 @@ POST /shutdown stops the server. Two decode modes:
   requests' article encodes (the 25 hidden layers mixed in before
   admission), and a resident continuous-batching DecodeEngine runs beam
   search; with engine_buckets, one engine per article width (128/256/512
-  for a 512-token article), each request routed to the smallest that fits.
+  for a 512-token article, 512/1024/2048 for the long-article
+  configuration's 2048), each request routed to the smallest that fits.
   The answer is the best beam, its score and the other beams.
 
 kv_cache ("fp", "int8", "int4") and fused_topk are the decode numerics
@@ -24,7 +25,6 @@ agreement with the fp path. Attention payloads, the vision pipeline,
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import logging
 import queue as _queue
@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..bridge import to_torch
-from ..config import CaptionerConfig
+from ..config import CaptionerConfig, with_article_len
 from ..models.backbones.roberta import RobertaEncoder
 from ..models.captioner import (Captioner, encode_contexts,
                                 weighted_layer_sum)
@@ -45,15 +45,6 @@ from .encode_batcher import EncodeBatcher
 from .engine import DecodeEngine
 
 log = logging.getLogger("tell_tpu_torch.serving")
-
-
-def _cfg_at(cfg: CaptionerConfig, width: int) -> CaptionerConfig:
-    """cfg with the article context capped at `width` tokens."""
-    dcfg = cfg.decoder
-    contexts = tuple(dataclasses.replace(c, max_len=width)
-                     if c.name == "article" else c for c in dcfg.contexts)
-    return dataclasses.replace(
-        cfg, decoder=dataclasses.replace(dcfg, contexts=contexts))
 
 
 class CaptionService:
@@ -65,6 +56,11 @@ class CaptionService:
     decode(ids), used only for requests that carry text and to add a
     "caption" string to the answers.
 
+    article_len: the article tokens a request keeps; None takes the
+    article context's max_len (512 without an article context), as
+    tell_tpu's service does. The engine buckets are a quarter, a half and
+    all of it.
+
     engine_slots > 0 serves through the continuous-batching engine
     (engine_beam beams, engine_length_penalty; engine_buckets: one engine
     per article width); encode_batch caps the rows of one batched article
@@ -72,7 +68,7 @@ class CaptionService:
 
     def __init__(self, params: dict, roberta: RobertaEncoder,
                  cfg: CaptionerConfig, device, tokenizer=None,
-                 max_batch: int = 8, article_len: int = 512,
+                 max_batch: int = 8, article_len: int | None = None,
                  engine_slots: int = 0, engine_beam: int = 5,
                  engine_length_penalty: float = 0.0,
                  engine_buckets: bool = False, encode_batch: int = 8,
@@ -84,13 +80,16 @@ class CaptionService:
         self.roberta = roberta.to(self.device)
         self.tokenizer = tokenizer
         self.max_batch = max_batch
+        dcfg = cfg.decoder
+        if article_len is None:
+            article_len = next((c.max_len for c in dcfg.contexts
+                                if c.name == "article"), 512)
         self.article_len = article_len
         self.kv_cache, self.fused_topk = kv_cache, fused_topk
         self._article_buckets = tuple(sorted(
             {max(16, article_len // 4), max(16, article_len // 2),
              article_len}))  # 512 -> (128, 256, 512)
         self.ab_report: dict | None = None
-        dcfg = cfg.decoder
 
         def spec_of(name):
             if any(c.name == name for c in dcfg.contexts):
@@ -114,8 +113,8 @@ class CaptionService:
         widths = self._article_buckets if buckets else (self.article_len,)
         params = self.model.tree()
         self.engines = {
-            w: DecodeEngine(params, _cfg_at(self.cfg, w), self.device,
-                            slots=slots, beam=beam,
+            w: DecodeEngine(params, with_article_len(self.cfg, w),
+                            self.device, slots=slots, beam=beam,
                             length_penalty=length_penalty,
                             kv_cache=self.kv_cache,
                             fused_topk=self.fused_topk)

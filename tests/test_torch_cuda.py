@@ -5,16 +5,19 @@ ragged last tile, 8 and 16 heads, no softmax for kernel C; S=1 segments, a
 ragged last tile, an all-padded article, int4 against int8 and bf16 for
 kernel D; V below and across one chunk, k=1 and 8, equal logits and N=1
 for kernel E), kernels A and D repeating bit for bit over 200 launches,
-kernel C's gradient through its autograd Function, and the
-inputs the wrappers must refuse. Marked `cuda`: each test skips without a
-GPU.
+kernel C's gradient through its autograd Function, kernel F (single-shot
+decode attention) at bb 1/2/4, MG 4 and 20, S 637, 2173 and a ragged S,
+a row masked but for one column, its int4-split form and a 200-launch
+repeat probe, and the inputs the wrappers must refuse (F: S=4096 past a
+block's shared memory, B not a multiple of bb). Marked `cuda`: each test
+skips without a GPU.
 
 This file imports no JAX, so it also runs where JAX is absent (the card's
 machine; tests/conftest.py imports JAX, hence --noconftest):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: A and B fp32 atol 1e-5, rtol 1e-4 (online vs two-pass
+Tolerances: A, B and F fp32 atol 1e-5, rtol 1e-4 (online vs two-pass
 softmax, other summation order); C fp32 atol = rtol = 2e-5 (the JAX kernel
 test's), C gradients 1e-4; D as A; E 1e-5 on values and lse (the same
 fp32 products summed in another order), ids equal; bf16 inputs: 2e-2
@@ -26,8 +29,9 @@ import pytest
 import torch
 
 from tell_tpu_torch.ops.kernels.decode_attention import (
-    decode_attention, decode_attention_plain, decode_attention_q8,
-    decode_attention_q8_plain, segment_bias)
+    decode_attention, decode_attention_plain, decode_attention_q4split,
+    decode_attention_q8, decode_attention_q8_plain, decode_attention_single,
+    segment_bias)
 from tell_tpu_torch.ops.kernels.dynamic_conv import (
     dynamic_conv_plain, fused_dynamic_conv)
 from tell_tpu_torch.ops.kernels.encoder_attention import (
@@ -360,3 +364,92 @@ def test_topk_logits_refuses_what_the_kernel_does_not_take(gen):
         topk_logits(x, table.T.contiguous().T, 5)
     with pytest.raises(ValueError, match="not"):
         topk_logits(x, table[:, :16].contiguous(), 5)
+
+
+def _check_close(out, ref, dtype):
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
+    else:
+        assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,M,G,S,bb", [
+    (8, 4, 1, 637, 1),          # greedy rows, the flagship's source
+    (8, 4, 5, 637, 2),          # beam 5: MG=20
+    (8, 4, 5, 2173, 4),         # the long article's source, 201 KB of smem
+    (4, 4, 1, 2173, 1),
+    (2, 3, 1, 100, 2),          # ragged S, other MG
+    (1, 1, 1, 1, 1),            # one column
+])
+def test_decode_attention_single_matches_plain(gen, B, M, G, S, bb, dtype):
+    q, k, v, bias = _decode_inputs(gen, B, 16, M, G, S, 64, dtype)
+    launches = decode_attention_single.launches
+    out = decode_attention_single(q, k, v, bias, bb=bb)
+    torch.cuda.synchronize()
+    assert decode_attention_single.launches == launches + 1
+    _check_close(out, decode_attention_plain(q.float(), k.float(), v.float(),
+                                             bias), dtype)
+
+
+def test_decode_attention_single_one_open_column(gen):
+    """Every row masked but for one column: the output is that column of
+    V exactly (p = 1 there, 0 elsewhere)."""
+    B, H, MG, hd, S = 2, 4, 20, 64, 300
+    q, k, v, _ = _decode_inputs(gen, B, H, 4, 5, S, hd, torch.float32)
+    col = torch.randint(0, S, (B, MG), generator=gen, device="cuda")
+    bias = torch.full((B, MG, S), float("-inf"), device="cuda")
+    bias.scatter_(2, col[..., None], 0.0)
+    out = decode_attention_single(q, k, v, bias, bb=2)
+    want = v.permute(0, 1, 3, 2)[torch.arange(B, device="cuda")[:, None, None],
+                                 torch.arange(H, device="cuda")[None, :, None],
+                                 col[:, None, :]]
+    torch.testing.assert_close(out, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,M,G,S,bb", [
+    (8, 4, 5, 637, 2), (4, 4, 5, 2173, 1), (2, 3, 1, 65, 2)])
+def test_decode_attention_q4split_matches_plain(gen, B, M, G, S, bb, dtype):
+    args = _q8_inputs(gen, B, 16, M, G, S, 64, dtype, packed4=True)
+    launches = decode_attention_q4split.launches
+    out = decode_attention_q4split(*args, bb=bb)
+    torch.cuda.synchronize()
+    assert decode_attention_q4split.launches == launches + 1
+    _check_close(out, decode_attention_q8_plain(args[0].float(), *args[1:]),
+                 dtype)
+
+
+def test_decode_attention_single_repeats_bit_for_bit(gen):
+    """Kernel F at B=8, H=16, MG=20, S=637, bb=2: 200 launches on one input,
+    each after a launch on another, all equal the first output."""
+    a, b = (_decode_inputs(gen, 8, 16, 4, 5, 637, 64, torch.float32)
+            for _ in range(2))
+    first = decode_attention_single(*a, bb=2)
+    torch.testing.assert_close(first, decode_attention_plain(*a), atol=1e-5,
+                               rtol=1e-4)
+    changed = torch.zeros((), dtype=torch.long, device="cuda")
+    for _ in range(200):
+        decode_attention_single(*b, bb=2)
+        changed += (decode_attention_single(*a, bb=2) != first).sum()
+    assert changed.item() == 0
+
+
+def test_decode_attention_single_refuses_what_the_kernel_does_not_take(gen):
+    q, k, v, bias = _decode_inputs(gen, 2, 2, 4, 5, 4096, 64, torch.float32)
+    launches = decode_attention_single.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        decode_attention_single(q, k, v, bias)
+    q, k, v, bias = _decode_inputs(gen, 6, 2, 4, 5, 100, 64, torch.float32)
+    with pytest.raises(ValueError, match="multiple of bb=4"):
+        decode_attention_single(q, k, v, bias, bb=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention_single(
+            q, k.transpose(2, 3).contiguous().transpose(2, 3), v, bias)
+    with pytest.raises(TypeError, match="dtype"):
+        decode_attention_single(q, k.to(torch.bfloat16), v, bias)
+    args = _q8_inputs(gen, 2, 2, 4, 5, 100, 64, torch.float32)   # int8
+    with pytest.raises(ValueError, match="packed int4"):
+        decode_attention_q4split(*args)
+    assert decode_attention_single.launches == launches

@@ -242,6 +242,22 @@ def test_engine_poison_fails_futures_fast():
         eng.submit(req).result(timeout=1)
 
 
+def test_engine_failed_admission_fails_its_futures():
+    """A tick that raises inside an admission (here a malformed feature
+    batch) leaves the grabbed request pending, so poison() fails it at once
+    instead of leaving its caller waiting."""
+    cfg, params = _setup(gen_len=4)
+    eng = DecodeEngine(params, cfg, "cpu", slots=2, beam=2, chunk_steps=2)
+    bad = _request(cfg, 1)
+    bad["image_grid"] = bad["image_grid"][..., :-1]
+    fut = eng.submit(bad)
+    with pytest.raises(RuntimeError):
+        eng.tick()
+    eng.poison(RuntimeError("tick loop died"))
+    with pytest.raises(RuntimeError, match="tick loop died"):
+        fut.result(timeout=1)
+
+
 def test_engine_refuses_too_long_captions():
     cfg, params = _setup(gen_len=small_test_config().decoder
                          .max_target_positions + 1)

@@ -1,11 +1,12 @@
 """tell_tpu_torch never imports JAX.
 
 A fresh interpreter with jax blocked (sys.modules["jax"] = None makes any
-`import jax` raise) imports every tell_tpu_torch module, checks that the
-only tell_tpu module loaded is the dataclass-only tell_tpu.config, then runs
-the slices on CPU tensors at a tiny size (greedy generate, a train step, and
-the continuous-batching engine with the int8 K/V cache and the fused top-k)
-and checks that the plain paths ran: the kernels' launch counters stay 0.
+`import jax` raise) imports every tell_tpu_torch module, checks that no
+tell_tpu module was loaded (the port keeps its own config dataclasses),
+then runs the slices on CPU tensors at a tiny size (greedy generate, a
+train step, the continuous-batching engine with the int8 K/V cache and the
+fused top-k, and kernel F's two forms) and checks that the plain paths
+ran: the kernels' launch counters stay 0.
 """
 import json
 import os
@@ -32,8 +33,10 @@ from tell_tpu_torch.config import small_test_config
 from tell_tpu_torch.models.backbones.roberta import (RobertaConfig,
                                                      RobertaEncoder)
 from tell_tpu_torch.models.captioner import Captioner, encode_contexts
-from tell_tpu_torch.ops.kernels.decode_attention import (decode_attention,
-                                                        decode_attention_q8)
+from tell_tpu_torch.models.decoder import quantize_kv4
+from tell_tpu_torch.ops.kernels.decode_attention import (
+    decode_attention, decode_attention_q4split, decode_attention_q8,
+    decode_attention_single)
 from tell_tpu_torch.ops.kernels.dynamic_conv import fused_dynamic_conv
 from tell_tpu_torch.ops.kernels.encoder_attention import encoder_attention
 from tell_tpu_torch.ops.kernels.topk_logits import topk_logits
@@ -70,17 +73,26 @@ with torch.inference_mode():
 fut = eng.submit({k: v for k, v in enc1.items() if k != "context_ids"})
 eng.run_until_drained()
 beams = fut.result(timeout=0)["token_ids"]
+q = torch.randn(2, 2, 4, 8, generator=g)
+kv = torch.randn(2, 2, 8, 70, generator=g)
+bias = torch.zeros(2, 4, 70)
+single = decode_attention_single(q, kv, kv, bias, bb=2)
+q4split = decode_attention_q4split(q, *quantize_kv4(kv), *quantize_kv4(kv),
+                                   bias, bb=2)
 print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "jax_loaded": "jax" in sys.modules
                                 and sys.modules["jax"] is not None,
                   "token_ids": list(out["token_ids"].shape),
                   "train_loss_finite": bool(torch.isfinite(m["loss"])),
                   "engine_beams": list(beams.shape),
+                  "single": [list(single.shape), list(q4split.shape)],
                   "launches": [decode_attention.launches,
                                encoder_attention.launches,
                                fused_dynamic_conv.launches,
                                decode_attention_q8.launches,
-                               topk_logits.launches]}))
+                               topk_logits.launches,
+                               decode_attention_single.launches,
+                               decode_attention_q4split.launches]}))
 """
 
 
@@ -99,11 +111,13 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                  "training.optimizer",
                  "training.train_step", "training.checkpoint",
                  "training.trainer", "data.records", "data.bucketing",
-                 "data.prefetch"):
+                 "data.prefetch", "tools.timing", "tools.kernel_variants",
+                 "tools.longctx_variants", "tools.profile_decode"):
         assert f"tell_tpu_torch.{name}" in res["modules"]
-    assert res["jax_package"] == ["tell_tpu", "tell_tpu.config"]
+    assert res["jax_package"] == []
     assert res["jax_loaded"] is False
     assert res["token_ids"] == [2, 4]
     assert res["train_loss_finite"] is True
     assert res["engine_beams"] == [2, 4]
-    assert res["launches"] == [0, 0, 0, 0, 0]
+    assert res["single"] == [[2, 2, 4, 8], [2, 2, 4, 8]]
+    assert res["launches"] == [0, 0, 0, 0, 0, 0, 0]

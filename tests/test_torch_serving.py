@@ -29,7 +29,7 @@ from tell_tpu_torch.models.backbones.roberta import (RobertaConfig,
 from tell_tpu_torch.models.beam import beam_search
 from tell_tpu_torch.models.captioner import encode_contexts
 from tell_tpu_torch.serving import CaptionService, MicroBatcher, serve
-from tell_tpu_torch.serving.server import _cfg_at
+from tell_tpu_torch.config import with_article_len
 
 torch.set_num_threads(2)
 _base = small_test_config(gen_len=6)
@@ -222,7 +222,7 @@ def test_engine_http_answers_match_one_shot_beam_search(engine_service):
         assert errors == [None]
         width = batch["context_ids"].shape[1]
         with torch.inference_mode():
-            ref = beam_search(svc.model.tree(), _cfg_at(CFG, width),
+            ref = beam_search(svc.model.tree(), with_article_len(CFG, width),
                               svc._encode_many(batch), beam_size=2,
                               kv_cache="int8", fused_topk=True)
         beams = [body] + body["alternatives"]
