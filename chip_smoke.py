@@ -9,8 +9,9 @@ every phase passed):
      TF32 off for matmuls and cuDNN (fp32 means fp32).
   2. build: compiles the hand-written kernels of tell_tpu_torch/csrc/ with
      nvcc for sm_90a.
-  3. kernel vs plain on the card: kernel A (decode attention) and kernel B
-     (encoder attention) at the serving path's shapes, kernel C (fused
+  3. kernel vs plain on the card: kernel A (decode attention; B=8, MG=4
+     and 20, S=637 and 2173) and kernel B (encoder attention) at the
+     serving path's shapes, kernel C (fused
      dynamic conv) at the training path's (B=16, C=1024, H=16, T=32 with
      K=3/7/15/31, T=100 and T=15 with K=31), kernel D (decode attention over
      the int8/int4 K/V cache; B=8, MG=20, S=637 and 2173) and kernel E
@@ -22,8 +23,11 @@ every phase passed):
      versions as A and D, and its refusal of S=4096 (the score row does
      not fit a block's shared memory); kernels A, B, D and F also 100
      times on the same input, bit for bit (a race would vary); kernel E's
-     ids held by the logit at each id; CUDA-event times of both, C forward
-     and forward+backward. Beside each fp32 case: its bound (the larger of
+     ids held by the logit at each id; kernel A at B=1 on one batch row
+     equal bit for bit to that row at B=8, fp32 and bf16 (its chunking is
+     set by S alone), with its chunk count, share of the byte bound, the
+     device time of its two kernels (torch.profiler) and the wrapper's
+     host floor; CUDA-event times of both, C forward and forward+backward. Beside each fp32 case: its bound (the larger of
      the bytes it must move over 3.35 TB/s and its operations over the
      67 TFLOP/s fp32 peak, and which one bounds it) and, where one PyTorch
      call computes the same function, that call's time (A, B, F:
@@ -96,6 +100,19 @@ Then one JSON line describing the kernels and, last, the result line.
 runs phases 1-2, then only the engine checks of phases 8 and 10, N times
 over the seeds seed, seed+1, ... (the first failure ends it); it prints no
 result line.
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1-3 only (every kernel against its plain version, with its
+times) and prints no result line.
+
+    python3 chip_smoke.py --beam N
+
+runs phases 1-2, then phase 10's one-shot beam search (the long-article
+configuration, beam 5, B=8, fp32) N + 1 times on one set of weights,
+printing the encode and beam-search wall time of each (the first is a
+warm-up); no result line. It uses only what earlier trees of the port also
+have, so a copy of it can time a parent tree in the same call.
 """
 from __future__ import annotations
 
@@ -291,6 +308,51 @@ def library_time(library, ref) -> tuple[float | None, float | None]:
     err = (back(fn(*lib_sets[0])) - ref).abs().max().item()
     cycle = itertools.cycle(lib_sets)
     return cuda_ms(lambda: fn(*next(cycle))), err
+
+
+def check_kernel_a(sets, S, shape, res, row=3):
+    """Kernel A at B=1 on batch row `row` of sets[0] must equal that row of
+    the B=8 launch bit for bit, in fp32 and bf16: the chunk count is set by
+    S alone, so a row sums in the same order at any batch. Logs the chunk
+    count, the fp32 time's share of the byte bound (res: check_kernel's
+    result for these sets) and the device time of A's two kernels
+    (torch.profiler), which the CUDA-event time adds the host's launch
+    overhead to."""
+    from tell_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, split_count)
+    from tell_tpu_torch.tools.timing import profiled_device_ms
+    q, k, v, bias = sets[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in (q, k, v)]
+        full = decode_attention(*args, bias)
+        one = decode_attention(*(t[row:row + 1].contiguous() for t in args),
+                               bias[row:row + 1].contiguous())
+        n_diff = int((full[row:row + 1] != one).sum())
+        require(n_diff == 0, f"decode_attention {shape} {dtype}: B=1 differs "
+                f"from row {row} of B=8 in {n_diff} outputs")
+    cycle = itertools.cycle(sets)
+    dev_ms = profiled_device_ms(lambda: decode_attention(*next(cycle)))
+    chunk = sum(t for k, t in dev_ms.items() if "chunk_kernel" in k)
+    combine = sum(t for k, t in dev_ms.items() if "combine_kernel" in k)
+    share = res["bound_ms"] / res["ms"]
+    log(f"phase 3: decode_attention {shape}: n_split {split_count(S)}, "
+        f"{share:.1%} of the byte bound ({share * HBM_BYTES_PER_S / 1e9:.0f}"
+        f" GB/s); device time {chunk:.4f} ms + combine {combine:.4f} ms "
+        f"({res['bound_ms'] / (chunk + combine):.1%} of the bound); batch "
+        f"row {row} at B=1 equals B=8 bit for bit (fp32, bf16)")
+
+
+def decode_attention_host_floor(dev) -> None:
+    """ms per call of kernel A's wrapper on a tiny input with two chunks
+    (checks, allocation, both launches): where the CUDA-event time of a
+    call is set by the host, it cannot go below this."""
+    from tell_tpu_torch.ops.kernels.decode_attention import decode_attention
+    q = torch.zeros(1, 1, 4, 64, device=dev)
+    kv = torch.zeros(1, 1, 64, 300, device=dev)
+    bias = torch.zeros(1, 4, 300, device=dev)
+    ms = cuda_ms(lambda: decode_attention(q, kv, kv, bias))
+    log(f"phase 3: decode_attention host floor {ms:.4f} ms per call (B=1, "
+        "H=1, MG=4, S=300: two launches on a tiny input)")
 
 
 def check_kernel(name, kernel, plain, sets, shape, flops, library=None):
@@ -538,13 +600,15 @@ def phase_kernels(seed: int) -> dict:
            "topk_logits": [], "decode_attention_single": [],
            "decode_attention_q4split": []}
     identity = lambda o: o  # noqa: E731
-    for MG, article in ((4, 512), (20, 512), (20, 2048)):
+    for MG, article in ((4, 512), (20, 512), (4, 2048), (20, 2048)):
         S, sets = _decode_case(g, 8, MG, article, dev)
+        shape = f"B=8 H=16 hd=64 MG={MG} S={S}"
         res["decode_attention"].append(check_kernel(
             "decode_attention", decode_attention, decode_attention_plain,
-            sets, f"B=8 H=16 hd=64 MG={MG} S={S}",
-            decode_flops(sets[0][0], S),
+            sets, shape, decode_flops(sets[0][0], S),
             (_sdpa_decode, _sdpa_decode_sets(sets), identity)))
+        check_kernel_a(sets, S, shape, res["decode_attention"][-1])
+    decode_attention_host_floor(dev)
     for S in (128, 512):
         sets = _encoder_case(g, 4, S, dev)
         q, key_pad = sets[0][0], sets[0][3]
@@ -665,6 +729,7 @@ def phase_service(seed: int, cfg, rcfg, dev: str, label: str = "phase 4",
     require(status == 200 and "error" not in body, body)
 
     decode_attention.launches = decode_attention.max_columns = 0
+    decode_attention.combine_launches = 0
     encoder_attention.launches = encoder_attention.sequences = 0
     t_serve = time.perf_counter()
     threads = [threading.Thread(target=post, args=(i,))
@@ -718,7 +783,8 @@ def phase_service(seed: int, cfg, rcfg, dev: str, label: str = "phase 4",
                 "encoder_attention": encoder_attention.launches}
     log(f"{label}: beam_search beam=5 B=8 in {beam_s:.3f} s "
         f"({8 / beam_s:.3f} captions/s, encode included); launches "
-        f"{launches}")
+        f"{launches}, kernel A's combine pass "
+        f"{decode_attention.combine_launches}")
     if dev == "cuda":
         for name, n in launches.items():
             require(n > 0, f"{name} never launched on the main path")
@@ -1402,6 +1468,44 @@ def phase_tools(seed: int, dev: str = "cuda", small: bool = False) -> dict:
             "launches": launches}
 
 
+def beam_timing(seed: int, n: int) -> None:
+    """Phase 10's one-shot beam search (beam 5, B=8, fp32, 2048-token
+    article context) n + 1 times on one set of random weights: the host
+    clock around the encode and around beam_search, each ending in a
+    synchronise; the first run is a warm-up."""
+    from tell_tpu_torch.bridge import init_captioner, init_roberta
+    from tell_tpu_torch.config import CaptionerConfig, with_article_len
+    from tell_tpu_torch.models.backbones.roberta import (RobertaConfig,
+                                                         RobertaEncoder)
+    from tell_tpu_torch.models.captioner import encode_contexts
+    from tell_tpu_torch.serving import CaptionService
+    cfg = with_article_len(CaptionerConfig(), LONG_ARTICLE)
+    rcfg = RobertaConfig.large()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    svc = CaptionService(init_captioner(g, cfg),
+                         RobertaEncoder(init_roberta(g, rcfg), rcfg), cfg,
+                         "cuda", max_batch=8)
+    rng = np.random.default_rng(seed)
+    batch, errors = svc._pack([_request(rng, cfg, n_ids, 4, 64,
+                                        rcfg.vocab_size)
+                               for n_ids in LONG_BEAM_ARTICLES])
+    require(errors == [None] * 8, errors)
+    for i in range(n + 1):
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            tb = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+            enc = encode_contexts(svc.roberta.frozen(), cfg, tb)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = svc.model.beam_search(enc, beam_size=5)
+            require(bool(torch.isfinite(out["scores"]).all()),
+                    "non-finite beam scores")
+            t2 = time.perf_counter()
+        log(f"beam: run {i}{' (warm-up)' if i == 0 else ''}: encode "
+            f"{t1 - t0:.3f} s, beam_search beam=5 B=8 {t2 - t1:.3f} s")
+    svc.close()
+
+
 def engine_repeats(seed: int, n: int) -> None:
     """The engine checks of phases 8 and 10 over seeds seed..seed+n-1 (the
     int4 beam search left out); the first failure raises."""
@@ -1428,6 +1532,11 @@ def main() -> int:
     ap.add_argument("--engine-repeats", type=int, default=0,
                     help="after the build, only the engine checks of "
                     "phases 8 and 10, this many times (no result line)")
+    ap.add_argument("--kernels", action="store_true",
+                    help="phases 1-3 only (no result line)")
+    ap.add_argument("--beam", type=int, default=0,
+                    help="after the build, phase 10's beam search this "
+                    "many times, timed (no result line)")
     args = ap.parse_args()
 
     # phase 1
@@ -1461,8 +1570,13 @@ def main() -> int:
     if args.engine_repeats:
         engine_repeats(args.seed, args.engine_repeats)
         return 0
+    if args.beam:
+        beam_timing(args.seed, args.beam)
+        return 0
     # phase 3
     res = phase_kernels(args.seed)
+    if args.kernels:
+        return 0
     # phase 4
     from tell_tpu_torch.config import CaptionerConfig
     from tell_tpu_torch.models.backbones.roberta import RobertaConfig

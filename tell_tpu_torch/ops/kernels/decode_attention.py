@@ -6,21 +6,23 @@ Kernel A replaces tell_tpu/ops/kernels/decode_attention.py::
 fused_decode_attention (pallas_call at :216) AND its S-tiled
 online-softmax form _tiled_decode_attention (pallas_call at :177) with one
 CUDA kernel; kernel D replaces fused_decode_attention_q8 (:399) and
-_tiled_decode_attention_q8 (:347), int8 and int4, with a second
-instantiation of the same body (tell_tpu_torch/csrc/decode_attention.cu).
+_tiled_decode_attention_q8 (:347), int8 and int4, in the same source
+(tell_tpu_torch/csrc/decode_attention.cu).
 
 Semantics (decoder.py's stacked attention): query row x = m*G + g of
 batch row b attends the source columns s with bias[b, x, s] == 0 (its own
 modality, not padding); softmax in fp32.
 
 What bounds it on the H100: the K/V stream, 2*B*H*hd*S elements per layer
-per decode step (H=16, hd=64, S=637 at the flagship). The design reads each
-(b, h) K/V stripe once for all M*G query rows in one block, walking S in
-64-column tiles with an online softmax, so one path covers every S; the
-JAX layout [B, H, hd, S] is kept, and threads run along S, its contiguous
-axis. Kernel D streams one byte per element (int8) or half a byte (int4)
-plus two fp32 scales per column, and dequantises on load. See the source's
-header for what is left for later work.
+per decode step (H=16, hd=64, S=637 at the flagship). Kernel A cuts S into
+chunks of CHUNK columns, one block per (b, h, chunk), each block's partial
+softmax combined in chunk order by a second launch; the number of chunks
+depends on S alone, so a row's output is the same bits at any batch size
+(decode_attention_split_plain computes the same route in PyTorch). Kernel
+D keeps one block per (b, h), streams one byte per element (int8) or half
+a byte (int4) plus two fp32 scales per column, and dequantises on load.
+The JAX layout [B, H, hd, S] is kept; see the source's header for the
+design and what is left for later work.
 
 Kernel F (tell_tpu_torch/csrc/decode_attention_single.cu) replaces the
 single-shot Pallas kernels of the JAX package's measurement tools:
@@ -40,6 +42,15 @@ from .build import check_launch, load_library
 from .dispatch import check_kernel_args, use_kernel
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+CHUNK = 256                 # kernel A: source columns per block (kChunk)
+HEAD_DIMS = (32, 64, 128)   # kernel A's head-dim instantiations
+MAX_ROWS = 40               # kernel A's query rows MG, at most
+
+
+def split_count(S: int) -> int:
+    """Kernel A's chunks over a source of S columns, ceil(S / CHUNK): set by
+    S alone, never by B or H, so a row's output is the same at any batch."""
+    return -(-S // CHUNK)
 
 
 def segment_bias(seg: torch.Tensor, pad: torch.Tensor, M: int, G: int
@@ -67,31 +78,73 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def decode_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, bias: torch.Tensor
+                                 ) -> torch.Tensor:
+    """Kernel A's function by kernel A's route, in PyTorch: per chunk of
+    CHUNK columns the partial (m, l, acc) in fp32, the max starting at
+    -1e30 (a chunk masked for a row gives l = 0, acc = 0 and weight 0),
+    then the partials combined in chunk order. No path calls it; the tests
+    hold it to tell_tpu's kernels."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    parts = []
+    for s0 in range(0, k.shape[3], CHUNK):
+        cols = slice(s0, s0 + CHUNK)
+        sc = (torch.einsum("bhxd,bhds->bhxs", qf, kf[..., cols])
+              + bias[:, None, :, cols])
+        m = sc.amax(-1).clamp_min(-1e30)
+        p = torch.exp(sc - m[..., None])
+        parts.append((m, p.sum(-1),
+                      torch.einsum("bhxs,bhds->bhxd", p, vf[..., cols])))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(0)
+    num = den = 0.0
+    for m, l, acc in parts:
+        w = torch.exp(m - m_all)
+        num = num + acc * w[..., None]
+        den = den + l * w
+    return (num / den[..., None]).to(q.dtype)
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """q: [B, H, MG, hd]; k, v: [B, H, hd, S] (head-major, transposed);
     bias: [B, MG, S] fp32 additive mask. Returns [B, H, MG, hd].
-    CUDA tensors launch kernel A (counted in decode_attention.launches);
-    CPU tensors take decode_attention_plain."""
+    CUDA tensors launch kernel A (one call counted in
+    decode_attention.launches; its combine pass, launched where S > CHUNK,
+    in .combine_launches); the kernel takes hd in HEAD_DIMS, 1 <= MG <=
+    MAX_ROWS and S >= 1, and raises ValueError on other shapes. CPU
+    tensors take decode_attention_plain."""
     if not use_kernel(q, k, v, bias):
         return decode_attention_plain(q, k, v, bias)
     B, H, MG, hd = q.shape
     S = k.shape[3]
     _check_fp_args("decode_attention", q, k, v, bias)
+    if hd not in HEAD_DIMS or not 1 <= MG <= MAX_ROWS or S < 1:
+        raise ValueError(f"decode_attention: the kernel takes hd in "
+                         f"{HEAD_DIMS}, 1 <= MG <= {MAX_ROWS} and S >= 1, "
+                         f"not hd={hd}, MG={MG}, S={S}")
+    n_split = split_count(S)
     out = torch.empty_like(q)
+    part = None
+    if n_split > 1:   # the chunks' partials (acc [MG, hd], m, l) in fp32
+        part = torch.empty(B * H * n_split * MG * (hd + 2),
+                           dtype=torch.float32, device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
         code = lib.tt_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, MG, hd, S, _DTYPE_CODE[q.dtype],
+            None if part is None else part.data_ptr(), out.data_ptr(), B, H,
+            MG, hd, S, _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     check_launch(lib, "decode_attention", code)
     decode_attention.launches += 1
+    decode_attention.combine_launches += int(n_split > 1)
     decode_attention.max_columns = max(decode_attention.max_columns, S)
     return out
 
 
 decode_attention.launches = 0
+decode_attention.combine_launches = 0
 decode_attention.max_columns = 0   # the widest source S a launch attended
 
 

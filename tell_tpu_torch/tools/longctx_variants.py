@@ -8,10 +8,9 @@ At the production head shape (H=16, hd=64, MG=20) and a long source S, in
 bf16 with q, K and V from the seed and an all-zero bias:
 
   dispatch  what the port's decode path runs: kernel A
-  tiled     the S-tiled online-softmax form: kernel A, the same kernel
-            (the port has one path for every S, its tile fixed at 64
-            columns, so --BB and --TS, the TPU tiled kernel's tile, are
-            refused)
+  tiled     the S-tiled form: kernel A, the same kernel (the port has
+            one path for every S, its chunk fixed at 256 columns, so --BB
+            and --TS, the TPU tiled kernel's tile, are refused)
   single1   kernel F at bb=1, the single-shot form; where its [MG, S]
             score row does not fit a block's shared memory it prints
             "does not fit" with the byte count, as the JAX tool asserts
@@ -40,9 +39,10 @@ from .timing import clock_name, device_ms
 VARIANTS = ("dispatch", "tiled", "single1", "jnp")
 _KERNELS = {
     "dispatch": (decode_attention,
-                 "kernel A (the port's one online-softmax path, 64-column "
-                 "tiles, one (b, h) per block)"),
-    "tiled": (decode_attention, "kernel A, 64-column tiles"),
+                 "kernel A (the port's one path for every S: one block per "
+                 "(b, h, 256-column chunk), partials combined in chunk "
+                 "order)"),
+    "tiled": (decode_attention, "kernel A, 256-column chunks"),
     "single1": (functools.partial(decode_attention_single, bb=1),
                 "kernel F, bb=1"),
     "jnp": (decode_attention_plain, "the plain version"),
@@ -101,8 +101,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.BB is not None or args.TS is not None:
         ap.error("--BB/--TS pick the TPU tiled kernel's tile; the port's "
-                 "kernel A has its tile fixed at 64 columns and one (b, h) "
-                 "per block")
+                 "kernel A has its chunk fixed at 256 columns, one block "
+                 "per (b, h, chunk)")
     with torch.inference_mode():
         res = run(args.variant, args.B, args.S, args.device, args.seed)
     return 0 if res["ok"] else 1

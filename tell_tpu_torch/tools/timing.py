@@ -42,6 +42,23 @@ def device_ms(fn, device, calls: int = 100, warmup: int = 3) -> float:
     return start.elapsed_time(end) / calls
 
 
+def profiled_device_ms(fn, calls: int = 20, warmup: int = 3
+                       ) -> dict[str, float]:
+    """Device milliseconds per call of fn() on the card, by kernel name,
+    from torch.profiler's CUDA activity over `calls` calls after `warmup`:
+    the kernels' own time, without the host's launch overhead."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / 1e3 / calls
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
 def clock_name(device) -> str:
     """What device_ms measured on `device`, for the tools' lines."""
     if torch.device(device).type == "cuda":

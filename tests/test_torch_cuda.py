@@ -1,6 +1,8 @@
 """Kernels A-E on the card against their plain versions, at edge shapes
 the main paths do not reach (S below and across one tile, single query
-rows, other head dims for kernel A; T=1, T<K, T across a time tile and a
+rows, other head dims for kernel A; for A also S at and across its
+256-column chunks, rows open in one chunk only, B=1 against B=8 bit for
+bit, and the shapes it refuses; T=1, T<K, T across a time tile and a
 ragged last tile, 8 and 16 heads, no softmax for kernel C; S=1 segments, a
 ragged last tile, an all-padded article, int4 against int8 and bf16 for
 kernel D; V below and across one chunk, k=1 and 8, equal logits and N=1
@@ -29,9 +31,10 @@ import pytest
 import torch
 
 from tell_tpu_torch.ops.kernels.decode_attention import (
-    decode_attention, decode_attention_plain, decode_attention_q4split,
-    decode_attention_q8, decode_attention_q8_plain, decode_attention_single,
-    segment_bias)
+    MAX_ROWS, decode_attention, decode_attention_plain,
+    decode_attention_q4split, decode_attention_q8, decode_attention_q8_plain,
+    decode_attention_single, decode_attention_split_plain, segment_bias,
+    split_count)
 from tell_tpu_torch.ops.kernels.dynamic_conv import (
     dynamic_conv_plain, fused_dynamic_conv)
 from tell_tpu_torch.ops.kernels.encoder_attention import (
@@ -85,6 +88,71 @@ def test_decode_attention_kernel_matches_plain(gen, B, H, M, G, S, hd,
     else:
         assert out.dtype == torch.bfloat16
         assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [256, 257, 512, 513, 2173])
+def test_decode_attention_chunk_boundaries(gen, S, dtype):
+    """S at and one column past kernel A's chunks, and the long article's
+    source (9 chunks): against the plain version and the chunked route;
+    one combine launch where S > 256."""
+    q, k, v, bias = _decode_inputs(gen, 2, 4, 4, 5, S, 64, dtype)
+    combines = decode_attention.combine_launches
+    out = decode_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert decode_attention.combine_launches == combines + (S > 256)
+    args = (q.float(), k.float(), v.float(), bias)
+    for ref in (decode_attention_plain(*args),
+                decode_attention_split_plain(*args)):
+        _check_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_rows_open_in_one_chunk(gen, dtype):
+    """S=637 (chunks of 256, 256, 125): row 0 open in one column of the
+    last chunk only (its output is that column of V), row 1 in the middle
+    chunk only, the rest as the segment bias gives them. Every other
+    chunk's weight must be exactly 0."""
+    B, H, MG, S = 2, 4, 20, 637
+    q, k, v, bias = _decode_inputs(gen, B, H, 4, 5, S, 64, dtype)
+    bias[:, :2] = float("-inf")
+    bias[:, 0, S - 3] = 0.0
+    bias[:, 1, 300:400] = 0.0
+    out = decode_attention(q, k, v, bias)
+    ref = decode_attention_plain(q.float(), k.float(), v.float(), bias)
+    _check_close(out, ref, dtype)
+    torch.testing.assert_close(out[:, :, 0], v[..., S - 3], atol=0, rtol=0)
+
+
+def test_decode_attention_row_equals_itself_at_batch_one(gen):
+    """A (b, h) row's output does not depend on the batch: B=1 on row b
+    gives the B=8 launch's row b bit for bit (the chunk count depends on S
+    alone), at S across one and several chunks, fp32 and bf16."""
+    for S in (200, 637, 2173):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias = _decode_inputs(gen, 8, 16, 4, 5, S, 64, dtype)
+            full = decode_attention(q, k, v, bias)
+            for b in (0, 5):
+                one = decode_attention(*(t[b:b + 1].contiguous()
+                                         for t in (q, k, v, bias)))
+                assert torch.equal(one[0], full[b]), (S, dtype, b)
+    assert split_count(2173) == 9 and split_count(256) == 1
+
+
+def test_decode_attention_refuses_shapes_it_has_no_kernel_for(gen):
+    launches = decode_attention.launches
+    q, k, v, bias = _decode_inputs(gen, 1, 2, 1, 1, 40, 48, torch.float32)
+    with pytest.raises(ValueError, match="hd=48"):
+        decode_attention(q, k, v, bias)
+    rows = MAX_ROWS + 1
+    q, k, v, bias = _decode_inputs(gen, 1, 2, 1, rows, 40, 64, torch.float32)
+    with pytest.raises(ValueError, match=f"MG={rows}"):
+        decode_attention(q, k, v, bias)
+    q, k, v, bias = _decode_inputs(gen, 1, 2, 1, MAX_ROWS, 40, 64,
+                                   torch.float32)
+    _check_close(decode_attention(q, k, v, bias),
+                 decode_attention_plain(q, k, v, bias), torch.float32)
+    assert decode_attention.launches == launches + 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -197,7 +197,7 @@ def test_longctx_variants_tool_on_cpu(capsys):
         longctx_variants.main(["--variant", "tiled", "--BB", "2",
                                "--device", "cpu"])
     assert e.value.code == 2
-    assert "fixed at 64 columns" in capsys.readouterr().err
+    assert "fixed at 256 columns" in capsys.readouterr().err
 
 
 def test_profile_decode_tool_on_cpu(capsys):

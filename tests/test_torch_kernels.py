@@ -17,7 +17,8 @@ import torch
 from tell_tpu_torch.bridge import to_numpy
 from tell_tpu_torch.ops.kernels import build, dispatch
 from tell_tpu_torch.ops.kernels.decode_attention import (
-    decode_attention, decode_attention_plain, segment_bias)
+    CHUNK, decode_attention, decode_attention_plain,
+    decode_attention_split_plain, segment_bias, split_count)
 from tell_tpu_torch.ops.kernels.encoder_attention import (
     encoder_attention, encoder_attention_plain)
 
@@ -69,6 +70,36 @@ def test_decode_attention_plain_matches_jax(shape):
         fused_decode_attention(q, k, v, bias)), **TOL)
     np.testing.assert_allclose(to_numpy(out), np.asarray(
         reference_decode_attention(q, k, v, bias)), **TOL)
+
+
+# S below, at and across kernel A's 256-column chunks, and the flagship's
+# two sources; sorted segments leave whole chunks masked for most rows
+@pytest.mark.parametrize("S", [5, 256, 257, 637, 2173])
+def test_decode_attention_split_route_matches_jax(S):
+    """decode_attention_split_plain (kernel A's chunked route: per-chunk
+    (m, l, acc) from -1e30, combined in chunk order) against tell_tpu's
+    fused_decode_attention and _tiled_decode_attention in interpret mode.
+    Query row 0 of batch row 0 is open in one column of the last chunk
+    only, row 1 in the first chunk only."""
+    from tell_tpu.ops.kernels.decode_attention import (
+        _tiled_decode_attention, fused_decode_attention, segment_bias as j_sb)
+    B, H, M, G, hd = 2, 2, 4, 2, 16
+    q, k, v, seg, pad = _decode_inputs(B, H, M, G, S, hd, S)
+    bias = np.array(j_sb(jnp.asarray(seg), jnp.asarray(pad), M, G))
+    bias[0, :2] = -np.inf
+    bias[0, 0, S - 1] = 0.0
+    bias[0, 1, :min(S, CHUNK)] = 0.0
+    if S > CHUNK:   # some row sees none of some chunk
+        masked = np.isinf(bias[:, :, :CHUNK]).all(-1)
+        assert masked.any()
+    assert split_count(S) == -(-S // 256)
+    out = to_numpy(decode_attention_split_plain(
+        *map(torch.from_numpy, (q, k, v, bias))))
+    np.testing.assert_allclose(out, np.asarray(
+        fused_decode_attention(q, k, v, bias)), **TOL)
+    np.testing.assert_allclose(out, np.asarray(
+        _tiled_decode_attention(q, k, v, bias, 1, 128)), **TOL)
+    assert np.isfinite(out).all()
 
 
 def test_decode_attention_plain_bf16_matches_jax_reference():

@@ -3,7 +3,8 @@
 Micro-batch mode: three concurrent POST /caption requests with context_ids
 and features (some faces/objects NaN) must come back with exactly the
 token ids of the port's own generate on the same batch; bad requests are
-reported per request without failing their micro-batch.
+reported per request without failing their micro-batch, including face or
+object rows of the wrong rank or width in a micro-batch with good ones.
 
 Engine mode (int8 K/V cache, fused top-k, article buckets 16/32/64):
 concurrent requests of three widths must come back, best beam and
@@ -165,6 +166,28 @@ def test_bad_requests_are_reported_per_request(service):
     out = service.caption({"context_ids": [0, 5], "face_embeds": [[1.0] * 3]})
     assert "face_embeds" in out["error"]
     assert len(out["token_ids"]) == CFG.gen_len + 1
+
+
+@pytest.mark.parametrize("key,rows", [
+    ("face_embeds", [0.5] * 16),             # 1-D, not [n, 16]
+    ("face_embeds", [[0.5] * 17] * 2),       # wider than the faces' 16
+    ("obj_embeds", [[0.5] * 31] * 3),        # narrower than the objects' 32
+])
+def test_bad_feature_rows_are_isolated_in_their_micro_batch(service, key,
+                                                            rows):
+    """One micro-batch (CaptionService._run, what MicroBatcher calls) with
+    a request whose face/object rows have the wrong rank or width between
+    two good ones: the bad request gets an error naming the field and no
+    such rows; each good request's token ids equal its caption served
+    alone."""
+    good = _requests()[:2]
+    bad = dict(good[0], **{key: rows})
+    out = service._run([good[0], bad, good[1]])
+    assert f"bad {key}" in out[1]["error"]
+    assert len(out[1]["token_ids"]) == CFG.gen_len + 1
+    for i, req in ((0, good[0]), (2, good[1])):
+        assert "error" not in out[i]
+        assert out[i]["token_ids"] == service._run([req])[0]["token_ids"]
 
 
 def test_text_requests_with_a_tokenizer_and_shutdown(service):
