@@ -9,8 +9,18 @@ every phase passed):
      TF32 off for matmuls and cuDNN (fp32 means fp32).
   2. build: compiles the hand-written kernels of tell_tpu_torch/csrc/ with
      nvcc for sm_90a.
-  3. kernel vs plain on the card: kernel A (decode attention; B=8, MG=4
-     and 20, S=637 and 2173) and kernel B (encoder attention) at the
+  3. kernel vs plain on the card: kernel B (encoder attention; H=16,
+     hd=64, S=128 and 512 at B=4 with 3/4, 1/3 and 1 key of S real, and
+     at S=512 B=1 (the engine's single-request encode) and B=32 (phase
+     10's 8 articles x 4 windows, one window all pads)): fp32 and bf16
+     against its plain version, the 100-repeat probe, every batch row
+     launched alone equal to its row bit for bit in both dtypes, the kept
+     key tiles, and in both dtypes the CUDA-event and torch.profiler
+     device times beside scaled_dot_product_attention in the same dtype
+     and beside the bound at the tensor-core rate the kernel uses (fp32:
+     3xTF32, 3 x the operations over 495 TFLOP/s; bf16: the operations
+     over 989 TFLOP/s; or the bytes over 3.35 TB/s where that is longer);
+     kernel A (decode attention; B=8, MG=4 and 20, S=637 and 2173) at the
      serving path's shapes, kernel C (fused
      dynamic conv) at the training path's (B=16, C=1024, H=16, T=32 with
      K=3/7/15/31, T=100 and T=15 with K=31), kernel D (decode attention over
@@ -27,9 +37,11 @@ every phase passed):
      equal bit for bit to that row at B=8, fp32 and bf16 (its chunking is
      set by S alone), with its chunk count, share of the byte bound, the
      device time of its two kernels (torch.profiler) and the wrapper's
-     host floor; CUDA-event times of both, C forward and forward+backward. Beside each fp32 case: its bound (the larger of
-     the bytes it must move over 3.35 TB/s and its operations over the
-     67 TFLOP/s fp32 peak, and which one bounds it) and, where one PyTorch
+     host floor; CUDA-event times of both, C forward and
+     forward+backward. Beside each fp32 case of A and C-F: its bound (the
+     larger of the bytes it must move over 3.35 TB/s and its operations
+     over the 67 TFLOP/s fp32 peak, and which one bounds it) and, where
+     one PyTorch
      call computes the same function, that call's time (A, B, F:
      scaled_dot_product_attention on pre-transposed copies; a yardstick
      only, the port never calls it).
@@ -101,10 +113,11 @@ runs phases 1-2, then only the engine checks of phases 8 and 10, N times
 over the seeds seed, seed+1, ... (the first failure ends it); it prints no
 result line.
 
-    python3 chip_smoke.py --kernels
+    python3 chip_smoke.py --kernels [encoder_attention]
 
 runs phases 1-3 only (every kernel against its plain version, with its
-times) and prints no result line.
+times; with encoder_attention, kernel B's cases only) and prints no
+result line.
 
     python3 chip_smoke.py --beam N
 
@@ -134,7 +147,9 @@ import time
 import numpy as np
 import torch
 
-from tell_tpu_torch.tools.timing import FP32_FLOPS, HBM_BYTES_PER_S, device_ms
+from tell_tpu_torch.tools.timing import (BF16_FLOPS, FP32_FLOPS,
+                                        HBM_BYTES_PER_S, TF32_FLOPS,
+                                        device_ms)
 
 FP32_TOL = dict(atol=1e-5, rtol=1e-4)
 CONV_TOL = dict(atol=2e-5, rtol=2e-5)        # the JAX kernel test's
@@ -196,12 +211,14 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(nbytes: int, flops: float) -> tuple[float, str]:
+def bound(nbytes: int, flops: float, peak: float = FP32_FLOPS
+          ) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take for a call
     that must read its inputs and write its outputs once (nbytes) and do
-    flops fp32 operations, whichever of the two takes longer."""
+    flops operations at `peak` per second (fp32 CUDA cores by default),
+    whichever of the two takes longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -228,7 +245,8 @@ def _sdpa_encoder_sets(sets):
     einsum path's additive -1e9 key-padding mask."""
     out = []
     for q, k, v, key_pad in sets:
-        neg = torch.zeros(key_pad.shape, device=key_pad.device)
+        neg = torch.zeros(key_pad.shape, device=key_pad.device,
+                          dtype=q.dtype)
         neg.masked_fill_(key_pad, -1e9)
         out.append([t.transpose(1, 2).contiguous() for t in (q, k, v)]
                    + [neg[:, None, None, :]])
@@ -274,13 +292,26 @@ def _decode_case(g, B, MG, article_len, dev):
     return S, sets
 
 
-def _encoder_case(g, B, S, dev):
+def _encoder_case(g, lens, S, dev):
+    """Kernel B inputs: one sequence per entry of lens (its real keys, the
+    rest pads; 0 = an all-pad row), H=16, hd=64."""
     H, hd = 16, 64
+    B = len(lens)
     q, k, v = (torch.randn(B, S, H, hd, generator=g).to(dev)
                for _ in range(3))
-    lens = [S, (3 * S) // 4, S // 3, 1][:B]
     key_pad = torch.arange(S)[None, :] >= torch.tensor(lens)[:, None]
     return [[q, k, v, key_pad.to(dev)], [k, v, q, key_pad.to(dev)]]
+
+
+# Kernel B's phase-3 cases: (name, real keys per sequence) at S=512 (and
+# the first at 128 too). B=4 is phase 4's micro-batch, B=1 the engine's
+# single-request encode, B=32 phase 10's 8 articles x 4 windows of 512
+# (the 1500-token article's fourth window is all pads).
+ENCODER_CASES = (
+    ("B=4", lambda S: [S, (3 * S) // 4, S // 3, 1]),
+    ("B=1", lambda S: [S]),
+    ("B=32", lambda S: [min(max(n - 512 * w, 0), S)
+                        for n in LONG_BEAM_ARTICLES for w in range(4)]))
 
 
 def check_repeats(name, kernel, sets, shape, n=REPEATS):
@@ -355,19 +386,20 @@ def decode_attention_host_floor(dev) -> None:
         "H=1, MG=4, S=300: two launches on a tiny input)")
 
 
-def check_kernel(name, kernel, plain, sets, shape, flops, library=None):
+def check_kernel(name, kernel, plain, sets, shape, flops, library=None,
+                 peak=FP32_FLOPS):
     """fp32: kernel vs plain on the same inputs, and bit-for-bit repeats;
     bf16: kernel on bf16 inputs vs plain in fp32 on the same bf16-rounded
     inputs. Returns the fp32 error, both times (ms per call, CUDA events),
-    the bound of the fp32 call (flops operations) and the library call's
-    time (library_time)."""
+    the bound of the fp32 call (flops operations at peak per second) and
+    the library call's time (library_time)."""
     args = sets[0]
     ref = plain(*args)
     out = kernel(*args)
     torch.cuda.synchronize()
     err32 = (out - ref).abs().max().item()
     torch.testing.assert_close(out, ref, **FP32_TOL)
-    bound_ms, bound_by = bound(_nbytes(args) + _nbytes([out]), flops)
+    bound_ms, bound_by = bound(_nbytes(args) + _nbytes([out]), flops, peak)
     check_repeats(name, kernel, sets, shape)
     args16 = [a.to(torch.bfloat16) if a.is_floating_point() and i < 3 else a
               for i, a in enumerate(args)]
@@ -391,6 +423,70 @@ def check_kernel(name, kernel, plain, sets, shape, flops, library=None):
     return {"shape": shape, "err32": err32, "err16": err16, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def check_kernel_b(g, name, lens, S, dev) -> dict:
+    """Kernel B at one phase-3 case. fp32 through check_kernel (FP32_TOL,
+    the 100-repeat probe, SDPA beside it), its bound at the rate of the
+    kernel's fp32 route: 3xTF32, three TF32 products per fp32 product over
+    495 TFLOP/s. bf16: CUDA-event time beside SDPA in bf16 and its bound
+    (the operations over 989 TFLOP/s). In both dtypes: the device time of
+    the kernel and of SDPA from torch.profiler, and each batch row launched
+    alone at B=1 equal to its row of the batch bit for bit. Logs the kept
+    key tiles (64 keys; a tile of pads only is skipped where its row has a
+    real key) and each time's share of its bound."""
+    from tell_tpu_torch.ops.kernels.encoder_attention import (
+        encoder_attention, encoder_attention_plain)
+    from tell_tpu_torch.tools.timing import profiled_device_ms
+    sets = _encoder_case(g, lens, S, dev)
+    q, key_pad = sets[0][0], sets[0][3]
+    B, _, H, hd = q.shape
+    # every query row attends its row's real keys (all S in an all-pad row)
+    flops = 4.0 * S * H * hd * sum(n if n else S for n in lens)
+    real = torch.nn.functional.pad(~key_pad, (0, -S % 64)).reshape(
+        B, -1, 64).any(-1)
+    kept = int((real | ~real.any(-1, keepdim=True)).sum())
+    shape = f"{name} S={S} H={H} hd={hd}"
+    res = check_kernel(
+        "encoder_attention", encoder_attention, encoder_attention_plain,
+        sets, shape, 3 * flops,
+        (_sdpa_encoder, _sdpa_encoder_sets(sets), lambda o: o.transpose(1, 2)),
+        peak=TF32_FLOPS)
+    sets16 = [[t.to(torch.bfloat16) for t in x[:3]] + [x[3]] for x in sets]
+    cycle = itertools.cycle(sets16)
+    ms16 = cuda_ms(lambda: encoder_attention(*next(cycle)))
+    lib16 = _sdpa_encoder_sets(sets16)
+    cycle = itertools.cycle(lib16)
+    sdpa16 = cuda_ms(lambda: _sdpa_encoder(*next(cycle)))
+    bound16, by16 = bound(_nbytes(sets16[0]) + _nbytes(sets16[0][:1]), flops,
+                          BF16_FLOPS)
+    dev_ms, sdpa_dev = {}, {}
+    for dtype, xs, lib in (("fp32", sets, _sdpa_encoder_sets(sets)),
+                           ("bf16", sets16, lib16)):
+        full = encoder_attention(*xs[0])
+        for r in range(B):
+            one = encoder_attention(*(t[r:r + 1].contiguous() for t in xs[0]))
+            n_diff = int((full[r:r + 1] != one).sum())
+            require(n_diff == 0, f"encoder_attention {shape} {dtype}: row {r} "
+                    f"alone differs from the batch in {n_diff} outputs")
+        cycle = itertools.cycle(xs)
+        times = profiled_device_ms(lambda: encoder_attention(*next(cycle)))
+        dev_ms[dtype] = sum(t for k, t in times.items()
+                            if "encoder_attention" in k)
+        cycle = itertools.cycle(lib)
+        sdpa_dev[dtype] = sum(profiled_device_ms(
+            lambda: _sdpa_encoder(*next(cycle))).values())
+    log(f"phase 3: encoder_attention {shape}: kept tiles {kept}/{real.numel()}"
+        f"; fp32 {res['ms']:.4f} ms ({res['bound_ms'] / res['ms']:.1%} of "
+        f"{res['bound_ms']:.4f} ms, {res['bound_by']}), device "
+        f"{dev_ms['fp32']:.4f} ms, SDPA {res['library_ms']:.4f} ms (device "
+        f"{sdpa_dev['fp32']:.4f} ms); bf16 {ms16:.4f} ms ({bound16 / ms16:.1%}"
+        f" of {bound16:.4f} ms, {by16}), device {dev_ms['bf16']:.4f} ms, SDPA "
+        f"{sdpa16:.4f} ms (device {sdpa_dev['bf16']:.4f} ms); each row "
+        f"alone equals its row of B={B} bit for bit (fp32, bf16)")
+    res.update(ms16=ms16, sdpa16=sdpa16, bound16=bound16, dev_ms=dev_ms,
+               sdpa_dev=sdpa_dev, kept=kept)
+    return res
 
 
 def check_conv(g, B, T, K, dev, C=1024, H=16):
@@ -587,20 +683,24 @@ def check_single_refusal(dev) -> None:
     raise CheckFailed("kernel F took S=4096 at MG=20 without refusing")
 
 
-def phase_kernels(seed: int) -> dict:
+def phase_kernels(seed: int, only: str | None = None) -> dict:
+    """Every kernel against its plain version (only="encoder_attention":
+    kernel B's cases alone). Kernel B's B=4 cases draw from the generator
+    where they always did, so every later kernel keeps the inputs of
+    earlier trees; the B=1 and B=32 cases draw from a second one."""
     from tell_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, decode_attention_plain, decode_attention_q4split,
         decode_attention_single)
-    from tell_tpu_torch.ops.kernels.encoder_attention import (
-        encoder_attention, encoder_attention_plain)
-    g = torch.Generator().manual_seed(seed)
     dev = torch.device("cuda")
     res = {"decode_attention": [], "encoder_attention": [],
            "fused_dynamic_conv": [], "decode_attention_q8": [],
            "topk_logits": [], "decode_attention_single": [],
            "decode_attention_q4split": []}
+    b_only = only == "encoder_attention"
+    g = torch.Generator().manual_seed(seed)
     identity = lambda o: o  # noqa: E731
-    for MG, article in ((4, 512), (20, 512), (4, 2048), (20, 2048)):
+    for MG, article in (() if b_only else
+                        ((4, 512), (20, 512), (4, 2048), (20, 2048))):
         S, sets = _decode_case(g, 8, MG, article, dev)
         shape = f"B=8 H=16 hd=64 MG={MG} S={S}"
         res["decode_attention"].append(check_kernel(
@@ -608,17 +708,15 @@ def phase_kernels(seed: int) -> dict:
             sets, shape, decode_flops(sets[0][0], S),
             (_sdpa_decode, _sdpa_decode_sets(sets), identity)))
         check_kernel_a(sets, S, shape, res["decode_attention"][-1])
-    decode_attention_host_floor(dev)
-    for S in (128, 512):
-        sets = _encoder_case(g, 4, S, dev)
-        q, key_pad = sets[0][0], sets[0][3]
-        # every query row (pads included) attends the real keys of its row
-        flops = 4.0 * S * q.shape[2] * q.shape[3] * int((~key_pad).sum())
-        res["encoder_attention"].append(check_kernel(
-            "encoder_attention", encoder_attention, encoder_attention_plain,
-            sets, f"B=4 S={S} H=16 hd=64", flops,
-            (_sdpa_encoder, _sdpa_encoder_sets(sets),
-             lambda o: o.transpose(1, 2))))
+    if not b_only:
+        decode_attention_host_floor(dev)
+    gb = torch.Generator().manual_seed(seed + 1)
+    for S, (name, lens) in ([(128, ENCODER_CASES[0])]
+                            + [(512, c) for c in ENCODER_CASES]):
+        res["encoder_attention"].append(check_kernel_b(
+            g if name == "B=4" else gb, name, lens(S), S, dev))
+    if b_only:
+        return res
     for T, K in ((32, 3), (32, 7), (32, 15), (32, 31), (100, 31), (15, 31)):
         res["fused_dynamic_conv"].append(check_conv(g, 16, T, K, dev))
     for mode in ("int8", "int4"):
@@ -1532,8 +1630,10 @@ def main() -> int:
     ap.add_argument("--engine-repeats", type=int, default=0,
                     help="after the build, only the engine checks of "
                     "phases 8 and 10, this many times (no result line)")
-    ap.add_argument("--kernels", action="store_true",
-                    help="phases 1-3 only (no result line)")
+    ap.add_argument("--kernels", nargs="?", const="all",
+                    choices=("all", "encoder_attention"),
+                    help="phases 1-3 only, or with encoder_attention kernel "
+                    "B's cases of phase 3 only (no result line)")
     ap.add_argument("--beam", type=int, default=0,
                     help="after the build, phase 10's beam search this "
                     "many times, timed (no result line)")
@@ -1574,7 +1674,7 @@ def main() -> int:
         beam_timing(args.seed, args.beam)
         return 0
     # phase 3
-    res = phase_kernels(args.seed)
+    res = phase_kernels(args.seed, args.kernels)
     if args.kernels:
         return 0
     # phase 4

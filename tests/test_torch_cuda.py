@@ -6,13 +6,16 @@ bit, and the shapes it refuses; T=1, T<K, T across a time tile and a
 ragged last tile, 8 and 16 heads, no softmax for kernel C; S=1 segments, a
 ragged last tile, an all-padded article, int4 against int8 and bf16 for
 kernel D; V below and across one chunk, k=1 and 8, equal logits and N=1
-for kernel E), kernels A and D repeating bit for bit over 200 launches,
+for kernel E; key pads on the right, on the left and in the middle with
+whole pad tiles, an all-pad row, S = 1, 63, 130, 256 and 512, and each
+sequence alone equal to its row of B=4 bit for bit for kernel B),
+kernels A and D repeating bit for bit over 200 launches,
 kernel C's gradient through its autograd Function, kernel F (single-shot
 decode attention) at bb 1/2/4, MG 4 and 20, S 637, 2173 and a ragged S,
 a row masked but for one column, its int4-split form and a 200-launch
 repeat probe, and the inputs the wrappers must refuse (F: S=4096 past a
-block's shared memory, B not a multiple of bb). Marked `cuda`: each test
-skips without a GPU.
+block's shared memory, B not a multiple of bb; B: an input not 16-byte
+aligned). Marked `cuda`: each test skips without a GPU.
 
 This file imports no JAX, so it also runs where JAX is absent (the card's
 machine; tests/conftest.py imports JAX, hence --noconftest):
@@ -155,14 +158,33 @@ def test_decode_attention_refuses_shapes_it_has_no_kernel_for(gen):
     assert decode_attention.launches == launches + 1
 
 
+def _encoder_key_pad(gen, B, S, padding):
+    """Random 30% pads; row 0 padded on the right, on the left or in the
+    middle (keys 5..S-3, so at S >= 130 whole 64-key pad tiles lie
+    between real ones); the last row all pads."""
+    key_pad = torch.rand(B, S, generator=gen, device="cuda") < 0.3
+    row = torch.zeros(S, dtype=torch.bool, device="cuda")
+    if padding == "right":
+        row[max(1, S // 3):] = True
+    elif padding == "left":
+        row[:S - max(1, S // 3)] = True
+    else:
+        row[5:S - 2] = True
+    key_pad[0] = row
+    key_pad[-1] = True                     # an all-pad row
+    return key_pad
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("padding", ["right", "left", "middle"])
 @pytest.mark.parametrize("B,S,H,hd", [
-    (1, 1, 1, 64), (2, 63, 3, 64), (3, 130, 2, 64), (2, 256, 16, 64)])
-def test_encoder_attention_kernel_matches_plain(gen, B, S, H, hd, dtype):
+    (2, 1, 1, 64), (2, 63, 3, 64), (3, 130, 2, 64), (2, 256, 16, 64),
+    (2, 512, 4, 64)])
+def test_encoder_attention_kernel_matches_plain(gen, B, S, H, hd, padding,
+                                                dtype):
     q, k, v = (torch.randn(B, S, H, hd, generator=gen, device="cuda")
                for _ in range(3))
-    key_pad = torch.rand(B, S, generator=gen, device="cuda") < 0.3
-    key_pad[-1] = True                     # an all-pad row
+    key_pad = _encoder_key_pad(gen, B, S, padding)
     launches = encoder_attention.launches
     q, k, v = (t.to(dtype) for t in (q, k, v))
     out = encoder_attention(q, k, v, key_pad)
@@ -173,6 +195,22 @@ def test_encoder_attention_kernel_matches_plain(gen, B, S, H, hd, dtype):
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
     else:
         assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [130, 512])
+def test_encoder_attention_row_alone_equals_batch(gen, S, dtype):
+    """Each sequence launched alone (B=1) equals its row of B=4 bit for
+    bit: a block reads only its own (b, h) and walks its kept tiles in
+    order, whatever the grid."""
+    q, k, v = (torch.randn(4, S, 16, 64, generator=gen,
+                           device="cuda").to(dtype) for _ in range(3))
+    key_pad = _encoder_key_pad(gen, 4, S, "middle")
+    full = encoder_attention(q, k, v, key_pad)
+    for r in range(4):
+        one = encoder_attention(q[r:r + 1], k[r:r + 1], v[r:r + 1],
+                                key_pad[r:r + 1])
+        assert torch.equal(one, full[r:r + 1])
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -195,6 +233,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     x = torch.randn(1, 8, 2, 64, device="cuda")
     with pytest.raises(TypeError, match="key_pad"):
         encoder_attention(x, x, x, torch.zeros(1, 8, device="cuda"))
+    x = torch.randn(1 * 8 * 2 * 64 + 1, device="cuda")[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        encoder_attention(x, x, x, torch.zeros(1, 8, dtype=torch.bool,
+                                               device="cuda"))
 
 
 def _conv_inputs(gen, B, T, C, H, K):
