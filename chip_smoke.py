@@ -24,27 +24,33 @@ every phase passed):
      serving path's shapes, kernel C (fused
      dynamic conv) at the training path's (B=16, C=1024, H=16, T=32 with
      K=3/7/15/31, T=100 and T=15 with K=31), kernel D (decode attention over
-     the int8/int4 K/V cache; B=8, MG=20, S=637 and 2173) and kernel E
+     the int8/int4 K/V cache; B=8, MG=20, S=637 and 2173, and the 128-slot
+     engine's B=128, MG=20, S=637 int8 with 167 MB of K/V) and kernel E
      (streamed top-k; N=40 and 640, D=1024, V=5000/15000/30265, k=5, and
      k=8 once) at the engine's, fp32 and bf16, against their plain PyTorch
      versions, kernel C's gradient through its autograd Function too;
      kernel F (single-shot decode attention; B=8, MG=20, S=637 and 2173,
      bb 1, 2 and 4, and its int4-split form) against the same plain
      versions as A and D, and its refusal of S=4096 (the score row does
-     not fit a block's shared memory); kernels A, B, D and F also 100
+     not fit a block's shared memory); kernels A, B, D, E and F also 100
      times on the same input, bit for bit (a race would vary); kernel E's
-     ids held by the logit at each id; kernel A at B=1 on one batch row
-     equal bit for bit to that row at B=8, fp32 and bf16 (its chunking is
-     set by S alone), with its chunk count, share of the byte bound, the
-     device time of its two kernels (torch.profiler) and the wrapper's
-     host floor; CUDA-event times of both, C forward and
-     forward+backward. Beside each fp32 case of A and C-F: its bound (the
-     larger of the bytes it must move over 3.35 TB/s and its operations
-     over the 67 TFLOP/s fp32 peak, and which one bounds it) and, where
-     one PyTorch
-     call computes the same function, that call's time (A, B, F:
-     scaled_dot_product_attention on pre-transposed copies; a yardstick
-     only, the port never calls it).
+     ids held by the logit at each id; kernels A and D at B=1 on one batch
+     row equal bit for bit to that row of the batch, q in fp32 and bf16
+     (their chunking is set by S alone; D int8 and int4), with the chunk
+     count, the device time of the two kernels (torch.profiler), for A its
+     share of the byte bound and the wrapper's host floor; kernel E's rows
+     launched as N=40 and N=5 equal bit for bit to their rows of the N=640
+     launch, fp32 and bf16, and the device time of its pass 1 and merge
+     (torch.profiler) in both dtypes; CUDA-event times of both, C forward
+     and forward+backward. Beside each fp32 case of A and C-F: its bound
+     (the larger of the bytes it must move over 3.35 TB/s and its
+     operations over the 67 TFLOP/s fp32 peak, and which one bounds it;
+     for E the operations at the tensor-core rate its route uses, 3xTF32
+     over 495 TFLOP/s in fp32 and 989 TFLOP/s in bf16, the CUDA-core
+     bound logged beside it) and, where one PyTorch call computes the
+     same function, that call's time (A, B, F: scaled_dot_product_attention
+     on pre-transposed copies; a yardstick only, the port never calls
+     it).
   4. full-width service: CaptionerConfig() + RobertaConfig.large() with
      random weights from the seed, served over HTTP on a local port (the
      service built without article_len takes 512 from the article
@@ -113,10 +119,12 @@ runs phases 1-2, then only the engine checks of phases 8 and 10, N times
 over the seeds seed, seed+1, ... (the first failure ends it); it prints no
 result line.
 
-    python3 chip_smoke.py --kernels [encoder_attention]
+    python3 chip_smoke.py --kernels [NAME,...]
 
 runs phases 1-3 only (every kernel against its plain version, with its
-times; with encoder_attention, kernel B's cases only) and prints no
+times; with names, e.g. encoder_attention or
+decode_attention_q8,topk_logits, those kernels' cases only, so that a copy
+of this script can time a parent tree in the same call) and prints no
 result line.
 
     python3 chip_smoke.py --beam N
@@ -170,7 +178,7 @@ FEATURE_TOL = dict(atol=1e-4, rtol=1e-4)
 # survivors, that prefix lies within TIE_TOL (twice the drift, rounded up)
 # of the one-shot's 5th candidate. Phase 10 allows no differing answer.
 TIE_TOL = 1e-2
-REPEATS = 100       # phase 3: bit-for-bit repeats of kernels A, B, D and F
+REPEATS = 100       # phase 3: bit-for-bit repeats of kernels A, B, D, E and F
 KV8_FLOOR = 0.95    # phase 9: tell_tpu's gate (BENCH_r05.json)
 FUSED_TOPK_FLOOR = 15 / 16
 # Phase 6 (training loss and gradients, fp32). Kernel C against its plain
@@ -262,12 +270,12 @@ def _sdpa_encoder(q, k, v, mask):
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def _decode_case(g, B, MG, article_len, dev):
+def _decode_case(g, B, MG, article_len, dev, copies=4):
     """Kernel A inputs at the decoder's layout: the four modalities' rows
     (+ bias and zero columns each) on the source axis, a real segment bias
     with padded articles and absent faces/objects. Four copies (one per
     decoder layer) so a timed loop streams K/V from device memory rather
-    than L2, as the decode step does."""
+    than L2, as the decode step does (two where one copy exceeds L2)."""
     from tell_tpu_torch.ops.kernels.decode_attention import segment_bias
     H, hd, M = 16, 64, len(FLAGSHIP_SEGMENTS)
     lens = [n if name != "article" else article_len
@@ -284,7 +292,7 @@ def _decode_case(g, B, MG, article_len, dev):
         off += n + 2
     bias = segment_bias(seg, pad.to(dev), M, MG // M)
     sets = []
-    for _ in range(4):
+    for _ in range(copies):
         q = torch.randn(B, H, MG, hd, generator=g) * hd ** -0.5
         k = torch.randn(B, H, hd, S, generator=g)
         v = torch.randn(B, H, hd, S, generator=g)
@@ -317,13 +325,17 @@ ENCODER_CASES = (
 def check_repeats(name, kernel, sets, shape, n=REPEATS):
     """n launches on sets[0], each after one on sets[1] (so shared memory
     and the L2 hold other data in between), must all equal the first
-    output bit for bit: a race between a block's phases shows as an output
-    that changes from launch to launch."""
-    first = kernel(*sets[0])
-    bad = torch.zeros((), dtype=torch.long, device=first.device)
+    output (every output of a kernel that returns several) bit for bit: a
+    race between a block's phases shows as an output that changes from
+    launch to launch."""
+    def outs(o):
+        return o if isinstance(o, tuple) else (o,)
+    first = outs(kernel(*sets[0]))
+    bad = torch.zeros((), dtype=torch.long, device=first[0].device)
     for _ in range(n):
         kernel(*sets[1])
-        bad += (kernel(*sets[0]) != first).sum()
+        for a, b in zip(outs(kernel(*sets[0])), first):
+            bad += (a != b).sum()
     require(bad.item() == 0, f"{name} {shape}: {bad.item()} outputs changed "
             f"over {n} launches on the same inputs")
 
@@ -546,20 +558,25 @@ def check_conv(g, B, T, K, dev, C=1024, H=16):
 
 
 def check_q8(g, B, MG, article_len, dev, mode, name="decode_attention_q8",
-             kernel=None):
+             kernel=None, copies=4):
     """Kernel D (or `kernel`, e.g. kernel F's int4-split form) against
     decode_attention_q8_plain on _decode_case's inputs with K/V quantised
     as the decode state stores them: q fp32 (FP32_TOL, and bit-for-bit
     repeats), q bf16 (against the plain version in fp32 on the same bf16
     query, BF16_ATOL); CUDA-event times of both with q fp32, and the
-    bound (no single PyTorch call computes it)."""
+    bound (no single PyTorch call computes it). Kernel D also goes through
+    check_kernel_d."""
     from tell_tpu_torch.models.decoder import quantize_kv, quantize_kv4
     from tell_tpu_torch.ops.kernels.decode_attention import (
         decode_attention_q8, decode_attention_q8_plain)
     kernel = kernel or decode_attention_q8
     quant = quantize_kv4 if mode == "int4" else quantize_kv
-    S, fp_sets = _decode_case(g, B, MG, article_len, dev)
-    sets = [[q, *quant(k), *quant(v), bias] for q, k, v, bias in fp_sets]
+    S, fp_sets = _decode_case(g, B, MG, article_len, dev, copies)
+    sets = []
+    while fp_sets:   # quantise a copy at a time (B=128: 334 MB of fp32 K)
+        q, k, v, bias = fp_sets.pop(0)
+        sets.append([q, *quant(k), *quant(v), bias])
+        del k, v
     shape = f"{mode} B={B} H=16 hd=64 MG={MG} S={S}"
     args = sets[0]
     ref = decode_attention_q8_plain(*args)
@@ -569,6 +586,7 @@ def check_q8(g, B, MG, article_len, dev, mode, name="decode_attention_q8",
     torch.testing.assert_close(out, ref, **FP32_TOL)
     bound_ms, bound_by = bound(_nbytes(args) + _nbytes([out]),
                                decode_flops(args[0], S))
+    del ref
     check_repeats(name, kernel, sets, shape)
     q16 = args[0].to(torch.bfloat16)
     out16 = kernel(q16, *args[1:])
@@ -584,9 +602,53 @@ def check_q8(g, B, MG, article_len, dev, mode, name="decode_attention_q8",
     log(f"phase 3: {name} {shape}: fp32 max abs err {err32:.3e}, bf16 max "
         f"abs err {err16:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}), library none (fp32 q)")
-    return {"shape": shape, "err32": err32, "err16": err16, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+    res = {"shape": shape, "err32": err32, "err16": err16, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": None}
+    if name == "decode_attention_q8":
+        check_kernel_d(sets, S, shape, res)
+    return res
+
+
+def check_kernel_d(sets, S, shape, res, row=3):
+    """Kernel D at B=1 on batch row `row` of sets[0] must equal that row of
+    the full batch bit for bit, with q in fp32 and in bf16: the chunk count
+    is set by S alone, so a row sums in the same order at any batch. Logs
+    the chunk count, the bf16-q CUDA-event time, and the device time of
+    D's launches from torch.profiler (its chunk and combine kernels, by
+    name; all of them for a tree whose D has other kernels) for q in fp32
+    and bf16, each beside the bound (res: check_q8's result)."""
+    from tell_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_q8, split_count)
+    from tell_tpu_torch.tools.timing import profiled_device_ms
+    q, k8, ks, v8, vs, bias = sets[0]
+    B = q.shape[0]
+    dev_ms = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qd = q.to(dtype)
+        full = decode_attention_q8(qd, k8, ks, v8, vs, bias)
+        one = decode_attention_q8(*(t[row:row + 1].contiguous()
+                                    for t in (qd, k8, ks, v8, vs, bias)))
+        n_diff = int((full[row:row + 1] != one).sum())
+        require(n_diff == 0, f"decode_attention_q8 {shape} {dtype}: B=1 "
+                f"differs from row {row} of B={B} in {n_diff} outputs")
+        xs = [[x[0].to(dtype), *x[1:]] for x in sets]
+        cycle = itertools.cycle(xs)
+        times = profiled_device_ms(lambda: decode_attention_q8(*next(cycle)))
+        chunk = sum(t for k, t in times.items() if "chunk_kernel" in k)
+        combine = sum(t for k, t in times.items() if "combine_kernel" in k)
+        dev_ms[dtype] = (chunk, combine, sum(times.values()))
+    cycle = itertools.cycle([[x[0].to(torch.bfloat16), *x[1:]] for x in sets])
+    ms16 = cuda_ms(lambda: decode_attention_q8(*next(cycle)))
+    (c32, m32, t32), (c16, m16, t16) = (dev_ms[torch.float32],
+                                        dev_ms[torch.bfloat16])
+    log(f"phase 3: decode_attention_q8 {shape}: n_split {split_count(S)}; "
+        f"device time, q fp32: {c32:.4f} ms + combine {m32:.4f} ms (all "
+        f"kernels {t32:.4f} ms, {res['bound_ms'] / t32:.1%} of the bound), "
+        f"q bf16: {c16:.4f} + {m16:.4f} ms (all {t16:.4f} ms; events "
+        f"{ms16:.4f} ms); batch row {row} at B=1 equals B={B} bit for bit "
+        "(q fp32, bf16)")
+    res.update(ms16=ms16, dev_ms=t32, dev_ms16=t16)
 
 
 def _topk_agree(out, ref, x, table, zero_row, what):
@@ -627,11 +689,19 @@ def check_topk(g, N, V, k, dev, D=1024):
     """Kernel E against topk_logits_plain at the engine's shapes (N = slots
     x beam rows of step features, a band's table [V, D] at the tables'
     init scale, the padding row 1 pinned): fp32, and bf16 against the plain
-    version on the same bf16 values, ids held as _topk_agree says;
-    CUDA-event times of both in fp32, over table copies that together
-    exceed the L2 cache."""
+    version on the same bf16 values, ids held as _topk_agree says; the
+    100-repeat probe (values, ids and lse); CUDA-event times of both in
+    fp32 and of the kernel in bf16, over table copies that together exceed
+    the L2 cache; the device time of pass 1 and of the merge
+    (torch.profiler) in both dtypes. The bound counts the operations at
+    the tensor-core rate the kernel's route uses (fp32: 3xTF32, three TF32
+    products per product at 495 TFLOP/s; bf16: 989 TFLOP/s) or the bytes,
+    whichever is longer; the CUDA-core fp32 bound (67 TFLOP/s) is logged
+    beside it. At N=640, rows launched as N=40 and N=5 must equal their
+    rows of the N=640 launch bit for bit, in fp32 and bf16."""
     from tell_tpu_torch.ops.kernels.topk_logits import (topk_logits,
                                                         topk_logits_plain)
+    from tell_tpu_torch.tools.timing import profiled_device_ms
     shape = f"N={N} V={V} D={D} k={k}"
     x = torch.randn(N, D, generator=g).to(dev)
     n_copies = min(4, max(2, -(-200 * 2**20 // (V * D * 4))))
@@ -641,26 +711,59 @@ def check_topk(g, N, V, k, dev, D=1024):
     out = topk_logits(x, tables[0], k, 1)
     torch.cuda.synchronize()
     err32, n_diff = _topk_agree(out, ref, x, tables[0], 1, f"{shape} fp32")
-    x16, t16 = x.bfloat16(), tables[0].bfloat16()
-    out16 = topk_logits(x16, t16, k, 1)
-    ref16 = topk_logits_plain(x16.float(), t16.float(), k, 1)
+    x16, t16 = x.bfloat16(), [t.bfloat16() for t in tables]
+    out16 = topk_logits(x16, t16[0], k, 1)
+    ref16 = topk_logits_plain(x16.float(), t16[0].float(), k, 1)
     torch.cuda.synchronize()
-    err16, n_diff16 = _topk_agree(out16, ref16, x16, t16, 1,
+    err16, n_diff16 = _topk_agree(out16, ref16, x16, t16[0], 1,
                                   f"{shape} bf16")
+    check_repeats("topk_logits", topk_logits,
+                  [[x, tables[0], k, 1], [x, tables[1], k, 1]], shape)
     cycle = itertools.cycle(tables)
     ms = cuda_ms(lambda: topk_logits(x, next(cycle), k, 1))
     plain_ms = cuda_ms(lambda: topk_logits_plain(x, next(cycle), k, 1))
+    cycle = itertools.cycle(t16)
+    ms16 = cuda_ms(lambda: topk_logits(x16, next(cycle), k, 1))
+    dev_ms = {}
+    for dtype, xd, ts in (("fp32", x, tables), ("bf16", x16, t16)):
+        cycle = itertools.cycle(ts)
+        times = profiled_device_ms(lambda: topk_logits(xd, next(cycle), k, 1))
+        dev_ms[dtype] = (
+            sum(t for n, t in times.items() if "partial_kernel" in n),
+            sum(t for n, t in times.items() if "merge_kernel" in n))
     # x . table^T (2*N*V*D); no single PyTorch call computes the top-k and
     # the lse of a product
-    bound_ms, bound_by = bound(_nbytes([x, tables[0], *out]),
-                               2.0 * N * V * D)
+    flops = 2.0 * N * V * D
+    bound_ms, bound_by = bound(_nbytes([x, tables[0], *out]), 3 * flops,
+                               TF32_FLOPS)
+    bound16, by16 = bound(_nbytes([x16, t16[0], *out16]), flops, BF16_FLOPS)
+    core_ms, core_by = bound(_nbytes([x, tables[0], *out]), flops)
+    (p32, m32), (p16, m16) = dev_ms["fp32"], dev_ms["bf16"]
     log(f"phase 3: topk_logits {shape}: fp32 max abs err {err32:.3e}, bf16 "
         f"max abs err {err16:.3e}, ids differing {n_diff}/{n_diff16} of "
-        f"{N * k}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}), library none (fp32)")
+        f"{N * k}; fp32 kernel {ms:.4f} ms (device: pass 1 {p32:.4f} ms + "
+        f"merge {m32:.4f} ms, {bound_ms / (p32 + m32):.1%} of the bound "
+        f"{bound_ms:.4f} ms, {bound_by}, 3xTF32; CUDA-core bound "
+        f"{core_ms:.4f} ms, {core_by}), plain {plain_ms:.4f} ms; bf16 "
+        f"kernel {ms16:.4f} ms (device: pass 1 {p16:.4f} ms + merge "
+        f"{m16:.4f} ms, {bound16 / (p16 + m16):.1%} of the bound "
+        f"{bound16:.4f} ms, {by16}); library none")
+    if N == 640:
+        for dtype, xd, t in (("fp32", x, tables[0]), ("bf16", x16, t16[0])):
+            full = topk_logits(xd, t, k, 1)
+            for rows in (slice(0, 40), slice(100, 105)):
+                part = topk_logits(xd[rows].contiguous(), t, k, 1)
+                n_diff = sum(int((a[rows] != b).sum())
+                             for a, b in zip(full, part))
+                require(n_diff == 0, f"topk_logits {shape} {dtype}: rows "
+                        f"{rows.start}-{rows.stop - 1} launched alone differ "
+                        f"from the N={N} launch in {n_diff} outputs")
+        log(f"phase 3: topk_logits {shape}: rows launched as N=40 and N=5 "
+            f"equal their rows of N={N} bit for bit (fp32, bf16)")
     return {"shape": shape, "err32": err32, "err16": err16, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, "ms16": ms16, "bound16": bound16,
+            "dev_ms": dev_ms}
 
 
 def check_single_refusal(dev) -> None:
@@ -683,11 +786,19 @@ def check_single_refusal(dev) -> None:
     raise CheckFailed("kernel F took S=4096 at MG=20 without refusing")
 
 
-def phase_kernels(seed: int, only: str | None = None) -> dict:
-    """Every kernel against its plain version (only="encoder_attention":
-    kernel B's cases alone). Kernel B's B=4 cases draw from the generator
-    where they always did, so every later kernel keeps the inputs of
-    earlier trees; the B=1 and B=32 cases draw from a second one."""
+# The kernels of phase 3, as --kernels names them
+KERNEL_NAMES = ("decode_attention", "encoder_attention", "fused_dynamic_conv",
+                "decode_attention_q8", "topk_logits", "decode_attention_single")
+
+
+def phase_kernels(seed: int, only: set[str] | None = None) -> dict:
+    """Every kernel against its plain version, or only the kernels named in
+    `only` (KERNEL_NAMES; decode_attention_single also takes its int4-split
+    form). In a full run kernel B's B=4 cases draw from the generator where
+    they always did, so every later kernel keeps the inputs of earlier
+    trees; the B=1 and B=32 cases draw from a second generator and kernel
+    D's B=128 case from a third. A run of some kernels only draws other
+    inputs than the full run, the same in every tree that runs it."""
     from tell_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, decode_attention_plain, decode_attention_q4split,
         decode_attention_single)
@@ -696,11 +807,14 @@ def phase_kernels(seed: int, only: str | None = None) -> dict:
            "fused_dynamic_conv": [], "decode_attention_q8": [],
            "topk_logits": [], "decode_attention_single": [],
            "decode_attention_q4split": []}
-    b_only = only == "encoder_attention"
+
+    def run(name):
+        return only is None or name in only
+
     g = torch.Generator().manual_seed(seed)
     identity = lambda o: o  # noqa: E731
-    for MG, article in (() if b_only else
-                        ((4, 512), (20, 512), (4, 2048), (20, 2048))):
+    for MG, article in (((4, 512), (20, 512), (4, 2048), (20, 2048))
+                        if run("decode_attention") else ()):
         S, sets = _decode_case(g, 8, MG, article, dev)
         shape = f"B=8 H=16 hd=64 MG={MG} S={S}"
         res["decode_attention"].append(check_kernel(
@@ -708,25 +822,35 @@ def phase_kernels(seed: int, only: str | None = None) -> dict:
             sets, shape, decode_flops(sets[0][0], S),
             (_sdpa_decode, _sdpa_decode_sets(sets), identity)))
         check_kernel_a(sets, S, shape, res["decode_attention"][-1])
-    if not b_only:
+    if run("decode_attention"):
         decode_attention_host_floor(dev)
     gb = torch.Generator().manual_seed(seed + 1)
-    for S, (name, lens) in ([(128, ENCODER_CASES[0])]
-                            + [(512, c) for c in ENCODER_CASES]):
+    for S, (name, lens) in (([(128, ENCODER_CASES[0])]
+                             + [(512, c) for c in ENCODER_CASES])
+                            if run("encoder_attention") else ()):
         res["encoder_attention"].append(check_kernel_b(
             g if name == "B=4" else gb, name, lens(S), S, dev))
-    if b_only:
+    if run("fused_dynamic_conv"):
+        for T, K in ((32, 3), (32, 7), (32, 15), (32, 31), (100, 31),
+                     (15, 31)):
+            res["fused_dynamic_conv"].append(check_conv(g, 16, T, K, dev))
+    if run("decode_attention_q8"):
+        for mode in ("int8", "int4"):
+            for article in (512, 2048):
+                res["decode_attention_q8"].append(
+                    check_q8(g, 8, 20, article, dev, mode))
+        # the 128-slot engine's step: 167 MB of int8 K/V
+        res["decode_attention_q8"].append(check_q8(
+            torch.Generator().manual_seed(seed + 2), 128, 20, 512, dev,
+            "int8", copies=2))
+        torch.cuda.empty_cache()
+    if run("topk_logits"):
+        for N in (40, 640):
+            for V in (5000, 15000, 30265):
+                res["topk_logits"].append(check_topk(g, N, V, 5, dev))
+        res["topk_logits"].append(check_topk(g, 40, 30265, 8, dev))
+    if not run("decode_attention_single"):
         return res
-    for T, K in ((32, 3), (32, 7), (32, 15), (32, 31), (100, 31), (15, 31)):
-        res["fused_dynamic_conv"].append(check_conv(g, 16, T, K, dev))
-    for mode in ("int8", "int4"):
-        for article in (512, 2048):
-            res["decode_attention_q8"].append(
-                check_q8(g, 8, 20, article, dev, mode))
-    for N in (40, 640):
-        for V in (5000, 15000, 30265):
-            res["topk_logits"].append(check_topk(g, N, V, 5, dev))
-    res["topk_logits"].append(check_topk(g, 40, 30265, 8, dev))
     for article in (512, 2048):
         S, sets = _decode_case(g, 8, 20, article, dev)
         lib = (_sdpa_decode, _sdpa_decode_sets(sets), identity)
@@ -1624,6 +1748,22 @@ def engine_repeats(seed: int, n: int) -> None:
         log(f"engine repeats: seed {s} in {time.perf_counter() - t:.1f} s")
 
 
+def ptxas_summary(report: str) -> list[str]:
+    """One line per kernel of nvcc's -Xptxas=-v report: its (mangled)
+    name, registers and spill stores."""
+    lines, name, spill = [], "?", ""
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif "spill stores" in line:
+            spill = line.strip().split(",")[1].strip()
+        elif "Used" in line and "registers" in line:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            lines.append(f"{name[:110]}: {regs}, {spill or 'no spill'}")
+            name, spill = "?", ""
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1631,13 +1771,19 @@ def main() -> int:
                     help="after the build, only the engine checks of "
                     "phases 8 and 10, this many times (no result line)")
     ap.add_argument("--kernels", nargs="?", const="all",
-                    choices=("all", "encoder_attention"),
-                    help="phases 1-3 only, or with encoder_attention kernel "
-                    "B's cases of phase 3 only (no result line)")
+                    help="phases 1-3 only (no result line); with a "
+                    "comma-separated list of " + ", ".join(KERNEL_NAMES)
+                    + " only those kernels' cases of phase 3")
     ap.add_argument("--beam", type=int, default=0,
                     help="after the build, phase 10's beam search this "
                     "many times, timed (no result line)")
     args = ap.parse_args()
+    only = None
+    if args.kernels not in (None, "all"):
+        only = set(args.kernels.split(","))
+        if not only <= set(KERNEL_NAMES):
+            ap.error(f"--kernels: {sorted(only - set(KERNEL_NAMES))} not in "
+                     f"{KERNEL_NAMES}")
 
     # phase 1
     if not torch.cuda.is_available():
@@ -1663,9 +1809,8 @@ def main() -> int:
         f"{time.perf_counter() - t:.2f} s")
     report = build.library_path().with_suffix(".log")
     if report.exists():
-        for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("phase 2: ptxas: " + line.strip())
+        for line in ptxas_summary(report.read_text()):
+            log("phase 2: ptxas: " + line)
 
     if args.engine_repeats:
         engine_repeats(args.seed, args.engine_repeats)
@@ -1674,7 +1819,7 @@ def main() -> int:
         beam_timing(args.seed, args.beam)
         return 0
     # phase 3
-    res = phase_kernels(args.seed, args.kernels)
+    res = phase_kernels(args.seed, only)
     if args.kernels:
         return 0
     # phase 4
@@ -1738,7 +1883,7 @@ def main() -> int:
         "fused_dynamic_conv": ("tell_tpu_torch/csrc/dynamic_conv.cu",
                                "tell_tpu/ops/kernels/dynamic_conv.py:83"),
         "decode_attention_q8": (
-            "tell_tpu_torch/csrc/decode_attention.cu",
+            "tell_tpu_torch/csrc/decode_attention_q8.cu",
             "tell_tpu/ops/kernels/decode_attention.py:399"),
         "topk_logits": ("tell_tpu_torch/csrc/topk_logits.cu",
                         "tell_tpu/ops/kernels/topk_logits.py:126"),

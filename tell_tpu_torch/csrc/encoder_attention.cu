@@ -65,6 +65,16 @@
 
 namespace {
 
+using tt::cp_async16;
+using tt::cp_async_commit;
+using tt::cp_async_wait;
+using tt::ldmatrix_x4;
+using tt::ldmatrix_x4_trans;
+using tt::mma_3xtf32;
+using tt::mma_bf16;
+using tt::pack_bf16;
+using tt::split_tf32;
+
 constexpr int kHD = 64;   // head dim (RoBERTa-large and -base)
 constexpr int kBK = 64;   // keys per tile
 constexpr int kKT = kBK / 8;   // n8 score fragments per tile
@@ -92,20 +102,6 @@ __host__ __device__ constexpr size_t tile_bytes() {
 template <typename T>
 size_t smem_bytes(int S) {
   return 4 * tile_bytes<T>() + (size_t)S + (size_t)(S + kBK - 1) / kBK;
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // Issue the cp.async loads of key tile `tile` into ks/vs (rows past S are
@@ -156,43 +152,6 @@ __device__ __forceinline__ int next_tile(const uint8_t* kept, bool any_real,
 }
 
 // ---- fp32: 3xTF32 mma.sync.m16n8k8 ----------------------------------------
-
-// hi: x cut to TF32's 10 mantissa bits; lo: the exact rest x - hi, cut the
-// same way (see the header for why not cvt.rna.tf32).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void split_tf32(const float (&a)[4],
-                                           uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split_tf32(a[i], hi[i], lo[i]);
-}
-
-// c += a * b in 3xTF32 (a split already): the two small cross terms first.
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], float b0,
-                                           float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split_tf32(b0, bh0, bl0);
-  split_tf32(b1, bh1, bl1);
-  mma_tf32(c, al, bh0, bh1);
-  mma_tf32(c, ah, bl0, bl1);
-  mma_tf32(c, ah, bh0, bh1);
-}
 
 // A fragments of q for the warp's 16 rows: qa[ks] holds (row g, dim
 // 8ks + c), (g + 8, 8ks + c), (g, 8ks + c + 4), (g + 8, 8ks + c + 4).
@@ -251,37 +210,6 @@ __device__ __forceinline__ void pv(float (&o)[kDT][4],
 }
 
 // ---- bf16: mma.sync.m16n8k16 ----------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
 
 // A fragments of q: qa[ks] holds (row g, dims 16ks + 2c, +1),
 // (g + 8, same), (g, 16ks + 8 + 2c, +1), (g + 8, same).

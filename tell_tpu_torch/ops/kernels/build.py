@@ -30,9 +30,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, bias, part, out, B, H, MG, hd, S, dtype, stream
     "tt_decode_attention": [_P] * 6 + [_I] * 6 + [_P],
-    # q, k8, k_scale, v8, v_scale, bias, out, B, H, MG, hd, S, packed4,
-    # dtype, stream
-    "tt_decode_attention_q8": [_P] * 7 + [_I] * 7 + [_P],
+    # q, k8, k_scale, v8, v_scale, bias, part, out, B, H, MG, hd, S,
+    # packed4, dtype, stream
+    "tt_decode_attention_q8": [_P] * 8 + [_I] * 7 + [_P],
     # q, k, v, bias, out, B, H, MG, hd, S, bb, dtype, stream
     "tt_decode_attention_single": [_P] * 5 + [_I] * 7 + [_P],
     # q, k4, k_scale, v4, v_scale, bias, out, B, H, MG, hd, S, bb, dtype,

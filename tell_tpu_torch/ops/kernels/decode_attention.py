@@ -5,24 +5,26 @@ single-shot form of the same attention, with its int4-split form.
 Kernel A replaces tell_tpu/ops/kernels/decode_attention.py::
 fused_decode_attention (pallas_call at :216) AND its S-tiled
 online-softmax form _tiled_decode_attention (pallas_call at :177) with one
-CUDA kernel; kernel D replaces fused_decode_attention_q8 (:399) and
-_tiled_decode_attention_q8 (:347), int8 and int4, in the same source
-(tell_tpu_torch/csrc/decode_attention.cu).
+CUDA kernel (tell_tpu_torch/csrc/decode_attention.cu); kernel D replaces
+fused_decode_attention_q8 (:399) and _tiled_decode_attention_q8 (:347),
+int8 and int4, on the same body (csrc/decode_attention_q8.cu, the body in
+csrc/decode_attention.cuh).
 
 Semantics (decoder.py's stacked attention): query row x = m*G + g of
 batch row b attends the source columns s with bias[b, x, s] == 0 (its own
 modality, not padding); softmax in fp32.
 
-What bounds it on the H100: the K/V stream, 2*B*H*hd*S elements per layer
-per decode step (H=16, hd=64, S=637 at the flagship). Kernel A cuts S into
-chunks of CHUNK columns, one block per (b, h, chunk), each block's partial
-softmax combined in chunk order by a second launch; the number of chunks
-depends on S alone, so a row's output is the same bits at any batch size
-(decode_attention_split_plain computes the same route in PyTorch). Kernel
-D keeps one block per (b, h), streams one byte per element (int8) or half
-a byte (int4) plus two fp32 scales per column, and dequantises on load.
-The JAX layout [B, H, hd, S] is kept; see the source's header for the
-design and what is left for later work.
+What bounds them on the H100: the K/V stream, 2*B*H*hd*S elements per
+layer per decode step (H=16, hd=64, S=637 at the flagship); one byte per
+element (int8) or half a byte (int4) plus two fp32 scales per column for
+D. Both cut S into chunks of CHUNK columns, one block per (b, h, chunk),
+each block's partial softmax combined in chunk order by a second launch;
+the number of chunks depends on S alone, so a row's output is the same
+bits at any batch size (decode_attention_split_plain and
+decode_attention_q8_split_plain compute the same routes in PyTorch). D
+dequantises in registers as it loads. The JAX layout [B, H, hd, S] is
+kept; see the sources' headers for the design and what is left for later
+work.
 
 Kernel F (tell_tpu_torch/csrc/decode_attention_single.cu) replaces the
 single-shot Pallas kernels of the JAX package's measurement tools:
@@ -42,15 +44,28 @@ from .build import check_launch, load_library
 from .dispatch import check_kernel_args, use_kernel
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-CHUNK = 256                 # kernel A: source columns per block (kChunk)
+CHUNK = 256                 # kernels A, D: source columns per block
 HEAD_DIMS = (32, 64, 128)   # kernel A's head-dim instantiations
-MAX_ROWS = 40               # kernel A's query rows MG, at most
+Q8_HEAD_DIMS = (32, 64)     # kernel D's
+MAX_ROWS = 40               # kernels A, D: query rows MG, at most
 
 
 def split_count(S: int) -> int:
-    """Kernel A's chunks over a source of S columns, ceil(S / CHUNK): set by
-    S alone, never by B or H, so a row's output is the same at any batch."""
+    """Kernel A's and D's chunks over a source of S columns, ceil(S /
+    CHUNK): set by S alone, never by B or H, so a row's output is the same
+    at any batch."""
     return -(-S // CHUNK)
+
+
+def _split_scratch(q: torch.Tensor, S: int) -> torch.Tensor | None:
+    """The chunks' partials (acc [MG, hd], m, l) in fp32 for kernels A and
+    D, where S takes more than one chunk; else None."""
+    B, H, MG, hd = q.shape
+    n_split = split_count(S)
+    if n_split == 1:
+        return None
+    return torch.empty(B * H * n_split * MG * (hd + 2), dtype=torch.float32,
+                       device=q.device)
 
 
 def segment_bias(seg: torch.Tensor, pad: torch.Tensor, M: int, G: int
@@ -86,16 +101,29 @@ def decode_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
     -1e30 (a chunk masked for a row gives l = 0, acc = 0 and weight 0),
     then the partials combined in chunk order. No path calls it; the tests
     hold it to tell_tpu's kernels."""
-    qf, kf, vf = q.float(), k.float(), v.float()
+    return _split_route(q, k.float(), None, v.float(), None, bias)
+
+
+def _split_route(q: torch.Tensor, kf: torch.Tensor, k_scale, vf: torch.Tensor,
+                 v_scale, bias: torch.Tensor) -> torch.Tensor:
+    """Kernels A's and D's route over fp32 K/V [B, H, hd, S]: per chunk of
+    CHUNK columns the scores (times k_scale, if given, before the bias),
+    m from -1e30, the raw exponentials summed into l and, times v_scale if
+    given, contracted with V into acc; the partials combined in chunk
+    order."""
+    qf = q.float()
     parts = []
-    for s0 in range(0, k.shape[3], CHUNK):
+    for s0 in range(0, kf.shape[3], CHUNK):
         cols = slice(s0, s0 + CHUNK)
-        sc = (torch.einsum("bhxd,bhds->bhxs", qf, kf[..., cols])
-              + bias[:, None, :, cols])
+        sc = torch.einsum("bhxd,bhds->bhxs", qf, kf[..., cols])
+        if k_scale is not None:
+            sc = sc * k_scale[..., cols]
+        sc = sc + bias[:, None, :, cols]
         m = sc.amax(-1).clamp_min(-1e30)
         p = torch.exp(sc - m[..., None])
+        pw = p if v_scale is None else p * v_scale[..., cols]
         parts.append((m, p.sum(-1),
-                      torch.einsum("bhxs,bhds->bhxd", p, vf[..., cols])))
+                      torch.einsum("bhxs,bhds->bhxd", pw, vf[..., cols])))
     m_all = torch.stack([m for m, _, _ in parts]).amax(0)
     num = den = 0.0
     for m, l, acc in parts:
@@ -123,12 +151,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: the kernel takes hd in "
                          f"{HEAD_DIMS}, 1 <= MG <= {MAX_ROWS} and S >= 1, "
                          f"not hd={hd}, MG={MG}, S={S}")
-    n_split = split_count(S)
     out = torch.empty_like(q)
-    part = None
-    if n_split > 1:   # the chunks' partials (acc [MG, hd], m, l) in fp32
-        part = torch.empty(B * H * n_split * MG * (hd + 2),
-                           dtype=torch.float32, device=q.device)
+    part = _split_scratch(q, S)
     lib = load_library()
     with torch.cuda.device(q.device):
         code = lib.tt_decode_attention(
@@ -138,7 +162,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     check_launch(lib, "decode_attention", code)
     decode_attention.launches += 1
-    decode_attention.combine_launches += int(n_split > 1)
+    decode_attention.combine_launches += int(part is not None)
     decode_attention.max_columns = max(decode_attention.max_columns, S)
     return out
 
@@ -194,6 +218,22 @@ def decode_attention_q8_plain(q: torch.Tensor, k8: torch.Tensor,
     return out.to(q.dtype)
 
 
+def decode_attention_q8_split_plain(q: torch.Tensor, k8: torch.Tensor,
+                                    k_scale: torch.Tensor, v8: torch.Tensor,
+                                    v_scale: torch.Tensor, bias: torch.Tensor
+                                    ) -> torch.Tensor:
+    """Kernel D's function by kernel D's route, in PyTorch: K/V dequantised
+    exactly (packed int4 unpacked), then per chunk of CHUNK columns the
+    scores times k_scale plus the bias, the partial (m, l, acc) in fp32
+    with m from -1e30, l the sum of the raw exponentials and acc their
+    product times v_scale with V (the TPU's tiled q8 kernel), combined in
+    chunk order. No path calls it; the tests hold it to tell_tpu's
+    kernels."""
+    if k8.shape[2] != q.shape[3]:
+        k8, v8 = unpack_int4(k8), unpack_int4(v8)
+    return _split_route(q, k8.float(), k_scale, v8.float(), v_scale, bias)
+
+
 def decode_attention_q8(q: torch.Tensor, k8: torch.Tensor,
                         k_scale: torch.Tensor, v8: torch.Tensor,
                         v_scale: torch.Tensor, bias: torch.Tensor
@@ -202,30 +242,40 @@ def decode_attention_q8(q: torch.Tensor, k8: torch.Tensor,
     nibble-packed int4 [B, H, hd/2, S]; k_scale, v_scale: fp32 [B, H, 1, S];
     bias: [B, MG, S] fp32. Returns [B, H, MG, hd] in q's dtype.
     CUDA tensors launch kernel D (counted in decode_attention_q8.launches,
-    the packed int4 form also in .int4_launches); CPU tensors take
-    decode_attention_q8_plain."""
+    the packed int4 form also in .int4_launches, its combine pass, launched
+    where S > CHUNK, in .combine_launches); the kernel takes hd in
+    Q8_HEAD_DIMS, 1 <= MG <= MAX_ROWS and S >= 1, and raises ValueError on
+    other shapes. CPU tensors take decode_attention_q8_plain."""
     if not use_kernel(q, k8, k_scale, v8, v_scale, bias):
         return decode_attention_q8_plain(q, k8, k_scale, v8, v_scale, bias)
     B, H, MG, hd = q.shape
     S = k8.shape[3]
     packed4 = _check_q8_args("decode_attention_q8", q, k8, k_scale, v8,
                              v_scale, bias)
+    if hd not in Q8_HEAD_DIMS or not 1 <= MG <= MAX_ROWS or S < 1:
+        raise ValueError(f"decode_attention_q8: the kernel takes hd in "
+                         f"{Q8_HEAD_DIMS}, 1 <= MG <= {MAX_ROWS} and S >= 1, "
+                         f"not hd={hd}, MG={MG}, S={S}")
     out = torch.empty_like(q)
+    part = _split_scratch(q, S)
     lib = load_library()
     with torch.cuda.device(q.device):
         code = lib.tt_decode_attention_q8(
             q.data_ptr(), k8.data_ptr(), k_scale.data_ptr(), v8.data_ptr(),
-            v_scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, MG,
-            hd, S, int(packed4), _DTYPE_CODE[q.dtype],
+            v_scale.data_ptr(), bias.data_ptr(),
+            None if part is None else part.data_ptr(), out.data_ptr(), B, H,
+            MG, hd, S, int(packed4), _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream().cuda_stream)
     check_launch(lib, "decode_attention_q8", code)
     decode_attention_q8.launches += 1
     decode_attention_q8.int4_launches += int(packed4)
+    decode_attention_q8.combine_launches += int(part is not None)
     return out
 
 
 decode_attention_q8.launches = 0
 decode_attention_q8.int4_launches = 0
+decode_attention_q8.combine_launches = 0
 
 
 def _check_q8_args(name: str, q: torch.Tensor, k8: torch.Tensor,

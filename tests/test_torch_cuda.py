@@ -4,9 +4,12 @@ rows, other head dims for kernel A; for A also S at and across its
 256-column chunks, rows open in one chunk only, B=1 against B=8 bit for
 bit, and the shapes it refuses; T=1, T<K, T across a time tile and a
 ragged last tile, 8 and 16 heads, no softmax for kernel C; S=1 segments, a
-ragged last tile, an all-padded article, int4 against int8 and bf16 for
-kernel D; V below and across one chunk, k=1 and 8, equal logits and N=1
-for kernel E; key pads on the right, on the left and in the middle with
+ragged last tile, an all-padded article, int4 against int8 and bf16, S at
+and across its 256-column chunks, rows open in one chunk only, B=1
+against B=8 bit for bit and the shapes it refuses for kernel D; V below
+and across one chunk, k=1 and 8, equal logits, N=1, rows launched among 5,
+17, 40 and 640 equal bit for bit, D not a multiple of 8 and an unaligned
+x refused for kernel E; key pads on the right, on the left and in the middle with
 whole pad tiles, an all-pad row, S = 1, 63, 130, 256 and 512, and each
 sequence alone equal to its row of B=4 bit for bit for kernel B),
 kernels A and D repeating bit for bit over 200 launches,
@@ -35,7 +38,8 @@ import torch
 
 from tell_tpu_torch.ops.kernels.decode_attention import (
     MAX_ROWS, decode_attention, decode_attention_plain,
-    decode_attention_q4split, decode_attention_q8, decode_attention_q8_plain,
+    Q8_HEAD_DIMS, decode_attention_q4split, decode_attention_q8,
+    decode_attention_q8_plain, decode_attention_q8_split_plain,
     decode_attention_single, decode_attention_split_plain, segment_bias,
     split_count)
 from tell_tpu_torch.ops.kernels.dynamic_conv import (
@@ -43,7 +47,8 @@ from tell_tpu_torch.ops.kernels.dynamic_conv import (
 from tell_tpu_torch.ops.kernels.encoder_attention import (
     encoder_attention, encoder_attention_plain)
 from tell_tpu_torch.ops.kernels.topk_logits import (topk_logits,
-                                                    topk_logits_plain)
+                                                    topk_logits_plain,
+                                                    topk_logits_tiled)
 
 pytestmark = pytest.mark.cuda
 
@@ -424,6 +429,69 @@ def test_decode_attention_q8_refuses_what_the_kernel_does_not_take(gen):
         decode_attention_q8(q, k8, ks, v8, vs.double(), bias)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("packed4", [False, True], ids=["int8", "int4"])
+@pytest.mark.parametrize("S", [256, 257, 513, 2173])
+def test_decode_attention_q8_chunk_boundaries(gen, S, packed4, dtype):
+    """S at and one column past kernel D's 256-column chunks, and the long
+    article's source (9 chunks): against the plain version and D's
+    chunked route; one combine launch where S > 256."""
+    args = _q8_inputs(gen, 2, 4, 4, 5, S, 64, dtype, packed4)
+    combines = decode_attention_q8.combine_launches
+    _check_q8(args, dtype)
+    assert decode_attention_q8.combine_launches == combines + (S > 256)
+    out = decode_attention_q8(*args)
+    ref = decode_attention_q8_split_plain(args[0].float(), *args[1:])
+    _check_close(out, ref, dtype)
+
+
+def test_decode_attention_q8_row_equals_itself_at_batch_one(gen):
+    """Kernel D's (b, h) rows do not depend on the batch: B=1 on row b
+    gives the B=8 launch's row b bit for bit, int8 and int4, q in fp32
+    and bf16, at S within one chunk and across several."""
+    for S in (200, 637, 2173):
+        for packed4 in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = _q8_inputs(gen, 8, 16, 4, 5, S, 64, dtype, packed4)
+                full = decode_attention_q8(*args)
+                for b in (0, 5):
+                    one = decode_attention_q8(*(t[b:b + 1].contiguous()
+                                                for t in args))
+                    assert torch.equal(one[0], full[b]), (S, packed4, dtype,
+                                                          b)
+
+
+def test_decode_attention_q8_rows_open_in_one_chunk(gen):
+    """S=637: row 0 open in one column of the last chunk only (its output
+    is that column of V dequantised, v8 * v_scale), row 1 in the middle
+    chunk only; every other chunk's weight must be exactly 0."""
+    S = 637
+    q, k8, ks, v8, vs, bias = _q8_inputs(gen, 2, 4, 4, 5, S, 64,
+                                         torch.float32)
+    bias[:, :2] = float("-inf")
+    bias[:, 0, S - 3] = 0.0
+    bias[:, 1, 300:400] = 0.0
+    _check_q8([q, k8, ks, v8, vs, bias], torch.float32)
+    out = decode_attention_q8(q, k8, ks, v8, vs, bias)
+    col = v8[..., S - 3].float() * vs[..., S - 3]
+    torch.testing.assert_close(out[:, :, 0], col, atol=1e-6, rtol=1e-6)
+
+
+def test_decode_attention_q8_refuses_shapes_it_has_no_kernel_for(gen):
+    launches = decode_attention_q8.launches
+    args = _q8_inputs(gen, 1, 2, 1, 1, 40, 128, torch.float32)
+    with pytest.raises(ValueError, match="hd=128"):
+        decode_attention_q8(*args)
+    rows = MAX_ROWS + 1
+    args = _q8_inputs(gen, 1, 2, 1, rows, 40, 64, torch.float32)
+    with pytest.raises(ValueError, match=f"MG={rows}"):
+        decode_attention_q8(*args)
+    assert decode_attention_q8.launches == launches
+    assert Q8_HEAD_DIMS == (32, 64)
+    _check_q8(_q8_inputs(gen, 1, 2, 1, MAX_ROWS, 40, 64, torch.float32),
+              torch.float32)
+
+
 def _check_topk(x, table, k, zero_row=-1):
     launches = topk_logits.launches
     vals, ids, lse = topk_logits(x, table, k, zero_row)
@@ -463,9 +531,32 @@ def test_topk_logits_equal_logits_lower_id_first(gen):
     assert torch.equal(vals[0, :5], vals[0, :1].expand(5))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_topk_logits_rows_do_not_depend_on_the_batch(gen, dtype):
+    """Rows launched as N=5, N=40 and N=17 (one, three and two row tiles
+    of 16) give their rows of the N=640 launch bit for bit: values, ids
+    and lse. The model of the schedule agrees with the kernel."""
+    x = torch.randn(640, 1024, generator=gen, device="cuda").to(dtype)
+    table = (torch.randn(5000, 1024, generator=gen, device="cuda")
+             * 1024 ** -0.5).to(dtype)
+    full = topk_logits(x, table, 5, 1)
+    for rows in (slice(0, 5), slice(0, 40), slice(300, 317), slice(635, 640)):
+        part = topk_logits(x[rows].contiguous(), table, 5, 1)
+        for a, b in zip(full, part):
+            assert torch.equal(a[rows], b), (rows, dtype)
+    vals, ids, lse = topk_logits_tiled(x.float(), table.float(), 5, 1)
+    torch.testing.assert_close(full[0], vals, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(full[2], lse, atol=1e-5, rtol=1e-5)
+
+
 def test_topk_logits_refuses_what_the_kernel_does_not_take(gen):
     x = torch.randn(4, 32, generator=gen, device="cuda")
     table = torch.randn(100, 32, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        topk_logits(x[:, :12].contiguous(), table[:, :12].contiguous(), 5)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        topk_logits(torch.randn(4 * 32 + 1, device="cuda")[1:].view(4, 32),
+                    table, 5)
     with pytest.raises(ValueError, match="k=9"):
         topk_logits(x, table, 9)
     with pytest.raises(TypeError, match="table"):

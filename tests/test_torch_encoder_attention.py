@@ -8,10 +8,10 @@ in JAX (tell_tpu/models/backbones/roberta.py:206, 227-232), the CPU
 reference, with pads on the right, on the left, in the middle (whole pad
 tiles between real ones) and everywhere, at S = 1, 63, 130 and 512;
 skipping is shown to change no bit; and the kernel's fp32 route, 3xTF32
-tensor-core products, is emulated (operands split into TF32 high and low
-parts on the int32 view, rounded to nearest with ties away as
-cvt.rna.tf32 does, or cut as the kernel does) and held to a float64
-reference within chip_smoke.py's FP32_TOL.
+tensor-core products, is emulated (tell_tpu_torch/ops/kernels/tf32.py:
+operands split into TF32 high and low parts on the int32 view, rounded to
+nearest with ties away as cvt.rna.tf32 does, or cut as the kernel does)
+and held to a float64 reference within chip_smoke.py's FP32_TOL.
 
 Tolerances: fp32 atol = rtol = 1e-5 against the einsum path (the same math
 summed in another order); 3xTF32 atol 1e-5, rtol 1e-4 (FP32_TOL, what the
@@ -25,6 +25,7 @@ import torch
 
 from tell_tpu_torch.ops.kernels.encoder_attention import (
     TILE, encoder_attention_plain, encoder_attention_tiled, kept_tiles)
+from tell_tpu_torch.ops.kernels.tf32 import mm_3xtf32, mm_tf32
 
 torch.set_num_threads(2)
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -105,37 +106,11 @@ def test_kept_tiles_of_the_phase3_case():
     assert kept_tiles(torch.ones(2, 130, dtype=torch.bool)).all()
 
 
-def _tf32(x: torch.Tensor, rounding: str = "rna") -> torch.Tensor:
-    """fp32 to TF32 (10 mantissa bits) on the int32 view: "rna" rounds to
-    nearest with ties away from zero, as cvt.rna.tf32.f32 does (add half
-    of the 13 dropped bits to the magnitude, then clear them); "truncate"
-    clears them, as the kernel does."""
-    i = x.contiguous().view(torch.int32)
-    if rounding == "rna":
-        i = i + 0x1000
-    return (i & ~0x1FFF).view(torch.float32)
-
-
-def _mm3(eq, a, b, rounding):
-    """a x b in 3xTF32 as the kernel accumulates it: each operand split
-    into hi = tf32(x) and lo = tf32(x - hi); the two small cross terms
-    first, then the product of the high parts (each product of two TF32
-    values is exact in fp32)."""
-    def split(x):
-        hi = _tf32(x, rounding)
-        return hi, _tf32(x - hi, rounding)
-    (ah, al), (bh, bl) = split(a), split(b)
-    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
-            + torch.einsum(eq, ah, bh))
-
-
 def _attention_tf32x3(q, k, v, key_pad, rounding="truncate", split=True):
     """The kernel's fp32 route on the CPU: 64-key tiles, online softmax,
     q.k and p.v as 3xTF32 products (split=False: one TF32 product)."""
     def mm(eq, a, b):
-        if split:
-            return _mm3(eq, a, b, rounding)
-        return torch.einsum(eq, _tf32(a, rounding), _tf32(b, rounding))
+        return (mm_3xtf32 if split else mm_tf32)(eq, a, b, rounding)
     B, S, H, hd = q.shape
     neg = torch.zeros(key_pad.shape).masked_fill_(key_pad, -1e9)
     m = torch.full((B, H, S), -1e30)
