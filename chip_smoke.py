@@ -30,9 +30,12 @@ every phase passed):
      k=8 once) at the engine's, fp32 and bf16, against their plain PyTorch
      versions, kernel C's gradient through its autograd Function too;
      kernel F (single-shot decode attention; B=8, MG=20, S=637 and 2173,
-     bb 1, 2 and 4, and its int4-split form) against the same plain
-     versions as A and D, and its refusal of S=4096 (the score row does
-     not fit a block's shared memory); kernels A, B, D, E and F also 100
+     and its int4-split form) against the same plain versions as A and D,
+     its outputs at bb = 2 and 4 and a batch row at B=1 equal bit for bit
+     to bb = 1 (q, and K/V for the fp form, in fp32 and bf16), the device
+     time of its launches at each bb beside SDPA's (torch.profiler), and
+     S=4096 in both forms against the plain versions; kernels A, B, D, E
+     and F also 100
      times on the same input, bit for bit (a race would vary); kernel E's
      ids held by the logit at each id; kernels A and D at B=1 on one batch
      row equal bit for bit to that row of the batch, q in fp32 and bf16
@@ -42,7 +45,10 @@ every phase passed):
      launched as N=40 and N=5 equal bit for bit to their rows of the N=640
      launch, fp32 and bf16, and the device time of its pass 1 and merge
      (torch.profiler) in both dtypes; CUDA-event times of both, C forward
-     and forward+backward. Beside each fp32 case of A and C-F: its bound
+     (fp32, bf16; and its device time) and forward+backward, C's bound at
+     the tensor-core rate of its route (fp32: 3xTF32; bf16) plus the K-tap
+     sum on the CUDA cores, the CUDA-core bound logged beside it. Beside
+     each fp32 case of A, D, E and F: its bound
      (the larger of the bytes it must move over 3.35 TB/s and its
      operations over the 67 TFLOP/s fp32 peak, and which one bounds it;
      for E the operations at the tensor-core rate its route uses, 3xTF32
@@ -118,6 +124,14 @@ Then one JSON line describing the kernels and, last, the result line.
 runs phases 1-2, then only the engine checks of phases 8 and 10, N times
 over the seeds seed, seed+1, ... (the first failure ends it); it prints no
 result line.
+
+    python3 chip_smoke.py --trace-engine N
+
+runs phases 1-2, then phase 8's engine run (no int4 beam search) at --seed
+up to N times, stopping at the first answer that differs from the
+one-shot search, where both searches' ranked candidates at the step they
+split are logged side by side (every phase 8 and 10 run logs them for a
+differing answer); no result line.
 
     python3 chip_smoke.py --kernels [NAME,...]
 
@@ -501,13 +515,37 @@ def check_kernel_b(g, name, lens, S, dev) -> dict:
     return res
 
 
+# Kernel C's routes: the rate of its tap-logit product, and how many
+# products of that rate one logit product takes
+CONV_ROUTES = {"3xtf32": (TF32_FLOPS, 3), "bf16": (BF16_FLOPS, 1),
+               "cuda cores": (FP32_FLOPS, 1)}
+
+
+def conv_bound(tensors, B, T, K, C, H, route) -> tuple[float, str]:
+    """Kernel C's bound: its bytes (x, w_km in, out) over 3.35 TB/s
+    against its operations, the tap logits x . W (2*B*T*C*K*H) at the
+    rate of `route` (CONV_ROUTES) plus the K-tap sum (2*B*T*C*K) on the
+    fp32 CUDA cores."""
+    peak, n = CONV_ROUTES[route]
+    ops_ms = (2.0 * B * T * C * K * H * n / peak
+              + 2.0 * B * T * C * K / FP32_FLOPS) * 1e3
+    bytes_ms = _nbytes(tensors) / HBM_BYTES_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
 def check_conv(g, B, T, K, dev, C=1024, H=16):
-    """Kernel C against dynamic_conv_plain: fp32 forward, bf16 forward on
-    the same bf16-rounded inputs, dx and dw through the autograd Function
-    against autograd of the plain version; CUDA-event times of both,
-    forward and forward+backward."""
+    """Kernel C against dynamic_conv_plain: fp32 forward (CONV_TOL), bf16
+    forward on the same bf16-rounded inputs (BF16_ATOL), dx and dw through
+    the autograd Function against autograd of the plain version
+    (GRAD_TOL); CUDA-event times of the forward (fp32, bf16) and of
+    forward+backward beside the plain version's, and the forward's device
+    time from torch.profiler (fp32, bf16), each beside its bound at the
+    tensor-core rate of the kernel's route (conv_bound; the CUDA-core bound
+    logged beside it)."""
     from tell_tpu_torch.ops.kernels.dynamic_conv import (
         dynamic_conv_plain, fused_dynamic_conv)
+    from tell_tpu_torch.tools.timing import profiled_device_ms
     shape = f"B={B} T={T} C={C} H={H} K={K}"
     x = torch.randn(B, T, C, generator=g).to(dev)
     w_bound = (6.0 / (C + K * H)) ** 0.5
@@ -517,9 +555,9 @@ def check_conv(g, B, T, K, dev, C=1024, H=16):
     torch.cuda.synchronize()
     err32 = (out - ref).abs().max().item()
     torch.testing.assert_close(out, ref, **CONV_TOL)
-    out16 = fused_dynamic_conv(x.bfloat16(), w.bfloat16(), K, H)
-    ref16 = dynamic_conv_plain(x.bfloat16().float(), w.bfloat16().float(),
-                               K, H)
+    x16, w16 = x.bfloat16(), w.bfloat16()
+    out16 = fused_dynamic_conv(x16, w16, K, H)
+    ref16 = dynamic_conv_plain(x16.float(), w16.float(), K, H)
     torch.cuda.synchronize()
     err16 = (out16.float() - ref16).abs().max().item()
     if not np.isfinite(err16) or err16 > BF16_ATOL:
@@ -538,23 +576,34 @@ def check_conv(g, B, T, K, dev, C=1024, H=16):
     for a, b in zip(dk, dp):
         torch.testing.assert_close(a, b, **GRAD_TOL)
     ms = cuda_ms(lambda: fused_dynamic_conv(x, w, K, H))
+    ms16 = cuda_ms(lambda: fused_dynamic_conv(x16, w16, K, H))
     plain_ms = cuda_ms(lambda: dynamic_conv_plain(x, w, K, H))
     fb_ms = cuda_ms(lambda: fwd_bwd(fused_dynamic_conv))
     plain_fb_ms = cuda_ms(lambda: fwd_bwd(dynamic_conv_plain))
-    # forward: the tap logits x . W (2*B*T*C*K*H) and the K-tap sum
-    # (2*B*T*C*K); no single PyTorch call computes it
-    bound_ms, bound_by = bound(_nbytes([x, w, out]),
-                               2.0 * B * T * C * K * (H + 1))
+    times = profiled_device_ms(lambda: fused_dynamic_conv(x, w, K, H))
+    times16 = profiled_device_ms(lambda: fused_dynamic_conv(x16, w16, K, H))
+    dev_ms, dev16 = sum(times.values()), sum(times16.values())
+    prep, prep16 = (sum(t for k, t in ts.items() if "weight_blocks" in k)
+                    for ts in (times, times16))
+    bound_ms, bound_by = conv_bound([x, w, out], B, T, K, C, H, "3xtf32")
+    bound16, by16 = conv_bound([x16, w16, out16], B, T, K, C, H, "bf16")
+    cores_ms, _ = conv_bound([x, w, out], B, T, K, C, H, "cuda cores")
     log(f"phase 3: fused_dynamic_conv {shape}: fp32 max abs err "
         f"{err32:.3e}, bf16 max abs err {err16:.3e}, grad max abs err "
-        f"{errg:.3e}; forward kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}), library none; "
-        f"forward+backward kernel {fb_ms:.4f} ms, plain {plain_fb_ms:.4f} "
-        "ms (fp32)")
+        f"{errg:.3e}; forward fp32 {ms:.4f} ms (device {dev_ms:.4f} ms, "
+        f"of which the weight layout {prep:.4f} ms, "
+        f"{bound_ms / dev_ms:.1%} of the 3xTF32 {bound_by} bound "
+        f"{bound_ms:.4f} ms; CUDA-core bound {cores_ms:.4f} ms), bf16 "
+        f"{ms16:.4f} ms (device {dev16:.4f} ms, layout {prep16:.4f} ms, "
+        f"{bound16 / dev16:.1%} of "
+        f"the {by16} bound {bound16:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"library none; forward+backward kernel {fb_ms:.4f} ms, plain "
+        f"{plain_fb_ms:.4f} ms (fp32)")
     return {"shape": shape, "err32": err32, "err16": err16, "errg": errg,
             "ms": ms, "plain_ms": plain_ms, "fb_ms": fb_ms,
             "plain_fb_ms": plain_fb_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "ms16": ms16,
+            "dev_ms": dev_ms, "dev_ms16": dev16, "bound16": bound16}
 
 
 def check_q8(g, B, MG, article_len, dev, mode, name="decode_attention_q8",
@@ -607,6 +656,8 @@ def check_q8(g, B, MG, article_len, dev, mode, name="decode_attention_q8",
            "library_ms": None}
     if name == "decode_attention_q8":
         check_kernel_d(sets, S, shape, res)
+    elif name == "decode_attention_q4split":
+        check_kernel_f(name, kernel, sets, S, shape, res, fp=False)
     return res
 
 
@@ -766,24 +817,83 @@ def check_topk(g, N, V, k, dev, D=1024):
             "dev_ms": dev_ms}
 
 
-def check_single_refusal(dev) -> None:
-    """Kernel F refuses, before any launch, a source whose [MG, S] score
-    row does not fit a block's shared memory (S=4096 at MG=20, hd=64)."""
+def check_kernel_f(name, kernel, sets, S, shape, res, fp, row=3):
+    """Kernel F (fp form, or fp=False its int4-split form) on sets[0]: the
+    outputs at bb = 2 and 4 equal bb = 1 bit for bit, and batch row `row`
+    launched alone at B=1 equals its row of B=8, with q (and K/V for the fp
+    form) in fp32 and bf16; the device time of F's launches from
+    torch.profiler at each bb (fp32; at bb=1 also by kernel) and in bf16,
+    and, for the fp form, of the SDPA call (res: check_kernel's or
+    check_q8's result for these sets, which gets dev_ms, the device ms at
+    each bb, dev_ms16 and sdpa_dev)."""
+    from tell_tpu_torch.tools.timing import profiled_device_ms
+    n_cast = 3 if fp else 1
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) if i < n_cast else t
+                for i, t in enumerate(sets[0])]
+        outs = [kernel(*args, bb=bb) for bb in (1, 2, 4)]
+        one = kernel(*(t[row:row + 1].contiguous() for t in args))
+        for what, a, b in (("bb=2", outs[1], outs[0]),
+                           ("bb=4", outs[2], outs[0]),
+                           (f"B=1 row {row}", one, outs[0][row:row + 1])):
+            n_diff = int((a != b).sum())
+            require(n_diff == 0, f"{name} {shape} {dtype}: {what} differs "
+                    f"from bb=1 in {n_diff} outputs")
+    dev_ms, split = {}, {}
+    for bb in (1, 2, 4):
+        cycle = itertools.cycle(sets)
+        times = profiled_device_ms(lambda: kernel(*next(cycle), bb=bb))
+        dev_ms[bb] = sum(times.values())
+        if bb == 1:   # F's three kernels by name (all for another tree's F)
+            split = {part: sum(t for k, t in times.items() if part in k)
+                     for part in ("scores", "pv", "combine")}
+    sets16 = [[t.to(torch.bfloat16) if i < n_cast else t
+               for i, t in enumerate(x)] for x in sets]
+    cycle = itertools.cycle(sets16)
+    dev16 = sum(profiled_device_ms(lambda: kernel(*next(cycle))).values())
+    sdpa_dev = None
+    if fp:
+        cycle = itertools.cycle(_sdpa_decode_sets(sets))
+        sdpa_dev = sum(profiled_device_ms(
+            lambda: _sdpa_decode(*next(cycle))).values())
+    log(f"phase 3: {name} {shape}: n_split {-(-S // 256)}; device time "
+        + ", ".join(f"bb={bb} {t:.4f} ms" for bb, t in dev_ms.items())
+        + f" ({res['bound_ms'] / dev_ms[1]:.1%} of the {res['bound_by']} "
+        f"bound {res['bound_ms']:.4f} ms; scores {split['scores']:.4f} + "
+        f"pv {split['pv']:.4f} + combine {split['combine']:.4f} ms), bf16 "
+        f"{dev16:.4f} ms"
+        + ("" if sdpa_dev is None else f", SDPA device {sdpa_dev:.4f} ms")
+        + f"; bb = 1, 2, 4 and batch row {row} at B=1 equal bit for bit "
+        "(fp32, bf16)")
+    res.update(dev_ms=dev_ms, dev_ms16=dev16, sdpa_dev=sdpa_dev)
+
+
+def check_single_long(g, dev, S=4096) -> None:
+    """Kernel F at S=4096 (MG=20, hd=64; past what a block's shared memory
+    could hold of the [MG, S] score row), both forms, against their plain
+    versions (FP32_TOL)."""
+    from tell_tpu_torch.models.decoder import quantize_kv4
     from tell_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention_single)
-    q = torch.zeros(1, 1, 20, 64, device=dev)
-    kv = torch.zeros(1, 1, 64, 4096, device=dev)
-    launches = decode_attention_single.launches
-    try:
-        decode_attention_single(q, kv, kv, torch.zeros(1, 20, 4096,
-                                                       device=dev))
-    except ValueError as e:
-        require("does not fit" in str(e), e)
-        require(decode_attention_single.launches == launches,
-                "kernel F launched on a refused shape")
-        log(f"phase 3: decode_attention_single refuses S=4096: {e}")
-        return
-    raise CheckFailed("kernel F took S=4096 at MG=20 without refusing")
+        decode_attention_plain, decode_attention_q4split,
+        decode_attention_q8_plain, decode_attention_single)
+    q = (torch.randn(2, 16, 20, 64, generator=g) * 0.125).to(dev)
+    k, v = (torch.randn(2, 16, 64, S, generator=g).to(dev) for _ in "kv")
+    bias = torch.zeros(2, 20, S, device=dev)
+    bias[:, :, S // 2:] = float("-inf")
+    errs = []
+    for out, ref in (
+            (decode_attention_single(q, k, v, bias),
+             decode_attention_plain(q, k, v, bias)),
+            (decode_attention_q4split(q, *quantize_kv4(k), *quantize_kv4(v),
+                                      bias),
+             decode_attention_q8_plain(q, *quantize_kv4(k), *quantize_kv4(v),
+                                       bias))):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, **FP32_TOL)
+        errs.append((out - ref).abs().max().item())
+    log(f"phase 3: decode_attention_single and _q4split at S={S} (B=2, "
+        f"MG=20): max abs err {errs[0]:.3e} / {errs[1]:.3e} against the "
+        "plain versions")
 
 
 # The kernels of phase 3, as --kernels names them
@@ -853,18 +963,20 @@ def phase_kernels(seed: int, only: set[str] | None = None) -> dict:
         return res
     for article in (512, 2048):
         S, sets = _decode_case(g, 8, 20, article, dev)
-        lib = (_sdpa_decode, _sdpa_decode_sets(sets), identity)
-        for bb in (1, 2, 4):
-            res["decode_attention_single"].append(check_kernel(
-                f"decode_attention_single bb={bb}",
-                functools.partial(decode_attention_single, bb=bb),
-                decode_attention_plain, sets, f"B=8 H=16 hd=64 MG=20 S={S}",
-                decode_flops(sets[0][0], S), lib))
-        del lib
+        shape = f"B=8 H=16 hd=64 MG=20 S={S}"
+        res["decode_attention_single"].append(check_kernel(
+            "decode_attention_single", decode_attention_single,
+            decode_attention_plain, sets, shape,
+            decode_flops(sets[0][0], S),
+            (_sdpa_decode, _sdpa_decode_sets(sets), identity)))
+        check_kernel_f("decode_attention_single", decode_attention_single,
+                       sets, S, shape, res["decode_attention_single"][-1],
+                       fp=True)
+        del sets
         res["decode_attention_q4split"].append(check_q8(
-            g, 8, 20, article, dev, "int4", "decode_attention_q4split bb=2",
-            functools.partial(decode_attention_q4split, bb=2)))
-    check_single_refusal(dev)
+            g, 8, 20, article, dev, "int4", "decode_attention_q4split",
+            decode_attention_q4split))
+    check_single_long(g, dev)
     return res
 
 
@@ -1395,6 +1507,103 @@ def _beam_trace():
         beam.beam_select = select
 
 
+@contextlib.contextmanager
+def _engine_trace(svc):
+    """Records the engines' beam steps without a host synchronisation (the
+    tensors stay on the device until the run is over): every admission's
+    slots, and at every step each slot's candidate pool ([K, K] totals and
+    token ids, as _beam_trace) and its survivors' parents and tokens, each
+    tagged with its engine (one per bucket). Yields the event list for
+    _engine_steps."""
+    from tell_tpu_torch.serving import engine as eng
+    E = eng.DecodeEngine
+    select, step = eng.beam_select, E._step
+    admits = {e: e._admit for e in svc.engines.values()}
+    events, current = [], {}   # current: thread -> the engine stepping
+
+    def traced(scores, finished, lengths, cand_lp, cand_ids, fin_lp,
+               pad_id, eos_id, frozen=None):
+        out = select(scores, finished, lengths, cand_lp, cand_ids, fin_lp,
+                     pad_id, eos_id, frozen)
+        B, K = scores.shape
+        fr = (finished if frozen is None else frozen)[:, :, None]
+        events.append(("step", current[threading.get_ident()],
+                       scores[:, :, None] + torch.where(
+                           fr, fin_lp, cand_lp.reshape(B, K, K)),
+                       torch.where(fr, pad_id, cand_ids.reshape(B, K, K)),
+                       out[1].clone(), out[2].clone()))
+        return out
+
+    def traced_step(self):
+        current[threading.get_ident()] = id(self)
+        return step(self)
+
+    def traced_admit(e, batchN, bs):
+        events.append(("admit", id(e), bs.clone()))
+        return admits[e](batchN, bs)
+
+    eng.beam_select, E._step = traced, traced_step
+    for e in admits:
+        e._admit = functools.partial(traced_admit, e)
+    try:
+        yield events
+    finally:
+        eng.beam_select, E._step = select, step
+        for e, admit in admits.items():
+            e._admit = admit
+
+
+def _engine_steps(events, paths) -> list | None:
+    """The engine's steps (as _beam_trace records them) for the request
+    whose answer is paths [K, L+1]: the slot and admission whose traced
+    steps rebuild exactly those beams; None where none does."""
+    K, L = paths.shape[0], paths.shape[1] - 1
+    ev = [(kind, who, *(t.cpu().numpy() for t in rest))
+          for kind, who, *rest in events]
+    starts = [(i, who, int(b)) for i, (kind, who, *rest) in enumerate(ev)
+              if kind == "admit" for b in set(rest[0].tolist())]
+    for i, who, b in starts:
+        steps, prefixes = [], [()] * K
+        for kind, other, *rest in ev[i + 1:]:
+            if other != who:
+                continue
+            if kind == "admit" and b in rest[0]:
+                break
+            if kind == "step" and len(steps) < L:
+                total, ids, parent, tok = (a[b] for a in rest)
+                steps.append({"total": total, "ids": ids, "parent": parent,
+                              "tok": tok})
+                prefixes = [prefixes[int(p)] + (int(x),)
+                            for p, x in zip(parent, tok)]
+        n = len(steps)
+        if n and sorted(prefixes) == sorted(
+                tuple(int(x) for x in path[1:n + 1]) for path in paths):
+            return steps
+    return None
+
+
+def _log_candidates(label, i, step, one_shot, engine, n=10) -> None:
+    """Both searches' ranked candidates at `step` side by side: total
+    (full precision), beam, token, and the last tokens of the beam's
+    prefix; the order is the selection's (total descending, lower flat
+    index first)."""
+    def ranked(steps):
+        prefixes = [()] * steps[0]["total"].shape[0]
+        for st in steps[:step]:
+            prefixes = [prefixes[int(p)] + (int(x),)
+                        for p, x in zip(st["parent"], st["tok"])]
+        st = steps[step]
+        K = st["total"].shape[0]
+        flat = st["total"].reshape(-1)
+        order = np.argsort(-flat, kind="stable")[:n]
+        return [f"{flat[f]:.9e} b{f // K} t{int(st['ids'].reshape(-1)[f])} "
+                f"{prefixes[f // K][-3:]}" for f in order]
+    rows = zip(ranked(one_shot), ranked(engine))
+    log(f"{label}: request {i} step {step} candidates (total, beam, token, "
+        "prefix end), one-shot | engine:\n" + "\n".join(
+            f"  {r + 1:2d}: {a} | {b}" for r, (a, b) in enumerate(rows)))
+
+
 def _beam_split(steps, paths) -> dict | None:
     """Where the engine's final beams (paths [K, L+1], <s> first) leave the
     one-shot search traced in `steps`: the first step whose survivors lack
@@ -1454,7 +1663,10 @@ def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda",
     searches split (_beam_split). Kernel A launches exactly where the
     cache is fp, kernel D where it is quantised, kernel E where
     fused_topk is on; kernel B always. With int4, one int4 beam_search
-    at B=8 after. Returns the service, the requests and the kernels' launch counts."""
+    at B=8 after. Returns the service, the requests, the kernels' launch
+    counts and the differing answers' (request, gap). Where an answer
+    differs, both searches' ranked candidates at the step where they split
+    are logged (_engine_trace, _log_candidates)."""
     from tell_tpu_torch.bridge import init_captioner, init_roberta
     from tell_tpu_torch.config import with_article_len
     from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
@@ -1498,13 +1710,14 @@ def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda",
     before = {w: e.stats["requests"] for w, e in svc.engines.items()}
     t_serve = time.perf_counter()
     threads = []
-    for first in range(0, len(reqs), 4):     # bursts of four, staggered
-        for i in range(first, min(first + 4, len(reqs))):
-            threads.append(threading.Thread(target=post, args=(i,)))
-            threads[-1].start()
-        time.sleep(0.25)
-    for t in threads:
-        t.join(timeout=900)
+    with _engine_trace(svc) as events:
+        for first in range(0, len(reqs), 4):     # bursts of four, staggered
+            for i in range(first, min(first + 4, len(reqs))):
+                threads.append(threading.Thread(target=post, args=(i,)))
+                threads[-1].start()
+            time.sleep(0.25)
+        for t in threads:
+            t.join(timeout=900)
     serve_s = time.perf_counter() - t_serve
     launches = {fn.__name__: fn.launches for fn in counters}
     require(not any(t.is_alive() for t in threads), "requests did not finish")
@@ -1578,6 +1791,13 @@ def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda",
         log(f"{label}: request {i}: engine and one-shot best beams differ "
             f"first at token {t} (final scores {body['score']:.4f} and "
             f"{ref['scores'][0, 0].item():.4f}); {where}")
+        eng_steps = _engine_steps(events, paths)
+        if eng_steps is None:
+            log(f"{label}: request {i}: no traced engine slot rebuilds its "
+                "beams")
+        else:
+            _log_candidates(label, i, t - 1 if split is None
+                            else split["step"], steps, eng_steps)
     log(f"{label}: engine vs one-shot beam_search on the engine's "
         f"features: {exact}/{len(reqs)} best beams equal (largest score "
         f"difference of an equal beam {score_diff:.3e}), differing "
@@ -1594,7 +1814,7 @@ def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda",
     require(status_code == 200, f"/shutdown answered {status_code}")
     httpd.server_close()
     if not int4:
-        return svc, reqs, launches
+        return svc, reqs, launches, differing
 
     # int4: one beam_search at B=8 on the packed cache
     batch, _ = svc._pack(reqs[:8])
@@ -1615,7 +1835,7 @@ def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda",
         require(n_int4 > 0 and n_int4 == decode_attention_q8.launches - n0,
                 "the int4 beam search did not run kernel D on a packed "
                 "cache")
-    return svc, reqs, launches
+    return svc, reqs, launches, differing
 
 
 def _get(port, path):
@@ -1736,16 +1956,36 @@ def engine_repeats(seed: int, n: int) -> None:
     long_cfg = with_article_len(CaptionerConfig(), LONG_ARTICLE)
     for s in range(seed, seed + n):
         t = time.perf_counter()
-        svc, _, _ = phase_engine(s, CaptionerConfig(), RobertaConfig.large(),
-                                 label=f"phase 8 seed {s}", int4=False)
+        svc, _, _, _ = phase_engine(s, CaptionerConfig(),
+                                    RobertaConfig.large(),
+                                    label=f"phase 8 seed {s}", int4=False)
         del svc
         torch.cuda.empty_cache()
-        svc, _, _ = phase_engine(s + 10, long_cfg, RobertaConfig.large(),
-                                 **{**LONG_ENGINE,
-                                    "label": f"phase 10 seed {s}"})
+        svc, _, _, _ = phase_engine(s + 10, long_cfg, RobertaConfig.large(),
+                                    **{**LONG_ENGINE,
+                                       "label": f"phase 10 seed {s}"})
         del svc
         torch.cuda.empty_cache()
         log(f"engine repeats: seed {s} in {time.perf_counter() - t:.1f} s")
+
+
+def engine_trace(seed: int, n: int) -> None:
+    """Phase 8's engine run (int4 beam search left out) at one seed up to n
+    times, until an answer differs from the one-shot search; phase_engine
+    logs both searches' candidates where they split."""
+    from tell_tpu_torch.config import CaptionerConfig
+    from tell_tpu_torch.models.backbones.roberta import RobertaConfig
+    for r in range(n):
+        svc, _, _, differing = phase_engine(
+            seed, CaptionerConfig(), RobertaConfig.large(),
+            label=f"phase 8 run {r}", int4=False)
+        del svc
+        torch.cuda.empty_cache()
+        if differing:
+            log(f"engine trace: run {r} split at requests "
+                f"{[i for i, _ in differing]}")
+            return
+    log(f"engine trace: {n} runs at seed {seed}, every answer equal")
 
 
 def ptxas_summary(report: str) -> list[str]:
@@ -1774,6 +2014,11 @@ def main() -> int:
                     help="phases 1-3 only (no result line); with a "
                     "comma-separated list of " + ", ".join(KERNEL_NAMES)
                     + " only those kernels' cases of phase 3")
+    ap.add_argument("--trace-engine", type=int, default=0,
+                    help="after the build, phase 8's engine run at --seed "
+                    "up to this many times, until an answer differs, with "
+                    "both searches' candidates where they split (no result "
+                    "line)")
     ap.add_argument("--beam", type=int, default=0,
                     help="after the build, phase 10's beam search this "
                     "many times, timed (no result line)")
@@ -1818,6 +2063,9 @@ def main() -> int:
     if args.beam:
         beam_timing(args.seed, args.beam)
         return 0
+    if args.trace_engine:
+        engine_trace(args.seed, args.trace_engine)
+        return 0
     # phase 3
     res = phase_kernels(args.seed, only)
     if args.kernels:
@@ -1840,7 +2088,7 @@ def main() -> int:
         "fused_dynamic_conv"]
     torch.cuda.empty_cache()
     # phase 8
-    svc, reqs, eng_launches = phase_engine(
+    svc, reqs, eng_launches, _ = phase_engine(
         args.seed, CaptionerConfig(), RobertaConfig.large())
     for name in ("decode_attention_q8", "topk_logits"):
         launches[name] = eng_launches[name]
@@ -1857,7 +2105,7 @@ def main() -> int:
     phase_cpu_vs_card(svc, req0, caption0, "phase 10")
     del svc
     torch.cuda.empty_cache()
-    svc, _, long_eng = phase_engine(args.seed + 10, long_cfg,
+    svc, _, long_eng, _ = phase_engine(args.seed + 10, long_cfg,
                                     RobertaConfig.large(), **LONG_ENGINE)
     log(f"phase 10: launches: micro-batch service {long_launches}, engine "
         f"{long_eng}")
@@ -1869,10 +2117,10 @@ def main() -> int:
         launches[name] = tools["launches"][name]
 
     # MG=20/S=637, B=4 S=512, K=31 at T=32, int8 S=637, N=40 V=30265 k=5,
-    # F bb=2 S=637, F int4-split S=637
+    # F S=637, F int4-split S=637
     main_case = {"decode_attention": 1, "encoder_attention": 1,
                  "fused_dynamic_conv": 3, "decode_attention_q8": 0,
-                 "topk_logits": 2, "decode_attention_single": 1,
+                 "topk_logits": 2, "decode_attention_single": 0,
                  "decode_attention_q4split": 0}
     single = "tell_tpu_torch/csrc/decode_attention_single.cu"
     sources = {

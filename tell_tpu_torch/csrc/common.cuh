@@ -5,7 +5,7 @@
 // and return cudaGetLastError() after the launch so the Python wrapper can
 // raise on a refused launch. Below: dtype conversions, the int4 nibble,
 // cp.async, and the mma.sync tiles (bf16, and fp32 as 3xTF32) that kernels
-// B and E share.
+// B, C and E share.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,7 +51,7 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// ---- asynchronous copies (kernels B and E) ----------------------------------
+// ---- asynchronous copies (kernels B, C and E) ----------------------------------
 
 // 16 bytes from device to shared memory; valid = false zero-fills them and
 // reads nothing.
@@ -69,7 +69,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// ---- fp32 on tensor cores: 3xTF32 mma.sync.m16n8k8 (kernels B and E) -------
+// ---- fp32 on tensor cores: 3xTF32 mma.sync.m16n8k8 (kernels B, C, E) -------
 
 // hi: x cut to TF32's 10 mantissa bits; lo: the exact rest x - hi, cut the
 // same way. Two masks and a subtraction: cvt.rna.tf32 on every operand made
@@ -119,7 +119,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&c)[4],
   mma_3xtf32(c, ah, al, bh0, bh1, bl0, bl1);
 }
 
-// ---- bf16 on tensor cores: mma.sync.m16n8k16 (kernels B and E) --------------
+// ---- bf16 on tensor cores: mma.sync.m16n8k16 (kernels B, C and E) --------------
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -144,6 +144,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
       : "r"(s));
 }
 

@@ -1,6 +1,8 @@
 // Kernel A: multi-context decode cross-attention. Its split-S body
 // (decode_attention.cuh) also carries kernel D, the same attention over an
-// int8 or nibble-packed int4 K/V cache (decode_attention_q8.cu).
+// int8 or nibble-packed int4 K/V cache (decode_attention_q8.cu), and
+// kernel F, the single-shot form that normalises p before rounding it
+// (decode_attention_single.cu).
 //
 // Kernel A replaces tell_tpu/ops/kernels/decode_attention.py::
 // fused_decode_attention (_kernel, pallas_call at :216) and its S-tiled

@@ -42,13 +42,14 @@ def _can_fuse(params: dict, query, weight_dropout: float,
     active weight dropout (the kernel is deterministic), whole heads.
     Which of kernel C and its plain version runs is the device rule of
     ops/kernels/dispatch.py, applied inside fused_dynamic_conv. The TPU
-    lane condition C % 128 == 0 is dropped: kernel C takes any C that is a
-    multiple of num_heads."""
+    lane condition C % 128 == 0 becomes kernel C's own: whole heads of a
+    multiple of 8 channels (it loads a head's channels in 16-byte
+    pieces)."""
     return (query is None
             and "b" not in params["weight_linear"]
             and "conv_bias" not in params
             and (deterministic or weight_dropout == 0.0)
-            and C % num_heads == 0)
+            and C % num_heads == 0 and (C // num_heads) % 8 == 0)
 
 
 def dynamic_conv(params: dict, x: torch.Tensor, *, kernel_size: int,

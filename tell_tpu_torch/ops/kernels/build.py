@@ -33,15 +33,17 @@ _SIGNATURES = {
     # q, k8, k_scale, v8, v_scale, bias, part, out, B, H, MG, hd, S,
     # packed4, dtype, stream
     "tt_decode_attention_q8": [_P] * 8 + [_I] * 7 + [_P],
-    # q, k, v, bias, out, B, H, MG, hd, S, bb, dtype, stream
-    "tt_decode_attention_single": [_P] * 5 + [_I] * 7 + [_P],
-    # q, k4, k_scale, v4, v_scale, bias, out, B, H, MG, hd, S, bb, dtype,
+    # q, k, v, bias, scores, stats, part, out, B, H, MG, hd, S, dtype,
     # stream
-    "tt_decode_attention_q4split": [_P] * 7 + [_I] * 7 + [_P],
+    "tt_decode_attention_single": [_P] * 8 + [_I] * 6 + [_P],
+    # q, k4, k_scale, v4, v_scale, bias, scores, stats, part, out, B, H, MG,
+    # hd, S, dtype, stream
+    "tt_decode_attention_q4split": [_P] * 10 + [_I] * 6 + [_P],
     # q, k, v, key_pad, out, B, S, H, hd, scale, dtype, stream
     "tt_encoder_attention": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
-    # x, w_km, out, B, T, C, H, K, HB, weight_softmax, dtype, stream
-    "tt_dynamic_conv": [_P] * 3 + [_I] * 8 + [_P],
+    # x, w_km, w_blk, out, B, T, C, H, K, TT, HB, NFP, weight_softmax,
+    # dtype, stream
+    "tt_dynamic_conv": [_P] * 4 + [_I] * 10 + [_P],
     # x, table, pv, pi, pm, ps, vals, ids, lse, N, V, D, k, zero_row,
     # dtype, stream
     "tt_topk_logits": [_P] * 9 + [_I] * 6 + [_P],

@@ -26,15 +26,19 @@ dequantises in registers as it loads. The JAX layout [B, H, hd, S] is
 kept; see the sources' headers for the design and what is left for later
 work.
 
-Kernel F (tell_tpu_torch/csrc/decode_attention_single.cu) replaces the
-single-shot Pallas kernels of the JAX package's measurement tools:
-tools/kernel_variants.py::fused_batched (pallas_call at :51) and
-fused_q4split (:111), and the BB=1 inline fn of
-tools/longctx_variants.py:52. It holds the whole [MG, S] score row in
-shared memory, takes an exact max/sum softmax and rounds the normalised
-probabilities to q's dtype before the PV product; `bb` batch rows share a
-block, the variants' knob. Its plain versions are decode_attention_plain
-and decode_attention_q8_plain, which compute the same functions.
+Kernel F (tell_tpu_torch/csrc/decode_attention_single.cu, on the same
+body) replaces the single-shot Pallas kernels of the JAX package's
+measurement tools: tools/kernel_variants.py::fused_batched (pallas_call at
+:51) and fused_q4split (:111), and the BB=1 inline fn of
+tools/longctx_variants.py:52. It takes the exact softmax and rounds the
+normalised probabilities to q's dtype before the PV product, over the same
+CHUNK-column chunks: the chunks' scores go to an fp32 scratch, the global
+max and sum come from per-chunk statistics in chunk order, and the
+chunks' PV partials are summed in chunk order
+(decode_attention_single_split_plain computes the same route in
+PyTorch). `bb`, the variants' knob, must divide B and changes no bit. Its
+plain versions are decode_attention_plain and decode_attention_q8_plain,
+which compute the same functions.
 """
 from __future__ import annotations
 
@@ -312,53 +316,118 @@ def _check_q8_args(name: str, q: torch.Tensor, k8: torch.Tensor,
 # kernel F: single-shot decode attention
 # ---------------------------------------------------------------------------
 
-SMEM_LIMIT = 232_448   # bytes of shared memory one block may use (H100)
+SINGLE_HEAD_DIMS = (64,)    # kernel F's head-dim instantiation
 
 
-def single_shot_smem_bytes(MG: int, hd: int, S: int) -> int:
-    """Kernel F's dynamic shared memory: the fp32 [MG, S] score row, q and
-    the accumulator [MG, hd], and one [hd, 65] K/V tile."""
-    return 4 * (MG * S + 2 * MG * hd + hd * 65)
+def decode_attention_single_split_plain(q: torch.Tensor, k: torch.Tensor,
+                                        v: torch.Tensor, bias: torch.Tensor
+                                        ) -> torch.Tensor:
+    """Kernel F's function by kernel F's route, in PyTorch: per chunk of
+    CHUNK columns the fp32 scores and their (max from -1e30, sum of exp);
+    the global max m and sum l from those in chunk order; then per chunk p
+    = exp(s - m) / l rounded to q's dtype and its fp32 product with V, the
+    chunks' products summed in chunk order. Packed int4 K/V (k [B, H,
+    hd/2, S]) are not taken here: decode_attention_q4split_split_plain. No
+    path calls it; the tests hold it to tell_tpu's kernels."""
+    return _single_route(q, k.float(), None, v.float(), None, bias)
 
 
-def _check_single(name: str, B: int, MG: int, hd: int, S: int,
-                  bb: int) -> None:
-    """Kernel F's own refusals, on every device so that a CPU run follows
-    the card's rule: bb must divide B (the TPU grid is B // BB steps), and
-    the score row must fit a block's shared memory (the TPU's _pick_bb
-    finds no fit past VMEM)."""
+def decode_attention_q4split_split_plain(q: torch.Tensor, k4: torch.Tensor,
+                                         k_scale: torch.Tensor,
+                                         v4: torch.Tensor,
+                                         v_scale: torch.Tensor,
+                                         bias: torch.Tensor) -> torch.Tensor:
+    """Kernel F's int4-split form by its route, in PyTorch: the nibbles
+    unpacked exactly, the scores times k_scale before the bias, and p
+    times v_scale before the rounding; otherwise
+    decode_attention_single_split_plain."""
+    return _single_route(q, unpack_int4(k4).float(), k_scale,
+                         unpack_int4(v4).float(), v_scale, bias)
+
+
+def _single_route(q: torch.Tensor, kf: torch.Tensor, k_scale,
+                  vf: torch.Tensor, v_scale, bias: torch.Tensor
+                  ) -> torch.Tensor:
+    qf = q.float()
+    cols = [slice(s0, s0 + CHUNK) for s0 in range(0, kf.shape[3], CHUNK)]
+    scores, stats = [], []
+    for c in cols:
+        sc = torch.einsum("bhxd,bhds->bhxs", qf, kf[..., c])
+        if k_scale is not None:
+            sc = sc * k_scale[..., c]
+        sc = sc + bias[:, None, :, c]
+        m = sc.amax(-1).clamp_min(-1e30)
+        scores.append(sc)
+        stats.append((m, torch.exp(sc - m[..., None]).sum(-1)))
+    m_all = torch.stack([m for m, _ in stats]).amax(0)
+    l_all = 0.0
+    for m, l in stats:
+        l_all = l_all + l * torch.exp(m - m_all)
+    out = 0.0
+    for c, sc in zip(cols, scores):
+        p = torch.exp(sc - m_all[..., None]) / l_all[..., None]
+        if v_scale is not None:
+            p = p * v_scale[..., c]
+        out = out + torch.einsum("bhxs,bhds->bhxd", p.to(q.dtype).float(),
+                                 vf[..., c])
+    return out.to(q.dtype)
+
+
+def _check_bb(name: str, B: int, bb: int) -> None:
+    """Kernel F's bb, checked on every device so that a CPU run follows
+    the card's rule: it must divide B (the TPU grid is B // BB steps)."""
     if bb < 1 or B % bb:
         raise ValueError(f"{name}: B={B} is not a multiple of bb={bb}")
-    need = single_shot_smem_bytes(MG, hd, S)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"{name}: does not fit: the [MG={MG}, S={S}] score "
-                         f"row needs {need} bytes of shared memory, over the "
-                         f"{SMEM_LIMIT} a block may use")
+
+
+def _launch_single(name: str, entry: str, q: torch.Tensor, kv_args: list,
+                   bias: torch.Tensor, S: int) -> torch.Tensor:
+    """Kernel F's scratch and launch: stats (m, l) pairs [B, H, MG,
+    n_split], scores [B, H, MG, S] and, where S takes more than one chunk,
+    the partials [B, H, n_split, MG, hd], all fp32, carved from one
+    allocation (the pairs first, so they sit on 8-byte boundaries)."""
+    B, H, MG, hd = q.shape
+    if hd not in SINGLE_HEAD_DIMS or not 1 <= MG <= MAX_ROWS or S < 1:
+        raise ValueError(f"{name}: the kernel takes hd in {SINGLE_HEAD_DIMS}"
+                         f", 1 <= MG <= {MAX_ROWS} and S >= 1, not hd={hd}, "
+                         f"MG={MG}, S={S}")
+    n_split = split_count(S)
+    rows = B * H * MG
+    n_part = rows * n_split * hd if n_split > 1 else 0
+    scratch = torch.empty(rows * (2 * n_split + S) + n_part,
+                          dtype=torch.float32, device=q.device)
+    base = scratch.data_ptr()
+    stats, scores = base, base + 4 * rows * 2 * n_split
+    part = scores + 4 * rows * S if n_part else None
+    out = torch.empty_like(q)
+    lib = load_library()
+    with torch.cuda.device(q.device):
+        code = getattr(lib, entry)(
+            q.data_ptr(), *(t.data_ptr() for t in kv_args), bias.data_ptr(),
+            scores, stats, part, out.data_ptr(), B, H, MG, hd, S,
+            _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
+    check_launch(lib, name, code)
+    return out
 
 
 def decode_attention_single(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, bias: torch.Tensor,
                             bb: int = 1) -> torch.Tensor:
-    """Single-shot decode attention, kernel A's function (q [B, H, MG, hd];
-    k, v [B, H, hd, S]; bias [B, MG, S] fp32) with bb batch rows per block.
-    Raises ValueError where bb does not divide B or the score row does not
-    fit (single_shot_smem_bytes > SMEM_LIMIT). CUDA tensors launch kernel
-    F (counted in decode_attention_single.launches); CPU tensors take
+    """Single-shot decode attention, kernel A's function with p normalised
+    before it is rounded (q [B, H, MG, hd]; k, v [B, H, hd, S]; bias [B,
+    MG, S] fp32). bb, the batch rows a TPU grid step takes, must divide B
+    (ValueError otherwise) and changes no bit of the result. CUDA tensors
+    launch kernel F (counted in decode_attention_single.launches); the
+    kernel takes hd in SINGLE_HEAD_DIMS, 1 <= MG <= MAX_ROWS and any S >=
+    1, and raises ValueError on other shapes. CPU tensors take
     decode_attention_plain, which computes the same function."""
-    B, H, MG, hd = q.shape
-    S = k.shape[3]
-    _check_single("decode_attention_single", B, MG, hd, S, bb)
+    _check_bb("decode_attention_single", q.shape[0], bb)
     if not use_kernel(q, k, v, bias):
         return decode_attention_plain(q, k, v, bias)
     _check_fp_args("decode_attention_single", q, k, v, bias)
-    out = torch.empty_like(q)
-    lib = load_library()
-    with torch.cuda.device(q.device):
-        code = lib.tt_decode_attention_single(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), B, H, MG, hd, S, bb, _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    check_launch(lib, "decode_attention_single", code)
+    out = _launch_single("decode_attention_single",
+                         "tt_decode_attention_single", q, [k, v], bias,
+                         k.shape[3])
     decode_attention_single.launches += 1
     return out
 
@@ -372,30 +441,22 @@ def decode_attention_q4split(q: torch.Tensor, k4: torch.Tensor,
                              bb: int = 1) -> torch.Tensor:
     """Single-shot decode attention over a nibble-packed int4 cache (k4, v4
     int8 [B, H, hd/2, S]; k_scale, v_scale fp32 [B, H, 1, S]), each nibble
-    half contracted against its half of q, with bb batch rows per block;
-    the refusals of decode_attention_single. CUDA tensors launch kernel F's
-    int4-split form (counted in decode_attention_q4split.launches); CPU
-    tensors take decode_attention_q8_plain, which computes the same
-    function."""
-    B, H, MG, hd = q.shape
-    S = k4.shape[3]
+    half contracted against its half of q; bb and the shapes as
+    decode_attention_single. CUDA tensors launch kernel F's int4-split
+    form (counted in decode_attention_q4split.launches); CPU tensors take
+    decode_attention_q8_plain, which computes the same function."""
+    hd = q.shape[3]
     if 2 * k4.shape[2] != hd:
         raise ValueError(f"decode_attention_q4split: k4 holds {k4.shape[2]} "
                          f"rows, not hd/2 = {hd / 2} (packed int4)")
-    _check_single("decode_attention_q4split", B, MG, hd, S, bb)
+    _check_bb("decode_attention_q4split", q.shape[0], bb)
     if not use_kernel(q, k4, k_scale, v4, v_scale, bias):
         return decode_attention_q8_plain(q, k4, k_scale, v4, v_scale, bias)
     _check_q8_args("decode_attention_q4split", q, k4, k_scale, v4, v_scale,
                    bias)
-    out = torch.empty_like(q)
-    lib = load_library()
-    with torch.cuda.device(q.device):
-        code = lib.tt_decode_attention_q4split(
-            q.data_ptr(), k4.data_ptr(), k_scale.data_ptr(), v4.data_ptr(),
-            v_scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, MG,
-            hd, S, bb, _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    check_launch(lib, "decode_attention_q4split", code)
+    out = _launch_single("decode_attention_q4split",
+                         "tt_decode_attention_q4split", q,
+                         [k4, k_scale, v4, v_scale], bias, k4.shape[3])
     decode_attention_q4split.launches += 1
     return out
 

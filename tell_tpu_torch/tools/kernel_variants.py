@@ -8,7 +8,8 @@ At the production head shape (H=16, hd=64, MG=20: 4 modalities x beam 5)
 in bf16, with q, K and V from the seed and an all-zero bias:
 
   current   kernel A, the port's decode attention
-  batched   kernel F, bb=2 (the single-shot form, two batch rows a block)
+  batched   kernel F, bb=2 (the single-shot form; the TPU kernel's two
+            batch rows a grid step, which change no bit on the card)
   batched4  kernel F, bb=4
   q8        kernel D over the int8 cache
   q4        kernel D over the packed int4 cache

@@ -44,21 +44,29 @@ def device_ms(fn, device, calls: int = 100, warmup: int = 3) -> float:
     return start.elapsed_time(end) / calls
 
 
-def profiled_device_ms(fn, calls: int = 20, warmup: int = 3
-                       ) -> dict[str, float]:
+def profiled_device_ms(fn, calls: int = 20, warmup: int = 3,
+                       attempts: int = 3) -> dict[str, float]:
     """Device milliseconds per call of fn() on the card, by kernel name,
     from torch.profiler's CUDA activity over `calls` calls after `warmup`:
-    the kernels' own time, without the host's launch overhead."""
+    the kernels' own time, without the host's launch overhead. A window
+    in which the profiler recorded no device activity at all (it happened
+    once in a long process on an H100) is profiled again, up to
+    `attempts` windows; then it raises."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.device_time_total / 1e3 / calls
-            for e in prof.key_averages() if e.device_time_total > 0}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key: e.device_time_total / 1e3 / calls
+                 for e in prof.key_averages() if e.device_time_total > 0}
+        if times:
+            return times
+    raise RuntimeError(f"torch.profiler recorded no device time in "
+                       f"{attempts} windows of {calls} calls")
 
 
 def clock_name(device) -> str:

@@ -3,7 +3,10 @@ the main paths do not reach (S below and across one tile, single query
 rows, other head dims for kernel A; for A also S at and across its
 256-column chunks, rows open in one chunk only, B=1 against B=8 bit for
 bit, and the shapes it refuses; T=1, T<K, T across a time tile and a
-ragged last tile, 8 and 16 heads, no softmax for kernel C; S=1 segments, a
+ragged last tile, 8 and 16 heads, no softmax, T < K at the training
+batch (16-row tiles), two heads a block with 8 and 32 logit columns, a
+ragged last 128-byte slot of C, and C / H not a multiple of 8, an
+unaligned x and K > 32 refused for kernel C; S=1 segments, a
 ragged last tile, an all-padded article, int4 against int8 and bf16, S at
 and across its 256-column chunks, rows open in one chunk only, B=1
 against B=8 bit for bit and the shapes it refuses for kernel D; V below
@@ -16,9 +19,11 @@ kernels A and D repeating bit for bit over 200 launches,
 kernel C's gradient through its autograd Function, kernel F (single-shot
 decode attention) at bb 1/2/4, MG 4 and 20, S 637, 2173 and a ragged S,
 a row masked but for one column, its int4-split form and a 200-launch
-repeat probe, and the inputs the wrappers must refuse (F: S=4096 past a
-block's shared memory, B not a multiple of bb; B: an input not 16-byte
-aligned). Marked `cuda`: each test skips without a GPU.
+repeat probe, S at and across its 256-column chunks up to 4096 against
+the plain versions and F's route, bb = 1, 2, 4 and a batch row alone
+equal bit for bit (fp and int4-split), and the inputs the wrappers must
+refuse (F: B not a multiple of bb, hd other than 64; B: an input not
+16-byte aligned). Marked `cuda`: each test skips without a GPU.
 
 This file imports no JAX, so it also runs where JAX is absent (the card's
 machine; tests/conftest.py imports JAX, hence --noconftest):
@@ -39,9 +44,10 @@ import torch
 from tell_tpu_torch.ops.kernels.decode_attention import (
     MAX_ROWS, decode_attention, decode_attention_plain,
     Q8_HEAD_DIMS, decode_attention_q4split, decode_attention_q8,
-    decode_attention_q8_plain, decode_attention_q8_split_plain,
-    decode_attention_single, decode_attention_split_plain, segment_bias,
-    split_count)
+    decode_attention_q4split_split_plain, decode_attention_q8_plain,
+    decode_attention_q8_split_plain, decode_attention_single,
+    decode_attention_single_split_plain, decode_attention_split_plain,
+    segment_bias, split_count)
 from tell_tpu_torch.ops.kernels.dynamic_conv import (
     dynamic_conv_plain, fused_dynamic_conv)
 from tell_tpu_torch.ops.kernels.encoder_attention import (
@@ -258,6 +264,11 @@ def _conv_inputs(gen, B, T, C, H, K):
     (3, 33, 256, 8, 31, True),        # one row past a 32-row time tile
     (2, 70, 1024, 16, 7, True),       # ragged last tile
     (1, 40, 512, 8, 15, False),       # raw tap logits
+    (16, 15, 1024, 16, 31, True),     # T < K at the training batch: TT=16
+    (16, 5, 1024, 16, 7, True),       # T < K, K=7
+    (32, 32, 1024, 16, 3, True),      # 2 heads a block, 8 columns, 4 warps
+    (32, 32, 1024, 16, 15, False),    # 2 heads, 32 columns, raw logits
+    (3, 20, 136, 17, 5, True),        # C past a 128-byte slot (ragged)
 ])
 def test_dynamic_conv_kernel_matches_plain(gen, B, T, C, H, K, sm, dtype):
     x, w_km = _conv_inputs(gen, B, T, C, H, K)
@@ -301,6 +312,14 @@ def test_dynamic_conv_refuses_what_the_kernel_does_not_take(gen):
                            torch.randn(66, 12, device="cuda"), 3, 4)
     with pytest.raises(ValueError, match="w_km"):
         fused_dynamic_conv(x, w_km[:, :-1].contiguous(), 3, 4)
+    with pytest.raises(ValueError, match="kernel_size 33"):
+        fused_dynamic_conv(x, torch.randn(64, 33 * 4, device="cuda"), 33, 4)
+    with pytest.raises(ValueError, match="16-byte"):       # C / H = 9
+        fused_dynamic_conv(torch.randn(2, 8, 36, device="cuda"),
+                           torch.randn(36, 12, device="cuda"), 3, 4)
+    xu = torch.randn(2 * 8 * 64 + 1, device="cuda")[1:].view(2, 8, 64)
+    with pytest.raises(ValueError, match="16-byte"):       # unaligned x
+        fused_dynamic_conv(xu, w_km, 3, 4)
 
 
 def _q8_inputs(gen, B, H, M, G, S, hd, dtype, packed4=False, seg=None,
@@ -638,10 +657,18 @@ def test_decode_attention_single_repeats_bit_for_bit(gen):
 
 
 def test_decode_attention_single_refuses_what_the_kernel_does_not_take(gen):
+    """S=4096 (past what a block's shared memory could hold of the [MG,
+    S] score row) runs and equals the plain version; bb not dividing B,
+    other head dims, a strided or mixed-dtype input and an int8 cache are
+    refused before any launch."""
     q, k, v, bias = _decode_inputs(gen, 2, 2, 4, 5, 4096, 64, torch.float32)
+    _check_close(decode_attention_single(q, k, v, bias),
+                 decode_attention_plain(q, k, v, bias), torch.float32)
     launches = decode_attention_single.launches
-    with pytest.raises(ValueError, match="does not fit"):
-        decode_attention_single(q, k, v, bias)
+    q32, k32, v32, b32 = _decode_inputs(gen, 2, 2, 4, 5, 100, 32,
+                                        torch.float32)
+    with pytest.raises(ValueError, match="hd in"):
+        decode_attention_single(q32, k32, v32, b32)
     q, k, v, bias = _decode_inputs(gen, 6, 2, 4, 5, 100, 64, torch.float32)
     with pytest.raises(ValueError, match="multiple of bb=4"):
         decode_attention_single(q, k, v, bias, bb=4)
@@ -654,3 +681,41 @@ def test_decode_attention_single_refuses_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError, match="packed int4"):
         decode_attention_q4split(*args)
     assert decode_attention_single.launches == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [256, 257, 512, 513, 2173, 4096])
+def test_decode_attention_single_chunk_boundaries(gen, S, dtype):
+    """S at and one column past kernel F's 256-column chunks, the long
+    article's source and S=4096, fp and int4-split forms: against the
+    plain versions and F's route (decode_attention_single_split_plain,
+    decode_attention_q4split_split_plain)."""
+    q, k, v, bias = _decode_inputs(gen, 2, 4, 4, 5, S, 64, dtype)
+    out = decode_attention_single(q, k, v, bias, bb=2)
+    args = (q.float(), k.float(), v.float(), bias)
+    for ref in (decode_attention_plain(*args),
+                decode_attention_single_split_plain(*args)):
+        _check_close(out, ref, dtype)
+    args = _q8_inputs(gen, 2, 4, 4, 5, S, 64, dtype, packed4=True)
+    out = decode_attention_q4split(*args)
+    qf = args[0].float()
+    for ref in (decode_attention_q8_plain(qf, *args[1:]),
+                decode_attention_q4split_split_plain(qf, *args[1:])):
+        _check_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_single_bb_and_batch_change_no_bit(gen, dtype):
+    """Kernel F at B=8, H=16, MG=20, S=637: bb = 1, 2 and 4 give the same
+    bits, and batch row 3 launched alone at B=1 equals its row of B=8, in
+    the fp and int4-split forms (S alone sets the chunks)."""
+    q, k, v, bias = _decode_inputs(gen, 8, 16, 4, 5, 637, 64, dtype)
+    q8 = _q8_inputs(gen, 8, 16, 4, 5, 637, 64, dtype, packed4=True)
+    for fn, args in ((decode_attention_single, (q, k, v, bias)),
+                     (decode_attention_q4split, q8)):
+        outs = [fn(*args, bb=bb) for bb in (1, 2, 4)]
+        for o in outs[1:]:
+            assert torch.equal(o, outs[0])
+        one = fn(*(t[3:4].contiguous() for t in args))
+        assert torch.equal(one, outs[0][3:4])
+

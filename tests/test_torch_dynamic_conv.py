@@ -5,8 +5,15 @@ The JAX side runs as its own tests run it here: _reference (the kernel's
 jnp twin), dynamic_conv on its jnp path, and once fused_dynamic_conv
 itself, the Pallas kernel in interpret mode. The CUDA kernel needs the
 card: tests/test_torch_cuda.py and chip_smoke.py hold it to
-dynamic_conv_plain there. Inputs come from a numpy seed.
-Tolerances: forward 2e-5 (the JAX kernel test's), gradients 1e-4.
+dynamic_conv_plain there. Its schedule, dynamic_conv_tiled (the tap logits
+as the kernel's mma fragments accumulate them under
+tf32.mma_accumulate's model, 3xTF32 for fp32, a fresh fragment per
+128-byte slot of C, the slot's k-steps shared by the warps of a logit
+tile), is held to the JAX _reference at K=31 and K=3, C=1024, at the
+tilings conv_tiling picks for the flagship's training shape and for a
+small batch. Inputs come from a numpy seed.
+Tolerances: forward 2e-5 (the JAX kernel test's), gradients 1e-4; bf16
+2e-2 absolute (the output is rounded to bf16).
 """
 import numpy as np
 import jax
@@ -20,7 +27,7 @@ from tell_tpu.ops.kernels.dynamic_conv import (
 from tell_tpu_torch.ops import dynamic_conv as port_dc
 from tell_tpu_torch.ops.dynamic_conv import _can_fuse, dynamic_conv
 from tell_tpu_torch.ops.kernels.dynamic_conv import (
-    dynamic_conv_plain, fused_dynamic_conv, heads_per_block)
+    conv_tiling, dynamic_conv_plain, dynamic_conv_tiled, fused_dynamic_conv)
 
 torch.set_num_threads(2)
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -110,7 +117,8 @@ def test_gradients_match_jax_grad_of_reference(sm):
 
 def test_can_fuse_routing(monkeypatch):
     p = {"weight_linear": {"w": torch.zeros(64, 12)}}
-    # the TPU lane condition C % 128 == 0 is dropped: C = 64 fuses
+    # the TPU lane condition C % 128 == 0 is dropped: C = 64 fuses (whole
+    # heads of a multiple of 8 channels)
     assert _can_fuse(p, None, 0.1, True, 4, 64)
     assert _can_fuse(p, None, 0.0, False, 4, 64)
     assert not _can_fuse(p, None, 0.1, False, 4, 64)   # active dropout
@@ -121,6 +129,7 @@ def test_can_fuse_routing(monkeypatch):
     assert not _can_fuse({**p, "conv_bias": torch.zeros(64)}, None, 0.0,
                          True, 4, 64)
     assert not _can_fuse(p, None, 0.0, True, 5, 64)      # C % H != 0
+    assert not _can_fuse(p, None, 0.0, True, 16, 64)     # 4 channels a head
 
     calls = []
 
@@ -142,5 +151,55 @@ def test_can_fuse_routing(monkeypatch):
 
 
 def test_heads_per_block():
-    assert [heads_per_block(k, 16) for k in (3, 7, 15, 31)] == [8, 4, 2, 1]
-    assert heads_per_block(5, 4) == 4 and heads_per_block(40, 8) == 1
+    """conv_tiling's (time rows, heads) per block: at the flagship's
+    training shape (B=16, T=32, H=16) every layer gets 256 blocks; a
+    larger batch takes more heads a block; a short caption takes 16-row
+    tiles; too small a batch for 256 blocks takes the most blocks."""
+    assert [conv_tiling(16, 32, k, 16) for k in (3, 7, 15, 31)] == [
+        (32, 1)] * 4
+    assert conv_tiling(16, 100, 31, 16) == (32, 1)
+    assert conv_tiling(16, 15, 31, 16) == (16, 1)
+    assert conv_tiling(32, 32, 3, 16) == (32, 2)
+    assert conv_tiling(128, 32, 3, 16) == (32, 8)
+    assert conv_tiling(2, 40, 31, 16) == (16, 1)
+
+
+# (T, K, tiling): the training shape's tiling, (32, 1), at K=31 (32 logit
+# columns, one warp a logit tile) and K=3 (8 columns, four warps a tile);
+# conv_tiling's own pick at B=1, T=20, (16, 1), two warps a tile. Two time
+# rows past a 16-row tile, fewer than K: the logits of a row do not depend
+# on the tile's other rows.
+@pytest.mark.parametrize("T,K,tiling", [(18, 31, (32, 1)),
+                                        (18, 3, (32, 1)), (20, 31, None)])
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+def test_tiled_schedule_matches_jax_reference(T, K, tiling, dtype):
+    B, C, H = 1, 1024, 16
+    if tiling is None:
+        assert conv_tiling(B, T, K, H) == (16, 1)
+    x, _, w_km = _inputs(B, T, C, H, K, seed=T + K)
+    if dtype == "bf16":
+        x, w_km = (np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
+                   for a in (x, w_km))
+    ref = np.asarray(jax.jit(j_reference, static_argnums=(2, 3, 4))(
+        jnp.asarray(x), jnp.asarray(w_km), K, H, True))
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w_km)
+    if dtype == "bf16":
+        out = dynamic_conv_tiled(xt.bfloat16(), wt.bfloat16(), K, H,
+                                 tiling=tiling)
+        assert out.dtype == torch.bfloat16
+        assert np.abs(out.float().numpy() - ref).max() <= 2e-2
+    else:
+        out = dynamic_conv_tiled(xt, wt, K, H, tiling=tiling)
+        np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+def test_profile_conv_tool_on_cpu(capsys):
+    """The kernel C profile tool at CPU-sized shapes: every shape and
+    dtype timed, the plain version on the host clock, no device time."""
+    from tell_tpu_torch.tools import profile_conv
+    res = profile_conv.run(device="cpu", small=True, calls=1)
+    assert len(res) == 2 * len(profile_conv.SHAPES)
+    assert all(ms > 0 and layout == 0 for ms, layout in res.values())
+    out = capsys.readouterr().out
+    assert "plain version" in out and "timed the plain version" in out
+
