@@ -117,7 +117,37 @@ every phase passed):
      profile_decode at its defaults (B=320, K=1, S=512, bf16, 100 steps
      per ablation); every variant within its error limit, and kernel F
      (both forms), A and D launched.
+ 12. text in, scored captions out, through `python -m
+     tell_tpu_torch.commands` at full width: expt/quality/overfit_flagship
+     .yaml (transformer_faces_objects, RoBERTa-large, bf16 training, 512
+     article tokens) with an override that puts the run, the shards and
+     the features in a temporary directory and num_epochs at 2: the
+     features by the port's write_features, preprocess (train and valid,
+     32 examples each), train (2 epochs of 2 steps of 16 x 512 plus
+     validation; kernels B and C must launch), evaluate -s train --beam 5
+     (kernels A and B must launch, D and E must not) and score. 32
+     samples, every metric finite, tell_tpu's generation fields, score
+     equal to evaluate's metrics; one line with the seconds of each step,
+     ms per train step, evaluate captions/s, the metrics and the launch
+     counts. Then the checkpoint on the CPU and on the card, teacher-forced
+     along two of the card's greedy captions: >= 15/16 agreement each.
 Then one JSON line describing the kernels and, last, the result line.
+
+    python3 chip_smoke.py --cli
+
+runs phases 1-2, then phase 12 only; no result line.
+
+    python3 chip_smoke.py --quality [--quality-out DIR]
+
+runs phases 1-2, then tell_tpu_torch.tools.quality_loop on
+expt/quality/overfit_flagship.yaml as it stands (200 epochs of 2 steps,
+trainer seed 0; run, shards and features in a temporary directory):
+preprocess, "before" after one epoch (greedy, then beam 5), train, "after"
+greedy and beam 5, the re-score, the gazetteer entity P/R, and the kv8 and
+fused top-k A/Bs against the beam decode. It prints one line of readings
+and fails unless before CIDEr <= 5, after beam CIDEr >= 900 with >= 30 of
+32 captions exact, and kernels D and E launched in their A/Bs; DIR gets
+the loop's result, phase journal and generation files. No result line.
 
     python3 chip_smoke.py --engine-repeats N
 
@@ -1910,6 +1940,260 @@ def phase_tools(seed: int, dev: str = "cuda", small: bool = False) -> dict:
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: text in, scored captions out, through the command line
+# ---------------------------------------------------------------------------
+
+QUALITY_EXPT = "expt/quality/overfit_flagship.yaml"
+METRIC_KEYS = ("bleu-1", "bleu-2", "bleu-3", "bleu-4", "rouge-l",
+               "meteor_exact_stem", "cider", "meteor", "n_samples",
+               "captions_per_sec", "captions_per_sec_steady")
+GENERATION_FIELDS = {"caption", "generation", "image_hash", "web_url",
+                     "caption_readability", "gen_readability", "caption_np",
+                     "gen_np"}
+
+
+def _cli(argv, label) -> tuple[dict, float]:
+    """`python -m tell_tpu_torch.commands argv` from the repo root; returns
+    the last JSON object it printed and its wall seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tell_tpu_torch.commands"]
+                          + argv, cwd=root, env=env, capture_output=True,
+                          text=True)
+    dt = time.perf_counter() - t
+    require(proc.returncode == 0, f"{label}: {argv[0]} exited "
+            f"{proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    out = proc.stdout
+    return (json.loads(out[out.index("{"):]) if "{" in out else {}), dt
+
+
+def _cli_overrides(tmp, extra=None) -> dict:
+    """Runs, shards and the regenerated features under tmp."""
+    over = {"trainer": {"serialization_dir": os.path.join(tmp, "run")},
+            "data": {"shards_dir": os.path.join(tmp, "shards"),
+                     "objects_jsonl": os.path.join(tmp, "features",
+                                                   "objects.jsonl"),
+                     "images_dir": os.path.join(tmp, "features", "grids")}}
+    for k, v in (extra or {}).items():
+        over.setdefault(k, {}).update(v)
+    return over
+
+
+def phase_cli(card: str, dev: str = "cuda", expt: str = QUALITY_EXPT,
+              epochs: int = 2) -> dict:
+    """The quality corpus through `python -m tell_tpu_torch.commands` at
+    the flagship's full width (expt/quality/overfit_flagship.yaml; runs,
+    shards and features in a temporary directory, num_epochs `epochs`):
+    the features by the port's write_features, preprocess, train,
+    evaluate -s train --beam 5 and score; then the card's checkpoint on
+    the CPU, teacher-forced along two of the card's captions (phase 5's
+    rule)."""
+    from tell_tpu_torch.commands import __main__ as cli
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.tools.gen_quality_corpus import (
+        FEATURES_SEED, read_articles, write_features)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        over = json.dumps(_cli_overrides(
+            tmp, {"trainer": {"num_epochs": epochs}}))
+        exp = load_experiment(expt, over)
+        secs = {}
+        t = time.perf_counter()
+        write_features(read_articles(exp.data.articles_jsonl),
+                       os.path.join(tmp, "features"), FEATURES_SEED)
+        secs["features"] = time.perf_counter() - t
+        n = {}
+        for split in ("train", "valid"):
+            out, secs[f"preprocess_{split}"] = _cli(
+                ["preprocess", expt, "-o", over, "-s", split], "phase 12")
+            n[split] = out["examples"]
+        require(n == {"train": 32, "valid": 32}, f"phase 12: examples {n}")
+        launches = {}
+        for cmd, extra in (("train", []),
+                           ("evaluate", ["-s", "train", "--beam", "5"])):
+            path = os.path.join(tmp, f"launches-{cmd}.json")
+            out, secs[cmd] = _cli([cmd, expt, "-o", over, "--device", dev,
+                                   "--report-launches", path] + extra,
+                                  "phase 12")
+            with open(path) as f:
+                launches[cmd] = json.load(f)
+            if cmd == "train":
+                trained = out
+            else:
+                metrics = out
+        run = exp.trainer.serialization_dir
+        gen_path = os.path.join(run, "generations-train.jsonl")
+        scored, secs["score"] = _cli(["score", gen_path], "phase 12")
+        with open(os.path.join(run, "metrics.jsonl")) as f:
+            hist = [json.loads(line) for line in f]
+        with open(gen_path) as f:
+            rows = [json.loads(line) for line in f]
+        require(trained.get("epochs") == epochs and len(hist) == epochs,
+                f"phase 12: train {trained}, {len(hist)} epochs")
+        for h in hist:
+            require(math.isfinite(h["loss"]) and math.isfinite(h["val_loss"])
+                    and h["skipped"] == 0, f"phase 12: epoch {h}")
+        require(os.path.isdir(os.path.join(run, "checkpoints", "best")),
+                "phase 12: no checkpoints/best")
+        require(metrics.get("n_samples") == 32 and len(rows) == 32,
+                f"phase 12: {metrics.get('n_samples')} samples, "
+                f"{len(rows)} generations")
+        for k in METRIC_KEYS:
+            require(k in metrics and math.isfinite(metrics[k]),
+                    f"phase 12: metric {k} missing or not finite: {metrics}")
+        require((metrics["kv_cache_mode"], metrics["topk_mode"])
+                == ("fp", "exact"), f"phase 12: levers {metrics}")
+        require(all(set(r) == GENERATION_FIELDS for r in rows),
+                f"phase 12: generation fields {sorted(rows[0])}")
+        require(all(scored[k] == metrics[k] for k in scored),
+                f"phase 12: score {scored} != evaluate {metrics}")
+        step_ms = 1e3 * hist[-1]["epoch_seconds"] / hist[-1]["batches"]
+        if dev == "cuda":
+            for cmd, names in (("train", ("encoder_attention",
+                                          "fused_dynamic_conv")),
+                               ("evaluate", ("encoder_attention",
+                                             "decode_attention"))):
+                for name in names:
+                    require(launches[cmd][name] > 0, f"phase 12: {name} "
+                            f"never launched by {cmd}: {launches[cmd]}")
+            require(launches["evaluate"]["decode_attention_q8"] == 0
+                    and launches["evaluate"]["topk_logits"] == 0,
+                    f"phase 12: a lever ran by default: {launches}")
+        log(f"phase 12 ({card}): {expt} at full width, {epochs} epochs: "
+            + json.dumps({
+                "seconds": {k: round(v, 2) for k, v in secs.items()},
+                "train_ms_per_step": round(step_ms, 1),
+                "train_loss": [round(h["loss"], 4) for h in hist],
+                "val_loss": [round(h["val_loss"], 4) for h in hist],
+                "evaluate_captions_per_sec": metrics["captions_per_sec"],
+                "evaluate_captions_per_sec_steady":
+                    metrics["captions_per_sec_steady"],
+                "metrics": {k: metrics[k] for k in METRIC_KEYS[:8]},
+                "launches": launches}))
+
+        # the card's checkpoint on the CPU: two captions, phase 5's rule
+        result = {"launches": launches, "step_ms": step_ms,
+                  "seconds": secs, "metrics": metrics}
+        result["cpu_vs_card"] = _cli_cpu_vs_card(exp, cli, dev)
+        return result
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _cli_cpu_vs_card(exp, cli, dev: str) -> list:
+    from tell_tpu_torch.data.bucketing import bucket_batches
+    from tell_tpu_torch.data.records import RecordDataset
+    from tell_tpu_torch.models.captioner import (encode_contexts, generate,
+                                                 predict_forced)
+    torch.set_num_threads(os.cpu_count() or 1)
+    cfg = exp.model
+    ds = RecordDataset(os.path.join(exp.data.shards_dir, "train-*.npz"))
+    batch = next(bucket_batches(ds.epoch(lazy=True), exp.bucketing))
+    batch.pop("real", None)
+    batch = {k: v[:2] for k, v in batch.items()}
+    preds, lps = {}, {}
+    tokens = None
+    for where in ("card", "cpu"):
+        d = torch.device(dev if where == "card" else "cpu")
+        t = time.perf_counter()
+        params = cli._restore_params(exp, None, d)
+        frozen = cli._frozen_towers(exp, d)
+        with torch.inference_mode():
+            tb = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+            enc = encode_contexts(frozen, cfg, tb)
+            if tokens is None:
+                tokens = generate(params, cfg, enc)["token_ids"][:, :17].cpu()
+            p, lp = predict_forced(params, cfg, enc, tokens.to(d),
+                                   with_log_probs=True)
+        preds[where], lps[where] = p.cpu(), lp.cpu()
+        log(f"phase 12: checkpoint, encode + predict_forced on the {where} "
+            f"({d}) in {time.perf_counter() - t:.2f} s")
+        del params, frozen, enc
+    out = []
+    for i in range(2):
+        agree = int((preds["cpu"][i] == preds["card"][i]).sum())
+        lp_diff = (lps["cpu"][i] - lps["card"][i]).abs().max().item()
+        log(f"phase 12: caption {i}: card vs CPU top-1 agreement "
+            f"{agree}/16, max abs log-prob difference {lp_diff:.3e}")
+        require(agree >= 15, f"phase 12: caption {i}: card vs CPU agreement "
+                f"{agree}/16 < 15/16")
+        out.append({"agree": agree, "lp_diff": lp_diff})
+    return out
+
+
+# --quality: the quality loop's acceptance thresholds
+QUALITY_BEFORE_CIDER_MAX = 5.0
+QUALITY_AFTER_CIDER_MIN = 900.0
+QUALITY_AFTER_EXACT_MIN = 30          # of the 32 training captions
+
+
+def quality_run(card: str, out_dir: str | None) -> int:
+    """tell_tpu_torch.tools.quality_loop on overfit_flagship.yaml as it is
+    (200 epochs of 2 steps, trainer seed 0), runs and shards in a
+    temporary directory; prints the before, after and A/B readings and
+    fails below the thresholds. out_dir: where quality.json,
+    quality-phases.json and the generation files are copied."""
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.tools import quality_loop
+    seed = load_experiment(QUALITY_EXPT).trainer.seed
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_quality_")
+    try:
+        over = json.dumps(_cli_overrides(tmp))
+        q_out = os.path.join(tmp, "quality.json")
+        rc = quality_loop.main(["--expt", QUALITY_EXPT, "--overrides", over,
+                                "--out", q_out, "--device", "cuda"])
+        require(rc == 0, f"quality loop exited {rc}")
+        with open(q_out) as f:
+            q = json.load(f)
+        run = os.path.join(tmp, "run")
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            for name in ["quality-phases.json"] + sorted(
+                    n for n in os.listdir(run) if n.startswith(
+                        "generations-") and n != "generations-train.jsonl"):
+                shutil.copy(os.path.join(run, name), out_dir)
+            shutil.copy(q_out, out_dir)
+        before, after = q["before"], q["after_beam"]
+        n = after["n"]
+        exact = round(after["caption_reproduction_exact"] * n)
+        readings = {
+            "card": card, "seed": seed,
+            "wall_seconds": q["wall_seconds"],
+            "phase_seconds": {k: q[k] for k in (
+                "preprocess_seconds", "before_seconds", "train_seconds",
+                "evaluate_seconds")},
+            "before": {k: before[k] for k in ("cider", "bleu-4", "rouge-l")},
+            "before_beam": {k: q["before_beam"][k]
+                            for k in ("cider", "bleu-4", "rouge-l")},
+            "after_greedy": {k: q["after_greedy"][k] for k in (
+                "cider", "bleu-4", "rouge-l", "caption_reproduction_exact")},
+            "after_beam": {k: after[k] for k in (
+                "cider", "bleu-4", "rouge-l", "meteor", "entity_precision",
+                "entity_recall", "captions_per_sec")},
+            "after_beam_exact": f"{exact}/{n}",
+            "ab_kv8": q["ab_kv8"], "ab_fused_topk": q["ab_fused_topk"],
+            "train": q["train"]}
+        log("quality: " + json.dumps(readings))
+        require(n == 32, f"quality: {n} samples")
+        require(before["cider"] <= QUALITY_BEFORE_CIDER_MAX,
+                f"quality: before CIDEr {before['cider']} > "
+                f"{QUALITY_BEFORE_CIDER_MAX}")
+        require(after["cider"] >= QUALITY_AFTER_CIDER_MIN,
+                f"quality: after beam CIDEr {after['cider']} < "
+                f"{QUALITY_AFTER_CIDER_MIN}")
+        require(exact >= QUALITY_AFTER_EXACT_MIN,
+                f"quality: {exact}/32 exact < {QUALITY_AFTER_EXACT_MIN}/32")
+        for ab, name in (("ab_kv8", "decode_attention_q8"),
+                         ("ab_fused_topk", "topk_logits")):
+            require(q[ab]["kernel_launches"][name] > 0,
+                    f"quality: {ab} never launched {name}")
+        return 0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def beam_timing(seed: int, n: int) -> None:
     """Phase 10's one-shot beam search (beam 5, B=8, fp32, 2048-token
     article context) n + 1 times on one set of random weights: the host
@@ -2022,6 +2306,15 @@ def main() -> int:
     ap.add_argument("--beam", type=int, default=0,
                     help="after the build, phase 10's beam search this "
                     "many times, timed (no result line)")
+    ap.add_argument("--cli", action="store_true",
+                    help="after the build, phase 12 only (no result line)")
+    ap.add_argument("--quality", action="store_true",
+                    help="after the build, the full quality loop on "
+                    f"{QUALITY_EXPT} with its acceptance thresholds (no "
+                    "result line)")
+    ap.add_argument("--quality-out", default=None, metavar="DIR",
+                    help="with --quality: copy the loop's result, phase "
+                    "journal and generation files into DIR")
     args = ap.parse_args()
     only = None
     if args.kernels not in (None, "all"):
@@ -2066,6 +2359,11 @@ def main() -> int:
     if args.trace_engine:
         engine_trace(args.seed, args.trace_engine)
         return 0
+    if args.cli:
+        phase_cli(smi)
+        return 0
+    if args.quality:
+        return quality_run(smi, args.quality_out)
     # phase 3
     res = phase_kernels(args.seed, only)
     if args.kernels:
@@ -2115,6 +2413,9 @@ def main() -> int:
     tools = phase_tools(args.seed)
     for name in ("decode_attention_single", "decode_attention_q4split"):
         launches[name] = tools["launches"][name]
+    torch.cuda.empty_cache()
+    # phase 12: text in, scored captions out, through the command line
+    phase_cli(smi)
 
     # MG=20/S=637, B=4 S=512, K=31 at T=32, int8 S=637, N=40 V=30265 k=5,
     # F S=637, F int4-split S=637

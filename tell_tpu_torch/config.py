@@ -137,3 +137,8 @@ def with_article_len(cfg: CaptionerConfig, max_len: int) -> CaptionerConfig:
                      if c.name == "article" else c for c in dcfg.contexts)
     return dataclasses.replace(
         cfg, decoder=dataclasses.replace(dcfg, contexts=contexts))
+
+
+class NotPortedError(ValueError):
+    """A configuration or input that tell_tpu runs and the port does not
+    yet; the message names the ROADMAP queue item that ports it."""

@@ -7,9 +7,10 @@ within the token budget, floored to a power of two (16 x 512 with 32-token
 captions at the default budget). A handful of shapes keeps the step's
 allocations and kernel shapes stable on the card, as it kept XLA's
 compiled programs few on the TPU. The fields are the flagship's (ids,
-image grid, faces, objects); tell_tpu's precomputed-article, copy-mask and
-string-metadata fields come with the models and the evaluation that use
-them, and its C++ gather path (_native_pack) with the native loader.
+image grid, faces, objects) and, for evaluation, the string metadata;
+tell_tpu's precomputed-article and copy-mask fields come with the models
+that use them, and its C++ gather path (_native_pack) with the native
+loader.
 """
 from __future__ import annotations
 
@@ -48,11 +49,15 @@ def _batch_size(article_len: int, caption_len: int,
     return 1 << (b.bit_length() - 1)  # floor to a power of two
 
 
+META_FIELDS = ("caption", "image_hash", "web_url")
+
+
 def pack_batch(examples: list, article_len: int, caption_len: int,
-               cfg: BucketingConfig) -> dict:
+               cfg: BucketingConfig, include_meta: bool = False) -> dict:
     """Stack ragged examples into one fixed-shape numpy batch: ids padded
     with PAD_ID, article_mask True at pads, absent faces/objects as NaN
-    rows."""
+    rows. include_meta also carries META_FIELDS as lists of str (for
+    evaluation; the trainer leaves it off)."""
     if hasattr(examples[0], "materialize"):
         examples = [e.materialize() for e in examples]
     B = len(examples)
@@ -92,11 +97,15 @@ def pack_batch(examples: list, article_len: int, caption_len: int,
     if "obj_embeds" in e0:
         batch["obj_embeds"] = fill_embeds("obj_embeds", cfg.max_objects,
                                           cfg.object_dim)
+    if include_meta:
+        for meta in META_FIELDS:
+            if meta in e0:
+                batch[meta] = [str(e.get(meta, "")) for e in examples]
     return batch
 
 
-def bucket_batches(examples: Iterator, cfg: BucketingConfig
-                   ) -> Iterator[dict]:
+def bucket_batches(examples: Iterator, cfg: BucketingConfig,
+                   include_meta: bool = False) -> Iterator[dict]:
     """Group a stream of examples into fixed-shape batches: each example
     goes to its (article, caption) length bucket and a bucket is emitted
     when it fills. The ragged rest of each bucket is padded by repeating
@@ -112,14 +121,14 @@ def bucket_batches(examples: Iterator, cfg: BucketingConfig
         buckets.setdefault(key, []).append(ex)
         b = _batch_size(*key, cfg)
         if len(buckets[key]) >= b:
-            yield pack_batch(buckets[key][:b], *key, cfg)
+            yield pack_batch(buckets[key][:b], *key, cfg, include_meta)
             buckets[key] = buckets[key][b:]
     for (al, cl), rest in buckets.items():
         b = _batch_size(al, cl, cfg)
         while rest:
             chunk = rest[:b]
             batch = pack_batch(chunk + [chunk[-1]] * (b - len(chunk)),
-                               al, cl, cfg)
+                               al, cl, cfg, include_meta)
             batch["real"] = np.arange(b) < len(chunk)
             yield batch
             rest = rest[b:]

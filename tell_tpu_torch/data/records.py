@@ -92,8 +92,8 @@ class LazyExample:
 
 class RecordDataset:
     """A set of shards with seeded epoch shuffling at example granularity.
-    (tell_tpu's persistent-RandomState shuffle, `limit` and multi-host
-    striding have no caller in the port yet.)"""
+    (tell_tpu's persistent-RandomState shuffle and multi-host striding
+    have no caller in the port yet.)"""
 
     def __init__(self, pattern: str | list[str], seed: int = 1234):
         paths = (sorted(globlib.glob(pattern))
@@ -111,16 +111,19 @@ class RecordDataset:
         return len(self.index)
 
     def epoch(self, epoch_index: int | None = None,
-              lazy: bool = False) -> Iterator:
+              lazy: bool = False, limit: int | None = None) -> Iterator:
         """Examples in shard order (epoch_index None, as for validation) or
         shuffled in an order that is a pure function of (seed,
         epoch_index), the same as tell_tpu's epoch(epoch_index=...): a
         resumed run reproduces an epoch's order without replaying earlier
-        epochs. lazy yields LazyExample views."""
+        epochs. lazy yields LazyExample views; limit keeps the first
+        `limit` examples of the order."""
         order = np.arange(len(self.index))
         if epoch_index is not None:
             np.random.RandomState(
                 [self.seed & 0xFFFFFFFF, epoch_index]).shuffle(order)
+        if limit is not None:
+            order = order[:limit]
         for o in order:
             s, i = self.index[o]
             if s not in self._open_lru:

@@ -6,9 +6,10 @@ face and object features; GET /status and /healthz report on the service;
 POST /shutdown stops the server. Two decode modes:
 
 * micro-batch (engine_slots=0): a MicroBatcher packs up to max_batch
-  requests, pads the batch with filler rows (row_live = False), runs the
-  RoBERTa encode and greedy generate, and answers each request with its
-  token ids;
+  requests at the smallest article bucket that holds them (a quarter, a
+  half or all of article_len), pads the batch with filler rows (row_live
+  = False), runs the RoBERTa encode and greedy generate, and answers each
+  request with its token ids;
 * engine (engine_slots > 0): an EncodeBatcher coalesces concurrent
   requests' article encodes (the 25 hidden layers mixed in before
   admission), and a resident continuous-batching DecodeEngine runs beam
@@ -231,7 +232,10 @@ class CaptionService:
         # filler rows keep one decode shape; they start finished, so the
         # early exit tracks the real requests only
         padded = requests + [{}] * (self.max_batch - n)
-        batch, errors = self._pack(padded)
+        # the smallest article bucket that holds the micro-batch: pad
+        # columns are masked, so the captions are the ones packed at
+        # article_len, with fewer RoBERTa windows and decode columns
+        batch, errors = self._pack(padded, bucketed=True)
         batch["row_live"] = np.arange(self.max_batch) < n
         with torch.inference_mode():
             tb = {k: torch.from_numpy(v).to(self.device)
@@ -282,12 +286,14 @@ class CaptionService:
         first launches, allocator growth and cuBLAS handles happen then:
         in engine mode every encode ladder size, one request through each
         engine's batcher and every admission size; in micro-batch mode one
-        request. Returns {"widths", "seconds"}."""
+        full micro-batch at each article bucket. Returns {"widths",
+        "seconds"}."""
         t0 = time.perf_counter()
         dummy = {"context_ids": [0, 2]}
         if self.engine is None:
-            self.caption(dummy)
-            return {"widths": [self.article_len],
+            for w in self._article_buckets:
+                self._run([{"context_ids": [0] + [3] * (w - 2) + [2]}])
+            return {"widths": list(self._article_buckets),
                     "seconds": time.perf_counter() - t0}
         for w, batcher in sorted(self.enc_batchers.items()):
             batch, _ = self._pack([dummy])

@@ -58,6 +58,15 @@ class TrainerConfig:
     max_grad_norm: float = 0.1
     b1: float = 0.9
     b2: float = 0.98
+    # tell_tpu's fields for what the port does not run yet; config_io
+    # refuses a value other than these defaults (a mesh of one device,
+    # no warm start, the default TensorBoard interval, no profiler window)
+    n_data: int | None = None
+    n_model: int = 1
+    warm_start: str = ""
+    summary_interval: int = 512
+    profile_steps: int = 0
+    profile_at: int = 10
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:

@@ -1,0 +1,174 @@
+"""The port's YAML reader and experiment configs against PyYAML and
+tell_tpu.config_io.
+
+parse_yaml equals yaml.safe_load on every expt/*/*.yaml and on the edge
+cases of the subset; every YAML of the captioner family loads, overrides
+included, into configs equal field by field to tell_tpu's; every other
+YAML is refused with the ROADMAP queue item that ports it; an unknown key
+fails as it does in tell_tpu.
+"""
+import dataclasses
+import glob
+import os
+
+import pytest
+import yaml
+
+from tell_tpu.config_io import load_experiment as j_load
+from tell_tpu_torch.config import NotPortedError
+from tell_tpu_torch.config_io import (_deep_merge, load_experiment,
+                                      parse_yaml)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+YAMLS = sorted(os.path.relpath(p, ROOT)
+               for p in glob.glob(os.path.join(ROOT, "expt", "*", "*.yaml")))
+
+# the YAMLs of the captioner family; every other one names its item
+LOADS = {
+    "expt/goodnews/4_no_image.yaml",
+    "expt/goodnews/5_transformer_roberta.yaml",
+    "expt/goodnews/6_transformer_weighted_roberta.yaml",
+    "expt/goodnews/8_transformer_faces.yaml",
+    "expt/goodnews/9_transformer_objects.yaml",
+    "expt/nytimes/4_no_image.yaml", "expt/nytimes/5_transformer_roberta.yaml",
+    "expt/nytimes/6_transformer_weighted_roberta.yaml",
+    "expt/nytimes/7_transformer_location_aware.yaml",
+    "expt/nytimes/8_transformer_faces.yaml",
+    "expt/nytimes/9_transformer_objects.yaml",
+    "expt/nytimes/11_long_article.yaml",
+    "expt/quality/overfit_flagship.yaml", "expt/quality/overfit_small.yaml",
+}
+REFUSED = {
+    "1_lstm_glove": "queue 1 item 9", "2_transformer_glove": "queue 1 item 9",
+    "3_lstm_roberta": "queue 1 item 9", "a1_pointer": "queue 1 item 9",
+    "a2_copy_fix": "queue 1 item 9", "a3_pointer_2": "queue 1 item 9",
+    "10_vit_modern": "queue 1 item 9", "12_moe_modern": "queue 1 item 9",
+    "13_learned_positional": "queue 1 item 5",
+}
+OVERRIDES = ('{"trainer": {"serialization_dir": "/tmp/x", "num_epochs": 2},'
+             ' "data": {"shards_dir": "/tmp/s"}, "model": {"gen_len": 7,'
+             ' "decoder": {"dropout": 0.0}}, "bucketing": {"max_batch": 8}}')
+
+
+def _assert_configs_equal(exp, jexp):
+    assert (exp.name, exp.model_type) == (jexp.name, jexp.model_type)
+    for f in ("model", "trainer", "data", "reader", "bucketing"):
+        got, want = getattr(exp, f), getattr(jexp, f)
+        assert ([x.name for x in dataclasses.fields(got)]
+                == [x.name for x in dataclasses.fields(want)]), f
+        assert dataclasses.asdict(got) == dataclasses.asdict(want), f
+
+
+def test_every_yaml_is_covered():
+    assert len(YAMLS) == 29
+    assert set(YAMLS) == LOADS | {p for p in YAMLS if os.path.basename(
+        p)[:-5] in REFUSED}
+
+
+@pytest.mark.parametrize("path", YAMLS)
+def test_parse_yaml_equals_pyyaml(path):
+    with open(os.path.join(ROOT, path), encoding="utf-8") as f:
+        text = f.read()
+    assert parse_yaml(text) == yaml.safe_load(text)
+
+
+@pytest.mark.parametrize("path", sorted(LOADS))
+def test_captioner_yamls_load_as_jax_does(path):
+    full = os.path.join(ROOT, path)
+    _assert_configs_equal(load_experiment(full), j_load(full))
+    _assert_configs_equal(load_experiment(full, OVERRIDES),
+                          j_load(full, OVERRIDES))
+
+
+@pytest.mark.parametrize("path", sorted(set(YAMLS) - LOADS))
+def test_other_yamls_are_refused_with_their_item(path):
+    item = REFUSED[os.path.basename(path)[:-5]]
+    with pytest.raises(NotPortedError, match=item):
+        load_experiment(os.path.join(ROOT, path))
+
+
+@pytest.mark.parametrize("over, item", [
+    ({"trainer": {"n_data": 2}}, "queue 1 item 10"),
+    ({"trainer": {"n_model": 2}}, "queue 1 item 10"),
+    ({"trainer": {"warm_start": "runs/x/checkpoints/best"}},
+     "queue 1 item 6"),
+    ({"trainer": {"summary_interval": 100}}, "queue 1 item 6"),
+    ({"trainer": {"profile_steps": 5}}, "queue 1 item 6"),
+    ({"data": {"glove_file": "glove.txt"}}, "queue 1 item 9"),
+    ({"model": {"decoder": {"positional": "learned"}}}, "queue 1 item 5"),
+    ({"model": {"decoder": {"conv_type": "lightweight"}}}, "queue 1 item 5"),
+    ({"model": {"sampling_topk": 4}}, "queue 1 item 5"),
+])
+def test_keys_the_port_cannot_honour_are_refused(over, item):
+    path = os.path.join(ROOT, "expt/nytimes/9_transformer_objects.yaml")
+    j_load(path, over)   # tell_tpu takes it
+    with pytest.raises(NotPortedError, match=item):
+        load_experiment(path, over)
+
+
+def test_defaults_the_port_runs_are_accepted():
+    path = os.path.join(ROOT, "expt/nytimes/9_transformer_objects.yaml")
+    over = {"trainer": {"n_data": 1, "n_model": 1, "summary_interval": 512,
+                        "profile_steps": 0, "profile_at": 3}}
+    _assert_configs_equal(load_experiment(path, over), j_load(path, over))
+
+
+@pytest.mark.parametrize("over", [{"trainer": {"bogus": 1}},
+                                  {"model": {"decoder": {"bogus": 1}}},
+                                  {"bucketing": {"bogus": 1}}])
+def test_unknown_key_fails_as_in_jax(over):
+    path = os.path.join(ROOT, "expt/nytimes/9_transformer_objects.yaml")
+    with pytest.raises(KeyError):
+        j_load(path, over)
+    with pytest.raises(KeyError, match="bogus"):
+        load_experiment(path, over)
+
+
+SUBSET = """
+# a comment
+a: 1            # trailing comment
+b: -0.5
+c: 1e-5
+d: 1.0e-5
+e: [3, 7, 15]
+f: {name: image, kv_dim: 2048, max_len: 49}
+g:
+  - {x: 1, y: [a, b]}
+  - {x: 2, y: []}
+h:
+- plain
+- 'quoted # not a comment'
+- "dq \\t \\u00e9"
+i: ~
+j: null
+k: true
+l: No
+m: 0x1F
+n: 017
+o: 'it''s'
+p: .5
+q: +3
+r:
+s: a:b
+t: 'x: y'
+u: -.inf
+v: 1_000
+w:
+  nested:
+    deeper: [1, {z: 2}]
+"""
+
+
+def test_subset_edge_cases_equal_pyyaml():
+    assert parse_yaml(SUBSET) == yaml.safe_load(SUBSET)
+    assert parse_yaml("x: .nan")["x"] != parse_yaml("x: .nan")["x"]
+    assert _deep_merge({"a": {"b": 1, "c": 2}}, {"a": {"b": 3}}) == {
+        "a": {"b": 3, "c": 2}}
+
+
+@pytest.mark.parametrize("text", ["a: &x 1", "a: |\n  text", "--- \na: 1",
+                                  "a: 1\n\ta: 2", "a: [1,\n  2]",
+                                  "a: 1\na: 2"])
+def test_outside_the_subset_is_refused(text):
+    with pytest.raises(ValueError):
+        parse_yaml(text)

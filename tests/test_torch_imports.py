@@ -1,12 +1,14 @@
-"""tell_tpu_torch never imports JAX.
+"""tell_tpu_torch never imports JAX, `regex` or PyYAML.
 
-A fresh interpreter with jax blocked (sys.modules["jax"] = None makes any
-`import jax` raise) imports every tell_tpu_torch module, checks that no
-tell_tpu module was loaded (the port keeps its own config dataclasses),
-then runs the slices on CPU tensors at a tiny size (greedy generate, a
-train step, the continuous-batching engine with the int8 K/V cache and the
-fused top-k, and kernel F's two forms) and checks that the plain paths
-ran: the kernels' launch counters stay 0.
+A fresh interpreter with jax, regex and yaml blocked (sys.modules["jax"] =
+None makes any `import jax` raise; neither regex nor yaml is a dependency
+of the port) imports every tell_tpu_torch module, checks that no tell_tpu
+module was loaded (the port keeps its own config dataclasses, tokenizer
+and YAML reader), loads an expt/ YAML, round-trips text through the
+tokenizer, then runs the slices on CPU tensors at a tiny size (greedy
+generate, a train step, the continuous-batching engine with the int8 K/V
+cache and the fused top-k, and kernel F's two forms) and checks that the
+plain paths ran: the kernels' launch counters stay 0.
 """
 import json
 import os
@@ -17,6 +19,8 @@ _SCRIPT = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
+sys.modules["regex"] = None
+sys.modules["yaml"] = None
 import tell_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(
     tell_tpu_torch.__path__, "tell_tpu_torch."))
@@ -79,7 +83,16 @@ bias = torch.zeros(2, 4, 70)
 single = decode_attention_single(q, kv, kv, bias, bb=2)
 q4split = decode_attention_q4split(q, *quantize_kv4(kv), *quantize_kv4(kv),
                                    bias, bb=2)
+from tell_tpu_torch.config_io import load_experiment
+from tell_tpu_torch.data.tokenizer import RobertaTokenizer
+exp = load_experiment("expt/quality/overfit_flagship.yaml")
+tok = RobertaTokenizer.from_files(exp.data.vocab_file, exp.data.merges_file)
+text = "Zainab Weber speaks in Lisbon, ½ of Ⅻ."
 print(json.dumps({"modules": names, "jax_package": jax_pkg,
+                  "text_round_trip": tok.decode(tok.encode(text)) == text,
+                  "expt_kernel_sizes": list(exp.model.decoder.kernel_sizes),
+                  "regex_or_yaml": [m for m in ("regex", "yaml")
+                                    if sys.modules.get(m) is not None],
                   "jax_loaded": "jax" in sys.modules
                                 and sys.modules["jax"] is not None,
                   "token_ids": list(out["token_ids"].shape),
@@ -112,10 +125,18 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                  "training.train_step", "training.checkpoint",
                  "training.trainer", "data.records", "data.bucketing",
                  "data.prefetch", "tools.timing", "tools.kernel_variants",
-                 "tools.longctx_variants", "tools.profile_decode"):
+                 "tools.longctx_variants", "tools.profile_decode",
+                 "data.tokenizer", "data.readers", "data.pipeline",
+                 "config_io", "evalm.bleu", "evalm.rouge", "evalm.cider",
+                 "evalm.meteor", "evalm.entities", "evalm.readability",
+                 "commands.evaluate", "commands.__main__",
+                 "tools.gen_quality_corpus", "tools.quality_loop"):
         assert f"tell_tpu_torch.{name}" in res["modules"]
     assert res["jax_package"] == []
     assert res["jax_loaded"] is False
+    assert res["regex_or_yaml"] == []
+    assert res["text_round_trip"] is True
+    assert res["expt_kernel_sizes"] == [3, 7, 15, 31]
     assert res["token_ids"] == [2, 4]
     assert res["train_loss_finite"] is True
     assert res["engine_beams"] == [2, 4]

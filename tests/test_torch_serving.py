@@ -12,6 +12,10 @@ alternatives, with exactly the token ids of the port's one-shot
 beam_search on the same encoded features and numerics, each routed to the
 smallest bucket that holds it; GET /status and /healthz report, and
 numerics_ab gives each lever's agreement.
+
+Micro-batch article bucketing: a micro-batch is packed at the smallest of
+128/256/512 that holds it, the width tell_tpu's _pack picks for the same
+token counts, and its captions equal those packed at article_len.
 """
 import dataclasses
 import http.client
@@ -275,3 +279,112 @@ def test_engine_numerics_ab_reports_each_lever(engine_service):
 def test_engine_bad_request_is_reported(engine_service):
     out = engine_service.caption({"context_ids": [0, 7, 10 ** 6]})
     assert "outside" in out["error"] and out["token_ids"] == []
+
+
+# -- micro-batch article bucketing (tell_tpu/serving/server.py:345-355) ---
+
+LONG_CFG = with_article_len(CFG, 512)
+LONG_RCFG = dataclasses.replace(RCFG, max_positions=520)
+WORDS = (1, 98, 126, 127, 254, 255, 400, 510, 700)   # + <s> and </s>
+
+
+class _CountTokenizer:
+    """n words -> <s> + n ids + </s> (truncated to max_len), both packages'
+    tokenizer interface."""
+
+    def encode(self, text, max_len):
+        return ([0] + [3 + len(w) % 400 for w in text.split()][: max_len - 2]
+                + [2])
+
+    def decode(self, ids):
+        return " ".join(str(int(i)) for i in ids)
+
+
+@pytest.fixture(scope="module")
+def bucket_service():
+    g = torch.Generator().manual_seed(3)
+    svc = CaptionService(init_captioner(g, LONG_CFG),
+                         RobertaEncoder(init_roberta(g, LONG_RCFG),
+                                        LONG_RCFG),
+                         LONG_CFG, "cpu", tokenizer=_CountTokenizer(),
+                         max_batch=4)
+    yield svc
+    svc.close()
+
+
+def _text(n):
+    return " ".join("w" * (1 + i % 7) for i in range(n))
+
+
+def test_micro_batch_bucket_equals_jax(bucket_service):
+    """The width a micro-batch is packed at equals tell_tpu's _pack for the
+    same token counts, one request alone and mixed micro-batches."""
+    import jax
+    from tell_tpu.models.backbones.roberta import RobertaConfig as JRoberta
+    from tell_tpu.models.backbones.roberta import init_roberta as j_roberta
+    from tell_tpu.models.captioner import init_captioner as j_captioner
+    from tell_tpu.serving.server import CaptionService as JService
+    jrcfg = JRoberta(**dataclasses.asdict(LONG_RCFG))
+    jsvc = JService(j_captioner(jax.random.PRNGKey(0), LONG_CFG),
+                    {"roberta": j_roberta(jax.random.PRNGKey(1), jrcfg),
+                     "roberta_cfg": jrcfg}, LONG_CFG, _CountTokenizer(),
+                    max_batch=4)
+    try:
+        assert jsvc._article_buckets == bucket_service._article_buckets \
+            == (128, 256, 512)
+        batches = [[n] for n in WORDS] + [
+            [1, 98], [1, 127, 40], [254, 1, 2, 3], [255, 1], [700, 1]]
+        widths = []
+        for counts in batches:
+            reqs = [{"context": _text(n)} for n in counts]
+            jb, _ = jsvc._pack(reqs + [{"context": ""}] * (4 - len(reqs)))
+            tb, _ = bucket_service._pack(reqs + [{}] * (4 - len(reqs)),
+                                         bucketed=True)
+            assert tb["context_ids"].shape == jb["context_ids"].shape
+            # the real rows (tell_tpu fills with empty text, the port with
+            # empty requests)
+            n = len(reqs)
+            assert np.array_equal(tb["context_ids"][:n],
+                                  jb["context_ids"][:n])
+            widths.append(tb["context_ids"].shape[1])
+        assert widths == [128, 128, 128, 256, 256, 512, 512, 512, 512,
+                          128, 256, 256, 512, 512]
+    finally:
+        jsvc.close()
+
+
+def test_micro_batch_at_its_bucket_equals_article_len(bucket_service,
+                                                      monkeypatch):
+    """_run packs a micro-batch at its bucket, and each request's tokens
+    equal generate on the same requests packed at article_len (pad
+    columns are masked); warmup drives every bucket."""
+    from tell_tpu_torch.models.captioner import generate
+    packed = []
+    pack = bucket_service._pack
+
+    def spy(requests, bucketed=False):
+        batch, errors = pack(requests, bucketed)
+        packed.append(batch["context_ids"].shape[1])
+        return batch, errors
+
+    monkeypatch.setattr(bucket_service, "_pack", spy)
+    for counts, width in (((3, 100), 128), ((129, 40, 7), 256),
+                          ((300,), 512)):
+        reqs = [{"context": _text(n), "image_grid":
+                 np.full((9, 32), 0.01 * n, np.float32).tolist()}
+                for n in counts]
+        served = bucket_service._run(reqs)
+        assert packed[-1] == width
+        batch, _ = bucket_service._pack(reqs + [{}] * (4 - len(reqs)))
+        assert batch["context_ids"].shape[1] == 512
+        batch["row_live"] = np.arange(4) < len(reqs)
+        with torch.inference_mode():
+            tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+            enc = encode_contexts(bucket_service.roberta.frozen(), LONG_CFG,
+                                  tb)
+            want = generate(bucket_service.model.tree(), LONG_CFG, enc)[
+                "token_ids"][:len(reqs)].numpy()
+        assert [r["token_ids"] for r in served] == want.tolist()
+    packed.clear()
+    assert bucket_service.warmup()["widths"] == [128, 256, 512]
+    assert packed == [128, 256, 512]
