@@ -20,14 +20,18 @@ every phase passed):
      and beside the bound at the tensor-core rate the kernel uses (fp32:
      3xTF32, 3 x the operations over 495 TFLOP/s; bf16: the operations
      over 989 TFLOP/s; or the bytes over 3.35 TB/s where that is longer);
-     kernel A (decode attention; B=8, MG=4 and 20, S=637 and 2173) at the
+     kernel A (decode attention; B=8, MG=4 and 20, S=637 and 2173, and
+     the siblings' MG = 1/5 at S=514, 2/10 at S=565 and 3/15 at S=571,
+     from a generator of their own) at the
      serving path's shapes, kernel C (fused
      dynamic conv) at the training path's (B=16, C=1024, H=16, T=32 with
      K=3/7/15/31, T=100 and T=15 with K=31), kernel D (decode attention over
      the int8/int4 K/V cache; B=8, MG=20, S=637 and 2173, and the 128-slot
-     engine's B=128, MG=20, S=637 int8 with 167 MB of K/V) and kernel E
+     engine's B=128, MG=20, S=637 int8 with 167 MB of K/V, and the
+     siblings' beam 5 int8: MG=5 at S=514 and MG=15 at S=571) and kernel E
      (streamed top-k; N=40 and 640, D=1024, V=5000/15000/30265, k=5, and
-     k=8 once) at the engine's, fp32 and bf16, against their plain PyTorch
+     k=8 once, and phase 13's top-k sampling, N=2 at k=4 over the three
+     bands) at the engine's, fp32 and bf16, against their plain PyTorch
      versions, kernel C's gradient through its autograd Function too;
      kernel F (single-shot decode attention; B=8, MG=20, S=637 and 2173,
      and its int4-split form) against the same plain versions as A and D,
@@ -99,7 +103,9 @@ every phase passed):
      the fp path (fp cache, exact top-k) over four requests' greedy
      captions, for each lever (CaptionService.numerics_ab): int8 K/V >=
      0.95 (tell_tpu's floor), fused top-k >= 15/16 (it is exact), int4 K/V
-     reported without a floor. Defaults stay fp and exact.
+     reported without a floor, and the tanh-GELU encode's
+     (fast_gelu_token_agreement) beside tell_tpu's floor of 0.95, reported
+     only. Defaults stay fp, exact and erf.
  10. the long-article configuration (expt/nytimes/11_long_article.yaml:
      the flagship with a 2048-token article, served in fp32) with
      RobertaConfig.large(): phases 4 and 5 again, the service built
@@ -131,6 +137,24 @@ every phase passed):
      ms per train step, evaluate captions/s, the metrics and the launch
      counts. Then the checkpoint on the CPU and on the card, teacher-forced
      along two of the card's greedy captions: >= 15/16 agreement each.
+ 13. the flagship's siblings at full width (RobertaConfig.large(), one
+     tower shared): expts 4 (no image, M=1), 5 (flattened, M=2), 8 (faces,
+     M=3) and 13 (learned positions, M=4) of NYTimes, each with random
+     weights from the seed in a micro-batch CaptionService over HTTP: four
+     /caption requests, one of them scraped sections whose packed ids must
+     equal assemble_location_aware's window; a one-shot beam 5 at B=8;
+     kernels A (at MG = M greedy and 5M beam) and B must launch; card
+     against CPU teacher-forced along two captions >= 15/16 each. Expt 8
+     also through the int8 engine (2 slots, beam 5): kernel D at MG=15,
+     kernel A not at all. Then on the flagship: need_attention in
+     micro-batch and engine mode (every answer's maps sum to 1 and carry
+     their word merge; the engine's replay of each micro-batch caption
+     within 1e-5 of its maps), and sampling_topk=4 with one generator seed
+     twice on each route (the same tokens, each within its step's exact
+     top-4 on both routes; kernel E at k=4 on the fused route, none on the
+     exact one; along the fused route's tokens its top-4 log-probs within
+     TOPK_TOL of the exact route's and of the full log-probs at its ids).
+     Prints each configuration's readings and the phase's seconds.
 Then one JSON line describing the kernels and, last, the result line.
 
     python3 chip_smoke.py --cli
@@ -171,6 +195,10 @@ decode_attention_q8,topk_logits, those kernels' cases only, so that a copy
 of this script can time a parent tree in the same call) and prints no
 result line.
 
+    python3 chip_smoke.py --siblings
+
+runs phases 1-2, then phase 13 only; no result line.
+
     python3 chip_smoke.py --beam N
 
 runs phases 1-2, then phase 10's one-shot beam search (the long-article
@@ -182,7 +210,9 @@ have, so a copy of it can time a parent tree in the same call.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
+import dataclasses
 import functools
 import http.client
 import itertools
@@ -224,6 +254,7 @@ FEATURE_TOL = dict(atol=1e-4, rtol=1e-4)
 TIE_TOL = 1e-2
 REPEATS = 100       # phase 3: bit-for-bit repeats of kernels A, B, D, E and F
 KV8_FLOOR = 0.95    # phase 9: tell_tpu's gate (BENCH_r05.json)
+FAST_GELU_FLOOR = 0.95   # phase 9, reported only: tell_tpu's (bench.py:633)
 FUSED_TOPK_FLOOR = 15 / 16
 # Phase 6 (training loss and gradients, fp32). Kernel C against its plain
 # version inside the same card run moves no gradient leaf by more than
@@ -239,6 +270,16 @@ TRAIN_GRAD_REL_L2 = 2e-2
 TRAIN_GRAD_MEDIAN_REL_L2 = 5e-3
 FLAGSHIP_SEGMENTS = (("image", 49), ("article", 512), ("faces", 4),
                      ("obj", 64))
+# the siblings' sources (expts 4, 5 and 8): S = 514, 565 and 571
+SIBLING_SEGMENTS = {1: FLAGSHIP_SEGMENTS[1:2], 2: FLAGSHIP_SEGMENTS[:2],
+                    3: FLAGSHIP_SEGMENTS[:3]}
+# phase 3's sibling cases of kernel A: (M, MG) greedy and beam 5 for each
+# sibling, MG = M x G; and of kernel D (int8) at beam 5 over the no-image
+# and the faces source
+SIBLING_A_CASES = ((1, 1), (1, 5), (2, 2), (2, 10), (3, 3), (3, 15))
+SIBLING_D_CASES = ((1, 5), (3, 15))
+# phase 13's top-k sampling: two requests, k=4 (kernel E's N and k there)
+SAMPLING_ROWS, SAMPLING_K = 2, 4
 LONG_ARTICLE = 2048     # expt/nytimes/11_long_article.yaml
 
 
@@ -314,16 +355,20 @@ def _sdpa_encoder(q, k, v, mask):
 # phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def _decode_case(g, B, MG, article_len, dev, copies=4):
-    """Kernel A inputs at the decoder's layout: the four modalities' rows
+def _decode_case(g, B, MG, article_len, dev, copies=4,
+                 segments=FLAGSHIP_SEGMENTS):
+    """Kernel A inputs at the decoder's layout: the modalities' rows
     (+ bias and zero columns each) on the source axis, a real segment bias
     with padded articles and absent faces/objects. Four copies (one per
     decoder layer) so a timed loop streams K/V from device memory rather
-    than L2, as the decode step does (two where one copy exceeds L2)."""
+    than L2, as the decode step does (two where one copy exceeds L2).
+    segments: the configuration's (name, rows) contexts (the flagship's
+    four by default; a sibling's one to three), M of them, MG a multiple
+    of M (G = MG / M query rows a modality)."""
     from tell_tpu_torch.ops.kernels.decode_attention import segment_bias
-    H, hd, M = 16, 64, len(FLAGSHIP_SEGMENTS)
+    H, hd, M = 16, 64, len(segments)
     lens = [n if name != "article" else article_len
-            for name, n in FLAGSHIP_SEGMENTS]
+            for name, n in segments]
     seg = torch.cat([torch.full((n + 2,), m, dtype=torch.long)
                      for m, n in enumerate(lens)]).to(dev)
     S = seg.numel()
@@ -637,7 +682,7 @@ def check_conv(g, B, T, K, dev, C=1024, H=16):
 
 
 def check_q8(g, B, MG, article_len, dev, mode, name="decode_attention_q8",
-             kernel=None, copies=4):
+             kernel=None, copies=4, segments=FLAGSHIP_SEGMENTS):
     """Kernel D (or `kernel`, e.g. kernel F's int4-split form) against
     decode_attention_q8_plain on _decode_case's inputs with K/V quantised
     as the decode state stores them: q fp32 (FP32_TOL, and bit-for-bit
@@ -650,7 +695,7 @@ def check_q8(g, B, MG, article_len, dev, mode, name="decode_attention_q8",
         decode_attention_q8, decode_attention_q8_plain)
     kernel = kernel or decode_attention_q8
     quant = quantize_kv4 if mode == "int4" else quantize_kv
-    S, fp_sets = _decode_case(g, B, MG, article_len, dev, copies)
+    S, fp_sets = _decode_case(g, B, MG, article_len, dev, copies, segments)
     sets = []
     while fp_sets:   # quantise a copy at a time (B=128: 334 MB of fp32 K)
         q, k, v, bias = fp_sets.pop(0)
@@ -964,6 +1009,17 @@ def phase_kernels(seed: int, only: set[str] | None = None) -> dict:
         check_kernel_a(sets, S, shape, res["decode_attention"][-1])
     if run("decode_attention"):
         decode_attention_host_floor(dev)
+        # the siblings' decode shapes: partial row tiles and PV passes
+        gs = torch.Generator().manual_seed(seed + 3)
+        for M, MG in SIBLING_A_CASES:
+            S, sets = _decode_case(gs, 8, MG, 512, dev,
+                                   segments=SIBLING_SEGMENTS[M])
+            shape = f"B=8 H=16 hd=64 MG={MG} S={S}"
+            res["decode_attention"].append(check_kernel(
+                "decode_attention", decode_attention, decode_attention_plain,
+                sets, shape, decode_flops(sets[0][0], S),
+                (_sdpa_decode, _sdpa_decode_sets(sets), identity)))
+            check_kernel_a(sets, S, shape, res["decode_attention"][-1])
     gb = torch.Generator().manual_seed(seed + 1)
     for S, (name, lens) in (([(128, ENCODER_CASES[0])]
                              + [(512, c) for c in ENCODER_CASES])
@@ -984,11 +1040,20 @@ def phase_kernels(seed: int, only: set[str] | None = None) -> dict:
             torch.Generator().manual_seed(seed + 2), 128, 20, 512, dev,
             "int8", copies=2))
         torch.cuda.empty_cache()
+        gd = torch.Generator().manual_seed(seed + 4)
+        for M, MG in SIBLING_D_CASES:   # the siblings' int8 engine
+            res["decode_attention_q8"].append(check_q8(
+                gd, 8, MG, 512, dev, "int8", segments=SIBLING_SEGMENTS[M]))
     if run("topk_logits"):
         for N in (40, 640):
             for V in (5000, 15000, 30265):
                 res["topk_logits"].append(check_topk(g, N, V, 5, dev))
         res["topk_logits"].append(check_topk(g, 40, 30265, 8, dev))
+        # phase 13's top-k sampling: its batch, k=4, the three bands
+        gk = torch.Generator().manual_seed(seed + 5)
+        for V in (5000, 15000, 30265):
+            res["topk_logits"].append(check_topk(gk, SAMPLING_ROWS, V,
+                                                 SAMPLING_K, dev))
     if not run("decode_attention_single"):
         return res
     for article in (512, 2048):
@@ -1885,13 +1950,16 @@ def _get(port, path):
 
 def phase_numerics(svc, reqs) -> dict:
     report = svc.numerics_ab(reqs[:4])
+    gelu = report["fast_gelu_token_agreement"]
     log(f"phase 9: teacher-forced top-1 agreement with the fp path over "
         f"{report['tokens']} tokens: int8 K/V "
         f"{report['kv8_token_agreement']:.4f} (floor {KV8_FLOOR}), fused "
         f"top-k {report['fused_topk_token_agreement']:.4f} (floor "
         f"{FUSED_TOPK_FLOOR:.4f}), int4 K/V "
-        f"{report['kv4_token_agreement']:.4f} (no floor); "
-        f"{report['seconds']:.1f} s")
+        f"{report['kv4_token_agreement']:.4f} (no floor), tanh-GELU encode "
+        f"{gelu:.4f} (tell_tpu's floor {FAST_GELU_FLOOR}: "
+        f"{'met' if gelu >= FAST_GELU_FLOOR else 'missed'}; the default "
+        f"stays {report['gelu_mode']}); {report['seconds']:.1f} s")
     require(report["kv8_token_agreement"] >= KV8_FLOOR, report)
     require(report["fused_topk_token_agreement"] >= FUSED_TOPK_FLOOR, report)
     return report
@@ -2123,6 +2191,414 @@ def _cli_cpu_vs_card(exp, cli, dev: str) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the flagship's siblings
+# ---------------------------------------------------------------------------
+
+SIBLING_EXPTS = ("expt/nytimes/4_no_image.yaml",
+                 "expt/nytimes/5_transformer_roberta.yaml",
+                 "expt/nytimes/8_transformer_faces.yaml",
+                 "expt/nytimes/13_learned_positional.yaml")
+QUALITY_DIR = os.path.join("tests", "fixtures", "quality")
+MAP_TOL = 1e-5       # the engine's replay against the micro-batch maps
+
+
+def _smoke_tokenizer(root: str, vocab_size: int):
+    """The quality corpus's byte-BPE (its merges and 708 pieces), with one
+    filler piece (" zN") for every other id below vocab_size, so that a
+    random model's captions decode to words."""
+    from tell_tpu_torch.data.tokenizer import ByteBPE, RobertaTokenizer
+    bpe = ByteBPE.from_files(os.path.join(root, QUALITY_DIR, "vocab.json"),
+                             os.path.join(root, QUALITY_DIR, "merges.txt"))
+    vocab = dict(bpe.encoder)
+    for i in range(len(vocab), vocab_size):
+        vocab[f"Ġz{i}"] = i
+    return RobertaTokenizer(ByteBPE(vocab, list(bpe.ranks)))
+
+
+def _quality_articles(root: str) -> list[dict]:
+    with open(os.path.join(root, QUALITY_DIR, "articles.jsonl"),
+              encoding="utf-8") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _sections_request(article: dict, pos: int) -> dict:
+    return {"title": article["headline"]["main"],
+            "sections": [{"type": s["type"], "text": s["text"]}
+                         for s in article["parsed_section"]],
+            "image_position": pos}
+
+
+def _sibling_request(rng, cfg, n_ids, vocab, n_faces=2, n_objs=10):
+    """A /caption payload with n_ids token ids and the features of the
+    contexts cfg has (some face/object rows absent)."""
+    req = {"context_ids": [0] + rng.integers(3, vocab, n_ids - 2).tolist()
+           + [2]}
+    for c in cfg.decoder.contexts:
+        if c.name == "image":
+            req["image_grid"] = rng.normal(size=(c.max_len, c.kv_dim)
+                                           ).round(4).tolist()
+        elif c.name in ("faces", "obj"):
+            rows = rng.normal(size=(c.max_len, c.kv_dim))
+            rows[n_faces if c.name == "faces" else n_objs:] = np.nan
+            req["face_embeds" if c.name == "faces" else "obj_embeds"] = \
+                rows.round(4).tolist()
+    return req
+
+
+def _reset_counts():
+    from tell_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, decode_attention_q8)
+    from tell_tpu_torch.ops.kernels.encoder_attention import (
+        encoder_attention)
+    from tell_tpu_torch.ops.kernels.topk_logits import topk_logits
+    for fn in (decode_attention, decode_attention_q8):
+        fn.launches, fn.rows = 0, collections.Counter()
+    encoder_attention.launches = encoder_attention.sequences = 0
+    topk_logits.launches, topk_logits.ks = 0, collections.Counter()
+
+
+def _counts() -> dict:
+    from tell_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, decode_attention_q8)
+    from tell_tpu_torch.ops.kernels.encoder_attention import (
+        encoder_attention)
+    from tell_tpu_torch.ops.kernels.topk_logits import topk_logits
+    return {"decode_attention": decode_attention.launches,
+            "decode_attention_rows": dict(sorted(decode_attention.rows
+                                                 .items())),
+            "encoder_attention": encoder_attention.launches,
+            "decode_attention_q8": decode_attention_q8.launches,
+            "decode_attention_q8_rows": dict(sorted(decode_attention_q8.rows
+                                                    .items())),
+            "topk_logits": topk_logits.launches,
+            "topk_logits_ks": dict(sorted(topk_logits.ks.items()))}
+
+
+def _forced_rows(svc, reqs, captions, dev, steps=16):
+    """The first `steps` teacher-forced top-1 predictions of each request
+    along its caption, on `dev` with svc's weights (copied there)."""
+    from tell_tpu_torch.bridge import to_torch
+    from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
+    from tell_tpu_torch.models.captioner import Captioner, encode_contexts
+    batch, errors = svc._pack(reqs)
+    require(errors == [None] * len(reqs), errors)
+    tokens = torch.from_numpy(np.stack([c[:steps + 1] for c in captions]))
+    if dev.type == svc.device.type:
+        model, enc = svc.model, svc.roberta
+    else:
+        model = Captioner(to_torch(svc.model.tree(), dev), svc.cfg)
+        enc = RobertaEncoder(to_torch(svc.roberta.frozen()["roberta"], dev),
+                             svc.roberta.cfg)
+    with torch.inference_mode():
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        e = encode_contexts(enc.frozen(), svc.cfg, tb)
+        return model.predict_forced(e, tokens.to(dev)).cpu()
+
+
+def _sibling_service(exp_path, rcfg, roberta, tok, seed, dev, shrink, rng,
+                     articles, beam_articles):
+    """Phase 13 for one configuration: random weights from the seed, a
+    micro-batch CaptionService over HTTP with four /caption requests (one
+    of them scraped sections), a one-shot beam 5 at B=8, and the card
+    against the CPU along two captions. Returns its line's readings."""
+    from tell_tpu_torch.bridge import init_captioner
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.data.readers import assemble_location_aware
+    from tell_tpu_torch.models.captioner import encode_contexts
+    from tell_tpu_torch.serving import CaptionService, serve
+    t0 = time.perf_counter()
+    exp = load_experiment(exp_path)
+    cfg = shrink(dataclasses.replace(exp.model, compute_dtype="float32"))
+    M = len(cfg.decoder.contexts)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    svc = CaptionService(init_captioner(g, cfg), roberta, cfg, dev,
+                         tokenizer=tok, max_batch=4)
+    L = svc.article_len
+    vocab = rcfg.vocab_size
+    reqs = [_sibling_request(rng, cfg, n, vocab) for n in articles[:3]]
+    art = _quality_articles(os.path.dirname(os.path.abspath(__file__)))[0]
+    reqs.append(_sections_request(art, 1))
+    paragraphs, _ = assemble_location_aware(
+        {"parsed_section": art["parsed_section"],
+         "headline": art["headline"]}, 1,
+        lambda t: len(tok.bpe.encode(t)), budget=L - 2)
+    want = tok.encode("\n".join(paragraphs).strip(), max_len=L)
+    packed, errors = svc._pack([reqs[3]])
+    require(errors == [None] and packed["context_ids"][0, :len(want)]
+            .tolist() == want and (packed["context_ids"][0, len(want):]
+                                   == rcfg.pad_id).all(),
+            f"{exp.name}: the sections request's ids are not "
+            "assemble_location_aware's window")
+    httpd = serve(svc, port=0, block=False)
+    port = httpd.server_address[1]
+    status, body = _post(port, "/caption", reqs[0])    # warm-up
+    require(status == 200 and "error" not in body, body)
+    _reset_counts()
+    answers = [None] * len(reqs)
+
+    def post(i):
+        answers[i] = _post(port, "/caption", reqs[i])
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    require(not any(t.is_alive() for t in threads), "requests did not finish")
+    captions = []
+    for i, (status, body) in enumerate(answers):
+        require(status == 200 and "error" not in body, (exp.name, i, body))
+        ids = np.asarray(body["token_ids"])
+        require(ids.shape == (cfg.gen_len + 1,) and ids.min() >= 0
+                and ids.max() < cfg.decoder.vocab_size,
+                f"{exp.name}: token ids {ids.shape} outside the vocabulary")
+        captions.append(ids)
+    served = _counts()
+    beam_reqs = [_sibling_request(rng, cfg, n, vocab) for n in beam_articles]
+    batch, errors = svc._pack(beam_reqs)
+    require(errors == [None] * len(beam_reqs), errors)
+    _reset_counts()
+    with torch.inference_mode():
+        t = time.perf_counter()
+        tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        out = svc.model.beam_search(encode_contexts(svc.roberta.frozen(),
+                                                    cfg, tb), beam_size=5)
+        beam_ok = bool(torch.isfinite(out["scores"]).all())
+        beam_s = time.perf_counter() - t
+    require(beam_ok and out["token_ids"].shape
+            == (len(beam_reqs), 5, cfg.gen_len + 1), f"{exp.name}: beam")
+    beamed = _counts()
+    status, _ = _post(port, "/shutdown", {})
+    require(status == 200, f"/shutdown answered {status}")
+    httpd.server_close()
+    if dev == "cuda":
+        for what, counts, mg in (("/caption", served, M),
+                                 ("beam 5", beamed, 5 * M)):
+            require(counts["decode_attention"] > 0
+                    and counts["encoder_attention"] > 0,
+                    f"{exp.name} {what}: kernels A and B must launch: "
+                    f"{counts}")
+            require(counts["decode_attention_rows"].get(mg, 0) > 0,
+                    f"{exp.name} {what}: kernel A never ran at MG={mg}: "
+                    f"{counts['decode_attention_rows']}")
+        card = _forced_rows(svc, reqs[:2], captions[:2], svc.device)
+        cpu = _forced_rows(svc, reqs[:2], captions[:2], torch.device("cpu"))
+        agree = [int(a) for a in (card == cpu).sum(dim=1)]
+        require(min(agree) >= 15, f"{exp.name}: card vs CPU agreement "
+                f"{agree}/16 < 15/16")
+    else:
+        agree = None
+    S = sum(c.max_len + 2 for c in cfg.decoder.contexts)
+    line = {"expt": exp.name, "contexts": [c.name for c in
+                                           cfg.decoder.contexts],
+            "weigh_bert": cfg.weigh_bert,
+            "positional": cfg.decoder.positional, "S": S,
+            "caption_launches": served, "beam_launches": beamed,
+            "beam_s": beam_s, "card_vs_cpu": agree,
+            "seconds": time.perf_counter() - t0}
+    log(f"phase 13: {json.dumps(line)}")
+    return svc, reqs, line
+
+
+def _check_maps(body, cfg, label):
+    """A need_attention answer: per-step maps of every context that sum to
+    1 (masked columns carry 0), and their word merge."""
+    require({"attns", "caption_words", "word_attns", "article_words"}
+            <= set(body), f"{label}: payload keys {sorted(body)}")
+    require(set(body["attns"]) == {c.name for c in cfg.decoder.contexts},
+            f"{label}: maps of {sorted(body['attns'])}")
+    for name, maps in body["attns"].items():
+        a = np.asarray(maps)
+        require(a.shape[0] == cfg.gen_len and np.isfinite(a).all()
+                and np.abs(a.sum(-1) - 1).max() < 1e-4,
+                f"{label}: {name} maps {a.shape} do not sum to 1")
+    require(len(body["word_attns"]) == len(body["caption_words"]),
+            f"{label}: {len(body['word_attns'])} word maps for "
+            f"{len(body['caption_words'])} words")
+
+
+def phase_siblings(seed: int, rcfg, dev: str = "cuda",
+                   shrink=lambda cfg: cfg, cpu_dev="cpu",
+                   articles=(512, 300, 120), beam_articles=BEAM_ARTICLES
+                   ) -> dict:
+    """Phase 13: expts 4, 5, 8 and 13 (NYTimes) at full width on one shared
+    RoBERTa (rcfg) with random weights from the seed, each through
+    _sibling_service; the faces sibling also through the int8 engine
+    (kernel D at MG=15); then the flagship's attention maps in micro-batch
+    and engine mode and top-k sampling (k=4) on the exact and the fused
+    route. shrink(cfg) makes a CPU rehearsal's configurations small.
+    Returns the phase's readings."""
+    from tell_tpu_torch.bridge import init_captioner, init_roberta
+    from tell_tpu_torch.config import CaptionerConfig
+    from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
+    from tell_tpu_torch.models.captioner import (build_contexts,
+                                                 encode_contexts, generate)
+    from tell_tpu_torch.models.decoder import (decoder_log_probs,
+                                               decoder_step, decoder_top_k,
+                                               init_decode_state)
+    from tell_tpu_torch.serving import CaptionService
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    roberta = RobertaEncoder(init_roberta(g, rcfg), rcfg)
+    tok = _smoke_tokenizer(root, rcfg.vocab_size)
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i, path in enumerate(SIBLING_EXPTS):
+        svc, reqs, line = _sibling_service(
+            path, rcfg, roberta, tok, seed + 100 + i, dev, shrink, rng,
+            articles, beam_articles)
+        lines.append(line)
+        if path.endswith("8_transformer_faces.yaml"):
+            esvc = CaptionService(svc.model.tree(), roberta, svc.cfg, dev,
+                                  tokenizer=tok, engine_slots=2,
+                                  engine_beam=5, kv_cache="int8")
+            try:
+                _reset_counts()
+                outs = [esvc.caption(r) for r in reqs[:2]]
+                eng = _counts()
+            finally:
+                esvc.close()
+            for out in outs:
+                require("error" not in out and len(out["alternatives"]) == 4,
+                        f"faces engine: {out}")
+            mg = 5 * len(svc.cfg.decoder.contexts)
+            log(f"phase 13: {line['expt']} through the int8 engine (2 slots,"
+                f" beam 5): launches {eng}")
+            if dev == "cuda":
+                require(eng["decode_attention_q8_rows"].get(mg, 0) > 0
+                        and eng["decode_attention"] == 0,
+                        f"faces engine: kernel D never ran at MG={mg}, or A "
+                        f"ran: {eng}")
+            lines[-1]["engine_launches"] = eng
+        svc.close()
+        del svc
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+
+    # the flagship's attention maps, micro-batch and engine
+    cfg = shrink(CaptionerConfig())
+    params = init_captioner(torch.Generator(device=dev).manual_seed(seed),
+                            cfg)
+    micro = CaptionService(params, roberta, cfg, dev, tokenizer=tok,
+                           max_batch=4, need_attention=True)
+    eng = CaptionService(micro.model.tree(), roberta, cfg, dev,
+                         tokenizer=tok, engine_slots=2, engine_beam=5,
+                         engine_buckets=True, need_attention=True)
+    arts = _quality_articles(root)
+    reqs = [_sibling_request(rng, cfg, 120, rcfg.vocab_size),
+            _sections_request(arts[1], 1)]
+    t = time.perf_counter()
+    try:
+        m_out = [micro.caption(r) for r in reqs]
+        e_out = [eng.caption(r) for r in reqs]
+        worst = 0.0
+        for r, m, e in zip(reqs, m_out, e_out):
+            _check_maps(m, cfg, "micro-batch")
+            _check_maps(e, cfg, "engine")
+            batch, errors = eng._pack([r], bucketed=True)
+            require(errors == [None], errors)
+            again = eng.replay_payload(eng._encode_many(batch),
+                                       m["token_ids"],
+                                       batch["context_ids"][0])
+            for name, maps in m["attns"].items():
+                a, b = np.asarray(again["attns"][name]), np.asarray(maps)
+                require(a.shape == b.shape, f"{name}: replayed maps "
+                        f"{a.shape}, micro-batch {b.shape}")
+                worst = max(worst, float(np.abs(a - b).max()))
+        require(worst <= MAP_TOL, f"the engine's replayed maps differ from "
+                f"the micro-batch maps by {worst:.3e} > {MAP_TOL}")
+        maps_s = time.perf_counter() - t
+        log(f"phase 13: flagship attention maps: micro-batch and engine "
+            f"answers carry {len(m_out[0]['caption_words'])} and "
+            f"{len(e_out[0]['caption_words'])} caption words, every map sums"
+            f" to 1; the engine's replay of the micro-batch captions is "
+            f"within {worst:.3e} of their maps (limit {MAP_TOL}); "
+            f"{maps_s:.1f} s")
+
+        # top-k sampling, k=4: repeatable, within each step's top-4 on
+        # both routes, kernel E at k=4 on the fused route only; along the
+        # fused route's tokens, its candidates (kernel E at the path's
+        # shapes) held to the exact route's and to the full log-probs
+        scfg = dataclasses.replace(cfg, sampling_topk=SAMPLING_K)
+        batch, errors = micro._pack(reqs)
+        require(errors == [None] * SAMPLING_ROWS, errors)
+        tree = micro.model.tree()
+        runs = {}
+        with torch.inference_mode():
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            enc = encode_contexts(roberta.frozen(), cfg, tb)
+            for fused in (False, True):
+                _reset_counts()
+                runs[fused] = [generate(
+                    tree, scfg, enc, fused_topk=fused,
+                    gen=torch.Generator(device=dev).manual_seed(seed + 7))
+                    for _ in range(2)]
+                runs[fused].append(_counts())
+            contexts = build_contexts(tree, cfg, enc)
+            outside = {}
+            fused_err, fused_diff = 0.0, 0
+            for fused in (False, True):
+                ids = runs[fused][0]["token_ids"]
+                state = init_decode_state(tree["decoder"], cfg.decoder,
+                                          contexts, ids.shape[0])
+                outside[fused] = 0
+                for step in range(cfg.gen_len):
+                    x, state = decoder_step(tree["decoder"], cfg.decoder,
+                                            ids[:, step], state)
+                    lp, top = decoder_top_k(tree["decoder"], cfg.decoder, x,
+                                            SAMPLING_K)
+                    live = ids[:, step + 1] != cfg.decoder.pad_id
+                    hit = (top == ids[:, step + 1, None]).any(dim=1)
+                    outside[fused] += int((live & ~hit).sum())
+                    if not fused:
+                        continue
+                    flp, ftop = decoder_top_k(tree["decoder"], cfg.decoder,
+                                              x, SAMPLING_K, fused_topk=True)
+                    full = decoder_log_probs(tree["decoder"], cfg.decoder, x)
+                    at_ids = full.gather(1, ftop)
+                    torch.testing.assert_close(flp, lp, **TOPK_TOL)
+                    torch.testing.assert_close(at_ids, flp, **TOPK_TOL)
+                    fused_err = max(fused_err, (flp - lp).abs().max().item(),
+                                    (at_ids - flp).abs().max().item())
+                    fused_diff += int((ftop != top).sum())
+        for fused, (a, b, counts) in runs.items():
+            require(torch.equal(a["token_ids"], b["token_ids"]),
+                    f"sampling (fused={fused}) is not repeatable")
+            require(outside[fused] == 0, f"sampling (fused={fused}): "
+                    f"{outside[fused]} sampled tokens outside their step's "
+                    "exact top-4")
+        same_rows = int((runs[False][0]["token_ids"]
+                         == runs[True][0]["token_ids"]).all(dim=1).sum())
+        exact_counts, fused_counts = runs[False][2], runs[True][2]
+        if dev == "cuda":
+            require(exact_counts["topk_logits"] == 0
+                    and fused_counts["topk_logits_ks"].get(SAMPLING_K, 0) > 0,
+                    f"kernel E: exact route {exact_counts['topk_logits']} "
+                    f"launches, fused route by k "
+                    f"{fused_counts['topk_logits_ks']}")
+        n_live = int((runs[False][0]["token_ids"][:, 1:]
+                      != cfg.decoder.pad_id).sum())
+        log(f"phase 13: sampling_topk=4: {n_live} sampled tokens (exact "
+            f"route), the same tokens for one generator seed twice on each "
+            f"route, every one within its step's exact top-4 on both; "
+            f"{same_rows}/{ids.shape[0]} rows equal across the routes; "
+            f"along the fused route's tokens its top-4 log-probs within "
+            f"{fused_err:.3e} of the exact route's and of the full "
+            f"log-probs at its ids (limit {TOPK_TOL}), {fused_diff} ids "
+            f"ordered otherwise; kernel E launches: exact route "
+            f"{exact_counts['topk_logits']}, fused route "
+            f"{fused_counts['topk_logits_ks']} by k")
+    finally:
+        micro.close()
+        eng.close()
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 13: the flagship's siblings in {seconds:.1f} s")
+    return {"lines": lines, "sampling": fused_counts, "seconds": seconds}
+
+
 # --quality: the quality loop's acceptance thresholds
 QUALITY_BEFORE_CIDER_MAX = 5.0
 QUALITY_AFTER_CIDER_MIN = 900.0
@@ -2174,7 +2650,7 @@ def quality_run(card: str, out_dir: str | None) -> int:
                 "entity_recall", "captions_per_sec")},
             "after_beam_exact": f"{exact}/{n}",
             "ab_kv8": q["ab_kv8"], "ab_fused_topk": q["ab_fused_topk"],
-            "train": q["train"]}
+            "ab_fast_gelu": q["ab_fast_gelu"], "train": q["train"]}
         log("quality: " + json.dumps(readings))
         require(n == 32, f"quality: {n} samples")
         require(before["cider"] <= QUALITY_BEFORE_CIDER_MAX,
@@ -2189,6 +2665,8 @@ def quality_run(card: str, out_dir: str | None) -> int:
                          ("ab_fused_topk", "topk_logits")):
             require(q[ab]["kernel_launches"][name] > 0,
                     f"quality: {ab} never launched {name}")
+        require(q["ab_fast_gelu"]["gelu_mode"] == "tanh",
+                f"quality: ab_fast_gelu ran {q['ab_fast_gelu']['gelu_mode']}")
         return 0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2308,6 +2786,8 @@ def main() -> int:
                     "many times, timed (no result line)")
     ap.add_argument("--cli", action="store_true",
                     help="after the build, phase 12 only (no result line)")
+    ap.add_argument("--siblings", action="store_true",
+                    help="after the build, phase 13 only (no result line)")
     ap.add_argument("--quality", action="store_true",
                     help="after the build, the full quality loop on "
                     f"{QUALITY_EXPT} with its acceptance thresholds (no "
@@ -2361,6 +2841,10 @@ def main() -> int:
         return 0
     if args.cli:
         phase_cli(smi)
+        return 0
+    if args.siblings:
+        from tell_tpu_torch.models.backbones.roberta import RobertaConfig
+        phase_siblings(args.seed, RobertaConfig.large())
         return 0
     if args.quality:
         return quality_run(smi, args.quality_out)
@@ -2416,6 +2900,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 12: text in, scored captions out, through the command line
     phase_cli(smi)
+    torch.cuda.empty_cache()
+    # phase 13: the flagship's siblings
+    siblings = phase_siblings(args.seed, RobertaConfig.large())
 
     # MG=20/S=637, B=4 S=512, K=31 at T=32, int8 S=637, N=40 V=30265 k=5,
     # F S=637, F int4-split S=637
@@ -2441,6 +2928,16 @@ def main() -> int:
         "decode_attention_q4split": (single,
                                      "tools/kernel_variants.py:111"),
     }
+    # phase 13's own path: its launches of A and B (served and beam, every
+    # sibling), D (the faces engine) and E (the fused sampling runs)
+    sibling_launches = {
+        name: sum(line[k][name] for line in siblings["lines"]
+                  for k in ("caption_launches", "beam_launches"))
+        for name in ("decode_attention", "encoder_attention")}
+    sibling_launches["decode_attention_q8"] = sum(
+        line.get("engine_launches", {}).get("decode_attention_q8", 0)
+        for line in siblings["lines"])
+    sibling_launches["topk_logits"] = siblings["sampling"]["topk_logits"]
     kernels = []
     for name, (src, replaces) in sources.items():
         case = res[name][main_case[name]]
@@ -2453,6 +2950,8 @@ def main() -> int:
             "library_ms": case["library_ms"]}
         if name == "decode_attention_single":
             entry["also_replaces"] = "tools/longctx_variants.py:52"
+        if name in sibling_launches:
+            entry["phase13_launches"] = sibling_launches[name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -23,8 +23,9 @@ import torch
 from torch import nn
 
 from .config import CaptionerConfig, DecoderConfig
-from .models.decoder import check_supported
 from .ops.adaptive import band_ranges
+from .ops.dynamic_conv import init_lightweight_conv
+from .ops.positional import init_learned_positional
 
 
 def tree_leaves(tree) -> list:
@@ -178,10 +179,14 @@ def _decoder_layer(g: torch.Generator, cfg: DecoderConfig, kernel_size: int
                    ) -> dict:
     E = cfg.embed_dim
     conv_in = 2 * cfg.conv_dim if cfg.glu else cfg.conv_dim
+    if cfg.conv_type == "dynamic":
+        conv = {"weight_linear": _linear(
+            g, cfg.conv_dim, cfg.num_heads * kernel_size, bias=False)}
+    else:
+        conv = init_lightweight_conv(g, kernel_size, cfg.num_heads)
     return {
         "linear1": _gehring(g, E, conv_in),
-        "conv": {"weight_linear": _linear(
-            g, cfg.conv_dim, cfg.num_heads * kernel_size, bias=False)},
+        "conv": conv,
         "linear2": _gehring(g, cfg.conv_dim, E),
         "conv_ln": _ln(g, E),
         "attn": {c.name: _cross_attention(g, E, c.kv_dim)
@@ -195,9 +200,9 @@ def _decoder_layer(g: torch.Generator, cfg: DecoderConfig, kernel_size: int
 
 
 def init_decoder(generator: torch.Generator, cfg: DecoderConfig) -> dict:
-    """tell_tpu.models.decoder.init_decoder for the configurations the
-    port decodes (see decoder.check_supported)."""
-    check_supported(cfg)
+    """tell_tpu.models.decoder.init_decoder: the dynamic or lightweight
+    conv, the learned position table where cfg.positional is "learned",
+    and the final LayerNorm where normalize_before and final_norm."""
     g = generator
     E = cfg.embed_dim
     bands = []
@@ -218,6 +223,12 @@ def init_decoder(generator: torch.Generator, cfg: DecoderConfig) -> dict:
         },
         "layers": [_decoder_layer(g, cfg, k) for k in cfg.kernel_sizes],
     }
+    if cfg.normalize_before and cfg.final_norm:
+        params["final_ln"] = _ln(g, E)
+    if cfg.positional == "learned":
+        params["pos_embed"] = init_learned_positional(
+            g, cfg.max_target_positions + cfg.pad_id + 2, E,
+            padding_idx=cfg.pad_id)
     return params
 
 

@@ -4,21 +4,26 @@ serve / score (counterpart of tell_tpu/commands/__main__.py, `tnt`).
 The subcommands and flags are tnt's where they mean the same thing. The
 model runs on `--device` (default cuda): without a card and without
 `--device cpu` a model command raises; nothing falls back to the CPU. The
-decode levers are flags: `--kv-cache {fp,int8,int4}` and `--fused-topk`.
+numerics levers are flags: `--kv-cache {fp,int8,int4}`, `--fused-topk`
+and `--gelu {erf,tanh}` (the frozen encoder's GELU; tell_tpu's
+TELL_TPU_FAST_GELU). `serve --attention` adds the word-attention payload.
 What tnt runs and the port does not yet is refused with its ROADMAP queue
 item: `bench` (item 1), `towers` (item 8), `--coordinator` and
-`--mesh-data` (item 10), `--attention` (item 5), the model types outside
-the captioner family (config_io.py).
+`--mesh-data` (item 10), the model types outside the captioner family
+(config_io.py).
 
 The frozen RoBERTa is read from <shards_dir>/../towers/roberta/state.pt
-(the port's torch format: the param tree saved with torch.save), or, when
-there is none, initialised at random from seed 0 on the CPU (so the same
-weights on every device) with tell_tpu's warning. A towers/roberta that
-holds anything else (tell_tpu's orbax tree) is refused.
+(the port's torch format: the param tree saved with torch.save, as
+`python -m tell_tpu_torch.tools.convert_towers` writes it from a
+HuggingFace state dict), or, when there is none, initialised at random
+from seed 0 on the CPU (so the same weights on every device) with
+tell_tpu's warning. A towers/roberta that holds anything else (tell_tpu's
+orbax tree) is refused.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
@@ -47,6 +52,9 @@ def _add_levers(p):
                    help="decode K/V cache numerics (int8/int4: kernel D)")
     p.add_argument("--fused-topk", action="store_true",
                    help="the adaptive softmax's top-k through kernel E")
+    p.add_argument("--gelu", default="erf", choices=("erf", "tanh"),
+                   help="the frozen RoBERTa's FFN GELU (tanh: the "
+                   "approximation, gated by fast_gelu_token_agreement)")
 
 
 def _add_report(p):
@@ -92,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="bind address (0.0.0.0 to expose; the service "
                     "has an unauthenticated /shutdown)")
     sv.add_argument("--attention", action="store_true",
-                    help="per-word attention maps (not ported)")
+                    help="add per-step and per-word attention maps to "
+                    "every answer")
     sv.add_argument("--mesh-data", type=int, default=1,
                     help="data-parallel serving (not ported; 1 only)")
     sv.add_argument("--engine-slots", type=int, default=0,
@@ -158,11 +167,13 @@ def _towers_dir(exp) -> str:
                                          "towers"))
 
 
-def _frozen_towers(exp, device) -> dict:
-    """{"roberta": params on `device`, "roberta_cfg": RobertaConfig}."""
+def _frozen_towers(exp, device, gelu: str = "erf") -> dict:
+    """{"roberta": params on `device`, "roberta_cfg": RobertaConfig with
+    the FFN's GELU mode `gelu`}."""
     from ..bridge import init_roberta, tree_map
     from ..models.backbones.roberta import RobertaConfig
-    rcfg = getattr(RobertaConfig, exp.data.roberta)()
+    rcfg = dataclasses.replace(getattr(RobertaConfig, exp.data.roberta)(),
+                               gelu=gelu)
     path = os.path.join(_towers_dir(exp), "roberta")
     if os.path.exists(path):
         state = os.path.join(path, "state.pt")
@@ -175,7 +186,8 @@ def _frozen_towers(exp, device) -> dict:
     else:
         logging.warning("no converted RoBERTa weights at %s; using random "
                         "init (quality will be garbage — convert with "
-                        "tools/convert_towers.py)", path)
+                        "python -m tell_tpu_torch.tools.convert_towers)",
+                        path)
         g = torch.Generator().manual_seed(ROBERTA_INIT_SEED)
         roberta = init_roberta(g, rcfg)
     return {"roberta": tree_map(lambda x: x.to(device), roberta),
@@ -256,7 +268,8 @@ def cmd_evaluate(args) -> int:
     device = _device(args)
     metrics = evaluate_split(
         exp, _restore_params(exp, args.model, device),
-        _frozen_towers(exp, device), _tokenizer(exp), split=args.split,
+        _frozen_towers(exp, device, args.gelu), _tokenizer(exp),
+        split=args.split,
         beam_size=args.beam, limit=args.limit, device=device,
         kv_cache=args.kv_cache, fused_topk=args.fused_topk)
     _report_launches(args)
@@ -289,12 +302,9 @@ def cmd_serve(args) -> int:
     if args.mesh_data != 1:
         raise NotPortedError("data-parallel serving is not ported yet "
                              "(ROADMAP queue 1 item 10, parallelism)")
-    if args.attention:
-        raise NotPortedError("attention maps are not ported yet (ROADMAP "
-                             "queue 1 item 5, need_attention)")
     exp = _load(args)
     device = _device(args)
-    frozen = _frozen_towers(exp, device)
+    frozen = _frozen_towers(exp, device, args.gelu)
     service = CaptionService(
         _restore_params(exp, args.model, device),
         RobertaEncoder(frozen["roberta"], frozen["roberta_cfg"]), exp.model,
@@ -302,15 +312,18 @@ def cmd_serve(args) -> int:
         engine_slots=args.engine_slots, engine_beam=args.engine_beam,
         engine_length_penalty=args.engine_length_penalty,
         engine_buckets=args.engine_buckets, encode_batch=args.encode_batch,
-        kv_cache=args.kv_cache, fused_topk=args.fused_topk)
+        kv_cache=args.kv_cache, fused_topk=args.fused_topk,
+        need_attention=args.attention)
     if args.warmup:
         w = service.warmup()
         print(f"warmed article widths {w['widths']} in {w['seconds']:.1f}s")
     if args.numerics_ab:
         ab = service.numerics_ab()
         print(f"numerics A/B: int8-KV token agreement "
-              f"{ab['kv8_token_agreement']:.3f} (active mode: "
-              f"{ab['kv_cache_mode']}, {ab['seconds']:.1f}s)")
+              f"{ab['kv8_token_agreement']:.3f}, tanh-GELU "
+              f"{ab['fast_gelu_token_agreement']:.3f} (active modes: "
+              f"{ab['kv_cache_mode']}, {ab['gelu_mode']}; "
+              f"{ab['seconds']:.1f}s)")
     print(f"serving on {args.host}:{args.port}"
           + (f" (continuous batching: {args.engine_slots} slots, beam "
              f"{args.engine_beam})" if args.engine_slots else ""))

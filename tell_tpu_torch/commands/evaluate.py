@@ -170,7 +170,7 @@ def evaluate_split(exp: ExperimentConfig, params: dict, frozen: dict,
         else metrics["captions_per_sec"])
     metrics["kv_cache_mode"] = kv_cache
     metrics["topk_mode"] = "fused" if fused_topk else "exact"
-    metrics["gelu_mode"] = "erf"   # the port's RoBERTa has no tanh lever
+    metrics["gelu_mode"] = frozen["roberta_cfg"].gelu
     with open(os.path.join(out_dir, f"evaluate-metrics-{split}.json"),
               "w") as f:
         json.dump(metrics, f, indent=2)

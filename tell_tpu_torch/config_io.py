@@ -391,7 +391,7 @@ def check_supported(exp: ExperimentConfig) -> None:
         raise NotPortedError(f"{exp.name}: {what} is not ported yet "
                              f"(ROADMAP {item})")
 
-    t, d, dec = exp.trainer, exp.data, exp.model.decoder
+    t, d = exp.trainer, exp.data
     if t.n_data not in (None, 1) or t.n_model != 1:
         refuse(f"a device mesh (trainer.n_data={t.n_data}, n_model="
                f"{t.n_model})", "queue 1 item 10 (parallelism)")
@@ -406,18 +406,6 @@ def check_supported(exp: ExperimentConfig) -> None:
     if d.glove_file:
         refuse("data.glove_file (GloVe article features)",
                "queue 1 item 9 (data/glove.py)")
-    if dec.positional != "sinusoidal":
-        refuse(f"decoder.positional={dec.positional!r}",
-               "queue 1 item 5 (learned positions)")
-    if dec.conv_type != "dynamic":
-        refuse(f"decoder.conv_type={dec.conv_type!r}",
-               "queue 1 item 5 (the lightweight conv)")
-    if dec.normalize_before and dec.final_norm:
-        refuse("decoder.normalize_before with final_norm",
-               "queue 1 item 5 (the decoder's final norm)")
-    if exp.model.sampling_topk != 1:
-        refuse(f"model.sampling_topk={exp.model.sampling_topk} (top-k "
-               "sampling)", "queue 1 item 5 (top-k sampling)")
 
 
 def load_experiment(path: str, overrides: str | dict | None = None

@@ -1,10 +1,20 @@
 """RoBERTa article encoder, frozen tower (counterpart of
 tell_tpu/models/backbones/roberta.py).
 
-Post-LN transformer encoder with exact (erf) GELU and pad-aware learned
-positions with RoBERTa's +2 offset. Self-attention runs through kernel B
+Post-LN transformer encoder with pad-aware learned positions with
+RoBERTa's +2 offset. Self-attention runs through kernel B
 (ops/kernels/encoder_attention.py) on CUDA and its plain version, the JAX
 package's einsum path with a -1e9 key-padding mask, on the CPU.
+
+The FFN's GELU is exact (erf) unless the caller asks for the tanh
+approximation (RobertaConfig(gelu="tanh"), tell_tpu's TELL_TPU_FAST_GELU
+lever): erf is the default on every device; the serving
+numerics gate reports the tanh encode's agreement
+(fast_gelu_token_agreement).
+
+convert_hf_roberta maps a HuggingFace RobertaModel or RobertaForMaskedLM
+state dict to the port's param tree (tools/convert_towers.py writes it
+where the CLI reads its frozen tower).
 """
 from __future__ import annotations
 
@@ -21,6 +31,9 @@ from ...ops.linear import linear
 from ...ops.positional import make_positions
 
 
+GELU_MODES = ("erf", "tanh")
+
+
 @dataclass(frozen=True)
 class RobertaConfig:
     """Mirror of tell_tpu's RobertaConfig (importing that module pulls in
@@ -33,6 +46,13 @@ class RobertaConfig:
     max_positions: int = 514  # 512 + pad offset 2
     pad_id: int = 1
     ln_eps: float = 1e-5
+    # the FFN's GELU, "erf" (exact) or "tanh": the port's one field beyond
+    # tell_tpu's, where the TELL_TPU_FAST_GELU environment variable sets it
+    gelu: str = "erf"
+
+    def __post_init__(self):
+        if self.gelu not in GELU_MODES:
+            raise ValueError(f"gelu {self.gelu!r} not in {GELU_MODES}")
 
     @staticmethod
     def large() -> "RobertaConfig":
@@ -54,7 +74,8 @@ def roberta_encode(params: dict, cfg: RobertaConfig, ids: torch.Tensor,
     """ids: [B, S] -> [B, S, L+1, D] all hidden states (or [B, S, D]).
 
     Pad-aware positions: position = pad_id + cumsum(not_pad), pads keep
-    pad_id. Pad keys are masked out of attention with an additive -1e9."""
+    pad_id. Pad keys are masked out of attention with an additive -1e9.
+    The FFN's GELU is cfg.gelu's."""
     B, S = ids.shape
     positions = make_positions(ids, cfg.pad_id)
     x = (params["word_embed"][ids] + params["pos_embed"][positions]
@@ -71,7 +92,9 @@ def roberta_encode(params: dict, cfg: RobertaConfig, ids: torch.Tensor,
         o = encoder_attention(q, k, v, key_pad)
         o = linear(lp["attn_out"], o.reshape(B, S, cfg.dim))
         x = layer_norm(lp["attn_ln"], x + o, cfg.ln_eps)
-        h = F.gelu(linear(lp["fc1"], x).float()).to(x.dtype)
+        h = F.gelu(linear(lp["fc1"], x).float(),
+                   approximate="tanh" if cfg.gelu == "tanh" else "none"
+                   ).to(x.dtype)
         h = linear(lp["fc2"], h)
         x = layer_norm(lp["ffn_ln"], x + h, cfg.ln_eps)
         hiddens.append(x)
@@ -114,3 +137,44 @@ class RobertaEncoder(nn.Module):
                 return_all_hiddens: bool = True) -> torch.Tensor:
         return roberta_encode_windowed(self.params.tree(), self.cfg, ids,
                                        return_all_hiddens)
+
+
+def convert_hf_roberta(state_dict: dict, cfg: RobertaConfig) -> dict:
+    """A HuggingFace RobertaModel state dict (bare keys) or
+    RobertaForMaskedLM one ("roberta."-prefixed), torch tensors or numpy,
+    as the port's param tree of fp32 CPU tensors (tell_tpu's
+    convert_hf_roberta): dense weights transposed to [in, out]."""
+    def get(name):
+        for key in (name, "roberta." + name):
+            if key in state_dict:
+                return torch.as_tensor(state_dict[key]).detach().cpu() \
+                    .float().contiguous()
+        raise KeyError(name)
+
+    def dense(name):
+        return {"w": get(name + ".weight").T.contiguous(),
+                "b": get(name + ".bias")}
+
+    def ln(name):
+        return {"scale": get(name + ".weight"), "bias": get(name + ".bias")}
+
+    params = {
+        "word_embed": get("embeddings.word_embeddings.weight"),
+        "pos_embed": get("embeddings.position_embeddings.weight"),
+        "type_embed": get("embeddings.token_type_embeddings.weight"),
+        "embed_ln": ln("embeddings.LayerNorm"),
+        "layers": [],
+    }
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layer.{i}."
+        params["layers"].append({
+            "q": dense(pre + "attention.self.query"),
+            "k": dense(pre + "attention.self.key"),
+            "v": dense(pre + "attention.self.value"),
+            "attn_out": dense(pre + "attention.output.dense"),
+            "attn_ln": ln(pre + "attention.output.LayerNorm"),
+            "fc1": dense(pre + "intermediate.dense"),
+            "fc2": dense(pre + "output.dense"),
+            "ffn_ln": ln(pre + "output.LayerNorm"),
+        })
+    return params

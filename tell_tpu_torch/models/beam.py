@@ -135,8 +135,8 @@ def beam_search(params: dict, cfg: CaptionerConfig, batch: dict,
     captioner.generate)."""
     dcfg = cfg.decoder
     K = beam_size
-    B, device, state = _decode_setup(params, cfg, batch, beam=K,
-                                     kv_cache=kv_cache)
+    B, device, state, _ = _decode_setup(params, cfg, batch, beam=K,
+                                        kv_cache=kv_cache)
 
     def step_fn(tokens, dyn, row_gather):
         feats, new_state = decoder_step(params["decoder"], dcfg, tokens, dyn,

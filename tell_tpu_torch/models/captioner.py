@@ -1,7 +1,8 @@
 """Task model: multi-context news captioner (counterpart of
 tell_tpu/models/captioner.py: weighted_layer_sum, mask_nan_embeds,
 build_contexts, encode_contexts (article branch), captioner_loss,
-captioner_loss_e2e, generate and predict_forced).
+captioner_loss_e2e, generate (greedy or top-k sampled, with or without
+attention maps), predict_forced and replay_attention).
 
 The JAX scan / while_loop become Python loops over a fixed-shape step.
 `Captioner` owns the param tree as an nn.Module; its methods call the
@@ -17,8 +18,8 @@ from torch import nn
 from ..bridge import ParamTree
 from ..config import CaptionerConfig
 from .backbones.roberta import roberta_encode_windowed
-from .decoder import (decoder_loss, decoder_step, decoder_top_k,
-                      init_decode_state)
+from .decoder import (attn_segment_bounds, decoder_loss, decoder_step,
+                      decoder_top_k, init_decode_state, split_attn_segments)
 
 
 def weighted_layer_sum(params: dict, hiddens: torch.Tensor) -> torch.Tensor:
@@ -120,26 +121,55 @@ def _decode_setup(params: dict, cfg: CaptionerConfig, batch: dict,
     state = init_decode_state(params["decoder"], cfg.decoder, contexts, B,
                               beam=beam, dtype=feat0.dtype,
                               kv_cache=kv_cache)
-    return B, feat0.device, state
+    return B, feat0.device, state, contexts
+
+
+def _split_maps(cfg: CaptionerConfig, contexts: dict, steps: list) -> list:
+    """Per-step per-layer maps [B, M, 1, S] -> per layer {name:
+    [T, B, 1, S_m]} (tell_tpu's attns payload)."""
+    bounds = attn_segment_bounds(cfg.decoder, contexts)
+    return [split_attn_segments(bounds, torch.stack(layer))
+            for layer in zip(*steps)]
+
+
+def sample_top_k(top_lp: torch.Tensor, temp: float,
+                 gen: torch.Generator) -> torch.Tensor:
+    """A draw from softmax(top_lp / temp) per row, by the Gumbel-max trick
+    (the method of tell_tpu's jax.random.categorical; the two frameworks
+    draw other numbers). top_lp: [B, k] -> [B] column indices."""
+    u = torch.rand(top_lp.shape, generator=gen, device=top_lp.device)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(top_lp / temp + gumbel, dim=-1)
 
 
 def generate(params: dict, cfg: CaptionerConfig, batch: dict,
              early_stop: bool = True, kv_cache: str = "fp",
-             fused_topk: bool = False) -> dict:
-    """Greedy generation (sampling_topk == 1, every shipped config).
+             fused_topk: bool = False, gen: torch.Generator | None = None,
+             need_weights: bool = False) -> dict:
+    """Greedy generation, or top-k sampled where cfg.sampling_topk > 1.
     kv_cache ("fp", "int8", "int4") and fused_topk are the decode numerics
     levers of decoder.init_decode_state and decoder.decoder_top_k.
 
+    Sampling draws from `gen` (a torch.Generator on the batch's device;
+    default: seed 0 there) among decoder_top_k's k candidates, with
+    temperature cfg.sampling_temp shaping the draw only: the reported
+    log_probs are the model's untempered log-probability of the sampled
+    token.
+
     Returns {token_ids [B, gen_len+1] incl. the seed <s>, log_probs
-    [B, gen_len], finished [B]}. early_stop ends the loop once every row
-    has emitted EOS; later steps would emit <pad> at log-prob 0, which is
-    the buffers' prefill, so the result is the same. A `row_live` bool
-    vector in the batch marks filler rows, which start finished."""
-    if cfg.sampling_topk != 1:
-        raise NotImplementedError("top-k sampling is not ported; the port "
-                                  "decodes greedily (sampling_topk=1)")
+    [B, gen_len], finished [B]}; need_weights adds attns, per layer a
+    {context: [gen_len, B, 1, S_m]} dict of head-averaged maps (the plain
+    attention, see decoder.stacked_attention_core). early_stop ends the
+    loop once every row has emitted EOS; later steps would emit <pad> at
+    log-prob 0, which is the buffers' prefill, so the result is the same.
+    need_weights runs every step, as tell_tpu's scan does. A `row_live`
+    bool vector in the batch marks filler rows, which start finished."""
     dcfg = cfg.decoder
-    B, device, state = _decode_setup(params, cfg, batch, kv_cache=kv_cache)
+    B, device, state, contexts = _decode_setup(params, cfg, batch,
+                                               kv_cache=kv_cache)
+    k = cfg.sampling_topk
+    if k > 1 and gen is None:
+        gen = torch.Generator(device=device).manual_seed(0)
     tokens = torch.full((B,), dcfg.bos_id, dtype=torch.long, device=device)
     if "row_live" in batch:
         finished = ~batch["row_live"]
@@ -148,20 +178,31 @@ def generate(params: dict, cfg: CaptionerConfig, batch: dict,
     toks = torch.full((cfg.gen_len, B), dcfg.pad_id, dtype=torch.long,
                       device=device)
     lps = torch.zeros(cfg.gen_len, B, device=device)
+    maps = []
     for t in range(cfg.gen_len):
-        if early_stop and bool(finished.all()):
+        if early_stop and not need_weights and bool(finished.all()):
             break
-        feats, state = decoder_step(params["decoder"], dcfg, tokens, state)
-        top_lp, top_idx = decoder_top_k(params["decoder"], dcfg, feats, 1,
+        feats, state, *attns = decoder_step(params["decoder"], dcfg, tokens,
+                                            state, need_weights=need_weights)
+        maps += attns
+        top_lp, top_idx = decoder_top_k(params["decoder"], dcfg, feats, k,
                                         fused_topk)
-        sampled = top_idx[:, 0]
+        if k == 1:
+            choice = torch.zeros(B, dtype=torch.long, device=device)
+        else:
+            choice = sample_top_k(top_lp, cfg.sampling_temp, gen)
+        sampled = top_idx.gather(1, choice[:, None])[:, 0]
+        sel_lp = top_lp.gather(1, choice[:, None])[:, 0]
         tokens = torch.where(finished, dcfg.pad_id, sampled)
-        lps[t] = torch.where(finished, 0.0, top_lp[:, 0])
+        lps[t] = torch.where(finished, 0.0, sel_lp)
         toks[t] = tokens
         finished = finished | (sampled == dcfg.eos_id)
     seed = torch.full((B, 1), dcfg.bos_id, dtype=torch.long, device=device)
-    return {"token_ids": torch.cat([seed, toks.T], dim=1),
-            "log_probs": lps.T, "finished": finished}
+    out = {"token_ids": torch.cat([seed, toks.T], dim=1),
+           "log_probs": lps.T, "finished": finished}
+    if need_weights:
+        out["attns"] = _split_maps(cfg, contexts, maps)
+    return out
 
 
 def predict_forced(params: dict, cfg: CaptionerConfig, batch: dict,
@@ -173,9 +214,9 @@ def predict_forced(params: dict, cfg: CaptionerConfig, batch: dict,
     primitive: no greedy cascade). token_ids: [B, T+1] incl. the seed.
     Returns [B, T] predictions; with_log_probs also their log-probs."""
     dcfg = cfg.decoder
-    _, _, state = _decode_setup(params, cfg, batch,
-                                steps=token_ids.shape[1] - 1,
-                                kv_cache=kv_cache)
+    _, _, state, _ = _decode_setup(params, cfg, batch,
+                                   steps=token_ids.shape[1] - 1,
+                                   kv_cache=kv_cache)
     preds, lps = [], []
     for t in range(token_ids.shape[1] - 1):
         feats, state = decoder_step(params["decoder"], dcfg,
@@ -185,6 +226,26 @@ def predict_forced(params: dict, cfg: CaptionerConfig, batch: dict,
         lps.append(lp[:, 0])
     preds = torch.stack(preds, dim=1)
     return (preds, torch.stack(lps, dim=1)) if with_log_probs else preds
+
+
+def replay_attention(params: dict, cfg: CaptionerConfig, batch: dict,
+                     token_ids: torch.Tensor, kv_cache: str = "fp") -> list:
+    """Attention maps of a KNOWN token sequence, teacher-forced: a step's
+    cross-attention depends only on the token prefix, so replaying a
+    finished caption gives the maps the decode loop would have recorded.
+    The engine serves its attention payload this way. token_ids: [B, T+1]
+    incl. the seed. Returns per layer {context: [T, B, 1, S_m]}."""
+    dcfg = cfg.decoder
+    _, _, state, contexts = _decode_setup(params, cfg, batch,
+                                          steps=token_ids.shape[1] - 1,
+                                          kv_cache=kv_cache)
+    maps = []
+    for t in range(token_ids.shape[1] - 1):
+        _, state, attns = decoder_step(params["decoder"], dcfg,
+                                       token_ids[:, t], state,
+                                       need_weights=True)
+        maps.append(attns)
+    return _split_maps(cfg, contexts, maps)
 
 
 class Captioner(nn.Module):
@@ -200,9 +261,11 @@ class Captioner(nn.Module):
         return self.params.tree()
 
     def generate(self, batch: dict, early_stop: bool = True,
-                 kv_cache: str = "fp", fused_topk: bool = False) -> dict:
+                 kv_cache: str = "fp", fused_topk: bool = False,
+                 gen: torch.Generator | None = None,
+                 need_weights: bool = False) -> dict:
         return generate(self.tree(), self.cfg, batch, early_stop, kv_cache,
-                        fused_topk)
+                        fused_topk, gen, need_weights)
 
     def beam_search(self, batch: dict, beam_size: int = 5,
                     length_penalty: float = 0.0, early_stop: bool = True,
@@ -216,3 +279,8 @@ class Captioner(nn.Module):
                        fused_topk: bool = False):
         return predict_forced(self.tree(), self.cfg, batch, token_ids,
                               with_log_probs, kv_cache, fused_topk)
+
+    def replay_attention(self, batch: dict, token_ids: torch.Tensor,
+                         kv_cache: str = "fp") -> list:
+        return replay_attention(self.tree(), self.cfg, batch, token_ids,
+                                kv_cache)

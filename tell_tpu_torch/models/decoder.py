@@ -2,9 +2,11 @@
 the teacher-forced forward and loss of training, and the decode path with
 an fp K/V cache.
 
-Layer structure (post-norm, as every shipped config):
+Layer structure (post-norm, as every shipped config; with
+normalize_before and final_norm a LayerNorm follows the last layer):
 
-    x - linear1 -> GLU -> dynamic_conv -> linear2 - +residual -> LN   (conv)
+    x - linear1 -> GLU -> dynamic or lightweight conv -> linear2
+      - +residual -> LN                                         (conv)
     for each context c: LN(x + cross_attn_c(x))            (parallel branches)
     x = context_fc(concat(branches))                           (no residual)
     x - relu(fc1) -> fc2 - +residual -> LN                            (FFN)
@@ -22,9 +24,13 @@ transposed, [B, H, hd, S], as in the JAX decode state, in fp or, with
 kv_cache="int8"/"int4", quantised per source column and head with fp32
 scales (kernel D; tell_tpu's TELL_TPU_KV8/TELL_TPU_KV4, off by default as
 off the TPU). The step is fixed-shape, so it can later be captured as one
-CUDA graph. Attention-map payloads, the lightweight conv, learned positions
-and the pre-norm final LayerNorm are not ported yet (see ROADMAP.md);
-check_supported refuses configurations that need them.
+CUDA graph. decoder_step(need_weights=True) also returns the head-averaged
+attention maps; that route takes the plain attention, since kernel A
+returns no probabilities (tell_tpu routes the same way, decoder.py:452).
+
+Positions come from the static sinusoidal table or, with positional
+"learned", from the trainable params["pos_embed"]["table"], both looked
+up at pad-aware positions.
 """
 from __future__ import annotations
 
@@ -33,13 +39,18 @@ import functools
 import torch
 
 from ..config import DecoderConfig
-from ..ops.adaptive import (adaptive_embed, adaptive_softmax_loss,
-                            adaptive_top_k, merged_embed_table)
+from ..ops.adaptive import (adaptive_embed, adaptive_log_probs,
+                            adaptive_softmax_loss, adaptive_top_k,
+                            merged_embed_table)
 from ..ops.attention import cross_attention_with_kv, precompute_kv
 from ..ops.common import dropout, glu, layer_norm
-from ..ops.dynamic_conv import dynamic_conv, dynamic_conv_step, init_conv_state
+from ..ops.dynamic_conv import (dynamic_conv, dynamic_conv_step,
+                                init_conv_state, lightweight_conv,
+                                lightweight_conv_step)
 from ..ops.kernels.decode_attention import (decode_attention,
+                                            decode_attention_plain,
                                             decode_attention_q8,
+                                            decode_attention_q8_plain,
                                             segment_bias)
 from ..ops.linear import gehring_linear
 from ..ops.positional import sinusoidal_embed, sinusoidal_table
@@ -48,18 +59,18 @@ from ..ops.positional import sinusoidal_embed, sinusoidal_table
 @functools.lru_cache(maxsize=8)
 def _pos_table(n: int, dim: int, pad: int, device: torch.device
                ) -> torch.Tensor:
+    """The static sinusoidal table only: a trainable table is never
+    cached."""
     return torch.from_numpy(sinusoidal_table(n, dim, padding_idx=pad)
                             ).to(device)
 
 
-def check_supported(cfg: DecoderConfig) -> None:
-    """Raise for decoder configurations the port does not decode yet."""
-    if (cfg.conv_type != "dynamic" or cfg.positional != "sinusoidal"
-            or (cfg.normalize_before and cfg.final_norm)):
-        raise NotImplementedError(
-            "the port decodes the dynamic-conv, sinusoidal, post-norm "
-            f"decoder only (conv_type={cfg.conv_type!r}, positional="
-            f"{cfg.positional!r}, final_norm={cfg.final_norm})")
+def _positional_table(params: dict, cfg: DecoderConfig,
+                      device: torch.device) -> torch.Tensor:
+    if cfg.positional == "learned":
+        return params["pos_embed"]["table"]
+    return _pos_table(cfg.max_target_positions + cfg.pad_id + 2,
+                      cfg.embed_dim, cfg.pad_id, device)
 
 
 # ---------------------------------------------------------------------------
@@ -69,12 +80,11 @@ def check_supported(cfg: DecoderConfig) -> None:
 def embed_tokens(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                  gen: torch.Generator | None = None,
                  deterministic: bool = True) -> torch.Tensor:
-    """Adaptive + sinusoidal positional embeddings of ids [B, T], dropout."""
+    """Adaptive + positional embeddings of ids [B, T], dropout."""
     x = adaptive_embed(params["embed"], ids, cfg.full_cutoffs, cfg.embed_dim,
                        padding_idx=cfg.embed_padding_idx,
                        scale_embeds=cfg.scale_embeds)
-    table = _pos_table(cfg.max_target_positions + cfg.pad_id + 2,
-                       cfg.embed_dim, cfg.pad_id, ids.device)
+    table = _positional_table(params, cfg, ids.device)
     x = x + sinusoidal_embed(table, ids.long(), cfg.pad_id).to(x.dtype)
     return dropout(x, cfg.dropout, gen, deterministic)
 
@@ -87,11 +97,11 @@ def _conv_block_full(lp: dict, cfg: DecoderConfig, kernel_size: int,
     h = gehring_linear(lp["linear1"], h)
     if cfg.glu:
         h = glu(h)
-    h = dynamic_conv(lp["conv"], h, kernel_size=kernel_size,
-                     num_heads=cfg.num_heads,
-                     weight_softmax=cfg.weight_softmax,
-                     weight_dropout=cfg.weight_dropout, gen=gen,
-                     deterministic=deterministic)
+    conv = dynamic_conv if cfg.conv_type == "dynamic" else lightweight_conv
+    h = conv(lp["conv"], h, kernel_size=kernel_size, num_heads=cfg.num_heads,
+             weight_softmax=cfg.weight_softmax,
+             weight_dropout=cfg.weight_dropout, gen=gen,
+             deterministic=deterministic)
     h = gehring_linear(lp["linear2"], h)
     h = dropout(h, cfg.dropout, gen, deterministic)
     return layer_norm(lp["conv_ln"], residual + h)
@@ -134,14 +144,15 @@ def decoder_forward(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                     contexts: dict, gen: torch.Generator | None = None,
                     deterministic: bool = True) -> torch.Tensor:
     """Teacher-forced forward. ids: [B, T] -> features [B, T, E]. (tell_tpu
-    also returns attention maps for its demo; no caller of the port needs
-    them yet.)"""
-    check_supported(cfg)
+    also returns attention maps here; the port's maps come from the decode
+    path, decoder_step(need_weights=True).)"""
     x = embed_tokens(params, cfg, ids, gen, deterministic)
     kvs = precompute_context_kv(params, cfg, contexts)
     for lp, k, kv in zip(params["layers"], cfg.kernel_sizes, kvs):
         x = _conv_block_full(lp, cfg, k, x, gen, deterministic)
         x = _attn_and_ffn(lp, cfg, x, kv, gen, deterministic)
+    if "final_ln" in params:
+        x = layer_norm(params["final_ln"], x)
     return x
 
 
@@ -274,13 +285,36 @@ def _ln_stacked(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
                       eps)
 
 
-def stacked_attention_core(num_heads: int, x: torch.Tensor, cat: dict
-                           ) -> torch.Tensor:
+def attn_segment_bounds(cfg: DecoderConfig, contexts: dict
+                        ) -> tuple[tuple[str, int, int], ...]:
+    """(name, offset, length) of each modality on the concatenated source
+    axis, its bias and zero columns included (tell_tpu's
+    attn_segment_bounds for its single context group)."""
+    bounds, off = [], 0
+    for spec in cfg.contexts:
+        n = contexts[spec.name][0].shape[1] + 2
+        bounds.append((spec.name, off, n))
+        off += n
+    return tuple(bounds)
+
+
+def split_attn_segments(bounds, probs: torch.Tensor) -> dict:
+    """probs [..., M, G, S] -> {name: [..., G, S_m]}."""
+    return {name: probs[..., m, :, off:off + n]
+            for m, (name, off, n) in enumerate(bounds)}
+
+
+def stacked_attention_core(num_heads: int, x: torch.Tensor, cat: dict,
+                           need_weights: bool = False
+                           ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Per-modality q/out projections stacked over a modality axis around
     one segment-masked attention chain over the concatenated K/V: kernel A
     over an fp cache, kernel D over an int8/int4 one (the cat holds
-    scales), each on CUDA, their plain versions on the CPU.
-    x: [B, G, E] -> out [B, M, G, E] before the residual."""
+    scales), each on CUDA, their plain versions on the CPU. need_weights
+    takes the plain attention on any device (the kernels return no
+    probabilities) and also returns the head-averaged maps.
+    x: [B, G, E] -> (out [B, M, G, E] before the residual, probs
+    [B, M, G, S] or None)."""
     B, G, E = x.shape
     M = cat["wq"].shape[0]
     H = num_heads
@@ -290,7 +324,15 @@ def stacked_attention_core(num_heads: int, x: torch.Tensor, cat: dict
     # fold the modality axis into the query rows: K/V are read once for
     # all M branches
     qh = q.reshape(B, M * G, H, hd).transpose(1, 2).contiguous()
-    if "k_scale" in cat:
+    probs = None
+    if need_weights and "k_scale" in cat:
+        out, probs = decode_attention_q8_plain(
+            qh, cat["k"], cat["k_scale"], cat["v"], cat["v_scale"],
+            cat["bias"], with_probs=True)
+    elif need_weights:
+        out, probs = decode_attention_plain(qh, cat["k"], cat["v"],
+                                            cat["bias"], with_probs=True)
+    elif "k_scale" in cat:
         out = decode_attention_q8(qh, cat["k"], cat["k_scale"], cat["v"],
                                   cat["v_scale"], cat["bias"])
     else:
@@ -298,30 +340,47 @@ def stacked_attention_core(num_heads: int, x: torch.Tensor, cat: dict
     # out: [B, H, MG, hd]
     out = out.transpose(1, 2).reshape(B, M, G, E)
     out = torch.einsum("bmge,mef->bmgf", out, cat["wo"].to(x.dtype))
-    return out + cat["bo"].to(x.dtype)[None, :, None, :]
+    out = out + cat["bo"].to(x.dtype)[None, :, None, :]
+    if probs is not None:
+        probs = probs.mean(dim=1).reshape(B, M, G, -1)
+    return out, probs
 
 
-def _attn_group(cfg: DecoderConfig, x: torch.Tensor, cat: dict
-                ) -> torch.Tensor:
+def _attn_group(cfg: DecoderConfig, x: torch.Tensor, cat: dict,
+                need_weights: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The stacked attention chain with each branch's residual + LN.
-    x: [B, G, E] -> branches [B, M, G, E]."""
-    out = stacked_attention_core(cfg.num_heads, x, cat)
-    return _ln_stacked(cat["ln_s"], cat["ln_b"], x[:, None] + out)
+    x: [B, G, E] -> (branches [B, M, G, E], probs [B, M, G, S] or None)."""
+    out, probs = stacked_attention_core(cfg.num_heads, x, cat, need_weights)
+    return _ln_stacked(cat["ln_s"], cat["ln_b"], x[:, None] + out), probs
 
 
 def _attn_and_ffn_cat(lp: dict, cfg: DecoderConfig, x: torch.Tensor,
-                      cat: dict) -> torch.Tensor:
+                      cat: dict, need_weights: bool = False
+                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Cross-attention branches + context_fc + FFN for one decode step.
-    x: [B, G, E] (G = beam or 1)."""
+    x: [B, G, E] (G = beam or 1) -> (x', probs [B, M, G, S] or None)."""
     B, G, E = x.shape
-    branches = _attn_group(cfg, x, cat)
+    branches, probs = _attn_group(cfg, x, cat, need_weights)
     # concat(branches) in context order: [B, M, G, E] -> [B, G, M*E]
     h = branches.transpose(1, 2).reshape(B, G, -1)
     h = gehring_linear(lp["context_fc"], h)
     residual = h
     h = torch.relu(gehring_linear(lp["fc1"], h))
     h = gehring_linear(lp["fc2"], h)
-    return layer_norm(lp["final_ln"], residual + h)
+    return layer_norm(lp["final_ln"], residual + h), probs
+
+
+def decoder_log_probs(params: dict, cfg: DecoderConfig,
+                      feats: torch.Tensor) -> torch.Tensor:
+    """Full-vocabulary log-probs from decoder features [..., E] ->
+    [..., V] fp32."""
+    shape = feats.shape[:-1]
+    lp = adaptive_log_probs(params["adaptive_softmax"], params["embed"],
+                            feats.reshape(-1, feats.shape[-1]),
+                            cfg.full_cutoffs,
+                            padding_idx=cfg.embed_padding_idx)
+    return lp.reshape(*shape, cfg.vocab_size)
 
 
 def decoder_top_k(params: dict, cfg: DecoderConfig, feats: torch.Tensor,
@@ -346,7 +405,6 @@ def init_decode_state(params: dict, cfg: DecoderConfig, contexts: dict,
     beams ride the attention query rows), in the numerics kv_cache names
     (see precompute_context_kv_cat); conv windows are per row
     [batch * beam, K-1, C]."""
-    check_supported(cfg)
     device = next(iter(contexts.values()))[0].device
     R = batch * beam
     return {
@@ -364,35 +422,44 @@ def init_decode_state(params: dict, cfg: DecoderConfig, contexts: dict,
 
 
 def decoder_step(params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
-                 state: dict, row_gather: torch.Tensor | None = None
-                 ) -> tuple[torch.Tensor, dict]:
-    """One decode step. tokens: [B*beam] -> (features [B*beam, E], state').
+                 state: dict, row_gather: torch.Tensor | None = None,
+                 need_weights: bool = False):
+    """One decode step. tokens: [B*beam] -> (features [B*beam, E], state'),
+    with need_weights (features, state', per-layer head-averaged maps
+    [B, M, beam, S]).
 
     row_gather [B*beam]: beam parent indices applied to the conv windows
     as they are read (beam_search's fused reorder). K/V are per batch
-    element and never need gathering."""
+    element and never need gathering. state["step"] is a scalar or, in the
+    engine, one start position per row."""
     R = tokens.shape[0]
     B = state["kv"][0]["k"].shape[0]
     G = R // B
     tok_embed = state["embed_table"][tokens]
-    table = _pos_table(cfg.max_target_positions + cfg.pad_id + 2,
-                       cfg.embed_dim, cfg.pad_id, tokens.device)
+    table = _positional_table(params, cfg, tokens.device)
     pos = sinusoidal_embed(table, tokens[:, None], cfg.pad_id,
                            state["step"])[:, 0]
     x = tok_embed + pos.to(tok_embed.dtype)                      # [R, E]
-    new_conv = []
+    conv_step = (dynamic_conv_step if cfg.conv_type == "dynamic"
+                 else lightweight_conv_step)
+    new_conv, attns = [], []
     for i, (lp, k) in enumerate(zip(params["layers"], cfg.kernel_sizes)):
         residual = x
         h = gehring_linear(lp["linear1"], x)
         if cfg.glu:
             h = glu(h)
-        h, buf = dynamic_conv_step(lp["conv"], h, state["conv"][i],
-                                   kernel_size=k, num_heads=cfg.num_heads,
-                                   weight_softmax=cfg.weight_softmax,
-                                   row_gather=row_gather)
+        h, buf = conv_step(lp["conv"], h, state["conv"][i], kernel_size=k,
+                           num_heads=cfg.num_heads,
+                           weight_softmax=cfg.weight_softmax,
+                           row_gather=row_gather)
         new_conv.append(buf)
         h = gehring_linear(lp["linear2"], h)
         h = layer_norm(lp["conv_ln"], residual + h)
-        h = _attn_and_ffn_cat(lp, cfg, h.reshape(B, G, -1), state["kv"][i])
+        h, probs = _attn_and_ffn_cat(lp, cfg, h.reshape(B, G, -1),
+                                     state["kv"][i], need_weights)
+        attns.append(probs)
         x = h.reshape(R, -1)
-    return x, {**state, "conv": new_conv, "step": state["step"] + 1}
+    if "final_ln" in params:
+        x = layer_norm(params["final_ln"], x)
+    new_state = {**state, "conv": new_conv, "step": state["step"] + 1}
+    return (x, new_state, attns) if need_weights else (x, new_state)

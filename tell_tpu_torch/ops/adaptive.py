@@ -1,7 +1,8 @@
 """Adaptive input embeddings and adaptive softmax (counterpart of
 tell_tpu/ops/adaptive.py: band_ranges, adaptive_embed, merged_embed_table,
 _head_logits, _tail_logits, _xent, adaptive_softmax_loss with dense tails
-or tail-capacity compaction, and the EXACT path of adaptive_top_k).
+or tail-capacity compaction, adaptive_log_probs and the EXACT path of
+adaptive_top_k).
 
 Weights are tied as in the JAX package: the softmax reads the embedding's
 band tables. Every band's row `padding_idx` is pinned to zero: in the
@@ -10,8 +11,7 @@ softmax by multiplying the logits with a 0/1 column mask, so the padding
 column's logit is exactly 0 (not -inf), as in JAX (adaptive.py:187-207).
 adaptive_top_k(fused=True) is tell_tpu's TELL_TPU_TOPK route through
 kernel E (_adaptive_top_k_fused). Approximate top-k, the merged decode
-vocab table, adaptive_log_probs and the int8 tables are not ported (see
-ROADMAP.md).
+vocab table and the int8 tables are not ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -169,6 +169,24 @@ def adaptive_softmax_loss(sm: dict, emb: dict, x: torch.Tensor,
         loss = loss + (ce * valid).sum()
         n_dropped = n_dropped + (in_band.sum() - cap).clamp_min(0)
     return loss, not_pad.sum(), {"tail_dropped": n_dropped}
+
+
+def adaptive_log_probs(sm: dict, emb: dict, x: torch.Tensor,
+                       cutoffs: tuple[int, ...],
+                       padding_idx: int = 0) -> torch.Tensor:
+    """Full-vocabulary log-probs [N, V] fp32 (tell_tpu's
+    adaptive_log_probs): head log-softmax for band 0, and for tail i the
+    tail's log-softmax plus the head's log-prob of cluster i."""
+    ranges = band_ranges(cutoffs)
+    c0 = ranges[0][1]
+    head = torch.log_softmax(_head_logits(sm, emb, x, padding_idx).float(),
+                             dim=-1)
+    parts = [head[:, :c0]]
+    for i in range(len(ranges) - 1):
+        tl = torch.log_softmax(
+            _tail_logits(sm, emb, x, i, padding_idx).float(), dim=-1)
+        parts.append(tl + head[:, c0 + i, None])
+    return torch.cat(parts, dim=-1)
 
 
 def adaptive_top_k(sm: dict, emb: dict, x: torch.Tensor,

@@ -1,10 +1,11 @@
-"""Dynamic convolution (counterpart of tell_tpu/ops/dynamic_conv.py):
-the teacher-forced full-sequence conv of training (dynamic_conv, fused
-into kernel C where tell_tpu fuses it) and the single decode step.
+"""Dynamic and lightweight convolution (counterpart of
+tell_tpu/ops/dynamic_conv.py): the teacher-forced full-sequence conv of
+training (dynamic_conv, fused into kernel C where tell_tpu fuses it) and
+the single decode step; the lightweight conv's fixed per-head kernel in
+plain torch, as tell_tpu runs it in plain XLA.
 
 The step reads a fixed-shape window of the last K-1 inputs [B, K-1, C]
-(zeros at the start, as the reference's unfold zero-pads). The
-lightweight conv is not ported yet (see ROADMAP.md).
+(zeros at the start, as the reference's unfold zero-pads).
 """
 from __future__ import annotations
 
@@ -110,6 +111,62 @@ def dynamic_conv_step(params: dict, x_t: torch.Tensor, state: torch.Tensor,
     window = torch.cat([state, x_t[:, None, :]], dim=1)          # [B, K, C]
     wh = window.reshape(B, K, H, R)
     out = torch.einsum("bhk,bkhr->bhr", w, wh).reshape(B, C)
+    if "conv_bias" in params:
+        out = out + params["conv_bias"]
+    return out, window[:, 1:, :]
+
+
+# ---------------------------------------------------------------------------
+# lightweight conv: the same convolution with a fixed learned per-head kernel
+# ---------------------------------------------------------------------------
+
+def init_lightweight_conv(generator: torch.Generator, kernel_size: int,
+                          num_heads: int) -> dict:
+    """tell_tpu's init_lightweight_conv (no conv bias): xavier uniform on
+    [H, 1, K], drawn from `generator` on its device."""
+    bound = (6.0 / (1 + kernel_size)) ** 0.5
+    w = torch.rand((num_heads, kernel_size), generator=generator,
+                   device=generator.device)
+    return {"weight": w * (2 * bound) - bound}
+
+
+def _lightweight_weights(params: dict, weight_softmax: bool
+                         ) -> torch.Tensor:
+    w = params["weight"]
+    return torch.softmax(w.float(), dim=-1) if weight_softmax else w
+
+
+def lightweight_conv(params: dict, x: torch.Tensor, *, kernel_size: int,
+                     num_heads: int, weight_softmax: bool = True,
+                     weight_dropout: float = 0.0,
+                     gen: torch.Generator | None = None,
+                     deterministic: bool = True) -> torch.Tensor:
+    """Full-sequence lightweight conv. x: [B, T, C] -> [B, T, C]."""
+    B, T, C = x.shape
+    w = _lightweight_weights(params, weight_softmax).to(x.dtype)
+    w = dropout(w, weight_dropout, gen, deterministic)
+    wbt = w[None, None].expand(B, T, num_heads, kernel_size)
+    out = _conv_with_weights(x, wbt, kernel_size, num_heads)
+    if "conv_bias" in params:
+        out = out + params["conv_bias"]
+    return out
+
+
+def lightweight_conv_step(params: dict, x_t: torch.Tensor,
+                          state: torch.Tensor, *, kernel_size: int,
+                          num_heads: int, weight_softmax: bool = True,
+                          row_gather: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step of the lightweight conv (dynamic_conv_step's
+    contract)."""
+    B, C = x_t.shape
+    K, H = kernel_size, num_heads
+    w = _lightweight_weights(params, weight_softmax).to(x_t.dtype)
+    if row_gather is not None:
+        state = state[row_gather]
+    window = torch.cat([state, x_t[:, None, :]], dim=1)          # [B, K, C]
+    wh = window.reshape(B, K, H, C // H)
+    out = torch.einsum("hk,bkhr->bhr", w, wh).reshape(B, C)
     if "conv_bias" in params:
         out = out + params["conv_bias"]
     return out, window[:, 1:, :]

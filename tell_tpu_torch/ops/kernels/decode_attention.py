@@ -42,6 +42,8 @@ which compute the same functions.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from .build import check_launch, load_library
@@ -87,14 +89,15 @@ def segment_bias(seg: torch.Tensor, pad: torch.Tensor, M: int, G: int
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           bias: torch.Tensor) -> torch.Tensor:
+                           bias: torch.Tensor, with_probs: bool = False):
     """Plain PyTorch version (tell_tpu's reference_decode_attention):
     fp32 scores and softmax, probabilities cast to q's dtype before the
-    value contraction, fp32 accumulation."""
+    value contraction, fp32 accumulation. with_probs also returns the fp32
+    probabilities [B, H, MG, S] (the attention maps' route)."""
     scores = torch.einsum("bhxd,bhds->bhxs", q.float(), k.float())
     p = torch.softmax(scores + bias[:, None], dim=-1)
     out = torch.einsum("bhxs,bhds->bhxd", p.to(q.dtype).float(), v.float())
-    return out.to(q.dtype)
+    return (out.to(q.dtype), p) if with_probs else out.to(q.dtype)
 
 
 def decode_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
@@ -142,8 +145,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: [B, H, MG, hd]; k, v: [B, H, hd, S] (head-major, transposed);
     bias: [B, MG, S] fp32 additive mask. Returns [B, H, MG, hd].
     CUDA tensors launch kernel A (one call counted in
-    decode_attention.launches; its combine pass, launched where S > CHUNK,
-    in .combine_launches); the kernel takes hd in HEAD_DIMS, 1 <= MG <=
+    decode_attention.launches, and by its query rows in .rows[MG]; its
+    combine pass, launched where S > CHUNK, in .combine_launches); the
+    kernel takes hd in HEAD_DIMS, 1 <= MG <=
     MAX_ROWS and S >= 1, and raises ValueError on other shapes. CPU
     tensors take decode_attention_plain."""
     if not use_kernel(q, k, v, bias):
@@ -166,12 +170,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     check_launch(lib, "decode_attention", code)
     decode_attention.launches += 1
+    decode_attention.rows[MG] += 1
     decode_attention.combine_launches += int(part is not None)
     decode_attention.max_columns = max(decode_attention.max_columns, S)
     return out
 
 
 decode_attention.launches = 0
+decode_attention.rows = collections.Counter()
 decode_attention.combine_launches = 0
 decode_attention.max_columns = 0   # the widest source S a launch attended
 
@@ -206,20 +212,22 @@ def unpack_int4(x8: torch.Tensor, dtype: torch.dtype = torch.int8
 
 def decode_attention_q8_plain(q: torch.Tensor, k8: torch.Tensor,
                               k_scale: torch.Tensor, v8: torch.Tensor,
-                              v_scale: torch.Tensor, bias: torch.Tensor
-                              ) -> torch.Tensor:
+                              v_scale: torch.Tensor, bias: torch.Tensor,
+                              with_probs: bool = False):
     """Plain PyTorch version (tell_tpu's reference_decode_attention_q8):
     the scales factor out of both contractions. fp32 scores times k_scale
     plus the bias, softmax, the normalised probabilities times v_scale cast
     to q's dtype before the value contraction, fp32 accumulation. Packed
-    int4 K/V are unpacked first."""
+    int4 K/V are unpacked first. with_probs also returns the softmax
+    [B, H, MG, S] (before v_scale)."""
     if k8.shape[2] != q.shape[3]:
         k8, v8 = unpack_int4(k8), unpack_int4(v8)
     scores = torch.einsum("bhxd,bhds->bhxs", q.float(), k8.float())
     scores = scores * k_scale + bias[:, None]
-    p = torch.softmax(scores, dim=-1) * v_scale
-    out = torch.einsum("bhxs,bhds->bhxd", p.to(q.dtype).float(), v8.float())
-    return out.to(q.dtype)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhxs,bhds->bhxd", (p * v_scale).to(q.dtype).float(),
+                       v8.float())
+    return (out.to(q.dtype), p) if with_probs else out.to(q.dtype)
 
 
 def decode_attention_q8_split_plain(q: torch.Tensor, k8: torch.Tensor,
@@ -246,7 +254,8 @@ def decode_attention_q8(q: torch.Tensor, k8: torch.Tensor,
     nibble-packed int4 [B, H, hd/2, S]; k_scale, v_scale: fp32 [B, H, 1, S];
     bias: [B, MG, S] fp32. Returns [B, H, MG, hd] in q's dtype.
     CUDA tensors launch kernel D (counted in decode_attention_q8.launches,
-    the packed int4 form also in .int4_launches, its combine pass, launched
+    by query rows in .rows[MG], the packed int4 form also in
+    .int4_launches, its combine pass, launched
     where S > CHUNK, in .combine_launches); the kernel takes hd in
     Q8_HEAD_DIMS, 1 <= MG <= MAX_ROWS and S >= 1, and raises ValueError on
     other shapes. CPU tensors take decode_attention_q8_plain."""
@@ -272,12 +281,14 @@ def decode_attention_q8(q: torch.Tensor, k8: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     check_launch(lib, "decode_attention_q8", code)
     decode_attention_q8.launches += 1
+    decode_attention_q8.rows[MG] += 1
     decode_attention_q8.int4_launches += int(packed4)
     decode_attention_q8.combine_launches += int(part is not None)
     return out
 
 
 decode_attention_q8.launches = 0
+decode_attention_q8.rows = collections.Counter()
 decode_attention_q8.int4_launches = 0
 decode_attention_q8.combine_launches = 0
 

@@ -19,6 +19,8 @@ source's header for the design.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from ..common import top_k
@@ -80,7 +82,7 @@ def topk_logits(x: torch.Tensor, table: torch.Tensor, k: int,
     """x: [N, D], table: [V, D] (same dtype, fp32 or bf16), 1 <= k <= 8.
     Returns (top-k logits [N, k] fp32 descending, their ids [N, k] int32,
     logsumexp [N] fp32). CUDA tensors launch kernel E (counted in
-    topk_logits.launches); the kernel loads 16-byte pieces, so it takes D a
+    topk_logits.launches, and by k in .ks[k]); the kernel loads 16-byte pieces, so it takes D a
     multiple of 8 and x and table on 16-byte boundaries, and raises
     ValueError otherwise. CPU tensors take topk_logits_plain."""
     if not use_kernel(x, table):
@@ -120,7 +122,9 @@ def topk_logits(x: torch.Tensor, table: torch.Tensor, k: int,
             _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
     check_launch(lib, "topk_logits", code)
     topk_logits.launches += 1
+    topk_logits.ks[k] += 1
     return vals, ids, lse
 
 
 topk_logits.launches = 0
+topk_logits.ks = collections.Counter()

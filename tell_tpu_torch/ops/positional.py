@@ -1,7 +1,7 @@
-"""Sinusoidal positional embeddings (counterpart of
-tell_tpu/ops/positional.py): concatenated sin/cos blocks, pad-aware
-positions (non-pad token i gets padding_idx + 1 + i, pads get padding_idx,
-whose table row is zero), one static table.
+"""Positional embeddings (counterpart of tell_tpu/ops/positional.py):
+the static sinusoidal table (concatenated sin/cos blocks) or a trainable
+learned one, both looked up at pad-aware positions (non-pad token i gets
+padding_idx + 1 + i, pads get padding_idx, whose table row is zero).
 """
 from __future__ import annotations
 
@@ -25,6 +25,19 @@ def sinusoidal_table(n_positions: int, dim: int,
     if padding_idx is not None:
         signal[padding_idx, :] = 0.0
     return np.asarray(signal, np.float32)
+
+
+def init_learned_positional(generator: torch.Generator, n_positions: int,
+                            dim: int, padding_idx: int | None = None
+                            ) -> dict:
+    """tell_tpu's init_learned_positional: a trainable [n_positions, dim]
+    table, normal(0, 0.1), its padding row zeroed; drawn from `generator`
+    on its device. Looked up by sinusoidal_embed like the static table."""
+    table = 0.1 * torch.randn((n_positions, dim), generator=generator,
+                              device=generator.device)
+    if padding_idx is not None:
+        table[padding_idx] = 0.0
+    return {"table": table}
 
 
 def make_positions(ids: torch.Tensor, padding_idx: int) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """HTTP caption service (counterpart of tell_tpu/serving/server.py).
 
 POST /caption takes token ids (`context_ids`) or, when the service was
-given a tokenizer, text (`context`), plus optional precomputed image grid,
-face and object features; GET /status and /healthz report on the service;
-POST /shutdown stops the server. Two decode modes:
+given a tokenizer, text (`context`) or a scraped article (`sections`,
+`title` and `image_position`: the location-aware window around the image,
+as tell_tpu builds it), plus optional precomputed image grid, face and
+object features; GET /status and /healthz report on the service; POST
+/shutdown stops the server. Two decode modes:
 
 * micro-batch (engine_slots=0): a MicroBatcher packs up to max_batch
   requests at the smallest article bucket that holds them (a quarter, a
@@ -21,11 +23,18 @@ POST /shutdown stops the server. Two decode modes:
 kv_cache ("fp", "int8", "int4") and fused_topk are the decode numerics
 levers (tell_tpu's TELL_TPU_KV8 / TELL_TPU_KV4 / TELL_TPU_TOPK, off by
 default as off the TPU); numerics_ab() measures each one's teacher-forced
-agreement with the fp path. Attention payloads, the vision pipeline,
-/metrics and /scrape are not ported.
+agreement with the fp path, and that of the tanh-GELU encode.
+
+need_attention adds the demo's attention payload to each answer: per-step
+maps of the first layer per context ("attns") merged into words
+(serving/word_attention.py). Micro-batch mode records them in
+generate(need_weights=True); engine mode replays the winning caption
+teacher-forced (replay_attention), off the engine's hot path. The vision
+pipeline, /metrics and /scrape are not ported.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import queue as _queue
@@ -38,12 +47,14 @@ import torch
 
 from ..bridge import to_torch
 from ..config import CaptionerConfig, with_article_len
+from ..data.readers import assemble_location_aware
 from ..models.backbones.roberta import RobertaEncoder
 from ..models.captioner import (Captioner, encode_contexts,
                                 weighted_layer_sum)
 from .batcher import MicroBatcher
 from .encode_batcher import EncodeBatcher
 from .engine import DecodeEngine
+from .word_attention import merge_word_attentions
 
 log = logging.getLogger("tell_tpu_torch.serving")
 
@@ -53,9 +64,11 @@ class CaptionService:
 
     params: the captioner's param tree (numpy or torch leaves); roberta: a
     RobertaEncoder; device: where the model runs (explicit, no default).
-    tokenizer: optional, anything with encode(text, max_len=...) and
-    decode(ids), used only for requests that carry text and to add a
-    "caption" string to the answers.
+    tokenizer: optional, a RobertaTokenizer (or anything with
+    encode(text, max_len=...), decode(ids) and a ByteBPE in .bpe), used
+    for requests that carry text or sections, to add a "caption" string to
+    the answers, and by need_attention (which needs one) to merge the maps
+    into words.
 
     article_len: the article tokens a request keeps; None takes the
     article context's max_len (512 without an article context), as
@@ -65,7 +78,8 @@ class CaptionService:
     engine_slots > 0 serves through the continuous-batching engine
     (engine_beam beams, engine_length_penalty; engine_buckets: one engine
     per article width); encode_batch caps the rows of one batched article
-    encode in front of it."""
+    encode in front of it. need_attention adds the attention payload to
+    every answer."""
 
     def __init__(self, params: dict, roberta: RobertaEncoder,
                  cfg: CaptionerConfig, device, tokenizer=None,
@@ -74,12 +88,16 @@ class CaptionService:
                  engine_length_penalty: float = 0.0,
                  engine_buckets: bool = False, encode_batch: int = 8,
                  kv_cache: str = "fp",
-                 fused_topk: bool = False):
+                 fused_topk: bool = False, need_attention: bool = False):
+        if need_attention and tokenizer is None:
+            raise ValueError("need_attention merges the maps into words "
+                             "and needs a tokenizer")
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = Captioner(to_torch(params, self.device), cfg)
         self.roberta = roberta.to(self.device)
         self.tokenizer = tokenizer
+        self.need_attention = need_attention
         self.max_batch = max_batch
         dcfg = cfg.decoder
         if article_len is None:
@@ -158,9 +176,31 @@ class CaptionService:
             out.pop("context_ids")
         return out
 
+    def _sections_text(self, req: dict) -> str:
+        """tell_tpu's location-aware window over scraped sections
+        (serving/server.py::_context_text): the title, the first
+        paragraph, then paragraphs alternately before and after the image
+        at image_position until article_len - 2 BPE tokens."""
+        try:
+            article = {
+                "parsed_section": [
+                    {"type": sec.get("type", "paragraph"),
+                     "text": sec.get("text", "")}
+                    for sec in req["sections"]],
+                "headline": {"main": req.get("title", "")},
+            }
+            pos = int(req.get("image_position", 0))
+            paragraphs, _ = assemble_location_aware(
+                article, pos, lambda t: len(self.tokenizer.bpe.encode(t)),
+                budget=self.article_len - 2)
+        except (AttributeError, IndexError, KeyError, TypeError) as e:
+            raise ValueError(f"bad sections: {e!r}") from e
+        return "\n".join(paragraphs).strip()
+
     def _request_ids(self, req: dict) -> np.ndarray:
         """The article's token ids: context_ids as given, or the
-        tokenizer's ids for context text; truncated to article_len."""
+        tokenizer's ids for context text or for the sections' window;
+        truncated to article_len."""
         if "context_ids" in req:
             ids = np.asarray(req["context_ids"]).reshape(-1)
             if ids.size and ids.dtype.kind not in "iu":
@@ -169,12 +209,14 @@ class CaptionService:
             if ids.size and (ids.min() < 0 or ids.max() >= vocab):
                 raise ValueError(f"context_ids outside [0, {vocab})")
             return ids[: self.article_len].astype(np.int64)
-        if "context" in req:
+        if "context" in req or "sections" in req:
             if self.tokenizer is None:
                 raise ValueError("text context needs a tokenizer; send "
                                  "context_ids")
+            text = (req["context"] if "context" in req
+                    else self._sections_text(req))
             return np.asarray(self.tokenizer.encode(
-                req["context"], max_len=self.article_len), np.int64)
+                text, max_len=self.article_len), np.int64)
         return np.zeros(0, np.int64)
 
     def _pack(self, requests: list[dict], bucketed: bool = False
@@ -241,8 +283,11 @@ class CaptionService:
             tb = {k: torch.from_numpy(v).to(self.device)
                   for k, v in batch.items()}
             enc = encode_contexts(self.roberta.frozen(), self.cfg, tb)
-            out = self.model.generate(enc)
+            out = self.model.generate(enc, need_weights=self.need_attention)
             token_ids = out["token_ids"][:n].cpu().numpy()
+            if self.need_attention:    # layer 0: {name: [T, B, 1, S']}
+                layer0 = {name: a[:, :n, 0].cpu().numpy()
+                          for name, a in out["attns"][0].items()}
         results = []
         for i in range(n):
             r = {"token_ids": token_ids[i].tolist()}
@@ -250,8 +295,41 @@ class CaptionService:
                 r["caption"] = self.tokenizer.decode(token_ids[i])
             if errors[i]:
                 r["error"] = errors[i]
+            if self.need_attention:
+                r.update(self._attention_payload(
+                    token_ids[i], {k: a[:, i] for k, a in layer0.items()},
+                    batch["context_ids"][i]))
             results.append(r)
         return results
+
+    def _attention_payload(self, token_ids: np.ndarray, maps: dict,
+                           context_ids: np.ndarray) -> dict:
+        """One answer's "attns" ({context: [T, S'] per-step maps}) and
+        their word merge (caption_words, word_attns, article_words). The
+        trailing bias/zero columns are derived from the true source
+        lengths: each context's capacity, the article's packed width."""
+        lens = {c.name: c.max_len for c in self.cfg.decoder.contexts}
+        lens["article"] = len(context_ids)
+        payload = {"attns": {k: a.tolist() for k, a in maps.items()}}
+        payload.update(merge_word_attentions(
+            self.tokenizer, token_ids, maps, context_ids=context_ids,
+            eos_id=self.cfg.decoder.eos_id, source_lens=lens))
+        return payload
+
+    def replay_payload(self, enc: dict, token_ids: np.ndarray,
+                       context_ids: np.ndarray) -> dict:
+        """The attention payload of a known caption on one request's
+        encoded features `enc` (leading dim 1): replay_attention, teacher-
+        forced in the service's K/V cache numerics (the engine's path)."""
+        with torch.inference_mode():
+            ids = torch.as_tensor(np.asarray(token_ids)[None],
+                                  device=self.device)
+            feats = {k: torch.as_tensor(v).to(self.device)
+                     for k, v in enc.items()}
+            maps = self.model.replay_attention(feats, ids, self.kv_cache)[0]
+            maps = {k: a[:, 0, 0].cpu().numpy() for k, a in maps.items()}
+        return self._attention_payload(np.asarray(token_ids), maps,
+                                       context_ids)
 
     def caption(self, request: dict) -> dict:
         if self.engine is not None:
@@ -267,12 +345,15 @@ class CaptionService:
         if errors[0]:   # don't spend a decode slot on an empty context
             return {"token_ids": [], "score": 0.0, "error": errors[0]}
         width = batch["context_ids"].shape[1]
-        eng_fut, _ = self.enc_batchers[width](batch)
+        eng_fut, enc1 = self.enc_batchers[width](batch)
         out = eng_fut.result(timeout=600)
         result = self._answer(out["token_ids"][0], out["scores"][0])
         result["alternatives"] = [self._answer(t, s) for t, s in
                                   zip(out["token_ids"][1:],
                                       out["scores"][1:])]
+        if self.need_attention:
+            result.update(self.replay_payload(
+                enc1, out["token_ids"][0], batch["context_ids"][0]))
         return result
 
     def _answer(self, token_ids: np.ndarray, score) -> dict:
@@ -309,12 +390,15 @@ class CaptionService:
 
     def numerics_ab(self, requests: list[dict] | None = None) -> dict:
         """The numerics gate: greedy tokens on the fp path (fp K/V cache,
-        exact top-k), then each lever's teacher-forced top-1 agreement with
-        them through predict_forced (no greedy cascade): the int8 cache
-        (kv8_token_agreement, tell_tpu's gate), the int4 cache and the
-        fused top-k. Counted over the live (non-pad) target tokens of
-        `requests` (default: one canned request) at full article width.
-        The result also lands in /status under "numerics_ab"."""
+        exact top-k, the erf-GELU encode), then each lever's teacher-forced
+        top-1 agreement with them through predict_forced (no greedy
+        cascade): the int8 cache (kv8_token_agreement, tell_tpu's gate),
+        the int4 cache, the fused top-k, and the tanh-GELU encode
+        (fast_gelu_token_agreement: the fp decode over features the
+        tower encoded with the tanh GELU). Counted over the live (non-pad)
+        target tokens of `requests` (default: one canned request) at full
+        article width. The result also lands in /status under
+        "numerics_ab"."""
         t0 = time.perf_counter()
         if requests is None:
             requests = [{"context": "the mayor spoke in the city today"}
@@ -327,7 +411,11 @@ class CaptionService:
         with torch.inference_mode():
             tb = {k: torch.from_numpy(v).to(self.device)
                   for k, v in batch.items()}
-            enc = encode_contexts(self.roberta.frozen(), self.cfg, tb)
+            frozen = self.roberta.frozen()
+            enc, enc_tanh = (encode_contexts(
+                {**frozen, "roberta_cfg": dataclasses.replace(
+                    frozen["roberta_cfg"], gelu=gelu)}, self.cfg, tb)
+                for gelu in ("erf", "tanh"))
             ref = self.model.generate(enc)["token_ids"]
             target = ref[:, 1:]
             live = target != self.cfg.decoder.pad_id
@@ -335,6 +423,7 @@ class CaptionService:
                 live = torch.ones_like(live)
             report = {"kv_cache_mode": self.kv_cache,
                       "topk_mode": self._topk_mode(),
+                      "gelu_mode": self.roberta.cfg.gelu,
                       "method": "forced_per_step",
                       "tokens": int(live.sum())}
             for key, lever in (
@@ -343,6 +432,9 @@ class CaptionService:
                     ("fused_topk_token_agreement", {"fused_topk": True})):
                 preds = self.model.predict_forced(enc, ref, **lever)
                 report[key] = float((preds == target)[live].float().mean())
+            preds = self.model.predict_forced(enc_tanh, ref)
+            report["fast_gelu_token_agreement"] = float(
+                (preds == target)[live].float().mean())
         report["seconds"] = time.perf_counter() - t0
         self.ab_report = report
         return report
@@ -361,8 +453,10 @@ class CaptionService:
                 "contexts": [c.name for c in self.cfg.decoder.contexts],
                 "gen_len": self.cfg.gen_len,
                 "device": str(self.device),
+                "need_attention": self.need_attention,
                 "kv_cache_mode": self.kv_cache,
                 "topk_mode": self._topk_mode(),
+                "gelu_mode": self.roberta.cfg.gelu,
             },
         }
         if self.ab_report is not None:

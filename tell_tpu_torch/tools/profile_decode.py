@@ -92,10 +92,11 @@ def topk_only(env: dict) -> torch.Tensor:
     return lp
 
 
-def _identity_branches(cfg, x: torch.Tensor, cat: dict) -> torch.Tensor:
+def _identity_branches(cfg, x: torch.Tensor, cat: dict,
+                       need_weights: bool = False) -> tuple:
     """Stands in for decoder._attn_group: every context's branch is the
-    query row itself, [B, G, E] -> [B, M, G, E]."""
-    return x[:, None].expand(-1, len(cfg.contexts), -1, -1)
+    query row itself, [B, G, E] -> ([B, M, G, E], no maps)."""
+    return x[:, None].expand(-1, len(cfg.contexts), -1, -1), None
 
 
 def conv_chain_only(env: dict) -> torch.Tensor:

@@ -11,9 +11,9 @@ committed synthetic corpus (tests/fixtures/quality/), before and after.
           reproduction (exact and normalised) and entity P/R
   lever A/Bs at trained margins, each against the beam decode above:
           ab_kv8 (--kv-cache int8, kernel D on the card against the fp
-          cache) and ab_fused_topk (--fused-topk, kernel E against the
-          exact per-cluster top-k); tell_tpu's ab_fast_gelu waits for the
-          tanh-GELU lever (ROADMAP queue 1 item 5) and is listed as not run
+          cache), ab_fused_topk (--fused-topk, kernel E against the
+          exact per-cluster top-k) and ab_fast_gelu (--gelu tanh, the
+          frozen encoder's tanh GELU against erf)
 
 Each finished phase (preprocess, before, train) is journaled to
 <run_dir>/quality-phases.json; --resume skips journaled phases (train goes
@@ -225,7 +225,8 @@ def run(args) -> dict:
     # the decode levers at trained margins, each against the beam decode
     ref = _read_gens(os.path.join(run_dir, beam_name))
     for name, flags in (("kv8", ["--kv-cache", "int8"]),
-                        ("fused_topk", ["--fused-topk"])):
+                        ("fused_topk", ["--fused-topk"]),
+                        ("fast_gelu", ["--gelu", "tanh"])):
         t0 = time.time()
         m = evaluate(beam + flags, f"generations-ab-{name}.jsonl")
         gens = _read_gens(gen_path)
@@ -237,10 +238,9 @@ def run(args) -> dict:
             "caption_reproduction_exact": m["caption_reproduction_exact"],
             "kv_cache_mode": m.get("kv_cache_mode"),
             "topk_mode": m.get("topk_mode"),
+            "gelu_mode": m.get("gelu_mode"),
             "kernel_launches": m["kernel_launches"],
             "seconds": round(time.time() - t0, 1)}
-    result["ab_fast_gelu"] = {"not_run": "the tanh-GELU lever is not ported "
-                              "yet (ROADMAP queue 1 item 5)"}
     save_phase("after", {k: result[k] for k in (
         "config", "after_greedy", "after_beam", "score_rescore_beam",
         "evaluate_seconds", "ab_kv8", "ab_fused_topk", "ab_fast_gelu")})
@@ -278,6 +278,8 @@ def main(argv=None) -> int:
         "ab_kv8": result["ab_kv8"]["caption_agreement_vs_default"],
         "ab_fused_topk":
             result["ab_fused_topk"]["caption_agreement_vs_default"],
+        "ab_fast_gelu":
+            result["ab_fast_gelu"]["caption_agreement_vs_default"],
         "wall_seconds": result["wall_seconds"], "out": out}))
     return 0
 

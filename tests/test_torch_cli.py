@@ -151,17 +151,16 @@ def test_preprocess_train_evaluate_score_on_cpu(trained, capsys):
     assert scored == {k: metrics[k] for k in scored}
 
 
-def test_serve_answers_text_and_shuts_down(trained):
-    """`serve` on the trained checkpoint: a text request through the
-    port's tokenizer, /status, then /shutdown ends main()."""
-    cfg = trained[0]
+def _start_serve(cfg, extra):
+    """`serve` in a thread on a free port: (call(method, path, payload),
+    the thread, its return codes)."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     rc = []
     server = threading.Thread(target=lambda: rc.append(main(
-        ["serve", cfg, "--device", "cpu", "-p", str(port), "-b", "2",
-         "--warmup"])), daemon=True)
+        ["serve", cfg, "--device", "cpu", "-p", str(port), "-b", "2"]
+        + extra)), daemon=True)
     server.start()
 
     def call(method, path, payload=None):
@@ -177,6 +176,13 @@ def test_serve_answers_text_and_shuts_down(trained):
                 time.sleep(0.1)
         raise TimeoutError(path)
 
+    return call, server, rc
+
+
+def test_serve_answers_text_and_shuts_down(trained):
+    """`serve` on the trained checkpoint: a text request through the
+    port's tokenizer, /status, then /shutdown ends main()."""
+    call, server, rc = _start_serve(trained[0], ["--warmup"])
     status, body = call("POST", "/caption",
                         {"context": "Anna Smith went to Milan on day 3."})
     assert status == 200 and "error" not in body
@@ -186,6 +192,61 @@ def test_serve_answers_text_and_shuts_down(trained):
     assert call("POST", "/shutdown")[0] == 200
     server.join(timeout=60)
     assert not server.is_alive() and rc == [0]
+
+
+def test_serve_attention_answers_with_maps(trained):
+    """`serve --attention`: a scraped-article request (sections around an
+    image) comes back with per-step maps of every context, each summing
+    to 1, and their word merge; /status reports need_attention."""
+    call, server, rc = _start_serve(trained[0], ["--attention"])
+    status, body = call("POST", "/caption", {
+        "title": "Anna Smith in Milan",
+        "sections": [{"type": "paragraph", "text": "Anna Smith went to "
+                      "Milan on day 3."},
+                     {"type": "caption", "text": "a photo"},
+                     {"type": "paragraph", "text": "She met Bob Jones."}],
+        "image_position": 1})
+    assert status == 200 and "error" not in body
+    assert set(body["attns"]) == {"article", "faces"}
+    for name, maps in body["attns"].items():
+        assert len(maps) == 6                       # gen_len steps
+        for row in maps:
+            assert abs(sum(row) - 1.0) < 1e-4, name
+    assert len(body["word_attns"]) == len(body["caption_words"])
+    assert "\n" in body["article_words"]
+    for row in body["word_attns"]:
+        assert len(row["article"]) == len(body["article_words"])
+    status, info = call("GET", "/status")
+    assert status == 200 and info["config"]["need_attention"] is True
+    assert call("POST", "/shutdown")[0] == 200
+    server.join(timeout=60)
+    assert not server.is_alive() and rc == [0]
+
+
+@pytest.mark.parametrize("decoder", [
+    {"positional": "learned"},
+    {"conv_type": "lightweight", "normalize_before": True,
+     "final_norm": True}], ids=["learned", "lightweight_final_norm"])
+def test_train_and_evaluate_decoder_options(trained, tmp_path, capsys,
+                                            decoder):
+    """expt 13's learned positions (and the lightweight conv with the
+    final norm) train and evaluate through the CLI on the trained
+    fixture's shards: the checkpoint holds the position table or the
+    final LayerNorm that the option adds."""
+    import json as _json
+    cfg, root, _ = trained
+    over = _json.dumps({"model": {"decoder": decoder},
+                        "trainer": {"serialization_dir": str(tmp_path)}})
+    assert main(["train", cfg, "-o", over, "--device", "cpu"]) == 0
+    assert _last_json(capsys)["epochs"] == 2
+    state = torch.load(tmp_path / "checkpoints" / "best" / "state.pt",
+                       weights_only=True)
+    dec = state["params"]["decoder"]
+    assert ("pos_embed" in dec) == (decoder.get("positional") == "learned")
+    assert ("final_ln" in dec) == ("final_norm" in decoder)
+    assert main(["evaluate", cfg, "-o", over, "-s", "valid", "-b", "2",
+                 "--device", "cpu"]) == 0
+    assert _last_json(capsys)["n_samples"] == 10
 
 
 def test_train_recover_without_checkpoint_fails(tmp_path, capsys):
@@ -211,7 +272,6 @@ def test_model_commands_need_the_card_or_device_cpu(tmp_path, cmd):
      "queue 1 item 10"),
     (["serve", "{cfg}", "--mesh-data", "2", "--device", "cpu"],
      "queue 1 item 10"),
-    (["serve", "{cfg}", "--attention", "--device", "cpu"], "queue 1 item 5"),
     (["train", "expt/nytimes/a1_pointer.yaml", "--device", "cpu"],
      "queue 1 item 9"),
     (["train", "{cfg}", "-o", '{{"trainer": {{"n_data": 2}}}}', "--device",

@@ -36,6 +36,7 @@ LOADS = {
     "expt/nytimes/8_transformer_faces.yaml",
     "expt/nytimes/9_transformer_objects.yaml",
     "expt/nytimes/11_long_article.yaml",
+    "expt/nytimes/13_learned_positional.yaml",
     "expt/quality/overfit_flagship.yaml", "expt/quality/overfit_small.yaml",
 }
 REFUSED = {
@@ -43,7 +44,6 @@ REFUSED = {
     "3_lstm_roberta": "queue 1 item 9", "a1_pointer": "queue 1 item 9",
     "a2_copy_fix": "queue 1 item 9", "a3_pointer_2": "queue 1 item 9",
     "10_vit_modern": "queue 1 item 9", "12_moe_modern": "queue 1 item 9",
-    "13_learned_positional": "queue 1 item 5",
 }
 OVERRIDES = ('{"trainer": {"serialization_dir": "/tmp/x", "num_epochs": 2},'
              ' "data": {"shards_dir": "/tmp/s"}, "model": {"gen_len": 7,'
@@ -95,15 +95,25 @@ def test_other_yamls_are_refused_with_their_item(path):
     ({"trainer": {"summary_interval": 100}}, "queue 1 item 6"),
     ({"trainer": {"profile_steps": 5}}, "queue 1 item 6"),
     ({"data": {"glove_file": "glove.txt"}}, "queue 1 item 9"),
-    ({"model": {"decoder": {"positional": "learned"}}}, "queue 1 item 5"),
-    ({"model": {"decoder": {"conv_type": "lightweight"}}}, "queue 1 item 5"),
-    ({"model": {"sampling_topk": 4}}, "queue 1 item 5"),
 ])
 def test_keys_the_port_cannot_honour_are_refused(over, item):
     path = os.path.join(ROOT, "expt/nytimes/9_transformer_objects.yaml")
     j_load(path, over)   # tell_tpu takes it
     with pytest.raises(NotPortedError, match=item):
         load_experiment(path, over)
+
+
+@pytest.mark.parametrize("over", [
+    {"model": {"decoder": {"positional": "learned"}}},
+    {"model": {"decoder": {"conv_type": "lightweight"}}},
+    {"model": {"decoder": {"normalize_before": True, "final_norm": True}}},
+    {"model": {"sampling_topk": 4, "sampling_temp": 0.7}},
+])
+def test_decoder_options_load_as_jax_does(over):
+    """The options the port once refused (learned positions, the
+    lightweight conv, the final norm, top-k sampling) load as in tell_tpu."""
+    path = os.path.join(ROOT, "expt/nytimes/9_transformer_objects.yaml")
+    _assert_configs_equal(load_experiment(path, over), j_load(path, over))
 
 
 def test_defaults_the_port_runs_are_accepted():

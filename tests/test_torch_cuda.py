@@ -15,7 +15,9 @@ and across one chunk, k=1 and 8, equal logits, N=1, rows launched among 5,
 x refused for kernel E; key pads on the right, on the left and in the middle with
 whole pad tiles, an all-pad row, S = 1, 63, 130, 256 and 512, and each
 sequence alone equal to its row of B=4 bit for bit for kernel B),
-kernels A and D repeating bit for bit over 200 launches,
+kernels A and D repeating bit for bit over 200 launches, A at the
+sibling configurations' rows (MG = 1, 2, 3, 5, 10, 15 at S = 514, 565,
+571; a batch row at B=1 bit for bit) and D at MG = 5 and 15 (S=571),
 kernel C's gradient through its autograd Function, kernel F (single-shot
 decode attention) at bb 1/2/4, MG 4 and 20, S 637, 2173 and a ragged S,
 a row masked but for one column, its int4-split form and a 200-launch
@@ -102,6 +104,27 @@ def test_decode_attention_kernel_matches_plain(gen, B, H, M, G, S, hd,
     else:
         assert out.dtype == torch.bfloat16
         assert (out.float() - ref).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,G,S", [
+    (1, 1, 514), (1, 5, 514),   # no image: greedy, beam 5
+    (2, 1, 565), (2, 5, 565),   # flattened
+    (3, 1, 571), (3, 5, 571),   # faces
+])
+def test_decode_attention_at_sibling_rows(gen, M, G, S, dtype):
+    """The siblings' decode shapes (MG = 1, 2, 3, 5, 10, 15: partial row
+    tiles and PV passes) against plain, and a batch row at B=1 equal to
+    its row of B=8 bit for bit."""
+    q, k, v, bias = _decode_inputs(gen, 8, 16, M, G, S, 64, dtype)
+    out = decode_attention(q, k, v, bias)
+    ref = decode_attention_plain(q.float(), k.float(), v.float(), bias)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-4)
+    else:
+        assert (out.float() - ref).abs().max().item() <= 2e-2
+    one = decode_attention(*(t[5:6].contiguous() for t in (q, k, v, bias)))
+    assert torch.equal(one, out[5:6])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -374,6 +397,8 @@ def _check_q8(args, dtype):
     (2, 4, 4, 5, 65, 64),       # one column past a tile
     (2, 16, 4, 5, 637, 64),     # the flagship's source, ragged last tile
     (1, 2, 3, 2, 300, 32),      # other hd
+    (2, 16, 1, 5, 571, 64),     # MG=5 over the faces sibling's source
+    (2, 16, 3, 5, 571, 64),     # MG=15: the faces sibling's int8 engine
 ])
 def test_decode_attention_q8_kernel_matches_plain(gen, B, H, M, G, S, hd,
                                                   packed4, dtype):
@@ -531,6 +556,9 @@ def _check_topk(x, table, k, zero_row=-1):
     (3, 64, 40, 5),         # exactly one chunk, ragged depth
     (70, 130, 64, 8),       # V and N past a chunk and a row tile
     (40, 5000, 1024, 5),    # the flagship's head band at N = 8 x 5
+    (2, 5000, 1024, 4),     # top-k sampling (k=4) of a 2-request batch
+    (2, 15000, 1024, 4),    # (chip_smoke.py's phase 13) over the
+    (2, 30265, 1024, 4),    # flagship's three bands
 ])
 def test_topk_logits_kernel_matches_plain(gen, N, V, D, k, dtype):
     x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)

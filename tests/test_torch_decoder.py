@@ -96,19 +96,46 @@ def test_decoder_steps_match_jax(setup, monkeypatch, beam, fused):
                                       {"normalize_before": True,
                                        "final_norm": True}])
 def test_unported_decoder_configs_raise(setup, override):
+    """The three decoder options the port once refused now decode as
+    tell_tpu does: the port's initialiser gives tell_tpu's keys and
+    shapes, and on tell_tpu's weights three beam-3 steps (with a
+    row_gather permutation) and the teacher-forced forward match."""
     import dataclasses
     from tell_tpu_torch.bridge import init_decoder
     cfg = dataclasses.replace(CFG, **override)
-    _, tparams, _, t_ctx, B = setup
-    with pytest.raises(NotImplementedError):
-        td.init_decode_state(tparams, cfg, t_ctx, B)
-    with pytest.raises(NotImplementedError):
-        init_decoder(torch.Generator().manual_seed(0), cfg)
+    _, _, contexts, t_ctx, B = setup
+    params = jax.jit(lambda r: jd.init_decoder(r, cfg))(
+        jax.random.PRNGKey(3))
+    tparams = to_torch(jax.tree.map(np.asarray, params), "cpu")
+    mine = init_decoder(torch.Generator().manual_seed(0), cfg)
+    assert (jax.tree.map(np.shape, jax.tree.map(np.asarray, params))
+            == jax.tree.map(np.shape, to_numpy(mine)))
+    beam, R = 3, B * 3
+    j_state = jax.jit(lambda p, c: jd.init_decode_state(
+        p, cfg, c, B, beam=beam))(params, contexts)
+    t_state = td.init_decode_state(tparams, cfg, t_ctx, B, beam=beam)
+    j_step = jax.jit(lambda p, t, s, rg: jd.decoder_step(
+        p, cfg, t, s, row_gather=rg)[:2])
+    rng = np.random.default_rng(7)
+    for step in range(3):
+        toks = rng.integers(3, cfg.vocab_size, size=R)
+        rg = rng.integers(0, R, size=R) if step else np.arange(R)
+        rx, j_state = j_step(params, jnp.asarray(toks), j_state,
+                             jnp.asarray(rg))
+        x, t_state = td.decoder_step(tparams, cfg, torch.from_numpy(toks),
+                                     t_state, row_gather=torch.from_numpy(rg))
+        np.testing.assert_allclose(to_numpy(x), np.asarray(rx), **STEP_TOL)
+    ids = rng.integers(3, cfg.vocab_size, size=(B, 5))
+    ids[0, 3:] = cfg.pad_id
+    rf = jax.jit(lambda p, i, c: jd.decoder_forward(p, cfg, i, c)[0])(
+        params, jnp.asarray(ids), contexts)
+    f = td.decoder_forward(tparams, cfg, torch.from_numpy(ids), t_ctx)
+    np.testing.assert_allclose(to_numpy(f), np.asarray(rf), **STEP_TOL)
 
 
 def test_decode_guards(setup):
-    """Too many steps for the positional table, and top-k sampling (not
-    ported), raise instead of decoding."""
+    """Too many steps for the positional table raise instead of decoding;
+    top-k sampling decodes, the same tokens for the same generator."""
     import dataclasses
     from tell_tpu_torch.models.captioner import generate, predict_forced
     from tell_tpu_torch.config import small_test_config
@@ -126,7 +153,11 @@ def test_decode_guards(setup):
     with pytest.raises(ValueError, match="max_target_positions"):
         predict_forced(params, dataclasses.replace(long, weigh_bert=False),
                        batch, toks)
-    sampling = small_test_config(gen_len=3, sampling_topk=5)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        generate(params, dataclasses.replace(sampling, weigh_bert=False),
-                 batch)
+    sampling = dataclasses.replace(
+        small_test_config(gen_len=3, sampling_topk=5), weigh_bert=False)
+    a, b = (generate(params, sampling, batch,
+                     gen=torch.Generator().manual_seed(11))
+            for _ in range(2))
+    assert a["token_ids"].shape == (B, 4)
+    torch.testing.assert_close(a["token_ids"], b["token_ids"])
+    torch.testing.assert_close(a["log_probs"], b["log_probs"])

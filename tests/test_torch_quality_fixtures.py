@@ -7,8 +7,9 @@ tell_tpu's: both give the same numbers, and those are the metrics the
 run committed (METEOR's stem stage runs only where nltk is installed, so
 the re-score takes the stemmer away where the card's run had none). The
 phase journal must meet the loop's thresholds: before CIDEr <= 5, after
-beam CIDEr >= 900 with >= 30 of 32 training captions exact, and the kv8
-and fused top-k A/Bs reported with kernels D and E launched.
+beam CIDEr >= 900 with >= 30 of 32 training captions exact, the kv8
+and fused top-k A/Bs reported with kernels D and E launched, and the
+tanh-GELU A/B reported against the erf decode.
 """
 import json
 import os
@@ -72,7 +73,11 @@ def test_thresholds_and_lever_ab(journal):
         assert 0.0 <= res["caption_agreement_vs_default"] <= 1.0
         assert (res["kv_cache_mode"], res["topk_mode"]) == mode
         assert res["kernel_launches"][name] > 0
-    assert "not_run" in journal["after"]["ab_fast_gelu"]
+    gelu = journal["after"]["ab_fast_gelu"]
+    assert gelu["flags"] == ["--gelu", "tanh"] and gelu["gelu_mode"] == "tanh"
+    assert (gelu["kv_cache_mode"], gelu["topk_mode"]) == ("fp", "exact")
+    assert 0.0 <= gelu["caption_agreement_vs_default"] <= 1.0
+    assert after["gelu_mode"] == "erf"
 
 
 def test_readme_names_the_card_and_the_command():

@@ -71,7 +71,9 @@ def test_quality_loop_phases_and_resume(tmp_path):
         assert q[key]["n_samples"] == q[key]["n"] == 32
     assert q["ab_kv8"]["kv_cache_mode"] == "int8"
     assert q["ab_fused_topk"]["topk_mode"] == "fused"
-    for ab in ("ab_kv8", "ab_fused_topk"):
+    assert q["ab_fast_gelu"]["gelu_mode"] == "tanh"
+    assert q["after_beam"]["gelu_mode"] == "erf"
+    for ab in ("ab_kv8", "ab_fused_topk", "ab_fast_gelu"):
         assert 0.0 <= q[ab]["caption_agreement_vs_default"] <= 1.0
         # the CPU runs every kernel's plain version
         assert set(q[ab]["kernel_launches"].values()) == {0}

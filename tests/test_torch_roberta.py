@@ -70,5 +70,8 @@ def test_roberta_encode_windowed_matches_jax(params):
 def test_config_mirror_matches_jax():
     import dataclasses
     for name in ("large", "base", "tiny"):
-        assert (dataclasses.asdict(getattr(RobertaConfig, name)())
-                == dataclasses.asdict(getattr(JRobertaConfig, name)()))
+        port = dataclasses.asdict(getattr(RobertaConfig, name)())
+        # the port's one field beyond tell_tpu's: the FFN's GELU, which
+        # tell_tpu reads from TELL_TPU_FAST_GELU (unset: erf)
+        assert port.pop("gelu") == "erf"
+        assert port == dataclasses.asdict(getattr(JRobertaConfig, name)())

@@ -20,6 +20,7 @@ token counts, and its captions equal those packed at article_len.
 import dataclasses
 import http.client
 import json
+import os
 import threading
 import time
 
@@ -324,7 +325,9 @@ def test_micro_batch_bucket_equals_jax(bucket_service):
     from tell_tpu.models.backbones.roberta import init_roberta as j_roberta
     from tell_tpu.models.captioner import init_captioner as j_captioner
     from tell_tpu.serving.server import CaptionService as JService
-    jrcfg = JRoberta(**dataclasses.asdict(LONG_RCFG))
+    port_fields = dataclasses.asdict(LONG_RCFG)
+    port_fields.pop("gelu")                       # tell_tpu: an env switch
+    jrcfg = JRoberta(**port_fields)
     jsvc = JService(j_captioner(jax.random.PRNGKey(0), LONG_CFG),
                     {"roberta": j_roberta(jax.random.PRNGKey(1), jrcfg),
                      "roberta_cfg": jrcfg}, LONG_CFG, _CountTokenizer(),
@@ -388,3 +391,61 @@ def test_micro_batch_at_its_bucket_equals_article_len(bucket_service,
     packed.clear()
     assert bucket_service.warmup()["widths"] == [128, 256, 512]
     assert packed == [128, 256, 512]
+
+
+# -- scraped-article requests (tell_tpu/serving/server.py:264-283) -------
+
+QUALITY = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures", "quality")
+
+
+@pytest.fixture(scope="module")
+def quality_articles():
+    with open(os.path.join(QUALITY, "articles.jsonl"), encoding="utf-8") as f:
+        return [json.loads(line) for line in f if line.strip()][:4]
+
+
+def _sections_request(article, pos):
+    return {"title": article["headline"]["main"],
+            "sections": [{"type": s["type"], "text": s["text"]}
+                         for s in article["parsed_section"]],
+            "image_position": pos}
+
+
+@pytest.mark.parametrize("article_len", [24, 64, 512])
+def test_sections_request_ids_equal_jax(quality_articles, article_len):
+    """A sections + title + image_position request packs the ids of
+    tell_tpu's _context_text window followed by its tokenizer, for every
+    image position and three budgets; its caption equals that of a context
+    request holding the window's text; a malformed one is reported."""
+    from types import SimpleNamespace
+
+    from tell_tpu.data.tokenizer import RobertaTokenizer as JTokenizer
+    from tell_tpu.serving.server import CaptionService as JService
+    from tell_tpu_torch.data.tokenizer import RobertaTokenizer
+    vocab, merges = (os.path.join(QUALITY, "vocab.json"),
+                     os.path.join(QUALITY, "merges.txt"))
+    jt = JTokenizer.from_files(vocab, merges, use_native=False)
+    tt = RobertaTokenizer.from_files(vocab, merges)
+    rcfg = dataclasses.replace(RCFG, vocab_size=708)
+    g = torch.Generator().manual_seed(4)
+    svc = CaptionService(init_captioner(g, CFG),
+                         RobertaEncoder(init_roberta(g, rcfg), rcfg), CFG,
+                         "cpu", tokenizer=tt, max_batch=2,
+                         article_len=article_len)
+    jself = SimpleNamespace(tokenizer=jt, article_len=article_len)
+    try:
+        for art in quality_articles:
+            for pos in range(len(art["parsed_section"])):
+                req = _sections_request(art, pos)
+                text = JService._context_text(jself, req)
+                want = jt.encode(text, max_len=article_len)
+                assert svc._request_ids(req).tolist() == want
+        req = _sections_request(quality_articles[0], 1)
+        text = JService._context_text(jself, req)
+        a, b = svc.caption(req), svc.caption({"context": text})
+        assert "error" not in a and a["token_ids"] == b["token_ids"]
+        bad = svc.caption({"sections": [{"text": 3}], "image_position": 2})
+        assert "bad sections" in bad["error"]
+    finally:
+        svc.close()
