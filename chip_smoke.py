@@ -8,7 +8,8 @@ every phase passed):
   1. device and setup: needs CUDA; prints the card's name and power limit;
      TF32 off for matmuls and cuDNN (fp32 means fp32).
   2. build: compiles the hand-written kernels of tell_tpu_torch/csrc/ with
-     nvcc for sm_90a.
+     nvcc for sm_90a, and the host library of native/*.cpp (the C++ BPE,
+     shard reader and batch gather) with g++.
   3. kernel vs plain on the card: kernel B (encoder attention; H=16,
      hd=64, S=128 and 512 at B=4 with 3/4, 1/3 and 1 key of S real, and
      at S=512 B=1 (the engine's single-request encode) and B=32 (phase
@@ -66,7 +67,11 @@ every phase passed):
      service built without article_len takes 512 from the article
      context); four /caption requests with token ids and features, then
      one beam search (beam 5, B=8). Kernels A and B must have launched
-     during this phase.
+     during this phase. Then the server's other routes: four 512-token
+     articles posted one at a time and again through the port's
+     CaptioningClient.parse (concurrent) must get the same token ids;
+     /metrics' counters must equal /status'; GET / must answer the bytes
+     of demo/index.html; POST /scrape of a file:// URL must answer 422.
   5. card vs CPU: the same weights on the CPU (plain versions) and on the
      card (kernels), teacher-forced over the first 16 steps of a card
      caption; top-1 agreement >= 15/16.
@@ -129,14 +134,32 @@ every phase passed):
      article tokens) with an override that puts the run, the shards and
      the features in a temporary directory and num_epochs at 2: the
      features by the port's write_features, preprocess (train and valid,
-     32 examples each), train (2 epochs of 2 steps of 16 x 512 plus
-     validation; kernels B and C must launch), evaluate -s train --beam 5
-     (kernels A and B must launch, D and E must not) and score. 32
-     samples, every metric finite, tell_tpu's generation fields, score
-     equal to evaluate's metrics; one line with the seconds of each step,
-     ms per train step, evaluate captions/s, the metrics and the launch
-     counts. Then the checkpoint on the CPU and on the card, teacher-forced
-     along two of the card's greedy captions: >= 15/16 agreement each.
+     32 examples each; through the C++ BPE, and every example equal bit
+     for bit to a second preprocess through the Python ByteBPE; the BPE's
+     tokens/s on the corpus, C++ against Python), train (2 epochs of 2
+     steps of 16 x 512 plus validation, read and packed in C++; kernels B
+     and C must launch; TensorBoard scalars every step, each train/loss
+     equal to the logged loss within 1e-6, each epoch's mean to
+     metrics.jsonl's loss and epoch/val_loss to its val_loss; the profiler
+     over steps [0, 2), all of epoch 0 (the window closes with its epoch,
+     as tell_tpu's), its chrome trace marking steps 0 and 1 and holding
+     kernel B's device kernel; async checkpoints keeping one: after
+     train's flush only ckpt-1 and best, each restoring, and one save of
+     the flagship's train state from the card timed to save()'s return
+     (async) and to its flush (sync)), the train split packed
+     five times by the C++ gather and by numpy (equal batches, host ms per
+     batch), evaluate -s train --beam 5 (kernels A and B must launch, D
+     and E must not) and score, then one epoch warm-started from the
+     first run's checkpoints/best (its params equal to the checkpoint's
+     bit for bit before its first step). 32 samples, every metric finite,
+     tell_tpu's generation fields, score equal to evaluate's metrics; one
+     line with the seconds of each step, ms per train step (epoch 1,
+     outside the profiler window; epoch 0's and the warm-started epoch's
+     beside it), evaluate
+     captions/s, the metrics and the launch counts, and one with the host
+     side's readings. Then the checkpoint on the CPU and on the card,
+     teacher-forced along two of the card's greedy captions: >= 15/16
+     agreement each.
  13. the flagship's siblings at full width (RobertaConfig.large(), one
      tower shared): expts 4 (no image, M=1), 5 (flattened, M=2), 8 (faces,
      M=3) and 13 (learned positions, M=4) of NYTimes, each with random
@@ -1113,12 +1136,14 @@ LONG_BEAM_ARTICLES = (2048, 2000, 1900, 1800, 1700, 1600, 1550, 1500)
 
 
 def phase_service(seed: int, cfg, rcfg, dev: str, label: str = "phase 4",
-                  articles=SERVICE_ARTICLES, beam_articles=BEAM_ARTICLES):
+                  articles=SERVICE_ARTICLES, beam_articles=BEAM_ARTICLES,
+                  routes: bool = False):
     """Serve cfg/rcfg with random weights on `dev` (the service built
     without article_len, so it must take the article context's max_len);
     returns the service, the first request, its caption and the kernels'
     launch counts, with the widest source kernel A attended and the
-    article windows kernel B encoded per launch."""
+    article windows kernel B encoded per launch. routes: also check
+    /metrics, the demo page, /scrape and the client (_check_routes)."""
     from tell_tpu_torch.bridge import init_captioner, init_roberta
     from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
     from tell_tpu_torch.models.captioner import encode_contexts
@@ -1226,6 +1251,8 @@ def phase_service(seed: int, cfg, rcfg, dev: str, label: str = "phase 4",
                 f"{n_windows} windows x {svc.max_batch} rows")
     launches["max_columns"] = max_columns
     launches["windows_per_row"] = windows / svc.max_batch
+    if routes:
+        launches["routes"] = _check_routes(svc, port, rng, cfg, vocab, label)
 
     status, _ = _post(port, "/shutdown", {})
     require(status == 200, f"/shutdown answered {status}")
@@ -1234,6 +1261,49 @@ def phase_service(seed: int, cfg, rcfg, dev: str, label: str = "phase 4",
         time.sleep(0.05)
     httpd.server_close()
     return svc, reqs[0], captions[0], launches
+
+
+def _check_routes(svc, port, rng, cfg, vocab, label) -> dict:
+    """The server's other routes and the port's client: four articles of
+    article_len tokens (one bucket, so every micro-batch has one shape)
+    posted one at a time, then CaptioningClient.parse of the same four
+    (concurrent) must answer the same token ids; /metrics' counters equal
+    /status'; GET / the bytes of demo/index.html; POST /scrape of a file://
+    URL 422 (the SSRF guard)."""
+    from tell_tpu_torch.serving import CaptioningClient
+    from tell_tpu_torch.serving.server import DEMO_PAGE
+    reqs = [_request(rng, cfg, svc.article_len, f, o, vocab)
+            for f, o in ((4, 64), (2, 20), (1, 0), (0, 5))]
+    direct = []
+    for r in reqs:
+        status, body = _post(port, "/caption", r)
+        require(status == 200 and "error" not in body, (status, body))
+        direct.append(body["token_ids"])
+    client = CaptioningClient(port=port, timeout=600)
+    t = time.perf_counter()
+    parsed = client.parse(reqs)
+    parse_s = time.perf_counter() - t
+    same = sum(p["token_ids"] == d for p, d in zip(parsed, direct))
+    require(same == len(reqs), f"{label}: CaptioningClient.parse answered "
+            f"{len(reqs) - same} of {len(reqs)} captions unlike a POST alone")
+    text = _get(port, "/metrics").decode()
+    counters = {line.split()[0]: int(line.split()[1])
+                for line in text.splitlines() if not line.startswith("#")}
+    st = client.status()["statistics"]
+    require(counters == {"tnt_requests_total": st["requests"],
+                         "tnt_batches_total": st["batches"],
+                         "tnt_errors_total": st["errors"]},
+            f"{label}: /metrics {counters} != /status {st}")
+    with open(DEMO_PAGE, "rb") as f:
+        require(_get(port, "/") == f.read(),
+                f"{label}: GET / is not demo/index.html")
+    status, body = _post(port, "/scrape", {"url": "file:///etc/passwd"})
+    require(status == 422, f"{label}: /scrape of a file:// URL: {status} "
+            f"{body}")
+    out = {"metrics": counters, "parse_equal": same,
+           "parse_s": parse_s, "scrape_file_url": status}
+    log(f"{label}: routes: {json.dumps(out)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2021,9 +2091,10 @@ GENERATION_FIELDS = {"caption", "generation", "image_hash", "web_url",
                      "gen_np"}
 
 
-def _cli(argv, label) -> tuple[dict, float]:
+def _cli(argv, label) -> tuple[dict, float, str]:
     """`python -m tell_tpu_torch.commands argv` from the repo root; returns
-    the last JSON object it printed and its wall seconds."""
+    the last JSON object it printed, its wall seconds and its stderr (the
+    log)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": root}
     t = time.perf_counter()
@@ -2034,7 +2105,8 @@ def _cli(argv, label) -> tuple[dict, float]:
     require(proc.returncode == 0, f"{label}: {argv[0]} exited "
             f"{proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     out = proc.stdout
-    return (json.loads(out[out.index("{"):]) if "{" in out else {}), dt
+    return ((json.loads(out[out.index("{"):]) if "{" in out else {}), dt,
+            proc.stderr)
 
 
 def _cli_overrides(tmp, extra=None) -> dict:
@@ -2054,9 +2126,14 @@ def phase_cli(card: str, dev: str = "cuda", expt: str = QUALITY_EXPT,
     """The quality corpus through `python -m tell_tpu_torch.commands` at
     the flagship's full width (expt/quality/overfit_flagship.yaml; runs,
     shards and features in a temporary directory, num_epochs `epochs`):
-    the features by the port's write_features, preprocess, train,
-    evaluate -s train --beam 5 and score; then the card's checkpoint on
-    the CPU, teacher-forced along two of the card's captions (phase 5's
+    the features by the port's write_features, preprocess (the C++ BPE,
+    its shards equal to the Python ByteBPE route's), train (the C++ reader
+    and gather, TensorBoard scalars every step, the profiler over epoch
+    0's steps [0, 2), async checkpoints keeping one), evaluate -s train --beam 5 and
+    score; the host side's readings (BPE tokens/s, ms per packed batch,
+    an async save's return against its flush); a warm-started run of one
+    epoch from the first run's best checkpoint; then the card's checkpoint
+    on the CPU, teacher-forced along two of the card's captions (phase 5's
     rule)."""
     from tell_tpu_torch.commands import __main__ as cli
     from tell_tpu_torch.config_io import load_experiment
@@ -2065,7 +2142,7 @@ def phase_cli(card: str, dev: str = "cuda", expt: str = QUALITY_EXPT,
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         over = json.dumps(_cli_overrides(
-            tmp, {"trainer": {"num_epochs": epochs}}))
+            tmp, {"trainer": {"num_epochs": epochs, **CLI_TRAINER}}))
         exp = load_experiment(expt, over)
         secs = {}
         t = time.perf_counter()
@@ -2074,26 +2151,30 @@ def phase_cli(card: str, dev: str = "cuda", expt: str = QUALITY_EXPT,
         secs["features"] = time.perf_counter() - t
         n = {}
         for split in ("train", "valid"):
-            out, secs[f"preprocess_{split}"] = _cli(
+            out, secs[f"preprocess_{split}"], err = _cli(
                 ["preprocess", expt, "-o", over, "-s", split], "phase 12")
             n[split] = out["examples"]
+            require("tokenized by NativeBPE" in err,
+                    f"phase 12: preprocess did not take the C++ BPE:\n{err}")
         require(n == {"train": 32, "valid": 32}, f"phase 12: examples {n}")
+        host = {"bpe": _bpe_rates(exp),
+                "python_preprocess_equal": _python_preprocess_equal(exp, tmp)}
         launches = {}
         for cmd, extra in (("train", []),
                            ("evaluate", ["-s", "train", "--beam", "5"])):
             path = os.path.join(tmp, f"launches-{cmd}.json")
-            out, secs[cmd] = _cli([cmd, expt, "-o", over, "--device", dev,
-                                   "--report-launches", path] + extra,
-                                  "phase 12")
+            out, secs[cmd], err = _cli([cmd, expt, "-o", over, "--device",
+                                        dev, "--report-launches", path]
+                                       + extra, "phase 12")
             with open(path) as f:
                 launches[cmd] = json.load(f)
             if cmd == "train":
-                trained = out
+                trained, train_log = out, err
             else:
                 metrics = out
         run = exp.trainer.serialization_dir
         gen_path = os.path.join(run, "generations-train.jsonl")
-        scored, secs["score"] = _cli(["score", gen_path], "phase 12")
+        scored, secs["score"], _ = _cli(["score", gen_path], "phase 12")
         with open(os.path.join(run, "metrics.jsonl")) as f:
             hist = [json.loads(line) for line in f]
         with open(gen_path) as f:
@@ -2117,7 +2198,16 @@ def phase_cli(card: str, dev: str = "cuda", expt: str = QUALITY_EXPT,
                 f"phase 12: generation fields {sorted(rows[0])}")
         require(all(scored[k] == metrics[k] for k in scored),
                 f"phase 12: score {scored} != evaluate {metrics}")
+        # epoch 1: outside the profiler window (its two steps still read
+        # the loss on the host for the log and the scalar); epoch 0 holds
+        # the window, its stop and the trace's export
         step_ms = 1e3 * hist[-1]["epoch_seconds"] / hist[-1]["batches"]
+        profiled_ms = 1e3 * hist[0]["epoch_seconds"] / hist[0]["batches"]
+        host["tensorboard"] = _check_tensorboard(run, train_log, hist)
+        host["trace"] = _check_trace(run, dev)
+        host["checkpoints"] = _check_checkpoints(exp, dev, tmp)
+        host["pack"] = _pack_times(exp)
+        host["warm_start"] = _check_warm_start(expt, tmp, dev)
         if dev == "cuda":
             for cmd, names in (("train", ("encoder_attention",
                                           "fused_dynamic_conv")),
@@ -2133,6 +2223,9 @@ def phase_cli(card: str, dev: str = "cuda", expt: str = QUALITY_EXPT,
             + json.dumps({
                 "seconds": {k: round(v, 2) for k, v in secs.items()},
                 "train_ms_per_step": round(step_ms, 1),
+                "train_ms_per_step_profiled_epoch": round(profiled_ms, 1),
+                "warm_ms_per_step": round(
+                    host["warm_start"]["ms_per_step"], 1),
                 "train_loss": [round(h["loss"], 4) for h in hist],
                 "val_loss": [round(h["val_loss"], 4) for h in hist],
                 "evaluate_captions_per_sec": metrics["captions_per_sec"],
@@ -2140,14 +2233,254 @@ def phase_cli(card: str, dev: str = "cuda", expt: str = QUALITY_EXPT,
                     metrics["captions_per_sec_steady"],
                 "metrics": {k: metrics[k] for k in METRIC_KEYS[:8]},
                 "launches": launches}))
+        log(f"phase 12 ({card}): the host side (host clocks of this "
+            "machine): " + json.dumps(host))
 
         # the card's checkpoint on the CPU: two captions, phase 5's rule
         result = {"launches": launches, "step_ms": step_ms,
-                  "seconds": secs, "metrics": metrics}
+                  "seconds": secs, "metrics": metrics, "host": host}
         result["cpu_vs_card"] = _cli_cpu_vs_card(exp, cli, dev)
         return result
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase 12's trainer options: TensorBoard scalars at every step, the
+# profiler over steps [0, 2) (all of epoch 0's two batches, so epoch 1's
+# ms per step is outside the window), the log at every step, and one
+# numbered checkpoint kept (so keep-N acts)
+CLI_TRAINER = {"summary_interval": 1, "profile_at": 0, "profile_steps": 2,
+               "log_every": 1, "keep_checkpoints": 1}
+BPE_PASSES = 10        # the corpus's texts, encoded this many times
+PACK_EPOCHS = 5        # epochs of the train split packed per route
+SCALAR_TOL = 1e-6      # a logged loss is printed to 6 decimals
+
+
+def _bpe_rates(exp) -> dict:
+    """The corpus's headlines, paragraphs and captions, BPE_PASSES times,
+    through the C++ BPE and through the Python ByteBPE (fresh tokenizers):
+    equal ids, and each one's tokens/s on the host clock."""
+    from tell_tpu_torch.commands import __main__ as cli
+    from tell_tpu_torch.tools.gen_quality_corpus import read_articles
+    texts = []
+    for a in read_articles(exp.data.articles_jsonl):
+        texts += [a["headline"]["main"]] + [s["text"]
+                                            for s in a["parsed_section"]]
+    texts *= BPE_PASSES
+    ids, rate = {}, {}
+    for route, native in (("native", True), ("python", False)):
+        bpe = cli._tokenizer(exp, native).bpe
+        t = time.perf_counter()
+        ids[route] = [bpe.encode(x) for x in texts]
+        rate[route] = (sum(map(len, ids[route]))
+                       / (time.perf_counter() - t))
+    require(ids["native"] == ids["python"],
+            "phase 12: NativeBPE's ids differ from ByteBPE's on the corpus")
+    return {"texts": len(texts), "tokens": sum(map(len, ids["native"])),
+            "native_tokens_per_s": rate["native"],
+            "python_tokens_per_s": rate["python"],
+            "speedup": rate["native"] / rate["python"]}
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, str) or isinstance(b, str):
+        return a == b
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape \
+        and a.tobytes() == b.tobytes()
+
+
+def _python_preprocess_equal(exp, tmp) -> int:
+    """Preprocess again with the Python ByteBPE into another directory; every
+    example of both splits must equal the C++ BPE's, field for field, bit
+    for bit. Returns the examples compared."""
+    from tell_tpu_torch.commands import __main__ as cli
+    from tell_tpu_torch.data.records import RecordDataset
+    py_exp = dataclasses.replace(exp, data=dataclasses.replace(
+        exp.data, shards_dir=os.path.join(tmp, "shards_python")))
+    n = 0
+    for split in ("train", "valid"):
+        count, bpe = cli.preprocess(py_exp, split, use_native=False)
+        require(bpe == "ByteBPE", f"phase 12: the Python route took {bpe}")
+        ours = RecordDataset(os.path.join(exp.data.shards_dir,
+                                          f"{split}-*.npz"))
+        theirs = RecordDataset(os.path.join(py_exp.data.shards_dir,
+                                            f"{split}-*.npz"),
+                               use_native=False)
+        require(len(ours) == len(theirs) == count, "phase 12: the two "
+                f"preprocess routes wrote {len(ours)} and {len(theirs)}")
+        for i, (a, b) in enumerate(zip(ours.epoch(), theirs.epoch())):
+            require(sorted(a) == sorted(b) and all(_same(a[k], b[k])
+                                                   for k in a),
+                    f"phase 12: {split} example {i} differs between the "
+                    "C++ and the Python BPE")
+            n += 1
+    return n
+
+
+def _check_tensorboard(run, train_log, hist) -> dict:
+    """train/loss at every step equal to the logged loss, each epoch's mean
+    of them equal to metrics.jsonl's loss and epoch/val_loss to its
+    val_loss, within SCALAR_TOL."""
+    import glob
+    import re
+    from tell_tpu_torch.training.tensorboard import read_events
+    files = glob.glob(os.path.join(run, "tb", "events.out.tfevents.*"))
+    require(len(files) == 1, f"phase 12: events files {files}")
+    events = read_events(files[0])
+    losses = {e["step"]: e["scalars"]["train/loss"] for e in events
+              if "train/loss" in e["scalars"]}
+    logged = {int(st): float(v) for st, v in
+              re.findall(r"step (\d+) loss (\S+)", train_log)}
+    steps = sum(h["batches"] for h in hist)
+    require(sorted(losses) == sorted(logged) == list(range(1, steps + 1)),
+            f"phase 12: train/loss at steps {sorted(losses)}, logged at "
+            f"{sorted(logged)}, {steps} steps")
+    worst = max(abs(losses[k] - logged[k]) for k in losses)
+    require(worst <= SCALAR_TOL, f"phase 12: train/loss differs from the "
+            f"log by {worst:.3e}")
+    val = {e["step"]: e["scalars"]["epoch/val_loss"] for e in events
+           if "epoch/val_loss" in e["scalars"]}
+    first = 1
+    for h, end in zip(hist, itertools.accumulate(h["batches"]
+                                                 for h in hist)):
+        mean = float(np.mean([losses[k] for k in range(first, end + 1)]))
+        require(math.isclose(mean, h["loss"], rel_tol=SCALAR_TOL,
+                             abs_tol=SCALAR_TOL),
+                f"phase 12: epoch {h['epoch']}: mean train/loss {mean} != "
+                f"metrics.jsonl {h['loss']}")
+        require(end in val and math.isclose(val[end], h["val_loss"],
+                                            rel_tol=SCALAR_TOL,
+                                            abs_tol=SCALAR_TOL),
+                f"phase 12: epoch {h['epoch']}: epoch/val_loss "
+                f"{val.get(end)} != metrics.jsonl {h['val_loss']}")
+        first = end + 1
+    return {"train_loss_steps": len(losses), "epochs": len(val),
+            "max_abs_vs_log": worst}
+
+
+def _check_trace(run, dev) -> dict:
+    """The chrome trace of the profiler window: epoch 0's steps 0 and 1
+    marked, and on the card kernel B's device kernel in it (the window
+    closes with its epoch, before the validation, so kernel C's count is
+    read, not required)."""
+    with open(os.path.join(run, "profile", "trace-0.json")) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sorted({int(e["name"].split(":")[1]) for e in events
+                    if e.get("name", "").startswith("train_step:")})
+    require(steps == [0, 1], f"phase 12: the trace marks steps {steps}")
+    kernels = collections.Counter(e["name"] for e in events
+                                  if e.get("cat") == "kernel")
+    found = {name: sum(n for k, n in kernels.items() if name in k)
+             for name in ("encoder_attention_kernel",
+                          "dynamic_conv_kernel")}
+    if dev == "cuda":
+        require(found["encoder_attention_kernel"] > 0,
+                "phase 12: the trace has no encoder_attention_kernel")
+    return {"steps": steps, "device_kernels": sum(kernels.values()),
+            **found}
+
+
+def _check_checkpoints(exp, dev, tmp) -> dict:
+    """After train (its final flush): `keep` numbered checkpoints and best,
+    nothing half-written, each restoring; then the last one's state on the
+    card saved once, timed to save()'s return (the async save) and to its
+    flush (a synchronous save), restoring bit for bit."""
+    from tell_tpu_torch.bridge import tree_leaves
+    from tell_tpu_torch.training.checkpoint import CheckpointManager
+    ck_dir = os.path.join(exp.trainer.serialization_dir, "checkpoints")
+    keep = exp.trainer.keep_checkpoints
+    cm = CheckpointManager(ck_dir, keep=keep)
+    tags = cm.list()
+    require(sorted(os.listdir(ck_dir)) == ["best"] + [f"ckpt-{t}"
+                                                      for t in tags]
+            and len(tags) == keep, f"phase 12: checkpoints "
+            f"{sorted(os.listdir(ck_dir))} with keep {keep}")
+    for tag in tags + ["best"]:
+        state, meta = cm.restore(tag)
+        require(all(bool(torch.isfinite(x).all()) for x in tree_leaves(
+            state["params"])), f"phase 12: checkpoint {tag} not finite")
+    state, meta = cm.restore(tags[-1], device=dev)
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    out = {"tags": tags, "gb": nbytes / 1e9}
+    m = CheckpointManager(os.path.join(tmp, "save_timed"), keep=1)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    m.save(0, state, meta)
+    out["async_s"] = time.perf_counter() - t       # what training waits
+    m.flush()
+    out["sync_s"] = time.perf_counter() - t        # save() then flush()
+    back, _ = m.restore(0, device=dev)
+    require(all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(back), tree_leaves(state))),
+        "phase 12: the timed save did not restore bit for bit")
+    del back, state
+    return out
+
+
+def _pack_times(exp) -> dict:
+    """The train split packed PACK_EPOCHS times through the C++ reader and
+    gather and through the Python reader and numpy packing: equal batches,
+    host ms per batch of each (reading and routing included)."""
+    from tell_tpu_torch.data.bucketing import bucket_batches
+    from tell_tpu_torch.data.records import RecordDataset
+    batches, ms = {}, {}
+    for route, native in (("native", True), ("python", False)):
+        ds = RecordDataset(os.path.join(exp.data.shards_dir, "train-*.npz"),
+                           seed=exp.data.seed, use_native=native)
+        t = time.perf_counter()
+        batches[route] = [b for e in range(PACK_EPOCHS) for b in
+                          bucket_batches(ds.epoch(epoch_index=e, lazy=True),
+                                         exp.bucketing)]
+        ms[route] = 1e3 * (time.perf_counter() - t) / len(batches[route])
+    for a, b in zip(*batches.values()):
+        require(sorted(a) == sorted(b) and all(_same(a[k], b[k])
+                                               for k in a),
+                "phase 12: a C++-packed batch differs from the numpy one")
+    b0 = batches["native"][0]
+    return {"batches": len(batches["native"]),
+            "shape": list(b0["context_ids"].shape),
+            "native_ms_per_batch": ms["native"],
+            "python_ms_per_batch": ms["python"],
+            "speedup": ms["python"] / ms["native"]}
+
+
+def _check_warm_start(expt, tmp, dev) -> dict:
+    """One epoch warm-started from the first run's checkpoints/best, built
+    as `train` builds it: before its first step its params equal the
+    checkpoint's bit for bit."""
+    from tell_tpu_torch.bridge import tree_leaves
+    from tell_tpu_torch.commands import __main__ as cli
+    from tell_tpu_torch.config_io import load_experiment
+    best = os.path.join(tmp, "run", "checkpoints", "best")
+    exp = load_experiment(expt, json.dumps(_cli_overrides(tmp, {"trainer": {
+        "serialization_dir": os.path.join(tmp, "run_warm"),
+        "num_epochs": 1, "warm_start": best}})))
+    trainer = cli.build_trainer(exp, torch.device(dev))
+    trainer.initialize()
+    saved = torch.load(os.path.join(best, "state.pt"), map_location=dev,
+                       weights_only=True)["params"]
+    leaves = list(zip(tree_leaves(trainer.state["params"]),
+                      tree_leaves(saved)))
+    require(all(a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in leaves),
+            "phase 12: the warm-started params differ from the checkpoint's")
+    del saved
+    t = time.perf_counter()
+    result = trainer.train()
+    seconds = time.perf_counter() - t
+    hist = trainer.metrics_history
+    require(result["epochs"] == 1 and math.isfinite(hist[-1]["loss"])
+            and math.isfinite(hist[-1]["val_loss"]),
+            f"phase 12: the warm-started run: {result} {hist}")
+    del trainer
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"leaves_equal": len(leaves), "loss": hist[-1]["loss"],
+            "val_loss": hist[-1]["val_loss"], "seconds": seconds,
+            "ms_per_step": 1e3 * hist[-1]["epoch_seconds"]
+            / hist[-1]["batches"]}
 
 
 def _cli_cpu_vs_card(exp, cli, dev: str) -> list:
@@ -2829,6 +3162,13 @@ def main() -> int:
     if report.exists():
         for line in ptxas_summary(report.read_text()):
             log("phase 2: ptxas: " + line)
+    from tell_tpu_torch.data import native
+    found = native.library_path().exists()
+    t = time.perf_counter()
+    native.load_library()
+    log(f"phase 2: {'found' if found else 'built'} and loaded the host "
+        f"library {native.library_path().name} (g++, native/*.cpp) in "
+        f"{time.perf_counter() - t:.2f} s")
 
     if args.engine_repeats:
         engine_repeats(args.seed, args.engine_repeats)
@@ -2856,7 +3196,9 @@ def main() -> int:
     from tell_tpu_torch.config import CaptionerConfig
     from tell_tpu_torch.models.backbones.roberta import RobertaConfig
     svc, req0, caption0, launches = phase_service(
-        args.seed, CaptionerConfig(), RobertaConfig.large(), "cuda")
+        args.seed, CaptionerConfig(), RobertaConfig.large(), "cuda",
+        routes=True)
+    launches.pop("routes")
     # phase 5
     phase_cpu_vs_card(svc, req0, caption0)
     del svc

@@ -153,11 +153,12 @@ def _article_len(exp) -> int:
     return 512
 
 
-def _tokenizer(exp):
+def _tokenizer(exp, use_native: bool = True):
     from ..data.tokenizer import RobertaTokenizer
     return RobertaTokenizer.from_files(exp.data.vocab_file,
                                        exp.data.merges_file,
-                                       max_len=_article_len(exp))
+                                       max_len=_article_len(exp),
+                                       use_native=use_native)
 
 
 def _towers_dir(exp) -> str:
@@ -223,16 +224,14 @@ def _report_launches(args) -> None:
                        for k, n in now.items()}, f)
 
 
-def cmd_train(args) -> int:
+def build_trainer(exp, device):
+    """The Trainer that `train` runs for the experiment: the shards of
+    exp.data read through the C++ reader and packed by bucket_batches, the
+    frozen towers on `device`."""
     from ..data.bucketing import bucket_batches
     from ..data.records import RecordDataset
     from ..training.trainer import Trainer
 
-    if args.coordinator is not None:
-        raise NotPortedError("multi-host training is not ported yet (ROADMAP "
-                             "queue 1 item 10, parallelism)")
-    exp = _load(args)
-    device = _device(args)
     d = exp.data
     train_ds = RecordDataset(os.path.join(d.shards_dir, "train-*.npz"),
                              seed=d.seed)
@@ -250,8 +249,16 @@ def cmd_train(args) -> int:
         return bucket_batches(val_ds.epoch(lazy=True, limit=d.val_limit),
                               exp.bucketing)
 
-    trainer = Trainer(exp.model, exp.trainer, train_batches, val_batches,
-                      _frozen_towers(exp, device), device=device)
+    return Trainer(exp.model, exp.trainer, train_batches, val_batches,
+                   _frozen_towers(exp, device), device=device)
+
+
+def cmd_train(args) -> int:
+    if args.coordinator is not None:
+        raise NotPortedError("multi-host training is not ported yet (ROADMAP "
+                             "queue 1 item 10, parallelism)")
+    exp = _load(args)
+    trainer = build_trainer(exp, _device(args))
     if args.recover and not trainer.recover():
         print(f"train -r: no checkpoint to recover in "
               f"{exp.trainer.serialization_dir}", file=sys.stderr)
@@ -277,10 +284,12 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
-def cmd_preprocess(args) -> int:
+def preprocess(exp, split: str, use_native: bool = True) -> tuple[int, str]:
+    """The split's articles into shards under exp.data.shards_dir, tokenized
+    through the C++ BPE (use_native=False: the Python ByteBPE); returns the
+    example count and the BPE's class name."""
     from ..data.pipeline import (load_objects_jsonl, make_image_grid_fn,
                                  preprocess_split, read_articles_jsonl)
-    exp = _load(args)
     objects_lookup = None
     if exp.data.objects_jsonl:
         objects_lookup = load_objects_jsonl(exp.data.objects_jsonl)
@@ -288,10 +297,18 @@ def cmd_preprocess(args) -> int:
     if exp.data.images_dir:
         image_grid_fn = make_image_grid_fn(exp.data.images_dir,
                                            _towers_dir(exp))
+    tok = _tokenizer(exp, use_native)
     n = preprocess_split(
-        read_articles_jsonl(exp.data.articles_jsonl), _tokenizer(exp),
-        exp.reader, exp.data.shards_dir, args.split,
-        image_grid_fn=image_grid_fn, objects_lookup=objects_lookup)
+        read_articles_jsonl(exp.data.articles_jsonl), tok, exp.reader,
+        exp.data.shards_dir, split, image_grid_fn=image_grid_fn,
+        objects_lookup=objects_lookup)
+    bpe = type(tok.bpe).__name__
+    log.info("preprocess %s: %d examples tokenized by %s", split, n, bpe)
+    return n, bpe
+
+
+def cmd_preprocess(args) -> int:
+    n, _ = preprocess(_load(args), args.split)
     print(json.dumps({"examples": n, "split": args.split}))
     return 0
 

@@ -395,14 +395,6 @@ def check_supported(exp: ExperimentConfig) -> None:
     if t.n_data not in (None, 1) or t.n_model != 1:
         refuse(f"a device mesh (trainer.n_data={t.n_data}, n_model="
                f"{t.n_model})", "queue 1 item 10 (parallelism)")
-    if t.warm_start:
-        refuse("trainer.warm_start", "queue 1 item 6 (warm start)")
-    if t.summary_interval != TrainerConfig.summary_interval:
-        refuse(f"trainer.summary_interval={t.summary_interval} (TensorBoard "
-               "scalars)", "queue 1 item 6 (TensorBoard)")
-    if t.profile_steps:
-        refuse("trainer.profile_steps (the profiler window)",
-               "queue 1 item 6 (the profiler window)")
     if d.glove_file:
         refuse("data.glove_file (GloVe article features)",
                "queue 1 item 9 (data/glove.py)")

@@ -1,16 +1,20 @@
-"""Token-budget bucketing into fixed pad shapes (carried over from
-tell_tpu/data/bucketing.py, numpy path only).
+"""Token-budget bucketing into fixed pad shapes (counterpart of
+tell_tpu/data/bucketing.py).
 
 Article lengths are quantised to {128, 256, 512} and caption lengths to
 {16, 32, 64, 100}; each (article, caption) bucket gets the largest batch
 within the token budget, floored to a power of two (16 x 512 with 32-token
 captions at the default budget). A handful of shapes keeps the step's
 allocations and kernel shapes stable on the card, as it kept XLA's
-compiled programs few on the TPU. The fields are the flagship's (ids,
-image grid, faces, objects) and, for evaluation, the string metadata;
-tell_tpu's precomputed-article and copy-mask fields come with the models
-that use them, and its C++ gather path (_native_pack) with the native
-loader.
+compiled programs few on the TPU. The fields are the flagship's and its
+siblings' (ids, image grid, faces, objects), the pointer models' copy and
+proper masks (padded with -1) and, for evaluation, the string metadata;
+tell_tpu's precomputed GloVe article features come with data/glove.py.
+
+A batch of LazyExamples over the C++ shard reader is packed in C++
+(_native_pack: one gather per field, straight from the shard mappings);
+dicts and the Python ShardReader's examples take the numpy path. Both give
+the same bytes.
 """
 from __future__ import annotations
 
@@ -18,6 +22,8 @@ from dataclasses import dataclass
 from typing import Iterator
 
 import numpy as np
+
+from .native import F32_NAN_BITS, gather_pad
 
 PAD_ID = 1
 
@@ -52,12 +58,69 @@ def _batch_size(article_len: int, caption_len: int,
 META_FIELDS = ("caption", "image_hash", "web_url")
 
 
+def _pad_masks(masks, length: int) -> np.ndarray:
+    """Copy/proper masks pad with -1."""
+    masks = np.asarray(masks, np.int32)[:length]
+    out = np.full((length,), -1, np.int32)
+    out[:len(masks)] = masks
+    return out
+
+
+def _native_pack(examples: list, article_len: int, caption_len: int,
+                 cfg: BucketingConfig) -> dict:
+    """pack_batch's fields gathered in C++ from the shard mappings, one
+    call per field (native.gather_pad); fp16 storage converts while it
+    copies."""
+    B, e0 = len(examples), examples[0]
+
+    def gather(field, shape, pad, dtype=np.float32):
+        out = np.empty((B,) + shape, dtype)
+        gather_pad(examples, field, out, pad,
+                   convert_f16=e0.field_dtype(field) == np.float16)
+        return out
+
+    batch = {"context_ids": gather("context_ids", (article_len,), PAD_ID,
+                                   np.int32),
+             "caption_ids": gather("caption_ids", (caption_len,), PAD_ID,
+                                   np.int32)}
+    batch["article_mask"] = batch["context_ids"] == PAD_ID
+    for field, length in (("proper_masks", article_len),
+                          ("caption_copy_masks", caption_len)):
+        if field in e0:
+            batch[field] = gather(field, (length,), -1, np.int32)
+    if "image_grid" in e0:
+        batch["image_grid"] = gather("image_grid",
+                                     tuple(e0.field_shape("image_grid")), 0)
+    if "face_embeds" in e0:
+        batch["face_embeds"] = gather("face_embeds",
+                                      (cfg.max_faces, cfg.face_dim),
+                                      F32_NAN_BITS)
+    if "obj_embeds" in e0:
+        batch["obj_embeds"] = gather("obj_embeds",
+                                     (cfg.max_objects, cfg.object_dim),
+                                     F32_NAN_BITS)
+    return batch
+
+
 def pack_batch(examples: list, article_len: int, caption_len: int,
                cfg: BucketingConfig, include_meta: bool = False) -> dict:
     """Stack ragged examples into one fixed-shape numpy batch: ids padded
-    with PAD_ID, article_mask True at pads, absent faces/objects as NaN
-    rows. include_meta also carries META_FIELDS as lists of str (for
-    evaluation; the trainer leaves it off)."""
+    with PAD_ID, article_mask True at pads, masks padded with -1, absent
+    faces/objects as NaN rows. include_meta also carries META_FIELDS as
+    lists of str (for evaluation; the trainer leaves it off)."""
+    if all(getattr(e, "native", False) for e in examples):
+        batch = _native_pack(examples, article_len, caption_len, cfg)
+    else:
+        batch = _numpy_pack(examples, article_len, caption_len, cfg)
+    if include_meta:
+        for meta in META_FIELDS:
+            if meta in examples[0]:
+                batch[meta] = [str(e.get(meta, "")) for e in examples]
+    return batch
+
+
+def _numpy_pack(examples: list, article_len: int, caption_len: int,
+                cfg: BucketingConfig) -> dict:
     if hasattr(examples[0], "materialize"):
         examples = [e.materialize() for e in examples]
     B = len(examples)
@@ -73,6 +136,11 @@ def pack_batch(examples: list, article_len: int, caption_len: int,
                    "caption_ids": fill_ids("caption_ids", caption_len)}
     batch["article_mask"] = batch["context_ids"] == PAD_ID
     e0 = examples[0]
+    for field, length in (("proper_masks", article_len),
+                          ("caption_copy_masks", caption_len)):
+        if field in e0:
+            batch[field] = np.stack([_pad_masks(e[field], length)
+                                     for e in examples])
     if "image_grid" in e0:
         grids = np.empty((B,) + np.asarray(e0["image_grid"]).shape,
                          np.float32)
@@ -97,10 +165,6 @@ def pack_batch(examples: list, article_len: int, caption_len: int,
     if "obj_embeds" in e0:
         batch["obj_embeds"] = fill_embeds("obj_embeds", cfg.max_objects,
                                           cfg.object_dim)
-    if include_meta:
-        for meta in META_FIELDS:
-            if meta in e0:
-                batch[meta] = [str(e.get(meta, "")) for e in examples]
     return batch
 
 

@@ -1,11 +1,12 @@
-"""Sharded record storage for preprocessed examples (carried over from
-tell_tpu/data/records.py, numpy only: tell_tpu.data's package imports
-`regex`, and the native C++ shard reader is not ported yet).
+"""Sharded record storage for preprocessed examples (counterpart of
+tell_tpu/data/records.py).
 
 One shard is one uncompressed .npz whose members are "<idx>/<field>";
 variable-length fields stay ragged, and the bucketing layer pads them to
 fixed shapes at batch time. The format is tell_tpu's, so either package
-reads the other's shards.
+reads the other's shards. RecordDataset reads them through the C++ reader
+of native/npz.cpp (data/native.py) unless the caller asks for the Python
+ShardReader (use_native=False).
 """
 from __future__ import annotations
 
@@ -14,6 +15,20 @@ import os
 from typing import Iterator
 
 import numpy as np
+
+from .native import native_shard_reader
+
+
+def _npy_header(zf, member: str) -> tuple[tuple, np.dtype]:
+    """(shape, dtype) of one .npy member of an open zip, from its header
+    alone."""
+    fmt = np.lib.format
+    with zf.open(member) as f:
+        major, _ = fmt.read_magic(f)
+        read = (fmt.read_array_header_1_0 if major == 1
+                else fmt.read_array_header_2_0)
+        shape, _, dtype = read(f)
+    return tuple(shape), dtype
 
 
 def write_shard(path: str, examples: list[dict]) -> None:
@@ -31,20 +46,27 @@ def write_shard(path: str, examples: list[dict]) -> None:
 
 
 class ShardReader:
-    """Lazy npz shard access: the index (length, field names) is read once
-    with the file closed again; the handle reopens on first access, and
+    """Lazy npz shard access: the index (length, field names, and each
+    member's shape and dtype from its .npy header) is read once with the
+    file closed again; the handle reopens on first access, and
     RecordDataset bounds how many stay open."""
+
+    native = False       # no shard mapping for native.gather_pad
 
     def __init__(self, path: str):
         self.path = path
         self._z = None
+        # (example, field) -> (shape, dtype)
+        self._headers: dict[tuple[int, str], tuple[tuple, np.dtype]] = {}
+        self._fields: dict[int, list[str]] = {}
         with np.load(path, allow_pickle=False) as z:
             self._len = int(z["__len__"])
-            self._fields: dict[int, list[str]] = {}
             for key in z.files:
                 if key != "__len__":
                     idx, field = key.split("/", 1)
                     self._fields.setdefault(int(idx), []).append(field)
+                    self._headers[(int(idx), field)] = _npy_header(
+                        z.zip, key + ".npy")
 
     def open(self) -> None:
         if self._z is None:
@@ -61,6 +83,14 @@ class ShardReader:
     def fields_of(self, i: int) -> list[str]:
         return self._fields.get(i, [])
 
+    def field_shape(self, i: int, field: str) -> tuple | None:
+        h = self._headers.get((i, field))
+        return h[0] if h is not None else None
+
+    def field_dtype(self, i: int, field: str):
+        h = self._headers.get((i, field))
+        return h[1] if h is not None else None
+
     def read_field(self, i: int, field: str):
         self.open()
         v = self._z[f"{i}/{field}"]
@@ -72,19 +102,49 @@ class ShardReader:
 
 class LazyExample:
     """Dict-like view of one example that reads a field when it is
-    accessed, so bucket routing reads only the two id fields' lengths."""
+    accessed. Lengths, dtypes and shapes come from the .npy headers that
+    the reader parsed at open, without reading data; over a
+    NativeShardReader (reader.native) the batch packer gathers fields
+    straight from the shard mapping (native.gather_pad)."""
 
     __slots__ = ("reader", "i")
 
-    def __init__(self, reader: ShardReader, i: int):
+    def __init__(self, reader, i: int):
         self.reader = reader
         self.i = i
+
+    def keys(self) -> list[str]:
+        return self.reader.fields_of(self.i)
+
+    def __contains__(self, field: str) -> bool:
+        return field in self.keys()
 
     def __getitem__(self, field: str):
         return self.reader.read_field(self.i, field)
 
+    def get(self, field: str, default=None):
+        return self[field] if field in self else default
+
     def field_len(self, field: str) -> int:
-        return len(self[field])
+        """Leading dimension, from the header."""
+        shp = self.field_shape(field)
+        if shp is None:
+            raise KeyError(field)
+        return shp[0] if shp else 0
+
+    def field_shape(self, field: str) -> tuple | None:
+        return self.reader.field_shape(self.i, field)
+
+    def field_dtype(self, field: str):
+        return self.reader.field_dtype(self.i, field)
+
+    def field_member(self, field: str):
+        """(open mmap handle, member index) over a native reader."""
+        return self.reader.field_member(self.i, field)
+
+    @property
+    def native(self) -> bool:
+        return self.reader.native
 
     def materialize(self) -> dict:
         return self.reader[self.i]
@@ -93,14 +153,16 @@ class LazyExample:
 class RecordDataset:
     """A set of shards with seeded epoch shuffling at example granularity.
     (tell_tpu's persistent-RandomState shuffle and multi-host striding
-    have no caller in the port yet.)"""
+    have no caller in the port yet.) use_native=False reads through the
+    Python ShardReader instead of the C++ one."""
 
-    def __init__(self, pattern: str | list[str], seed: int = 1234):
+    def __init__(self, pattern: str | list[str], seed: int = 1234,
+                 use_native: bool = True):
         paths = (sorted(globlib.glob(pattern))
                  if isinstance(pattern, str) else list(pattern))
         if not paths:
             raise FileNotFoundError(f"no shards match {pattern}")
-        self.readers = [ShardReader(p) for p in paths]
+        self.readers = [native_shard_reader(p, use_native) for p in paths]
         self.index = [(s, i) for s, r in enumerate(self.readers)
                       for i in range(len(r))]
         self.seed = seed

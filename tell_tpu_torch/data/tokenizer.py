@@ -14,9 +14,10 @@ module imports neither it nor anything else outside the standard library:
 `pretokenize` scans the text once with the same alternation, taking a
 letter, number or white-space class from `unicodedata.category` and the
 Unicode White_Space property. (`re`'s [^\\W\\d_] is not \\p{L}: it also
-matches letter-like numbers such as ½ and Ⅻ.) The C++ BPE core of the JAX
-package (native/bpe.cpp) is not ported yet; this Python BPE is its
-reference.
+matches letter-like numbers such as ½ and Ⅻ.) RobertaTokenizer.from_files
+encodes through the repository's C++ BPE (native/bpe.cpp, bound in
+data/native.py) unless the caller asks for this Python ByteBPE
+(use_native=False), which is its reference id for id.
 """
 from __future__ import annotations
 
@@ -190,8 +191,15 @@ class RobertaTokenizer:
 
     @classmethod
     def from_files(cls, vocab_file: str, merges_file: str,
-                   max_len: int = 512) -> "RobertaTokenizer":
-        return cls(ByteBPE.from_files(vocab_file, merges_file), max_len)
+                   max_len: int = 512,
+                   use_native: bool = True) -> "RobertaTokenizer":
+        """use_native: encode through the C++ BPE (data/native.NativeBPE;
+        its build raises if it fails), else through the Python ByteBPE."""
+        bpe = ByteBPE.from_files(vocab_file, merges_file)
+        if use_native:
+            from .native import NativeBPE
+            bpe = NativeBPE(bpe.encoder, sorted(bpe.ranks, key=bpe.ranks.get))
+        return cls(bpe, max_len)
 
     def encode(self, text: str, max_len: int | None = None) -> list[int]:
         max_len = max_len or self.max_len

@@ -4,8 +4,11 @@ POST /caption takes token ids (`context_ids`) or, when the service was
 given a tokenizer, text (`context`) or a scraped article (`sections`,
 `title` and `image_position`: the location-aware window around the image,
 as tell_tpu builds it), plus optional precomputed image grid, face and
-object features; GET /status and /healthz report on the service; POST
-/shutdown stops the server. Two decode modes:
+object features; GET /status and /healthz report on the service, GET
+/metrics gives /status's counters as Prometheus text, GET / serves the demo
+page (demo/index.html of the repository), POST /scrape fetches and sections
+an article URL (serving/extractor.py) and POST /shutdown stops the server.
+serving/client.py is the client. Two decode modes:
 
 * micro-batch (engine_slots=0): a MicroBatcher packs up to max_batch
   requests at the smallest article bucket that holds them (a quarter, a
@@ -30,13 +33,14 @@ maps of the first layer per context ("attns") merged into words
 (serving/word_attention.py). Micro-batch mode records them in
 generate(need_weights=True); engine mode replays the winning caption
 teacher-forced (replay_attention), off the engine's hot path. The vision
-pipeline, /metrics and /scrape are not ported.
+pipeline (raw-image requests) is not ported (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import logging
+import os
 import queue as _queue
 import threading
 import time
@@ -51,12 +55,16 @@ from ..data.readers import assemble_location_aware
 from ..models.backbones.roberta import RobertaEncoder
 from ..models.captioner import (Captioner, encode_contexts,
                                 weighted_layer_sum)
+from . import extractor
 from .batcher import MicroBatcher
 from .encode_batcher import EncodeBatcher
 from .engine import DecodeEngine
 from .word_attention import merge_word_attentions
 
 log = logging.getLogger("tell_tpu_torch.serving")
+
+DEMO_PAGE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "demo", "index.html")
 
 
 class CaptionService:
@@ -512,6 +520,33 @@ class CaptionService:
             self._closed = True
 
 
+def metrics_text(service: CaptionService) -> str:
+    """The Prometheus text of /status's counters (tell_tpu's /metrics:
+    the same names, HELP and TYPE lines, and the engine's three lines when
+    an engine runs)."""
+    lines = []
+
+    def metric(name, value, help_text, kind="counter"):
+        lines.extend((f"# HELP {name} {help_text}", f"# TYPE {name} {kind}",
+                      f"{name} {value}"))
+
+    st = service.batcher.stats
+    metric("tnt_requests_total", st.get("requests", 0),
+           "Caption requests received by the micro-batcher")
+    metric("tnt_batches_total", st.get("batches", 0),
+           "Decode micro-batches executed")
+    metric("tnt_errors_total", st.get("errors", 0), "Requests that failed")
+    if service.engine is not None:
+        eng = service.engine
+        metric("tnt_engine_requests_total", eng.stats["requests"],
+               "Requests admitted to the continuous-batching engine")
+        metric("tnt_engine_chunks_total", eng.stats["chunks"],
+               "Decode chunks executed by the engine")
+        metric("tnt_engine_free_slots", len(eng.free),
+               "Currently free engine slots", "gauge")
+    return "\n".join(lines) + "\n"
+
+
 class _Handler(BaseHTTPRequestHandler):
     service: CaptionService = None  # set by serve()
 
@@ -519,9 +554,12 @@ class _Handler(BaseHTTPRequestHandler):
         log.debug(fmt, *args)
 
     def _send(self, code: int, payload: dict):
-        body = json.dumps(payload).encode()
+        self._send_bytes(code, json.dumps(payload).encode(),
+                         "application/json")
+
+    def _send_bytes(self, code: int, body: bytes, content_type: str):
         self.send_response(code)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(body)))
         self.end_headers()
         self.wfile.write(body)
@@ -531,6 +569,17 @@ class _Handler(BaseHTTPRequestHandler):
             self._send(200, {"status": "ok"})
         elif self.path in ("/stats", "/status"):
             self._send(200, self.service.status())
+        elif self.path == "/metrics":
+            self._send_bytes(200, metrics_text(self.service).encode(),
+                             "text/plain; version=0.0.4; charset=utf-8")
+        elif self.path in ("/", "/index.html"):
+            try:
+                with open(DEMO_PAGE, "rb") as f:
+                    page = f.read()
+            except OSError:
+                self._send(404, {"error": "demo page missing"})
+                return
+            self._send_bytes(200, page, "text/html; charset=utf-8")
         else:
             self._send(404, {"error": "not found"})
 
@@ -558,14 +607,22 @@ class _Handler(BaseHTTPRequestHandler):
                 self.service.close()
 
             threading.Thread(target=stop, daemon=True).start()
+        elif self.path == "/scrape":
+            try:
+                self._send(200, extractor.get_urls(req.get("url", "")))
+            except extractor.ExtractError as e:
+                self._send(422, {"error": str(e)})
+            except Exception as e:  # noqa: BLE001 - reported to the client
+                self._send(502, {"error": f"fetch failed: {e}"})
         else:
             self._send(404, {"error": "not found"})
 
 
 def serve(service: CaptionService, port: int = 5558, block: bool = True,
           host: str = "127.0.0.1") -> ThreadingHTTPServer:
-    """Serve /caption, /status, /healthz and /shutdown. host defaults to
-    loopback: /shutdown is unauthenticated. port=0 picks a free port (read
+    """Serve /caption, /status, /healthz, /metrics, the demo page, /scrape
+    and /shutdown. host defaults to loopback: /shutdown is
+    unauthenticated. port=0 picks a free port (read
     it from the returned server's server_address). block=False serves from
     a daemon thread and returns at once."""
     handler = type("Handler", (_Handler,), {"service": service})

@@ -6,19 +6,37 @@ the train-state tree of tensors written with torch.save, and meta.json
 (step, epoch, batch_cursor, best_metric, bad_epochs). A save writes both
 into a temporary directory and renames it into place, so a reader never
 sees a half-written checkpoint; the last `keep` numbered checkpoints are
-kept. Saves are synchronous (tell_tpu overlaps them with the next epoch;
-that is not ported yet). restore(device=...) loads with
-weights_only=True onto the given device.
+kept. restore(device=...) loads with weights_only=True onto the given
+device.
+
+Saves are asynchronous by default, as tell_tpu's: save() returns once the
+state is staged to host memory (a copy: the optimizer updates the
+parameters in place, so the next step would race a writer still reading
+them), and torch.save, meta.json, the rename and the keep-N GC run on one
+worker thread behind the next epoch. At most one save is in flight (a new
+save waits out the previous one), restore() and list() flush first, and
+flush() is the barrier: it waits for the in-flight save and re-raises its
+error, so no failed save goes unseen. A synchronous save is save()
+followed by flush().
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+from concurrent.futures import Future, ThreadPoolExecutor
 
 import torch
 
 from ..bridge import tree_map
+
+
+def _stage(state: dict) -> dict:
+    """A host copy of the tree's tensors (a device-to-host copy from the
+    card, a clone on the CPU), detached from what training goes on to
+    update in place."""
+    return tree_map(lambda x: x.detach().to("cpu", copy=True)
+                    if isinstance(x, torch.Tensor) else x, state)
 
 
 class CheckpointManager:
@@ -26,32 +44,52 @@ class CheckpointManager:
         self.dir = os.path.abspath(directory)
         self.keep = keep
         os.makedirs(self.dir, exist_ok=True)
+        self._worker = ThreadPoolExecutor(1, "checkpoint")
+        self._pending: Future | None = None
 
     def _path(self, tag) -> str:
         return os.path.join(self.dir, "best" if tag == "best"
                             else f"ckpt-{tag}")
 
-    def _save(self, path: str, state: dict, metadata: dict | None) -> None:
+    def flush(self) -> None:
+        """Wait for the in-flight save; raise what it raised. Idempotent."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def _write(self, path: str, host: dict, metadata: dict | None,
+               gc: bool) -> None:
         tmp = f"{path}.tmp-{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        host = tree_map(lambda x: x.detach().cpu()
-                        if isinstance(x, torch.Tensor) else x, state)
-        torch.save(host, os.path.join(tmp, "state.pt"))
-        with open(os.path.join(tmp, "meta.json"), "w") as f:
-            json.dump(metadata or {}, f)
+        try:
+            torch.save(host, os.path.join(tmp, "state.pt"))
+            with open(os.path.join(tmp, "meta.json"), "w") as f:
+                json.dump(metadata or {}, f)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
         old = f"{path}.old-{os.getpid()}"
         if os.path.exists(path):
             os.replace(path, old)
         os.replace(tmp, path)
         shutil.rmtree(old, ignore_errors=True)
+        if gc:
+            tags = self._tags()
+            for tag in tags[:max(0, len(tags) - self.keep)]:
+                shutil.rmtree(self._path(tag), ignore_errors=True)
+
+    def _save(self, path: str, state: dict, metadata: dict | None,
+              gc: bool) -> None:
+        self.flush()                       # one save in flight at a time
+        self._pending = self._worker.submit(self._write, path,
+                                            _stage(state), metadata, gc)
 
     def save(self, tag, state: dict, metadata: dict | None = None) -> None:
-        self._save(self._path(tag), state, metadata)
-        self._gc()
+        self._save(self._path(tag), state, metadata, gc=True)
 
     def save_best(self, state: dict, metadata: dict | None = None) -> None:
-        self._save(self._path("best"), state, metadata)
+        self._save(self._path("best"), state, metadata, gc=False)
 
     def restore(self, tag=None, device="cpu") -> tuple[dict, dict] | None:
         """Restore `tag` (or the latest numbered checkpoint) onto `device`.
@@ -61,6 +99,7 @@ class CheckpointManager:
             if not tags:
                 return None
             tag = tags[-1]
+        self.flush()
         path = self._path(tag)
         if not os.path.exists(path):
             return None
@@ -71,13 +110,9 @@ class CheckpointManager:
         return state, meta
 
     def list(self) -> list[int]:
-        tags = []
-        for name in os.listdir(self.dir):
-            if name.startswith("ckpt-") and name[5:].isdigit():
-                tags.append(int(name[5:]))
-        return sorted(tags)
+        self.flush()
+        return self._tags()
 
-    def _gc(self) -> None:
-        tags = self.list()
-        for tag in tags[:max(0, len(tags) - self.keep)]:
-            shutil.rmtree(self._path(tag), ignore_errors=True)
+    def _tags(self) -> list[int]:
+        return sorted(int(name[5:]) for name in os.listdir(self.dir)
+                      if name.startswith("ckpt-") and name[5:].isdigit())

@@ -5,16 +5,29 @@ valid-*.npz, bucket_batches with an epoch_index-seeded order, then
 Trainer.train, or Trainer.recover first).
 
 Kept from tell_tpu: the epoch loop, validation and patience, best and
-keep-N checkpoints every `checkpoint_every` epochs, request_stop / SIGTERM
-with a mid-epoch batch_cursor so a resumed run is step-exact, the
-tail-capacity overflow warning, and metrics.jsonl. Dropout draws from a
-generator seeded from (seed, step), as tell_tpu folds the step into its
-key, so a resumed step draws the same masks. Not ported yet (ROADMAP): the
-mesh and multi-host parts, TensorBoard, the profiler window and warm
-start.
+keep-N checkpoints every `checkpoint_every` epochs (saved asynchronously,
+flushed before train() returns), request_stop / SIGTERM with a mid-epoch
+batch_cursor so a resumed run is step-exact, the tail-capacity overflow
+warning, metrics.jsonl, TensorBoard scalars under <serialization_dir>/tb
+(train/loss every `summary_interval` steps, the epoch's metrics as
+epoch/<name>), warm start from a checkpoint's params and the profiler
+window. Dropout draws from a generator seeded from (seed, step), as
+tell_tpu folds the step into its key, so a resumed step draws the same
+masks. Not ported yet (ROADMAP queue 1 item 10): the mesh and multi-host
+parts.
+
+The profiler window is PyTorch's idiom for tell_tpu's jax.profiler trace:
+steps [profile_at, profile_at + profile_steps) run under torch.profiler
+(CPU, and CUDA activities on the card), each step marked
+"train_step:<step>", and the chrome trace goes to
+<serialization_dir>/profile/trace-<profile_at>.json. As tell_tpu's, the
+window closes at the end of its epoch's steps at the latest (a window
+that would cross it is cut there, and holds no validation), in a finally
+that also closes it when the epoch fails inside it.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import logging
@@ -29,7 +42,7 @@ import numpy as np
 import torch
 
 from ..bridge import init_captioner, tree_map
-from ..config import CaptionerConfig
+from ..config import CaptionerConfig, NotPortedError
 from ..data.bucketing import BucketingConfig, bucket_batches
 from ..data.prefetch import DevicePrefetcher
 from ..data.records import RecordDataset
@@ -58,13 +71,18 @@ class TrainerConfig:
     max_grad_norm: float = 0.1
     b1: float = 0.9
     b2: float = 0.98
-    # tell_tpu's fields for what the port does not run yet; config_io
-    # refuses a value other than these defaults (a mesh of one device,
-    # no warm start, the default TensorBoard interval, no profiler window)
+    # a mesh (tell_tpu's fields; config_io refuses one of more than one
+    # device: ROADMAP queue 1 item 10)
     n_data: int | None = None
     n_model: int = 1
+    # a checkpoint directory (the one holding state.pt) whose params the
+    # fresh init takes, e.g. a trained captioner for the pointer models
     warm_start: str = ""
+    # TensorBoard scalars under <serialization_dir>/tb at this step
+    # interval (0 = none)
     summary_interval: int = 512
+    # torch.profiler over steps [profile_at, profile_at + profile_steps)
+    # into <serialization_dir>/profile
     profile_steps: int = 0
     profile_at: int = 10
 
@@ -108,6 +126,8 @@ class Trainer:
             os.path.join(tcfg.serialization_dir, "checkpoints"),
             keep=tcfg.keep_checkpoints)
         self._step_fn = make_train_step(cfg, self.optimizer)
+        self._tb = None
+        self._profiler = None
         self._best_pending: tuple | None = None
         self._stop_requested = False
         self.state: dict = {}
@@ -118,14 +138,49 @@ class Trainer:
         Thread- and signal-safe: it only sets a flag."""
         self._stop_requested = True
 
+    @property
+    def tb(self):
+        """The TensorBoard writer, made at its first use (one events file
+        per trainer); None when summary_interval is 0."""
+        if self._tb is None and self.tcfg.summary_interval:
+            from .tensorboard import TensorBoardWriter
+            self._tb = TensorBoardWriter(
+                os.path.join(self.tcfg.serialization_dir, "tb"))
+        return self._tb
+
     # -- state -----------------------------------------------------------
     def initialize(self) -> None:
         g = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
         params = init_captioner(g, self.cfg)
+        if self.tcfg.warm_start:
+            params = self._warm_start(params)
         self.state = {"params": params,
                       "opt": self.optimizer.init(params),
                       "step": 0, "epoch": 0,
                       "best_metric": float("inf"), "bad_epochs": 0}
+
+    def _warm_start(self, params: dict) -> dict:
+        """The params of the checkpoint at tcfg.warm_start, on the device,
+        in place of the fresh init's; they must have its tree and
+        shapes."""
+        path = os.path.abspath(self.tcfg.warm_start)
+        state_pt = os.path.join(path, "state.pt")
+        if not os.path.exists(state_pt):
+            raise NotPortedError(
+                f"warm_start: {path} holds no state.pt (a tell_tpu orbax "
+                "checkpoint?): reading those needs the JAX-side conversion "
+                "step of ROADMAP queue 1 item 6")
+        # on the host first: a numbered checkpoint also holds the
+        # optimizer's moments, which stay off the card
+        saved = torch.load(state_pt, map_location="cpu",
+                           weights_only=True)["params"]
+        want = tree_map(lambda x: (x.shape, x.dtype), params)
+        got = tree_map(lambda x: (x.shape, x.dtype), saved)
+        if got != want:
+            raise ValueError(f"warm_start: the params in {state_pt} do not "
+                             "have this model's tree, shapes and dtypes")
+        log.info("warm-started from %s", path)
+        return tree_map(lambda x: x.to(self.device), saved)
 
     def _train_state(self) -> dict:
         return {"params": self.state["params"],
@@ -159,12 +214,22 @@ class Trainer:
     def train(self) -> dict:
         if self.state == {}:
             self.initialize()
-        t = self.tcfg
         self._install_sigterm()
+        result = self._train()
+        self.ckpt.flush()            # the async save barrier
+        return result
+
+    def _train(self) -> dict:
+        t = self.tcfg
         stop = False
         while self.state["epoch"] < t.num_epochs and not stop:
             epoch = self.state["epoch"]
-            em = self._train_epoch(epoch)
+            try:
+                em = self._train_epoch(epoch)
+            finally:
+                # the profiler window closes with its epoch's steps, as
+                # tell_tpu's does, also when the epoch fails inside it
+                self._stop_profile()
             cursor = em.pop("cursor")
             stopped_mid = em.pop("stopped_mid")
             if self._stop_requested:
@@ -187,6 +252,9 @@ class Trainer:
             em["epoch"] = epoch
             self.metrics_history.append(em)
             self._write_metrics(em)
+            if self.tb is not None:
+                self.tb.add_scalars({f"epoch/{k}": v for k, v in em.items()
+                                     if k != "epoch"}, self.state["step"])
 
             metric = em.get("val_loss", em["loss"])
             if metric < self.state["best_metric"]:
@@ -222,6 +290,45 @@ class Trainer:
             signal.signal(signal.SIGTERM,
                           lambda signum, frame: self.request_stop())
 
+    def _start_profile(self) -> None:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._profiler = torch.profiler.profile(activities=acts)
+        self._profiler.start()
+
+    def _stop_profile(self) -> None:
+        """Close the window and write its chrome trace (no-op when none is
+        open)."""
+        prof, self._profiler = self._profiler, None
+        if prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = os.path.join(self.tcfg.serialization_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(out, f"trace-{self.tcfg.profile_at}.json"))
+
+    def _step(self, batch) -> dict:
+        """One train step, inside the profiler window where it falls in
+        [profile_at, profile_at + profile_steps)."""
+        t, step = self.tcfg, self.state["step"]
+        if t.profile_steps and step == t.profile_at:
+            self._start_profile()
+        gen = step_generator(t.seed, step, self.device)
+        with (torch.profiler.record_function(f"train_step:{step}")
+              if self._profiler is not None else contextlib.nullcontext()):
+            self.state["params"], self.state["opt"], m = self._step_fn(
+                self.state["params"], self.state["opt"], batch, gen,
+                self.frozen)
+        self.state["step"] = step + 1
+        if (self._profiler is not None
+                and step + 1 >= t.profile_at + t.profile_steps):
+            self._stop_profile()
+        return m
+
     def _prefetched(self, batches) -> DevicePrefetcher:
         def host_batches():
             for b in batches:
@@ -246,12 +353,7 @@ class Trainer:
                 if self._stop_requested:
                     stopped_mid = True
                     break
-                gen = step_generator(self.tcfg.seed, self.state["step"],
-                                     self.device)
-                self.state["params"], self.state["opt"], m = self._step_fn(
-                    self.state["params"], self.state["opt"], batch, gen,
-                    self.frozen)
-                self.state["step"] += 1
+                m = self._step(batch)
                 n_batches += 1
                 n_examples += int(batch["caption_ids"].shape[0])
                 losses.append(m["loss"])
@@ -259,8 +361,13 @@ class Trainer:
                 tails.append(m["tail_dropped"])
                 sizes.append(m["sample_size"])
                 if n_batches % self.tcfg.log_every == 0:
-                    log.info("epoch %d step %d loss %.4f", epoch,
+                    log.info("epoch %d step %d loss %.6f", epoch,
                              self.state["step"], float(m["loss"]))
+                si = self.tcfg.summary_interval
+                if si and self.state["step"] % si == 0:
+                    # float() syncs once per interval, as the log line does
+                    self.tb.add_scalar("train/loss", float(m["loss"]),
+                                       self.state["step"])
         # one host sync per epoch, not per step
         losses = np.asarray([float(x) for x in losses])
         ok = np.isfinite(losses)

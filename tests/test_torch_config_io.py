@@ -90,10 +90,6 @@ def test_other_yamls_are_refused_with_their_item(path):
 @pytest.mark.parametrize("over, item", [
     ({"trainer": {"n_data": 2}}, "queue 1 item 10"),
     ({"trainer": {"n_model": 2}}, "queue 1 item 10"),
-    ({"trainer": {"warm_start": "runs/x/checkpoints/best"}},
-     "queue 1 item 6"),
-    ({"trainer": {"summary_interval": 100}}, "queue 1 item 6"),
-    ({"trainer": {"profile_steps": 5}}, "queue 1 item 6"),
     ({"data": {"glove_file": "glove.txt"}}, "queue 1 item 9"),
 ])
 def test_keys_the_port_cannot_honour_are_refused(over, item):
@@ -101,6 +97,19 @@ def test_keys_the_port_cannot_honour_are_refused(over, item):
     j_load(path, over)   # tell_tpu takes it
     with pytest.raises(NotPortedError, match=item):
         load_experiment(path, over)
+
+
+@pytest.mark.parametrize("over", [
+    {"trainer": {"warm_start": "runs/x/checkpoints/best"}},
+    {"trainer": {"summary_interval": 100}},
+    {"trainer": {"profile_steps": 5, "profile_at": 2}},
+])
+def test_training_options_load_as_jax_does(over):
+    """The trainer options the port once refused (warm start, TensorBoard
+    scalars at another interval, the profiler window) load as in
+    tell_tpu."""
+    path = os.path.join(ROOT, "expt/nytimes/9_transformer_objects.yaml")
+    _assert_configs_equal(load_experiment(path, over), j_load(path, over))
 
 
 @pytest.mark.parametrize("over", [

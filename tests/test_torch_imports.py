@@ -1,11 +1,15 @@
-"""tell_tpu_torch never imports JAX, `regex` or PyYAML.
+"""tell_tpu_torch never imports JAX, `regex`, PyYAML, bs4, tensorboard or
+orbax.
 
-A fresh interpreter with jax, regex and yaml blocked (sys.modules["jax"] =
-None makes any `import jax` raise; neither regex nor yaml is a dependency
-of the port) imports every tell_tpu_torch module, checks that no tell_tpu
-module was loaded (the port keeps its own config dataclasses, tokenizer
-and YAML reader), loads an expt/ YAML, round-trips text through the
-tokenizer, then runs the slices on CPU tensors at a tiny size (greedy
+A fresh interpreter with those blocked (sys.modules["jax"] = None makes
+any `import jax` raise; none of the others is a dependency of the port,
+and the card's machine has none of bs4, tensorboard and orbax) imports
+every tell_tpu_torch module, checks that no tell_tpu module was loaded
+(the port keeps its own config dataclasses, tokenizer, YAML reader,
+TensorBoard writer and HTML parser), loads an expt/ YAML, round-trips text
+through the tokenizer (the C++ BPE), parses an article page, writes and
+reads back a TensorBoard scalar, then runs the slices on CPU tensors at a
+tiny size (greedy
 generate, a train step, the continuous-batching engine with the int8 K/V
 cache and the fused top-k, and kernel F's two forms) and checks that the
 plain paths ran: the kernels' launch counters stay 0.
@@ -19,8 +23,9 @@ _SCRIPT = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
-sys.modules["regex"] = None
-sys.modules["yaml"] = None
+BLOCKED = ("regex", "yaml", "bs4", "tensorboard", "orbax")
+for name in BLOCKED:
+    sys.modules[name] = None
 import tell_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(
     tell_tpu_torch.__path__, "tell_tpu_torch."))
@@ -88,11 +93,22 @@ from tell_tpu_torch.data.tokenizer import RobertaTokenizer
 exp = load_experiment("expt/quality/overfit_flagship.yaml")
 tok = RobertaTokenizer.from_files(exp.data.vocab_file, exp.data.merges_file)
 text = "Zainab Weber speaks in Lisbon, ½ of Ⅻ."
+from tell_tpu_torch.serving.extractor import extract_text
+sections, title = extract_text(
+    '<h1>T</h1><p class="story-body-text">Para &amp; more.</p>')
+import tempfile
+from tell_tpu_torch.training.tensorboard import TensorBoardWriter, read_events
+w = TensorBoardWriter(tempfile.mkdtemp())
+w.add_scalar("train/loss", 0.5, step=3)
+w.close()
 print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "text_round_trip": tok.decode(tok.encode(text)) == text,
+                  "bpe": type(tok.bpe).__name__,
+                  "extract": [sections, title],
+                  "events": read_events(w.path)[1]["scalars"],
                   "expt_kernel_sizes": list(exp.model.decoder.kernel_sizes),
-                  "regex_or_yaml": [m for m in ("regex", "yaml")
-                                    if sys.modules.get(m) is not None],
+                  "blocked_loaded": [m for m in BLOCKED
+                                     if sys.modules.get(m) is not None],
                   "jax_loaded": "jax" in sys.modules
                                 and sys.modules["jax"] is not None,
                   "token_ids": list(out["token_ids"].shape),
@@ -127,6 +143,8 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                  "data.prefetch", "tools.timing", "tools.kernel_variants",
                  "tools.longctx_variants", "tools.profile_decode",
                  "data.tokenizer", "data.readers", "data.pipeline",
+                 "data.native", "training.tensorboard", "serving.extractor",
+                 "serving.client",
                  "config_io", "evalm.bleu", "evalm.rouge", "evalm.cider",
                  "evalm.meteor", "evalm.entities", "evalm.readability",
                  "commands.evaluate", "commands.__main__",
@@ -134,8 +152,12 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
         assert f"tell_tpu_torch.{name}" in res["modules"]
     assert res["jax_package"] == []
     assert res["jax_loaded"] is False
-    assert res["regex_or_yaml"] == []
+    assert res["blocked_loaded"] == []
     assert res["text_round_trip"] is True
+    assert res["bpe"] == "NativeBPE"
+    assert res["extract"] == [[{"type": "paragraph", "text": "Para & more."}],
+                              "T"]
+    assert res["events"] == {"train/loss": 0.5}
     assert res["expt_kernel_sizes"] == [3, 7, 15, 31]
     assert res["token_ids"] == [2, 4]
     assert res["train_loss_finite"] is True
