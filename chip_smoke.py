@@ -178,6 +178,34 @@ every phase passed):
      exact one; along the fused route's tokens its top-4 log-probs within
      TOPK_TOL of the exact route's and of the full log-probs at its ids).
      Prints each configuration's readings and the phase's seconds.
+ 14. images in: every JPEG of tests/fixtures/images through the port's
+     decoder (built with g++ here) and its resize and crop, each RGB and
+     224-crop sha256 equal to the one Pillow gave (manifest.json), each
+     refused form refused with its name and ROADMAP queue 1 item 8, and
+     the host ms of decode and crop per news photo; ResNet-152 at full
+     width from init_resnet (seeded, each bottleneck's last batch-norm
+     scale at RESIDUAL_BN) on the two news photos' crops, card against
+     CPU (max abs and relative error, limit GRID_REL_TOL), the grid with
+     cudnn.allow_tf32 on bit equal to the one with it off, the tower with
+     its fp32 pin taken out under TF32 further than GRID_REL_TOL from the
+     CPU (the control that shows the limit can tell them apart), ms per
+     image at B=1 and B=16 (CUDA events, 3 warm-ups) in the tower's NCHW
+     layout and in a channels-last copy, and the peak memory at B=16; the
+     flagship micro-batch service
+     with the tower (RoBERTa-large, the quality corpus's tokenizer): an
+     image_b64 request with article text and the same text with the
+     photo's image_grid pack the same ids and grid and answer the same
+     ids over HTTP, and so do a scraped sections request with the photo
+     in sections[image_position].image_data and its window's text with
+     the grid; a micro-batch of six with a bad base64 and a progressive
+     JPEG answers the four others and reports the two (kernels A and B
+     counted and required); the engine (4 slots, beam 5) on the same
+     weights: the photo and grid requests answer the same beams, each
+     equal to a one-shot beam 5 on the features it was given or a near
+     tie (phase 8's rule); then convert_towers --resnet on a
+     torchvision-named state dict of the tower and preprocess --device
+     cuda over an images_dir holding one photo as a <hash>.jpg: every
+     example's image_grid equals that photo's grid in fp16.
 Then one JSON line describing the kernels and, last, the result line.
 
     python3 chip_smoke.py --cli
@@ -221,6 +249,10 @@ result line.
     python3 chip_smoke.py --siblings
 
 runs phases 1-2, then phase 13 only; no result line.
+
+    python3 chip_smoke.py --images
+
+runs phases 1-2, then phase 14 only; no result line.
 
     python3 chip_smoke.py --beam N
 
@@ -579,6 +611,7 @@ def check_kernel_b(g, name, lens, S, dev) -> dict:
     sets16 = [[t.to(torch.bfloat16) for t in x[:3]] + [x[3]] for x in sets]
     cycle = itertools.cycle(sets16)
     ms16 = cuda_ms(lambda: encoder_attention(*next(cycle)))
+    plain16 = cuda_ms(lambda: encoder_attention_plain(*next(cycle)))
     lib16 = _sdpa_encoder_sets(sets16)
     cycle = itertools.cycle(lib16)
     sdpa16 = cuda_ms(lambda: _sdpa_encoder(*next(cycle)))
@@ -605,11 +638,12 @@ def check_kernel_b(g, name, lens, S, dev) -> dict:
         f"{res['bound_ms']:.4f} ms, {res['bound_by']}), device "
         f"{dev_ms['fp32']:.4f} ms, SDPA {res['library_ms']:.4f} ms (device "
         f"{sdpa_dev['fp32']:.4f} ms); bf16 {ms16:.4f} ms ({bound16 / ms16:.1%}"
-        f" of {bound16:.4f} ms, {by16}), device {dev_ms['bf16']:.4f} ms, SDPA "
-        f"{sdpa16:.4f} ms (device {sdpa_dev['bf16']:.4f} ms); each row "
+        f" of {bound16:.4f} ms, {by16}), device {dev_ms['bf16']:.4f} ms, "
+        f"plain {plain16:.4f} ms, SDPA {sdpa16:.4f} ms (device "
+        f"{sdpa_dev['bf16']:.4f} ms); each row "
         f"alone equals its row of B={B} bit for bit (fp32, bf16)")
-    res.update(ms16=ms16, sdpa16=sdpa16, bound16=bound16, dev_ms=dev_ms,
-               sdpa_dev=sdpa_dev, kept=kept)
+    res.update(ms16=ms16, plain16=plain16, sdpa16=sdpa16, bound16=bound16,
+               dev_ms=dev_ms, sdpa_dev=sdpa_dev, kept=kept)
     return res
 
 
@@ -2091,16 +2125,15 @@ GENERATION_FIELDS = {"caption", "generation", "image_hash", "web_url",
                      "gen_np"}
 
 
-def _cli(argv, label) -> tuple[dict, float, str]:
-    """`python -m tell_tpu_torch.commands argv` from the repo root; returns
-    the last JSON object it printed, its wall seconds and its stderr (the
-    log)."""
+def _cli(argv, label, module="tell_tpu_torch.commands"
+         ) -> tuple[dict, float, str]:
+    """`python -m <module> argv` from the repo root; returns the last JSON
+    object it printed, its wall seconds and its stderr (the log)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": root}
     t = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "tell_tpu_torch.commands"]
-                          + argv, cwd=root, env=env, capture_output=True,
-                          text=True)
+    proc = subprocess.run([sys.executable, "-m", module] + argv, cwd=root,
+                          env=env, capture_output=True, text=True)
     dt = time.perf_counter() - t
     require(proc.returncode == 0, f"{label}: {argv[0]} exited "
             f"{proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
@@ -2938,6 +2971,502 @@ QUALITY_AFTER_CIDER_MIN = 900.0
 QUALITY_AFTER_EXACT_MIN = 30          # of the 32 training captions
 
 
+# ---------------------------------------------------------------------------
+# phase 14: images in -- the ResNet-152 tower and raw-image requests
+# ---------------------------------------------------------------------------
+
+IMAGES_DIR = os.path.join("tests", "fixtures", "images")
+NEWS_PHOTOS = ("news_a_320x240_420.jpg", "news_b_200x300_420.jpg")
+# card vs CPU: max |diff| / max |CPU grid| with fp32 convs; read 1.5e-6
+# on the H100, against ~1e-3 for the same tower with its convs in TF32
+GRID_REL_TOL = 1e-5
+RESIDUAL_BN = 0.3      # each bottleneck's last batch-norm scale (see below)
+TOWER_REPEATS = 20     # timed forwards per batch size
+
+
+def _read_fixture(root: str, name: str) -> bytes:
+    with open(os.path.join(root, IMAGES_DIR, name), "rb") as f:
+        return f.read()
+
+
+def _b64(data: bytes) -> str:
+    import base64
+    return base64.b64encode(data).decode()
+
+
+def _check_fixture_digests(root: str) -> dict:
+    """Every committed fixture through the port's decoder and crop against
+    the sha256 Pillow gave (manifest.json); every refused one refused with
+    its form named. Returns counts and the host ms of decode and crop."""
+    import hashlib
+    from tell_tpu_torch.config import NotPortedError
+    from tell_tpu_torch.data import jpeg
+    from tell_tpu_torch.data.images import resize_shortest_crop
+    t = time.perf_counter()
+    found = jpeg.load_library() is not None
+    build_s = time.perf_counter() - t
+    with open(os.path.join(root, IMAGES_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    n_equal = n_refused = 0
+    for name, want in sorted(manifest.items()):
+        data = _read_fixture(root, name)
+        if "refused" in want:
+            try:
+                jpeg.decode_jpeg(data)
+            except NotPortedError as e:
+                require(want["refused"] in str(e) and "item 8" in str(e),
+                        f"phase 14: {name} refused as {e}")
+                n_refused += 1
+                continue
+            raise CheckFailed(f"phase 14: {name} decoded; it must be refused")
+        rgb = jpeg.decode_jpeg(data)
+        crop = resize_shortest_crop(rgb)
+        for what, arr in (("rgb", rgb), ("crop", crop)):
+            got = hashlib.sha256(arr.tobytes()).hexdigest()
+            require(got == want[f"{what}_sha256"],
+                    f"phase 14: {name} {what} sha256 {got} is not Pillow's "
+                    f"{want[f'{what}_sha256']}")
+        n_equal += 1
+    times = {}
+    for name in NEWS_PHOTOS:
+        data = _read_fixture(root, name)
+        dec, crp = [], []
+        for _ in range(20):
+            t = time.perf_counter()
+            rgb = jpeg.decode_jpeg(data)
+            dec.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            resize_shortest_crop(rgb)
+            crp.append(time.perf_counter() - t)
+        times[name] = {"decode_ms": 1e3 * float(np.median(dec)),
+                       "crop_ms": 1e3 * float(np.median(crp)),
+                       "shape": list(rgb.shape)}
+    log(f"phase 14: the JPEG decoder (g++, {jpeg.SOURCE.name}) "
+        f"{'loaded' if found else 'built'} in {build_s:.2f} s; {n_equal} "
+        f"fixtures' RGB and 224-crop sha256 equal to Pillow's, {n_refused} "
+        f"refused forms named; host ms per photo (median of 20): "
+        + json.dumps(times))
+    return {"equal": n_equal, "refused": n_refused, "host": times}
+
+
+def _resnet_tower(seed: int, cfg) -> dict:
+    """ResNet weights from the seed (init_resnet on the CPU, so the card
+    and the CPU hold the same numbers), each bottleneck's last batch-norm
+    scale set to RESIDUAL_BN: with every scale at init_resnet's 1 the grid
+    of ResNet-152 grows to ~1e8 through its 50 residual sums; at 0.3 its
+    values are of the order a trained tower gives (mean ~1, max ~10)."""
+    from tell_tpu_torch.bridge import init_resnet
+    tree = init_resnet(torch.Generator().manual_seed(seed), cfg)
+    for stage in tree["stages"]:
+        for block in stage:
+            block["bn3"]["scale"].fill_(RESIDUAL_BN)
+    return tree
+
+
+def _torchvision_state(tree: dict) -> dict:
+    """A torchvision-named state dict holding the tree's weights (OIHW
+    convs; batch norm as weight = scale, bias, running mean 0 and variance
+    1, which the converter folds back within one rounding)."""
+    sd = {}
+
+    def conv(name, w):
+        sd[name + ".weight"] = w.permute(3, 2, 0, 1).contiguous()
+
+    def bn(name, p):
+        sd[name + ".weight"] = p["scale"].clone()
+        sd[name + ".bias"] = p["bias"].clone()
+        sd[name + ".running_mean"] = torch.zeros_like(p["scale"])
+        sd[name + ".running_var"] = torch.ones_like(p["scale"])
+        sd[name + ".num_batches_tracked"] = torch.tensor(0)
+
+    conv("conv1", tree["stem"]["conv"])
+    bn("bn1", tree["stem"]["bn"])
+    for s, stage in enumerate(tree["stages"]):
+        for b, block in enumerate(stage):
+            pre = f"layer{s + 1}.{b}."
+            for k in (1, 2, 3):
+                conv(pre + f"conv{k}", block[f"conv{k}"])
+                bn(pre + f"bn{k}", block[f"bn{k}"])
+            if "down_conv" in block:
+                conv(pre + "downsample.0", block["down_conv"])
+                bn(pre + "downsample.1", block["down_bn"])
+    return sd
+
+
+def _tower_ms(params, cfg, x, n=TOWER_REPEATS) -> float:
+    """ms per forward of x (CUDA events over n forwards after 3 warm-ups)."""
+    from tell_tpu_torch.models.backbones.resnet import resnet_forward
+    with torch.inference_mode():
+        for _ in range(3):
+            resnet_forward(params, cfg, x)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            resnet_forward(params, cfg, x)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _check_tower(seed, rn_cfg, crops, dev, card) -> dict:
+    """The tower from the seed on `dev` against the CPU on the news photos'
+    crops; the TF32 switch; on the card, the same forward with its fp32 pin
+    taken out under TF32 (the control GRID_REL_TOL must tell apart), ms
+    per image at B=1 and B=16 in the tower's NCHW layout and in a
+    channels-last copy, and the peak memory."""
+    from tell_tpu_torch.bridge import to_torch, tree_map
+    from tell_tpu_torch.models.backbones import resnet
+    from tell_tpu_torch.models.backbones.resnet import (
+        prepare_resnet, preprocess_image, resnet_forward)
+    t = time.perf_counter()
+    tree_cpu = _resnet_tower(seed, rn_cfg)
+    tower = prepare_resnet(to_torch(tree_cpu, dev))
+    init_s = time.perf_counter() - t
+    x = preprocess_image(torch.from_numpy(crops) / 255.0)
+    with torch.inference_mode():
+        got = resnet_forward(tower, rn_cfg, x.to(dev)).cpu()
+        t = time.perf_counter()
+        ref = resnet_forward(prepare_resnet(tree_cpu), rn_cfg, x)
+        cpu_s = time.perf_counter() - t
+    require(got.shape == (len(crops), 49, rn_cfg.out_dim), got.shape)
+    require(bool(torch.isfinite(got).all()), "phase 14: non-finite grid")
+    abs_err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    rel_err = abs_err / scale
+    require(rel_err <= GRID_REL_TOL, f"phase 14: the card's grid is "
+            f"{rel_err:.3e} (max abs {abs_err:.3e}) off the CPU's")
+    # the TF32 trap: PyTorch lets cuDNN use TF32 by default (phase 1 turned
+    # it off); the tower pins fp32 itself, so the switch changes no bit
+    before = torch.backends.cudnn.allow_tf32
+    grids, stem = {}, {}
+    with torch.inference_mode():
+        for flag in (True, False):
+            torch.backends.cudnn.allow_tf32 = flag
+            grids[flag] = resnet_forward(tower, rn_cfg, x.to(dev)).cpu()
+            # an unpinned conv (the stem's) under the same switch
+            stem[flag] = torch.nn.functional.conv2d(
+                x.to(dev).permute(0, 3, 1, 2), tower["stem"]["conv"],
+                stride=2, padding=3).cpu()
+    torch.backends.cudnn.allow_tf32 = before
+    require(torch.equal(grids[True], grids[False]),
+            "phase 14: the grid changed with cudnn.allow_tf32")
+    stem_diff = float((stem[True] - stem[False]).abs().max())
+    out = {"abs_err": abs_err, "rel_err": rel_err, "max_abs_grid": scale,
+           "tf32_bit_equal": True, "unpinned_stem_tf32_diff": stem_diff,
+           "init_s": init_s, "cpu_forward_s": cpu_s}
+    if card:
+        # the control: the whole tower in TF32, its pin taken out
+        pin = resnet.fp32_convs
+        resnet.fp32_convs = contextlib.nullcontext
+        try:
+            torch.backends.cudnn.allow_tf32 = True
+            with torch.inference_mode():
+                tf32 = resnet_forward(tower, rn_cfg, x.to(dev)).cpu()
+        finally:
+            resnet.fp32_convs = pin
+            torch.backends.cudnn.allow_tf32 = before
+        out["tf32_tower_rel_err"] = float((tf32 - ref).abs().max()) / scale
+        require(out["tf32_tower_rel_err"] > GRID_REL_TOL,
+                f"phase 14: the TF32 tower is {out['tf32_tower_rel_err']:.3e}"
+                f" off the CPU, within GRID_REL_TOL {GRID_REL_TOL}: the "
+                "limit cannot tell it from the fp32 tower")
+        channels_last = tree_map(
+            lambda w: (w.contiguous(memory_format=torch.channels_last)
+                       if w.dim() == 4 else w), tower)
+        x16 = x.repeat(8, 1, 1, 1)[:16].to(dev)
+        ms = {}
+        for label, params in (("nchw", tower),
+                              ("channels_last", channels_last)):
+            for B in (1, 16):
+                ms[f"{label}_b{B}"] = _tower_ms(params, rn_cfg, x16[:B]) / B
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.inference_mode():
+            resnet_forward(tower, rn_cfg, x16)
+        torch.cuda.synchronize()
+        out["ms_per_image"] = ms
+        out["peak_mib_b16"] = torch.cuda.max_memory_allocated() / 2 ** 20
+        out["peak_above_weights_mib_b16"] = (
+            torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    log(f"phase 14 ({card or dev}): ResNet{sum(rn_cfg.block_counts) * 3 + 2}"
+        f" width {rn_cfg.width} from seed {seed} (init {init_s:.1f} s): "
+        f"grid of {len(crops)} news photos on {dev} vs CPU max abs err "
+        f"{abs_err:.3e}, rel {rel_err:.3e} (of max |grid| {scale:.3f}; "
+        f"limit {GRID_REL_TOL}); cudnn.allow_tf32 on and off: grids bit "
+        f"equal (an unpinned stem conv moves by {stem_diff:.3e} under "
+        "TF32)" + (f"; the tower unpinned under TF32 rel "
+                   f"{out['tf32_tower_rel_err']:.3e}; ms per image "
+                   + json.dumps(out["ms_per_image"])
+                   + f"; peak memory at B=16 {out['peak_mib_b16']:.1f} MiB "
+                   f"({out['peak_above_weights_mib_b16']:.1f} MiB above "
+                   "what was allocated before)" if card else ""))
+    return {"tree": tree_cpu, "tower": tower, **out}
+
+
+def _engine_vs_one_shot(esvc, params, cfg, req, body, label):
+    """The engine's answer to req against a one-shot beam 5 on the features
+    the engine encodes for it: equal, or a near tie within TIE_TOL where
+    the two searches split (phase 8's rule, ROADMAP section 3)."""
+    from tell_tpu_torch.config import with_article_len
+    from tell_tpu_torch.models.beam import beam_search
+    batch, errors = esvc._pack([req])
+    require(errors == [None], errors)
+    cfg_w = with_article_len(cfg, batch["context_ids"].shape[1])
+    with torch.inference_mode():
+        enc = esvc._encode_many(batch)
+        with _beam_trace() as steps:
+            ref = beam_search(params, cfg_w, enc, beam_size=5)
+    ref_ids = ref["token_ids"][0].cpu().numpy()
+    paths = np.stack([b["token_ids"] for b in [body] + body["alternatives"]])
+    if np.array_equal(paths[0], ref_ids[0]):
+        return None
+    split = _beam_split(steps, paths)
+    gap = math.inf if split is None else split["gap"]
+    log(f"{label}: the engine's best beam differs from the one-shot beam "
+        f"search; gap where they split {gap:.3e} (split {split})")
+    require(split is not None and gap <= TIE_TOL,
+            f"{label}: engine answer off the one-shot beam search "
+            f"(gap {gap:.3e}, near tie allowed: {TIE_TOL})")
+    return gap
+
+
+def _check_image_service(seed, cfg, rcfg, rn_cfg, tower, dev, root) -> dict:
+    """The flagship micro-batch service with the tower: a photo as
+    image_b64, as sections[pos].image_data and as its image_grid; bad
+    photos in one micro-batch; then the engine (beam 5) on the same
+    weights."""
+    from tell_tpu_torch.bridge import init_captioner, init_roberta
+    from tell_tpu_torch.data.images import resize_shortest_crop
+    from tell_tpu_torch.data.jpeg import decode_jpeg
+    from tell_tpu_torch.models.backbones.resnet import image_grid
+    from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
+    from tell_tpu_torch.serving import CaptionService, serve
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(seed + 14)
+    params = init_captioner(g, cfg)
+    roberta = RobertaEncoder(init_roberta(g, rcfg), rcfg)
+    tok = _smoke_tokenizer(root, rcfg.vocab_size)
+    towers = {"resnet": tower, "resnet_cfg": rn_cfg}
+    svc = CaptionService(params, roberta, cfg, dev, tokenizer=tok,
+                         max_batch=8, towers=towers)
+    require(svc.vision.has_grid, "phase 14: the service has no grid stage")
+    photos = {n: _read_fixture(root, n) for n in NEWS_PHOTOS}
+    grids = {n: image_grid(tower, rn_cfg, resize_shortest_crop(
+        decode_jpeg(d)).astype(np.float32)) for n, d in photos.items()}
+    arts = _quality_articles(root)
+    text = "\n".join(s["text"] for s in arts[1]["parsed_section"]
+                     if s["type"] == "paragraph")
+    art = arts[0]
+    pos = next(i for i, s in enumerate(art["parsed_section"])
+               if s["type"] == "caption")
+    scraped = _sections_request(art, pos)
+    scraped["sections"][pos]["image_data"] = _b64(photos[NEWS_PHOTOS[1]])
+    reqs = {
+        "image_b64": {"context": text, "image_b64": _b64(
+            photos[NEWS_PHOTOS[0]])},
+        "image_grid": {"context": text,
+                       "image_grid": grids[NEWS_PHOTOS[0]].tolist()},
+        "sections": scraped,
+        "sections_grid": {"context": svc._sections_text(scraped),
+                          "image_grid": grids[NEWS_PHOTOS[1]].tolist()},
+    }
+    for a, b in (("image_b64", "image_grid"), ("sections", "sections_grid")):
+        pa, ea = svc._pack([reqs[a]])
+        pb, eb = svc._pack([reqs[b]])
+        require(ea == eb == [None], (ea, eb))
+        require(np.array_equal(pa["context_ids"], pb["context_ids"]),
+                f"phase 14: {a} and {b} pack other ids")
+        require(np.array_equal(pa["image_grid"], pb["image_grid"])
+                and np.abs(pa["image_grid"]).max() > 0,
+                f"phase 14: the {a} request's packed grid is not its photo's")
+    log(f"phase 14: flagship service with the tower on {dev} in "
+        f"{time.perf_counter() - t0:.1f} s; the image_b64 and sections "
+        "requests pack their photo's grid bit for bit")
+
+    httpd = serve(svc, port=0, block=False)
+    port = httpd.server_address[1]
+    status, body = _post(port, "/caption", reqs["image_grid"])   # warm-up
+    require(status == 200 and "error" not in body, body)
+    _reset_counts()
+    answers, lat = {}, {}
+    for name, req in reqs.items():
+        t = time.perf_counter()
+        status, body = _post(port, "/caption", req)
+        lat[name] = time.perf_counter() - t
+        require(status == 200 and "error" not in body, (name, body))
+        answers[name] = body["token_ids"]
+    counts = _counts()
+    require(answers["image_b64"] == answers["image_grid"],
+            "phase 14: image_b64 and image_grid answers differ")
+    require(answers["sections"] == answers["sections_grid"],
+            "phase 14: sections and its image_grid answers differ")
+    if dev == "cuda":
+        for name in ("decode_attention", "encoder_attention"):
+            require(counts[name] > 0, f"phase 14: {name} never launched")
+    # bad photos share a micro-batch with good requests
+    with open(os.path.join(root, IMAGES_DIR, "refused_progressive.jpg"),
+              "rb") as f:
+        progressive = _b64(f.read())
+    mixed = [reqs["image_b64"], {"context": text, "image_b64": "%%% bad"},
+             reqs["image_grid"], {"context": text, "image_b64": progressive},
+             reqs["sections"], reqs["sections_grid"]]
+    out = svc._run(mixed)
+    for i in (1, 3):
+        require(out[i].get("error", "").startswith("bad request image:"),
+                f"phase 14: bad photo {i} answered {out[i]}")
+    require("progressive" in out[3]["error"], out[3]["error"])
+    for i in (0, 2, 4, 5):
+        require("error" not in out[i], (i, out[i]))
+    require(out[0]["token_ids"] == out[2]["token_ids"]
+            and out[4]["token_ids"] == out[5]["token_ids"],
+            "phase 14: the mixed micro-batch's photo and grid answers differ")
+    status, _ = _post(port, "/shutdown", {})
+    require(status == 200, f"/shutdown answered {status}")
+    httpd.server_close()
+    log(f"phase 14: micro-batch /caption: image_b64 == image_grid and "
+        f"sections == its window + image_grid token ids; latencies (s) "
+        + json.dumps({k: round(v, 3) for k, v in lat.items()})
+        + f"; kernel A launches {counts['decode_attention']}, kernel B "
+        f"{counts['encoder_attention']}; a bad base64 and a progressive "
+        f"JPEG in a micro-batch of 6: {out[1]['error'][:60]!r}, "
+        f"{out[3]['error'][:80]!r}; the other 4 answered")
+
+    esvc = CaptionService(svc.model.tree(), roberta, cfg, dev,
+                          tokenizer=tok, engine_slots=4, engine_beam=5,
+                          towers=towers)
+    try:
+        eng = {}
+        _reset_counts()
+        for name, req in reqs.items():
+            body = esvc.caption(req)
+            require("error" not in body, (name, body))
+            eng[name] = body
+        n1 = _counts()
+        require(eng["image_b64"]["token_ids"] == eng["image_grid"]["token_ids"]
+                and eng["sections"]["token_ids"]
+                == eng["sections_grid"]["token_ids"],
+                "phase 14: the engine's photo and grid answers differ")
+        gaps = {name: _engine_vs_one_shot(esvc, esvc.model.tree(), cfg,
+                                          reqs[name], eng[name], "phase 14")
+                for name in ("image_b64", "sections")}
+    finally:
+        esvc.close()
+    eng_counts = {k: n1[k] for k in ("decode_attention",
+                                     "encoder_attention")}
+    if dev == "cuda":
+        for name, n in eng_counts.items():
+            require(n > 0, f"phase 14: {name} never launched in the engine")
+    log(f"phase 14: engine (4 slots, beam 5): the photo and grid requests "
+        f"answer the same beams; vs a one-shot beam 5 on the same features:"
+        f" {gaps} (None: equal); kernel A launches "
+        f"{eng_counts['decode_attention']}, kernel B "
+        f"{eng_counts['encoder_attention']}")
+    svc.close()
+    return {"micro_batch_launches": {k: counts[k] for k in
+                                     ("decode_attention",
+                                      "encoder_attention")},
+            "engine_launches": eng_counts, "engine_gaps": gaps}
+
+
+def _check_image_cli(rn_cfg, tree, dev, root) -> dict:
+    """convert_towers --resnet on a torchvision-named state dict of the
+    tower, then preprocess over an images_dir holding one fixture photo as
+    the first article's <hash>.jpg: every example written carries the
+    grid the converted tower gives that photo on `dev`, in fp16."""
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.data.images import resize_shortest_crop
+    from tell_tpu_torch.data.jpeg import decode_jpeg
+    from tell_tpu_torch.data.records import ShardReader
+    from tell_tpu_torch.models.backbones.resnet import image_grid, load_tower
+    from tell_tpu_torch.tools.gen_quality_corpus import (
+        FEATURES_SEED, read_articles, write_features)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_images_")
+    try:
+        over = _cli_overrides(tmp)
+        exp = load_experiment(QUALITY_EXPT, json.dumps(over))
+        arts = read_articles(exp.data.articles_jsonl)
+        write_features(arts, os.path.join(tmp, "features"), FEATURES_SEED)
+        grids = os.path.join(tmp, "features", "grids")
+        h = next(s["hash"] for s in arts[0]["parsed_section"]
+                 if s["type"] == "caption")
+        for name in os.listdir(grids):    # no precomputed grid: one photo
+            os.remove(os.path.join(grids, name))
+        photo = _read_fixture(root, NEWS_PHOTOS[0])
+        with open(os.path.join(grids, h + ".jpg"), "wb") as f:
+            f.write(photo)
+        pth = os.path.join(tmp, "resnet152.pth")
+        torch.save(_torchvision_state(tree), pth)
+        _, convert_s, _ = _cli(["--out", os.path.join(tmp, "towers"),
+                                "--resnet", pth], "phase 14",
+                               "tell_tpu_torch.tools.convert_towers")
+        out, pre_s, _ = _cli(["preprocess", QUALITY_EXPT, "-o",
+                              json.dumps(over), "-s", "train", "--device",
+                              dev], "phase 14")
+        n = out["examples"]
+        require(n >= 1, f"phase 14: preprocess wrote {n} examples")
+        want = image_grid(load_tower(os.path.join(tmp, "towers",
+                                                  "resnet152"), dev),
+                          rn_cfg, resize_shortest_crop(
+                              decode_jpeg(photo)).astype(np.float32))
+        want16 = want.astype(np.float16)
+        shards = sorted(p for p in os.listdir(exp.data.shards_dir)
+                        if p.startswith("train-"))
+        seen = 0
+        for p in shards:
+            reader = ShardReader(os.path.join(exp.data.shards_dir, p))
+            for i in range(len(reader)):
+                got = reader[i]["image_grid"]
+                require(got.dtype == np.float16
+                        and np.array_equal(got, want16),
+                        f"phase 14: shard {p}[{i}]'s grid is not the "
+                        "photo's grid in fp16")
+                seen += 1
+        require(seen == n, (seen, n))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 14: convert_towers --resnet in {convert_s:.1f} s, "
+        f"preprocess --device {dev} over one <hash>.jpg in {pre_s:.1f} s: "
+        f"{n} examples, each image_grid equal to the photo's grid in fp16")
+    return {"examples": n}
+
+
+def phase_images(seed: int, card: str, dev: str = "cuda", cfg=None,
+                 rcfg=None) -> dict:
+    """Phase 14 (see the module docstring): the fixtures' decode and crop
+    on the host, ResNet-152 card vs CPU with its times and the TF32
+    switch, the flagship service (micro-batch and engine) on raw photos,
+    and convert_towers + preprocess through the command line. cfg / rcfg
+    default to the flagship and RoBERTa-large (a CPU rehearsal passes
+    small ones: an image context of 49 x 2048 and an article context of
+    the RoBERTa's width)."""
+    from tell_tpu_torch.config import CaptionerConfig
+    from tell_tpu_torch.data.images import resize_shortest_crop
+    from tell_tpu_torch.data.jpeg import decode_jpeg
+    from tell_tpu_torch.models.backbones.resnet import ResNetConfig
+    from tell_tpu_torch.models.backbones.roberta import RobertaConfig
+    cfg = cfg or CaptionerConfig()
+    rcfg = rcfg or RobertaConfig.large()
+    rn_cfg = ResNetConfig.resnet152()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = {"fixtures": _check_fixture_digests(root)}
+    crops = np.stack([resize_shortest_crop(decode_jpeg(
+        _read_fixture(root, n))) for n in NEWS_PHOTOS]).astype(np.float32)
+    tower = _check_tower(seed, rn_cfg, crops, dev,
+                         card if dev == "cuda" else None)
+    tree, prepared = tower.pop("tree"), tower.pop("tower")
+    res["tower"] = tower
+    res["service"] = _check_image_service(seed, cfg, rcfg, rn_cfg, prepared,
+                                          dev, root)
+    res["cli"] = _check_image_cli(rn_cfg, tree, dev, root)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 14: done in {res['seconds']:.1f} s")
+    return res
+
+
 def quality_run(card: str, out_dir: str | None) -> int:
     """tell_tpu_torch.tools.quality_loop on overfit_flagship.yaml as it is
     (200 epochs of 2 steps, trainer seed 0), runs and shards in a
@@ -3121,6 +3650,8 @@ def main() -> int:
                     help="after the build, phase 12 only (no result line)")
     ap.add_argument("--siblings", action="store_true",
                     help="after the build, phase 13 only (no result line)")
+    ap.add_argument("--images", action="store_true",
+                    help="after the build, phase 14 only (no result line)")
     ap.add_argument("--quality", action="store_true",
                     help="after the build, the full quality loop on "
                     f"{QUALITY_EXPT} with its acceptance thresholds (no "
@@ -3186,6 +3717,9 @@ def main() -> int:
         from tell_tpu_torch.models.backbones.roberta import RobertaConfig
         phase_siblings(args.seed, RobertaConfig.large())
         return 0
+    if args.images:
+        phase_images(args.seed, smi)
+        return 0
     if args.quality:
         return quality_run(smi, args.quality_out)
     # phase 3
@@ -3245,6 +3779,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 13: the flagship's siblings
     siblings = phase_siblings(args.seed, RobertaConfig.large())
+    torch.cuda.empty_cache()
+    # phase 14: images in
+    images = phase_images(args.seed, smi)
 
     # MG=20/S=637, B=4 S=512, K=31 at T=32, int8 S=637, N=40 V=30265 k=5,
     # F S=637, F int4-split S=637
@@ -3280,6 +3817,11 @@ def main() -> int:
         line.get("engine_launches", {}).get("decode_attention_q8", 0)
         for line in siblings["lines"])
     sibling_launches["topk_logits"] = siblings["sampling"]["topk_logits"]
+    # phase 14's own path: A and B in micro-batch and engine mode
+    image_launches = {
+        name: images["service"]["micro_batch_launches"][name]
+        + images["service"]["engine_launches"][name]
+        for name in ("decode_attention", "encoder_attention")}
     kernels = []
     for name, (src, replaces) in sources.items():
         case = res[name][main_case[name]]
@@ -3294,6 +3836,8 @@ def main() -> int:
             entry["also_replaces"] = "tools/longctx_variants.py:52"
         if name in sibling_launches:
             entry["phase13_launches"] = sibling_launches[name]
+        if name in image_launches:
+            entry["phase14_launches"] = image_launches[name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

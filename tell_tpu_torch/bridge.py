@@ -10,7 +10,7 @@
 * ParamTree: an nn.Module that owns such a tree (nested dicts and lists of
   tensors), so .to(device) and state_dict() work on it; tree() gives the
   nested dict back with the module's current tensors.
-* init_captioner / init_roberta: torch-side initialisers with the same
+* init_captioner / init_roberta / init_resnet: torch-side initialisers with the same
   keys, shapes and init distributions as tell_tpu's, drawing from an
   explicit torch.Generator on the generator's device. (The two frameworks
   draw different numbers from one seed; parity tests build weights in JAX
@@ -263,3 +263,36 @@ def init_roberta(generator: torch.Generator, rcfg) -> dict:
             "ffn_ln": _ln(g, D),
         } for _ in range(rcfg.num_layers)],
     }
+
+
+def init_resnet(generator: torch.Generator, cfg) -> dict:
+    """tell_tpu.models.backbones.resnet.init_resnet for a ResNetConfig
+    (tell_tpu_torch.models.backbones.resnet.ResNetConfig): HWIO conv
+    weights He-normal on the fan-out, batch norm folded to scale 1 and
+    bias 0."""
+    g = generator
+
+    def conv(kh, kw, cin, cout):
+        return _normal(g, (kh, kw, cin, cout), (2.0 / (kh * kw * cout)) ** 0.5)
+
+    def bn(c):
+        return {"scale": torch.ones(c, device=g.device), "bias": _zeros(g, c)}
+
+    w = cfg.width
+    params = {"stem": {"conv": conv(7, 7, 3, w), "bn": bn(w)}, "stages": []}
+    cin = w
+    for s, n_blocks in enumerate(cfg.block_counts):
+        planes = w * (2 ** s)
+        cout = planes * 4
+        stage = []
+        for b in range(n_blocks):
+            block = {"conv1": conv(1, 1, cin, planes), "bn1": bn(planes),
+                     "conv2": conv(3, 3, planes, planes), "bn2": bn(planes),
+                     "conv3": conv(1, 1, planes, cout), "bn3": bn(cout)}
+            if b == 0:
+                block["down_conv"] = conv(1, 1, cin, cout)
+                block["down_bn"] = bn(cout)
+            stage.append(block)
+            cin = cout
+        params["stages"].append(stage)
+    return params

@@ -8,17 +8,21 @@ numerics levers are flags: `--kv-cache {fp,int8,int4}`, `--fused-topk`
 and `--gelu {erf,tanh}` (the frozen encoder's GELU; tell_tpu's
 TELL_TPU_FAST_GELU). `serve --attention` adds the word-attention payload.
 What tnt runs and the port does not yet is refused with its ROADMAP queue
-item: `bench` (item 1), `towers` (item 8), `--coordinator` and
-`--mesh-data` (item 10), the model types outside the captioner family
-(config_io.py).
+item: `bench` (item 1), `towers` (item 8, the remaining towers),
+`--coordinator` and `--mesh-data` (item 10), the model types outside the
+captioner family (config_io.py).
 
 The frozen RoBERTa is read from <shards_dir>/../towers/roberta/state.pt
 (the port's torch format: the param tree saved with torch.save, as
 `python -m tell_tpu_torch.tools.convert_towers` writes it from a
 HuggingFace state dict), or, when there is none, initialised at random
 from seed 0 on the CPU (so the same weights on every device) with
-tell_tpu's warning. A towers/roberta that holds anything else (tell_tpu's
-orbax tree) is refused.
+tell_tpu's warning. A converted ResNet-152 at towers/resnet152/state.pt
+(convert_towers --resnet) is loaded beside it: `serve` then embeds
+raw-image requests and `preprocess` raw <hash>.jpg photos on `--device`.
+A towers/roberta or towers/resnet152 that holds anything else (tell_tpu's
+orbax tree) is refused, and so is `serve` over a towers directory with
+tell_tpu's mtcnn, facenet or yolov3 (not ported: item 8).
 """
 from __future__ import annotations
 
@@ -38,13 +42,12 @@ log = logging.getLogger("tell_tpu_torch.commands")
 ROBERTA_INIT_SEED = 0
 
 
-def _add_common(p, device: bool = True):
+def _add_common(p):
     p.add_argument("config", help="experiment YAML (see expt/)")
     p.add_argument("-o", "--overrides", default=None,
                    help="JSON merged over the YAML config")
-    if device:
-        p.add_argument("--device", default="cuda",
-                       help="where the model runs: cuda (default) or cpu")
+    p.add_argument("--device", default="cuda",
+                   help="where the model runs: cuda (default) or cpu")
 
 
 def _add_levers(p):
@@ -87,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--limit", type=int, default=None)
 
     pre = sub.add_parser("preprocess", help="articles.jsonl -> shards")
-    _add_common(pre, device=False)
+    _add_common(pre)
     pre.add_argument("-s", "--split", default="train")
 
     sv = sub.add_parser("serve", help="start the caption HTTP service")
@@ -126,7 +129,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="name_counters.pkl for rare-name P/R")
 
     for name, item in (("bench", "queue 1 item 1, the port's benchmark"),
-                       ("towers", "queue 1 item 8, the vision towers")):
+                       ("towers", "queue 1 item 8, the remaining towers")):
         b = sub.add_parser(name, help=f"not ported ({item})")
         b.add_argument("rest", nargs=argparse.REMAINDER)
         b.set_defaults(not_ported=item)
@@ -170,7 +173,9 @@ def _towers_dir(exp) -> str:
 
 def _frozen_towers(exp, device, gelu: str = "erf") -> dict:
     """{"roberta": params on `device`, "roberta_cfg": RobertaConfig with
-    the FFN's GELU mode `gelu`}."""
+    the FFN's GELU mode `gelu`}, and with a converted ResNet-152 in the
+    towers directory {"resnet": its tree on `device` in the forward's
+    layout (load_tower), "resnet_cfg": ResNetConfig.resnet152()}."""
     from ..bridge import init_roberta, tree_map
     from ..models.backbones.roberta import RobertaConfig
     rcfg = dataclasses.replace(getattr(RobertaConfig, exp.data.roberta)(),
@@ -191,8 +196,14 @@ def _frozen_towers(exp, device, gelu: str = "erf") -> dict:
                         path)
         g = torch.Generator().manual_seed(ROBERTA_INIT_SEED)
         roberta = init_roberta(g, rcfg)
-    return {"roberta": tree_map(lambda x: x.to(device), roberta),
-            "roberta_cfg": rcfg}
+    frozen = {"roberta": tree_map(lambda x: x.to(device), roberta),
+              "roberta_cfg": rcfg}
+    resnet = os.path.join(_towers_dir(exp), "resnet152")
+    if os.path.exists(resnet):
+        from ..models.backbones.resnet import ResNetConfig, load_tower
+        frozen["resnet"] = load_tower(resnet, device)
+        frozen["resnet_cfg"] = ResNetConfig.resnet152()
+    return frozen
 
 
 def _restore_params(exp, model_dir, device) -> dict:
@@ -284,10 +295,12 @@ def cmd_evaluate(args) -> int:
     return 0
 
 
-def preprocess(exp, split: str, use_native: bool = True) -> tuple[int, str]:
+def preprocess(exp, split: str, use_native: bool = True,
+               device="cuda") -> tuple[int, str]:
     """The split's articles into shards under exp.data.shards_dir, tokenized
-    through the C++ BPE (use_native=False: the Python ByteBPE); returns the
-    example count and the BPE's class name."""
+    through the C++ BPE (use_native=False: the Python ByteBPE), raw photos
+    embedded on `device` by the converted ResNet-152; returns the example
+    count and the BPE's class name."""
     from ..data.pipeline import (load_objects_jsonl, make_image_grid_fn,
                                  preprocess_split, read_articles_jsonl)
     objects_lookup = None
@@ -296,7 +309,7 @@ def preprocess(exp, split: str, use_native: bool = True) -> tuple[int, str]:
     image_grid_fn = None
     if exp.data.images_dir:
         image_grid_fn = make_image_grid_fn(exp.data.images_dir,
-                                           _towers_dir(exp))
+                                           _towers_dir(exp), device)
     tok = _tokenizer(exp, use_native)
     n = preprocess_split(
         read_articles_jsonl(exp.data.articles_jsonl), tok, exp.reader,
@@ -308,7 +321,7 @@ def preprocess(exp, split: str, use_native: bool = True) -> tuple[int, str]:
 
 
 def cmd_preprocess(args) -> int:
-    n, _ = preprocess(_load(args), args.split)
+    n, _ = preprocess(_load(args), args.split, device=args.device)
     print(json.dumps({"examples": n, "split": args.split}))
     return 0
 
@@ -316,11 +329,14 @@ def cmd_preprocess(args) -> int:
 def cmd_serve(args) -> int:
     from ..models.backbones.roberta import RobertaEncoder
     from ..serving import CaptionService, serve
+    from ..serving.vision import refuse_unported_towers
     if args.mesh_data != 1:
         raise NotPortedError("data-parallel serving is not ported yet "
                              "(ROADMAP queue 1 item 10, parallelism)")
     exp = _load(args)
     device = _device(args)
+    if os.path.isdir(_towers_dir(exp)):
+        refuse_unported_towers(os.listdir(_towers_dir(exp)))
     frozen = _frozen_towers(exp, device, args.gelu)
     service = CaptionService(
         _restore_params(exp, args.model, device),
@@ -330,7 +346,9 @@ def cmd_serve(args) -> int:
         engine_length_penalty=args.engine_length_penalty,
         engine_buckets=args.engine_buckets, encode_batch=args.encode_batch,
         kv_cache=args.kv_cache, fused_topk=args.fused_topk,
-        need_attention=args.attention)
+        need_attention=args.attention,
+        towers={k: frozen[k] for k in ("resnet", "resnet_cfg")
+                if k in frozen})
     if args.warmup:
         w = service.warmup()
         print(f"warmed article widths {w['widths']} in {w['seconds']:.1f}s")

@@ -42,36 +42,53 @@ _lock = threading.Lock()
 _libs: dict[Path, ctypes.CDLL] = {}
 
 
-def library_path(build_dir: Path = BUILD_DIR) -> Path:
-    """The build's output path for the current sources and flags."""
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((NATIVE_DIR / name).read_bytes())
-    return Path(build_dir) / f"libtnt_host_{h.hexdigest()[:16]}.so"
+def shared_library_path(sources, flags, build_dir: Path, stem: str) -> Path:
+    """<build_dir>/<stem>_<hash>.so, the hash over the flags and the files'
+    names and bytes."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
+        h.update(Path(path).name.encode())
+        h.update(Path(path).read_bytes())
+    return Path(build_dir) / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(build_dir: Path = BUILD_DIR) -> Path:
-    """Compile native/*.cpp unless the library for these sources exists in
-    build_dir; written to a temporary name and renamed into place, so
-    processes that build at once never load a half-written file."""
-    out = library_path(build_dir)
+def compile_shared(sources, headers, flags, build_dir: Path,
+                   stem: str) -> Path:
+    """Compile `sources` with g++ into a shared library unless the one for
+    these files and flags exists in build_dir; written to a temporary name
+    and renamed into place, so processes that build at once never load a
+    half-written file. A failed build raises with the compiler's output."""
+    out = shared_library_path([*sources, *headers], flags, build_dir, stem)
     if out.exists():
         return out
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: tell_tpu_torch's host library "
-                           "is compiled from native/*.cpp")
+        raise RuntimeError(f"g++ not found: {stem} is compiled from "
+                           + ", ".join(Path(s).name for s in sources))
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [cxx, *CXX_FLAGS, "-o", str(tmp),
-           *(str(NATIVE_DIR / s) for s in SOURCES)]
+    cmd = [cxx, *flags, "-o", str(tmp), *(str(s) for s in sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed ({proc.returncode}): {' '.join(cmd)}"
                            f"\n{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def library_path(build_dir: Path = BUILD_DIR) -> Path:
+    """The build's output path for the current sources and flags."""
+    return shared_library_path(
+        [NATIVE_DIR / n for n in SOURCES + HEADERS], CXX_FLAGS, build_dir,
+        "libtnt_host")
+
+
+def build(build_dir: Path = BUILD_DIR) -> Path:
+    """Compile native/*.cpp unless the library for these sources exists in
+    build_dir."""
+    return compile_shared([NATIVE_DIR / n for n in SOURCES],
+                          [NATIVE_DIR / n for n in HEADERS], CXX_FLAGS,
+                          build_dir, "libtnt_host")
 
 
 def _bind(lib: ctypes.CDLL) -> None:

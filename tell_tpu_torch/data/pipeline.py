@@ -1,14 +1,18 @@
 """Offline preprocessing: article documents -> training shards
 (counterpart of tell_tpu/data/pipeline.py).
 
-  articles.jsonl (exported Mongo documents) + precomputed image grids
+  articles.jsonl (exported Mongo documents) + images
       -> context assembly (readers.py) -> byte-BPE ids (tokenizer.py)
+      -> ResNet-152 grid features (the frozen tower, run once, fp16)
       -> sharded .npz records (records.py::write_shard)
 
 The shards are tell_tpu's format, so either package reads the other's.
-Image grids come in as <hash>.npy files: embedding raw images needs the
-ResNet-152 tower, which is not ported yet (ROADMAP queue 1 item 8), and
-GloVe article features wait for data/glove.py (item 9).
+An image is a precomputed <hash>.npy grid, or a raw <hash>.jpg / .jpeg
+photo that the converted ResNet-152 in the towers directory embeds on the
+device (decoded by data/jpeg.py, resized and cropped by data/images.py,
+as tell_tpu does through Pillow). PNG and the JPEG forms the port's
+decoder refuses wait for ROADMAP queue 1 item 8; GloVe article features
+wait for data/glove.py (item 9).
 """
 from __future__ import annotations
 
@@ -20,6 +24,9 @@ from typing import Callable, Iterator
 import numpy as np
 
 from ..config import NotPortedError
+from ..models.backbones.resnet import ResNetConfig, image_grid, load_tower
+from .images import resize_shortest_crop
+from .jpeg import decode_jpeg
 from .readers import ReaderConfig, iter_examples
 from .records import write_shard
 from .tokenizer import RobertaTokenizer
@@ -61,17 +68,33 @@ def load_objects_jsonl(path: str) -> Callable[[str], dict | None]:
     return store.get
 
 
-def make_image_grid_fn(images_dir: str, towers_dir: str | None = None
-                       ) -> Callable[[str], np.ndarray | None]:
-    """hash -> [49, 2048] image-grid features for preprocess.
+def make_image_grid_fn(images_dir: str, towers_dir: str | None = None,
+                       device="cuda") -> Callable[[str], np.ndarray | None]:
+    """hash -> [49, 2048] ResNet-152 grid features for preprocess.
 
-    A precomputed `<hash>.npy` is read. A raw `<hash>.jpg/.jpeg/.png`
-    with no converted ResNet-152 in `towers_dir` gives None, as does a
-    missing hash: preprocess skips the example, as tell_tpu does. A raw
-    image WITH a converted tower raises: tell_tpu would embed it, and the
-    port has no ResNet yet."""
-    has_tower = bool(towers_dir) and os.path.exists(
-        os.path.join(towers_dir, "resnet152"))
+    A precomputed `<hash>.npy` wins. A raw `<hash>.jpg/.jpeg` is embedded
+    through the converted tower at `towers_dir`/resnet152/state.pt, loaded
+    on `device` at the first raw image; a raw `<hash>.png` is refused
+    (ROADMAP queue 1 item 8). Without a tower a raw image gives None, as
+    does a missing hash: preprocess skips the example, as tell_tpu
+    does."""
+    state: dict = {}
+
+    def embed(path: str) -> np.ndarray | None:
+        if "tower" not in state:
+            tower = (os.path.join(towers_dir, "resnet152") if towers_dir
+                     else None)
+            state["tower"] = (load_tower(tower, device)
+                              if tower and os.path.exists(tower) else None)
+        if state["tower"] is None:
+            return None
+        if path.endswith(".png"):
+            raise NotPortedError(f"{path}: PNG images are not decoded yet "
+                                 "(ROADMAP queue 1 item 8)")
+        with open(path, "rb") as f:
+            img = decode_jpeg(f.read())
+        return image_grid(state["tower"], ResNetConfig.resnet152(),
+                          resize_shortest_crop(img).astype(np.float32))
 
     def fn(image_hash: str) -> np.ndarray | None:
         if not image_hash:
@@ -82,12 +105,7 @@ def make_image_grid_fn(images_dir: str, towers_dir: str | None = None
         for ext in (".jpg", ".jpeg", ".png"):
             p = os.path.join(images_dir, image_hash + ext)
             if os.path.exists(p):
-                if has_tower:
-                    raise NotPortedError(
-                        f"{p}: embedding raw images through the ResNet-152 "
-                        "tower is not ported yet (ROADMAP queue 1 item 8, "
-                        "vision towers); precompute <hash>.npy grids")
-                return None
+                return embed(p)
         return None
 
     return fn

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..bridge import ParamTree
 from ..config import CaptionerConfig
+from .backbones.resnet import resnet_forward
 from .backbones.roberta import roberta_encode_windowed
 from .decoder import (attn_segment_bounds, decoder_loss, decoder_step,
                       decoder_top_k, init_decode_state, split_attn_segments)
@@ -63,11 +64,13 @@ def build_contexts(params: dict, cfg: CaptionerConfig, batch: dict) -> dict:
 
 
 def encode_contexts(frozen: dict, cfg: CaptionerConfig, batch: dict) -> dict:
-    """Run the RoBERTa article encode for a batch that carries context_ids
-    (frozen = {"roberta": params, "roberta_cfg": RobertaConfig}). No
-    gradient reaches the tower: it is frozen (tell_tpu stops gradients
-    here, captioner.py:104-107), and kernel B has no backward. Image grids
-    come in precomputed: the vision towers are not ported yet."""
+    """Run the frozen towers a batch needs: the RoBERTa article encode for
+    context_ids (frozen["roberta"], frozen["roberta_cfg"]), and the ResNet
+    grid for a batch's preprocessed `image` [B, H, W, 3] that carries no
+    image_grid (frozen["resnet"] in load_tower's layout,
+    frozen["resnet_cfg"]). No gradient
+    reaches a tower: they are frozen (tell_tpu stops gradients here,
+    captioner.py:104-113), and kernel B has no backward."""
     out = dict(batch)
     if ("context_ids" in batch and "article_hiddens" not in batch
             and "article" not in batch):
@@ -78,6 +81,10 @@ def encode_contexts(frozen: dict, cfg: CaptionerConfig, batch: dict) -> dict:
                 return_all_hiddens=cfg.weigh_bert)
         out["article_hiddens" if cfg.weigh_bert else "article"] = hiddens
         out["article_mask"] = batch["context_ids"] == rcfg.pad_id
+    if "image" in batch and "image_grid" not in batch:
+        with torch.no_grad():
+            out["image_grid"] = resnet_forward(
+                frozen["resnet"], frozen["resnet_cfg"], batch["image"])
     return out
 
 

@@ -32,8 +32,15 @@ need_attention adds the demo's attention payload to each answer: per-step
 maps of the first layer per context ("attns") merged into words
 (serving/word_attention.py). Micro-batch mode records them in
 generate(need_weights=True); engine mode replays the winning caption
-teacher-forced (replay_attention), off the engine's hot path. The vision
-pipeline (raw-image requests) is not ported (ROADMAP queue 1 item 8).
+teacher-forced (replay_attention), off the engine's hot path.
+
+A request may carry its photo instead of its image grid: `image_b64` (an
+encoded JPEG), `image` (an [H, W, 3] list) or, from the scrape flow,
+`sections[image_position].image_data` (base64). With a ResNet-152 among the
+service's towers, VisionPipeline (serving/vision.py) decodes, crops and
+embeds it on the device while the micro-batch is packed; a photo that does
+not decode fails its own request only. Face and object rows still come
+with the request (their towers are not ported: ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ from . import extractor
 from .batcher import MicroBatcher
 from .encode_batcher import EncodeBatcher
 from .engine import DecodeEngine
+from .vision import VisionPipeline
 from .word_attention import merge_word_attentions
 
 log = logging.getLogger("tell_tpu_torch.serving")
@@ -87,7 +95,9 @@ class CaptionService:
     (engine_beam beams, engine_length_penalty; engine_buckets: one engine
     per article width); encode_batch caps the rows of one batched article
     encode in front of it. need_attention adds the attention payload to
-    every answer."""
+    every answer. towers: the frozen vision towers ({"resnet": load_tower's
+    or prepare_resnet's tree, "resnet_cfg": ResNetConfig}), which give
+    raw-image requests their grid."""
 
     def __init__(self, params: dict, roberta: RobertaEncoder,
                  cfg: CaptionerConfig, device, tokenizer=None,
@@ -96,7 +106,8 @@ class CaptionService:
                  engine_length_penalty: float = 0.0,
                  engine_buckets: bool = False, encode_batch: int = 8,
                  kv_cache: str = "fp",
-                 fused_topk: bool = False, need_attention: bool = False):
+                 fused_topk: bool = False, need_attention: bool = False,
+                 towers: dict | None = None):
         if need_attention and tokenizer is None:
             raise ValueError("need_attention merges the maps into words "
                              "and needs a tokenizer")
@@ -126,6 +137,9 @@ class CaptionService:
 
         self._spec = {"faces": spec_of("faces"), "obj": spec_of("obj"),
                       "image": spec_of("image")}
+        self.vision = VisionPipeline(
+            to_torch(towers or {}, self.device),
+            wanted={k: n for k, (n, _) in self._spec.items()})
         self.batcher = MicroBatcher(self._run, max_batch=max_batch)
         self._close_lock = threading.Lock()
         self._closed = False
@@ -227,21 +241,53 @@ class CaptionService:
                 text, max_len=self.article_len), np.int64)
         return np.zeros(0, np.int64)
 
+    @staticmethod
+    def _request_image(req: dict) -> dict:
+        """The request with its photo where VisionPipeline looks: the scrape
+        flow ships it as sections[image_position].image_data (base64);
+        direct requests use image / image_b64. A position past the sections
+        means no photo; a section that is not a dict raises, and _pack
+        reports a bad request image, as tell_tpu's does."""
+        if "image" in req or "image_b64" in req:
+            return req
+        if "sections" in req:
+            try:
+                pos = int(req.get("image_position", 0))
+                data = req["sections"][pos].get("image_data")
+            except (IndexError, TypeError, ValueError):
+                data = None
+            if data:
+                return {**req, "image_b64": data}
+        return req
+
     def _pack(self, requests: list[dict], bucketed: bool = False
               ) -> tuple[dict, list]:
         """Returns (numpy batch, errors): errors[i] is None or a message
         for request i. A malformed request degrades to an empty context of
-        its own instead of failing the batch it shares. The article ids
-        are article_len wide, or with `bucketed` the smallest article
-        bucket that holds the longest one."""
+        its own instead of failing the batch it shares: a photo that does
+        not decode or embed keeps only the request's `context` text, as
+        tell_tpu's does. The article ids are article_len wide, or with
+        `bucketed` the smallest article bucket that holds the longest
+        one."""
         B = len(requests)
         errors: list = [None] * B
+        prepped = []
+        for i, req in enumerate(requests):
+            try:
+                req = self._request_image(req)
+                if "image" in req or "image_b64" in req:
+                    req = {**req, **self.vision.process(req)}
+            except Exception as e:  # noqa: BLE001 - reported per request
+                errors[i] = f"bad request image: {e}"
+                req = {"context": req["context"]} if "context" in req else {}
+            prepped.append(req)
+        requests = prepped
         all_toks = []
         for i, req in enumerate(requests):
             try:
                 all_toks.append(self._request_ids(req))
             except ValueError as e:
-                errors[i] = f"bad context: {e}"
+                errors[i] = errors[i] or f"bad context: {e}"
                 all_toks.append(np.zeros(0, np.int64))
         width = self.article_len
         if bucketed:

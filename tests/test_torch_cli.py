@@ -311,3 +311,76 @@ def test_saved_roberta_tower_is_read(tmp_path):
     assert torch.equal(got["word_embed"], tree["word_embed"])
     assert torch.equal(got["layers"][1]["fc2"]["w"],
                        tree["layers"][1]["fc2"]["w"])
+
+
+def test_convert_resnet_then_preprocess_embeds_a_photo(tmp_path,
+                                                       monkeypatch):
+    """convert_towers --resnet on a seeded torchvision-named state dict,
+    then preprocess over an images_dir with one .jpg: the shard's
+    image_grid is the photo's grid through the converted tower, in fp16.
+    ResNetConfig.resnet152 is shrunk to blocks (1, 1, 1, 1), width 8."""
+    from tell_tpu_torch.bridge import to_torch
+    from tell_tpu_torch.data.images import resize_shortest_crop
+    from tell_tpu_torch.data.jpeg import decode_jpeg
+    from tell_tpu_torch.data.records import ShardReader
+    from tell_tpu_torch.models.backbones import resnet as tr
+    from tell_tpu_torch.tools import convert_towers
+    from tests.test_torch_resnet import torchvision_state_dict
+    tiny = tr.ResNetConfig((1, 1, 1, 1), 8)
+    monkeypatch.setattr(tr.ResNetConfig, "resnet152",
+                        staticmethod(lambda: tiny))
+    cfg = write_e2e_config(tmp_path)
+    sd = {k: torch.from_numpy(v)
+          for k, v in torchvision_state_dict(tiny, seed=4).items()}
+    torch.save(sd, tmp_path / "resnet152.pth")
+    towers = tmp_path / "towers"
+    assert convert_towers.main(["--out", str(towers), "--resnet",
+                                str(tmp_path / "resnet152.pth")]) == 0
+    photo = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "fixtures", "images", "news_a_320x240_420.jpg")
+    (tmp_path / "imgs").mkdir()
+    with open(photo, "rb") as f:
+        data = f.read()
+    (tmp_path / "imgs" / "h0.jpg").write_bytes(data)
+    over = json.dumps({"data": {"images_dir": str(tmp_path / "imgs")}})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert main(["preprocess", cfg, "-o", over, "-s", "train",
+                     "--device", "cpu"]) == 0
+    assert json.loads(buf.getvalue()) == {"examples": 1, "split": "train"}
+    reader = ShardReader(str(tmp_path / "shards" / "train-00000.npz"))
+    assert len(reader) == 1
+    got = reader[0]["image_grid"]
+    tree = to_torch(tr.convert_torchvision_resnet(sd, tiny), "cpu")
+    want = tr.image_grid(tr.prepare_resnet(tree), tiny, resize_shortest_crop(
+        decode_jpeg(data)).astype("float32"))
+    assert got.dtype == "float16" and got.shape == (49, 256)
+    assert (got == want.astype("float16")).all()
+    # the tower goes to the card unless asked otherwise, and there is none
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["preprocess", cfg, "-o", over, "-s", "train"])
+
+
+def test_resnet_tower_is_read_and_an_orbax_one_refused(tmp_path):
+    """towers/resnet152/state.pt is loaded as frozen["resnet"], in the
+    forward's layout, with ResNetConfig.resnet152(); a towers/resnet152
+    without one (tell_tpu's orbax tree) is refused naming item 6, as
+    RoBERTa's is."""
+    from tell_tpu_torch.bridge import init_resnet
+    from tell_tpu_torch.commands import __main__ as cli
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.models.backbones.resnet import (ResNetConfig,
+                                                        prepare_resnet)
+    exp = load_experiment(write_e2e_config(tmp_path))
+    assert "resnet" not in cli._frozen_towers(exp, "cpu")
+    (tmp_path / "towers" / "resnet152").mkdir(parents=True)
+    with pytest.raises(NotPortedError, match="queue 1 item 6"):
+        cli._frozen_towers(exp, "cpu")
+    tree = init_resnet(torch.Generator().manual_seed(1),
+                       ResNetConfig((1, 1, 1, 1), 8))
+    torch.save(tree, tmp_path / "towers" / "resnet152" / "state.pt")
+    frozen = cli._frozen_towers(exp, "cpu")
+    assert frozen["resnet_cfg"] == ResNetConfig.resnet152()
+    assert torch.equal(frozen["resnet"]["stages"][3][0]["conv2"],
+                       prepare_resnet(tree)["stages"][3][0]["conv2"])

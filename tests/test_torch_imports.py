@@ -1,14 +1,15 @@
-"""tell_tpu_torch never imports JAX, `regex`, PyYAML, bs4, tensorboard or
-orbax.
+"""tell_tpu_torch never imports JAX, `regex`, PyYAML, bs4, tensorboard,
+orbax or Pillow.
 
 A fresh interpreter with those blocked (sys.modules["jax"] = None makes
 any `import jax` raise; none of the others is a dependency of the port,
 and the card's machine has none of bs4, tensorboard and orbax) imports
 every tell_tpu_torch module, checks that no tell_tpu module was loaded
 (the port keeps its own config dataclasses, tokenizer, YAML reader,
-TensorBoard writer and HTML parser), loads an expt/ YAML, round-trips text
-through the tokenizer (the C++ BPE), parses an article page, writes and
-reads back a TensorBoard scalar, then runs the slices on CPU tensors at a
+TensorBoard writer, HTML parser and JPEG decoder), loads an expt/ YAML,
+round-trips text through the tokenizer (the C++ BPE), parses an article
+page, writes and reads back a TensorBoard scalar, decodes and crops a JPEG
+and embeds it with a tiny ResNet, then runs the slices on CPU tensors at a
 tiny size (greedy
 generate, a train step, the continuous-batching engine with the int8 K/V
 cache and the fused top-k, and kernel F's two forms) and checks that the
@@ -23,7 +24,7 @@ _SCRIPT = r"""
 import importlib, json, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
-BLOCKED = ("regex", "yaml", "bs4", "tensorboard", "orbax")
+BLOCKED = ("regex", "yaml", "bs4", "tensorboard", "orbax", "PIL")
 for name in BLOCKED:
     sys.modules[name] = None
 import tell_tpu_torch
@@ -101,11 +102,22 @@ from tell_tpu_torch.training.tensorboard import TensorBoardWriter, read_events
 w = TensorBoardWriter(tempfile.mkdtemp())
 w.add_scalar("train/loss", 0.5, step=3)
 w.close()
+from tell_tpu_torch.bridge import init_resnet
+from tell_tpu_torch.data.images import resize_shortest_crop
+from tell_tpu_torch.data.jpeg import decode_jpeg
+from tell_tpu_torch.models.backbones.resnet import (ResNetConfig, image_grid,
+                                                    prepare_resnet)
+with open("tests/fixtures/images/news_a_320x240_420.jpg", "rb") as f:
+    photo = decode_jpeg(f.read())
+rcfg_img = ResNetConfig((1, 1, 1, 1), 8)
+grid = image_grid(prepare_resnet(init_resnet(g, rcfg_img)), rcfg_img,
+                  resize_shortest_crop(photo).astype("float32"))
 print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "text_round_trip": tok.decode(tok.encode(text)) == text,
                   "bpe": type(tok.bpe).__name__,
                   "extract": [sections, title],
                   "events": read_events(w.path)[1]["scalars"],
+                  "photo": [list(photo.shape), list(grid.shape)],
                   "expt_kernel_sizes": list(exp.model.decoder.kernel_sizes),
                   "blocked_loaded": [m for m in BLOCKED
                                      if sys.modules.get(m) is not None],
@@ -148,7 +160,9 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                  "config_io", "evalm.bleu", "evalm.rouge", "evalm.cider",
                  "evalm.meteor", "evalm.entities", "evalm.readability",
                  "commands.evaluate", "commands.__main__",
-                 "tools.gen_quality_corpus", "tools.quality_loop"):
+                 "tools.gen_quality_corpus", "tools.quality_loop",
+                 "data.jpeg", "data.images", "serving.vision",
+                 "models.backbones.resnet", "tools.convert_towers"):
         assert f"tell_tpu_torch.{name}" in res["modules"]
     assert res["jax_package"] == []
     assert res["jax_loaded"] is False
@@ -158,6 +172,7 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
     assert res["extract"] == [[{"type": "paragraph", "text": "Para & more."}],
                               "T"]
     assert res["events"] == {"train/loss": 0.5}
+    assert res["photo"] == [[240, 320, 3], [49, 256]]
     assert res["expt_kernel_sizes"] == [3, 7, 15, 31]
     assert res["token_ids"] == [2, 4]
     assert res["train_loss_finite"] is True

@@ -174,16 +174,36 @@ def test_preprocess_synthetic_corpus_equals_jax(tmp_path, copy):
 
 
 def test_raw_images_skip_without_a_tower_and_refuse_with_one(tmp_path):
+    """Without a tower a raw image gives None (the example is skipped). A
+    towers/resnet152 without the port's state.pt (tell_tpu's orbax tree)
+    is refused naming item 6; with a converted tower a PNG is refused
+    naming item 8. Raw JPEGs through a converted tower:
+    tests/test_torch_vision.py."""
+    import torch
+
+    from tell_tpu_torch.bridge import init_resnet
+    from tell_tpu_torch.models.backbones.resnet import ResNetConfig
     (tmp_path / "imgs").mkdir()
     np.save(tmp_path / "imgs" / "a.npy", np.ones((49, 2048), np.float16))
     (tmp_path / "imgs" / "b.jpg").write_bytes(b"\xff\xd8")
-    fn = make_image_grid_fn(str(tmp_path / "imgs"), str(tmp_path / "towers"))
+    (tmp_path / "imgs" / "c.png").write_bytes(b"\x89PNG\r\n\x1a\n")
+    towers = str(tmp_path / "towers")
+    fn = make_image_grid_fn(str(tmp_path / "imgs"), towers, "cpu")
     assert fn("a").shape == (49, 2048)
-    assert fn("b") is None and fn("missing") is None and fn("") is None
+    assert fn("b") is None and fn("c") is None
+    assert fn("missing") is None and fn("") is None
     (tmp_path / "towers" / "resnet152").mkdir(parents=True)
-    fn = make_image_grid_fn(str(tmp_path / "imgs"), str(tmp_path / "towers"))
+    fn = make_image_grid_fn(str(tmp_path / "imgs"), towers, "cpu")
     assert fn("a").shape == (49, 2048)
+    with pytest.raises(NotPortedError, match="queue 1 item 6"):
+        fn("b")
+    torch.save(init_resnet(torch.Generator().manual_seed(0),
+                           ResNetConfig((1, 1, 1, 1), 8)),
+               tmp_path / "towers" / "resnet152" / "state.pt")
+    fn = make_image_grid_fn(str(tmp_path / "imgs"), towers, "cpu")
     with pytest.raises(NotPortedError, match="queue 1 item 8"):
+        fn("c")
+    with pytest.raises(ValueError, match="truncated"):
         fn("b")
 
 
