@@ -194,7 +194,8 @@ every phase passed):
      flagship micro-batch service
      with the tower (RoBERTa-large, the quality corpus's tokenizer): an
      image_b64 request with article text and the same text with the
-     photo's image_grid pack the same ids and grid and answer the same
+     photo's image_grid (computed outside the service: decode, crop,
+     image_grid) pack the same ids and grid and answer the same
      ids over HTTP, and so do a scraped sections request with the photo
      in sections[image_position].image_data and its window's text with
      the grid; a micro-batch of six with a bad base64 and a progressive
@@ -206,6 +207,31 @@ every phase passed):
      torchvision-named state dict of the tower and preprocess --device
      cuda over an images_dir holding one photo as a <hash>.jpg: every
      example's image_grid equals that photo's grid in fp16.
+ 15. faces and objects from a photo: random full-width MTCNN (its face
+     logits' biases raised by FACE_BIAS), FaceNet InceptionResnetV1
+     (repeats 5/10/5) and YOLOv3-SPP (80 classes; batch norm scaled by
+     YOLO_BN, the objectness biases raised by OBJ_BIAS) from the seed on
+     the CPU, and phase 14's ResNet-152; the two news photos letterboxed
+     onto the 416 canvas; on the card against the CPU: every face MTCNN
+     finds and every detection YOLO's NMS keeps, the same counts and each
+     box within BOX_TOL_PX of one of the other's (a reordering is
+     logged), the FaceNet rows of the four largest faces and the pooled
+     ResNet rows of the first CPU_OBJECT_ROWS detections on the card's
+     boxes within FEATURE_REL_TOL, and the served stages' rows equal to
+     those; the same rows with every fp32 pin taken out under TF32 must
+     miss that limit (the control); ms per photo of the letterbox, each
+     stage and the whole process() (CUDA events around calls that end on
+     the host, 2 warm-ups), the share of the NMS in each stage and each
+     stage's peak memory; the flagship service with all four towers:
+     phase 14's checks with the photo's image_grid, face_embeds and
+     obj_embeds sent precomputed, computed outside the service's
+     pipeline (the grid as in phase 14; the faces and objects from
+     detect_faces' and nms_fixed's boxes on the letterbox canvas,
+     embedded by FaceNet and the pooled ResNet; micro-batch and engine,
+     kernels A and B counted and required); then convert_towers
+     --facenet, --mtcnn and --yolo-cfg/--yolo-weights on facenet-pytorch
+     and darknet files (tests/tower_writers.py) from the same towers, and
+     the loader serve uses reads back the converter's trees bit for bit.
 Then one JSON line describing the kernels and, last, the result line.
 
     python3 chip_smoke.py --cli
@@ -254,6 +280,10 @@ runs phases 1-2, then phase 13 only; no result line.
 
 runs phases 1-2, then phase 14 only; no result line.
 
+    python3 chip_smoke.py --faces-objects
+
+runs phases 1-2, then phase 15 only; no result line.
+
     python3 chip_smoke.py --beam N
 
 runs phases 1-2, then phase 10's one-shot beam search (the long-article
@@ -270,6 +300,7 @@ import contextlib
 import dataclasses
 import functools
 import http.client
+import importlib.util
 import itertools
 import json
 import math
@@ -3158,14 +3189,14 @@ def _check_tower(seed, rn_cfg, crops, dev, card) -> dict:
            "init_s": init_s, "cpu_forward_s": cpu_s}
     if card:
         # the control: the whole tower in TF32, its pin taken out
-        pin = resnet.fp32_convs
-        resnet.fp32_convs = contextlib.nullcontext
+        pin = resnet.fp32_math
+        resnet.fp32_math = contextlib.nullcontext
         try:
             torch.backends.cudnn.allow_tf32 = True
             with torch.inference_mode():
                 tf32 = resnet_forward(tower, rn_cfg, x.to(dev)).cpu()
         finally:
-            resnet.fp32_convs = pin
+            resnet.fp32_math = pin
             torch.backends.cudnn.allow_tf32 = before
         out["tf32_tower_rel_err"] = float((tf32 - ref).abs().max()) / scale
         require(out["tf32_tower_rel_err"] > GRID_REL_TOL,
@@ -3233,15 +3264,63 @@ def _engine_vs_one_shot(esvc, params, cfg, req, body, label):
     return gap
 
 
-def _check_image_service(seed, cfg, rcfg, rn_cfg, tower, dev, root) -> dict:
-    """The flagship micro-batch service with the tower: a photo as
-    image_b64, as sections[pos].image_data and as its image_grid; bad
-    photos in one micro-batch; then the engine (beam 5) on the same
-    weights."""
-    from tell_tpu_torch.bridge import init_captioner, init_roberta
+def _same_features(a: dict, b: dict, keys) -> bool:
+    """The packed features `keys` of two packs equal bit for bit (NaN rows,
+    absent faces and objects, in the same places)."""
+    return all(np.array_equal(a[k], b[k], equal_nan=True) for k in keys)
+
+
+def _photo_features(towers, data: bytes, keys, max_faces: int,
+                    max_objects: int) -> dict:
+    """The photo's features `keys` by the phases' own route, not through
+    VisionPipeline: the grid of its 224 crop (decode_jpeg,
+    resize_shortest_crop, image_grid); on its letterbox canvas, the
+    FaceNet rows of the faces detect_faces keeps and the pooled ResNet
+    rows of nms_fixed's detections (_stage_rows), NaN at the absent
+    rows."""
     from tell_tpu_torch.data.images import resize_shortest_crop
     from tell_tpu_torch.data.jpeg import decode_jpeg
+    from tell_tpu_torch.models.backbones.mtcnn import MTCNNConfig, detect_faces
     from tell_tpu_torch.models.backbones.resnet import image_grid
+    from tell_tpu_torch.models.backbones.yolov3 import (nms_fixed,
+                                                        yolov3_forward,
+                                                        yolov3_spp_module_defs)
+    from tell_tpu_torch.serving.vision import _INV_255, DET_CANVAS, letterbox
+    img = decode_jpeg(data)
+    out = {}
+    if "image_grid" in keys:
+        out["image_grid"] = image_grid(towers["resnet"], towers["resnet_cfg"],
+                                       resize_shortest_crop(img).astype(
+                                           np.float32))
+    if "face_embeds" in keys or "obj_embeds" in keys:
+        dev = towers["resnet"]["stem"]["conv"].device
+        c = torch.from_numpy(letterbox(img.astype(np.float32),
+                                       DET_CANVAS)[0])
+        with torch.inference_mode():
+            fb, _, fv = detect_faces(towers["mtcnn"], c.to(dev),
+                                     MTCNNConfig(max_faces=max_faces))
+            dets = yolov3_forward(towers["yolov3"],
+                                  towers.get("yolov3_defs")
+                                  or yolov3_spp_module_defs(),
+                                  c.to(dev)[None] * _INV_255)[0]
+            ob, _, ov = nms_fixed(dets, 0.3, 0.6, max_det=max_objects)
+        rows = _stage_rows(towers, c, fb[fv], ob[ov])
+        for key, valid, r in (("face_embeds", fv, rows[0]),
+                              ("obj_embeds", ov, rows[1])):
+            full = np.full((len(valid), r.shape[1]), np.nan, np.float32)
+            full[valid.cpu().numpy()] = r.numpy()
+            out[key] = full
+    return {k: out[k] for k in keys}
+
+
+def _check_image_service(seed, cfg, rcfg, towers, dev, root,
+                         keys=("image_grid",), label="phase 14") -> dict:
+    """The flagship micro-batch service with the vision towers: a photo as
+    image_b64, as sections[pos].image_data, and the same texts with the
+    photo's features `keys` (computed by _photo_features, outside the
+    service's pipeline) sent precomputed; bad photos in one micro-batch;
+    then the engine (beam 5) on the same weights."""
+    from tell_tpu_torch.bridge import init_captioner, init_roberta
     from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
     from tell_tpu_torch.serving import CaptionService, serve
     t0 = time.perf_counter()
@@ -3249,13 +3328,20 @@ def _check_image_service(seed, cfg, rcfg, rn_cfg, tower, dev, root) -> dict:
     params = init_captioner(g, cfg)
     roberta = RobertaEncoder(init_roberta(g, rcfg), rcfg)
     tok = _smoke_tokenizer(root, rcfg.vocab_size)
-    towers = {"resnet": tower, "resnet_cfg": rn_cfg}
     svc = CaptionService(params, roberta, cfg, dev, tokenizer=tok,
                          max_batch=8, towers=towers)
-    require(svc.vision.has_grid, "phase 14: the service has no grid stage")
+    stages = {"image_grid": svc.vision.has_grid,
+              "face_embeds": svc.vision.has_faces,
+              "obj_embeds": svc.vision.has_objects}
+    require(all(stages[k] for k in keys),
+            f"{label}: the service's stages are {stages}")
     photos = {n: _read_fixture(root, n) for n in NEWS_PHOTOS}
-    grids = {n: image_grid(tower, rn_cfg, resize_shortest_crop(
-        decode_jpeg(d)).astype(np.float32)) for n, d in photos.items()}
+    feats = {n: _photo_features(towers, d, keys, svc.vision.max_faces,
+                                svc.vision.max_objects)
+             for n, d in photos.items()}
+
+    def given(name):
+        return {k: feats[name][k].tolist() for k in keys}
     arts = _quality_articles(root)
     text = "\n".join(s["text"] for s in arts[1]["parsed_section"]
                      if s["type"] == "paragraph")
@@ -3265,30 +3351,30 @@ def _check_image_service(seed, cfg, rcfg, rn_cfg, tower, dev, root) -> dict:
     scraped = _sections_request(art, pos)
     scraped["sections"][pos]["image_data"] = _b64(photos[NEWS_PHOTOS[1]])
     reqs = {
-        "image_b64": {"context": text, "image_b64": _b64(
+        "photo": {"context": text, "image_b64": _b64(
             photos[NEWS_PHOTOS[0]])},
-        "image_grid": {"context": text,
-                       "image_grid": grids[NEWS_PHOTOS[0]].tolist()},
+        "features": {"context": text, **given(NEWS_PHOTOS[0])},
         "sections": scraped,
-        "sections_grid": {"context": svc._sections_text(scraped),
-                          "image_grid": grids[NEWS_PHOTOS[1]].tolist()},
+        "sections_features": {"context": svc._sections_text(scraped),
+                              **given(NEWS_PHOTOS[1])},
     }
-    for a, b in (("image_b64", "image_grid"), ("sections", "sections_grid")):
+    for a, b in (("photo", "features"), ("sections", "sections_features")):
         pa, ea = svc._pack([reqs[a]])
         pb, eb = svc._pack([reqs[b]])
         require(ea == eb == [None], (ea, eb))
         require(np.array_equal(pa["context_ids"], pb["context_ids"]),
-                f"phase 14: {a} and {b} pack other ids")
-        require(np.array_equal(pa["image_grid"], pb["image_grid"])
-                and np.abs(pa["image_grid"]).max() > 0,
-                f"phase 14: the {a} request's packed grid is not its photo's")
-    log(f"phase 14: flagship service with the tower on {dev} in "
+                f"{label}: {a} and {b} pack other ids")
+        require(_same_features(pa, pb, keys)
+                and all(np.nanmax(np.abs(pa[k])) > 0 for k in keys),
+                f"{label}: the {a} request's packed {keys} are not its "
+                "photo's")
+    log(f"{label}: flagship service with the towers on {dev} in "
         f"{time.perf_counter() - t0:.1f} s; the image_b64 and sections "
-        "requests pack their photo's grid bit for bit")
+        f"requests pack their photo's {', '.join(keys)} bit for bit")
 
     httpd = serve(svc, port=0, block=False)
     port = httpd.server_address[1]
-    status, body = _post(port, "/caption", reqs["image_grid"])   # warm-up
+    status, body = _post(port, "/caption", reqs["features"])   # warm-up
     require(status == 200 and "error" not in body, body)
     _reset_counts()
     answers, lat = {}, {}
@@ -3299,35 +3385,37 @@ def _check_image_service(seed, cfg, rcfg, rn_cfg, tower, dev, root) -> dict:
         require(status == 200 and "error" not in body, (name, body))
         answers[name] = body["token_ids"]
     counts = _counts()
-    require(answers["image_b64"] == answers["image_grid"],
-            "phase 14: image_b64 and image_grid answers differ")
-    require(answers["sections"] == answers["sections_grid"],
-            "phase 14: sections and its image_grid answers differ")
+    require(answers["photo"] == answers["features"],
+            f"{label}: the image_b64 and precomputed answers differ")
+    require(answers["sections"] == answers["sections_features"],
+            f"{label}: sections and its precomputed answers differ")
     if dev == "cuda":
         for name in ("decode_attention", "encoder_attention"):
-            require(counts[name] > 0, f"phase 14: {name} never launched")
+            require(counts[name] > 0, f"{label}: {name} never launched")
     # bad photos share a micro-batch with good requests
     with open(os.path.join(root, IMAGES_DIR, "refused_progressive.jpg"),
               "rb") as f:
         progressive = _b64(f.read())
-    mixed = [reqs["image_b64"], {"context": text, "image_b64": "%%% bad"},
-             reqs["image_grid"], {"context": text, "image_b64": progressive},
-             reqs["sections"], reqs["sections_grid"]]
+    mixed = [reqs["photo"], {"context": text, "image_b64": "%%% bad"},
+             reqs["features"], {"context": text, "image_b64": progressive},
+             reqs["sections"], reqs["sections_features"]]
     out = svc._run(mixed)
     for i in (1, 3):
         require(out[i].get("error", "").startswith("bad request image:"),
-                f"phase 14: bad photo {i} answered {out[i]}")
+                f"{label}: bad photo {i} answered {out[i]}")
     require("progressive" in out[3]["error"], out[3]["error"])
     for i in (0, 2, 4, 5):
         require("error" not in out[i], (i, out[i]))
     require(out[0]["token_ids"] == out[2]["token_ids"]
             and out[4]["token_ids"] == out[5]["token_ids"],
-            "phase 14: the mixed micro-batch's photo and grid answers differ")
+            f"{label}: the mixed micro-batch's photo and precomputed "
+            "answers differ")
     status, _ = _post(port, "/shutdown", {})
     require(status == 200, f"/shutdown answered {status}")
     httpd.server_close()
-    log(f"phase 14: micro-batch /caption: image_b64 == image_grid and "
-        f"sections == its window + image_grid token ids; latencies (s) "
+    log(f"{label}: micro-batch /caption: image_b64 == its precomputed "
+        f"features and sections == its window + features, token ids; "
+        f"latencies (s) "
         + json.dumps({k: round(v, 3) for k, v in lat.items()})
         + f"; kernel A launches {counts['decode_attention']}, kernel B "
         f"{counts['encoder_attention']}; a bad base64 and a progressive "
@@ -3345,30 +3433,32 @@ def _check_image_service(seed, cfg, rcfg, rn_cfg, tower, dev, root) -> dict:
             require("error" not in body, (name, body))
             eng[name] = body
         n1 = _counts()
-        require(eng["image_b64"]["token_ids"] == eng["image_grid"]["token_ids"]
+        require(eng["photo"]["token_ids"] == eng["features"]["token_ids"]
                 and eng["sections"]["token_ids"]
-                == eng["sections_grid"]["token_ids"],
-                "phase 14: the engine's photo and grid answers differ")
+                == eng["sections_features"]["token_ids"],
+                f"{label}: the engine's photo and precomputed answers "
+                "differ")
         gaps = {name: _engine_vs_one_shot(esvc, esvc.model.tree(), cfg,
-                                          reqs[name], eng[name], "phase 14")
-                for name in ("image_b64", "sections")}
+                                          reqs[name], eng[name], label)
+                for name in ("photo", "sections")}
     finally:
         esvc.close()
     eng_counts = {k: n1[k] for k in ("decode_attention",
                                      "encoder_attention")}
     if dev == "cuda":
         for name, n in eng_counts.items():
-            require(n > 0, f"phase 14: {name} never launched in the engine")
-    log(f"phase 14: engine (4 slots, beam 5): the photo and grid requests "
-        f"answer the same beams; vs a one-shot beam 5 on the same features:"
-        f" {gaps} (None: equal); kernel A launches "
+            require(n > 0, f"{label}: {name} never launched in the engine")
+    log(f"{label}: engine (4 slots, beam 5): the photo and precomputed "
+        f"requests answer the same beams; vs a one-shot beam 5 on the same "
+        f"features: {gaps} (None: equal); kernel A launches "
         f"{eng_counts['decode_attention']}, kernel B "
         f"{eng_counts['encoder_attention']}")
     svc.close()
     return {"micro_batch_launches": {k: counts[k] for k in
                                      ("decode_attention",
                                       "encoder_attention")},
-            "engine_launches": eng_counts, "engine_gaps": gaps}
+            "engine_launches": eng_counts, "engine_gaps": gaps,
+            "latency_s": lat}
 
 
 def _check_image_cli(rn_cfg, tree, dev, root) -> dict:
@@ -3459,11 +3549,447 @@ def phase_images(seed: int, card: str, dev: str = "cuda", cfg=None,
                          card if dev == "cuda" else None)
     tree, prepared = tower.pop("tree"), tower.pop("tower")
     res["tower"] = tower
-    res["service"] = _check_image_service(seed, cfg, rcfg, rn_cfg, prepared,
-                                          dev, root)
+    res["service"] = _check_image_service(
+        seed, cfg, rcfg, {"resnet": prepared, "resnet_cfg": rn_cfg}, dev,
+        root)
     res["cli"] = _check_image_cli(rn_cfg, tree, dev, root)
     res["seconds"] = time.perf_counter() - t0
     log(f"phase 14: done in {res['seconds']:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 15: faces and objects from a photo -- MTCNN + FaceNet, YOLOv3-SPP
+# with pooled-ResNet crops, on the letterbox canvas
+# ---------------------------------------------------------------------------
+
+# At random init almost no box passes MTCNN's 0.6 / 0.7 / 0.7: each net's
+# face logit bias is raised by FACE_BIAS (the news photos then show 7 and
+# 13 faces). YOLOv3-SPP's 75 convs at init_yolov3's batch-norm scale 1
+# reach head logits of ~7 and boxes of ~1e10 px; every scale at YOLO_BN
+# (RESIDUAL_BN before each shortcut) keeps them near 0.5 and the boxes
+# inside ~700 px; OBJ_BIAS on the objectness logits puts the scores of the
+# 256 candidates well above conf 0.3. The served thresholds stay as they
+# are.
+FACE_BIAS = 3.0
+YOLO_BN = 0.85
+OBJ_BIAS = 1.0
+# card vs CPU: each box within BOX_TOL_PX canvas pixels (read 0.0007 to
+# 0.0023 on the H100); face and object rows on the same boxes within
+# FEATURE_REL_TOL (read 2e-7 to 6.5e-7, against 5.5e-4 to 6.9e-4 with the
+# towers in TF32)
+BOX_TOL_PX = 0.02
+FEATURE_REL_TOL = 1e-5
+CPU_OBJECT_ROWS = 16     # object rows the CPU embeds (ResNet-152 on the CPU)
+STAGE_REPEATS = 5        # timed calls per stage and photo, after 2 warm-ups
+
+
+def _vision_towers(seed: int) -> dict:
+    """MTCNN, FaceNet and YOLOv3-SPP trees (tell_tpu's layout) from the
+    seed on the CPU, so the card and the CPU hold the same numbers, with
+    the offsets above; phase 14's ResNet-152."""
+    from tell_tpu_torch.bridge import init_facenet, init_mtcnn, init_yolov3
+    from tell_tpu_torch.models.backbones.facenet import FaceNetConfig
+    from tell_tpu_torch.models.backbones.resnet import ResNetConfig
+    from tell_tpu_torch.models.backbones.yolov3 import yolov3_spp_module_defs
+    g = torch.Generator().manual_seed(seed + 15)
+    mtcnn = init_mtcnn(g)
+    for net, name in (("pnet", "conv4_1"), ("rnet", "dense5_1"),
+                      ("onet", "dense6_1")):
+        mtcnn[net][name][1][1] += FACE_BIAS
+    defs = yolov3_spp_module_defs()
+    yolo = init_yolov3(g, defs)
+    for i, d in enumerate(defs):
+        if d["type"] == "convolutional" and d["bn"]:
+            yolo["convs"][i]["scale"].fill_(YOLO_BN)
+        elif d["type"] == "shortcut":
+            yolo["convs"][i - 1]["scale"].fill_(RESIDUAL_BN)
+        elif d["type"] == "yolo":
+            yolo["convs"][i - 1]["b"].view(3, -1)[:, 4] += OBJ_BIAS
+    return {"mtcnn": mtcnn, "facenet": init_facenet(g, FaceNetConfig()),
+            "yolov3": yolo,
+            "resnet": _resnet_tower(seed, ResNetConfig.resnet152())}
+
+
+def _prepared_towers(trees: dict, dev) -> dict:
+    """VisionPipeline's frozen dict: the trees on `dev` in their forwards'
+    layouts."""
+    from tell_tpu_torch.bridge import to_torch
+    from tell_tpu_torch.models.backbones import facenet, mtcnn, yolov3
+    from tell_tpu_torch.models.backbones.resnet import (ResNetConfig,
+                                                        prepare_resnet)
+    return {"mtcnn": mtcnn.prepare_mtcnn(to_torch(trees["mtcnn"], dev)),
+            "facenet": facenet.prepare_facenet(to_torch(trees["facenet"],
+                                                        dev)),
+            "yolov3": yolov3.prepare_yolov3(to_torch(trees["yolov3"], dev)),
+            "resnet": prepare_resnet(to_torch(trees["resnet"], dev)),
+            "resnet_cfg": ResNetConfig.resnet152()}
+
+
+def _match_boxes(got, want, label) -> dict:
+    """Each of got's boxes within BOX_TOL_PX of a distinct one of want's
+    (the same count): the largest distance and the rows that moved."""
+    got, want = got.double().cpu(), want.double().cpu()
+    require(len(got) == len(want), f"{label}: {len(got)} boxes on the card, "
+            f"{len(want)} on the CPU")
+    free = list(range(len(want)))
+    moved, worst = [], 0.0
+    for i in range(len(got)):
+        d = (want[free] - got[i]).abs().amax(dim=1)
+        j = int(torch.argmin(d)) if free else -1
+        require(j >= 0 and float(d[j]) <= BOX_TOL_PX,
+                f"{label}: card box {i} {got[i].tolist()} is "
+                f"{float(d[j]) if j >= 0 else math.inf:.3e} px from the "
+                "nearest CPU box")
+        worst = max(worst, float(d[j]))
+        if free[j] != i:
+            moved.append((i, free[j]))
+        free.pop(j)
+    if moved:
+        log(f"{label}: card rows at other places than the CPU's (card, "
+            f"CPU): {moved}")
+    return {"n": len(got), "max_px": worst, "moved": moved}
+
+
+def _rel(got, want) -> float:
+    return float((got.cpu() - want).abs().max() / want.abs().max())
+
+
+def _stage_rows(towers, canvas, faces_boxes, obj_boxes):
+    """The FaceNet rows of faces_boxes and the pooled ResNet rows of
+    obj_boxes, cut from the canvas on the towers' device."""
+    from tell_tpu_torch.models.backbones.facenet import facenet_forward
+    from tell_tpu_torch.models.backbones.mtcnn import extract_faces
+    from tell_tpu_torch.models.backbones.resnet import (preprocess_image,
+                                                        resnet_forward)
+    from tell_tpu_torch.models.backbones.yolov3 import crop_and_resize
+    from tell_tpu_torch.serving.vision import _INV_255
+    dev = towers["facenet"]["last_linear"].device
+    with torch.inference_mode():
+        c = canvas.to(dev)
+        faces = facenet_forward(towers["facenet"], extract_faces(
+            c, faces_boxes.to(dev)))
+        objs = resnet_forward(towers["resnet"], towers["resnet_cfg"],
+                              preprocess_image(crop_and_resize(
+                                  c, obj_boxes.to(dev), 224) * _INV_255),
+                              pool=True)
+    return faces.cpu(), objs.cpu()
+
+
+@contextlib.contextmanager
+def _tf32_towers():
+    """Every vision tower's fp32 pin taken out, TF32 on (the control)."""
+    from tell_tpu_torch.models.backbones import (facenet, mtcnn, resnet,
+                                                 yolov3)
+    mods = (facenet, mtcnn, resnet, yolov3)
+    pins = [m.fp32_math for m in mods]
+    before = (torch.backends.cudnn.allow_tf32,
+              torch.backends.cuda.matmul.allow_tf32)
+    for m in mods:
+        m.fp32_math = contextlib.nullcontext
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        for m, pin in zip(mods, pins):
+            m.fp32_math = pin
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before
+
+
+def _check_photo(name, canvas, card, cpu, dev) -> dict:
+    """One photo's canvas through MTCNN and YOLOv3 + NMS on `dev` and on
+    the CPU, the rows on the same boxes, the served stages' rows."""
+    from tell_tpu_torch.models.backbones.mtcnn import MTCNNConfig, detect_faces
+    from tell_tpu_torch.models.backbones.yolov3 import (nms_fixed,
+                                                        yolov3_forward,
+                                                        yolov3_spp_module_defs)
+    from tell_tpu_torch.serving.vision import _INV_255, VisionPipeline
+    defs = yolov3_spp_module_defs()
+    c = torch.from_numpy(canvas)
+    out = {}
+    with torch.inference_mode():
+        fd = detect_faces(card["mtcnn"], c.to(dev), MTCNNConfig())
+        fc = detect_faces(cpu["mtcnn"], c, MTCNNConfig())
+        out["faces"] = _match_boxes(fd[0][fd[2]], fc[0][fc[2]],
+                                    f"phase 15: {name} faces")
+        dd = yolov3_forward(card["yolov3"], defs, c.to(dev)[None] * _INV_255)
+        dc = yolov3_forward(cpu["yolov3"], defs, c[None] * _INV_255)
+        out["dets_rel_err"] = _rel(dd, dc)
+        od = nms_fixed(dd[0], 0.3, 0.6, max_det=64)
+        oc = nms_fixed(dc[0], 0.3, 0.6, max_det=64)
+        out["objects"] = _match_boxes(od[0][od[2]], oc[0][oc[2]],
+                                      f"phase 15: {name} objects")
+    require(out["faces"]["n"] >= 1 and out["objects"]["n"] >= 2,
+            f"phase 15: {name}: {out['faces']['n']} faces, "
+            f"{out['objects']['n']} objects")
+    fb = fd[0][fd[2]][:4]
+    ob = od[0][od[2]][:CPU_OBJECT_ROWS]
+    rows = _stage_rows(card, c, fb, ob)
+    ref = _stage_rows(cpu, c, fb.cpu(), ob.cpu())
+    out["face_rel_err"] = _rel(rows[0], ref[0])
+    out["obj_rel_err"] = _rel(rows[1], ref[1])
+    for what in ("face", "obj"):
+        require(out[f"{what}_rel_err"] <= FEATURE_REL_TOL,
+                f"phase 15: {name}: the card's {what} rows are "
+                f"{out[what + '_rel_err']:.3e} off the CPU's on the same "
+                f"boxes (limit {FEATURE_REL_TOL})")
+    # the served stages give those rows, NaN past the detections
+    vp = VisionPipeline(card)
+    faces, objs = vp.faces(canvas), vp.objects(canvas)
+    nf, no = len(fb), int(od[2].sum())
+    require(np.isnan(faces[nf:]).all() and np.isnan(objs[no:]).all()
+            and not np.isnan(faces[:nf]).any()
+            and not np.isnan(objs[:no]).any(),
+            f"phase 15: {name}: the stages' NaN rows are not the absent "
+            "ones")
+    out["stage_face_rel_err"] = _rel(torch.from_numpy(faces[:nf]), ref[0])
+    out["stage_obj_rel_err"] = _rel(torch.from_numpy(objs[:len(ob)]), ref[1])
+    for what in ("face", "obj"):
+        require(out[f"stage_{what}_rel_err"] <= FEATURE_REL_TOL,
+                f"phase 15: {name}: the served {what} rows are "
+                f"{out['stage_' + what + '_rel_err']:.3e} off the CPU's")
+    if dev == "cuda":
+        with _tf32_towers():
+            tf32 = _stage_rows(card, c, fb, ob)
+        out["tf32_face_rel_err"] = _rel(tf32[0], ref[0])
+        out["tf32_obj_rel_err"] = _rel(tf32[1], ref[1])
+        for what in ("face", "obj"):
+            require(out[f"tf32_{what}_rel_err"] > FEATURE_REL_TOL,
+                    f"phase 15: {name}: the TF32 {what} rows are "
+                    f"{out['tf32_' + what + '_rel_err']:.3e} off the CPU, "
+                    f"within FEATURE_REL_TOL {FEATURE_REL_TOL}: the limit "
+                    "cannot tell them from the fp32 rows")
+    return out
+
+
+def _sync(dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _stage_ms(fn, dev, n=STAGE_REPEATS) -> float:
+    """ms per call of fn() over n calls after 2 warm-ups: CUDA events on
+    the card (each call ends on the host, so they span its host work
+    too), the host clock on the CPU."""
+    for _ in range(2):
+        fn()
+    if dev != "cuda":
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t) * 1e3 / n
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _nms_share(vp, canvas, dev) -> dict:
+    """Each stage once with every NMS call timed (synchronised before and
+    after), beside the stage's own time in that run."""
+    from tell_tpu_torch.models.backbones import mtcnn
+    from tell_tpu_torch.serving import vision
+    spent = {"ms": 0.0}
+
+    def timed(fn):
+        def wrapper(*a, **k):
+            _sync(dev)
+            t = time.perf_counter()
+            r = fn(*a, **k)
+            _sync(dev)
+            spent["ms"] += (time.perf_counter() - t) * 1e3
+            return r
+        return wrapper
+    out = {}
+    for stage, mod, name in (("faces", mtcnn, "nms_mask"),
+                             ("objects", vision, "nms_fixed")):
+        orig = getattr(mod, name)
+        setattr(mod, name, timed(orig))
+        try:
+            spent["ms"] = 0.0
+            _sync(dev)
+            t = time.perf_counter()
+            getattr(vp, stage)(canvas)
+            total = (time.perf_counter() - t) * 1e3
+        finally:
+            setattr(mod, name, orig)
+        out[stage] = {"nms_ms": spent["ms"], "stage_ms": total,
+                      "share": spent["ms"] / total}
+    return out
+
+
+def _time_stages(card, photos, dev) -> dict:
+    """ms per photo of the letterbox (host), each stage, and process();
+    the NMS share; each stage's and one process()'s peak memory above
+    what was allocated before it (the towers, when phase 15 runs
+    alone)."""
+    from tell_tpu_torch.data.jpeg import decode_jpeg
+    from tell_tpu_torch.serving.vision import (DET_CANVAS, VisionPipeline,
+                                               center_crop_224, letterbox)
+    vp = VisionPipeline(card)
+    res = {}
+    for name, data in photos.items():
+        img = decode_jpeg(data).astype(np.float32)
+        canvas, _ = letterbox(img, DET_CANVAS)
+        crop = center_crop_224(img)
+        req = {"image_b64": _b64(data)}
+        ms = {"letterbox": _stage_ms(lambda: letterbox(img, DET_CANVAS),
+                                     dev),
+              "grid": _stage_ms(lambda: vp.grid(crop), dev),
+              "faces": _stage_ms(lambda: vp.faces(canvas), dev),
+              "objects": _stage_ms(lambda: vp.objects(canvas), dev),
+              "process": _stage_ms(lambda: vp.process(req), dev)}
+        res[name] = {"ms": ms, "nms": _nms_share(vp, canvas, dev)}
+        if dev == "cuda":
+            peak = {}
+            for stage, fn in (("grid", lambda: vp.grid(crop)),
+                              ("faces", lambda: vp.faces(canvas)),
+                              ("objects", lambda: vp.objects(canvas)),
+                              ("process", lambda: vp.process(req))):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                fn()
+                torch.cuda.synchronize()
+                peak[stage] = (torch.cuda.max_memory_allocated()
+                               - base) / 2 ** 20
+            res[name]["peak_above_before_mib"] = peak
+            res[name]["allocated_before_mib"] = base / 2 ** 20
+    return res
+
+
+def _tower_writers():
+    """tests/tower_writers.py, loaded from its path: a `tests` package
+    installed elsewhere on sys.path would shadow the repo's directory."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "tower_writers.py")
+    spec = importlib.util.spec_from_file_location("tower_writers", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_tower_convert(trees: dict, dev) -> dict:
+    """convert_towers --facenet, --mtcnn and --yolo-cfg/--yolo-weights on
+    files written from the trees; serve's loaders read back the
+    converter's trees bit for bit, and those equal the trees within one
+    rounding of the batch-norm fold."""
+    from tell_tpu_torch.bridge import to_torch, tree_leaves, tree_map
+    from tell_tpu_torch.models.backbones import facenet, mtcnn, yolov3
+    tower_writers = _tower_writers()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_towers_")
+    try:
+        paths = {"facenet": os.path.join(tmp, "facenet.pt"),
+                 "mtcnn": [os.path.join(tmp, f"{n}.pt")
+                           for n in ("pnet", "rnet", "onet")],
+                 "cfg": os.path.join(tmp, "yolov3-spp.cfg"),
+                 "weights": os.path.join(tmp, "yolov3-spp.weights")}
+        torch.save(tower_writers.facenet_pytorch_state(trees["facenet"]),
+                   paths["facenet"])
+        for sd, path in zip(tower_writers.mtcnn_states(trees["mtcnn"]),
+                            paths["mtcnn"]):
+            torch.save(sd, path)
+        defs = yolov3.yolov3_spp_module_defs()
+        with open(paths["cfg"], "w") as f:
+            f.write(tower_writers.darknet_cfg(defs, yolov3.ANCHORS))
+        tower_writers.write_darknet_weights(
+            paths["weights"], tower_writers.darknet_parts(trees["yolov3"]))
+        towers = os.path.join(tmp, "towers")
+        _, convert_s, _ = _cli(["--out", towers, "--facenet",
+                                paths["facenet"], "--mtcnn", *paths["mtcnn"],
+                                "--yolo-cfg", paths["cfg"], "--yolo-weights",
+                                paths["weights"]], "phase 15",
+                               "tell_tpu_torch.tools.convert_towers")
+        with open(paths["cfg"]) as f:
+            parsed = yolov3.parse_darknet_cfg(f.read())
+        require(yolov3.channel_plan(parsed) == yolov3.channel_plan(defs),
+                "phase 15: the written cfg parses to another network")
+        want = {
+            "facenet": facenet.prepare_facenet(to_torch(
+                facenet.convert_facenet(torch.load(
+                    paths["facenet"], weights_only=True),
+                    facenet.FaceNetConfig()), dev)),
+            "mtcnn": mtcnn.prepare_mtcnn(to_torch(mtcnn.convert_mtcnn(
+                *[torch.load(p, weights_only=True)
+                  for p in paths["mtcnn"]]), dev)),
+            "yolov3": yolov3.prepare_yolov3(to_torch(
+                yolov3.load_darknet_weights(parsed, paths["weights"]), dev))}
+        loaders = {"facenet": facenet.load_facenet, "mtcnn": mtcnn.load_mtcnn,
+                   "yolov3": yolov3.load_yolov3}
+        out = {"convert_s": convert_s}
+        prepared = _prepared_towers(trees, dev)
+        for name, load in loaders.items():
+            got = load(os.path.join(towers, name), dev)
+            same = tree_leaves(tree_map(
+                lambda x, y: x.device == y.device and torch.equal(x, y),
+                got, want[name]))
+            require(len(same) == len(tree_leaves(want[name])) and all(same),
+                    f"phase 15: the {name} tower serve loads is not the "
+                    "converter's bit for bit")
+            out[f"{name}_rel_to_tree"] = max(tree_leaves(tree_map(
+                lambda x, y: float((x - y).abs().max()
+                                   / y.abs().max().clamp(min=1e-30)),
+                got, prepared[name])))
+            require(out[f"{name}_rel_to_tree"] <= 1e-6,
+                    f"phase 15: the converted {name} is "
+                    f"{out[name + '_rel_to_tree']:.3e} off the tree")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 15: convert_towers --facenet --mtcnn --yolo-cfg/"
+        f"--yolo-weights in {out['convert_s']:.1f} s; serve's loaders read "
+        "the converter's trees bit for bit; relative to the random trees: "
+        + json.dumps({k: v for k, v in out.items() if k != "convert_s"}))
+    return out
+
+
+def phase_faces_objects(seed: int, card: str, dev: str = "cuda", cfg=None,
+                        rcfg=None) -> dict:
+    """Phase 15 (see the module docstring): the vision towers card vs CPU
+    on the news photos' canvases, the TF32 control, the stages' times,
+    the flagship service with all four towers (micro-batch and engine),
+    and convert_towers + serve's loaders. cfg / rcfg default to the
+    flagship and RoBERTa-large (a CPU rehearsal passes small ones with
+    faces 512 and objects 2048 wide)."""
+    from tell_tpu_torch.config import CaptionerConfig
+    from tell_tpu_torch.data.jpeg import decode_jpeg
+    from tell_tpu_torch.models.backbones.roberta import RobertaConfig
+    from tell_tpu_torch.serving.vision import DET_CANVAS, letterbox
+    cfg = cfg or CaptionerConfig()
+    rcfg = rcfg or RobertaConfig.large()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    trees = _vision_towers(seed)
+    card_towers = _prepared_towers(trees, dev)
+    cpu_towers = _prepared_towers(trees, "cpu")
+    log(f"phase 15: MTCNN, FaceNet (repeats 5/10/5), YOLOv3-SPP and "
+        f"ResNet-152 from seed {seed} in {time.perf_counter() - t0:.1f} s "
+        f"(FACE_BIAS {FACE_BIAS}, YOLO_BN {YOLO_BN}, OBJ_BIAS {OBJ_BIAS})")
+    photos = {n: _read_fixture(root, n) for n in NEWS_PHOTOS}
+    res = {"photos": {}}
+    for name, data in photos.items():
+        canvas, _ = letterbox(decode_jpeg(data).astype(np.float32),
+                              DET_CANVAS)
+        res["photos"][name] = _check_photo(name, canvas, card_towers,
+                                           cpu_towers, dev)
+        log(f"phase 15 ({card or dev}): {name} on the {DET_CANVAS} canvas, "
+            f"{dev} vs CPU: " + json.dumps(res["photos"][name]))
+    del cpu_towers
+    res["stages"] = _time_stages(card_towers, photos, dev)
+    log(f"phase 15 ({card or dev}): ms per photo, NMS share and peak "
+        "memory: " + json.dumps(res["stages"]))
+    res["service"] = _check_image_service(
+        seed, cfg, rcfg, card_towers, dev, root,
+        keys=("image_grid", "face_embeds", "obj_embeds"), label="phase 15")
+    res["convert"] = _check_tower_convert(trees, dev)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 15 ({card or dev}): done in {res['seconds']:.1f} s")
     return res
 
 
@@ -3652,6 +4178,8 @@ def main() -> int:
                     help="after the build, phase 13 only (no result line)")
     ap.add_argument("--images", action="store_true",
                     help="after the build, phase 14 only (no result line)")
+    ap.add_argument("--faces-objects", action="store_true",
+                    help="after the build, phase 15 only (no result line)")
     ap.add_argument("--quality", action="store_true",
                     help="after the build, the full quality loop on "
                     f"{QUALITY_EXPT} with its acceptance thresholds (no "
@@ -3720,6 +4248,9 @@ def main() -> int:
     if args.images:
         phase_images(args.seed, smi)
         return 0
+    if args.faces_objects:
+        phase_faces_objects(args.seed, smi)
+        return 0
     if args.quality:
         return quality_run(smi, args.quality_out)
     # phase 3
@@ -3782,6 +4313,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 14: images in
     images = phase_images(args.seed, smi)
+    torch.cuda.empty_cache()
+    # phase 15: faces and objects from a photo
+    faces_objects = phase_faces_objects(args.seed, smi)
 
     # MG=20/S=637, B=4 S=512, K=31 at T=32, int8 S=637, N=40 V=30265 k=5,
     # F S=637, F int4-split S=637
@@ -3822,6 +4356,12 @@ def main() -> int:
         name: images["service"]["micro_batch_launches"][name]
         + images["service"]["engine_launches"][name]
         for name in ("decode_attention", "encoder_attention")}
+    # phase 15's own path: A and B in micro-batch and engine mode, the
+    # photos' faces and objects among the contexts
+    faces_objects_launches = {
+        name: faces_objects["service"]["micro_batch_launches"][name]
+        + faces_objects["service"]["engine_launches"][name]
+        for name in ("decode_attention", "encoder_attention")}
     kernels = []
     for name, (src, replaces) in sources.items():
         case = res[name][main_case[name]]
@@ -3838,6 +4378,8 @@ def main() -> int:
             entry["phase13_launches"] = sibling_launches[name]
         if name in image_launches:
             entry["phase14_launches"] = image_launches[name]
+        if name in faces_objects_launches:
+            entry["phase15_launches"] = faces_objects_launches[name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -10,9 +10,10 @@
 * ParamTree: an nn.Module that owns such a tree (nested dicts and lists of
   tensors), so .to(device) and state_dict() work on it; tree() gives the
   nested dict back with the module's current tensors.
-* init_captioner / init_roberta / init_resnet: torch-side initialisers with the same
-  keys, shapes and init distributions as tell_tpu's, drawing from an
-  explicit torch.Generator on the generator's device. (The two frameworks
+* init_captioner / init_roberta / init_resnet / init_mtcnn / init_facenet
+  / init_yolov3: torch-side initialisers with the same keys, shapes and
+  init distributions as tell_tpu's, drawing from an explicit
+  torch.Generator on the generator's device. (The two frameworks
   draw different numbers from one seed; parity tests build weights in JAX
   and carry them across with to_torch.)
 """
@@ -296,3 +297,122 @@ def init_resnet(generator: torch.Generator, cfg) -> dict:
             cin = cout
         params["stages"].append(stage)
     return params
+
+
+def init_mtcnn(generator: torch.Generator) -> dict:
+    """tell_tpu.models.backbones.mtcnn.init_mtcnn: facenet-pytorch's P/R/O
+    net shapes, conv weights N(0, 0.1) HWIO, dense N(0, 0.05) [in, out],
+    biases 0, PReLU slopes 0.25."""
+    g = generator
+
+    def conv(cin, cout, k):
+        return (_normal(g, (k, k, cin, cout), 0.1), _zeros(g, cout))
+
+    def dense(cin, cout):
+        return (_normal(g, (cin, cout), 0.05), _zeros(g, cout))
+
+    def prelu(c):
+        return torch.full((c,), 0.25, device=g.device)
+
+    p = {"conv1": conv(3, 10, 3), "prelu1": prelu(10),
+         "conv2": conv(10, 16, 3), "prelu2": prelu(16),
+         "conv3": conv(16, 32, 3), "prelu3": prelu(32),
+         "conv4_1": conv(32, 2, 1), "conv4_2": conv(32, 4, 1)}
+    r = {"conv1": conv(3, 28, 3), "prelu1": prelu(28),
+         "conv2": conv(28, 48, 3), "prelu2": prelu(48),
+         "conv3": conv(48, 64, 2), "prelu3": prelu(64),
+         "dense4": dense(576, 128), "prelu4": prelu(128),
+         "dense5_1": dense(128, 2), "dense5_2": dense(128, 4)}
+    o = {"conv1": conv(3, 32, 3), "prelu1": prelu(32),
+         "conv2": conv(32, 64, 3), "prelu2": prelu(64),
+         "conv3": conv(64, 64, 3), "prelu3": prelu(64),
+         "conv4": conv(64, 128, 2), "prelu4": prelu(128),
+         "dense5": dense(1152, 256), "prelu5": prelu(256),
+         "dense6_1": dense(256, 2), "dense6_2": dense(256, 4),
+         "dense6_3": dense(256, 10)}
+    return {"pnet": p, "rnet": r, "onet": o}
+
+
+def init_facenet(generator: torch.Generator, cfg) -> dict:
+    """tell_tpu.models.backbones.facenet.init_facenet for a FaceNetConfig:
+    InceptionResnetV1 at its vggface2 shapes, conv weights N(0, 1 / fan_in)
+    HWIO, batch norm folded to scale 1 and bias 0."""
+    g = generator
+
+    def basic(cin, cout, kh, kw=None):
+        kw = kh if kw is None else kw
+        return {"conv": _normal(g, (kh, kw, cin, cout),
+                                (kh * kw * cin) ** -0.5),
+                "scale": torch.ones(cout, device=g.device),
+                "bias": _zeros(g, cout)}
+
+    def plain(cin, cout):
+        return {"w": _normal(g, (1, 1, cin, cout), cin ** -0.5),
+                "b": _zeros(g, cout)}
+
+    def block35():
+        return {"branch0": basic(256, 32, 1),
+                "branch1.0": basic(256, 32, 1), "branch1.1": basic(32, 32, 3),
+                "branch2.0": basic(256, 32, 1), "branch2.1": basic(32, 32, 3),
+                "branch2.2": basic(32, 32, 3), "conv2d": plain(96, 256)}
+
+    def block17():
+        return {"branch0": basic(896, 128, 1),
+                "branch1.0": basic(896, 128, 1),
+                "branch1.1": basic(128, 128, 1, 7),
+                "branch1.2": basic(128, 128, 7, 1),
+                "conv2d": plain(256, 896)}
+
+    def block8():
+        return {"branch0": basic(1792, 192, 1),
+                "branch1.0": basic(1792, 192, 1),
+                "branch1.1": basic(192, 192, 1, 3),
+                "branch1.2": basic(192, 192, 3, 1),
+                "conv2d": plain(384, 1792)}
+
+    params = {"conv2d_1a": basic(3, 32, 3), "conv2d_2a": basic(32, 32, 3),
+              "conv2d_2b": basic(32, 64, 3), "conv2d_3b": basic(64, 80, 1),
+              "conv2d_4a": basic(80, 192, 3),
+              "conv2d_4b": basic(192, 256, 3)}
+    params["repeat_1"] = [block35() for _ in range(cfg.repeats[0])]
+    params["mixed_6a"] = {"branch0": basic(256, 384, 3),
+                          "branch1.0": basic(256, 192, 1),
+                          "branch1.1": basic(192, 192, 3),
+                          "branch1.2": basic(192, 256, 3)}
+    params["repeat_2"] = [block17() for _ in range(cfg.repeats[1])]
+    params["mixed_7a"] = {"branch0.0": basic(896, 256, 1),
+                          "branch0.1": basic(256, 384, 3),
+                          "branch1.0": basic(896, 256, 1),
+                          "branch1.1": basic(256, 256, 3),
+                          "branch2.0": basic(896, 256, 1),
+                          "branch2.1": basic(256, 256, 3),
+                          "branch2.2": basic(256, 256, 3)}
+    params["repeat_3"] = [block8() for _ in range(cfg.repeats[2])]
+    params["block8"] = block8()
+    params["last_linear"] = _normal(g, (1792, cfg.embed_dim), 1792 ** -0.5)
+    params["last_bn"] = {"scale": torch.ones(cfg.embed_dim, device=g.device),
+                         "bias": _zeros(g, cfg.embed_dim)}
+    return params
+
+
+def init_yolov3(generator: torch.Generator, defs: list[dict]) -> dict:
+    """tell_tpu.models.backbones.yolov3.init_yolov3: per conv (int key:
+    its module index) an HWIO weight He-normal on the fan-in, batch norm
+    folded to scale 1 and bias 0, or a zero bias "b" where the conv has
+    no batch norm."""
+    from .models.backbones.yolov3 import channel_plan
+    g = generator
+    channels = channel_plan(defs)
+    convs = {}
+    for i, d in enumerate(defs):
+        if d["type"] != "convolutional":
+            continue
+        cin, k, cout = channels[i], d["size"], d["filters"]
+        p = {"w": _normal(g, (k, k, cin, cout), (2.0 / (k * k * cin)) ** 0.5)}
+        if d.get("bn", True):
+            p["scale"] = torch.ones(cout, device=g.device)
+            p["bias"] = _zeros(g, cout)
+        else:
+            p["b"] = _zeros(g, cout)
+        convs[i] = p
+    return {"convs": convs}

@@ -8,7 +8,7 @@ numerics levers are flags: `--kv-cache {fp,int8,int4}`, `--fused-topk`
 and `--gelu {erf,tanh}` (the frozen encoder's GELU; tell_tpu's
 TELL_TPU_FAST_GELU). `serve --attention` adds the word-attention payload.
 What tnt runs and the port does not yet is refused with its ROADMAP queue
-item: `bench` (item 1), `towers` (item 8, the remaining towers),
+item: `bench` (item 1), `towers` (item 8, `towers verify`),
 `--coordinator` and `--mesh-data` (item 10), the model types outside the
 captioner family (config_io.py).
 
@@ -17,12 +17,15 @@ The frozen RoBERTa is read from <shards_dir>/../towers/roberta/state.pt
 `python -m tell_tpu_torch.tools.convert_towers` writes it from a
 HuggingFace state dict), or, when there is none, initialised at random
 from seed 0 on the CPU (so the same weights on every device) with
-tell_tpu's warning. A converted ResNet-152 at towers/resnet152/state.pt
-(convert_towers --resnet) is loaded beside it: `serve` then embeds
-raw-image requests and `preprocess` raw <hash>.jpg photos on `--device`.
-A towers/roberta or towers/resnet152 that holds anything else (tell_tpu's
-orbax tree) is refused, and so is `serve` over a towers directory with
-tell_tpu's mtcnn, facenet or yolov3 (not ported: item 8).
+tell_tpu's warning. The vision towers beside it are loaded onto `--device`
+where their directories exist: towers/resnet152 (convert_towers --resnet),
+with which `serve` embeds raw-image requests' grids and `preprocess` raw
+<hash>.jpg photos, and towers/mtcnn, towers/facenet and towers/yolov3
+(--mtcnn, --facenet, --yolo-cfg/--yolo-weights), with which `serve` finds
+and embeds their faces and, with the ResNet, their objects. A tower
+directory that holds no state.pt (tell_tpu's orbax tree) is refused by
+name. What remains of item 8: PNG and progressive JPEG photos, ViT,
+`towers verify` and the dataset tools.
 """
 from __future__ import annotations
 
@@ -129,7 +132,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="name_counters.pkl for rare-name P/R")
 
     for name, item in (("bench", "queue 1 item 1, the port's benchmark"),
-                       ("towers", "queue 1 item 8, the remaining towers")):
+                       ("towers", "queue 1 item 8, towers verify")):
         b = sub.add_parser(name, help=f"not ported ({item})")
         b.add_argument("rest", nargs=argparse.REMAINDER)
         b.set_defaults(not_ported=item)
@@ -173,9 +176,11 @@ def _towers_dir(exp) -> str:
 
 def _frozen_towers(exp, device, gelu: str = "erf") -> dict:
     """{"roberta": params on `device`, "roberta_cfg": RobertaConfig with
-    the FFN's GELU mode `gelu`}, and with a converted ResNet-152 in the
-    towers directory {"resnet": its tree on `device` in the forward's
-    layout (load_tower), "resnet_cfg": ResNetConfig.resnet152()}."""
+    the FFN's GELU mode `gelu`}, and each converted vision tower in the
+    towers directory on `device` in its forward's layout: "resnet" (with
+    "resnet_cfg": ResNetConfig.resnet152()), "mtcnn", "facenet" and
+    "yolov3" (whose module defs are yolov3_spp_module_defs(), as
+    tell_tpu's)."""
     from ..bridge import init_roberta, tree_map
     from ..models.backbones.roberta import RobertaConfig
     rcfg = dataclasses.replace(getattr(RobertaConfig, exp.data.roberta)(),
@@ -203,6 +208,14 @@ def _frozen_towers(exp, device, gelu: str = "erf") -> dict:
         from ..models.backbones.resnet import ResNetConfig, load_tower
         frozen["resnet"] = load_tower(resnet, device)
         frozen["resnet_cfg"] = ResNetConfig.resnet152()
+    from ..models.backbones.facenet import load_facenet
+    from ..models.backbones.mtcnn import load_mtcnn
+    from ..models.backbones.yolov3 import load_yolov3
+    for name, load in (("mtcnn", load_mtcnn), ("facenet", load_facenet),
+                       ("yolov3", load_yolov3)):
+        path = os.path.join(_towers_dir(exp), name)
+        if os.path.exists(path):
+            frozen[name] = load(path, device)
     return frozen
 
 
@@ -329,14 +342,11 @@ def cmd_preprocess(args) -> int:
 def cmd_serve(args) -> int:
     from ..models.backbones.roberta import RobertaEncoder
     from ..serving import CaptionService, serve
-    from ..serving.vision import refuse_unported_towers
     if args.mesh_data != 1:
         raise NotPortedError("data-parallel serving is not ported yet "
                              "(ROADMAP queue 1 item 10, parallelism)")
     exp = _load(args)
     device = _device(args)
-    if os.path.isdir(_towers_dir(exp)):
-        refuse_unported_towers(os.listdir(_towers_dir(exp)))
     frozen = _frozen_towers(exp, device, args.gelu)
     service = CaptionService(
         _restore_params(exp, args.model, device),
@@ -347,8 +357,8 @@ def cmd_serve(args) -> int:
         engine_buckets=args.engine_buckets, encode_batch=args.encode_batch,
         kv_cache=args.kv_cache, fused_topk=args.fused_topk,
         need_attention=args.attention,
-        towers={k: frozen[k] for k in ("resnet", "resnet_cfg")
-                if k in frozen})
+        towers={k: frozen[k] for k in ("resnet", "resnet_cfg", "mtcnn",
+                                       "facenet", "yolov3") if k in frozen})
     if args.warmup:
         w = service.warmup()
         print(f"warmed article widths {w['widths']} in {w['seconds']:.1f}s")

@@ -12,23 +12,19 @@ packages' trees are equal bit for bit.
 The convs are cuDNN's (F.conv2d): tell_tpu runs them in XLA, outside any
 Pallas kernel. They run on NCHW activations with OIHW weights, the layout
 `prepare_resnet` makes once where the tower is loaded (load_tower);
-resnet_forward takes only that layout. The forward pins fp32 convs itself
-(cuDNN's TF32 switch is off while it runs and restored after), since
-PyTorch's default lets cuDNN use TF32.
+resnet_forward takes only that layout. The forward pins fp32 itself
+(fp32_math: the TF32 switches are off while it runs and restored after),
+since PyTorch's default lets cuDNN use TF32.
 """
 from __future__ import annotations
 
-import contextlib
-import os
-import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...bridge import tree_map
-from ...config import NotPortedError
+from . import fp32_math, load_state
 
 
 @dataclass(frozen=True)
@@ -67,23 +63,6 @@ def prepare_resnet(params: dict) -> dict:
     return _prepare(params)
 
 
-# the TF32 switch is one per process: forwards on other threads (the
-# service's request threads) take turns, so none restores it under another
-_TF32_SWITCH = threading.Lock()
-
-
-@contextlib.contextmanager
-def fp32_convs():
-    """cuDNN convs in fp32 inside, whatever the global TF32 switch says."""
-    with _TF32_SWITCH:
-        before = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False
-        try:
-            yield
-        finally:
-            torch.backends.cudnn.allow_tf32 = before
-
-
 def _conv(x, w, stride=1):
     # symmetric k//2 padding, as torchvision pads (XLA's "SAME" would pad
     # asymmetrically for even inputs under stride 2)
@@ -111,7 +90,7 @@ def resnet_forward(params, cfg: ResNetConfig, x: torch.Tensor,
     params: prepare_resnet's tree."""
     w0 = params["stem"]["conv"]
     h = x.to(w0.dtype).permute(0, 3, 1, 2).contiguous()
-    with fp32_convs():
+    with fp32_math():
         h = torch.relu(_bn(params["stem"]["bn"], _conv(h, w0, stride=2)))
         h = F.max_pool2d(h, 3, 2, 1)       # 3x3, stride 2, -inf padding 1
         for s, stage in enumerate(params["stages"]):
@@ -138,19 +117,7 @@ def load_tower(path: str, device) -> dict:
     """The HWIO tree at <path>/state.pt (as tools/convert_towers.py writes
     it) on `device`, in the forward's layout (prepare_resnet). A directory
     without one (a tell_tpu orbax tree) is refused."""
-    state = os.path.join(path, "state.pt")
-    if not os.path.exists(state):
-        raise NotPortedError(
-            f"{path} holds no state.pt (a tell_tpu orbax tree?): reading "
-            "tell_tpu checkpoints needs the JAX-side conversion step of "
-            "ROADMAP queue 1 item 6; convert the torchvision weights with "
-            "python -m tell_tpu_torch.tools.convert_towers --resnet")
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the port runs on the card; pass "
-                           "--device cpu to run on the CPU")
-    tree = torch.load(state, map_location="cpu", weights_only=True)
-    return prepare_resnet(tree_map(lambda t: t.to(device), tree))
+    return prepare_resnet(load_state(path, device, "--resnet"))
 
 
 def preprocess_image(img: torch.Tensor) -> torch.Tensor:

@@ -36,11 +36,12 @@ teacher-forced (replay_attention), off the engine's hot path.
 
 A request may carry its photo instead of its image grid: `image_b64` (an
 encoded JPEG), `image` (an [H, W, 3] list) or, from the scrape flow,
-`sections[image_position].image_data` (base64). With a ResNet-152 among the
-service's towers, VisionPipeline (serving/vision.py) decodes, crops and
-embeds it on the device while the micro-batch is packed; a photo that does
-not decode fails its own request only. Face and object rows still come
-with the request (their towers are not ported: ROADMAP queue 1 item 8).
+`sections[image_position].image_data` (base64). VisionPipeline
+(serving/vision.py) decodes it and computes, on the device while the
+micro-batch is packed, the contexts its towers give and the request lacks:
+the grid (ResNet-152), the faces (MTCNN + FaceNet) and the objects
+(YOLOv3-SPP + the pooled ResNet-152). A photo that does not decode, or
+fails in a stage, fails its own request only.
 """
 from __future__ import annotations
 
@@ -95,9 +96,10 @@ class CaptionService:
     (engine_beam beams, engine_length_penalty; engine_buckets: one engine
     per article width); encode_batch caps the rows of one batched article
     encode in front of it. need_attention adds the attention payload to
-    every answer. towers: the frozen vision towers ({"resnet": load_tower's
-    or prepare_resnet's tree, "resnet_cfg": ResNetConfig}), which give
-    raw-image requests their grid."""
+    every answer. towers: the frozen vision towers, each in its forward's
+    layout ({"resnet": load_tower's or prepare_resnet's tree, "resnet_cfg":
+    ResNetConfig, "mtcnn", "facenet", "yolov3"}: VisionPipeline's frozen
+    dict), which give raw-image requests their grid, faces and objects."""
 
     def __init__(self, params: dict, roberta: RobertaEncoder,
                  cfg: CaptionerConfig, device, tokenizer=None,

@@ -1,16 +1,22 @@
 """Convert pretrained frozen towers into the port's torch format
-(counterpart of tools/convert_towers.py's RoBERTa and ResNet parts).
+(counterpart of tools/convert_towers.py, ViT left out).
 
     python -m tell_tpu_torch.tools.convert_towers --out data/towers \
-        [--roberta roberta-large.pt] [--resnet resnet152.pth]
+        [--roberta roberta-large.pt] [--resnet resnet152.pth] \
+        [--facenet 20180402-114759-vggface2.pt] \
+        [--mtcnn pnet.pt rnet.pt onet.pt] \
+        [--yolo-cfg yolov3-spp.cfg --yolo-weights yolov3-spp.weights]
 
 --roberta is a file torch.load reads as a RobertaModel or
 RobertaForMaskedLM state dict (bare or "roberta."-prefixed keys), of any
 depth; its tree goes to <out>/roberta/state.pt. --resnet is torchvision's
-ResNet-152 state dict (the ImageNet .pth); its tree, batch norm folded,
-goes to <out>/resnet152/state.pt. `python -m tell_tpu_torch.commands`
-reads both from <shards_dir>/../towers. Each is optional; give at least
-one. The other vision towers are not ported (ROADMAP queue 1 item 8).
+ResNet-152 state dict (the ImageNet .pth), --facenet facenet-pytorch's
+InceptionResnetV1 state dict and --mtcnn its three P/R/O-net state dicts;
+--yolo-cfg and --yolo-weights are a darknet cfg and its binary .weights.
+Their trees (batch norm folded, tell_tpu's layout as torch tensors) go to
+<out>/resnet152, facenet, mtcnn and yolov3, each as state.pt. `python -m
+tell_tpu_torch.commands` reads them from <shards_dir>/../towers. Each is
+optional; give at least one. ViT is not ported (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import sys
 import torch
 
 from ..bridge import to_torch
+from ..models.backbones import facenet, mtcnn, yolov3
 from ..models.backbones.resnet import ResNetConfig, convert_torchvision_resnet
 from ..models.backbones.roberta import RobertaConfig, convert_hf_roberta
 
@@ -51,6 +58,31 @@ def convert_resnet(src: str, out: str) -> str:
     return _save(to_torch(params, "cpu"), out, "resnet152")
 
 
+def convert_facenet(src: str, out: str) -> str:
+    """facenet-pytorch's InceptionResnetV1 state dict at `src` as
+    <out>/facenet/state.pt; returns the path."""
+    sd = torch.load(src, map_location="cpu", weights_only=True)
+    params = facenet.convert_facenet(sd, facenet.FaceNetConfig())
+    return _save(to_torch(params, "cpu"), out, "facenet")
+
+
+def convert_mtcnn(srcs: list[str], out: str) -> str:
+    """facenet-pytorch's pnet, rnet and onet state dicts as
+    <out>/mtcnn/state.pt; returns the path."""
+    sds = [torch.load(p, map_location="cpu", weights_only=True)
+           for p in srcs]
+    return _save(to_torch(mtcnn.convert_mtcnn(*sds), "cpu"), out, "mtcnn")
+
+
+def convert_yolo(cfg: str, weights: str, out: str) -> str:
+    """A darknet cfg and its .weights as <out>/yolov3/state.pt; returns the
+    path."""
+    with open(cfg) as f:
+        defs = yolov3.parse_darknet_cfg(f.read())
+    params = yolov3.load_darknet_weights(defs, weights)
+    return _save(to_torch(params, "cpu"), out, "yolov3")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", required=True, help="the towers directory")
@@ -58,13 +90,33 @@ def main(argv=None) -> int:
                     help="a HuggingFace RoBERTa state dict saved by torch")
     ap.add_argument("--resnet",
                     help="torchvision's ResNet-152 state dict (.pth)")
+    ap.add_argument("--facenet",
+                    help="facenet-pytorch's InceptionResnetV1 state dict")
+    ap.add_argument("--mtcnn", nargs=3, metavar=("PNET", "RNET", "ONET"),
+                    help="facenet-pytorch's P/R/O-net state dicts")
+    ap.add_argument("--yolo-cfg", help="a darknet cfg (yolov3-spp.cfg)")
+    ap.add_argument("--yolo-weights", help="its darknet .weights")
     args = ap.parse_args(argv)
-    if not (args.roberta or args.resnet):
-        ap.error("give --roberta, --resnet or both")
+    if bool(args.yolo_cfg) != bool(args.yolo_weights):
+        ap.error("--yolo-cfg and --yolo-weights go together")
+    if not (args.roberta or args.resnet or args.facenet or args.mtcnn
+            or args.yolo_cfg):
+        ap.error("give at least one of --roberta, --resnet, --facenet, "
+                 "--mtcnn, --yolo-cfg/--yolo-weights")
+    written = []
     if args.roberta:
-        print(f"wrote {convert_roberta(args.roberta, args.out)}")
+        written.append(convert_roberta(args.roberta, args.out))
     if args.resnet:
-        print(f"wrote {convert_resnet(args.resnet, args.out)}")
+        written.append(convert_resnet(args.resnet, args.out))
+    if args.facenet:
+        written.append(convert_facenet(args.facenet, args.out))
+    if args.mtcnn:
+        written.append(convert_mtcnn(args.mtcnn, args.out))
+    if args.yolo_cfg:
+        written.append(convert_yolo(args.yolo_cfg, args.yolo_weights,
+                                    args.out))
+    for path in written:
+        print(f"wrote {path}")
     return 0
 
 

@@ -11,7 +11,7 @@ from PIL import Image
 from tell_tpu.data.images import resize_shortest_crop as j_crop
 from tell_tpu.serving import vision as jv
 from tell_tpu_torch.config import NotPortedError
-from tell_tpu_torch.data.images import resize_lanczos, resize_shortest_crop
+from tell_tpu_torch.data.images import resize_pillow, resize_shortest_crop
 from tell_tpu_torch.serving import vision as tv
 
 
@@ -50,7 +50,7 @@ def test_resize_lanczos_equals_pillow(src, dst):
     arr = _img(src[1], src[0], seed=3)
     want = np.asarray(Image.fromarray(arr).resize(
         dst, Image.Resampling.LANCZOS))
-    np.testing.assert_array_equal(resize_lanczos(arr, *dst), want)
+    np.testing.assert_array_equal(resize_pillow(arr, *dst), want)
 
 
 def test_resize_rejects_what_is_not_uint8_rgb():

@@ -9,8 +9,10 @@ every tell_tpu_torch module, checks that no tell_tpu module was loaded
 TensorBoard writer, HTML parser and JPEG decoder), loads an expt/ YAML,
 round-trips text through the tokenizer (the C++ BPE), parses an article
 page, writes and reads back a TensorBoard scalar, decodes and crops a JPEG
-and embeds it with a tiny ResNet, then runs the slices on CPU tensors at a
-tiny size (greedy
+and embeds it with a tiny ResNet, runs the photo through the vision
+pipeline with tiny MTCNN, FaceNet and YOLOv3 towers (the letterbox, the
+faces and the objects with Pillow blocked), then runs the slices on CPU
+tensors at a tiny size (greedy
 generate, a train step, the continuous-batching engine with the int8 K/V
 cache and the fused top-k, and kernel F's two forms) and checks that the
 plain paths ran: the kernels' launch counters stay 0.
@@ -112,12 +114,29 @@ with open("tests/fixtures/images/news_a_320x240_420.jpg", "rb") as f:
 rcfg_img = ResNetConfig((1, 1, 1, 1), 8)
 grid = image_grid(prepare_resnet(init_resnet(g, rcfg_img)), rcfg_img,
                   resize_shortest_crop(photo).astype("float32"))
+from tell_tpu_torch.bridge import init_facenet, init_mtcnn, init_yolov3
+from tell_tpu_torch.models.backbones import facenet, mtcnn, yolov3
+from tell_tpu_torch.serving import vision
+ydefs = yolov3.parse_darknet_cfg(
+    "[convolutional]\nbatch_normalize=1\nfilters=8\nsize=3\nstride=2\n"
+    "activation=leaky\n[convolutional]\nfilters=27\nsize=1\nstride=1\n"
+    "[yolo]\nmask=0,1,2\nclasses=4\n")
+vision.DET_CANVAS = 48
+towers = {"mtcnn": mtcnn.prepare_mtcnn(init_mtcnn(g)),
+          "facenet": facenet.prepare_facenet(init_facenet(
+              g, facenet.FaceNetConfig(repeats=(1, 1, 1)))),
+          "yolov3": yolov3.prepare_yolov3(init_yolov3(g, ydefs)),
+          "yolov3_defs": ydefs,
+          "resnet": prepare_resnet(init_resnet(g, rcfg_img)),
+          "resnet_cfg": rcfg_img}
+feats = vision.VisionPipeline(towers).process({"image": photo})
 print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "text_round_trip": tok.decode(tok.encode(text)) == text,
                   "bpe": type(tok.bpe).__name__,
                   "extract": [sections, title],
                   "events": read_events(w.path)[1]["scalars"],
                   "photo": [list(photo.shape), list(grid.shape)],
+                  "vision": {k: list(v.shape) for k, v in feats.items()},
                   "expt_kernel_sizes": list(exp.model.decoder.kernel_sizes),
                   "blocked_loaded": [m for m in BLOCKED
                                      if sys.modules.get(m) is not None],
@@ -162,7 +181,9 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                  "commands.evaluate", "commands.__main__",
                  "tools.gen_quality_corpus", "tools.quality_loop",
                  "data.jpeg", "data.images", "serving.vision",
-                 "models.backbones.resnet", "tools.convert_towers"):
+                 "models.backbones.resnet", "tools.convert_towers",
+                 "models.backbones.mtcnn", "models.backbones.facenet",
+                 "models.backbones.yolov3", "ops.image_resize"):
         assert f"tell_tpu_torch.{name}" in res["modules"]
     assert res["jax_package"] == []
     assert res["jax_loaded"] is False
@@ -173,6 +194,9 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                               "T"]
     assert res["events"] == {"train/loss": 0.5}
     assert res["photo"] == [[240, 320, 3], [49, 256]]
+    assert res["vision"] == {"image_grid": [49, 256],
+                             "face_embeds": [4, 512],
+                             "obj_embeds": [64, 256]}
     assert res["expt_kernel_sizes"] == [3, 7, 15, 31]
     assert res["token_ids"] == [2, 4]
     assert res["train_loss_finite"] is True

@@ -215,15 +215,73 @@ def test_malformed_section_is_judged_as_tell_tpu_judges_it(models, sections,
         assert jerr[0].startswith("bad request image:")
 
 
-def test_unported_vision_towers_are_refused_at_startup(models, tmp_path):
+def _port_form_towers(root, monkeypatch):
+    """mtcnn, facenet, yolov3 and resnet152 as convert_towers writes them
+    (state.pt of tell_tpu's trees as torch tensors) under root/towers:
+    MTCNN at its full size, FaceNet at repeats (1, 1, 1), the reduced
+    YOLOv3 of tests/test_torch_yolov3.py and the small ResNet, which the
+    loader and the pipeline take in place of the full-size defaults;
+    random inits from the port's initialisers."""
+    from tell_tpu_torch.bridge import init_facenet, init_mtcnn, init_yolov3
+    from tell_tpu_torch.models.backbones.facenet import FaceNetConfig
+    from tell_tpu_torch.serving import vision
+    from tests.test_torch_yolov3 import _small_defs
+    monkeypatch.setattr(tr.ResNetConfig, "resnet152",
+                        staticmethod(lambda: tr.ResNetConfig(BLOCKS, WIDTH)))
+    monkeypatch.setattr(vision, "yolov3_spp_module_defs", _small_defs)
+    monkeypatch.setattr(vision, "DET_CANVAS", 64)
+    g = torch.Generator().manual_seed(3)
+    mtcnn = init_mtcnn(g)
+    for net, name in (("pnet", "conv4_1"), ("rnet", "dense5_1"),
+                      ("onet", "dense6_1")):
+        mtcnn[net][name][1][1] += 3.0      # faces pass at random init
+    trees = {"mtcnn": mtcnn,
+             "facenet": init_facenet(g, FaceNetConfig(repeats=(1, 1, 1))),
+             "yolov3": init_yolov3(g, _small_defs()),
+             "resnet152": to_torch(_resnet_tree(), "cpu")}
+    for name, tree in trees.items():
+        (root / "towers" / name).mkdir(parents=True)
+        torch.save(tree, root / "towers" / name / "state.pt")
+
+
+def test_towers_in_the_ports_form_are_loaded_and_used(tmp_path, monkeypatch):
+    """serve's loader reads the three towers (and the ResNet) from the
+    towers directory onto the device in their forwards' layouts, and the
+    service built from them, as cmd_serve builds it, computes a photo's
+    faces and objects."""
+    from tell_tpu_torch.commands.__main__ import _frozen_towers, _load
+    from tests.test_torch_cli import write_e2e_config
+    cfg = write_e2e_config(tmp_path)
+    _port_form_towers(tmp_path, monkeypatch)
+    exp = _load(type("A", (), {"config": cfg, "overrides": None})())
+    frozen = _frozen_towers(exp, "cpu")
+    assert {"mtcnn", "facenet", "yolov3", "resnet"} <= set(frozen)
+    assert frozen["mtcnn"]["pnet"]["conv1"][0].shape == (10, 3, 3, 3)  # OIHW
+    assert list(frozen["yolov3"]["convs"]) == [0, 1, 2, 3, 5, 10, 15]
+    tv = VisionPipeline({k: frozen[k] for k in ("resnet", "resnet_cfg",
+                                                "mtcnn", "facenet",
+                                                "yolov3")})
+    assert tv.has_grid and tv.has_faces and tv.has_objects
+    out = tv.process({"image_b64": _b64("news_a_320x240_420.jpg")})
+    assert out["face_embeds"].shape == (4, 512)
+    assert out["obj_embeds"].shape == (64, 256)
+    assert not np.isnan(out["face_embeds"][0]).any()
+    assert not np.isnan(out["obj_embeds"][0]).any()
+
+
+@pytest.mark.parametrize("name", ["mtcnn", "facenet", "yolov3"])
+def test_a_tell_tpu_form_tower_is_refused_by_name(tmp_path, name):
+    """A towers/<name> without state.pt (tell_tpu's orbax tree) is refused
+    by serve, naming the directory and the converter's flag; it is never
+    skipped."""
     from tell_tpu_torch.commands.__main__ import main
     from tests.test_torch_cli import write_e2e_config
-    for name in ("mtcnn", "facenet", "yolov3"):
-        with pytest.raises(NotPortedError, match="queue 1 item 8"):
-            VisionPipeline({name: {}, **models["towers"]})
     cfg = write_e2e_config(tmp_path)
-    (tmp_path / "towers" / "yolov3").mkdir(parents=True)
-    with pytest.raises(NotPortedError, match="yolov3.*queue 1 item 8"):
+    (tmp_path / "towers" / name / "checkpoint").mkdir(parents=True)
+    flag = {"mtcnn": "--mtcnn", "facenet": "--facenet",
+            "yolov3": "--yolo-cfg"}[name]
+    with pytest.raises(NotPortedError, match=f"towers/{name} holds no "
+                       f"state.pt.*item 6.*{flag}"):
         main(["serve", cfg, "--device", "cpu"])
 
 
