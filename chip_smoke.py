@@ -178,10 +178,11 @@ every phase passed):
      exact one; along the fused route's tokens its top-4 log-probs within
      TOPK_TOL of the exact route's and of the full log-probs at its ids).
      Prints each configuration's readings and the phase's seconds.
- 14. images in: every JPEG of tests/fixtures/images through the port's
-     decoder (built with g++ here) and its resize and crop, each RGB and
-     224-crop sha256 equal to the one Pillow gave (manifest.json), each
-     refused form refused with its name and ROADMAP queue 1 item 8, and
+ 14. images in: every JPEG and PNG of tests/fixtures/images through the
+     port's decoders (built with g++ here) and its resize and crop, each
+     RGB and 224-crop sha256 equal to the one Pillow gave (manifest.json),
+     each refused form refused with its name and ROADMAP queue 1 item 8,
+     each corrupt file refused as corrupt, and
      the host ms of decode and crop per news photo; ResNet-152 at full
      width from init_resnet (seeded, each bottleneck's last batch-norm
      scale at RESIDUAL_BN) on the two news photos' crops, card against
@@ -198,8 +199,8 @@ every phase passed):
      image_grid) pack the same ids and grid and answer the same
      ids over HTTP, and so do a scraped sections request with the photo
      in sections[image_position].image_data and its window's text with
-     the grid; a micro-batch of six with a bad base64 and a progressive
-     JPEG answers the four others and reports the two (kernels A and B
+     the grid; a micro-batch of six with a bad base64 and a refused
+     (under-refined) progressive JPEG answers the four others and reports the two (kernels A and B
      counted and required); the engine (4 slots, beam 5) on the same
      weights: the photo and grid requests answer the same beams, each
      equal to a one-shot beam 5 on the features it was given or a near
@@ -232,6 +233,26 @@ every phase passed):
      --facenet, --mtcnn and --yolo-cfg/--yolo-weights on facenet-pytorch
      and darknet files (tests/tower_writers.py) from the same towers, and
      the loader serve uses reads back the converter's trees bit for bit.
+ 16. what tell_tpu users hold: (a) every fixture added for the other
+     photo forms (progressive JPEGs, 4:1:1, 4:4:0, CMYK, YCCK, RGB-coded,
+     PNGs of every colour type and depth, Adam7, filters) decoded on the
+     card's host to its manifest sha256, RGB and 224 crop, the news
+     photos' twins equal to their baseline files where the manifest says
+     so, each refusal naming its form; (b) ms per photo of the host
+     decode of each news photo's baseline, progressive and PNG files
+     (median of 3 calls); (c) the flagship at full width (RoBERTa-large,
+     phase 15's four random towers) served over HTTP in micro-batch mode
+     and in the engine (4 slots, beam 5): the progressive and PNG twins
+     of the news photos as image_b64, each answering the baseline photo's
+     tokens where it decodes to the baseline's bytes and otherwise the
+     tokens of its features computed by _photo_features' own route
+     (kernels A and B counted and required); (d) `python -m
+     tell_tpu_torch.commands towers verify --json` over the five towers
+     (phase 15's trees and a seeded RoBERTa-large, saved as
+     convert_towers saves them) on the card: five CONVERTED rows with
+     tell_tpu's output shapes and the ViT row naming ROADMAP item 8, cut
+     4; each probe's outputs on the card within FEATURE_REL_TOL of the
+     same probe on the CPU, and kernel B launched by the RoBERTa probe.
 Then one JSON line describing the kernels and, last, the result line.
 
     python3 chip_smoke.py --cli
@@ -283,6 +304,10 @@ runs phases 1-2, then phase 14 only; no result line.
     python3 chip_smoke.py --faces-objects
 
 runs phases 1-2, then phase 15 only; no result line.
+
+    python3 chip_smoke.py --forms
+
+runs phases 1-2, then phase 16 only; no result line.
 
     python3 chip_smoke.py --beam N
 
@@ -3025,39 +3050,65 @@ def _b64(data: bytes) -> str:
     return base64.b64encode(data).decode()
 
 
-def _check_fixture_digests(root: str) -> dict:
-    """Every committed fixture through the port's decoder and crop against
-    the sha256 Pillow gave (manifest.json); every refused one refused with
-    its form named. Returns counts and the host ms of decode and crop."""
+def _check_digests(root: str, names, label: str) -> dict:
+    """The fixtures `names` through decode_image (the port's JPEG and PNG
+    decoders) and the crop against the sha256 Pillow gave (manifest.json);
+    every refused one refused with its form named, every corrupt one
+    refused as corrupt data, every twin equal to its baseline file.
+    Returns the counts."""
     import hashlib
     from tell_tpu_torch.config import NotPortedError
-    from tell_tpu_torch.data import jpeg
-    from tell_tpu_torch.data.images import resize_shortest_crop
-    t = time.perf_counter()
-    found = jpeg.load_library() is not None
-    build_s = time.perf_counter() - t
+    from tell_tpu_torch.data.images import decode_image, resize_shortest_crop
     with open(os.path.join(root, IMAGES_DIR, "manifest.json")) as f:
         manifest = json.load(f)
-    n_equal = n_refused = 0
-    for name, want in sorted(manifest.items()):
+    n = collections.Counter()
+    for name in sorted(names):
+        want = manifest[name]
         data = _read_fixture(root, name)
-        if "refused" in want:
+        if "refused" in want or "corrupt" in want:
+            kind = "refused" if "refused" in want else "corrupt"
             try:
-                jpeg.decode_jpeg(data)
-            except NotPortedError as e:
-                require(want["refused"] in str(e) and "item 8" in str(e),
-                        f"phase 14: {name} refused as {e}")
-                n_refused += 1
+                decode_image(data)
+            except ValueError as e:
+                require((kind == "refused") == isinstance(e, NotPortedError)
+                        and want[kind] in str(e) and "item 8" in str(e),
+                        f"{label}: {name} refused as {e}")
+                n[kind] += 1
                 continue
-            raise CheckFailed(f"phase 14: {name} decoded; it must be refused")
-        rgb = jpeg.decode_jpeg(data)
+            raise CheckFailed(f"{label}: {name} decoded; it must be refused")
+        rgb = decode_image(data)
         crop = resize_shortest_crop(rgb)
         for what, arr in (("rgb", rgb), ("crop", crop)):
             got = hashlib.sha256(arr.tobytes()).hexdigest()
             require(got == want[f"{what}_sha256"],
-                    f"phase 14: {name} {what} sha256 {got} is not Pillow's "
+                    f"{label}: {name} {what} sha256 {got} is not Pillow's "
                     f"{want[f'{what}_sha256']}")
-        n_equal += 1
+        if "twin_of" in want:
+            require(np.array_equal(rgb, decode_image(_read_fixture(
+                root, want["twin_of"]))),
+                f"{label}: {name} is not its baseline's bytes")
+            n["twins"] += 1
+        n["equal"] += 1
+    return dict(n)
+
+
+def _manifest_names(root: str) -> list:
+    with open(os.path.join(root, IMAGES_DIR, "manifest.json")) as f:
+        return sorted(json.load(f))
+
+
+def _check_fixture_digests(root: str) -> dict:
+    """Every committed fixture through the port's decoders and crop
+    against the sha256 Pillow gave (manifest.json), refusals named
+    (_check_digests). Returns counts and the host ms of decode and crop of
+    the news photos."""
+    from tell_tpu_torch.data import jpeg, png
+    from tell_tpu_torch.data.images import resize_shortest_crop
+    t = time.perf_counter()
+    found = jpeg.load_library() is not None and png.load_library() is not None
+    build_s = time.perf_counter() - t
+    counts = _check_digests(root, _manifest_names(root), "phase 14")
+    n_equal, n_refused = counts.get("equal", 0), counts.get("refused", 0)
     times = {}
     for name in NEWS_PHOTOS:
         data = _read_fixture(root, name)
@@ -3072,10 +3123,12 @@ def _check_fixture_digests(root: str) -> dict:
         times[name] = {"decode_ms": 1e3 * float(np.median(dec)),
                        "crop_ms": 1e3 * float(np.median(crp)),
                        "shape": list(rgb.shape)}
-    log(f"phase 14: the JPEG decoder (g++, {jpeg.SOURCE.name}) "
-        f"{'loaded' if found else 'built'} in {build_s:.2f} s; {n_equal} "
-        f"fixtures' RGB and 224-crop sha256 equal to Pillow's, {n_refused} "
-        f"refused forms named; host ms per photo (median of 20): "
+    log(f"phase 14: the JPEG and PNG decoders (g++, {jpeg.SOURCE.name}, "
+        f"{png.SOURCE.name}) {'loaded' if found else 'built'} in "
+        f"{build_s:.2f} s; {n_equal} fixtures' RGB and 224-crop sha256 equal "
+        f"to Pillow's, {n_refused} refused forms named, "
+        f"{counts.get('corrupt', 0)} corrupt files refused; host ms per "
+        f"photo (median of 20): "
         + json.dumps(times))
     return {"equal": n_equal, "refused": n_refused, "host": times}
 
@@ -3273,20 +3326,19 @@ def _same_features(a: dict, b: dict, keys) -> bool:
 def _photo_features(towers, data: bytes, keys, max_faces: int,
                     max_objects: int) -> dict:
     """The photo's features `keys` by the phases' own route, not through
-    VisionPipeline: the grid of its 224 crop (decode_jpeg,
+    VisionPipeline: the grid of its 224 crop (decode_image,
     resize_shortest_crop, image_grid); on its letterbox canvas, the
     FaceNet rows of the faces detect_faces keeps and the pooled ResNet
     rows of nms_fixed's detections (_stage_rows), NaN at the absent
     rows."""
-    from tell_tpu_torch.data.images import resize_shortest_crop
-    from tell_tpu_torch.data.jpeg import decode_jpeg
+    from tell_tpu_torch.data.images import decode_image, resize_shortest_crop
     from tell_tpu_torch.models.backbones.mtcnn import MTCNNConfig, detect_faces
     from tell_tpu_torch.models.backbones.resnet import image_grid
     from tell_tpu_torch.models.backbones.yolov3 import (nms_fixed,
                                                         yolov3_forward,
                                                         yolov3_spp_module_defs)
     from tell_tpu_torch.serving.vision import _INV_255, DET_CANVAS, letterbox
-    img = decode_jpeg(data)
+    img = decode_image(data)
     out = {}
     if "image_grid" in keys:
         out["image_grid"] = image_grid(towers["resnet"], towers["resnet_cfg"],
@@ -3393,8 +3445,8 @@ def _check_image_service(seed, cfg, rcfg, towers, dev, root,
         for name in ("decode_attention", "encoder_attention"):
             require(counts[name] > 0, f"{label}: {name} never launched")
     # bad photos share a micro-batch with good requests
-    with open(os.path.join(root, IMAGES_DIR, "refused_progressive.jpg"),
-              "rb") as f:
+    with open(os.path.join(root, IMAGES_DIR,
+                           "refused_progressive_unrefined.jpg"), "rb") as f:
         progressive = _b64(f.read())
     mixed = [reqs["photo"], {"context": text, "image_b64": "%%% bad"},
              reqs["features"], {"context": text, "image_b64": progressive},
@@ -3418,8 +3470,8 @@ def _check_image_service(seed, cfg, rcfg, towers, dev, root,
         f"latencies (s) "
         + json.dumps({k: round(v, 3) for k, v in lat.items()})
         + f"; kernel A launches {counts['decode_attention']}, kernel B "
-        f"{counts['encoder_attention']}; a bad base64 and a progressive "
-        f"JPEG in a micro-batch of 6: {out[1]['error'][:60]!r}, "
+        f"{counts['encoder_attention']}; a bad base64 and a refused "
+        f"progressive JPEG in a micro-batch of 6: {out[1]['error'][:60]!r}, "
         f"{out[3]['error'][:80]!r}; the other 4 answered")
 
     esvc = CaptionService(svc.model.tree(), roberta, cfg, dev,
@@ -3990,6 +4042,231 @@ def phase_faces_objects(seed: int, card: str, dev: str = "cuda", cfg=None,
     res["convert"] = _check_tower_convert(trees, dev)
     res["seconds"] = time.perf_counter() - t0
     log(f"phase 15 ({card or dev}): done in {res['seconds']:.1f} s")
+    res["trees"] = trees
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 16: what tell_tpu users hold -- the other photo forms, decoded as
+# Pillow decodes them, served; towers verify on the card
+# ---------------------------------------------------------------------------
+
+# the twins of each news photo: its progressive JPEG and its PNG
+FORM_TWINS = {name: (name.replace(".jpg", "_progressive.jpg"),
+                     name.replace(".jpg", ".png")) for name in NEWS_PHOTOS}
+# the fixtures phase 14's PR did not have: the forms added since
+OLD_FIXTURE_PREFIXES = ("rgb_", "grey_", "restart_", "news_a_320x240_420.jpg",
+                        "news_b_200x300_420.jpg")
+FORM_DECODE_CALLS = 3    # host decodes timed per file (the median is kept)
+# tell_tpu's probe output shapes (tell_tpu/commands/towers.py)
+VERIFY_SHAPES = {
+    "resnet152": {"grid": [1, 49, 2048], "pooled": [1, 2048]},
+    "roberta": {"hiddens": [1, 16, 25, 1024]},
+    "facenet": {"embedding": [1, 512]},
+    "mtcnn": {"pnet": [1, 1, 1, 4], "rnet": [1, 4], "onet": [1, 4]},
+    "yolov3": {"preds": [1, 1008, 85]},
+}
+
+
+def _form_decode_ms(root: str) -> dict:
+    """ms per photo of decode_image on each news photo's baseline,
+    progressive and PNG files (median of FORM_DECODE_CALLS calls)."""
+    from tell_tpu_torch.data.images import decode_image
+    out = {}
+    for base, twins in FORM_TWINS.items():
+        for name in (base, *twins):
+            data = _read_fixture(root, name)
+            times = []
+            for _ in range(FORM_DECODE_CALLS):
+                t = time.perf_counter()
+                decode_image(data)
+                times.append(time.perf_counter() - t)
+            out[name] = 1e3 * float(np.median(times))
+    return out
+
+
+def _check_twin_service(seed, cfg, rcfg, towers, dev, root) -> dict:
+    """The flagship with the four towers, micro-batch (over HTTP) and
+    engine: each news photo's progressive and PNG twins as image_b64. A
+    twin that decodes to its baseline's bytes answers the baseline's
+    tokens; one that does not answers the tokens of the same text with
+    its features computed by _photo_features."""
+    from tell_tpu_torch.bridge import init_captioner, init_roberta
+    from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
+    from tell_tpu_torch.serving import CaptionService, serve
+    with open(os.path.join(root, IMAGES_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    keys = ("image_grid", "face_embeds", "obj_embeds")
+    g = torch.Generator(device=dev).manual_seed(seed + 16)
+    params = init_captioner(g, cfg)
+    roberta = RobertaEncoder(init_roberta(g, rcfg), rcfg)
+    tok = _smoke_tokenizer(root, rcfg.vocab_size)
+    svc = CaptionService(params, roberta, cfg, dev, tokenizer=tok,
+                         max_batch=8, towers=towers)
+    arts = _quality_articles(root)
+    text = "\n".join(s["text"] for s in arts[2]["parsed_section"]
+                     if s["type"] == "paragraph")
+    reqs, want_of = {}, {}
+    for base, twins in FORM_TWINS.items():
+        reqs[base] = {"context": text,
+                      "image_b64": _b64(_read_fixture(root, base))}
+        for twin in twins:
+            data = _read_fixture(root, twin)
+            reqs[twin] = {"context": text, "image_b64": _b64(data)}
+            if manifest[twin].get("twin_of") == base:
+                want_of[twin] = base
+            else:
+                feats = _photo_features(towers, data, keys,
+                                        svc.vision.max_faces,
+                                        svc.vision.max_objects)
+                reqs[twin + ":features"] = {
+                    "context": text,
+                    **{k: v.tolist() for k, v in feats.items()}}
+                want_of[twin] = twin + ":features"
+    httpd = serve(svc, port=0, block=False)
+    port = httpd.server_address[1]
+    status, body = _post(port, "/caption", reqs[NEWS_PHOTOS[0]])  # warm-up
+    require(status == 200 and "error" not in body, body)
+    _reset_counts()
+    answers, lat = {}, {}
+    for name, req in reqs.items():
+        t = time.perf_counter()
+        status, body = _post(port, "/caption", req)
+        lat[name] = time.perf_counter() - t
+        require(status == 200 and "error" not in body, (name, body))
+        answers[name] = body["token_ids"]
+    counts = _counts()
+    for twin, want in want_of.items():
+        require(answers[twin] == answers[want],
+                f"phase 16: the micro-batch answer to {twin} is not "
+                f"{want}'s")
+    status, _ = _post(port, "/shutdown", {})
+    require(status == 200, f"/shutdown answered {status}")
+    httpd.server_close()
+    esvc = CaptionService(svc.model.tree(), roberta, cfg, dev,
+                          tokenizer=tok, engine_slots=4, engine_beam=5,
+                          towers=towers)
+    try:
+        _reset_counts()
+        eng = {name: esvc.caption(req) for name, req in reqs.items()}
+        n1 = _counts()
+    finally:
+        esvc.close()
+    for name, body in eng.items():
+        require("error" not in body, (name, body))
+    for twin, want in want_of.items():
+        require(eng[twin]["token_ids"] == eng[want]["token_ids"],
+                f"phase 16: the engine's answer to {twin} is not {want}'s")
+    svc.close()
+    micro = {k: counts[k] for k in ("decode_attention", "encoder_attention")}
+    engine = {k: n1[k] for k in ("decode_attention", "encoder_attention")}
+    if dev == "cuda":
+        for name in micro:
+            require(micro[name] > 0 and engine[name] > 0,
+                    f"phase 16: {name} never launched ({micro}, {engine})")
+    log(f"phase 16: /caption with the news photos' progressive and PNG "
+        f"twins, micro-batch and engine (4 slots, beam 5): each equal to "
+        + json.dumps(want_of) + "; latencies (s) "
+        + json.dumps({k: round(v, 3) for k, v in lat.items()})
+        + f"; launches micro-batch {micro}, engine {engine}")
+    return {"micro_batch_launches": micro, "engine_launches": engine,
+            "equal_to": want_of, "latency_s": lat}
+
+
+def _check_towers_verify(trees: dict, seed: int, dev) -> dict:
+    """The five towers saved as convert_towers saves them (state.pt of
+    the tree's tensors), `towers verify --json` through the command line
+    on `dev`; each probe's outputs on `dev` against the CPU's, and the
+    RoBERTa probe's kernel B launches."""
+    from tell_tpu_torch.bridge import init_roberta, to_torch
+    from tell_tpu_torch.commands import towers as verify
+    from tell_tpu_torch.models.backbones.roberta import RobertaConfig
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_verify_")
+    try:
+        g = torch.Generator().manual_seed(seed + 16)
+        saved = {**{k: trees[k] for k in ("mtcnn", "facenet", "yolov3")},
+                 "resnet152": trees["resnet"],
+                 "roberta": init_roberta(g, RobertaConfig.large())}
+        for name, tree in saved.items():
+            os.makedirs(os.path.join(tmp, name))
+            torch.save(to_torch(tree, "cpu"),
+                       os.path.join(tmp, name, "state.pt"))
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tell_tpu_torch.commands", "towers",
+             "verify", tmp, "--json", "--device", dev], cwd=root,
+            env={**os.environ, "PYTHONPATH": root}, capture_output=True,
+            text=True)
+        verify_s = time.perf_counter() - t
+        require(proc.returncode == 0, "phase 16: towers verify exited "
+                f"{proc.returncode}\n{proc.stdout[-3000:]}\n"
+                f"{proc.stderr[-3000:]}")
+        rows = {r["tower"]: r for r in json.loads(proc.stdout)}
+        for name, shapes in VERIFY_SHAPES.items():
+            require(rows[name]["status"] == "CONVERTED"
+                    and rows[name]["outputs"] == shapes,
+                    f"phase 16: towers verify's {name} row {rows[name]}")
+        require("item 8, cut 4" in rows["vit"]["status"],
+                f"phase 16: the vit row {rows['vit']}")
+        rel, launches = {}, None
+        for name in VERIFY_SHAPES:
+            _reset_counts()
+            _, _, card = verify.probe_outputs(tmp, name, dev)
+            if name == "roberta":
+                launches = _counts()["encoder_attention"]
+            _, _, cpu = verify.probe_outputs(tmp, name, "cpu")
+            rel[name] = max(_rel(torch.from_numpy(card[k]),
+                                 torch.from_numpy(cpu[k])) for k in card)
+            require(rel[name] <= FEATURE_REL_TOL,
+                    f"phase 16: the {name} probe on {dev} is {rel[name]:.3e} "
+                    "off the CPU's")
+        if dev == "cuda":
+            require(launches > 0, "phase 16: the RoBERTa probe never "
+                    "launched kernel B")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res = {"verify_s": verify_s, "rel_to_cpu": rel,
+           "roberta_encoder_attention_launches": launches,
+           "checksums": {k: r.get("checksum") for k, r in rows.items()}}
+    log(f"phase 16: towers verify --json on {dev} in {verify_s:.1f} s: five "
+        "CONVERTED rows with tell_tpu's shapes, vit not ported; probes vs "
+        "the CPU (relative): " + json.dumps(rel) + f"; kernel B launches "
+        f"in the RoBERTa probe {launches}; checksums "
+        + json.dumps(res["checksums"]))
+    return res
+
+
+def phase_forms(seed: int, card: str, dev: str = "cuda", cfg=None,
+                rcfg=None, trees=None) -> dict:
+    """Phase 16 (see the module docstring): the new fixtures on the host,
+    the host decode times of the news photos' forms, the flagship serving
+    their twins (micro-batch and engine) with phase 15's towers, and
+    towers verify on the card. cfg / rcfg default to the flagship and
+    RoBERTa-large (a CPU rehearsal passes small ones with faces 512 and
+    objects 2048 wide). trees: phase 15's _vision_towers(seed), made
+    again when not given."""
+    from tell_tpu_torch.config import CaptionerConfig
+    from tell_tpu_torch.models.backbones.roberta import RobertaConfig
+    cfg = cfg or CaptionerConfig()
+    rcfg = rcfg or RobertaConfig.large()
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    new = [n for n in _manifest_names(root)
+           if not n.startswith(OLD_FIXTURE_PREFIXES)]
+    res = {"fixtures": _check_digests(root, new, "phase 16")}
+    log(f"phase 16: {len(new)} fixtures of the other forms on the card's "
+        "host: " + json.dumps(res["fixtures"]))
+    res["decode_ms"] = _form_decode_ms(root)
+    log(f"phase 16 ({card or 'host'}): host ms per photo of decode_image, "
+        f"median of {FORM_DECODE_CALLS}: " + json.dumps(res["decode_ms"]))
+    trees = trees or _vision_towers(seed)
+    towers = _prepared_towers(trees, dev)
+    res["service"] = _check_twin_service(seed, cfg, rcfg, towers, dev, root)
+    del towers
+    res["verify"] = _check_towers_verify(trees, seed, dev)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 16 ({card or dev}): done in {res['seconds']:.1f} s")
     return res
 
 
@@ -4180,6 +4457,8 @@ def main() -> int:
                     help="after the build, phase 14 only (no result line)")
     ap.add_argument("--faces-objects", action="store_true",
                     help="after the build, phase 15 only (no result line)")
+    ap.add_argument("--forms", action="store_true",
+                    help="after the build, phase 16 only (no result line)")
     ap.add_argument("--quality", action="store_true",
                     help="after the build, the full quality loop on "
                     f"{QUALITY_EXPT} with its acceptance thresholds (no "
@@ -4251,6 +4530,9 @@ def main() -> int:
     if args.faces_objects:
         phase_faces_objects(args.seed, smi)
         return 0
+    if args.forms:
+        phase_forms(args.seed, smi)
+        return 0
     if args.quality:
         return quality_run(smi, args.quality_out)
     # phase 3
@@ -4316,6 +4598,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 15: faces and objects from a photo
     faces_objects = phase_faces_objects(args.seed, smi)
+    torch.cuda.empty_cache()
+    # phase 16: what tell_tpu users hold
+    forms = phase_forms(args.seed, smi, trees=faces_objects.pop("trees"))
 
     # MG=20/S=637, B=4 S=512, K=31 at T=32, int8 S=637, N=40 V=30265 k=5,
     # F S=637, F int4-split S=637
@@ -4362,6 +4647,14 @@ def main() -> int:
         name: faces_objects["service"]["micro_batch_launches"][name]
         + faces_objects["service"]["engine_launches"][name]
         for name in ("decode_attention", "encoder_attention")}
+    # phase 16's own path: A and B serving the photos' twins (micro-batch
+    # and engine), B in towers verify's RoBERTa probe
+    forms_launches = {
+        name: forms["service"]["micro_batch_launches"][name]
+        + forms["service"]["engine_launches"][name]
+        for name in ("decode_attention", "encoder_attention")}
+    forms_launches["encoder_attention"] += forms["verify"][
+        "roberta_encoder_attention_launches"]
     kernels = []
     for name, (src, replaces) in sources.items():
         case = res[name][main_case[name]]
@@ -4380,6 +4673,8 @@ def main() -> int:
             entry["phase14_launches"] = image_launches[name]
         if name in faces_objects_launches:
             entry["phase15_launches"] = faces_objects_launches[name]
+        if name in forms_launches:
+            entry["phase16_launches"] = forms_launches[name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """`python -m tell_tpu_torch.commands`: train / evaluate / preprocess /
-serve / score (counterpart of tell_tpu/commands/__main__.py, `tnt`).
+serve / score / towers verify (counterpart of
+tell_tpu/commands/__main__.py, `tnt`).
 
 The subcommands and flags are tnt's where they mean the same thing. The
 model runs on `--device` (default cuda): without a card and without
@@ -8,9 +9,8 @@ numerics levers are flags: `--kv-cache {fp,int8,int4}`, `--fused-topk`
 and `--gelu {erf,tanh}` (the frozen encoder's GELU; tell_tpu's
 TELL_TPU_FAST_GELU). `serve --attention` adds the word-attention payload.
 What tnt runs and the port does not yet is refused with its ROADMAP queue
-item: `bench` (item 1), `towers` (item 8, `towers verify`),
-`--coordinator` and `--mesh-data` (item 10), the model types outside the
-captioner family (config_io.py).
+item: `bench` (item 1), `--coordinator` and `--mesh-data` (item 10), the
+model types outside the captioner family (config_io.py).
 
 The frozen RoBERTa is read from <shards_dir>/../towers/roberta/state.pt
 (the port's torch format: the param tree saved with torch.save, as
@@ -23,9 +23,12 @@ with which `serve` embeds raw-image requests' grids and `preprocess` raw
 <hash>.jpg photos, and towers/mtcnn, towers/facenet and towers/yolov3
 (--mtcnn, --facenet, --yolo-cfg/--yolo-weights), with which `serve` finds
 and embeds their faces and, with the ResNet, their objects. A tower
-directory that holds no state.pt (tell_tpu's orbax tree) is refused by
-name. What remains of item 8: PNG and progressive JPEG photos, ViT,
-`towers verify` and the dataset tools.
+directory that holds no state.pt (tell_tpu's orbax tree) is refused,
+naming migrate/orbax_to_torch.py, which converts tell_tpu's orbax runs and
+towers where JAX and orbax are installed. `towers verify DIR [--tower
+NAME] [--json] [--device D]` probes each converted tower
+(commands/towers.py). What remains of item 8: ViT, the image forms
+data/jpeg.py and data/png.py refuse, and the dataset tools.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ import sys
 
 import torch
 
-from ..config import NotPortedError
+from ..config import NotPortedError, orbax_refusal
 
 log = logging.getLogger("tell_tpu_torch.commands")
 
@@ -131,11 +134,22 @@ def build_parser() -> argparse.ArgumentParser:
     sc.add_argument("-c", "--counters", default=None,
                     help="name_counters.pkl for rare-name P/R")
 
-    for name, item in (("bench", "queue 1 item 1, the port's benchmark"),
-                       ("towers", "queue 1 item 8, towers verify")):
-        b = sub.add_parser(name, help=f"not ported ({item})")
-        b.add_argument("rest", nargs=argparse.REMAINDER)
-        b.set_defaults(not_ported=item)
+    b = sub.add_parser("bench", help="not ported (queue 1 item 1, the "
+                       "port's benchmark)")
+    b.add_argument("rest", nargs=argparse.REMAINDER)
+    b.set_defaults(not_ported="queue 1 item 1, the port's benchmark")
+
+    tw = sub.add_parser("towers", help="frozen-tower utilities")
+    tw.add_argument("action", choices=["verify"],
+                    help="verify: probe converted towers and print "
+                         "activation checksums")
+    tw.add_argument("dir", help="towers dir (python -m "
+                    "tell_tpu_torch.tools.convert_towers --out, or "
+                    "migrate/orbax_to_torch.py towers)")
+    tw.add_argument("-t", "--tower", action="append", default=None,
+                    help="restrict to specific towers (repeatable)")
+    tw.add_argument("--json", action="store_true", dest="as_json")
+    tw.add_argument("--device", default="cuda")
     return p
 
 
@@ -189,10 +203,7 @@ def _frozen_towers(exp, device, gelu: str = "erf") -> dict:
     if os.path.exists(path):
         state = os.path.join(path, "state.pt")
         if not os.path.exists(state):
-            raise NotPortedError(
-                f"{path} holds no state.pt (a tell_tpu orbax tree?): reading "
-                "tell_tpu checkpoints needs the JAX-side conversion step of "
-                "ROADMAP queue 1 item 6")
+            raise orbax_refusal(path, "towers", _towers_dir(exp))
         roberta = torch.load(state, map_location="cpu", weights_only=True)
     else:
         logging.warning("no converted RoBERTa weights at %s; using random "
@@ -222,6 +233,10 @@ def _frozen_towers(exp, device, gelu: str = "erf") -> dict:
 def _restore_params(exp, model_dir, device) -> dict:
     path = os.path.abspath(model_dir or os.path.join(
         exp.trainer.serialization_dir, "checkpoints", "best"))
+    if os.path.isdir(path) and not os.path.exists(
+            os.path.join(path, "state.pt")):
+        raise orbax_refusal(path, "run", os.path.dirname(
+            os.path.dirname(path)))
     state = torch.load(os.path.join(path, "state.pt"), map_location=device,
                        weights_only=True)
     return state["params"]
@@ -385,6 +400,11 @@ def cmd_score(args) -> int:
     return 0
 
 
+def cmd_towers(args) -> int:
+    from .towers import verify
+    return verify(args.dir, args.tower, args.as_json, _device(args))
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     args = build_parser().parse_args(argv)
@@ -394,7 +414,7 @@ def main(argv=None) -> int:
                              f"{args.not_ported})")
     return {"train": cmd_train, "evaluate": cmd_evaluate,
             "preprocess": cmd_preprocess, "serve": cmd_serve,
-            "score": cmd_score}[args.cmd](args)
+            "score": cmd_score, "towers": cmd_towers}[args.cmd](args)
 
 
 if __name__ == "__main__":

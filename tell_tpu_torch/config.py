@@ -142,3 +142,15 @@ def with_article_len(cfg: CaptionerConfig, max_len: int) -> CaptionerConfig:
 class NotPortedError(ValueError):
     """A configuration or input that tell_tpu runs and the port does not
     yet; the message names the ROADMAP queue item that ports it."""
+
+
+def orbax_refusal(path: str, kind: str, src: str) -> NotPortedError:
+    """The error for a directory without the port's state.pt where a
+    tell_tpu orbax tree may be: `kind` is "run" (a checkpoint of a
+    training run, converted from its serialization dir `src`) or "towers"
+    (a tower, converted from its towers dir `src`); the message gives the
+    converter's command line, which runs where JAX and orbax do."""
+    return NotPortedError(
+        f"{path} holds no state.pt (a tell_tpu orbax tree?): convert it "
+        f"where JAX and orbax are installed with python "
+        f"migrate/orbax_to_torch.py {kind} {src}")

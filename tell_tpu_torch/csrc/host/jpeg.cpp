@@ -1,36 +1,51 @@
-// Baseline JPEG decoder for the port's image path (tell_tpu_torch/data/
-// jpeg.py binds it with ctypes; g++ builds it at first use).
+// JPEG decoder for the port's image path (tell_tpu_torch/data/jpeg.py
+// binds it with ctypes; g++ builds it at first use).
 //
 // The output is the RGB image libjpeg-turbo gives with its default decode
 // settings (the ones Pillow's Image.open(...).convert("RGB") uses): the
 // integer "slow" IDCT (jidctint.c: CONST_BITS 13, PASS1_BITS 2, the
 // post-IDCT range-limit table), "fancy" triangular chroma upsampling
 // (jdsample.c, with its biases, its edge columns and the first and last
-// component rows repeated as context), and the fixed-point YCbCr->RGB
-// tables (jdcolor.c, SCALEBITS 16). The whole padded MCU area is decoded,
-// upsampled, converted and then cropped to the frame.
+// component rows repeated as context; other integral factors replicate),
+// the fixed-point YCbCr->RGB tables (jdcolor.c, SCALEBITS 16), and for
+// four components libjpeg's YCCK->CMYK step followed by Pillow's own
+// "CMYK;I" unpacking (Adobe polarity) and CMYK->RGB conversion. The whole
+// padded MCU area is decoded, upsampled, converted and then cropped to the
+// frame.
 //
-// Scope: SOF0/SOF1, 8-bit samples, Huffman coding; one component (grey,
-// replicated to RGB) or three (YCbCr) with each chroma plane at 1x1, 2x1
-// or 2x2 of the luma grid (4:4:4, 4:2:2, 4:2:0); restart intervals;
-// interleaved or one-component scans; APPn and COM skipped. Everything
-// else is refused with a message naming the form (status 1); data that
-// ends early or does not decode is status 2. A frame of more than
-// kMaxPixels is status 4, before anything is allocated for it.
+// Scope: SOF0/SOF1 (sequential) and SOF2 (progressive), 8-bit samples,
+// Huffman coding; one component (grey, replicated to RGB), three (YCbCr,
+// or RGB when an Adobe marker with transform 0 or the component ids 'R',
+// 'G', 'B' say so, as libjpeg decides) or four (CMYK, or YCCK by the Adobe
+// transform), each plane at 1x1, 2x1, 2x2, 4x1 or 1x2 of the largest
+// (4:4:4, 4:2:2, 4:2:0, 4:1:1, 4:4:0); restart intervals; interleaved or
+// one-component scans; APPn and COM skipped. A progressive frame is
+// decoded into a whole-frame coefficient buffer (DC first and refinement
+// scans, AC first and refinement scans with EOB runs) and transformed at
+// EOI; one whose scans leave any of the first ten coefficients unrefined
+// is refused, since libjpeg then smooths blocks (jdcoefct.c) and this
+// decoder does not. Everything else is refused with a message naming the
+// form (status 1); data that ends early or does not decode is status 2. A
+// frame of more than kMaxPixels is status 4, before anything is allocated
+// for it.
 //
 // The input is untrusted (the caption service decodes what a request
-// sends): every table is checked before it is used to index, a scan must
-// hold at least the 2 bits a block takes before its planes are allocated,
-// and data that runs out is caught at the end of the block row it runs
-// out in.
+// sends): every table is checked before it is used to index, a sequential
+// scan must hold at least the 2 bits a block takes before its planes are
+// allocated, a progressive component's first scan must be a DC scan that
+// holds at least the bit a block takes before its coefficient buffer is
+// allocated, and data that runs out is caught at the end of the block row
+// it runs out in.
 //
 // C ABI:
-//   int tnt_jpeg_info(data, n, hw[2], err, errlen)
+//   int tnt_jpeg_info(data, n, info[4], err, errlen)
+//     info: height, width, components, 1 for a progressive frame
 //   int tnt_jpeg_decode(data, n, out, out_len, err, errlen)
 // Both return 0 on success, 1 for a refused form, 2 for corrupt or
 // truncated data, 3 when out_len is smaller than H * W * 3, 4 for a frame
 // above the pixel limit.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cstdio>
@@ -60,6 +75,17 @@ const int kNatural[64] = {
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+
+// libjpeg's jpeg_natural_order with its 16 extra entries of 63: a
+// progressive run that overshoots its band lands on coefficient 63 there,
+// and so it does here
+struct NaturalExt {
+  int at[80];
+  NaturalExt() {
+    for (int i = 0; i < 80; ++i) at[i] = i < 64 ? kNatural[i] : 63;
+  }
+};
+const NaturalExt kNaturalExt;
 
 constexpr int kLookBits = 9;
 
@@ -103,6 +129,11 @@ struct Component {
   int dw = 0, dh = 0;        // samples of the component inside the frame
   bool scanned = false;
   std::vector<uint8_t> plane;  // bw*8 x bh*8 samples
+  // progressive frames: bw x bh blocks of 64 coefficients (natural order),
+  // and each zigzag coefficient's current Al (-1: no scan sent it yet)
+  std::vector<int16_t> coef;
+  int coef_bits[64];
+  Component() { std::fill(coef_bits, coef_bits + 64, -1); }
 };
 
 // The entropy-coded segment: bytes after un-stuffing, stopping at a marker.
@@ -338,23 +369,27 @@ void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int stride
 
 // --- jdsample.c: the upsamplers ------------------------------------------
 
-// one component plane (dw x dh samples, row stride `stride`) to 2x width,
-// and 2x height when `two_rows`; out is (2*dw) x (two_rows ? 2*dh : dh)
-void upsample(const uint8_t* in, int stride, int dw, int dh, bool two_rows,
+// one component plane (dw x dh samples, row stride `stride`) to rh times
+// its width and rv times its height: out is (rh*dw) x (rv*dh). 2x1 and 2x2
+// interpolate (h2v1/h2v2_fancy_upsample) when the plane is more than 2
+// samples wide, 1x2 always (h1v2_fancy_upsample); everything else, and the
+// narrow 2x1 and 2x2 planes, replicates (int_upsample, h2v1/h2v2_upsample)
+void upsample(const uint8_t* in, int stride, int dw, int dh, int rh, int rv,
               std::vector<uint8_t>& out) {
-  const int ow = 2 * dw, oh = two_rows ? 2 * dh : dh;
+  const int ow = rh * dw, oh = rv * dh;
   out.assign(size_t(ow) * oh, 0);
-  const bool fancy = dw > 2;  // jinit_upsampler: narrower planes replicate
+  const bool fancy = (rh == 2 && (rv == 1 || rv == 2) && dw > 2) || (rh == 1 && rv == 2);
   for (int r = 0; r < dh; ++r) {
     const uint8_t* row = in + size_t(r) * stride;
     if (!fancy) {
-      for (int k = 0; k < (two_rows ? 2 : 1); ++k) {
-        uint8_t* o = out.data() + size_t(two_rows ? 2 * r + k : r) * ow;
-        for (int c = 0; c < dw; ++c) o[2 * c] = o[2 * c + 1] = row[c];
+      for (int k = 0; k < rv; ++k) {
+        uint8_t* o = out.data() + size_t(rv * r + k) * ow;
+        for (int c = 0; c < dw; ++c)
+          for (int j = 0; j < rh; ++j) o[rh * c + j] = row[c];
       }
       continue;
     }
-    if (!two_rows) {  // h2v1_fancy_upsample
+    if (rv == 1) {  // h2v1_fancy_upsample
       uint8_t* o = out.data() + size_t(r) * ow;
       int inv = row[0];
       *o++ = uint8_t(inv);
@@ -369,13 +404,18 @@ void upsample(const uint8_t* in, int stride, int dw, int dh, bool two_rows,
       *o++ = uint8_t(inv);
       continue;
     }
-    // h2v2_fancy_upsample: the row above for the upper output row, the row
-    // below for the lower one; the first and last rows are their own context
+    // h2v2 / h1v2: the row above for the upper output row, the row below
+    // for the lower one; the first and last rows are their own context
     for (int k = 0; k < 2; ++k) {
       int nr = k == 0 ? (r > 0 ? r - 1 : 0) : (r + 1 < dh ? r + 1 : dh - 1);
       const uint8_t* in0 = row;
       const uint8_t* in1 = in + size_t(nr) * stride;
       uint8_t* o = out.data() + size_t(2 * r + k) * ow;
+      if (rh == 1) {  // h1v2_fancy_upsample
+        const int bias = k == 0 ? 1 : 2;
+        for (int c = 0; c < dw; ++c) o[c] = uint8_t((in0[c] * 3 + in1[c] + bias) >> 2);
+        continue;
+      }
       int thiscolsum = in0[0] * 3 + in1[0];
       int nextcolsum = in0[1] * 3 + in1[1];
       *o++ = uint8_t((thiscolsum * 4 + 8) >> 4);
@@ -419,6 +459,15 @@ inline uint8_t clamp255(int v) { return uint8_t(v < 0 ? 0 : v > 255 ? 255 : v); 
 
 // --- the decoder ----------------------------------------------------------
 
+// jdapimin.c's default_decompress_parms: what the components hold
+enum ColorSpace { kGrey, kYCbCr, kRGB, kCMYK, kYCCK };
+
+// Pillow's MULDIV255 (Convert.c)
+inline int muldiv255(int a, int b) {
+  int t = a * b + 128;
+  return ((t >> 8) + t) >> 8;
+}
+
 struct Decoder {
   const uint8_t* data;
   const uint8_t* end;
@@ -426,8 +475,10 @@ struct Decoder {
   int width = 0, height = 0;
   int hmax = 1, vmax = 1;
   int restart_interval = 0;
-  bool have_frame = false, saw_jfif = false, saw_adobe = false;
+  bool have_frame = false, progressive = false, saw_jfif = false, saw_adobe = false;
   int adobe_transform = -1;
+  int scans = 0;
+  ColorSpace space = kGrey;
   std::vector<Component> comps;
   uint16_t qt[4][64] = {};
   bool qt_defined[4] = {};
@@ -464,19 +515,19 @@ struct Decoder {
     return s;
   }
 
-  void read_sof() {
+  void read_sof(bool is_progressive) {
     int len;
     const uint8_t* s = segment(len);
     if (have_frame) corrupt("a second frame header");
     if (len < 6) corrupt("a short frame header");
+    progressive = is_progressive;
     int precision = s[0];
     height = (s[1] << 8) | s[2];
     width = (s[3] << 8) | s[4];
     int n = s[5];
     if (precision != 8)
       refuse(std::to_string(precision) + "-bit samples");
-    if (n == 4) refuse("a 4-component (CMYK/YCCK) JPEG");
-    if (n != 1 && n != 3) refuse("a " + std::to_string(n) + "-component JPEG");
+    if (n != 1 && n != 3 && n != 4) refuse("a " + std::to_string(n) + "-component JPEG");
     if (len < 6 + 3 * n) corrupt("a short frame header");
     if (height == 0) refuse("a JPEG whose height comes in a DNL marker");
     if (width == 0) corrupt("a frame of width 0");
@@ -497,18 +548,17 @@ struct Decoder {
       hmax = c.h > hmax ? c.h : hmax;
       vmax = c.v > vmax ? c.v : vmax;
     }
-    if (n == 3) {
+    if (n > 1) {
       for (const Component& c : comps) {
         int rh = hmax / c.h, rv = vmax / c.v;
         bool ok = hmax % c.h == 0 && vmax % c.v == 0 &&
-                  ((rh == 1 && rv == 1) || (rh == 2 && rv == 1) || (rh == 2 && rv == 2));
+                  ((rh == 1 && rv == 1) || (rh == 2 && rv == 1) || (rh == 2 && rv == 2) ||
+                   (rh == 4 && rv == 1) || (rh == 1 && rv == 2));
         if (!ok) {
-          char buf[160];
-          std::snprintf(buf, sizeof buf,
-                        "chroma sampling %dx%d,%dx%d,%dx%d (not 4:4:4, 4:2:2 or 4:2:0)",
-                        comps[0].h, comps[0].v, comps[1].h, comps[1].v, comps[2].h,
-                        comps[2].v);
-          refuse(buf);
+          std::string f = "chroma sampling ";
+          for (int i = 0; i < n; ++i)
+            f += (i ? "," : "") + std::to_string(comps[i].h) + "x" + std::to_string(comps[i].v);
+          refuse(f + " (not 4:4:4, 4:2:2, 4:2:0, 4:1:1 or 4:4:0)");
         }
       }
     } else {
@@ -571,17 +621,38 @@ struct Decoder {
     }
   }
 
-  void decode_block(BitReader& br, Component& c, int bx, int by) {
-    int16_t coef[64] = {};
-    const Huffman& d = dc[c.td];
-    const Huffman& a = ac[c.ta];
-    int t = br.decode(d);
+  // libjpeg decides the colour space from the markers seen before the
+  // first scan
+  void latch_color_space() {
+    const size_t n = comps.size();
+    if (n == 1) {
+      space = kGrey;
+    } else if (n == 3) {
+      space = kYCbCr;
+      if (!saw_jfif && saw_adobe && adobe_transform == 0) space = kRGB;
+      if (!saw_jfif && !saw_adobe && comps[0].id == 'R' && comps[1].id == 'G' &&
+          comps[2].id == 'B')
+        space = kRGB;
+    } else {
+      space = saw_adobe && adobe_transform != 0 ? kYCCK : kCMYK;
+    }
+  }
+
+  // a DC value: the difference decoded and added to the prediction
+  int dc_value(BitReader& br, Component& c) {
+    int t = br.decode(dc[c.td]);
     if (t > 11) corrupt("a DC difference of more than 11 bits");
     int diff = t ? extend(br.get(t), t) : 0;
     if ((c.pred >= 0 && diff > INT_MAX - c.pred) || (c.pred < 0 && diff < INT_MIN - c.pred))
       corrupt("a DC value that overflows");  // libjpeg-turbo's JERR_BAD_DCT_COEF
     c.pred += diff;
-    coef[0] = int16_t(c.pred);
+    return c.pred;
+  }
+
+  void decode_block(BitReader& br, Component& c, int bx, int by) {
+    int16_t coef[64] = {};
+    const Huffman& a = ac[c.ta];
+    coef[0] = int16_t(dc_value(br, c));
     for (int k = 1; k < 64;) {
       int rs = br.decode(a);
       int r = rs >> 4, s = rs & 15;
@@ -601,7 +672,82 @@ struct Decoder {
                stride);
   }
 
-  void read_restart(BitReader& br, int& next_rst) {
+  // --- jdphuff.c: one block of a progressive scan ------------------------
+
+  struct Scan {
+    int ss, se, ah, al;
+    int eobrun = 0;
+  };
+
+  static int16_t shifted(int v, int al) { return int16_t(uint16_t(unsigned(v) << al)); }
+
+  void progressive_block(BitReader& br, Component& c, int16_t* blk, Scan& sc) {
+    if (sc.ss == 0) {  // DC: the first scan's value, or one more bit
+      if (sc.ah == 0)
+        blk[0] = shifted(dc_value(br, c), sc.al);
+      else if (br.get(1))
+        blk[0] = int16_t(blk[0] | (1 << sc.al));
+      return;
+    }
+    const Huffman& t = ac[c.ta];
+    if (sc.ah == 0) {  // decode_mcu_AC_first
+      if (sc.eobrun > 0) {
+        --sc.eobrun;
+        return;
+      }
+      for (int k = sc.ss; k <= sc.se; ++k) {
+        int rs = br.decode(t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          k += r;
+          blk[kNaturalExt.at[k]] = shifted(extend(br.get(s), s), sc.al);
+        } else if (r == 15) {
+          k += 15;
+        } else {
+          sc.eobrun = (1 << r) + br.get(r) - 1;
+          break;
+        }
+      }
+      return;
+    }
+    // decode_mcu_AC_refine: a correction bit for every nonzero coefficient
+    // passed over, and each new coefficient +-1 << Al
+    const int p1 = 1 << sc.al, m1 = -p1;
+    auto correct = [&](int16_t& x) {
+      if (br.get(1) && (x & p1) == 0) x = int16_t(x + (x >= 0 ? p1 : m1));
+    };
+    int k = sc.ss;
+    if (sc.eobrun == 0) {
+      for (; k <= sc.se; ++k) {
+        int rs = br.decode(t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;  // libjpeg warns when the size is not 1
+        } else if (r != 15) {
+          sc.eobrun = (1 << r) + br.get(r);
+          break;
+        }
+        do {
+          int16_t& x = blk[kNaturalExt.at[k]];
+          if (x != 0)
+            correct(x);
+          else if (--r < 0)
+            break;
+          ++k;
+        } while (k <= sc.se);
+        if (s) blk[kNaturalExt.at[k]] = int16_t(s);
+      }
+    }
+    if (sc.eobrun > 0) {
+      for (; k <= sc.se; ++k) {
+        int16_t& x = blk[kNatural[k]];
+        if (x != 0) correct(x);
+      }
+      --sc.eobrun;
+    }
+  }
+
+  void read_restart(BitReader& br, int& next_rst, Scan& scan) {
     br.check("before a restart marker");
     // the reader stops on a marker, or just before it when its buffer filled
     const uint8_t* q = br.p;
@@ -612,10 +758,37 @@ struct Decoder {
     next_rst = (next_rst + 1) & 7;
     br.reset(q + 1);
     for (Component& c : comps) c.pred = 0;
+    scan.eobrun = 0;
+  }
+
+  // jdphuff.c's start_pass_phuff_decoder: the scan's parameters, the
+  // progression it continues, and the coefficient buffers its components
+  // need (allocated at a component's first scan, which must be DC-first)
+  void start_progressive(const std::vector<Component*>& sc, const Scan& scan, int64_t blocks) {
+    const bool dc_band = scan.ss == 0;
+    bool bad = dc_band ? scan.se != 0 : (scan.ss > scan.se || scan.se > 63 || sc.size() != 1);
+    if (scan.ah != 0 && scan.al != scan.ah - 1) bad = true;
+    if (scan.al > 13) bad = true;
+    if (bad) corrupt("a progressive scan with bad spectral selection or successive approximation");
+    for (Component* c : sc) {
+      if (dc_band && scan.ah == 0 && !dc[c->td].defined)
+        corrupt("a scan whose Huffman table is not defined");
+      if (!dc_band && !ac[c->ta].defined) corrupt("a scan whose Huffman table is not defined");
+      if (c->coef.empty()) {
+        if (!dc_band || scan.ah != 0)
+          corrupt("a progressive scan before its component's first DC scan");
+        // a DC code takes at least a bit: refuse data that cannot hold the
+        // scan before allocating the coefficients
+        if ((end - p) * 8 < blocks) corrupt("the data ends early (too short for its scan)");
+        c->coef.assign(size_t(c->bw) * c->bh * 64, 0);
+      }
+      for (int k = scan.ss; k <= scan.se; ++k) c->coef_bits[k] = scan.al;
+    }
   }
 
   void read_sos() {
     if (!have_frame) corrupt("a scan before the frame header");
+    if (scans++ == 0) latch_color_space();
     int len;
     const uint8_t* s = segment(len);
     if (len < 1) corrupt("a short scan header");
@@ -630,14 +803,15 @@ struct Decoder {
       if (!found) corrupt("a scan of a component the frame does not have");
       found->td = tables >> 4;
       found->ta = tables & 15;
-      if (found->td > 3 || found->ta > 3 || !dc[found->td].defined ||
-          !ac[found->ta].defined)
+      if (found->td > 3 || found->ta > 3) corrupt("a scan whose Huffman table is not defined");
+      if (!progressive && (!dc[found->td].defined || !ac[found->ta].defined))
         corrupt("a scan whose Huffman table is not defined");
       if (!qt_defined[found->tq]) corrupt("a component whose quantisation table is not defined");
       sc.push_back(found);
     }
-    int ss = s[1 + 2 * ns], se = s[2 + 2 * ns], a = s[3 + 2 * ns];
-    if (ss != 0 || se != 63 || a != 0) corrupt("a sequential scan with spectral selection");
+    Scan scan{s[1 + 2 * ns], s[2 + 2 * ns], s[3 + 2 * ns] >> 4, s[3 + 2 * ns] & 15};
+    if (!progressive && (scan.ss != 0 || scan.se != 63 || scan.ah != 0 || scan.al != 0))
+      corrupt("a sequential scan with spectral selection");
     const int mcux = (width + 8 * hmax - 1) / (8 * hmax);
     const int mcuy = (height + 8 * vmax - 1) / (8 * vmax);
     int64_t blocks = 0;
@@ -646,11 +820,16 @@ struct Decoder {
     } else {
       for (Component* c : sc) blocks += int64_t(mcux) * mcuy * c->h * c->v;
     }
-    // a block takes at least 2 bits (a DC code and an EOB): refuse data
-    // that cannot hold the scan before allocating its planes
-    if ((end - p) * 8 < 2 * blocks) corrupt("the data ends early (too short for its scan)");
+    if (progressive) {
+      start_progressive(sc, scan, blocks);
+    } else {
+      // a block takes at least 2 bits (a DC code and an EOB): refuse data
+      // that cannot hold the scan before allocating its planes
+      if ((end - p) * 8 < 2 * blocks) corrupt("the data ends early (too short for its scan)");
+      for (Component* c : sc)
+        if (c->plane.empty()) c->plane.assign(size_t(c->bw) * 8 * c->bh * 8, 0);
+    }
     for (Component* c : sc) {
-      if (c->plane.empty()) c->plane.assign(size_t(c->bw) * 8 * c->bh * 8, 0);
       c->pred = 0;
       c->scanned = true;
     }
@@ -658,6 +837,12 @@ struct Decoder {
     br.end = end;
     br.reset(p);
     int next_rst = 0;
+    auto block = [&](Component& c, int bx, int by) {
+      if (progressive)
+        progressive_block(br, c, c.coef.data() + (size_t(by) * c.bw + bx) * 64, scan);
+      else
+        decode_block(br, c, bx, by);
+    };
     if (ns == 1) {  // one component: its blocks inside the frame, row by row
       Component& c = *sc[0];
       int nbx = (c.dw + 7) / 8, nby = (c.dh + 7) / 8;
@@ -665,8 +850,8 @@ struct Decoder {
       for (int by = 0; by < nby; ++by) {
         for (int bx = 0; bx < nbx; ++bx) {
           if (restart_interval && count && count % restart_interval == 0)
-            read_restart(br, next_rst);
-          decode_block(br, c, bx, by);
+            read_restart(br, next_rst, scan);
+          block(c, bx, by);
           ++count;
         }
         br.check_row("block row", by, nby);
@@ -676,17 +861,43 @@ struct Decoder {
       for (int my = 0; my < mcuy; ++my) {
         for (int mx = 0; mx < mcux; ++mx) {
           if (restart_interval && count && count % restart_interval == 0)
-            read_restart(br, next_rst);
+            read_restart(br, next_rst, scan);
           for (Component* c : sc)
             for (int v = 0; v < c->v; ++v)
-              for (int h = 0; h < c->h; ++h)
-                decode_block(br, *c, mx * c->h + h, my * c->v + v);
+              for (int h = 0; h < c->h; ++h) block(*c, mx * c->h + h, my * c->v + v);
           ++count;
         }
         br.check_row("MCU row", my, mcuy);
       }
     }
     p = br.p;
+  }
+
+  // a progressive frame's coefficients through the IDCT once every scan is
+  // in (jdcoefct.c's decompress_data; decompress_smooth_data is refused)
+  void finish_progressive() {
+    bool smoothing = true;  // smoothing_ok: the first ten quantisers nonzero
+    for (const Component& c : comps) {
+      if (c.coef.empty()) corrupt("a component that no scan decoded");
+      const uint16_t* q = qt[c.tq];
+      for (int pos : {0, 1, 8, 16, 9, 2, 3, 10, 17, 24})
+        if (q[pos] == 0) smoothing = false;
+    }
+    bool useful = false;
+    for (const Component& c : comps)
+      for (int k = 1; k < 10; ++k) useful |= c.coef_bits[k] != 0;
+    if (smoothing && useful)
+      refuse("a progressive JPEG whose scans leave some of the first ten coefficients "
+             "unrefined (libjpeg smooths such blocks)");
+    for (Component& c : comps) {
+      const int stride = c.bw * 8;
+      c.plane.assign(size_t(stride) * c.bh * 8, 0);
+      for (int by = 0; by < c.bh; ++by)
+        for (int bx = 0; bx < c.bw; ++bx)
+          idct_islow(c.coef.data() + (size_t(by) * c.bw + bx) * 64, qt[c.tq],
+                     c.plane.data() + size_t(by) * 8 * stride + size_t(bx) * 8, stride);
+      std::vector<int16_t>().swap(c.coef);
+    }
   }
 
   void header() {
@@ -706,10 +917,10 @@ struct Decoder {
       switch (m) {
         case 0xC0:
         case 0xC1:
-          read_sof();
+        case 0xC2:
+          read_sof(m == 0xC2);
           if (info_only) return;
           break;
-        case 0xC2: refuse("a progressive JPEG (SOF2)");
         case 0xC3: refuse("a lossless JPEG (SOF3)");
         case 0xC5: case 0xC6: case 0xC7:
           refuse("a hierarchical JPEG");
@@ -727,14 +938,11 @@ struct Decoder {
           break;
         }
         case 0xDA:
-          if (comps.size() == 3 && !saw_jfif &&
-              ((saw_adobe && adobe_transform == 0) ||
-               (!saw_adobe && comps[0].id == 'R' && comps[1].id == 'G' && comps[2].id == 'B')))
-            refuse("an RGB-coded (not YCbCr) JPEG");
           read_sos();
           break;
         case 0xD9:
           if (!have_frame) corrupt("no frame header before EOI");
+          if (progressive) finish_progressive();
           return;
         case 0xDC: refuse("a JPEG with a DNL marker");
         case 0xD8: corrupt("a second SOI marker");
@@ -753,40 +961,57 @@ struct Decoder {
   void output(uint8_t* out) {
     for (const Component& c : comps)
       if (!c.scanned) corrupt("a component that no scan decoded");
-    if (comps.size() == 1) {
-      const Component& c = comps[0];
-      for (int y = 0; y < height; ++y) {
-        const uint8_t* row = c.plane.data() + size_t(y) * c.bw * 8;
-        uint8_t* o = out + size_t(y) * width * 3;
-        for (int x = 0; x < width; ++x) o[3 * x] = o[3 * x + 1] = o[3 * x + 2] = row[x];
-      }
-      return;
-    }
     // each plane at full resolution: a pointer and a stride
-    std::vector<uint8_t> up[3];
-    const uint8_t* full[3];
-    size_t stride[3];
-    for (int i = 0; i < 3; ++i) {
+    const size_t n = comps.size();
+    std::vector<uint8_t> up[4];
+    const uint8_t* full[4];
+    size_t stride[4];
+    for (size_t i = 0; i < n; ++i) {
       const Component& c = comps[i];
-      if (c.h == hmax && c.v == vmax) {
+      const int rh = hmax / c.h, rv = vmax / c.v;
+      if (rh == 1 && rv == 1) {
         full[i] = c.plane.data();
         stride[i] = size_t(c.bw) * 8;
       } else {
-        upsample(c.plane.data(), c.bw * 8, c.dw, c.dh, c.v != vmax, up[i]);
+        upsample(c.plane.data(), c.bw * 8, c.dw, c.dh, rh, rv, up[i]);
         full[i] = up[i].data();
-        stride[i] = size_t(2) * c.dw;
+        stride[i] = size_t(rh) * c.dw;
       }
     }
     for (int y = 0; y < height; ++y) {
-      const uint8_t* Y = full[0] + y * stride[0];
-      const uint8_t* Cb = full[1] + y * stride[1];
-      const uint8_t* Cr = full[2] + y * stride[2];
+      const uint8_t* P[4];
+      for (size_t i = 0; i < n; ++i) P[i] = full[i] + y * stride[i];
       uint8_t* o = out + size_t(y) * width * 3;
-      for (int x = 0; x < width; ++x) {
-        int yy = Y[x], cb = Cb[x], cr = Cr[x];
-        o[3 * x] = clamp255(yy + kYcc.cr_r[cr]);
-        o[3 * x + 1] = clamp255(yy + int((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
-        o[3 * x + 2] = clamp255(yy + kYcc.cb_b[cb]);
+      for (int x = 0; x < width; ++x, o += 3) {
+        switch (space) {
+          case kGrey:
+            o[0] = o[1] = o[2] = P[0][x];
+            break;
+          case kRGB:
+            o[0] = P[0][x], o[1] = P[1][x], o[2] = P[2][x];
+            break;
+          case kYCbCr: {
+            int yy = P[0][x], cb = P[1][x], cr = P[2][x];
+            o[0] = clamp255(yy + kYcc.cr_r[cr]);
+            o[1] = clamp255(yy + int((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+            o[2] = clamp255(yy + kYcc.cb_b[cb]);
+            break;
+          }
+          default: {
+            int cmy[3], k = P[3][x];
+            if (space == kYCCK) {  // jdcolor.c's ycck_cmyk_convert
+              int yy = P[0][x], cb = P[1][x], cr = P[2][x];
+              cmy[0] = clamp255(255 - (yy + kYcc.cr_r[cr]));
+              cmy[1] = clamp255(255 - (yy + int((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)));
+              cmy[2] = clamp255(255 - (yy + kYcc.cb_b[cb]));
+            } else {
+              cmy[0] = P[0][x], cmy[1] = P[1][x], cmy[2] = P[2][x];
+            }
+            // Pillow reads the samples inverted ("CMYK;I") and converts
+            // with Convert.c's cmyk2rgb, whose nk is 255 - (255 - k)
+            for (int i = 0; i < 3; ++i) o[i] = clamp255(k - muldiv255(255 - cmy[i], k));
+          }
+        }
       }
     }
   }
@@ -801,13 +1026,15 @@ int report(const Fail& f, char* err, int errlen) {
 
 extern "C" {
 
-int tnt_jpeg_info(const uint8_t* data, int64_t n, int32_t* hw, char* err, int errlen) {
+int tnt_jpeg_info(const uint8_t* data, int64_t n, int32_t* info, char* err, int errlen) {
   try {
     Decoder d(data, n);
     d.run(true);
     if (!d.have_frame) corrupt("no frame header");
-    hw[0] = d.height;
-    hw[1] = d.width;
+    info[0] = d.height;
+    info[1] = d.width;
+    info[2] = int32_t(d.comps.size());
+    info[3] = d.progressive;
     return kOk;
   } catch (const Fail& f) {
     return report(f, err, errlen);

@@ -22,6 +22,10 @@ import math
 
 import numpy as np
 
+from ..config import NotPortedError
+from .jpeg import decode_jpeg
+from .png import decode_png
+
 PRECISION_BITS = 32 - 8 - 2     # Pillow's Resample.c, 8 bits per channel
 
 
@@ -152,3 +156,29 @@ def resize_shortest_crop(img: np.ndarray, resize: int = 256,
     # each output pixel is its own sum: resample only the crop
     return resize_pillow(img, nw, nh, "lanczos",
                          (left, top, left + crop, top + crop))
+
+
+# the formats Pillow would open that the port does not decode, by their
+# signature bytes
+_OTHER_FORMATS = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"),
+                  (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                  (b"RIFF", "WebP"))
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Encoded image bytes -> uint8 [H, W, 3] RGB, as tell_tpu's
+    Image.open(...).convert("RGB") gives it: JPEG (FF D8) through
+    data/jpeg.py, PNG (89 'PNG') through data/png.py. Any other format is
+    refused with a NotPortedError naming it (ROADMAP queue 1 item 8)."""
+    data = bytes(data)
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data)
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return decode_png(data)
+    for magic, name in _OTHER_FORMATS:
+        if data.startswith(magic) and (name != "WebP"
+                                       or data[8:12] == b"WEBP"):
+            raise NotPortedError(f"a {name} image: the port decodes JPEG "
+                                 "and PNG only (ROADMAP queue 1 item 8)")
+    raise NotPortedError("an image in no format the port decodes (neither "
+                         "JPEG nor PNG; ROADMAP queue 1 item 8)")

@@ -1,4 +1,4 @@
-"""The port's baseline-JPEG decoder (csrc/host/jpeg.cpp) through ctypes.
+"""The port's JPEG decoder (csrc/host/jpeg.cpp) through ctypes.
 
 tell_tpu decodes images through Pillow; the port has no Pillow, so it
 decodes news photos itself, to the bytes Pillow gives on its
@@ -9,14 +9,21 @@ import), under a name keyed on a hash of the source and flags, as
 data/native.py builds native/*.cpp; a failed build raises with the
 compiler's output, and there is no other decoder.
 
-Decoded: baseline and extended-sequential Huffman JPEG, 8-bit, grey or
-YCbCr at 4:4:4, 4:2:2 or 4:2:0, with or without restart intervals.
-Refused with a NotPortedError (a ValueError) that names the form:
-progressive, arithmetic, lossless and hierarchical JPEG, 12-bit samples,
-other chroma samplings, CMYK/YCCK and RGB-coded files, and PNG or any
-other format (ROADMAP queue 1 item 8); data that ends early or does not
-decode, and a frame above Pillow's decompression-bomb limit (178956970
-pixels, where tell_tpu's Image.open raises), raise a ValueError.
+Decoded: baseline, extended-sequential and progressive Huffman JPEG,
+8-bit, grey, YCbCr or RGB-coded three-component files, and CMYK or YCCK
+four-component ones (as Pillow opens them: mode CMYK, read with Adobe
+polarity, then its own CMYK -> RGB), each plane at 4:4:4, 4:2:2, 4:2:0,
+4:1:1 or 4:4:0, with or without restart intervals. Refused with a
+NotPortedError (a ValueError) that names the form: arithmetic, lossless
+and hierarchical JPEG, 12-bit samples, other samplings, 2-component
+files, a progressive file whose scans leave any of its first ten
+coefficients unrefined (libjpeg smooths those blocks), and PNG or any
+other format (data/images.py's decode_image routes PNG to data/png.py)
+(ROADMAP queue 1 item 8). Status codes of the C ABI: 0 decoded, 1 a
+refused form, 2 data that ends early or does not decode, 3 an output
+buffer too small, 4 a frame above Pillow's decompression-bomb limit
+(178956970 pixels, where tell_tpu's Image.open raises); 2 and 4 raise a
+ValueError.
 """
 from __future__ import annotations
 
@@ -59,24 +66,35 @@ def load_library(build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
 def _raise(code: int, err) -> None:
     msg = err.value.decode(errors="replace")
     if code == 1:
-        raise NotPortedError(f"{msg}: the port decodes baseline JPEG only "
+        raise NotPortedError(f"{msg}: a JPEG form the port does not decode "
                              f"({ITEM})")
     if code == 4:
         raise ValueError(f"refused: {msg}")
     raise ValueError(f"corrupt or truncated JPEG ({msg}); the port's "
-                     f"baseline decoder takes no other data ({ITEM})")
+                     f"decoder takes no other data ({ITEM})")
+
+
+def jpeg_info(data: bytes) -> dict:
+    """The frame header: {"height", "width", "components", "progressive"};
+    raises as decode_jpeg does for a refused or corrupt header."""
+    lib = load_library()
+    data = bytes(data)
+    err = ctypes.create_string_buffer(256)
+    info = (ctypes.c_int32 * 4)()
+    code = lib.tnt_jpeg_info(data, len(data), info, err, len(err))
+    if code:
+        _raise(code, err)
+    return {"height": info[0], "width": info[1], "components": info[2],
+            "progressive": bool(info[3])}
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
     """Encoded JPEG bytes -> uint8 [H, W, 3] RGB."""
     lib = load_library()
     data = bytes(data)
+    info = jpeg_info(data)
     err = ctypes.create_string_buffer(256)
-    hw = (ctypes.c_int32 * 2)()
-    code = lib.tnt_jpeg_info(data, len(data), hw, err, len(err))
-    if code:
-        _raise(code, err)
-    out = np.empty((hw[0], hw[1], 3), np.uint8)
+    out = np.empty((info["height"], info["width"], 3), np.uint8)
     code = lib.tnt_jpeg_decode(data, len(data), out.ctypes.data, out.nbytes,
                                err, len(err))
     if code:

@@ -25,8 +25,7 @@ import numpy as np
 
 from ..config import NotPortedError
 from ..models.backbones.resnet import ResNetConfig, image_grid, load_tower
-from .images import resize_shortest_crop
-from .jpeg import decode_jpeg
+from .images import decode_image, resize_shortest_crop
 from .readers import ReaderConfig, iter_examples
 from .records import write_shard
 from .tokenizer import RobertaTokenizer
@@ -72,10 +71,10 @@ def make_image_grid_fn(images_dir: str, towers_dir: str | None = None,
                        device="cuda") -> Callable[[str], np.ndarray | None]:
     """hash -> [49, 2048] ResNet-152 grid features for preprocess.
 
-    A precomputed `<hash>.npy` wins. A raw `<hash>.jpg/.jpeg` is embedded
-    through the converted tower at `towers_dir`/resnet152/state.pt, loaded
-    on `device` at the first raw image; a raw `<hash>.png` is refused
-    (ROADMAP queue 1 item 8). Without a tower a raw image gives None, as
+    A precomputed `<hash>.npy` wins. A raw `<hash>.jpg/.jpeg/.png` is
+    decoded (data/images.py's decode_image) and embedded through the
+    converted tower at `towers_dir`/resnet152/state.pt, loaded on `device`
+    at the first raw image. Without a tower a raw image gives None, as
     does a missing hash: preprocess skips the example, as tell_tpu
     does."""
     state: dict = {}
@@ -88,11 +87,8 @@ def make_image_grid_fn(images_dir: str, towers_dir: str | None = None,
                               if tower and os.path.exists(tower) else None)
         if state["tower"] is None:
             return None
-        if path.endswith(".png"):
-            raise NotPortedError(f"{path}: PNG images are not decoded yet "
-                                 "(ROADMAP queue 1 item 8)")
         with open(path, "rb") as f:
-            img = decode_jpeg(f.read())
+            img = decode_image(f.read())
         return image_grid(state["tower"], ResNetConfig.resnet152(),
                           resize_shortest_crop(img).astype(np.float32))
 

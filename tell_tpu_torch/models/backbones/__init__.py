@@ -10,7 +10,7 @@ import threading
 import torch
 
 from ...bridge import tree_map
-from ...config import NotPortedError
+from ...config import NotPortedError, orbax_refusal
 
 # the TF32 switches are one per process: forwards on other threads (the
 # service's request threads) take turns, so none restores them under
@@ -38,15 +38,15 @@ def fp32_math():
 def load_state(path: str, device, flag: str):
     """The tree at <path>/state.pt (as tools/convert_towers.py writes it)
     on `device`. A directory without one (a tell_tpu orbax tree) is
-    refused, naming the converter's `flag`; no card without `device`
-    "cpu" raises."""
+    refused, naming migrate/orbax_to_torch.py and the converter's `flag`
+    for the source weights; no card without `device` "cpu" raises."""
     state = os.path.join(path, "state.pt")
     if not os.path.exists(state):
-        raise NotPortedError(
-            f"{path} holds no state.pt (a tell_tpu orbax tree?): reading "
-            "tell_tpu checkpoints needs the JAX-side conversion step of "
-            "ROADMAP queue 1 item 6; convert the weights with python -m "
-            f"tell_tpu_torch.tools.convert_towers {flag}")
+        err = orbax_refusal(path, "towers", os.path.dirname(
+            os.path.abspath(path)))
+        raise NotPortedError(f"{err} (or convert the source weights with "
+                             "python -m tell_tpu_torch.tools.convert_towers "
+                             f"{flag})")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on the card; pass "

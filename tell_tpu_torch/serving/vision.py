@@ -1,8 +1,8 @@
 """Image features from raw request images for the caption service
 (counterpart of tell_tpu/serving/vision.py).
 
-A request's photo comes as `image_b64` (an encoded JPEG, decoded by the
-port's own decoder, data/jpeg.py) or `image` (a nested [H, W, 3] list in
+A request's photo comes as `image_b64` (an encoded JPEG or PNG, decoded by
+the port's own decoders through data/images.py's decode_image) or `image` (a nested [H, W, 3] list in
 the uint8 range). VisionPipeline turns it into the contexts tell_tpu's
 computes, on the towers' device:
 
@@ -26,8 +26,8 @@ import base64
 import numpy as np
 import torch
 
-from ..data.images import resize_pillow, resize_shortest_crop
-from ..data.jpeg import decode_jpeg
+from ..data.images import (decode_image, resize_pillow,
+                           resize_shortest_crop)
 from ..models.backbones.facenet import facenet_forward
 from ..models.backbones.mtcnn import MTCNNConfig, detect_faces, extract_faces
 from ..models.backbones.resnet import (image_grid, preprocess_image,
@@ -42,12 +42,12 @@ _INV_255 = float(np.float32(1.0) / np.float32(255.0))
 
 
 def decode_request_image(req: dict) -> np.ndarray | None:
-    """The request's raw image: `image_b64` (an encoded JPEG) or `image`
+    """The request's raw image: `image_b64` (an encoded JPEG or PNG) or `image`
     (a nested [H, W, 3] list or array, uint8 range). Returns float32
     [H, W, 3] in 0..255, or None."""
     if "image_b64" in req:
         raw = base64.b64decode(req["image_b64"])
-        return decode_jpeg(raw).astype(np.float32)
+        return decode_image(raw).astype(np.float32)
     if "image" in req:
         arr = np.asarray(req["image"], np.float32)
         if arr.ndim == 3 and arr.shape[-1] == 3:

@@ -7,7 +7,8 @@ the train-state tree of tensors written with torch.save, and meta.json
 into a temporary directory and renames it into place, so a reader never
 sees a half-written checkpoint; the last `keep` numbered checkpoints are
 kept. restore(device=...) loads with weights_only=True onto the given
-device.
+device; a checkpoint directory without state.pt (tell_tpu's orbax form)
+is refused, naming migrate/orbax_to_torch.py.
 
 Saves are asynchronous by default, as tell_tpu's: save() returns once the
 state is staged to host memory (a copy: the optimizer updates the
@@ -29,6 +30,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 import torch
 
 from ..bridge import tree_map
+from ..config import orbax_refusal
 
 
 def _stage(state: dict) -> dict:
@@ -103,6 +105,8 @@ class CheckpointManager:
         path = self._path(tag)
         if not os.path.exists(path):
             return None
+        if not os.path.exists(os.path.join(path, "state.pt")):
+            raise orbax_refusal(path, "run", os.path.dirname(self.dir))
         state = torch.load(os.path.join(path, "state.pt"),
                            map_location=device, weights_only=True)
         with open(os.path.join(path, "meta.json")) as f:

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..bridge import init_captioner, tree_map
-from ..config import CaptionerConfig, NotPortedError
+from ..config import CaptionerConfig, NotPortedError, orbax_refusal
 from ..data.bucketing import BucketingConfig, bucket_batches
 from ..data.prefetch import DevicePrefetcher
 from ..data.records import RecordDataset
@@ -166,10 +166,9 @@ class Trainer:
         path = os.path.abspath(self.tcfg.warm_start)
         state_pt = os.path.join(path, "state.pt")
         if not os.path.exists(state_pt):
-            raise NotPortedError(
-                f"warm_start: {path} holds no state.pt (a tell_tpu orbax "
-                "checkpoint?): reading those needs the JAX-side conversion "
-                "step of ROADMAP queue 1 item 6")
+            err = orbax_refusal(path, "run", os.path.dirname(
+                os.path.dirname(path)))
+            raise NotPortedError(f"warm_start: {err}")
         # on the host first: a numbered checkpoint also holds the
         # optimizer's moments, which stay off the card
         saved = torch.load(state_pt, map_location="cpu",

@@ -4,7 +4,8 @@
 //   ./fuzz_jpeg ITERATIONS SEED FILE...
 // Each file is decoded as it is, then ITERATIONS times with random edits
 // (bytes set or flipped anywhere or in the headers, the data cut short, a
-// Huffman table's codes moved from one length to another). A sanitizer
+// Huffman table's codes moved from one length to another, a progressive
+// scan header's Ss/Se/Ah/Al byte changed). A sanitizer
 // report or a crash fails the run; refusals are expected and counted.
 #include <cstdio>
 #include <cstdlib>
@@ -18,7 +19,7 @@
 
 static int decode(const std::vector<uint8_t>& d) {
   char err[256];
-  int32_t hw[2];
+  int32_t hw[4];
   int code = tnt_jpeg_info(d.data(), int64_t(d.size()), hw, err, sizeof err);
   if (code) return code;
   // a frame over 64 MiB gets a 1-byte buffer: the whole decode still runs
@@ -43,16 +44,25 @@ int main(int argc, char** argv) {
   for (long it = 0; it < iters; ++it) {
     std::vector<uint8_t> d = seeds[rng() % seeds.size()];
     std::vector<size_t> dht;  // offsets of the DHT segments' count bytes
-    for (size_t i = 0; i + 21 < d.size(); ++i)
+    std::vector<size_t> sos;  // offsets of the scan headers' last 3 bytes
+    for (size_t i = 0; i + 21 < d.size(); ++i) {
       if (d[i] == 0xFF && d[i + 1] == 0xC4) dht.push_back(i + 5);
+      if (d[i] == 0xFF && d[i + 1] == 0xDA) {
+        const size_t len = (size_t(d[i + 2]) << 8) | d[i + 3];
+        if (len >= 6 && i + 2 + len <= d.size()) sos.push_back(i + 2 + len - 3);
+      }
+    }
     const int edits = 1 + int(rng() % 6);
     for (int e = 0; e < edits && !d.empty(); ++e) {
       const size_t at = rng() % d.size();
-      switch (rng() % 5) {
+      switch (rng() % 6) {
         case 0: d[at] = uint8_t(rng()); break;
         case 1: d[at % 640] = uint8_t(rng()); break;
         case 2: d[at] ^= uint8_t(1u << (rng() % 8)); break;
-        case 3: d.resize(at + 1); dht.clear(); break;
+        case 3: d.resize(at + 1); dht.clear(); sos.clear(); break;
+        case 4:  // Ss, Se or Ah/Al of a scan
+          if (!sos.empty()) d[sos[rng() % sos.size()] + rng() % 3] = uint8_t(rng() % 80);
+          break;
         default:
           if (!dht.empty()) {  // move a length's codes to another length:
             uint8_t* c = &d[dht[rng() % dht.size()]];  // the segment stays whole

@@ -267,7 +267,8 @@ def test_model_commands_need_the_card_or_device_cpu(tmp_path, cmd):
 
 @pytest.mark.parametrize("argv, item", [
     (["bench"], "queue 1 item 1"),
-    (["towers", "verify", "x"], "queue 1 item 8"),
+    (["serve", "{cfg}", "-o", '{{"trainer": {{"n_model": 2}}}}',
+      "--device", "cpu"], "queue 1 item 10"),
     (["train", "{cfg}", "--coordinator", "h:1", "--device", "cpu"],
      "queue 1 item 10"),
     (["serve", "{cfg}", "--mesh-data", "2", "--device", "cpu"],
@@ -291,7 +292,7 @@ def test_orbax_roberta_tower_is_refused(tmp_path):
     orbax = tmp_path / "towers" / "roberta"
     orbax.mkdir(parents=True)
     (orbax / "_METADATA").write_text("{}")
-    with pytest.raises(NotPortedError, match="queue 1 item 6"):
+    with pytest.raises(NotPortedError, match="orbax_to_torch.py towers"):
         cli._frozen_towers(load_experiment(cfg), "cpu")
 
 
@@ -365,8 +366,8 @@ def test_convert_resnet_then_preprocess_embeds_a_photo(tmp_path,
 def test_resnet_tower_is_read_and_an_orbax_one_refused(tmp_path):
     """towers/resnet152/state.pt is loaded as frozen["resnet"], in the
     forward's layout, with ResNetConfig.resnet152(); a towers/resnet152
-    without one (tell_tpu's orbax tree) is refused naming item 6, as
-    RoBERTa's is."""
+    without one (tell_tpu's orbax tree) is refused naming
+    migrate/orbax_to_torch.py, as RoBERTa's is."""
     from tell_tpu_torch.bridge import init_resnet
     from tell_tpu_torch.commands import __main__ as cli
     from tell_tpu_torch.config_io import load_experiment
@@ -375,7 +376,7 @@ def test_resnet_tower_is_read_and_an_orbax_one_refused(tmp_path):
     exp = load_experiment(write_e2e_config(tmp_path))
     assert "resnet" not in cli._frozen_towers(exp, "cpu")
     (tmp_path / "towers" / "resnet152").mkdir(parents=True)
-    with pytest.raises(NotPortedError, match="queue 1 item 6"):
+    with pytest.raises(NotPortedError, match="orbax_to_torch.py towers"):
         cli._frozen_towers(exp, "cpu")
     tree = init_resnet(torch.Generator().manual_seed(1),
                        ResNetConfig((1, 1, 1, 1), 8))

@@ -99,9 +99,15 @@ def test_decode_request_image_forms_equal_tell_tpu(req_of):
 
 
 def test_decode_request_image_refusals():
+    """A PNG decodes (to Pillow's bytes); a GIF is refused by name."""
     f = io.BytesIO()
     Image.fromarray(_img(8, 8)).save(f, "PNG")
-    with pytest.raises(NotPortedError, match="PNG.*queue 1 item 8"):
+    got = tv.decode_request_image(
+        {"image_b64": base64.b64encode(f.getvalue()).decode()})
+    np.testing.assert_array_equal(got, _img(8, 8).astype(np.float32))
+    f = io.BytesIO()
+    Image.fromarray(_img(8, 8)).save(f, "GIF")
+    with pytest.raises(NotPortedError, match="GIF.*queue 1 item 8"):
         tv.decode_request_image(
             {"image_b64": base64.b64encode(f.getvalue()).decode()})
     with pytest.raises(ValueError):

@@ -9,7 +9,8 @@ every tell_tpu_torch module, checks that no tell_tpu module was loaded
 TensorBoard writer, HTML parser and JPEG decoder), loads an expt/ YAML,
 round-trips text through the tokenizer (the C++ BPE), parses an article
 page, writes and reads back a TensorBoard scalar, decodes and crops a JPEG
-and embeds it with a tiny ResNet, runs the photo through the vision
+and embeds it with a tiny ResNet, decodes a progressive JPEG and a PNG
+(Adam7) through decode_image with Pillow blocked, runs the photo through the vision
 pipeline with tiny MTCNN, FaceNet and YOLOv3 towers (the letterbox, the
 faces and the objects with Pillow blocked), then runs the slices on CPU
 tensors at a tiny size (greedy
@@ -111,6 +112,12 @@ from tell_tpu_torch.models.backbones.resnet import (ResNetConfig, image_grid,
                                                     prepare_resnet)
 with open("tests/fixtures/images/news_a_320x240_420.jpg", "rb") as f:
     photo = decode_jpeg(f.read())
+from tell_tpu_torch.data.images import decode_image
+forms = {}
+for name in ("news_a_320x240_420_progressive.jpg",
+             "png_adam7_rgb_37x29.png"):
+    with open("tests/fixtures/images/" + name, "rb") as f:
+        forms[name] = list(decode_image(f.read()).shape)
 rcfg_img = ResNetConfig((1, 1, 1, 1), 8)
 grid = image_grid(prepare_resnet(init_resnet(g, rcfg_img)), rcfg_img,
                   resize_shortest_crop(photo).astype("float32"))
@@ -136,6 +143,7 @@ print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "extract": [sections, title],
                   "events": read_events(w.path)[1]["scalars"],
                   "photo": [list(photo.shape), list(grid.shape)],
+                  "forms": forms,
                   "vision": {k: list(v.shape) for k, v in feats.items()},
                   "expt_kernel_sizes": list(exp.model.decoder.kernel_sizes),
                   "blocked_loaded": [m for m in BLOCKED
@@ -180,7 +188,8 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                  "evalm.meteor", "evalm.entities", "evalm.readability",
                  "commands.evaluate", "commands.__main__",
                  "tools.gen_quality_corpus", "tools.quality_loop",
-                 "data.jpeg", "data.images", "serving.vision",
+                 "data.jpeg", "data.png", "data.images", "serving.vision",
+                 "commands.towers", "commands.jax_random",
                  "models.backbones.resnet", "tools.convert_towers",
                  "models.backbones.mtcnn", "models.backbones.facenet",
                  "models.backbones.yolov3", "ops.image_resize"):
@@ -194,6 +203,9 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                               "T"]
     assert res["events"] == {"train/loss": 0.5}
     assert res["photo"] == [[240, 320, 3], [49, 256]]
+    assert res["forms"] == {"news_a_320x240_420_progressive.jpg": [240, 320,
+                                                                   3],
+                            "png_adam7_rgb_37x29.png": [29, 37, 3]}
     assert res["vision"] == {"image_grid": [49, 256],
                              "face_embeds": [4, 512],
                              "obj_embeds": [64, 256]}

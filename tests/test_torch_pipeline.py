@@ -176,9 +176,9 @@ def test_preprocess_synthetic_corpus_equals_jax(tmp_path, copy):
 def test_raw_images_skip_without_a_tower_and_refuse_with_one(tmp_path):
     """Without a tower a raw image gives None (the example is skipped). A
     towers/resnet152 without the port's state.pt (tell_tpu's orbax tree)
-    is refused naming item 6; with a converted tower a PNG is refused
-    naming item 8. Raw JPEGs through a converted tower:
-    tests/test_torch_vision.py."""
+    is refused naming migrate/orbax_to_torch.py; with a converted tower a
+    broken PNG or JPEG raises as corrupt. Raw JPEGs through a converted
+    tower: tests/test_torch_vision.py."""
     import torch
 
     from tell_tpu_torch.bridge import init_resnet
@@ -195,13 +195,13 @@ def test_raw_images_skip_without_a_tower_and_refuse_with_one(tmp_path):
     (tmp_path / "towers" / "resnet152").mkdir(parents=True)
     fn = make_image_grid_fn(str(tmp_path / "imgs"), towers, "cpu")
     assert fn("a").shape == (49, 2048)
-    with pytest.raises(NotPortedError, match="queue 1 item 6"):
+    with pytest.raises(NotPortedError, match="orbax_to_torch.py towers"):
         fn("b")
     torch.save(init_resnet(torch.Generator().manual_seed(0),
                            ResNetConfig((1, 1, 1, 1), 8)),
                tmp_path / "towers" / "resnet152" / "state.pt")
     fn = make_image_grid_fn(str(tmp_path / "imgs"), towers, "cpu")
-    with pytest.raises(NotPortedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="corrupt or truncated PNG"):
         fn("c")
     with pytest.raises(ValueError, match="truncated"):
         fn("b")

@@ -178,7 +178,8 @@ def test_sections_photo_is_embedded_not_zero(models):
 def test_bad_image_is_isolated_in_its_micro_batch(models):
     svc = models["svc"]
     good = _requests()[:2]
-    with open(os.path.join(IMAGES, "refused_progressive.jpg"), "rb") as f:
+    with open(os.path.join(IMAGES, "refused_progressive_unrefined.jpg"),
+              "rb") as f:
         progressive = base64.b64encode(f.read()).decode()
     batch = [good[0], {"context": TEXT, "image_b64": "%%% not base64"},
              {"context": TEXT, "image_b64": progressive}, good[1]]
@@ -281,7 +282,7 @@ def test_a_tell_tpu_form_tower_is_refused_by_name(tmp_path, name):
     flag = {"mtcnn": "--mtcnn", "facenet": "--facenet",
             "yolov3": "--yolo-cfg"}[name]
     with pytest.raises(NotPortedError, match=f"towers/{name} holds no "
-                       f"state.pt.*item 6.*{flag}"):
+                       f"state.pt.*orbax_to_torch.py towers.*{flag}"):
         main(["serve", cfg, "--device", "cpu"])
 
 
