@@ -23,13 +23,15 @@ every phase passed):
      over 989 TFLOP/s; or the bytes over 3.35 TB/s where that is longer);
      kernel A (decode attention; B=8, MG=4 and 20, S=637 and 2173, and
      the siblings' MG = 1/5 at S=514, 2/10 at S=565 and 3/15 at S=571,
-     from a generator of their own) at the
+     and the modern family's MG = 4/20 at S=785, each from a generator
+     of their own) at the
      serving path's shapes, kernel C (fused
      dynamic conv) at the training path's (B=16, C=1024, H=16, T=32 with
      K=3/7/15/31, T=100 and T=15 with K=31), kernel D (decode attention over
      the int8/int4 K/V cache; B=8, MG=20, S=637 and 2173, and the 128-slot
      engine's B=128, MG=20, S=637 int8 with 167 MB of K/V, and the
-     siblings' beam 5 int8: MG=5 at S=514 and MG=15 at S=571) and kernel E
+     siblings' beam 5 int8: MG=5 at S=514 and MG=15 at S=571, and the
+     modern family's: MG=20 at S=785) and kernel E
      (streamed top-k; N=40 and 640, D=1024, V=5000/15000/30265, k=5, and
      k=8 once, and phase 13's top-k sampling, N=2 at k=4 over the three
      bands) at the engine's, fp32 and bf16, against their plain PyTorch
@@ -249,10 +251,33 @@ every phase passed):
      (kernels A and B counted and required); (d) `python -m
      tell_tpu_torch.commands towers verify --json` over the five towers
      (phase 15's trees and a seeded RoBERTa-large, saved as
-     convert_towers saves them) on the card: five CONVERTED rows with
-     tell_tpu's output shapes and the ViT row naming ROADMAP item 8, cut
-     4; each probe's outputs on the card within FEATURE_REL_TOL of the
-     same probe on the CPU, and kernel B launched by the RoBERTa probe.
+     convert_towers saves them) and a seeded ViT-L/16 on the card: six
+     CONVERTED rows with tell_tpu's output shapes; each probe's outputs
+     on the card within FEATURE_REL_TOL of the same probe on the CPU, and
+     kernel B launched by the RoBERTa probe.
+ 17. the modern family (expts 10 and 12, RoPE + GQA decoder over the four
+     contexts, dense and 8-expert top-2 MoE) at the YAMLs' full width
+     (dim 1024, 8 layers, 16 heads, 4 KV heads, FFN 2816, vocab 50265,
+     gen_len 100; contexts 197x1024, 512x1024, 4x512, 64x2048) with random
+     weights from the seed, RoBERTa-large and a full ViT-L/16: (a) two
+     224 x 224 images through modern_encode_contexts' ViT, card vs CPU
+     within FEATURE_REL_TOL, then ViT-L ms per image at B=1 and 16 and
+     the peak memory; (b) for each expt 16 /caption requests through
+     the micro-batch service (greedy, B=4; kernels A at MG=4 and B
+     counted and required), greedy and beam 5 on three requests'
+     features with the ids equal card vs CPU and the log-probs and scores
+     within MODERN_SEARCH_ATOL (fp cache), and for expt 10 beam 5 under
+     the int8 cache, card (kernel D) vs CPU (its plain version), equal
+     or split at a near tie within TIE_TOL (each side quantises its own
+     K/V), ms per decode step
+     at B=8 greedy and beam 5 (every step run; the median of three
+     searches less the setup, which is timed apart and printed beside),
+     and the same 16 requests through an
+     LLMDecodeEngine service (8 slots, beam 5, fp cache; A at MG=20 and B
+     required), each answer held to a one-shot llm_beam_search on the
+     features the engine encodes for it under phase 8's near-tie rule;
+     (c) expt 10's engine again under the int8 K/V lever on 8 of them
+     (kernel D required, A not), held the same way.
 Then one JSON line describing the kernels and, last, the result line.
 
     python3 chip_smoke.py --cli
@@ -308,6 +333,10 @@ runs phases 1-2, then phase 15 only; no result line.
     python3 chip_smoke.py --forms
 
 runs phases 1-2, then phase 16 only; no result line.
+
+    python3 chip_smoke.py --modern
+
+runs phases 1-2, then phase 17 only; no result line.
 
     python3 chip_smoke.py --beam N
 
@@ -389,6 +418,12 @@ SIBLING_SEGMENTS = {1: FLAGSHIP_SEGMENTS[1:2], 2: FLAGSHIP_SEGMENTS[:2],
 # and the faces source
 SIBLING_A_CASES = ((1, 1), (1, 5), (2, 2), (2, 10), (3, 3), (3, 15))
 SIBLING_D_CASES = ((1, 5), (3, 15))
+# expts 10 and 12's source (phase 17): ViT-L/16's 197 tokens in the image
+# slot, S = 785; phase 3 holds kernel A there at MG 4 and 20 (greedy and
+# beam 5 over the four contexts) and kernel D (int8) at MG 20
+MODERN_SEGMENTS = (("image", 197),) + FLAGSHIP_SEGMENTS[1:]
+MODERN_A_MGS = (4, 20)
+MODERN_D_MGS = (20,)
 # phase 13's top-k sampling: two requests, k=4 (kernel E's N and k there)
 SAMPLING_ROWS, SAMPLING_K = 2, 4
 LONG_ARTICLE = 2048     # expt/nytimes/11_long_article.yaml
@@ -1133,6 +1168,16 @@ def phase_kernels(seed: int, only: set[str] | None = None) -> dict:
                 sets, shape, decode_flops(sets[0][0], S),
                 (_sdpa_decode, _sdpa_decode_sets(sets), identity)))
             check_kernel_a(sets, S, shape, res["decode_attention"][-1])
+        gm = torch.Generator().manual_seed(seed + 6)
+        for MG in MODERN_A_MGS:     # the modern family's decode shapes
+            S, sets = _decode_case(gm, 8, MG, 512, dev,
+                                   segments=MODERN_SEGMENTS)
+            shape = f"B=8 H=16 hd=64 MG={MG} S={S}"
+            res["decode_attention"].append(check_kernel(
+                "decode_attention", decode_attention, decode_attention_plain,
+                sets, shape, decode_flops(sets[0][0], S),
+                (_sdpa_decode, _sdpa_decode_sets(sets), identity)))
+            check_kernel_a(sets, S, shape, res["decode_attention"][-1])
     gb = torch.Generator().manual_seed(seed + 1)
     for S, (name, lens) in (([(128, ENCODER_CASES[0])]
                              + [(512, c) for c in ENCODER_CASES])
@@ -1157,6 +1202,10 @@ def phase_kernels(seed: int, only: set[str] | None = None) -> dict:
         for M, MG in SIBLING_D_CASES:   # the siblings' int8 engine
             res["decode_attention_q8"].append(check_q8(
                 gd, 8, MG, 512, dev, "int8", segments=SIBLING_SEGMENTS[M]))
+        gm = torch.Generator().manual_seed(seed + 7)
+        for MG in MODERN_D_MGS:     # the modern family's int8 engine
+            res["decode_attention_q8"].append(check_q8(
+                gm, 8, MG, 512, dev, "int8", segments=MODERN_SEGMENTS))
     if run("topk_logits"):
         for N in (40, 640):
             for V in (5000, 15000, 30265):
@@ -3290,19 +3339,22 @@ def _check_tower(seed, rn_cfg, crops, dev, card) -> dict:
     return {"tree": tree_cpu, "tower": tower, **out}
 
 
-def _engine_vs_one_shot(esvc, params, cfg, req, body, label):
+def _engine_vs_one_shot(esvc, params, cfg, req, body, label, search=None):
     """The engine's answer to req against a one-shot beam 5 on the features
     the engine encodes for it: equal, or a near tie within TIE_TOL where
-    the two searches split (phase 8's rule, ROADMAP section 3)."""
+    the two searches split (phase 8's rule, ROADMAP section 3). search
+    (params, cfg, features) is the one-shot search, default the
+    flagship's beam_search at beam 5."""
     from tell_tpu_torch.config import with_article_len
     from tell_tpu_torch.models.beam import beam_search
+    search = search or (lambda p, c, e: beam_search(p, c, e, beam_size=5))
     batch, errors = esvc._pack([req])
     require(errors == [None], errors)
     cfg_w = with_article_len(cfg, batch["context_ids"].shape[1])
     with torch.inference_mode():
         enc = esvc._encode_many(batch)
         with _beam_trace() as steps:
-            ref = beam_search(params, cfg_w, enc, beam_size=5)
+            ref = search(params, cfg_w, enc)
     ref_ids = ref["token_ids"][0].cpu().numpy()
     paths = np.stack([b["token_ids"] for b in [body] + body["alternatives"]])
     if np.array_equal(paths[0], ref_ids[0]):
@@ -4065,6 +4117,7 @@ VERIFY_SHAPES = {
     "facenet": {"embedding": [1, 512]},
     "mtcnn": {"pnet": [1, 1, 1, 4], "rnet": [1, 4], "onet": [1, 4]},
     "yolov3": {"preds": [1, 1008, 85]},
+    "vit": {"features": [1, 197, 1024]},
 }
 
 
@@ -4174,20 +4227,23 @@ def _check_twin_service(seed, cfg, rcfg, towers, dev, root) -> dict:
 
 
 def _check_towers_verify(trees: dict, seed: int, dev) -> dict:
-    """The five towers saved as convert_towers saves them (state.pt of
-    the tree's tensors), `towers verify --json` through the command line
-    on `dev`; each probe's outputs on `dev` against the CPU's, and the
-    RoBERTa probe's kernel B launches."""
-    from tell_tpu_torch.bridge import init_roberta, to_torch
+    """The six towers saved as convert_towers saves them (state.pt of
+    the tree's tensors; a seeded ViT-L/16 beside phase 15's), `towers
+    verify --json` through the command line on `dev`; each probe's
+    outputs on `dev` against the CPU's, and the RoBERTa probe's kernel B
+    launches."""
+    from tell_tpu_torch.bridge import init_roberta, init_vit, to_torch
     from tell_tpu_torch.commands import towers as verify
     from tell_tpu_torch.models.backbones.roberta import RobertaConfig
+    from tell_tpu_torch.models.backbones.vit import ViTConfig
     root = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_verify_")
     try:
         g = torch.Generator().manual_seed(seed + 16)
         saved = {**{k: trees[k] for k in ("mtcnn", "facenet", "yolov3")},
                  "resnet152": trees["resnet"],
-                 "roberta": init_roberta(g, RobertaConfig.large())}
+                 "roberta": init_roberta(g, RobertaConfig.large()),
+                 "vit": init_vit(g, ViTConfig.large())}
         for name, tree in saved.items():
             os.makedirs(os.path.join(tmp, name))
             torch.save(to_torch(tree, "cpu"),
@@ -4207,8 +4263,6 @@ def _check_towers_verify(trees: dict, seed: int, dev) -> dict:
             require(rows[name]["status"] == "CONVERTED"
                     and rows[name]["outputs"] == shapes,
                     f"phase 16: towers verify's {name} row {rows[name]}")
-        require("item 8, cut 4" in rows["vit"]["status"],
-                f"phase 16: the vit row {rows['vit']}")
         rel, launches = {}, None
         for name in VERIFY_SHAPES:
             _reset_counts()
@@ -4229,9 +4283,9 @@ def _check_towers_verify(trees: dict, seed: int, dev) -> dict:
     res = {"verify_s": verify_s, "rel_to_cpu": rel,
            "roberta_encoder_attention_launches": launches,
            "checksums": {k: r.get("checksum") for k, r in rows.items()}}
-    log(f"phase 16: towers verify --json on {dev} in {verify_s:.1f} s: five "
-        "CONVERTED rows with tell_tpu's shapes, vit not ported; probes vs "
-        "the CPU (relative): " + json.dumps(rel) + f"; kernel B launches "
+    log(f"phase 16: towers verify --json on {dev} in {verify_s:.1f} s: six "
+        "CONVERTED rows with tell_tpu's shapes; probes vs the CPU "
+        "(relative): " + json.dumps(rel) + f"; kernel B launches "
         f"in the RoBERTa probe {launches}; checksums "
         + json.dumps(res["checksums"]))
     return res
@@ -4267,6 +4321,442 @@ def phase_forms(seed: int, card: str, dev: str = "cuda", cfg=None,
     res["verify"] = _check_towers_verify(trees, seed, dev)
     res["seconds"] = time.perf_counter() - t0
     log(f"phase 16 ({card or dev}): done in {res['seconds']:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the modern family (expts 10 and 12)
+# ---------------------------------------------------------------------------
+
+MODERN_EXPTS = ("expt/nytimes/10_vit_modern.yaml",
+                "expt/nytimes/12_moe_modern.yaml")
+MODERN_SEARCH_ROWS = 3     # requests decoded card vs CPU, greedy and beam 5
+# their greedy log-probs and beam-5 scores (sums over up to 100 steps),
+# card vs CPU: 1.9e-6 and 0 at one request per expt, fp cache, on an
+# H100; a wrong kernel moves them by O(1)
+MODERN_SEARCH_ATOL = 1e-3
+MODERN_STEP_ROWS = 8       # B of the timed decode steps
+MODERN_STEP_RUNS = 3       # timed runs of each (the median is kept)
+MODERN_INT8_REQUESTS = 8   # expt 10's engine again under the int8 K/V
+VIT_IMAGES = 2             # 224 x 224 images through the ViT, card vs CPU
+VIT_BATCHES = (1, 16)      # ms per image at these B
+VIT_REPEATS = 10
+
+
+def _modern_request(rng, cfg, n_ids, vocab, n_faces=2, n_objs=10):
+    """A /caption payload for an LLMConfig: n_ids token ids and the
+    features of its contexts (some face/object rows absent)."""
+    req = {"context_ids": [0] + rng.integers(3, vocab, n_ids - 2).tolist()
+           + [2]}
+    for c in cfg.contexts:
+        if c.name == "image":
+            req["image_grid"] = rng.normal(size=(c.max_len, c.kv_dim)
+                                           ).round(4).tolist()
+        elif c.name in ("faces", "obj"):
+            rows = rng.normal(size=(c.max_len, c.kv_dim))
+            rows[n_faces if c.name == "faces" else n_objs:] = np.nan
+            req["face_embeds" if c.name == "faces" else "obj_embeds"] = \
+                rows.round(4).tolist()
+    return req
+
+
+def _post_all(port, reqs) -> list:
+    """The answers to reqs posted concurrently to /caption."""
+    answers = [None] * len(reqs)
+
+    def post(i):
+        answers[i] = _post(port, "/caption", reqs[i])
+
+    threads = [threading.Thread(target=post, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    require(not any(t.is_alive() for t in threads), "requests did not finish")
+    return answers
+
+
+def _check_vit(seed, cfg, vcfg, dev, card) -> dict:
+    """ViT-L/16 from the seed through modern_encode_contexts: the card
+    against the CPU on VIT_IMAGES images (FEATURE_REL_TOL of the largest
+    token), then on the card ms per image at VIT_BATCHES and the peak
+    memory of the B=16 forward."""
+    from tell_tpu_torch.bridge import init_vit, to_torch
+    from tell_tpu_torch.models.llm_decoder import modern_encode_contexts
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+    vit = init_vit(g, vcfg)
+    S = vcfg.image_size
+    images = torch.randn(VIT_IMAGES, S, S, 3, generator=g, device=dev)
+
+    def tokens(tree, x):
+        with torch.inference_mode():
+            return modern_encode_contexts({"vit": tree, "vit_cfg": vcfg},
+                                          cfg, {"image": x})["image_grid"]
+
+    t = time.perf_counter()
+    got = tokens(vit, images)
+    card_s = time.perf_counter() - t
+    require(got.shape == (VIT_IMAGES, vcfg.num_tokens, vcfg.dim)
+            and bool(torch.isfinite(got).all()),
+            f"phase 17: ViT tokens {tuple(got.shape)}")
+    t = time.perf_counter()
+    want = tokens(to_torch(vit, "cpu"), images.cpu())
+    cpu_s = time.perf_counter() - t
+    rel = _rel(got, want)
+    log(f"phase 17: ViT-L/16 tokens {tuple(got.shape)} card vs CPU "
+        f"{rel:.3e} of the largest (limit {FEATURE_REL_TOL}); {card_s:.2f} s "
+        f"on {dev}, {cpu_s:.2f} s on the CPU")
+    require(rel <= FEATURE_REL_TOL, f"phase 17: ViT card vs CPU {rel:.3e}")
+    res = {"card_vs_cpu_rel": rel}
+    if dev == "cuda":
+        from tell_tpu_torch.models.backbones.vit import vit_encode
+        res["ms_per_image"] = {}
+        for B in VIT_BATCHES:
+            x = torch.randn(B, S, S, 3, generator=g, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            with torch.inference_mode():
+                for _ in range(2):
+                    vit_encode(vit, vcfg, x)
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(VIT_REPEATS):
+                    vit_encode(vit, vcfg, x)
+                end.record()
+                torch.cuda.synchronize()
+            res["ms_per_image"][B] = start.elapsed_time(end) / VIT_REPEATS / B
+            res[f"peak_mib_b{B}"] = (torch.cuda.max_memory_allocated()
+                                     - before) / 2**20
+        log(f"phase 17 ({card}): ViT-L/16 fp32 ms per image "
+            f"{res['ms_per_image']}, peak memory MiB above the tower and "
+            "what earlier phases hold "
+            f"{ {B: round(res[f'peak_mib_b{B}'], 1) for B in VIT_BATCHES} }")
+    return res
+
+
+def _modern_features(svc, reqs, dev) -> dict:
+    """reqs' encoded features on `dev`, as the service decodes them."""
+    batch, errors = svc._pack(reqs)
+    require(errors == [None] * len(reqs), errors)
+    with torch.inference_mode():
+        enc = svc._encode({k: torch.from_numpy(v).to(dev)
+                           for k, v in batch.items()})
+    enc.pop("context_ids")
+    return enc
+
+
+def _modern_searches(svc, reqs, dev) -> dict:
+    """Greedy and beam 5 on MODERN_SEARCH_ROWS requests' encoded features
+    (fp cache: kernel A), on the card and on the CPU (A's plain version)
+    with the same weights and features: the ids must be equal, the greedy
+    log-probs and the beam scores within MODERN_SEARCH_ATOL."""
+    from tell_tpu_torch.bridge import to_torch
+    from tell_tpu_torch.models.llm_decoder import (llm_beam_search,
+                                                   llm_generate)
+    params, cfg = svc.params, svc.cfg
+    enc = _modern_features(svc, reqs, dev)
+    cpu_params = to_torch(params, "cpu")
+    cpu_enc = {k: v.cpu() for k, v in enc.items()}
+    out = {}
+    with torch.inference_mode():
+        for name, fn in (("greedy", lambda p, e: llm_generate(p, cfg, e)),
+                         ("beam5", lambda p, e: llm_beam_search(
+                             p, cfg, e, beam_size=5))):
+            t = time.perf_counter()
+            card = fn(params, enc)
+            card_s = time.perf_counter() - t
+            t = time.perf_counter()
+            cpu = fn(cpu_params, cpu_enc)
+            cpu_s = time.perf_counter() - t
+            same = torch.equal(card["token_ids"].cpu(), cpu["token_ids"])
+            key = "log_probs" if name == "greedy" else "scores"
+            err = float((card[key].cpu() - cpu[key]).abs().max())
+            out[name] = {"rows": len(reqs), "equal": same,
+                         "max_abs_err": err, "card_s": card_s,
+                         "cpu_s": cpu_s}
+            require(same, f"phase 17 {name}: card ids differ from the "
+                    f"CPU's: {card['token_ids'].cpu().tolist()} vs "
+                    f"{cpu['token_ids'].tolist()}")
+            require(err <= MODERN_SEARCH_ATOL, f"phase 17 {name}: {key} "
+                    f"card vs CPU {err:.3e} > {MODERN_SEARCH_ATOL}")
+    return out
+
+
+def _modern_int8_search(svc, reqs, dev) -> dict:
+    """Beam 5 under the int8 K/V cache (kernel D on the card, its plain
+    version on the CPU) on MODERN_SEARCH_ROWS requests' features: the
+    card's batched search against the CPU's search of each request alone.
+    Each side quantises its own fp K/V, whose last bits differ, so a
+    column may land one int8 level apart: a request's beams must be equal
+    with scores within TIE_TOL (phase 8's int8 drift, 3.5e-3, twice and
+    rounded up), or split at a near tie within TIE_TOL (phase 8's rule,
+    _beam_split on the CPU's trace)."""
+    from tell_tpu_torch.bridge import to_torch
+    from tell_tpu_torch.models.llm_decoder import llm_beam_search
+    params, cfg = svc.params, svc.cfg
+    enc = _modern_features(svc, reqs, dev)
+    cpu_params = to_torch(params, "cpu")
+    equal, gaps, err = 0, [], 0.0
+    with torch.inference_mode():
+        t = time.perf_counter()
+        card = llm_beam_search(params, cfg, enc, beam_size=5,
+                               kv_cache="int8")
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for i in range(len(reqs)):
+            with _beam_trace() as steps:
+                cpu = llm_beam_search(
+                    cpu_params, cfg, {k: v[i:i + 1].cpu()
+                                      for k, v in enc.items()},
+                    beam_size=5, kv_cache="int8")
+            paths = card["token_ids"][i].cpu().numpy()
+            if np.array_equal(paths, cpu["token_ids"][0].numpy()):
+                equal += 1
+                err = max(err, float((card["scores"][i].cpu()
+                                      - cpu["scores"][0]).abs().max()))
+                continue
+            split = _beam_split(steps, paths)
+            gap = math.inf if split is None else split["gap"]
+            log(f"phase 17 beam5_int8 request {i}: the card's beams differ "
+                f"from the CPU's; gap where they split {gap:.3e} (split "
+                f"{split})")
+            require(split is not None and gap <= TIE_TOL,
+                    f"phase 17 beam5_int8 request {i}: card off the CPU's "
+                    f"search (gap {gap:.3e}, near tie allowed: {TIE_TOL})")
+            gaps.append(gap)
+        cpu_s = time.perf_counter() - t
+    require(err <= TIE_TOL, f"phase 17 beam5_int8: scores card vs CPU "
+            f"{err:.3e} > {TIE_TOL}")
+    return {"rows": len(reqs), "equal": equal, "near_ties": gaps,
+            "max_abs_err": err, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def _modern_step_ms(svc, reqs, dev) -> dict:
+    """ms per decode step at B=MODERN_STEP_ROWS, greedy and beam 5, every
+    step run (early_stop off): CUDA events around the whole search, less
+    its setup (the contexts' K/V and the empty caches, _llm_setup, timed
+    alone), over gen_len steps; each the median of MODERN_STEP_RUNS runs
+    after one warm-up. The setup's ms are returned beside."""
+    from tell_tpu_torch.models.llm_decoder import (_llm_setup,
+                                                   llm_beam_search,
+                                                   llm_generate)
+    batch, errors = svc._pack(reqs)
+    require(errors == [None] * len(reqs), errors)
+    params, cfg = svc.params, svc.cfg
+
+    def median_ms(fn):
+        fn()
+        times = []
+        for _ in range(MODERN_STEP_RUNS):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    out = {}
+    with torch.inference_mode():
+        enc = svc._encode({k: torch.from_numpy(v).to(dev)
+                           for k, v in batch.items()})
+        for name, beam, fn in (
+                ("greedy", 1, lambda: llm_generate(
+                    params, cfg, enc, early_stop=False)),
+                ("beam5", 5, lambda: llm_beam_search(
+                    params, cfg, enc, beam_size=5, early_stop=False))):
+            setup = median_ms(lambda: _llm_setup(params, cfg, enc, beam))
+            out[name] = (median_ms(fn) - setup) / cfg.gen_len
+            out[f"{name}_setup_ms"] = setup
+    return out
+
+
+def _modern_engine(svc, roberta, reqs, dev, kv_cache, label) -> dict:
+    """reqs through an LLMDecodeEngine service (8 slots, beam 5) over HTTP,
+    each answer held to a one-shot llm_beam_search with the same numerics
+    on the features the engine encodes for it: all requests' features in
+    one search (its rows are independent: the contexts' K/V are per row
+    and the MoE drops nothing while decoding), and a request whose answer
+    differs again alone under phase 8's near-tie rule
+    (_engine_vs_one_shot); the kernel launches of the served run."""
+    from tell_tpu_torch.models.llm_decoder import llm_beam_search
+    from tell_tpu_torch.serving import CaptionService, serve
+
+    def search(p, c, e):
+        return llm_beam_search(p, c, e, beam_size=5, kv_cache=kv_cache)
+    t = time.perf_counter()
+    esvc = CaptionService(svc.params, roberta, svc.cfg, dev,
+                          adapter=svc.adapter, engine_slots=8,
+                          engine_beam=5, kv_cache=kv_cache)
+    up_s = time.perf_counter() - t
+    httpd = serve(esvc, port=0, block=False)
+    port = httpd.server_address[1]
+    try:
+        _reset_counts()
+        t = time.perf_counter()
+        answers = _post_all(port, reqs)
+        served_s = time.perf_counter() - t
+        counts = _counts()
+        encs = []
+        for i, (status, body) in enumerate(answers):
+            require(status == 200 and "error" not in body,
+                    (label, i, body))
+            batch, errors = esvc._pack([reqs[i]])
+            require(errors == [None], errors)
+            with torch.inference_mode():
+                encs.append(esvc._encode_many(batch))
+        with torch.inference_mode():
+            ref = search(esvc.params, svc.cfg, {
+                k: torch.cat([e[k] for e in encs]) for k in encs[0]})
+        ref_ids = ref["token_ids"][:, 0].cpu().numpy()
+        gaps = [None if np.array_equal(body["token_ids"], ref_ids[i])
+                else _engine_vs_one_shot(
+                    esvc, esvc.params, svc.cfg, reqs[i], body,
+                    f"{label} request {i}", search=search)
+                for i, (_, body) in enumerate(answers)]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        esvc.close()
+    res = {"kv_cache": kv_cache, "requests": len(reqs), "up_s": up_s,
+           "served_s": served_s, "launches": counts,
+           "equal": sum(g is None for g in gaps),
+           "near_ties": [g for g in gaps if g is not None]}
+    log(f"{label}: {json.dumps(res)}")
+    return res
+
+
+def _modern_expt(exp_path, seed, rcfg, roberta, dev, card, shrink, rng,
+                 int8: bool) -> dict:
+    """One modern configuration at full width (shrink narrows it for a CPU
+    rehearsal): random weights from the seed, the micro-batch service over
+    HTTP, greedy and beam 5 card vs CPU, the timed steps, the engine."""
+    from tell_tpu_torch.bridge import init_llm_decoder
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.models.registry import get_model
+    from tell_tpu_torch.serving import CaptionService, serve
+    t0 = time.perf_counter()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    exp = load_experiment(exp_path)
+    cfg = shrink(exp.model)
+    adapter = get_model(exp.model_type, cfg)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    svc = CaptionService(init_llm_decoder(g, cfg), roberta, cfg, dev,
+                         adapter=adapter, max_batch=4)
+    M = len(cfg.contexts)
+    vocab = rcfg.vocab_size
+    reqs = [_modern_request(rng, cfg, n, vocab) for n in ENGINE_ARTICLES]
+    httpd = serve(svc, port=0, block=False)
+    port = httpd.server_address[1]
+    try:
+        status, body = _post(port, "/caption", reqs[0])      # warm-up
+        require(status == 200 and "error" not in body, body)
+        _reset_counts()
+        t = time.perf_counter()
+        answers = _post_all(port, reqs)
+        served_s = time.perf_counter() - t
+        served = _counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    for i, (status, body) in enumerate(answers):
+        require(status == 200 and "error" not in body, (exp.name, i, body))
+        ids = np.asarray(body["token_ids"])
+        require(ids.shape == (cfg.gen_len + 1,) and ids.min() >= 0
+                and ids.max() < cfg.vocab_size,
+                f"{exp.name}: token ids {ids.shape} outside the vocabulary")
+    line = {"expt": exp.name, "moe_experts": cfg.moe_experts,
+            "S": sum(c.max_len + 2 for c in cfg.contexts),
+            "micro_batch_s": served_s, "micro_batch_launches": served}
+    line["searches"] = _modern_searches(svc, reqs[:MODERN_SEARCH_ROWS], dev)
+    if int8:
+        line["searches"]["beam5_int8"] = _modern_int8_search(
+            svc, reqs[:MODERN_SEARCH_ROWS], dev)
+    if dev == "cuda":
+        step_reqs = [_modern_request(rng, cfg, n, vocab)
+                     for n in BEAM_ARTICLES[:MODERN_STEP_ROWS]]
+        line["step_ms"] = _modern_step_ms(svc, step_reqs, dev)
+        log(f"phase 17 ({card}): {exp.name} ms per decode step at "
+            f"B={MODERN_STEP_ROWS}: {line['step_ms']}")
+    line["engine"] = _modern_engine(svc, roberta, reqs, dev, "fp",
+                                    f"phase 17 {exp.name} engine")
+    if int8:
+        line["engine_int8"] = _modern_engine(
+            svc, roberta, reqs[:MODERN_INT8_REQUESTS], dev, "int8",
+            f"phase 17 {exp.name} engine int8")
+    if dev == "cuda":
+        for what, counts, mgs in (
+                ("micro-batch", served, (M,)),
+                ("engine", line["engine"]["launches"], (5 * M,))):
+            require(counts["decode_attention"] > 0
+                    and counts["encoder_attention"] > 0,
+                    f"{exp.name} {what}: kernels A and B must launch: "
+                    f"{counts}")
+            for mg in mgs:
+                require(counts["decode_attention_rows"].get(mg, 0) > 0,
+                        f"{exp.name} {what}: kernel A never ran at MG="
+                        f"{mg}: {counts['decode_attention_rows']}")
+        if int8:
+            c8 = line["engine_int8"]["launches"]
+            require(c8["decode_attention_q8"] > 0
+                    and c8["decode_attention"] == 0,
+                    f"{exp.name} int8 engine: kernel D must launch and A "
+                    f"must not: {c8}")
+        # weights, encodes, decode states and references above what was
+        # allocated when the expt started
+        line["peak_mib"] = (torch.cuda.max_memory_allocated()
+                            - before) / 2**20
+    line["seconds"] = time.perf_counter() - t0
+    log(f"phase 17: {json.dumps(line)}")
+    svc.close()
+    return line
+
+
+def phase_modern(seed: int, card: str, dev: str = "cuda", rcfg=None,
+                 vcfg=None, shrink=lambda cfg: cfg) -> dict:
+    """Phase 17 (see the module docstring): the ViT-L/16 tower, then expts
+    10 and 12 at the YAMLs' full width on one RoBERTa (rcfg, default
+    RoBERTa-large) with random weights from the seed; the int8 engine on
+    expt 10. A CPU rehearsal passes a small rcfg and vcfg and a shrink
+    that narrows the LM. Returns the launches of A, B and D on this path
+    and the readings."""
+    from tell_tpu_torch.bridge import init_roberta
+    from tell_tpu_torch.models.backbones.roberta import (RobertaConfig,
+                                                         RobertaEncoder)
+    from tell_tpu_torch.models.backbones.vit import ViTConfig
+    from tell_tpu_torch.config_io import load_experiment
+    t0 = time.perf_counter()
+    rcfg = rcfg or RobertaConfig.large()
+    vcfg = vcfg or ViTConfig.large()
+    res = {"vit": _check_vit(seed, shrink(load_experiment(
+        MODERN_EXPTS[0]).model), vcfg, dev, card)}
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    roberta = RobertaEncoder(init_roberta(g, rcfg), rcfg)
+    rng = np.random.default_rng(seed + 17)
+    res["lines"] = [
+        _modern_expt(path, seed, rcfg, roberta, dev, card, shrink, rng,
+                     int8=(i == 0))
+        for i, path in enumerate(MODERN_EXPTS)]
+    launches = {n: 0 for n in ("decode_attention", "encoder_attention",
+                               "decode_attention_q8")}
+    for line in res["lines"]:
+        for counts in [line["micro_batch_launches"],
+                       line["engine"]["launches"]] + (
+                [line["engine_int8"]["launches"]]
+                if "engine_int8" in line else []):
+            for n in launches:
+                launches[n] += counts[n]
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 17 ({card or dev}): launches {launches}; done in "
+        f"{res['seconds']:.1f} s")
     return res
 
 
@@ -4459,6 +4949,8 @@ def main() -> int:
                     help="after the build, phase 15 only (no result line)")
     ap.add_argument("--forms", action="store_true",
                     help="after the build, phase 16 only (no result line)")
+    ap.add_argument("--modern", action="store_true",
+                    help="after the build, phase 17 only (no result line)")
     ap.add_argument("--quality", action="store_true",
                     help="after the build, the full quality loop on "
                     f"{QUALITY_EXPT} with its acceptance thresholds (no "
@@ -4533,6 +5025,9 @@ def main() -> int:
     if args.forms:
         phase_forms(args.seed, smi)
         return 0
+    if args.modern:
+        phase_modern(args.seed, smi)
+        return 0
     if args.quality:
         return quality_run(smi, args.quality_out)
     # phase 3
@@ -4601,6 +5096,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 16: what tell_tpu users hold
     forms = phase_forms(args.seed, smi, trees=faces_objects.pop("trees"))
+    torch.cuda.empty_cache()
+    # phase 17: the modern family
+    modern = phase_modern(args.seed, smi)
 
     # MG=20/S=637, B=4 S=512, K=31 at T=32, int8 S=637, N=40 V=30265 k=5,
     # F S=637, F int4-split S=637
@@ -4675,6 +5173,10 @@ def main() -> int:
             entry["phase15_launches"] = faces_objects_launches[name]
         if name in forms_launches:
             entry["phase16_launches"] = forms_launches[name]
+        if name in modern["launches"]:
+            # phase 17's own path: A and B in micro-batch and engine mode,
+            # D in the int8 engine, both expts
+            entry["phase17_launches"] = modern["launches"][name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

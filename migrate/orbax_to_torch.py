@@ -13,13 +13,15 @@ numbered checkpoint the BertAdam state {"step", "m", "v"}, every dtype
 kept (bf16 leaves too); meta.json carries step, epoch, batch_cursor,
 best_metric and bad_epochs over (best/'s epoch and metric). Then `python
 -m tell_tpu_torch.commands train CFG -r`, `evaluate`, `serve` and a
-`warm_start` read the run.
+`warm_start` read the run. The params go across as they are, whatever the
+family: a modern run's (expts 10 and 12: the tied embedding, the
+self-attention, the stacked experts [E, D, F] and the router) is read by
+`evaluate` and `serve` (its training is not ported yet).
 
 `towers`: each tower directory tools/convert_towers.py saved (roberta,
-resnet152, mtcnn, facenet, yolov3) becomes `<out>/<name>/state.pt`, the
-tree tell_tpu_torch/tools/convert_towers.py writes for the same weights.
-A `vit` tower is refused by name: the port has no ViT (ROADMAP queue 1
-item 8, cut 4).
+resnet152, mtcnn, facenet, yolov3, vit) becomes `<out>/<name>/state.pt`,
+the tree tell_tpu_torch/tools/convert_towers.py writes for the same
+weights.
 
 Without --out the files are written next to the orbax ones, which stay
 (tell_tpu reads the directory as before). This script needs JAX and orbax
@@ -41,7 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-TOWERS = ("roberta", "resnet152", "mtcnn", "facenet", "yolov3")
+TOWERS = ("roberta", "resnet152", "mtcnn", "facenet", "yolov3", "vit")
 META_KEYS = ("step", "epoch", "batch_cursor", "best_metric", "bad_epochs",
              "metric")
 
@@ -136,15 +138,9 @@ def _yolov3(tree: dict) -> dict:
 
 def convert_towers(src: str, out: str | None = None) -> list[str]:
     """Each tower directory of tools/convert_towers.py's --out; returns the
-    state.pt files written. A vit directory is refused by name."""
+    state.pt files written."""
     import torch
 
-    from tell_tpu_torch.config import NotPortedError
-    if os.path.isdir(os.path.join(src, "vit")):
-        raise NotPortedError(
-            f"{os.path.join(src, 'vit')}: the port has no ViT tower "
-            "(ROADMAP queue 1 item 8, cut 4); move it aside to convert the "
-            "others")
     out = src if out is None else out
     written = []
     for name in TOWERS:

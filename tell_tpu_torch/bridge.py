@@ -10,8 +10,9 @@
 * ParamTree: an nn.Module that owns such a tree (nested dicts and lists of
   tensors), so .to(device) and state_dict() work on it; tree() gives the
   nested dict back with the module's current tensors.
-* init_captioner / init_roberta / init_resnet / init_mtcnn / init_facenet
-  / init_yolov3: torch-side initialisers with the same keys, shapes and
+* init_captioner / init_llm_decoder / init_roberta / init_resnet /
+  init_vit / init_mtcnn / init_facenet / init_yolov3: torch-side
+  initialisers with the same keys, shapes and
   init distributions as tell_tpu's, drawing from an explicit
   torch.Generator on the generator's device. (The two frameworks
   draw different numbers from one seed; parity tests build weights in JAX
@@ -23,9 +24,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from .config import CaptionerConfig, DecoderConfig
+from .config import CaptionerConfig, DecoderConfig, LLMConfig
 from .ops.adaptive import band_ranges
 from .ops.dynamic_conv import init_lightweight_conv
+from .ops.moe import init_moe_ffn
 from .ops.positional import init_learned_positional
 
 
@@ -241,6 +243,67 @@ def init_captioner(generator: torch.Generator, cfg: CaptionerConfig
         params["bert_weight"] = _uniform(generator, (cfg.num_bert_layers,),
                                          0.0, 1.0)
     return params
+
+
+def init_llm_decoder(generator: torch.Generator, cfg: LLMConfig) -> dict:
+    """tell_tpu.models.llm_decoder.init_llm_decoder: the tied embedding
+    N(0, 0.02), RMSNorm scales 1, bias-free q/k/v/o (k and v at
+    kv_heads * head_dim), the cross-attention per context, context_fc,
+    and a SwiGLU (w1, w3, w2) or, with moe_experts, init_moe_ffn's
+    stacked experts and router."""
+    g = generator
+    E, hd = cfg.dim, cfg.head_dim
+
+    def rms():
+        return {"scale": torch.ones(E, device=g.device)}
+
+    layers = []
+    for _ in range(cfg.num_layers):
+        lp = {
+            "attn_norm": rms(),
+            "self_attn": {"q": _linear(g, E, E, False),
+                          "k": _linear(g, E, cfg.kv_heads * hd, False),
+                          "v": _linear(g, E, cfg.kv_heads * hd, False),
+                          "o": _linear(g, E, E, False)},
+            "cross_norm": rms(),
+            "attn": {},
+            "context_fc": _linear(g, E * len(cfg.contexts), E),
+            "ffn_norm": rms(),
+            "ffn": (init_moe_ffn(g, E, cfg.ffn_dim, cfg.moe_experts)
+                    if cfg.moe_experts else
+                    {"w1": _linear(g, E, cfg.ffn_dim, False),
+                     "w3": _linear(g, E, cfg.ffn_dim, False),
+                     "w2": _linear(g, cfg.ffn_dim, E, False)}),
+        }
+        for spec in cfg.contexts:
+            lp["attn"][spec.name] = _cross_attention(g, E, spec.kv_dim)
+        layers.append(lp)
+    return {"tok_embed": _normal(g, (cfg.vocab_size, E), 0.02),
+            "layers": layers, "final_norm": rms()}
+
+
+def init_vit(generator: torch.Generator, cfg) -> dict:
+    """tell_tpu.models.backbones.vit.init_vit for a ViTConfig
+    (tell_tpu_torch.models.backbones.vit.ViTConfig): dense weights
+    N(0, 0.02) [in, out] with zero biases, the CLS token 0, the position
+    table N(0, 0.02), LayerNorms 1 and 0."""
+    g = generator
+    D, P = cfg.dim, cfg.patch_size
+
+    def dense(din, dout):
+        return {"w": _normal(g, (din, dout), 0.02), "b": _zeros(g, dout)}
+
+    return {
+        "patch_embed": dense(P * P * 3, D),
+        "cls_token": _zeros(g, D),
+        "pos_embed": _normal(g, (cfg.num_tokens, D), 0.02),
+        "layers": [{"ln1": _ln(g, D), "q": dense(D, D), "k": dense(D, D),
+                    "v": dense(D, D), "attn_out": dense(D, D),
+                    "ln2": _ln(g, D), "fc1": dense(D, cfg.ffn_dim),
+                    "fc2": dense(cfg.ffn_dim, D)}
+                   for _ in range(cfg.num_layers)],
+        "final_ln": _ln(g, D),
+    }
 
 
 def init_roberta(generator: torch.Generator, rcfg) -> dict:

@@ -10,7 +10,8 @@ and `--gelu {erf,tanh}` (the frozen encoder's GELU; tell_tpu's
 TELL_TPU_FAST_GELU). `serve --attention` adds the word-attention payload.
 What tnt runs and the port does not yet is refused with its ROADMAP queue
 item: `bench` (item 1), `--coordinator` and `--mesh-data` (item 10), the
-model types outside the captioner family (config_io.py).
+pointer and LSTM families (models/registry.py), and `train` on the modern
+family (expts 10 and 12), whose `serve` and `evaluate` run.
 
 The frozen RoBERTa is read from <shards_dir>/../towers/roberta/state.pt
 (the port's torch format: the param tree saved with torch.save, as
@@ -22,12 +23,14 @@ where their directories exist: towers/resnet152 (convert_towers --resnet),
 with which `serve` embeds raw-image requests' grids and `preprocess` raw
 <hash>.jpg photos, and towers/mtcnn, towers/facenet and towers/yolov3
 (--mtcnn, --facenet, --yolo-cfg/--yolo-weights), with which `serve` finds
-and embeds their faces and, with the ResNet, their objects. A tower
+and embeds their faces and, with the ResNet, their objects, and
+towers/vit (--vit), ViT-L/16, with which the modern family's encode turns
+a batch's `image` into its image context. A tower
 directory that holds no state.pt (tell_tpu's orbax tree) is refused,
 naming migrate/orbax_to_torch.py, which converts tell_tpu's orbax runs and
 towers where JAX and orbax are installed. `towers verify DIR [--tower
 NAME] [--json] [--device D]` probes each converted tower
-(commands/towers.py). What remains of item 8: ViT, the image forms
+(commands/towers.py). What remains of item 8: the image forms
 data/jpeg.py and data/png.py refuse, and the dataset tools.
 """
 from __future__ import annotations
@@ -166,8 +169,13 @@ def _device(args) -> torch.device:
     return dev
 
 
+def _adapter(exp):
+    from ..models.registry import get_model
+    return get_model(exp.model_type, exp.model)
+
+
 def _article_len(exp) -> int:
-    for c in exp.model.decoder.contexts:
+    for c in getattr(exp.model, "decoder", exp.model).contexts:
         if c.name == "article":
             return c.max_len
     return 512
@@ -192,9 +200,9 @@ def _frozen_towers(exp, device, gelu: str = "erf") -> dict:
     """{"roberta": params on `device`, "roberta_cfg": RobertaConfig with
     the FFN's GELU mode `gelu`}, and each converted vision tower in the
     towers directory on `device` in its forward's layout: "resnet" (with
-    "resnet_cfg": ResNetConfig.resnet152()), "mtcnn", "facenet" and
-    "yolov3" (whose module defs are yolov3_spp_module_defs(), as
-    tell_tpu's)."""
+    "resnet_cfg": ResNetConfig.resnet152()), "vit" (with "vit_cfg":
+    ViTConfig.large(), as tell_tpu's), "mtcnn", "facenet" and "yolov3"
+    (whose module defs are yolov3_spp_module_defs(), as tell_tpu's)."""
     from ..bridge import init_roberta, tree_map
     from ..models.backbones.roberta import RobertaConfig
     rcfg = dataclasses.replace(getattr(RobertaConfig, exp.data.roberta)(),
@@ -219,6 +227,11 @@ def _frozen_towers(exp, device, gelu: str = "erf") -> dict:
         from ..models.backbones.resnet import ResNetConfig, load_tower
         frozen["resnet"] = load_tower(resnet, device)
         frozen["resnet_cfg"] = ResNetConfig.resnet152()
+    vit = os.path.join(_towers_dir(exp), "vit")
+    if os.path.exists(vit):
+        from ..models.backbones.vit import ViTConfig, load_vit
+        frozen["vit"] = load_vit(vit, device)
+        frozen["vit_cfg"] = ViTConfig.large()
     from ..models.backbones.facenet import load_facenet
     from ..models.backbones.mtcnn import load_mtcnn
     from ..models.backbones.yolov3 import load_yolov3
@@ -297,6 +310,11 @@ def cmd_train(args) -> int:
         raise NotPortedError("multi-host training is not ported yet (ROADMAP "
                              "queue 1 item 10, parallelism)")
     exp = _load(args)
+    if _adapter(exp).loss is None:
+        from ..models.registry import MODERN_TRAINING
+        raise NotPortedError(f"{exp.name}: training model_type "
+                             f"{exp.model_type!r} is not ported yet "
+                             f"(ROADMAP {MODERN_TRAINING})")
     trainer = build_trainer(exp, _device(args))
     if args.recover and not trainer.recover():
         print(f"train -r: no checkpoint to recover in "
@@ -366,7 +384,8 @@ def cmd_serve(args) -> int:
     service = CaptionService(
         _restore_params(exp, args.model, device),
         RobertaEncoder(frozen["roberta"], frozen["roberta_cfg"]), exp.model,
-        device, tokenizer=_tokenizer(exp), max_batch=args.max_batch,
+        device, adapter=_adapter(exp), tokenizer=_tokenizer(exp),
+        max_batch=args.max_batch,
         engine_slots=args.engine_slots, engine_beam=args.engine_beam,
         engine_length_penalty=args.engine_length_penalty,
         engine_buckets=args.engine_buckets, encode_batch=args.encode_batch,

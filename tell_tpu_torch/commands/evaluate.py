@@ -2,12 +2,15 @@
 score it (counterpart of tell_tpu/commands/evaluate.py:
 persistent_analyze, evaluate_split, score_generations and score_file).
 
-Each batch is encoded by the frozen RoBERTa (encode_contexts: kernel B
-on the card) and decoded greedily (captioner.generate) or by beam search
-(models/beam.py), through kernel A on the card, or kernel D with the
-int8/int4 K/V cache and kernel E with the fused top-k when those levers
-are asked for. The lines of generations.jsonl and the metric keys are
-tell_tpu's; kv_cache_mode and topk_mode report the levers as they ran.
+The model is the experiment's family (models/registry.py's get_model:
+the captioner, or the modern LM of expts 10 and 12). Each batch is
+encoded by its frozen towers (the adapter's encode: RoBERTa, kernel B on
+the card) and decoded greedily (the adapter's generate) or by beam search
+(its beam), through kernel A on the card, or kernel D with the int8/int4
+K/V cache and kernel E with the fused top-k (the captioner's adaptive
+softmax only) when those levers are asked for. The lines of
+generations.jsonl and the metric keys are tell_tpu's; kv_cache_mode and
+topk_mode report the levers as they ran.
 """
 from __future__ import annotations
 
@@ -29,8 +32,7 @@ from ..evalm.entities import reported_entity_metrics, spacy_analyze
 from ..evalm.meteor import MeteorConfig, corpus_meteor
 from ..evalm.readability import (get_narrative_productivity,
                                  get_readability_scores)
-from ..models.beam import beam_search
-from ..models.captioner import encode_contexts, generate
+from ..models.registry import get_model
 
 KV_CACHE_MODES = ("fp", "int8", "int4")
 
@@ -71,13 +73,19 @@ def evaluate_split(exp: ExperimentConfig, params: dict, frozen: dict,
                    beam_size: int = 1, out_dir: str | None = None,
                    limit: int | None = None, *, device,
                    kv_cache: str = "fp", fused_topk: bool = False) -> dict:
-    """Decode <shards_dir>/<split>-*.npz and score it. params: the
-    captioner's tree and frozen {"roberta", "roberta_cfg"}, both already
-    on `device`. kv_cache ("fp", "int8", "int4") and fused_topk are the
-    decode numerics levers (models/captioner.py::generate)."""
+    """Decode <shards_dir>/<split>-*.npz and score it. params: the model's
+    tree and frozen {"roberta", "roberta_cfg"} (and the towers the encode
+    takes), both already on `device`. kv_cache ("fp", "int8", "int4") and
+    fused_topk are the decode numerics levers (models/captioner.py::
+    generate; the modern family has no fused top-k)."""
     if kv_cache not in KV_CACHE_MODES:
         raise ValueError(f"kv_cache {kv_cache!r} not in {KV_CACHE_MODES}")
-    cfg = exp.model
+    adapter = get_model(exp.model_type, exp.model)
+    cfg = adapter.config
+    adapter.check_levers(fused_topk)
+    levers = {"kv_cache": kv_cache}
+    if fused_topk:
+        levers["fused_topk"] = True
     device = torch.device(device)
     out_dir = out_dir or exp.trainer.serialization_dir
     os.makedirs(out_dir, exist_ok=True)
@@ -86,14 +94,13 @@ def evaluate_split(exp: ExperimentConfig, params: dict, frozen: dict,
     def decode(batch: dict) -> np.ndarray:
         with torch.inference_mode():
             tb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-            enc = encode_contexts(frozen, cfg, tb)
+            enc = adapter.encode(frozen, tb)
             if beam_size > 1:
-                out = beam_search(params, cfg, enc, beam_size=beam_size,
-                                  kv_cache=kv_cache, fused_topk=fused_topk)
-                ids = out["token_ids"][:, 0]
+                ids = adapter.beam(params, cfg, enc, beam_size=beam_size,
+                                   **levers)["token_ids"][:, 0]
             else:
-                ids = generate(params, cfg, enc, kv_cache=kv_cache,
-                               fused_topk=fused_topk)["token_ids"]
+                ids = adapter.generate(params, cfg, enc,
+                                       **levers)["token_ids"]
             return ids.cpu().numpy()
 
     ds = RecordDataset(os.path.join(exp.data.shards_dir, f"{split}-*.npz"),

@@ -15,11 +15,10 @@ The two packages' checksums of one tower need not agree: a value within
 fp32 noise of a rounding boundary flips the digest (RoBERTa's probe alone
 has 409,600 outputs). Compare outputs by tolerance, not digests.
 
-Without a checkpoint resnet152, roberta and yolov3 fall back to random
-init (the port's bridge.init_*, not JAX's numbers) and are marked
+Without a checkpoint resnet152, roberta, vit and yolov3 fall back to
+random init (the port's bridge.init_*, not JAX's numbers) and are marked
 UNVERIFIED (random init); facenet and mtcnn report NO CHECKPOINT. A tree
-that fails to load or probe is an ERROR row and the exit code is 1. ViT
-is not ported (ROADMAP queue 1 item 8, cut 4): its row says so.
+that fails to load or probe is an ERROR row and the exit code is 1.
 """
 from __future__ import annotations
 
@@ -32,12 +31,12 @@ import torch
 
 from . import jax_random
 
-VIT_STATUS = "NOT PORTED (ViT: ROADMAP queue 1 item 8, cut 4)"
 INIT_SEED = 0
 # python -m tell_tpu_torch.tools.convert_towers' flag for each tower
 CONVERT_FLAGS = {"resnet152": "--resnet", "roberta": "--roberta",
                  "facenet": "--facenet", "mtcnn": "--mtcnn PNET RNET ONET",
-                 "yolov3": "--yolo-cfg CFG --yolo-weights W"}
+                 "yolov3": "--yolo-cfg CFG --yolo-weights W",
+                 "vit": "--vit STATE_DICT.pt"}
 
 
 def _checksum(*arrays) -> str:
@@ -63,6 +62,7 @@ def probe_inputs() -> dict:
     k = jax_random.prng_key(1)
     return {"resnet152": jax_random.normal(k, (1, 224, 224, 3)),
             "roberta": jax_random.randint(k, (1, 16), 4, 1000),
+            "vit": jax_random.normal(k, (1, 224, 224, 3)),
             "facenet": jax_random.normal(k, (1, 160, 160, 3)),
             "pnet": jax_random.normal(k, (1, 12, 12, 3)),
             "rnet": jax_random.normal(k, (1, 24, 24, 3)),
@@ -117,6 +117,20 @@ def _probe_roberta(tree, x, device):
     return status, tree, {"hiddens": h}
 
 
+def _probe_vit(tree, x, device):
+    from ..bridge import init_vit
+    from ..models.backbones.vit import ViTConfig, vit_encode
+    cfg = ViTConfig()
+    status = "CONVERTED"
+    if tree is None:
+        tree = _to(init_vit(torch.Generator().manual_seed(INIT_SEED), cfg),
+                   device)
+        status = "UNVERIFIED (random init)"
+    with torch.inference_mode():
+        out = vit_encode(tree, cfg, _t(x["vit"], device))
+    return status, tree, {"features": out}
+
+
 def _probe_yolov3(tree, x, device):
     from ..bridge import init_yolov3
     from ..models.backbones.yolov3 import (prepare_yolov3, yolov3_forward,
@@ -167,7 +181,7 @@ PROBES = {
     "facenet": _probe_facenet,
     "mtcnn": _probe_mtcnn,
     "yolov3": _probe_yolov3,
-    "vit": None,
+    "vit": _probe_vit,
 }
 
 
@@ -183,9 +197,8 @@ def rows(dir_: str, towers: list[str] | None = None, device="cpu"
     """tell_tpu's verify rows for the towers (default: all of PROBES)."""
     out = []
     for name in towers or list(PROBES):
-        if PROBES.get(name) is None:
-            out.append({"tower": name, "status": VIT_STATUS
-                        if name == "vit" else f"ERROR: no tower {name!r}"})
+        if name not in PROBES:
+            out.append({"tower": name, "status": f"ERROR: no tower {name!r}"})
             continue
         try:
             status, tree, outs = probe_outputs(dir_, name, device)

@@ -1,4 +1,5 @@
-"""Configuration dataclasses (counterpart of tell_tpu/config.py).
+"""Configuration dataclasses (counterpart of tell_tpu/config.py, and of
+LLMConfig and VIT_CONTEXTS in tell_tpu/models/llm_decoder.py).
 
 The port keeps its own copy, field for field and default for default, so
 it imports nothing of the JAX package. Both sets are frozen, hashable
@@ -128,13 +129,70 @@ def small_test_config(**overrides) -> CaptionerConfig:
     return CaptionerConfig(decoder=dec, num_bert_layers=3, **cap_over)
 
 
-def with_article_len(cfg: CaptionerConfig, max_len: int) -> CaptionerConfig:
-    """cfg with the article context's capacity set to max_len tokens (the
-    long-article configuration, expt/nytimes/11_long_article.yaml, is the
-    flagship with max_len 2048)."""
-    dcfg = cfg.decoder
+# ViT-L/16's CLS + 14x14 patch tokens in the image slot (the modern
+# family's contexts, expts 10 and 12)
+VIT_CONTEXTS = (
+    ContextSpec("image", 1024, 197),
+    ContextSpec("article", 1024, 512),
+    ContextSpec("faces", 512, 4),
+    ContextSpec("obj", 2048, 64),
+)
+
+
+@dataclass(frozen=True)
+class LLMConfig:
+    """The modern captioning LM (tell_tpu/models/llm_decoder.py): RoPE +
+    GQA causal self-attention, cross-attention over the contexts, SwiGLU
+    or a top-k MoE FFN, a tied full-vocabulary head."""
+    vocab_size: int = 50265
+    dim: int = 1024
+    num_layers: int = 8
+    num_heads: int = 16
+    # grouped-query attention: None = MHA
+    num_kv_heads: int | None = 4
+    ffn_dim: int = 2816
+    rope_theta: float = 10000.0
+    rms_eps: float = 1e-5
+    dropout: float = 0.1
+    attention_dropout: float = 0.1
+    pad_id: int = 1
+    bos_id: int = 0
+    eos_id: int = 2
+    max_target_positions: int = 512
+    contexts: tuple[ContextSpec, ...] = FACES_OBJECTS_CONTEXTS
+    gen_len: int = 100
+    loss_vocab_chunk: int = 8192
+    # Mixture-of-Experts FFN (ops/moe.py): None = dense SwiGLU
+    moe_experts: int | None = None
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_coef: float = 0.01
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.num_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    def context(self, name: str) -> ContextSpec:
+        for c in self.contexts:
+            if c.name == name:
+                return c
+        raise KeyError(name)
+
+
+def with_article_len(cfg, max_len: int):
+    """cfg (a CaptionerConfig or an LLMConfig) with the article context's
+    capacity set to max_len tokens (the long-article configuration,
+    expt/nytimes/11_long_article.yaml, is the flagship with max_len
+    2048)."""
+    dcfg = getattr(cfg, "decoder", cfg)
     contexts = tuple(dataclasses.replace(c, max_len=max_len)
                      if c.name == "article" else c for c in dcfg.contexts)
+    if dcfg is cfg:
+        return dataclasses.replace(cfg, contexts=contexts)
     return dataclasses.replace(
         cfg, decoder=dataclasses.replace(dcfg, contexts=contexts))
 

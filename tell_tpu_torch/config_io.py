@@ -24,7 +24,8 @@ from dataclasses import dataclass, field
 
 from .config import (CaptionerConfig, ContextSpec, DecoderConfig,
                      FACES_CONTEXTS, FACES_OBJECTS_CONTEXTS,
-                     FLATTENED_CONTEXTS, NO_IMAGE_CONTEXTS, NotPortedError)
+                     FLATTENED_CONTEXTS, LLMConfig, NO_IMAGE_CONTEXTS,
+                     NotPortedError)
 from .data.bucketing import BucketingConfig
 from .data.readers import ReaderConfig
 from .training.trainer import TrainerConfig
@@ -39,6 +40,8 @@ CONTEXT_PRESETS = {
 # the captioner family of tell_tpu/models/registry.py::get_model
 CAPTIONER_TYPES = ("captioner", "transformer_faces_objects",
                    "transformer_faces", "transformer_flattened")
+# the modern family: the YAML's model: builds an LLMConfig
+MODERN_TYPES = ("modern", "transformer_modern", "vit_modern")
 # the other model types tell_tpu knows, with the ROADMAP item that ports
 # each (queue 1)
 OTHER_TYPES = {
@@ -50,10 +53,6 @@ OTHER_TYPES = {
     "lstm": "queue 1 item 9 (models/lstm_decoder.py)",
     "baseline_glove": "queue 1 item 9 (models/lstm_decoder.py, GloVe)",
     "lstm_decoder_flattened": "queue 1 item 9 (models/lstm_decoder.py)",
-    "modern": "queue 1 item 9 (models/llm_decoder.py)",
-    "transformer_modern": "queue 1 item 9 (models/llm_decoder.py)",
-    "vit_modern": "queue 1 items 8 and 9 (the ViT tower, "
-                  "models/llm_decoder.py)",
 }
 
 
@@ -345,7 +344,9 @@ class DataConfig:
 class ExperimentConfig:
     name: str = "experiment"
     model_type: str = "captioner"
-    model: CaptionerConfig = field(default_factory=CaptionerConfig)
+    # an LLMConfig for the modern family (MODERN_TYPES)
+    model: CaptionerConfig | LLMConfig = field(
+        default_factory=CaptionerConfig)
     trainer: TrainerConfig = field(default_factory=TrainerConfig)
     data: DataConfig = field(default_factory=DataConfig)
     reader: ReaderConfig = field(default_factory=ReaderConfig)
@@ -415,12 +416,14 @@ def load_experiment(path: str, overrides: str | dict | None = None
         raise NotPortedError(f"{name}: model_type {model_type!r} is not "
                              f"ported yet (ROADMAP "
                              f"{OTHER_TYPES[model_type.lower()]})")
-    if model_type.lower() not in CAPTIONER_TYPES:
+    if model_type.lower() not in CAPTIONER_TYPES + MODERN_TYPES:
         raise KeyError(f"unknown model_type {model_type!r}")
+    model_cls = (LLMConfig if model_type.lower() in MODERN_TYPES
+                 else CaptionerConfig)
     exp = ExperimentConfig(
         name=name,
         model_type=model_type,
-        model=_build(CaptionerConfig, spec.get("model"), "model"),
+        model=_build(model_cls, spec.get("model"), "model"),
         trainer=_build(TrainerConfig, spec.get("trainer"), "trainer"),
         data=_build(DataConfig, spec.get("data"), "data"),
         reader=_build(ReaderConfig, spec.get("reader"), "reader"),

@@ -227,12 +227,15 @@ def _store_kv(cat: dict, kt: torch.Tensor, vt: torch.Tensor,
     cat["v"], cat["v_scale"] = quant(vt)
 
 
-def precompute_context_kv_cat(params: dict, cfg: DecoderConfig,
-                              contexts: dict, beam: int = 1,
-                              kv_cache: str = "fp") -> list[dict]:
+def precompute_context_kv_cat(params: dict, cfg, contexts: dict,
+                              beam: int = 1, kv_cache: str = "fp"
+                              ) -> list[dict]:
     """Per-layer K/V of all contexts, concatenated on the source axis with
     segment ids: the JAX package's single stacked chain (its
     context_groups() returns one group, tell_tpu/models/decoder.py:284-295).
+    cfg is a DecoderConfig or an LLMConfig (read through .contexts and
+    .num_heads); the branch LayerNorms are stacked where the layers have
+    them (the flagship; the modern family's cross block has none).
 
     contexts: {name: (features [B, S, D], padding mask [B, S] True = pad)}.
     Returns per layer {k, v: [B, H, hd, S] contiguous (kv_cache "fp"), or
@@ -267,9 +270,12 @@ def precompute_context_kv_cat(params: dict, cfg: DecoderConfig,
             "bq": torch.stack([ap[n]["q_proj"]["b"] for n in names]),
             "wo": torch.stack([ap[n]["out_proj"]["w"] for n in names]),
             "bo": torch.stack([ap[n]["out_proj"]["b"] for n in names]),
-            "ln_s": torch.stack([lp["attn_ln"][n]["scale"] for n in names]),
-            "ln_b": torch.stack([lp["attn_ln"][n]["bias"] for n in names]),
         }
+        if "attn_ln" in lp:
+            cat["ln_s"] = torch.stack([lp["attn_ln"][n]["scale"]
+                                       for n in names])
+            cat["ln_b"] = torch.stack([lp["attn_ln"][n]["bias"]
+                                       for n in names])
         _store_kv(cat, k.reshape(B, S, H, E // H).permute(0, 2, 3, 1),
                   v.reshape(B, S, H, E // H).permute(0, 2, 3, 1), kv_cache)
         cat["bias"] = segment_bias(cat["seg"], cat["mask"], len(names), beam)
@@ -285,7 +291,7 @@ def _ln_stacked(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
                       eps)
 
 
-def attn_segment_bounds(cfg: DecoderConfig, contexts: dict
+def attn_segment_bounds(cfg, contexts: dict
                         ) -> tuple[tuple[str, int, int], ...]:
     """(name, offset, length) of each modality on the concatenated source
     axis, its bias and zero columns included (tell_tpu's

@@ -1,0 +1,369 @@
+"""The modern captioning LM, decode side (counterpart of
+tell_tpu/models/llm_decoder.py: rms_norm, rope_cos_sin, apply_rope, the
+decode step's blocks, _build_contexts, modern_encode_contexts,
+init_llm_decode_state, llm_decoder_step, tied_log_probs, tied_top_k,
+llm_generate and llm_beam_search). LLMConfig is in config.py and
+init_llm_decoder in bridge.py; training (llm_forward, llm_xent, llm_loss)
+is not ported yet.
+
+    x = x + o(self_attn(rms(x)))             causal, RoPE, GQA, K/V cache
+    x = x + context_fc(concat_m cross_attn_m(rms(x)))    four contexts
+    x = x + ffn(rms(x))                      SwiGLU, or top-k MoE
+    log p = log_softmax(rms(x) @ tok_embed^T)          tied, full vocab
+
+* RoPE is half-split (rotate the first half of each head against its
+  second), cos and sin in fp32 from the positions.
+* GQA: query head h reads K/V head h // (H / KV); the step groups the
+  queries [R, KV, H/KV, hd] against the [R, T, KV, hd] cache, which is
+  that mapping without copying K/V.
+* The self-K/V cache is [R, gen_len + 1, KV, hd], masked by arange(T) <=
+  step. `step` is a scalar tensor in generate and beam search, and one
+  position per row in the engine. tell_tpu's dynamic_update_slice clamps
+  a position past T - 1; the port writes with index_copy_ / indexing,
+  which raise there (a device-side assert on CUDA), and the setup refuses
+  a gen_len past max_target_positions before decoding.
+* The cross block is the flagship's stacked core
+  (decoder.stacked_attention_core: kernel A over an fp cache, kernel D
+  over an int8/int4 one) with no per-branch residual or LayerNorm; the
+  branches are concatenated in context order into context_fc.
+* The MoE runs at capacity_factor = moe_experts while decoding, so no
+  row is dropped and a caption does not depend on its batch-mates.
+* The head is an exact fp32 top-k over all vocab_size logits with
+  logsumexp; ties go to the lower id, as lax.top_k's.
+* The article context is RoBERTa's final hidden state (no layer sum):
+  kernel B runs in its encode.
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ..config import LLMConfig
+from ..ops.common import top_k
+from ..ops.linear import linear
+from ..ops.moe import moe_ffn
+from .backbones.resnet import resnet_forward
+from .backbones.roberta import roberta_encode_windowed
+from .backbones.vit import vit_encode
+from .beam import beam_search_core
+from .captioner import mask_nan_embeds
+from .decoder import (attn_segment_bounds, precompute_context_kv_cat,
+                      split_attn_segments, stacked_attention_core)
+
+
+def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (x32 * r * p["scale"]).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def _inv_freq(head_dim: int, theta: float, device: torch.device
+              ) -> torch.Tensor:
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """positions [...] int -> cos, sin [..., head_dim // 2] fp32."""
+    ang = positions.float()[..., None] * _inv_freq(head_dim, theta,
+                                                   positions.device)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x [..., T, H, hd]; cos, sin [..., T, hd // 2] (broadcast over H)."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    c, s = cos[..., None, :], sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+
+
+def _step_positions(cfg: LLMConfig, step: torch.Tensor, T: int) -> dict:
+    """What every layer's self-attention step shares: RoPE's cos and sin
+    at the step (a scalar, or [R] per row), and the cache rows it may
+    read (arange(T) <= step)."""
+    per_row = step.ndim == 1
+    cos, sin = rope_cos_sin(step[:, None] if per_row else step.reshape(1),
+                            cfg.head_dim, cfg.rope_theta)
+    cols = torch.arange(T, device=step.device)
+    valid = ((cols[None] <= step[:, None])[:, None, None] if per_row
+             else cols <= step)
+    return {"step": step, "per_row": per_row, "cos": cos, "sin": sin,
+            "valid": valid}
+
+
+def _self_attn_step(sp: dict, cfg: LLMConfig, x: torch.Tensor, cache: dict,
+                    pos: dict, row_gather: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, dict]:
+    """One token's causal self-attention against the cache. x [R, E];
+    cache {k, v: [R, T, KV, hd]}, read through row_gather [R] (beam
+    parents) where given; pos: _step_positions' dict. Without row_gather
+    the new position is written into the cache in place (no caller reads
+    the state it passed in again); with it, into the fresh gathered
+    cache."""
+    R, E = x.shape
+    H, hd, KV = cfg.num_heads, cfg.head_dim, cfg.kv_heads
+    step = pos["step"]
+    q = linear(sp["q"], x).reshape(R, 1, H, hd)
+    k = linear(sp["k"], x).reshape(R, 1, KV, hd)
+    v = linear(sp["v"], x).reshape(R, KV, hd)
+    q = apply_rope(q, pos["cos"], pos["sin"])[:, 0]             # [R, H, hd]
+    k = apply_rope(k, pos["cos"], pos["sin"])[:, 0]             # [R, KV, hd]
+    ck, cv = cache["k"], cache["v"]
+    if row_gather is not None:
+        ck, cv = ck[row_gather], cv[row_gather]
+    if pos["per_row"]:
+        rows = torch.arange(R, device=x.device)
+        ck[rows, step] = k.to(ck.dtype)
+        cv[rows, step] = v.to(cv.dtype)
+    else:
+        ck.index_copy_(1, step.reshape(1), k[:, None].to(ck.dtype))
+        cv.index_copy_(1, step.reshape(1), v[:, None].to(cv.dtype))
+    valid = pos["valid"]
+    qg = q.reshape(R, KV, H // KV, hd)
+    scores = torch.einsum("rkgd,rtkd->rkgt", qg.float(), ck.float()) \
+        * (hd ** -0.5)
+    scores = scores.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    o = torch.einsum("rkgt,rtkd->rkgd", probs.float(), cv.float())
+    return linear(sp["o"], o.to(x.dtype).reshape(R, E)), {"k": ck, "v": cv}
+
+
+def _cross_block_step(lp: dict, cfg: LLMConfig, x: torch.Tensor, cat: dict,
+                      B: int, need_weights: bool
+                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The contexts' stacked attention (kernel A or D), the branches
+    concatenated in context order, context_fc; no per-branch residual or
+    LayerNorm. x [R, E] -> (out [R, E], probs [B, M, G, S] or None)."""
+    R, E = x.shape
+    out, probs = stacked_attention_core(cfg.num_heads, x.reshape(B, R // B, E),
+                                        cat, need_weights)
+    return linear(lp["context_fc"], out.transpose(1, 2).reshape(R, -1)), \
+        probs
+
+
+def _ffn(lp: dict, cfg: LLMConfig, x: torch.Tensor, no_drop: bool = False,
+         token_mask: torch.Tensor | None = None
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dense SwiGLU or the MoE (cfg.moe_experts) -> (out, MoE aux loss, 0
+    when dense). no_drop (decoding) raises the capacity so that no row is
+    dropped; token_mask keeps pads from taking expert capacity."""
+    if cfg.moe_experts:
+        shape = x.shape
+        cf = float(cfg.moe_experts) if no_drop else cfg.moe_capacity_factor
+        out, aux = moe_ffn(lp, x.reshape(-1, shape[-1]), top_k=cfg.moe_top_k,
+                           capacity_factor=cf,
+                           token_mask=(None if token_mask is None
+                                       else token_mask.reshape(-1)))
+        return out.reshape(shape), aux
+    h = F.silu(linear(lp["w1"], x).float()).to(x.dtype)
+    return linear(lp["w2"], h * linear(lp["w3"], x)), \
+        torch.zeros((), device=x.device)
+
+
+def _build_contexts(params: dict, cfg: LLMConfig, batch: dict) -> dict:
+    """{name: (features, pad mask)} as the flagship's build_contexts, with
+    no article layer sum: the model reads the tower's final hidden state
+    (batch["article"])."""
+    contexts = {}
+    names = {c.name for c in cfg.contexts}
+    if "image" in names:
+        grid = batch["image_grid"]
+        contexts["image"] = (grid, torch.zeros(grid.shape[:2],
+                                               dtype=torch.bool,
+                                               device=grid.device))
+    if "article" in names:
+        contexts["article"] = (batch["article"], batch["article_mask"])
+    if "faces" in names:
+        contexts["faces"] = mask_nan_embeds(batch["face_embeds"])
+    if "obj" in names:
+        contexts["obj"] = mask_nan_embeds(batch["obj_embeds"])
+    return contexts
+
+
+def modern_encode_contexts(frozen: dict, cfg: LLMConfig, batch: dict
+                           ) -> dict:
+    """The frozen towers a batch needs: the article's final RoBERTa hidden
+    state for context_ids (windowed past the position table; kernel B on
+    the card), and for an `image` [B, H, W, 3] without an image_grid the
+    ViT's tokens (frozen["vit"], frozen["vit_cfg"]) or, without a ViT, the
+    ResNet grid, as tell_tpu. No gradient reaches a tower."""
+    out = dict(batch)
+    if "context_ids" in batch and "article" not in batch:
+        rcfg = frozen["roberta_cfg"]
+        with torch.no_grad():
+            out["article"] = roberta_encode_windowed(
+                frozen["roberta"], rcfg, batch["context_ids"],
+                return_all_hiddens=False)
+        out["article_mask"] = batch["context_ids"] == rcfg.pad_id
+    if "image" in batch and "image_grid" not in batch:
+        with torch.no_grad():
+            if "vit" in frozen:
+                out["image_grid"] = vit_encode(frozen["vit"],
+                                               frozen["vit_cfg"],
+                                               batch["image"])
+            else:
+                out["image_grid"] = resnet_forward(
+                    frozen["resnet"], frozen["resnet_cfg"], batch["image"])
+    return out
+
+
+def init_llm_decode_state(params: dict, cfg: LLMConfig, contexts: dict,
+                          batch: int, beam: int = 1,
+                          dtype: torch.dtype = torch.float32,
+                          kv_cache: str = "fp") -> dict:
+    """Per-layer self-K/V caches [batch * beam, gen_len + 1, KV, hd], the
+    contexts' stacked K/V in the flagship's layout and numerics
+    (decoder.precompute_context_kv_cat), and the step."""
+    device = next(iter(contexts.values()))[0].device
+    R, T = batch * beam, cfg.gen_len + 1
+    shape = (R, T, cfg.kv_heads, cfg.head_dim)
+    return {
+        "self_kv": [{"k": torch.zeros(shape, dtype=dtype, device=device),
+                     "v": torch.zeros(shape, dtype=dtype, device=device)}
+                    for _ in range(cfg.num_layers)],
+        "kv": precompute_context_kv_cat(params, cfg, contexts, beam=beam,
+                                        kv_cache=kv_cache),
+        "step": torch.zeros((), dtype=torch.long, device=device),
+    }
+
+
+def llm_decoder_step(params: dict, cfg: LLMConfig, tokens: torch.Tensor,
+                     state: dict, need_weights: bool = False,
+                     row_gather: torch.Tensor | None = None):
+    """One decode step. tokens [R] -> (features [R, E], state', per-layer
+    head-averaged maps [B, M, G, S] where need_weights, else Nones).
+    row_gather [R]: the beam parents, applied to the self-K/V caches as
+    the step reads them."""
+    B = state["kv"][0]["mask"].shape[0]
+    dtype = state["self_kv"][0]["k"].dtype
+    x = params["tok_embed"][tokens].to(dtype)
+    pos = _step_positions(cfg, state["step"],
+                          state["self_kv"][0]["k"].shape[1])
+    new_self, attns = [], []
+    for i, lp in enumerate(params["layers"]):
+        h = rms_norm(lp["attn_norm"], x, cfg.rms_eps)
+        o, cache = _self_attn_step(lp["self_attn"], cfg, h,
+                                   state["self_kv"][i], pos, row_gather)
+        new_self.append(cache)
+        x = x + o
+        h = rms_norm(lp["cross_norm"], x, cfg.rms_eps)
+        o, probs = _cross_block_step(lp, cfg, h, state["kv"][i], B,
+                                     need_weights)
+        x = x + o
+        h = rms_norm(lp["ffn_norm"], x, cfg.rms_eps)
+        x = x + _ffn(lp["ffn"], cfg, h, no_drop=True)[0]
+        attns.append(probs)
+    feats = rms_norm(params["final_norm"], x, cfg.rms_eps)
+    return feats, {**state, "self_kv": new_self,
+                   "step": state["step"] + 1}, attns
+
+
+def _logits(params: dict, feats: torch.Tensor) -> torch.Tensor:
+    """feats [..., E] against the tied table in feats' dtype, fp32 out."""
+    return feats.float() @ params["tok_embed"].to(feats.dtype).float().T
+
+
+def tied_log_probs(params: dict, cfg: LLMConfig, feats: torch.Tensor
+                   ) -> torch.Tensor:
+    """Full-vocabulary log-probs [..., V] fp32 from features [..., E]."""
+    return torch.log_softmax(_logits(params, feats), dim=-1)
+
+
+def tied_top_k(params: dict, cfg: LLMConfig, feats: torch.Tensor, k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k next-token log-probs [R, k] and ids [R, k] from step
+    features [R, E]. Ties go to the lower id (lax.top_k's order):
+    torch.max returns the first maximum, and k > 1 takes the port's
+    stable-sort top_k over the row."""
+    logits = _logits(params, feats)
+    lse = torch.logsumexp(logits, dim=-1)
+    if k == 1:
+        vals, ids = logits.max(dim=-1, keepdim=True)
+    else:
+        vals, ids = top_k(logits, k)
+    return vals - lse[:, None], ids
+
+
+def _llm_setup(params: dict, cfg: LLMConfig, batch: dict, beam: int = 1,
+               kv_cache: str = "fp"):
+    if cfg.gen_len > cfg.max_target_positions:
+        raise ValueError(f"{cfg.gen_len} decode steps exceed "
+                         f"max_target_positions {cfg.max_target_positions}")
+    contexts = _build_contexts(params, cfg, batch)
+    feat0 = next(iter(contexts.values()))[0]
+    B = feat0.shape[0]
+    state = init_llm_decode_state(params, cfg, contexts, B, beam=beam,
+                                  dtype=feat0.dtype, kv_cache=kv_cache)
+    return B, feat0.device, state, contexts
+
+
+def llm_generate(params: dict, cfg: LLMConfig, batch: dict,
+                 early_stop: bool = True, need_weights: bool = False,
+                 kv_cache: str = "fp") -> dict:
+    """Greedy generation: {token_ids [B, gen_len + 1] with the seed <s>,
+    log_probs [B, gen_len], finished [B]}, and with need_weights "attns":
+    per layer {context: [gen_len, B, 1, S_m]} head-averaged maps (the
+    plain attention; every step runs, as tell_tpu's scan). early_stop
+    ends the loop once every row has emitted EOS (the result is the
+    same). A `row_live` bool vector marks filler rows, finished from step
+    0. kv_cache: the contexts' K/V numerics ("fp", "int8", "int4")."""
+    B, device, state, contexts = _llm_setup(params, cfg, batch,
+                                            kv_cache=kv_cache)
+    tokens = torch.full((B,), cfg.bos_id, dtype=torch.long, device=device)
+    finished = (~batch["row_live"] if "row_live" in batch
+                else torch.zeros(B, dtype=torch.bool, device=device))
+    toks = torch.full((cfg.gen_len, B), cfg.pad_id, dtype=torch.long,
+                      device=device)
+    lps = torch.zeros(cfg.gen_len, B, device=device)
+    maps = []
+    for t in range(cfg.gen_len):
+        if early_stop and not need_weights and bool(finished.all()):
+            break
+        feats, state, attns = llm_decoder_step(params, cfg, tokens, state,
+                                               need_weights)
+        if need_weights:
+            maps.append(attns)
+        lp, ids = tied_top_k(params, cfg, feats, 1)
+        sampled = ids[:, 0]
+        tokens = torch.where(finished, cfg.pad_id, sampled)
+        lps[t] = torch.where(finished, 0.0, lp[:, 0])
+        toks[t] = tokens
+        finished = finished | (sampled == cfg.eos_id)
+    seed = torch.full((B, 1), cfg.bos_id, dtype=torch.long, device=device)
+    out = {"token_ids": torch.cat([seed, toks.T], dim=1),
+           "log_probs": lps.T, "finished": finished}
+    if need_weights:
+        bounds = attn_segment_bounds(cfg, contexts)
+        out["attns"] = [split_attn_segments(bounds, torch.stack(layer))
+                        for layer in zip(*maps)]
+    return out
+
+
+def llm_beam_search(params: dict, cfg: LLMConfig, batch: dict,
+                    beam_size: int = 5, length_penalty: float = 0.0,
+                    early_stop: bool = True, kv_cache: str = "fp") -> dict:
+    """Beam decode through models/beam.py's beam_search_core: the step
+    reads the self-K/V caches through the previous step's parents
+    (tell_tpu reorders them after each step; the same caches either
+    way). Returns {token_ids [B, K, gen_len + 1] best first, scores,
+    finished}."""
+    K = beam_size
+    B, device, state, _ = _llm_setup(params, cfg, batch, beam=K,
+                                     kv_cache=kv_cache)
+
+    def step_fn(tokens, dyn, row_gather):
+        feats, new_state, _ = llm_decoder_step(params, cfg, tokens, dyn,
+                                               row_gather=row_gather)
+        lp, ids = tied_top_k(params, cfg, feats, K)
+        return lp, ids, new_state
+
+    finished0 = ~batch["row_live"] if "row_live" in batch else None
+    return beam_search_core(step_fn, state, B, K, cfg.gen_len, cfg.bos_id,
+                            cfg.eos_id, cfg.pad_id, device, length_penalty,
+                            early_stop, finished0)
+

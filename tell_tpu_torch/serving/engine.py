@@ -24,10 +24,18 @@ request slots; requests join and leave at chunk boundaries:
   admission generation keeps a report that predates a slot's re-admission
   from resolving the new request.
 
+The model enters through tell_tpu's hooks: _zero_batch, _model_init,
+_encode_kv, _dyn_reset, _model_step and _dyn_reorder. DecodeEngine fills
+them for the flagship (the per-row state is the conv windows);
+LLMDecodeEngine for the modern family (the per-row state is the
+self-attention K/V caches, and the per-slot step counters are the RoPE
+positions and the rows' cache write positions).
+
 A slot's caption never depends on which other requests share the engine:
-tests/test_torch_engine.py holds every schedule to the port's one-shot
-beam_search. Not ported here (see ROADMAP.md): LLMDecodeEngine, the mesh
-path, and the DEC8 / merged-vocab levers (None, as in JAX by default).
+tests/test_torch_engine.py and tests/test_torch_modern_serving.py hold
+every schedule to the port's one-shot beam searches. Not ported here (see
+ROADMAP.md): the mesh path, and the DEC8 / merged-vocab levers (None, as
+in JAX by default).
 """
 from __future__ import annotations
 
@@ -43,6 +51,8 @@ from ..models.beam import beam_select, length_normalised
 from ..models.captioner import build_contexts
 from ..models.decoder import (decoder_step, decoder_top_k,
                               init_decode_state, precompute_context_kv_cat)
+from ..models.llm_decoder import (_build_contexts, init_llm_decode_state,
+                                  llm_decoder_step, tied_top_k)
 
 # K/V-cache leaves that carry no slot axis: admissions leave them alone.
 # Classified by name, not by shape (a [S] leaf could equal the slot count).
@@ -86,11 +96,12 @@ class DecodeEngine:
                  fused_topk: bool = False):
         if slots < 2:
             raise ValueError("a 1-slot engine is just beam_search")
-        if cfg.gen_len > cfg.decoder.max_target_positions:
+        dcfg = self._decode_cfg(cfg)
+        if cfg.gen_len > dcfg.max_target_positions:
             raise ValueError(f"gen_len {cfg.gen_len} exceeds "
                              f"max_target_positions "
-                             f"{cfg.decoder.max_target_positions}")
-        self.cfg, self.dcfg = cfg, cfg.decoder
+                             f"{dcfg.max_target_positions}")
+        self.cfg, self.dcfg = cfg, dcfg
         self.device = torch.device(device)
         self.params = params
         self.slots, self.beam = slots, beam
@@ -98,16 +109,12 @@ class DecodeEngine:
         self.length_penalty = length_penalty
         self.kv_cache, self.fused_topk = kv_cache, fused_topk
         B, K, L = slots, beam, cfg.gen_len
-        dcfg = self.dcfg
         with torch.inference_mode():
             # slots start empty: zero contexts, every slot finished
-            contexts0 = build_contexts(params, cfg, self._zero_batch())
-            dstate = init_decode_state(params["decoder"], dcfg, contexts0, B,
-                                       beam=K, kv_cache=kv_cache)
+            self._aux, kv, dyn = self._model_init()
             dev = self.device
-            self._embed_table = dstate["embed_table"]
             self.state = {
-                "kv": dstate["kv"], "conv": dstate["conv"],
+                "kv": kv, **dyn,
                 "t": torch.full((B,), L, dtype=torch.long, device=dev),
                 "tokens": torch.full((B, K), dcfg.bos_id, dtype=torch.long,
                                      device=dev),
@@ -147,6 +154,54 @@ class DecodeEngine:
         self._reports: collections.deque = collections.deque()
 
     # ------------------------------------------------------------------
+    # model hooks (the flagship captioner; LLMDecodeEngine overrides)
+    # ------------------------------------------------------------------
+
+    def _decode_cfg(self, cfg):
+        """The config that carries the vocabulary ids and the contexts."""
+        return cfg.decoder
+
+    def _model_init(self) -> tuple[dict, list, dict]:
+        """(constants of the step, the zero-context K/V, the per-row
+        dynamic state) for every slot."""
+        contexts0 = build_contexts(self.params, self.cfg, self._zero_batch())
+        dstate = init_decode_state(self.params["decoder"], self.dcfg,
+                                   contexts0, self.slots, beam=self.beam,
+                                   kv_cache=self.kv_cache)
+        return ({"embed_table": dstate["embed_table"]}, dstate["kv"],
+                {"conv": dstate["conv"]})
+
+    def _encode_kv(self, batchN: dict) -> list:
+        """N requests' features (leading dim N) -> their context K/V."""
+        contexts = build_contexts(self.params, self.cfg, batchN)
+        return precompute_context_kv_cat(self.params["decoder"], self.dcfg,
+                                         contexts, beam=self.beam,
+                                         kv_cache=self.kv_cache)
+
+    def _dyn_reset(self, bs: torch.Tensor) -> None:
+        """Zero slots bs's rows of the per-row state, in place."""
+        for buf in self.state["conv"]:
+            buf.view(self.slots, self.beam, *buf.shape[1:]).index_fill_(
+                0, bs, 0)
+
+    def _model_step(self, step_rows: torch.Tensor) -> tuple:
+        """One decode step over every row at positions step_rows [B*K] ->
+        (candidate log-probs [B*K, K], ids [B*K, K], new dynamic state)."""
+        st, K = self.state, self.beam
+        dyn = {"kv": st["kv"], "conv": st["conv"],
+               "embed_table": self._aux["embed_table"], "step": step_rows}
+        feats, dstate = decoder_step(self.params["decoder"], self.dcfg,
+                                     st["tokens"].reshape(-1), dyn)
+        cand_lp, cand_ids = decoder_top_k(self.params["decoder"], self.dcfg,
+                                          feats, K, self.fused_topk)
+        return cand_lp, cand_ids, {"conv": dstate["conv"]}
+
+    def _dyn_reorder(self, dyn: dict, flat: torch.Tensor) -> dict:
+        """The per-row state under the flat beam parents [B*K] (each within
+        its slot)."""
+        return {"conv": [buf[flat] for buf in dyn["conv"]]}
+
+    # ------------------------------------------------------------------
     # device programs
     # ------------------------------------------------------------------
 
@@ -173,17 +228,12 @@ class DecodeEngine:
     def _admit(self, batchN: dict, bs: torch.Tensor) -> None:
         """Encode N requests' features into context K/V and write them,
         with fresh beam bookkeeping, into slots `bs` [N], in place."""
-        K, st = self.beam, self.state
-        contexts = build_contexts(self.params, self.cfg, batchN)
-        kvN = precompute_context_kv_cat(self.params["decoder"], self.dcfg,
-                                        contexts, beam=K,
-                                        kv_cache=self.kv_cache)
-        for full, new in zip(st["kv"], kvN):
+        st = self.state
+        for full, new in zip(st["kv"], self._encode_kv(batchN)):
             for name, leaf in full.items():
                 if name not in _SHARED_KV:
                     leaf.index_copy_(0, bs, new[name].to(leaf.dtype))
-        for buf in st["conv"]:
-            buf.view(self.slots, K, *buf.shape[1:]).index_fill_(0, bs, 0)
+        self._dyn_reset(bs)
         N = bs.shape[0]
         st["t"].index_fill_(0, bs, 0)
         st["tokens"].index_fill_(0, bs, self.dcfg.bos_id)
@@ -194,19 +244,14 @@ class DecodeEngine:
 
     def _step(self) -> None:
         """One beam step over all slots: models/beam.py's beam_select with a
-        per-slot step counter. No host synchronisation."""
+        per-slot step counter. No host synchronisation (but the MoE's one a
+        layer, ops/moe.py)."""
         dcfg, st = self.dcfg, self.state
         B, K, L = self.slots, self.beam, self.cfg.gen_len
         t, finished = st["t"], st["finished"]
         # a slot at the length cap freezes exactly like a finished beam
         eff_finished = finished | (t >= L)[:, None]
-        dyn = {"kv": st["kv"], "conv": st["conv"],
-               "embed_table": self._embed_table,
-               "step": t.repeat_interleave(K)}
-        feats, dstate = decoder_step(self.params["decoder"], dcfg,
-                                     st["tokens"].reshape(B * K), dyn)
-        cand_lp, cand_ids = decoder_top_k(self.params["decoder"], dcfg,
-                                          feats, K, self.fused_topk)
+        cand_lp, cand_ids, dyn = self._model_step(t.repeat_interleave(K))
         top_scores, parent, tok, new_finished, new_lengths = beam_select(
             st["scores"], finished, st["lengths"], cand_lp, cand_ids,
             self._fin_lp, dcfg.pad_id, dcfg.eos_id, frozen=eff_finished)
@@ -216,7 +261,7 @@ class DecodeEngine:
                              parent[:, :, None].expand(-1, -1, L + 1))
         flat = (parent + self._row_base).reshape(B * K)
         st.update({
-            "conv": [buf[flat] for buf in dstate["conv"]],
+            **self._dyn_reorder(dyn, flat),
             "t": torch.clamp(t + 1, max=L), "tokens": tok,
             "scores": top_scores, "finished": new_finished,
             "lengths": new_lengths,
@@ -379,3 +424,52 @@ class DecodeEngine:
         while not self.queue.empty() or self.pending or self._reports:
             if not self.tick():
                 break
+
+
+class LLMDecodeEngine(DecodeEngine):
+    """The engine for the modern family (models/llm_decoder.py;
+    tell_tpu/serving/engine.py's LLMDecodeEngine): the same slot and beam
+    bookkeeping, with the self-attention K/V caches [B*K, gen_len + 1, KV,
+    hd] as the per-row state and the per-slot step counters as the RoPE
+    positions and the rows' cache write positions (the step's per-row
+    path). params: the LM's tree on `device`; cfg: an LLMConfig; requests
+    carry image_grid, article, article_mask, face_embeds and obj_embeds
+    (leading dim 1). kv_cache is the contexts' K/V numerics lever; the
+    tied head has no fused top-k (the adapter's check_levers refuses it
+    for the service), so the step never reads fused_topk."""
+
+    def _decode_cfg(self, cfg):
+        return cfg
+
+    def _model_init(self) -> tuple[dict, list, dict]:
+        contexts0 = _build_contexts(self.params, self.cfg,
+                                    self._zero_batch())
+        dstate = init_llm_decode_state(self.params, self.cfg, contexts0,
+                                       self.slots, beam=self.beam,
+                                       kv_cache=self.kv_cache)
+        return {}, dstate["kv"], {"self_kv": dstate["self_kv"]}
+
+    def _encode_kv(self, batchN: dict) -> list:
+        contexts = _build_contexts(self.params, self.cfg, batchN)
+        return precompute_context_kv_cat(self.params, self.cfg, contexts,
+                                         beam=self.beam,
+                                         kv_cache=self.kv_cache)
+
+    def _dyn_reset(self, bs: torch.Tensor) -> None:
+        for cache in self.state["self_kv"]:
+            for buf in cache.values():
+                buf.view(self.slots, self.beam, *buf.shape[1:]).index_fill_(
+                    0, bs, 0)
+
+    def _model_step(self, step_rows: torch.Tensor) -> tuple:
+        st = self.state
+        feats, dstate, _ = llm_decoder_step(
+            self.params, self.cfg, st["tokens"].reshape(-1),
+            {"self_kv": st["self_kv"], "kv": st["kv"], "step": step_rows})
+        cand_lp, cand_ids = tied_top_k(self.params, self.cfg, feats,
+                                       self.beam)
+        return cand_lp, cand_ids, {"self_kv": dstate["self_kv"]}
+
+    def _dyn_reorder(self, dyn: dict, flat: torch.Tensor) -> dict:
+        return {"self_kv": [{n: c[n][flat] for n in ("k", "v")}
+                            for c in dyn["self_kv"]]}

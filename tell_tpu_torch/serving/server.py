@@ -34,6 +34,13 @@ maps of the first layer per context ("attns") merged into words
 generate(need_weights=True); engine mode replays the winning caption
 teacher-forced (replay_attention), off the engine's hot path.
 
+The model is the flagship captioner or, given `adapter` (models/
+registry.py's get_model), the modern family (expts 10 and 12): its
+micro-batch mode decodes with llm_generate (with need_weights for the
+attention payload), its engine mode with LLMDecodeEngine, which refuses
+need_attention as tell_tpu's does (no replay for the modern family), and
+its article is the tower's final hidden state (modern_encode_contexts).
+
 A request may carry its photo instead of its image grid: `image_b64` (an
 encoded JPEG), `image` (an [H, W, 3] list) or, from the scrape flow,
 `sections[image_position].image_data` (base64). VisionPipeline
@@ -41,7 +48,10 @@ encoded JPEG), `image` (an [H, W, 3] list) or, from the scrape flow,
 micro-batch is packed, the contexts its towers give and the request lacks:
 the grid (ResNet-152), the faces (MTCNN + FaceNet) and the objects
 (YOLOv3-SPP + the pooled ResNet-152). A photo that does not decode, or
-fails in a stage, fails its own request only.
+fails in a stage, fails its own request only. The image context is the
+grid the ResNet gives: a modern model's 197 x 1024 ViT slot does not take
+it, and such a request gets a `bad image_grid` error (tell_tpu's
+behaviour; the ViT is not on the photo path).
 """
 from __future__ import annotations
 
@@ -61,12 +71,12 @@ from ..bridge import to_torch
 from ..config import CaptionerConfig, with_article_len
 from ..data.readers import assemble_location_aware
 from ..models.backbones.roberta import RobertaEncoder
-from ..models.captioner import (Captioner, encode_contexts,
-                                weighted_layer_sum)
+from ..models.captioner import Captioner, weighted_layer_sum
+from ..models.registry import get_model
 from . import extractor
 from .batcher import MicroBatcher
 from .encode_batcher import EncodeBatcher
-from .engine import DecodeEngine
+from .engine import DecodeEngine, LLMDecodeEngine
 from .vision import VisionPipeline
 from .word_attention import merge_word_attentions
 
@@ -99,7 +109,9 @@ class CaptionService:
     every answer. towers: the frozen vision towers, each in its forward's
     layout ({"resnet": load_tower's or prepare_resnet's tree, "resnet_cfg":
     ResNetConfig, "mtcnn", "facenet", "yolov3"}: VisionPipeline's frozen
-    dict), which give raw-image requests their grid, faces and objects."""
+    dict), which give raw-image requests their grid, faces and objects.
+    adapter: get_model's adapter of the model family (default: the
+    captioner over cfg); its config replaces cfg."""
 
     def __init__(self, params: dict, roberta: RobertaEncoder,
                  cfg: CaptionerConfig, device, tokenizer=None,
@@ -109,18 +121,31 @@ class CaptionService:
                  engine_buckets: bool = False, encode_batch: int = 8,
                  kv_cache: str = "fp",
                  fused_topk: bool = False, need_attention: bool = False,
-                 towers: dict | None = None):
+                 towers: dict | None = None, adapter=None):
         if need_attention and tokenizer is None:
             raise ValueError("need_attention merges the maps into words "
                              "and needs a tokenizer")
+        self.adapter = adapter or get_model("captioner", cfg)
+        self.modern = self.adapter.name == "modern"
+        self.adapter.check_levers(fused_topk)
+        if self.modern and engine_slots and need_attention:
+            raise ValueError("attention replay is captioner-only; drop "
+                             "--attention for the modern engine")
+        cfg = self.adapter.config
         self.cfg = cfg
+        self.dcfg = getattr(cfg, "decoder", cfg)
         self.device = torch.device(device)
-        self.model = Captioner(to_torch(params, self.device), cfg)
+        # the flagship's params as an nn.Module (.model); the modern family
+        # decodes through its adapter alone
+        self.params = to_torch(params, self.device)
+        self.model = None if self.modern else Captioner(self.params, cfg)
+        if self.model is not None:
+            self.params = self.model.tree()
         self.roberta = roberta.to(self.device)
         self.tokenizer = tokenizer
         self.need_attention = need_attention
         self.max_batch = max_batch
-        dcfg = cfg.decoder
+        dcfg = self.dcfg
         if article_len is None:
             article_len = next((c.max_len for c in dcfg.contexts
                                 if c.name == "article"), 512)
@@ -154,9 +179,10 @@ class CaptionService:
     def _start_engines(self, slots: int, beam: int, length_penalty: float,
                        buckets: bool, encode_batch: int) -> None:
         widths = self._article_buckets if buckets else (self.article_len,)
-        params = self.model.tree()
+        params = self.params
+        engine = LLMDecodeEngine if self.modern else DecodeEngine
         self.engines = {
-            w: DecodeEngine(params, with_article_len(self.cfg, w),
+            w: engine(params, with_article_len(self.cfg, w),
                             self.device, slots=slots, beam=beam,
                             length_penalty=length_penalty,
                             kv_cache=self.kv_cache,
@@ -186,6 +212,15 @@ class CaptionService:
             if not any(live):
                 time.sleep(0.002)
 
+    def _generate(self, enc: dict, **levers) -> dict:
+        """The model's greedy decode (the adapter's) of encoded features."""
+        return self.adapter.generate(self.params, self.cfg, enc, **levers)
+
+    def _encode(self, batch: dict, frozen: dict | None = None) -> dict:
+        """The model's frozen-tower encode (the adapter's) of a batch of
+        tensors; frozen defaults to the service's RoBERTa."""
+        return self.adapter.encode(frozen or self.roberta.frozen(), batch)
+
     def _encode_many(self, batch: dict) -> dict:
         """Numpy payload rows -> features on the device: the RoBERTa
         encode with the hidden layers mixed in (weighted_layer_sum), so only
@@ -193,10 +228,10 @@ class CaptionService:
         with torch.inference_mode():
             tb = {k: torch.from_numpy(v).to(self.device)
                   for k, v in batch.items()}
-            out = encode_contexts(self.roberta.frozen(), self.cfg, tb)
+            out = self._encode(tb)
             if "article_hiddens" in out:
                 out["article"] = weighted_layer_sum(
-                    self.model.tree(), out.pop("article_hiddens"))
+                    self.params, out.pop("article_hiddens"))
             out.pop("context_ids")
         return out
 
@@ -338,8 +373,8 @@ class CaptionService:
         with torch.inference_mode():
             tb = {k: torch.from_numpy(v).to(self.device)
                   for k, v in batch.items()}
-            enc = encode_contexts(self.roberta.frozen(), self.cfg, tb)
-            out = self.model.generate(enc, need_weights=self.need_attention)
+            enc = self._encode(tb)
+            out = self._generate(enc, need_weights=self.need_attention)
             token_ids = out["token_ids"][:n].cpu().numpy()
             if self.need_attention:    # layer 0: {name: [T, B, 1, S']}
                 layer0 = {name: a[:, :n, 0].cpu().numpy()
@@ -364,12 +399,12 @@ class CaptionService:
         their word merge (caption_words, word_attns, article_words). The
         trailing bias/zero columns are derived from the true source
         lengths: each context's capacity, the article's packed width."""
-        lens = {c.name: c.max_len for c in self.cfg.decoder.contexts}
+        lens = {c.name: c.max_len for c in self.dcfg.contexts}
         lens["article"] = len(context_ids)
         payload = {"attns": {k: a.tolist() for k, a in maps.items()}}
         payload.update(merge_word_attentions(
             self.tokenizer, token_ids, maps, context_ids=context_ids,
-            eos_id=self.cfg.decoder.eos_id, source_lens=lens))
+            eos_id=self.dcfg.eos_id, source_lens=lens))
         return payload
 
     def replay_payload(self, enc: dict, token_ids: np.ndarray,
@@ -454,7 +489,11 @@ class CaptionService:
         tower encoded with the tanh GELU). Counted over the live (non-pad)
         target tokens of `requests` (default: one canned request) at full
         article width. The result also lands in /status under
-        "numerics_ab"."""
+        "numerics_ab". The modern family has no teacher-forced decode in
+        the port (nor in tell_tpu's service): its levers (int8 and int4
+        K/V, the tanh-GELU encode) are compared free-running, token by
+        token over the fp path's live targets (method "free_running"),
+        and it has no fused top-k."""
         t0 = time.perf_counter()
         if requests is None:
             requests = [{"context": "the mayor spoke in the city today"}
@@ -468,29 +507,38 @@ class CaptionService:
             tb = {k: torch.from_numpy(v).to(self.device)
                   for k, v in batch.items()}
             frozen = self.roberta.frozen()
-            enc, enc_tanh = (encode_contexts(
-                {**frozen, "roberta_cfg": dataclasses.replace(
-                    frozen["roberta_cfg"], gelu=gelu)}, self.cfg, tb)
+            enc, enc_tanh = (self._encode(tb, {
+                **frozen, "roberta_cfg": dataclasses.replace(
+                    frozen["roberta_cfg"], gelu=gelu)})
                 for gelu in ("erf", "tanh"))
-            ref = self.model.generate(enc)["token_ids"]
+            ref = self._generate(enc)["token_ids"]
             target = ref[:, 1:]
-            live = target != self.cfg.decoder.pad_id
+            live = target != self.dcfg.pad_id
             if not bool(live.any()):
                 live = torch.ones_like(live)
             report = {"kv_cache_mode": self.kv_cache,
                       "topk_mode": self._topk_mode(),
                       "gelu_mode": self.roberta.cfg.gelu,
-                      "method": "forced_per_step",
+                      "method": ("free_running" if self.modern
+                                 else "forced_per_step"),
                       "tokens": int(live.sum())}
-            for key, lever in (
-                    ("kv8_token_agreement", {"kv_cache": "int8"}),
-                    ("kv4_token_agreement", {"kv_cache": "int4"}),
-                    ("fused_topk_token_agreement", {"fused_topk": True})):
-                preds = self.model.predict_forced(enc, ref, **lever)
-                report[key] = float((preds == target)[live].float().mean())
-            preds = self.model.predict_forced(enc_tanh, ref)
-            report["fast_gelu_token_agreement"] = float(
-                (preds == target)[live].float().mean())
+
+            def agreement(features, **lever):
+                if self.modern:
+                    preds = self._generate(features,
+                                           **lever)["token_ids"][:, 1:]
+                else:
+                    preds = self.model.predict_forced(features, ref, **lever)
+                return float((preds == target)[live].float().mean())
+
+            levers = [("kv8_token_agreement", {"kv_cache": "int8"}),
+                      ("kv4_token_agreement", {"kv_cache": "int4"})]
+            if not self.modern:
+                levers.append(("fused_topk_token_agreement",
+                               {"fused_topk": True}))
+            for key, lever in levers:
+                report[key] = agreement(enc, **lever)
+            report["fast_gelu_token_agreement"] = agreement(enc_tanh)
         report["seconds"] = time.perf_counter() - t0
         self.ab_report = report
         return report
@@ -506,7 +554,7 @@ class CaptionService:
             "config": {
                 "max_batch": self.max_batch,
                 "article_len": self.article_len,
-                "contexts": [c.name for c in self.cfg.decoder.contexts],
+                "contexts": [c.name for c in self.dcfg.contexts],
                 "gen_len": self.cfg.gen_len,
                 "device": str(self.device),
                 "need_attention": self.need_attention,

@@ -2,8 +2,9 @@
 
 The port keeps a copy of the dataclasses so that it imports nothing of the
 JAX package. Here every class's fields, types and defaults, the module
-constants and small_test_config() must equal tell_tpu.config's, and the
-port's long-article configuration must equal the model that
+constants and small_test_config() must equal tell_tpu.config's (LLMConfig
+and VIT_CONTEXTS: tell_tpu.models.llm_decoder's), and the port's
+long-article configuration must equal the model that
 expt/nytimes/11_long_article.yaml loads to, apart from compute_dtype (a
 training setting; the service runs in the params' dtype).
 """
@@ -12,6 +13,7 @@ import dataclasses
 import pytest
 
 import tell_tpu.config as jcfg
+import tell_tpu.models.llm_decoder as jllm
 import tell_tpu_torch.config as tcfg
 from tell_tpu.config_io import load_experiment
 
@@ -74,3 +76,23 @@ def test_long_article_config_equals_the_yaml_model():
             "contexts": tuple(jcfg.ContextSpec(**dataclasses.asdict(c))
                               for c in port.decoder.contexts)})})
     assert back == model
+
+
+def test_llm_config_equals_jax():
+    """LLMConfig field for field and default for default, its properties,
+    context() and VIT_CONTEXTS; with_article_len on an LLMConfig."""
+    assert _fields(tcfg.LLMConfig) == _fields(jllm.LLMConfig)
+    assert tcfg.LLMConfig.__dataclass_params__.frozen
+    assert _plain(tcfg.VIT_CONTEXTS) == _plain(jllm.VIT_CONTEXTS)
+    for over in ({}, {"num_kv_heads": None}, {"dim": 48, "num_heads": 6,
+                                              "num_kv_heads": 2}):
+        t, j = tcfg.LLMConfig(**over), jllm.LLMConfig(**over)
+        assert (t.head_dim, t.kv_heads) == (j.head_dim, j.kv_heads)
+    assert _plain(tcfg.LLMConfig().context("obj")) == _plain(
+        jllm.LLMConfig().context("obj"))
+    with pytest.raises(KeyError):
+        tcfg.LLMConfig().context("audio")
+    hash(tcfg.LLMConfig())
+    long = tcfg.with_article_len(tcfg.LLMConfig(
+        contexts=tcfg.VIT_CONTEXTS), 128)
+    assert [c.max_len for c in long.contexts] == [197, 128, 4, 64]

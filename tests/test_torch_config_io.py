@@ -2,10 +2,11 @@
 tell_tpu.config_io.
 
 parse_yaml equals yaml.safe_load on every expt/*/*.yaml and on the edge
-cases of the subset; every YAML of the captioner family loads, overrides
-included, into configs equal field by field to tell_tpu's; every other
-YAML is refused with the ROADMAP queue item that ports it; an unknown key
-fails as it does in tell_tpu.
+cases of the subset; every YAML of the captioner family and of the modern
+family (expts 10 and 12, an LLMConfig) loads, overrides included, into
+configs equal field by field to tell_tpu's; every other YAML is refused
+with the ROADMAP queue item that ports it; an unknown key fails as it does
+in tell_tpu.
 """
 import dataclasses
 import glob
@@ -39,11 +40,13 @@ LOADS = {
     "expt/nytimes/13_learned_positional.yaml",
     "expt/quality/overfit_flagship.yaml", "expt/quality/overfit_small.yaml",
 }
+# the modern family's YAMLs: an LLMConfig
+MODERN = {"expt/nytimes/10_vit_modern.yaml",
+          "expt/nytimes/12_moe_modern.yaml"}
 REFUSED = {
     "1_lstm_glove": "queue 1 item 9", "2_transformer_glove": "queue 1 item 9",
     "3_lstm_roberta": "queue 1 item 9", "a1_pointer": "queue 1 item 9",
     "a2_copy_fix": "queue 1 item 9", "a3_pointer_2": "queue 1 item 9",
-    "10_vit_modern": "queue 1 item 9", "12_moe_modern": "queue 1 item 9",
 }
 OVERRIDES = ('{"trainer": {"serialization_dir": "/tmp/x", "num_epochs": 2},'
              ' "data": {"shards_dir": "/tmp/s"}, "model": {"gen_len": 7,'
@@ -61,8 +64,8 @@ def _assert_configs_equal(exp, jexp):
 
 def test_every_yaml_is_covered():
     assert len(YAMLS) == 29
-    assert set(YAMLS) == LOADS | {p for p in YAMLS if os.path.basename(
-        p)[:-5] in REFUSED}
+    assert set(YAMLS) == LOADS | MODERN | {
+        p for p in YAMLS if os.path.basename(p)[:-5] in REFUSED}
 
 
 @pytest.mark.parametrize("path", YAMLS)
@@ -80,7 +83,27 @@ def test_captioner_yamls_load_as_jax_does(path):
                           j_load(full, OVERRIDES))
 
 
-@pytest.mark.parametrize("path", sorted(set(YAMLS) - LOADS))
+MODERN_OVERRIDES = ('{"trainer": {"serialization_dir": "/tmp/x"}, "model":'
+                    ' {"gen_len": 7, "num_kv_heads": 8, "moe_top_k": 1,'
+                    ' "contexts": "faces"}}')
+
+
+@pytest.mark.parametrize("path", sorted(MODERN))
+def test_modern_yamls_load_as_jax_does(path):
+    """Expts 10 and 12 (model_type transformer_modern) load into an
+    LLMConfig equal to tell_tpu's, with and without overrides, where the
+    port refused them before."""
+    from tell_tpu_torch.config import LLMConfig
+    full = os.path.join(ROOT, path)
+    exp = load_experiment(full)
+    assert isinstance(exp.model, LLMConfig)
+    _assert_configs_equal(exp, j_load(full))
+    over = load_experiment(full, MODERN_OVERRIDES)
+    _assert_configs_equal(over, j_load(full, MODERN_OVERRIDES))
+    assert (over.model.kv_heads, len(over.model.contexts)) == (8, 3)
+
+
+@pytest.mark.parametrize("path", sorted(set(YAMLS) - LOADS - MODERN))
 def test_other_yamls_are_refused_with_their_item(path):
     item = REFUSED[os.path.basename(path)[:-5]]
     with pytest.raises(NotPortedError, match=item):

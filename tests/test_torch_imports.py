@@ -15,8 +15,11 @@ pipeline with tiny MTCNN, FaceNet and YOLOv3 towers (the letterbox, the
 faces and the objects with Pillow blocked), then runs the slices on CPU
 tensors at a tiny size (greedy
 generate, a train step, the continuous-batching engine with the int8 K/V
-cache and the fused top-k, and kernel F's two forms) and checks that the
-plain paths ran: the kernels' launch counters stay 0.
+cache and the fused top-k, and kernel F's two forms; the modern family:
+expt 12's YAML loaded, a tiny ViT and RoBERTa through
+modern_encode_contexts, an MoE LM's greedy generate and LLMDecodeEngine
+with the int8 K/V cache) and checks that the plain paths ran: the
+kernels' launch counters stay 0.
 """
 import json
 import os
@@ -137,6 +140,31 @@ towers = {"mtcnn": mtcnn.prepare_mtcnn(init_mtcnn(g)),
           "resnet": prepare_resnet(init_resnet(g, rcfg_img)),
           "resnet_cfg": rcfg_img}
 feats = vision.VisionPipeline(towers).process({"image": photo})
+from tell_tpu_torch.bridge import init_llm_decoder, init_vit
+from tell_tpu_torch.config import ContextSpec, LLMConfig
+from tell_tpu_torch.models.backbones.vit import ViTConfig
+from tell_tpu_torch.models.llm_decoder import (llm_generate,
+                                               modern_encode_contexts)
+from tell_tpu_torch.serving.engine import LLMDecodeEngine
+modern_exp = load_experiment("expt/nytimes/12_moe_modern.yaml")
+lcfg = LLMConfig(vocab_size=300, dim=32, num_layers=1, num_heads=4,
+                 num_kv_heads=2, ffn_dim=48, gen_len=3, moe_experts=4,
+                 contexts=(ContextSpec("image", 16, 5),
+                           ContextSpec("article", 32, 16)))
+vcfg = ViTConfig(image_size=32, patch_size=16, dim=16, num_layers=1,
+                 num_heads=2, ffn_dim=32)
+lparams = init_llm_decoder(g, lcfg)
+with torch.inference_mode():
+    menc = modern_encode_contexts(
+        {**enc.frozen(), "vit": init_vit(g, vcfg), "vit_cfg": vcfg}, lcfg,
+        {"context_ids": batch["context_ids"],
+         "image": torch.randn(2, 32, 32, 3, generator=g)})
+    mout = llm_generate(lparams, lcfg, menc)
+leng = LLMDecodeEngine(lparams, lcfg, "cpu", slots=2, beam=2,
+                       kv_cache="int8")
+lfut = leng.submit({k: v[:1] for k, v in menc.items()
+                    if k != "context_ids"})
+leng.run_until_drained()
 print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "text_round_trip": tok.decode(tok.encode(text)) == text,
                   "bpe": type(tok.bpe).__name__,
@@ -153,6 +181,12 @@ print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "token_ids": list(out["token_ids"].shape),
                   "train_loss_finite": bool(torch.isfinite(m["loss"])),
                   "engine_beams": list(beams.shape),
+                  "modern": [type(modern_exp.model).__name__,
+                             modern_exp.model.moe_experts,
+                             list(menc["image_grid"].shape),
+                             list(mout["token_ids"].shape),
+                             list(lfut.result(timeout=0)["token_ids"]
+                                  .shape)],
                   "single": [list(single.shape), list(q4split.shape)],
                   "launches": [decode_attention.launches,
                                encoder_attention.launches,
@@ -192,7 +226,9 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                  "commands.towers", "commands.jax_random",
                  "models.backbones.resnet", "tools.convert_towers",
                  "models.backbones.mtcnn", "models.backbones.facenet",
-                 "models.backbones.yolov3", "ops.image_resize"):
+                 "models.backbones.yolov3", "ops.image_resize",
+                 "models.llm_decoder", "models.registry", "ops.moe",
+                 "models.backbones.vit"):
         assert f"tell_tpu_torch.{name}" in res["modules"]
     assert res["jax_package"] == []
     assert res["jax_loaded"] is False
@@ -213,5 +249,6 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
     assert res["token_ids"] == [2, 4]
     assert res["train_loss_finite"] is True
     assert res["engine_beams"] == [2, 4]
+    assert res["modern"] == ["LLMConfig", 8, [2, 5, 16], [2, 4], [2, 4]]
     assert res["single"] == [[2, 2, 4, 8], [2, 2, 4, 8]]
     assert res["launches"] == [0, 0, 0, 0, 0, 0, 0]

@@ -2,12 +2,13 @@
 for each tower, tools/convert_towers.py (orbax) and then the converter
 give the tree, bit for bit and dtype for dtype, that
 tell_tpu_torch.tools.convert_towers writes from the same seeded source
-file; a `vit` tower is refused by name, and the CLI reads the result.
+file, ViT-L/16 included, and the CLI reads the result.
 
 tools/convert_towers.py fixes RoBERTa-large's 24 layers, ResNet-152's
-block counts and FaceNet's repeats, so the sources have those depths at
-narrow widths (RoBERTa 16 wide, ResNet base width 2); MTCNN is its own
-size and YOLOv3 a reduced darknet cfg (tests/test_torch_yolov3.py's).
+block counts, ViT-L's 24 layers and 197 tokens and FaceNet's repeats, so
+the sources have those depths at narrow widths (RoBERTa 16 wide, ResNet
+base width 2, ViT 16 wide); MTCNN is its own size and YOLOv3 a reduced
+darknet cfg (tests/test_torch_yolov3.py's).
 """
 import importlib.util
 import os
@@ -22,9 +23,11 @@ from tell_tpu_torch.bridge import tree_leaves
 from tell_tpu_torch.config import NotPortedError
 from tell_tpu_torch.models.backbones.facenet import FaceNetConfig
 from tell_tpu_torch.models.backbones.resnet import ResNetConfig
+from tell_tpu_torch.models.backbones.vit import ViTConfig
 from tell_tpu_torch.tools import convert_towers as port_convert
 from tests import tower_writers
 from tests.test_torch_resnet import torchvision_state_dict
+from tests.test_torch_vit import _hf_state
 from tests.test_torch_yolov3 import SMALL_CFG, _small_defs, _write_weights
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -105,6 +108,10 @@ def _sources(tmp):
         str(tmp / "yolo.cfg"), str(tmp / "yolo.weights"), o),
         lambda o: port_convert.convert_yolo(
             str(tmp / "yolo.cfg"), str(tmp / "yolo.weights"), o))
+    torch.save({k: torch.from_numpy(v) for k, v in _hf_state(
+        10, ViTConfig(dim=16, ffn_dim=32)).items()}, tmp / "vit.pt")
+    src["vit"] = (lambda o: tools.convert_vit(str(tmp / "vit.pt"), o),
+                  lambda o: port_convert.convert_vit(str(tmp / "vit.pt"), o))
     return src
 
 
@@ -118,7 +125,7 @@ def converted(tmp_path_factory):
         jax_side(str(orbax))
         port_side(str(port))
     written = orbax_to_torch.convert_towers(str(orbax), str(tmp / "out"))
-    assert len(written) == 5
+    assert len(written) == 6
     return tmp / "out", port, orbax
 
 
@@ -138,7 +145,7 @@ def _same_tree(a, b):
 
 
 @pytest.mark.parametrize("name", ["roberta", "resnet152", "facenet",
-                                  "mtcnn", "yolov3"])
+                                  "mtcnn", "yolov3", "vit"])
 def test_migrated_tower_equals_the_ports_conversion(converted, name):
     out, port, _ = converted
     got = torch.load(out / name / "state.pt", weights_only=True)
@@ -163,7 +170,51 @@ def test_in_place_conversion_and_the_cli_reads_it(converted, tmp_path):
     assert rows[0]["status"] == "CONVERTED"
 
 
-def test_vit_is_refused_by_name(tmp_path):
-    (tmp_path / "vit").mkdir()
-    with pytest.raises(NotPortedError, match="ViT.*item 8, cut 4"):
-        orbax_to_torch.convert_towers(str(tmp_path))
+def test_vit_is_refused_by_name(converted, tmp_path):
+    """A vit tower is no longer refused: alone in a towers directory it
+    converts, load_vit reads it, and it encodes ViT-L's 197 tokens."""
+    import shutil
+
+    from tell_tpu_torch.models.backbones.vit import load_vit, vit_encode
+    _, _, orbax = converted
+    shutil.copytree(orbax / "vit", tmp_path / "vit")
+    assert orbax_to_torch.convert_towers(str(tmp_path)) == [
+        str(tmp_path / "vit" / "state.pt")]
+    tree = load_vit(str(tmp_path / "vit"), "cpu")
+    assert len(tree["layers"]) == 24 and tree["pos_embed"].shape == (197, 16)
+    with torch.inference_mode():
+        out = vit_encode(tree, ViTConfig(dim=16, num_heads=2, ffn_dim=32),
+                         torch.zeros(1, 224, 224, 3))
+    assert out.shape == (1, 197, 16) and bool(torch.isfinite(out).all())
+    with pytest.raises(NotPortedError, match="orbax_to_torch.py towers"):
+        load_vit(str(orbax / "vit"), "cpu")
+
+
+def test_a_modern_runs_params_convert(tmp_path):
+    """`run` on a modern family's checkpoint (expt 12's form: the stacked
+    experts [E, D, F], the router, the tied embedding) carries every
+    leaf across bit for bit, and the port decodes it."""
+    import jax
+    import orbax.checkpoint as ocp
+
+    from tell_tpu.config import ContextSpec as JSpec
+    from tell_tpu.models import llm_decoder as J
+    from tell_tpu_torch.config import ContextSpec, LLMConfig
+    from tell_tpu_torch.models.llm_decoder import llm_generate
+    fields = dict(vocab_size=50, dim=16, num_layers=1, num_heads=4,
+                  num_kv_heads=2, ffn_dim=24, gen_len=3, moe_experts=4)
+    ctx = (("article", 8, 5),)
+    params = J.init_llm_decoder(jax.random.PRNGKey(0), J.LLMConfig(
+        **fields, contexts=tuple(JSpec(*c) for c in ctx)))
+    best = tmp_path / "run" / "checkpoints" / "best"
+    ocp.PyTreeCheckpointer().save(str(best), {"params": params})
+    written = orbax_to_torch.convert_run(str(tmp_path / "run"))
+    assert written == [str(best)]
+    got = torch.load(best / "state.pt", weights_only=True)["params"]
+    assert got["layers"][0]["ffn"]["w1"].shape == (4, 16, 24)
+    _same_tree(got, orbax_to_torch._torch(jax.tree.map(np.asarray, params)))
+    batch = {"article": torch.randn(2, 5, 8),
+             "article_mask": torch.zeros(2, 5, dtype=torch.bool)}
+    out = llm_generate(got, LLMConfig(**fields, contexts=tuple(
+        ContextSpec(*c) for c in ctx)), batch)
+    assert out["token_ids"].shape == (2, 4)

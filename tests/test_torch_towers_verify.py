@@ -2,18 +2,18 @@
 tell_tpu's (tell_tpu/commands/towers.py) on the CPU: the probe inputs
 drawn without JAX equal jax.random's (ids exactly, normals within 1e-6),
 each tower's probe outputs within PROBE_TOL of tell_tpu's probes on the
-same weights (RoBERTa and ResNet-152 here; MTCNN, FaceNet and YOLOv3 in
-test_torch_towers_probes.py), the rows' schema and `_checksum` equal, the
-values whose 1e-3 rounding differs between the two packages counted and
-logged, and the statuses and exit codes of missing, broken, orbax-form
-and ViT trees.
+same weights (RoBERTa, ResNet-152 and ViT-L/16 here; MTCNN, FaceNet and
+YOLOv3 in test_torch_towers_probes.py), the rows' schema and `_checksum`
+equal, the values whose 1e-3 rounding differs between the two packages
+counted and logged, and the statuses and exit codes of missing, broken,
+orbax-form and converted trees.
 
 The towers are the full probes' architectures with small weights where
 the forward reads its width from them: ResNet-152's block counts at base
 width 2 (its kernels rescaled to He's std; without batch-norm statistics
 its residual stack still reaches ~1e8, so PROBE_TOL is relative to the
-largest output), RoBERTa-large's width at 2 layers, seeded with the
-port's initialisers.
+largest output), RoBERTa-large's and ViT-L's widths at 2 layers, seeded
+with the port's initialisers.
 """
 import json
 import logging
@@ -25,13 +25,14 @@ import pytest
 import torch
 
 from tell_tpu.commands import towers as jt
-from tell_tpu_torch.bridge import init_resnet, init_roberta
+from tell_tpu_torch.bridge import init_resnet, init_roberta, init_vit
 from tell_tpu_torch.bridge import to_numpy, tree_map
 from tell_tpu_torch.commands import jax_random
 from tell_tpu_torch.commands import towers as tt
 from tell_tpu_torch.commands.__main__ import main
 from tell_tpu_torch.models.backbones.resnet import ResNetConfig
 from tell_tpu_torch.models.backbones.roberta import RobertaConfig
+from tell_tpu_torch.models.backbones.vit import ViTConfig
 
 torch.set_num_threads(2)
 PROBE_TOL = 1e-5     # |port - tell_tpu| <= PROBE_TOL * (1 + max|tell_tpu|)
@@ -54,7 +55,8 @@ def small_towers():
     return {"resnet152": unit_scale(init_resnet(
                 g(), ResNetConfig((3, 8, 36, 3), 2))),
             "roberta": init_roberta(g(), RobertaConfig(vocab_size=1000,
-                                                       num_layers=2))}
+                                                       num_layers=2)),
+            "vit": init_vit(g(), ViTConfig(num_layers=2))}
 
 
 @pytest.fixture(scope="module")
@@ -89,6 +91,7 @@ def test_probe_inputs_equal_jax():
     np.testing.assert_array_equal(got["roberta"], ids)
     assert got["roberta"].dtype == ids.dtype == np.int32
     for name, shape in (("resnet152", (1, 224, 224, 3)),
+                        ("vit", (1, 224, 224, 3)),
                         ("facenet", (1, 160, 160, 3)),
                         ("pnet", (1, 12, 12, 3)), ("rnet", (1, 24, 24, 3)),
                         ("onet", (1, 48, 48, 3)),
@@ -124,7 +127,7 @@ def check_probe(d, trees, name):
     return flipped, n
 
 
-@pytest.mark.parametrize("name", ["resnet152", "roberta"])
+@pytest.mark.parametrize("name", ["resnet152", "roberta", "vit"])
 def test_probe_outputs_match_tell_tpu(towers, name):
     check_probe(*towers, name)
 
@@ -150,14 +153,18 @@ def test_rows_and_checksum_are_tell_tpus(towers):
 def test_statuses_and_exit_codes(tmp_path, towers, capsys):
     d, _ = towers
     rows = {r["tower"]: r for r in tt.rows(str(tmp_path), ["facenet",
-                                                           "mtcnn", "vit"])}
+                                                           "mtcnn"])}
     assert rows["facenet"]["status"] == rows["mtcnn"]["status"] == \
         "NO CHECKPOINT (converter-only tower)"
-    assert "item 8, cut 4" in rows["vit"]["status"]
-    assert "params" not in rows["vit"]
-    # a broken tree and an orbax-form one: ERROR rows, exit 1
-    (tmp_path / "mtcnn").mkdir()
-    (tmp_path / "mtcnn" / "state.pt").write_bytes(b"not a torch file")
+    # a converted ViT: probed like the other towers, tell_tpu's shapes
+    vit = tt.rows(d, ["vit"], "cpu")[0]
+    assert vit["status"] == "CONVERTED"
+    assert vit["outputs"] == {"features": [1, 197, 1024]}
+    assert vit["params"] == tt._param_count(towers[1]["vit"])
+    # broken trees and an orbax-form one: ERROR rows, exit 1
+    for name in ("mtcnn", "vit"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "state.pt").write_bytes(b"not a torch file")
     (tmp_path / "roberta").mkdir()
     (tmp_path / "roberta" / "_METADATA").write_text("{}")
     assert main(["towers", "verify", str(tmp_path), "--json", "--device",
@@ -165,12 +172,13 @@ def test_statuses_and_exit_codes(tmp_path, towers, capsys):
     out = json.loads(capsys.readouterr().out)
     assert [r["tower"] for r in out] == ["mtcnn", "roberta", "vit"]
     assert out[0]["status"].startswith("ERROR")
+    assert out[2]["status"].startswith("ERROR")
     assert out[1]["status"].startswith("ERROR") and \
         "migrate/orbax_to_torch.py towers" in out[1]["status"]
     assert main(["towers", "verify", d, "--device", "cpu", "-t", "roberta",
                  "-t", "vit"]) == 0
     text = capsys.readouterr().out
-    assert "CONVERTED" in text and "NOT PORTED" in text
+    assert text.count("CONVERTED") == 2 and "NOT PORTED" not in text
 
 
 def test_verify_needs_the_card_or_device_cpu(towers):
