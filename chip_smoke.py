@@ -257,14 +257,15 @@ every phase passed):
      kernel B launched by the RoBERTa probe.
  17. the modern family (expts 10 and 12, RoPE + GQA decoder over the four
      contexts, dense and 8-expert top-2 MoE) at the YAMLs' full width
-     (dim 1024, 8 layers, 16 heads, 4 KV heads, FFN 2816, vocab 50265,
-     gen_len 100; contexts 197x1024, 512x1024, 4x512, 64x2048) with random
+     (dim 1024, 16 heads, 4 KV heads, FFN 2816, vocab 50265, gen_len 100;
+     contexts 197x1024, 512x1024, 4x512, 64x2048) and MODERN_LAYERS = 4 of
+     their 8 layers (phase 18 trains all 8), with random
      weights from the seed, RoBERTa-large and a full ViT-L/16: (a) two
      224 x 224 images through modern_encode_contexts' ViT, card vs CPU
      within FEATURE_REL_TOL, then ViT-L ms per image at B=1 and 16 and
      the peak memory; (b) for each expt 16 /caption requests through
      the micro-batch service (greedy, B=4; kernels A at MG=4 and B
-     counted and required), greedy and beam 5 on three requests'
+     counted and required), greedy and beam 5 on two requests'
      features with the ids equal card vs CPU and the log-probs and scores
      within MODERN_SEARCH_ATOL (fp cache), and for expt 10 beam 5 under
      the int8 cache, card (kernel D) vs CPU (its plain version), equal
@@ -278,7 +279,35 @@ every phase passed):
      features the engine encodes for it under phase 8's near-tie rule;
      (c) expt 10's engine again under the int8 K/V lever on 8 of them
      (kernel D required, A not), held the same way.
-Then one JSON line describing the kernels and, last, the result line.
+ 18. the other families trained, each YAML at full width with random
+     weights from the seed and one seeded RoBERTa-large saved as the
+     command line's tower: (a) expts 10 and 12 (fp32, TF32 off): the
+     deterministic llm_loss and every gradient at B=2 with 32-token
+     captions and precomputed contexts (image 197 x 1024, article 512 x
+     1024, faces, objects), card vs CPU within phase 6's limits, and for
+     expt 12 at capacity 1.25 each (token, choice) pair's expert and
+     kept flag card vs CPU (a differing pair only at a router near tie,
+     ROUTER_TIE); (b) each through `train` (in this process's main()) on
+     synthetic shards at the YAML's bucketing (16 x (512, 32)), the YAML's
+     dropouts, RoBERTa-large frozen in every step: two epochs of two steps,
+     validation and checkpoints, kernel B required; then the command's
+     own trainer (build_trainer) stopped mid-epoch and recovered: params
+     bit for bit, the next batch, and CUDA-event ms of its steady steps,
+     peak memory above the start, and for expt 12 the MoE forward's
+     device share and the host's waits at its syncs (torch.profiler);
+     (c) expt 3 (the LSTM over RoBERTa, bf16): loss and gradients card vs
+     CPU in fp32, `train` 2 x 2 steps (B required), its steady steps,
+     `evaluate` greedy on 4 captions on the card, again with --fused-topk
+     (kernel E required, and none without it), and on the CPU: ids equal
+     or split at a near tie (LSTM_TIE), the same for 4 requests served
+     over HTTP on the card against the CPU's micro-batch, and
+     --engine-slots refused; (d) expts 1 and 2: a 300-d GloVe file from
+     the seed for the quality corpus's words, preprocess with
+     data.glove_file, train two steps, evaluate greedily on the card, and
+     one served request of expt 1, which fails as tell_tpu's does after
+     kernel B encodes its article; (e) B's and E's launches per part.
+Then a line of each phase's wall seconds, one JSON line describing the
+kernels and, last, the result line.
 
     python3 chip_smoke.py --cli
 
@@ -338,6 +367,10 @@ runs phases 1-2, then phase 16 only; no result line.
 
 runs phases 1-2, then phase 17 only; no result line.
 
+    python3 chip_smoke.py --train-families
+
+runs phases 1-2, then phase 18 only; no result line.
+
     python3 chip_smoke.py --beam N
 
 runs phases 1-2, then phase 10's one-shot beam search (the long-article
@@ -355,6 +388,7 @@ import dataclasses
 import functools
 import http.client
 import importlib.util
+import io
 import itertools
 import json
 import math
@@ -372,6 +406,8 @@ import torch
 from tell_tpu_torch.tools.timing import (BF16_FLOPS, FP32_FLOPS,
                                         HBM_BYTES_PER_S, TF32_FLOPS,
                                         device_ms)
+
+T0 = time.perf_counter()     # the script's imports done: phases 1-2 start
 
 FP32_TOL = dict(atol=1e-5, rtol=1e-4)
 CONV_TOL = dict(atol=2e-5, rtol=2e-5)        # the JAX kernel test's
@@ -1523,13 +1559,49 @@ def _rel_l2(grads, ref):
             for a, b in zip(grads, ref)]
 
 
+def _loss_grads(loss, params, batch, where, label) -> tuple:
+    """loss(params, batch) -> (loss, aux) on fresh leaf copies of params
+    and of the numpy batch on `where`, then its backward: (the loss, aux,
+    every leaf's gradient)."""
+    from tell_tpu_torch.bridge import to_torch, tree_leaves, tree_map
+    p = tree_map(lambda t: t.detach().clone().requires_grad_(),
+                 to_torch(params, where))
+    tb = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
+    value, aux = loss(p, tb)
+    value.backward()
+    grads = [x.grad for x in tree_leaves(p)]
+    require(all(g is not None for g in grads), f"{label}: a leaf got no "
+            "gradient")
+    return value.item(), aux, grads
+
+
+def _hold_card_vs_cpu(label, card, cpu) -> dict:
+    """A loss and its gradients, card against CPU, each a (loss, grads)
+    pair: the loss within TRAIN_LOSS_RTOL relative, every leaf within
+    TRAIN_GRAD_REL_L2 relative L2 and the leaves' median within
+    TRAIN_GRAD_MEDIAN_REL_L2."""
+    (l_card, g_card), (l_cpu, g_cpu) = card, cpu
+    rel = _rel_l2(g_card, g_cpu)
+    out = {"loss_card": l_card, "loss_cpu": l_cpu,
+           "loss_rel": abs(l_card - l_cpu) / abs(l_cpu), "leaves": len(rel),
+           "grad_rel_l2_max": max(rel),
+           "grad_rel_l2_leaf": int(np.argmax(rel)),
+           "grad_rel_l2_median": float(np.median(rel))}
+    require(math.isfinite(l_card) and out["loss_rel"] <= TRAIN_LOSS_RTOL,
+            f"{label}: loss card {l_card} vs CPU {l_cpu}")
+    require(out["grad_rel_l2_max"] <= TRAIN_GRAD_REL_L2
+            and out["grad_rel_l2_median"] <= TRAIN_GRAD_MEDIAN_REL_L2,
+            f"{label}: card vs CPU gradients {out['grad_rel_l2_max']} / "
+            f"median {out['grad_rel_l2_median']}")
+    return out
+
+
 def phase_train_cpu_vs_card(seed: int, cfg, dev: str = "cuda") -> dict:
     """captioner_loss and its gradients (deterministic, fp32) from the same
     weights and batch three times: on `dev` (the card) through kernel C,
     on `dev` with kernel C's plain version in its place (which isolates the
     kernel and its Function), and on the CPU (plain versions)."""
-    from tell_tpu_torch.bridge import (init_captioner, to_torch, tree_leaves,
-                                       tree_map)
+    from tell_tpu_torch.bridge import init_captioner
     from tell_tpu_torch.models.captioner import captioner_loss
     from tell_tpu_torch.ops import dynamic_conv as port_dc
     from tell_tpu_torch.ops.kernels.dynamic_conv import (
@@ -1539,53 +1611,48 @@ def phase_train_cpu_vs_card(seed: int, cfg, dev: str = "cuda") -> dict:
     card_params = init_captioner(g, cfg)
     batch = _train_batch(np.random.default_rng(seed + 1), cfg, 2, 32,
                          hiddens_layers=cfg.num_bert_layers)
-    out = {}
-    for label, where in (("card", dev), ("card, plain conv", dev),
-                         ("cpu", "cpu")):
-        params = tree_map(lambda t: t.detach().clone().requires_grad_(),
-                          to_torch(card_params, where))
-        tb = {k: torch.from_numpy(v).to(where) for k, v in batch.items()}
-        launches = fused_dynamic_conv.launches
-        if label == "card, plain conv":
-            port_dc.fused_dynamic_conv = dynamic_conv_plain
-        t = time.perf_counter()
+
+    def loss(params, tb):
+        return captioner_loss(params, cfg, tb)
+
+    def plain_conv_loss(params, tb):
+        port_dc.fused_dynamic_conv = dynamic_conv_plain
         try:
-            loss, aux = captioner_loss(params, cfg, tb)
-            loss.backward()
+            return captioner_loss(params, cfg, tb)
         finally:
             port_dc.fused_dynamic_conv = fused_dynamic_conv
-        grads = [p.grad for p in tree_leaves(params)]
-        require(all(x is not None for x in grads), "a leaf got no gradient")
+
+    out = {}
+    for label, where, fn in (("card", dev, loss),
+                             ("card, plain conv", dev, plain_conv_loss),
+                             ("cpu", "cpu", loss)):
+        launches = fused_dynamic_conv.launches
+        t = time.perf_counter()
+        value, aux, grads = _loss_grads(fn, card_params, batch, where,
+                                        "phase 6")
         if label == "card" and where == "cuda":
             torch.cuda.synchronize()
             require(fused_dynamic_conv.launches
                     == launches + cfg.decoder.num_layers,
                     "kernel C did not run every layer of the card's loss")
-        out[label] = (loss.item(), grads)
+        out[label] = (value, grads)
         log(f"phase 6: captioner_loss + backward, {label} ({where}), in "
-            f"{time.perf_counter() - t:.2f} s: loss {loss.item():.6f} bits "
+            f"{time.perf_counter() - t:.2f} s: loss {value:.6f} bits "
             f"over {int(aux['sample_size'])} tokens")
-    (l_card, g_card), (l_plain, g_plain), (l_cpu, g_cpu) = out.values()
+    (l_card, g_card), (l_plain, g_plain) = out["card"], out["card, plain conv"]
     kernel_rel = _rel_l2(g_card, g_plain)
-    cpu_rel = _rel_l2(g_card, g_cpu)
-    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
-    log(f"phase 6: {len(cpu_rel)} gradient leaves. Kernel C vs its plain "
+    log(f"phase 6: {len(kernel_rel)} gradient leaves. Kernel C vs its plain "
         f"version on the card: loss {l_card:.7f} vs {l_plain:.7f}, largest "
         f"relative L2 error {max(kernel_rel):.3e} (limit "
-        f"{CONV_GRAD_REL_L2}). Card vs CPU: loss relative difference "
-        f"{loss_rel:.3e} (limit {TRAIN_LOSS_RTOL}), largest relative L2 "
-        f"error {max(cpu_rel):.3e} (leaf {int(np.argmax(cpu_rel))}, limit "
-        f"{TRAIN_GRAD_REL_L2}), median {float(np.median(cpu_rel)):.3e} "
-        f"(limit {TRAIN_GRAD_MEDIAN_REL_L2})")
-    require(math.isfinite(l_card) and loss_rel <= TRAIN_LOSS_RTOL,
-            f"training loss card {l_card} vs CPU {l_cpu}")
+        f"{CONV_GRAD_REL_L2})")
     require(max(kernel_rel) <= CONV_GRAD_REL_L2,
             f"kernel C moved a gradient leaf by {max(kernel_rel)}")
-    require(max(cpu_rel) <= TRAIN_GRAD_REL_L2
-            and float(np.median(cpu_rel)) <= TRAIN_GRAD_MEDIAN_REL_L2,
-            f"card vs CPU gradients: {max(cpu_rel)} / median "
-            f"{float(np.median(cpu_rel))}")
-    return {"loss_rel": loss_rel, "grad_rel_l2": max(cpu_rel),
+    held = _hold_card_vs_cpu("phase 6", out["card"], out["cpu"])
+    log(f"phase 6: card vs CPU (limits: loss {TRAIN_LOSS_RTOL} relative, "
+        f"each leaf {TRAIN_GRAD_REL_L2} relative L2, their median "
+        f"{TRAIN_GRAD_MEDIAN_REL_L2}): {json.dumps(held)}")
+    return {"loss_rel": held["loss_rel"],
+            "grad_rel_l2": held["grad_rel_l2_max"],
             "kernel_grad_rel_l2": max(kernel_rel)}
 
 
@@ -1594,40 +1661,96 @@ def phase_train_cpu_vs_card(seed: int, cfg, dev: str = "cuda") -> dict:
 # ---------------------------------------------------------------------------
 
 def _write_shards(rng, cfg, vocab, directory, n_train=48, n_valid=16):
-    """Synthetic examples for the (512, 32) bucket: 512 context ids, a
-    caption of 17-32 ids, an image grid (49 x 2048 at the flagship), and
-    0-4 faces x 512 and 0-64 objects x 2048 (the rest absent)."""
+    """Synthetic examples for the (512, 32) bucket of cfg's contexts (a
+    CaptionerConfig's or an LLMConfig's): 512 context ids, a caption of
+    17-32 ids, the image context's grid precomputed (49 x 2048 at the
+    flagship, 197 x 1024 ViT tokens for the modern family), and 0-4 faces
+    and 0-64 objects where the contexts have them (the rest absent)."""
     from tell_tpu_torch.data.records import write_shard
-    dcfg = cfg.decoder
+    dcfg = getattr(cfg, "decoder", cfg)
     spec = {c.name: (c.max_len, c.kv_dim) for c in dcfg.contexts}
-
-    def rows(name):
-        n, dim = spec[name]
-        return rng.normal(size=(int(rng.integers(0, n + 1)), dim)).astype(
-            np.float32)
 
     def example():
         # caption ids Zipf-distributed like text, so most land in the
         # adaptive softmax's head band and the tails stay within capacity
         words = np.minimum(rng.zipf(1.5, int(rng.integers(15, 31))) + 2,
                            dcfg.vocab_size - 1)
-        return {
-            "context_ids": np.concatenate(
-                [[0], rng.integers(3, vocab, 510), [2]]).astype(np.int32),
-            "caption_ids": np.concatenate(
-                [[dcfg.bos_id], words, [dcfg.eos_id]]).astype(np.int32),
-            "image_grid": rng.normal(size=spec["image"]).astype(np.float32),
-            "face_embeds": rows("faces"), "obj_embeds": rows("obj")}
+        ex = {"context_ids": np.concatenate(
+                  [[0], rng.integers(3, vocab, 510), [2]]).astype(np.int32),
+              "caption_ids": np.concatenate(
+                  [[dcfg.bos_id], words, [dcfg.eos_id]]).astype(np.int32)}
+        if "image" in spec:
+            ex["image_grid"] = rng.normal(size=spec["image"]).astype(
+                np.float32)
+        for name, key in (("faces", "face_embeds"), ("obj", "obj_embeds")):
+            if name in spec:
+                n, dim = spec[name]
+                ex[key] = rng.normal(size=(int(rng.integers(0, n + 1)),
+                                           dim)).astype(np.float32)
+        return ex
 
+    os.makedirs(directory, exist_ok=True)
     write_shard(os.path.join(directory, "train-00000.npz"),
                 [example() for _ in range(n_train)])
     write_shard(os.path.join(directory, "valid-00000.npz"),
                 [example() for _ in range(n_valid)])
 
 
+def _stop_and_recover(make, label, before_resume=None) -> dict:
+    """A mid-epoch stop and a recover: make() builds a fresh Trainer over
+    a run that has finished epochs 0-1 of 3; one trains a step of epoch 2
+    and stops (request_stop), a second recovers it. The params must come
+    back bit for bit and the resumed run must go on at the next batch to
+    the epoch's end. before_resume(trainer) runs between the recover and
+    the resumed training; what it returns joins the result."""
+    from tell_tpu_torch.bridge import tree_leaves
+    stopper = make()
+    require(stopper.recover() and stopper.state["epoch"] == 2,
+            f"{label}: no epoch-2 start to recover")
+    inner = stopper._step_fn
+
+    def stop_after_one(*args):
+        out = inner(*args)
+        stopper.request_stop()
+        return out
+
+    stopper._step_fn = stop_after_one
+    res = stopper.train()
+    require(res.get("preempted") is True, f"{label}: not preempted: {res}")
+    resumed = make()
+    require(resumed.recover(), f"{label}: nothing to recover after the stop")
+    require((resumed.state["epoch"], resumed.state["batch_cursor"],
+             resumed.state["step"]) == (2, 1, stopper.state["step"]),
+            f"{label}: recovered at {resumed.state}")
+    require(all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(stopper.state["params"]),
+        tree_leaves(resumed.state["params"]))),
+        f"{label}: recovered params differ from the saved ones")
+    extra = before_resume(resumed) if before_resume else {}
+    seen = []
+    inner_r = resumed._step_fn
+
+    def record(params, opt, batch, gen, fz):
+        seen.append(batch["caption_ids"].cpu().numpy())
+        return inner_r(params, opt, batch, gen, fz)
+
+    resumed._step_fn = record
+    res = resumed.train()
+    order = [b["caption_ids"] for b in resumed.train_batches(2)]
+    require("preempted" not in res and len(seen) == len(order) - 1
+            and np.array_equal(seen[0], order[1]),
+            f"{label}: the resumed run did not continue at the next batch")
+    last = resumed.metrics_history[-1]
+    require(math.isfinite(last["loss"]) and math.isfinite(last["val_loss"]),
+            f"{label}: non-finite resumed epoch: {last}")
+    return {"stopped_at_step": stopper.state["step"],
+            "batches": len(order), "resumed_steps": len(seen),
+            "loss": last["loss"], "val_loss": last["val_loss"], **extra}
+
+
 def phase_trainer(seed: int, cfg, rcfg, card: str, dev: str = "cuda"
                   ) -> dict:
-    from tell_tpu_torch.bridge import init_roberta, tree_leaves
+    from tell_tpu_torch.bridge import init_roberta
     from tell_tpu_torch.data.bucketing import BucketingConfig
     from tell_tpu_torch.ops.kernels.dynamic_conv import fused_dynamic_conv
     from tell_tpu_torch.ops.kernels.encoder_attention import (
@@ -1692,48 +1815,14 @@ def phase_trainer(seed: int, cfg, rcfg, card: str, dev: str = "cuda"
                 require(n > 0, f"{name} never launched on the training path")
 
         # a mid-epoch stop, then a fresh Trainer recovers and goes on
-        stopper = make_trainer(cfg, tcfg(3), bcfg, tmp, frozen, device=dev)
-        require(stopper.recover() and stopper.state["epoch"] == 2,
-                "no epoch-2 start to recover")
-        inner = stopper._step_fn
-
-        def stop_after_one(*args):
-            out = inner(*args)
-            stopper.request_stop()
-            return out
-
-        stopper._step_fn = stop_after_one
-        res = stopper.train()
-        require(res.get("preempted") is True, f"not preempted: {res}")
-        resumed = make_trainer(cfg, tcfg(3), bcfg, tmp, frozen, device=dev)
-        require(resumed.recover(), "nothing to recover after the stop")
-        require((resumed.state["epoch"], resumed.state["batch_cursor"],
-                 resumed.state["step"]) == (2, 1, stopper.state["step"]),
-                f"recovered at {resumed.state}")
-        same = all(torch.equal(a, b) for a, b in zip(
-            tree_leaves(stopper.state["params"]),
-            tree_leaves(resumed.state["params"])))
-        require(same, "recovered params differ from the saved ones")
-        seen = []
-        inner_r = resumed._step_fn
-
-        def record(params, opt, batch, gen, fz):
-            seen.append(batch["caption_ids"].cpu().numpy())
-            return inner_r(params, opt, batch, gen, fz)
-
-        resumed._step_fn = record
-        res = resumed.train()
-        order = [b["caption_ids"] for b in resumed.train_batches(2)]
-        require("preempted" not in res and len(seen) == 2
-                and np.array_equal(seen[0], order[1]),
-                "the resumed run did not continue at the next batch")
-        last = resumed.metrics_history[-1]
-        require(math.isfinite(last["loss"]) and math.isfinite(
-            last["val_loss"]), f"non-finite resumed epoch: {last}")
-        log(f"phase 7: request_stop after step {stopper.state['step']} "
-            "(epoch 2, batch 1 of 3); a fresh Trainer recovered the params "
-            "exactly and trained batches 2-3 of epoch 2 (train loss "
-            f"{last['loss']:.4f}, val loss {last['val_loss']:.4f} bits)")
+        rec = _stop_and_recover(
+            lambda: make_trainer(cfg, tcfg(3), bcfg, tmp, frozen,
+                                 device=dev), "phase 7")
+        log(f"phase 7: request_stop after step {rec['stopped_at_step']} "
+            f"(epoch 2, batch 1 of {rec['batches']}); a fresh Trainer "
+            "recovered the params exactly and trained batches 2-"
+            f"{rec['batches']} of epoch 2 (train loss {rec['loss']:.4f}, "
+            f"val loss {rec['val_loss']:.4f} bits)")
         return {"step_ms": step_ms, "peak_bytes": peak,
                 "val_loss": hist[1]["val_loss"], "launches": launches}
     finally:
@@ -4330,7 +4419,16 @@ def phase_forms(seed: int, card: str, dev: str = "cuda", cfg=None,
 
 MODERN_EXPTS = ("expt/nytimes/10_vit_modern.yaml",
                 "expt/nytimes/12_moe_modern.yaml")
-MODERN_SEARCH_ROWS = 3     # requests decoded card vs CPU, greedy and beam 5
+# requests decoded card vs CPU, greedy and beam 5 (2, not 3, since phase
+# 18 joined the script: the CPU's searches are most of phase 17's time)
+MODERN_SEARCH_ROWS = 2
+# the LM's depth in phase 17: 4 of the YAMLs' 8 layers. Every layer has
+# the same shapes, so each kernel still runs at the full width's; phase 18
+# trains all 8. Cut when phase 18 joined the script, to keep the whole run
+# inside its time limit. At 2 layers the int8 beam search split card vs
+# CPU 2 steps after a 1.5e-5 near tie, by a margin (4.6e-2) that
+# _modern_int8_search's rule refuses, so the cut stops at 4.
+MODERN_LAYERS = 4
 # their greedy log-probs and beam-5 scores (sums over up to 100 steps),
 # card vs CPU: 1.9e-6 and 0 at one request per expt, fp cache, on an
 # H100; a wrong kernel moves them by O(1)
@@ -4673,6 +4771,7 @@ def _modern_expt(exp_path, seed, rcfg, roberta, dev, card, shrink, rng,
                 and ids.max() < cfg.vocab_size,
                 f"{exp.name}: token ids {ids.shape} outside the vocabulary")
     line = {"expt": exp.name, "moe_experts": cfg.moe_experts,
+            "num_layers": cfg.num_layers,
             "S": sum(c.max_len + 2 for c in cfg.contexts),
             "micro_batch_s": served_s, "micro_batch_launches": served}
     line["searches"] = _modern_searches(svc, reqs[:MODERN_SEARCH_ROWS], dev)
@@ -4684,7 +4783,8 @@ def _modern_expt(exp_path, seed, rcfg, roberta, dev, card, shrink, rng,
                      for n in BEAM_ARTICLES[:MODERN_STEP_ROWS]]
         line["step_ms"] = _modern_step_ms(svc, step_reqs, dev)
         log(f"phase 17 ({card}): {exp.name} ms per decode step at "
-            f"B={MODERN_STEP_ROWS}: {line['step_ms']}")
+            f"B={MODERN_STEP_ROWS}, {cfg.num_layers} layers: "
+            f"{line['step_ms']}")
     line["engine"] = _modern_engine(svc, roberta, reqs, dev, "fp",
                                     f"phase 17 {exp.name} engine")
     if int8:
@@ -4720,13 +4820,13 @@ def _modern_expt(exp_path, seed, rcfg, roberta, dev, card, shrink, rng,
 
 
 def phase_modern(seed: int, card: str, dev: str = "cuda", rcfg=None,
-                 vcfg=None, shrink=lambda cfg: cfg) -> dict:
+                 vcfg=None, shrink=None) -> dict:
     """Phase 17 (see the module docstring): the ViT-L/16 tower, then expts
-    10 and 12 at the YAMLs' full width on one RoBERTa (rcfg, default
-    RoBERTa-large) with random weights from the seed; the int8 engine on
-    expt 10. A CPU rehearsal passes a small rcfg and vcfg and a shrink
-    that narrows the LM. Returns the launches of A, B and D on this path
-    and the readings."""
+    10 and 12 at the YAMLs' full width and MODERN_LAYERS of their layers,
+    on one RoBERTa (rcfg, default RoBERTa-large) with random weights from
+    the seed; the int8 engine on expt 10. A CPU rehearsal passes a small
+    rcfg and vcfg and a shrink that narrows the LM. Returns the launches
+    of A, B and D on this path and the readings."""
     from tell_tpu_torch.bridge import init_roberta
     from tell_tpu_torch.models.backbones.roberta import (RobertaConfig,
                                                          RobertaEncoder)
@@ -4735,6 +4835,8 @@ def phase_modern(seed: int, card: str, dev: str = "cuda", rcfg=None,
     t0 = time.perf_counter()
     rcfg = rcfg or RobertaConfig.large()
     vcfg = vcfg or ViTConfig.large()
+    shrink = shrink or (lambda cfg: dataclasses.replace(
+        cfg, num_layers=MODERN_LAYERS))
     res = {"vit": _check_vit(seed, shrink(load_experiment(
         MODERN_EXPTS[0]).model), vcfg, dev, card)}
     g = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -4757,6 +4859,691 @@ def phase_modern(seed: int, card: str, dev: str = "cuda", rcfg=None,
     res["seconds"] = time.perf_counter() - t0
     log(f"phase 17 ({card or dev}): launches {launches}; done in "
         f"{res['seconds']:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the other families trained
+# ---------------------------------------------------------------------------
+
+FAMILY_EXPTS = {10: "expt/nytimes/10_vit_modern.yaml",
+                12: "expt/nytimes/12_moe_modern.yaml",
+                1: "expt/nytimes/1_lstm_glove.yaml",
+                2: "expt/nytimes/2_transformer_glove.yaml",
+                3: "expt/nytimes/3_lstm_roberta.yaml"}
+# expt 12 card vs CPU: a (token, choice) pair routed to another expert, or
+# kept on one side and dropped on the other, passes only where the CPU's
+# router probabilities of the two experts lie within ROUTER_TIE (the two
+# sides' fp32 sums differ by ~1e-7 there)
+ROUTER_TIE = 1e-5
+# expt 3's greedy ids card vs CPU: equal, or split where the CPU's
+# log-probs of the two tokens at the first differing step lie within
+# LSTM_TIE (a card-vs-CPU drift of the features is ~1e-5 there)
+LSTM_TIE = 1e-3
+FAMILY_ROWS = 16           # the YAMLs' bucket: 16384 // (512 + 32) -> 16
+FAMILY_EVAL = 4            # captions evaluated card vs CPU (expt 3)
+GLOVE_DIM = 300
+
+
+def _family_batch(rng, cfg, B=2, T=32):
+    """A numpy batch at cfg's contexts (an LLMConfig or a CaptionerConfig):
+    captions of T ids (the last row padded after an early EOS), each
+    context's features at its width (faces and objects with absent NaN
+    rows, a padded article mask)."""
+    d = getattr(cfg, "decoder", cfg)
+    cap = rng.integers(3, d.vocab_size, size=(B, T))
+    cap[:, 0] = d.bos_id
+    cap[-1, T - 7] = d.eos_id
+    cap[-1, T - 6:] = d.pad_id
+    batch = {"caption_ids": cap.astype(np.int32)}
+    for c in d.contexts:
+        x = rng.normal(size=(B, c.max_len, c.kv_dim)).astype(np.float32)
+        if c.name == "image":
+            batch["image_grid"] = x
+        elif c.name == "article":
+            batch["article"] = x
+            mask = np.zeros((B, c.max_len), bool)
+            mask[-1, c.max_len * 3 // 5:] = True
+            batch["article_mask"] = mask
+        elif c.name == "faces":
+            x[0, 2:] = np.nan
+            batch["face_embeds"] = x
+        else:
+            x[-1, c.max_len // 3:] = np.nan
+            batch["obj_embeds"] = x
+    return batch
+
+
+def _kept(chosen, live, E, cap):
+    """moe_ffn's capacity rule: [k, N] kept flags of the (choice, token)
+    pairs in priority order (choice 0 of every token first)."""
+    k, N = chosen.shape
+    flat_e = chosen.reshape(-1)
+    flat_live = live.repeat(k)
+    sel = torch.nn.functional.one_hot(flat_e, E) * flat_live[:, None]
+    pos = (torch.cumsum(sel, 0) - sel).gather(1, flat_e[:, None])[:, 0]
+    return (flat_live & (pos < cap)).reshape(k, N)
+
+
+@contextlib.contextmanager
+def _routing_recorder(calls):
+    """Record every moe_ffn call of the modern LM: the router's
+    probabilities, chosen experts and kept flags (the recomputation is
+    moe._route's, on the same inputs)."""
+    from tell_tpu_torch.models import llm_decoder as L
+    from tell_tpu_torch.ops import moe
+    inner = L.moe_ffn
+
+    def recorded(params, x, top_k=2, capacity_factor=1.25, token_mask=None):
+        with torch.no_grad():
+            probs, chosen, _ = moe._route(params, x, top_k)
+            N, E = x.shape[0], params["w1"].shape[0]
+            k = chosen.shape[0]
+            cap = min(max(1, int(-(-N * k // E) * capacity_factor)), N)
+            live = (torch.ones(N, dtype=torch.bool, device=x.device)
+                    if token_mask is None else token_mask.bool())
+            calls.append({"probs": probs.cpu(), "chosen": chosen.cpu(),
+                        "kept": _kept(chosen, live, E, cap).cpu(),
+                        "live": live.cpu()})
+        return inner(params, x, top_k=top_k, capacity_factor=capacity_factor,
+                     token_mask=token_mask)
+
+    L.moe_ffn = recorded
+    try:
+        yield calls
+    finally:
+        L.moe_ffn = inner
+
+
+def _routing_split(card, cpu) -> dict:
+    """The (token, choice) pairs whose expert or kept flag differs card vs
+    CPU, each with its gap: for another expert, the CPU's probabilities of
+    the two experts apart; for another kept flag alone, the largest gap of
+    its layer's pairs with another expert (which moved it in the priority
+    order; infinite where there is none)."""
+    pairs = gaps = 0
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        other = a["chosen"] != b["chosen"]
+        kept = a["kept"] != b["kept"]
+        layer = []
+        for j, n in other.nonzero().tolist():
+            p = b["probs"][n]
+            layer.append(abs(float(p[a["chosen"][j, n]]
+                                   - p[b["chosen"][j, n]])))
+        moved = int((kept & ~other).sum())
+        pairs += int(other.sum()) + moved
+        gaps += len(layer)
+        if layer or moved:
+            worst = max([worst] + layer
+                        + ([max(layer) if layer else math.inf]
+                           if moved else []))
+    return {"pairs": pairs, "pairs_with_another_expert": gaps,
+            "max_gap": worst}
+
+
+def _family_grads(seed, path, dev, over, label) -> dict:
+    """The deterministic loss of the expt's family and every gradient,
+    fp32, on the card and on the CPU from the same weights and batch
+    (phase 6's limits, _hold_card_vs_cpu); expt 12's routing compared pair
+    by pair."""
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.models.registry import get_model
+    t0 = time.perf_counter()
+    exp = load_experiment(path, over)
+    adapter = get_model(exp.model_type, exp.model)
+    cfg = adapter.config
+    moe = bool(getattr(cfg, "moe_experts", None))
+    params = adapter.init(torch.Generator(device=dev).manual_seed(seed), cfg)
+    batch = _family_batch(np.random.default_rng(seed), cfg)
+    out, routes = {}, {}
+    for where in (dev, "cpu"):
+        calls = routes[where] = []
+
+        def loss(p, tb):
+            with (_routing_recorder(calls) if moe
+                  else contextlib.nullcontext()):
+                return adapter.loss(p, cfg, tb)
+
+        value, aux, grads = _loss_grads(loss, params, batch, where, label)
+        out[where] = (value, grads)
+    line = {"expt": exp.name, "sample_size": int(aux["sample_size"])}
+    if moe:
+        line["routing"] = _routing_split(routes[dev], routes["cpu"])
+        line["routing"]["pairs_total"] = sum(
+            int(r["kept"].numel()) for r in routes["cpu"])
+        line["routing"]["dropped_cpu"] = sum(
+            int((~r["kept"] & r["live"]).sum()) for r in routes["cpu"])
+        log(f"{label}: routing card vs CPU: {json.dumps(line['routing'])}")
+        require(line["routing"]["max_gap"] < ROUTER_TIE,
+                f"{label}: routing split away from a near tie: "
+                f"{line['routing']}")
+    line.update(_hold_card_vs_cpu(label, out[dev], out["cpu"]))
+    line["seconds"] = time.perf_counter() - t0
+    log(f"{label}: loss and gradients, card vs CPU: {json.dumps(line)}")
+    return line
+
+
+def _family_vocab(tmp, vocab_size) -> tuple[str, str]:
+    """The quality corpus's BPE with a filler piece for every other id
+    below vocab_size (_smoke_tokenizer's), as vocab.json + merges.txt
+    files for the commands."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tok = _smoke_tokenizer(root, vocab_size)
+    vf, mf = os.path.join(tmp, "vocab.json"), os.path.join(tmp,
+                                                            "merges.txt")
+    with open(vf, "w", encoding="utf-8") as f:
+        json.dump(tok.bpe.encoder, f)
+    shutil.copy(os.path.join(root, QUALITY_DIR, "merges.txt"), mf)
+    return vf, mf
+
+
+def _family_over(tmp, expt, vf, mf, roberta, small, **extra) -> dict:
+    """The command line's override of an expt: run and shards under tmp
+    (the towers beside the shards), the smoke vocabulary, and `small`'s
+    narrowing for a CPU rehearsal."""
+    over = {"trainer": {"serialization_dir": os.path.join(tmp, f"run{expt}"),
+                        "num_epochs": 2, "checkpoint_every": 2,
+                        "keep_checkpoints": 1,
+                        "t_total": 100, "log_every": 1000,
+                        "summary_interval": 0},
+            "data": {"shards_dir": os.path.join(tmp, f"shards{expt}"),
+                     "vocab_file": vf, "merges_file": mf,
+                     "instances_per_epoch": None, "val_limit": None,
+                     "roberta": roberta}}
+    for part in (small or {}).get(expt, {}), extra:
+        for k, v in part.items():
+            over.setdefault(k, {}).update(v)
+    return over
+
+
+def _run_cli(argv, label) -> dict:
+    """`python -m tell_tpu_torch.commands argv` run in this process through
+    its main(): unlike _cli's subprocess, the kernels' launch counters of
+    this process then count the command's launches. Its last JSON
+    object."""
+    from tell_tpu_torch.commands.__main__ import main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    require(rc == 0, f"{label}: {argv[0]} exited {rc}")
+    text = buf.getvalue()
+    return json.loads(text[text.index("{"):]) if "{" in text else {}
+
+
+def _family_train(path, over, dev, label) -> dict:
+    """`train` through the command line; the epochs' readings, the
+    launches and the peak memory above the start."""
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    _reset_counts()
+    t = time.perf_counter()
+    result = _run_cli(["train", path, "-o", json.dumps(over), "--device",
+                       dev], label)
+    wall = time.perf_counter() - t
+    counts = _counts()
+    run = over["trainer"]["serialization_dir"]
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        hist = [json.loads(line) for line in f]
+    epochs = over["trainer"]["num_epochs"]
+    require(result.get("epochs") == epochs and len(hist) == epochs,
+            f"{label}: train {result}, {len(hist)} epochs")
+    for h in hist:
+        require(math.isfinite(h["loss"]) and math.isfinite(h["val_loss"])
+                and h["skipped"] == 0, f"{label}: epoch {h}")
+    require(os.path.isdir(os.path.join(run, "checkpoints", "best")),
+            f"{label}: no checkpoints/best")
+    line = {"epochs": [{k: h[k] for k in ("loss", "val_loss", "batches",
+                                          "epoch_seconds")} for h in hist],
+            "wall_s": wall, "launches": {
+                k: counts[k] for k in ("encoder_attention", "topk_logits",
+                                       "decode_attention")}}
+    if dev == "cuda":
+        line["peak_gib"] = (torch.cuda.max_memory_allocated()
+                            - before) / 2**30
+    return line
+
+
+STEADY_STEPS = 3      # timed train steps after one warm-up
+
+
+def _steady(trainer, dev, moe: bool) -> dict:
+    """The trainer's step on its first batch, its outputs discarded:
+    STEADY_STEPS CUDA-event times after a warm-up (ms, and their median),
+    and for the MoE one more step under torch.profiler with each moe_ffn
+    call in a record_function range: the MoE forward's device time over
+    the step's (the backward runs outside the ranges; None where the
+    profiler reads no device time)."""
+    from tell_tpu_torch.models import llm_decoder as L
+    if dev != "cuda":
+        return {}
+    with trainer._prefetched(trainer.train_batches(0)) as pf:
+        batch = next(iter(pf))
+    st = trainer.state
+
+    def step():
+        trainer._step_fn(st["params"], st["opt"], batch,
+                         torch.Generator(device=dev).manual_seed(0),
+                         trainer.frozen)
+
+    step()
+    ms = []
+    for _ in range(STEADY_STEPS):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        step()
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    out = {"step_ms": ms, "step_ms_median": float(np.median(ms))}
+    if not moe:
+        return out
+    inner = L.moe_ffn
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function("moe_ffn"):
+            return inner(*args, **kw)
+
+    L.moe_ffn = ranged
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        L.moe_ffn = inner
+    events = prof.key_averages()
+    total = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    forward = sum(getattr(e, "device_time_total", 0) for e in events
+                  if e.key == "moe_ffn")
+    # the host's wait at the MoE's one sync a layer (the .tolist() of its
+    # row counts): the synchronising CUDA calls inside the moe_ffn ranges,
+    # beside those of the whole step
+    def in_moe(e):
+        while e is not None:
+            if e.name == "moe_ffn":
+                return True
+            e = e.cpu_parent
+        return False
+
+    waits = [e for e in prof.events()
+             if e.name in ("cudaStreamSynchronize", "cudaMemcpyAsync")]
+    moe_waits = [e for e in waits if in_moe(e)]
+    out["moe"] = ({"forward_ms": forward / 1e3,
+                   "step_device_ms": total / 1e3,
+                   "share": forward / total,
+                   "moe_sync_calls": len(moe_waits),
+                   "moe_sync_wait_ms": sum(e.cpu_time_total
+                                           for e in moe_waits) / 1e3,
+                   "step_sync_calls": len(waits),
+                   "step_sync_wait_ms": sum(e.cpu_time_total
+                                            for e in waits) / 1e3}
+                  if total else None)
+    return out
+
+
+def _family_recover(path, over, dev, label) -> dict:
+    """`train -r`'s recover after a mid-epoch stop (_stop_and_recover),
+    each Trainer built by the command itself (commands/__main__.py::
+    build_trainer); before the resumed run goes on, its steady steps are
+    timed (_steady)."""
+    from tell_tpu_torch.commands.__main__ import build_trainer
+    from tell_tpu_torch.config_io import load_experiment
+    t0 = time.perf_counter()
+    over3 = json.loads(json.dumps(over))
+    over3["trainer"]["num_epochs"] = 3
+    exp = load_experiment(path, json.dumps(over3))
+    moe = bool(getattr(exp.model, "moe_experts", None))
+    res = _stop_and_recover(
+        lambda: build_trainer(exp, torch.device(dev)), label,
+        before_resume=lambda trainer: _steady(trainer, dev, moe))
+    return {**res, "seconds": time.perf_counter() - t0}
+
+
+def _record_generate(module, name, calls):
+    """Wrap module.name (an adapter's generate) to log each call's batch
+    and result."""
+    inner = getattr(module, name)
+
+    def recorded(params, cfg, batch, **kw):
+        out = inner(params, cfg, batch, **kw)
+        calls.append(({k: v for k, v in batch.items()
+                     if isinstance(v, torch.Tensor)}, out))
+        return out
+
+    setattr(module, name, recorded)
+    return inner
+
+
+def _lstm_split(cpu_params, cfg, batch, card_ids, cpu_ids) -> list:
+    """For each row whose greedy ids differ card vs CPU: the first
+    differing step and the CPU's log-probs of the two tokens there, the
+    card's prefix teacher-forced on the CPU."""
+    from tell_tpu_torch.models.captioner import build_contexts
+    from tell_tpu_torch.models.lstm_decoder import lstm_decoder_forward
+    from tell_tpu_torch.ops.adaptive import adaptive_log_probs
+    d = cfg.decoder
+    out = []
+    for r in range(card_ids.shape[0]):
+        diff = (card_ids[r] != cpu_ids[r]).nonzero()
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        one = {k: v[r:r + 1].cpu() for k, v in batch.items()}
+        with torch.inference_mode():
+            ctx = build_contexts(cpu_params, cfg, one)
+            feats = lstm_decoder_forward(cpu_params["decoder"], d,
+                                         cpu_ids[r:r + 1, :t], ctx)
+            lp = adaptive_log_probs(cpu_params["decoder"]["adaptive_softmax"],
+                                    cpu_params["decoder"]["embed"],
+                                    feats[:, -1], d.full_cutoffs,
+                                    padding_idx=d.embed_padding_idx)[0]
+        gap = abs(float(lp[card_ids[r, t]] - lp[cpu_ids[r, t]]))
+        out.append({"row": r, "step": t, "gap": gap})
+    return out
+
+
+def _lstm_ids_agree(what, card, cpu, cpu_params, cfg, label) -> dict:
+    """Greedy ids card vs CPU: equal, or split at a near tie (LSTM_TIE)."""
+    splits = _lstm_split(cpu_params, cfg, cpu[0], card[1]["token_ids"].cpu(),
+                         cpu[1]["token_ids"].cpu())
+    require(all(s["gap"] < LSTM_TIE for s in splits),
+            f"{label} {what}: ids split away from a near tie: {splits}")
+    return {"rows": int(card[1]["token_ids"].shape[0]), "splits": splits}
+
+
+def _family_lstm_decode(path, over, dev, label) -> dict:
+    """Expt 3's trained checkpoint: `evaluate` greedy on the card, with
+    and without --fused-topk, and on the CPU (the ids of each row held card
+    vs CPU); then the micro-batch service on the card (4 requests over
+    HTTP) and on the CPU; the engine refused."""
+    from tell_tpu_torch.commands.__main__ import _frozen_towers, _tokenizer
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.models import lstm_decoder as LD
+    from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
+    from tell_tpu_torch.models.registry import get_model
+    from tell_tpu_torch.serving import CaptionService, serve
+    over = {**over, "bucketing": {"max_batch": FAMILY_EVAL}}
+    exp = load_experiment(path, json.dumps(over))
+    best = os.path.join(exp.trainer.serialization_dir, "checkpoints", "best")
+    argv = ["evaluate", path, "-o", json.dumps(over), "-s", "valid",
+            "--limit", str(FAMILY_EVAL)]
+    runs, line = {}, {}
+    for name, extra in (("card", ["--device", dev]),
+                        ("card_fused", ["--device", dev, "--fused-topk"]),
+                        ("cpu", ["--device", "cpu"])):
+        t = time.perf_counter()
+        calls = []
+        inner = _record_generate(LD, "lstm_generate", calls)
+        _reset_counts()
+        try:
+            metrics = _run_cli(argv + extra, f"{label} evaluate {name}")
+        finally:
+            LD.lstm_generate = inner
+        require(metrics.get("n_samples") == FAMILY_EVAL and len(calls) == 1,
+                f"{label}: evaluate {name} gave {metrics.get('n_samples')} "
+                f"samples in {len(calls)} decodes")
+        runs[name] = calls[0]
+        line[f"evaluate_{name}"] = {
+            "seconds": time.perf_counter() - t,
+            "captions_per_sec": metrics["captions_per_sec"],
+            "topk_mode": metrics["topk_mode"], "launches": {
+                k: _counts()[k] for k in ("encoder_attention",
+                                          "topk_logits")}}
+    cpu_params = torch.load(os.path.join(best, "state.pt"),
+                            map_location="cpu", weights_only=True)["params"]
+    cfg = get_model(exp.model_type, exp.model).config
+    for name in ("card", "card_fused"):
+        line[f"evaluate_{name}"]["ids"] = _lstm_ids_agree(
+            name, runs[name], runs["cpu"], cpu_params, cfg, label)
+    # the micro-batch service, card and CPU, on the same requests
+    rng = np.random.default_rng(3)
+    img = cfg.decoder.context("image")
+    reqs = [{"context_ids": [0] + rng.integers(3, 1000, n - 2).tolist() + [2],
+             "image_grid": rng.normal(size=(img.max_len, img.kv_dim)
+                                      ).round(3).tolist()}
+            for n in (128, 100, 60, 40)]
+    def service(where):
+        frozen = _frozen_towers(exp, torch.device(where))
+        params = torch.load(os.path.join(best, "state.pt"),
+                            map_location=where, weights_only=True)["params"]
+        return CaptionService(
+            params, RobertaEncoder(frozen["roberta"], frozen["roberta_cfg"]),
+            exp.model, where, adapter=get_model(exp.model_type, exp.model),
+            tokenizer=_tokenizer(exp), max_batch=FAMILY_EVAL)
+
+    t = time.perf_counter()
+    svc = service(dev)
+    _reset_counts()
+    httpd = serve(svc, port=0, block=False)
+    try:
+        answers = _post_all(httpd.server_address[1], reqs)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        svc.close()
+    line["serve_launches"] = {k: _counts()[k] for k in ("encoder_attention",
+                                                         "topk_logits")}
+    for status, body in answers:
+        require(status == 200 and "error" not in body,
+                f"{label}: served {status} {body}")
+    # each answer against its row of the requests packed and decoded in
+    # one micro-batch on the CPU (the service's own _run steps)
+    svc = service("cpu")
+    try:
+        batch, errors = svc._pack(reqs, bucketed=True)
+        require(not any(errors), f"{label}: {errors}")
+        with torch.inference_mode():
+            enc = svc._encode({k: torch.from_numpy(v)
+                               for k, v in batch.items()})
+            cpu_ids = svc._generate(enc)["token_ids"]
+    finally:
+        svc.close()
+    card_ids = torch.tensor([body["token_ids"] for _, body in answers])
+    splits = _lstm_split(cpu_params, cfg, enc, card_ids, cpu_ids)
+    line["serve_seconds"] = time.perf_counter() - t
+    require(all(s["gap"] < LSTM_TIE for s in splits),
+            f"{label} serve: ids split away from a near tie: {splits}")
+    line["serve_ids"] = {"rows": len(reqs), "splits": splits}
+    try:
+        CaptionService(cpu_params, svc.roberta, exp.model, "cpu",
+                       adapter=get_model(exp.model_type, exp.model),
+                       engine_slots=2)
+    except ValueError as e:
+        require("captioner and modern families only" in str(e),
+                f"{label}: the engine refused with {e}")
+        line["engine_refused"] = str(e)
+    else:
+        raise CheckFailed(f"{label}: the engine took the LSTM")
+    return line
+
+
+def _glove_file(path, words, seed) -> None:
+    """A 300-d GloVe text file over `words` from the seed (no download:
+    the vectors are random)."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w", encoding="utf-8") as f:
+        for w in sorted(words):
+            vec = rng.normal(size=GLOVE_DIM).round(5)
+            f.write(w + " " + " ".join(f"{v:.5f}" for v in vec) + "\n")
+
+
+def _family_glove(tmp, vf, mf, roberta, dev, small, label) -> dict:
+    """Expts 1 and 2: a GloVe file for the quality corpus's words,
+    preprocess with data.glove_file (the corpus's grids from
+    write_features), train (two steps of 16 rows at the (512, 100)
+    bucket), evaluate greedily on the card, and one request served, which
+    fails as tell_tpu's does (kernel B encodes its article first)."""
+    from tell_tpu_torch.commands.__main__ import _frozen_towers
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
+    from tell_tpu_torch.models.registry import get_model
+    from tell_tpu_torch.serving import CaptionService
+    from tell_tpu_torch.tools.gen_quality_corpus import (
+        FEATURES_SEED, read_articles, write_features)
+    root = os.path.dirname(os.path.abspath(__file__))
+    articles = os.path.join(root, QUALITY_DIR, "articles.jsonl")
+    arts = read_articles(articles)
+    write_features(arts, os.path.join(tmp, "features"), FEATURES_SEED)
+    words = {w for a in arts for s in a["parsed_section"]
+             for w in s["text"].split()}
+    glove = os.path.join(tmp, "glove.txt")
+    _glove_file(glove, words, 18)
+    out = {}
+    for expt in (1, 2):
+        path = FAMILY_EXPTS[expt]
+        over = _family_over(tmp, expt, vf, mf, roberta, small, data={
+            "articles_jsonl": articles, "glove_file": glove,
+            "images_dir": os.path.join(tmp, "features", "grids")},
+            bucketing={"article_lengths": [512], "caption_lengths": [100],
+                       "max_batch": 16}, trainer={"num_epochs": 1})
+        t = time.perf_counter()
+        line = {"examples": {}}
+        for split in ("train", "valid"):
+            n = _run_cli(["preprocess", path, "-o", json.dumps(over), "-s",
+                          split], label)["examples"]
+            require(n > 0, f"{label}: preprocess {split} wrote nothing")
+            line["examples"][split] = n
+        line["train"] = _family_train(path, over, dev,
+                                      f"{label} expt {expt}")
+        _reset_counts()
+        ev = {**over, "bucketing": {**over["bucketing"],
+                                    "max_batch": FAMILY_EVAL}}
+        metrics = _run_cli(["evaluate", path, "-o", json.dumps(ev), "-s",
+                            "valid", "--limit", str(FAMILY_EVAL),
+                            "--device", dev], f"{label} expt {expt}")
+        require(metrics.get("n_samples") == FAMILY_EVAL,
+                f"{label}: expt {expt} evaluated {metrics.get('n_samples')}")
+        line["evaluate"] = {"captions_per_sec": metrics["captions_per_sec"],
+                            "launches": {k: _counts()[k] for k in (
+                                "encoder_attention", "decode_attention")}}
+        line["seconds"] = time.perf_counter() - t
+        out[expt] = line
+    # a served request of expt 1: the RoBERTa encode, then the refusal
+    exp = load_experiment(FAMILY_EXPTS[1], json.dumps(_family_over(
+        tmp, 1, vf, mf, roberta, small)))
+    frozen = _frozen_towers(exp, torch.device(dev))
+    params = torch.load(os.path.join(exp.trainer.serialization_dir,
+                                     "checkpoints", "best", "state.pt"),
+                        map_location=dev, weights_only=True)["params"]
+    svc = CaptionService(params, RobertaEncoder(frozen["roberta"],
+                                                frozen["roberta_cfg"]),
+                         exp.model, dev, adapter=get_model(exp.model_type,
+                                                           exp.model))
+    _reset_counts()
+    try:
+        svc.caption({"context_ids": [0] + list(range(100, 160)) + [2]})
+    except ValueError as e:
+        require(f"{GLOVE_DIM}-d features" in str(e),
+                f"{label}: the GloVe request failed with {e}")
+        out["serve_refused"] = str(e)
+    else:
+        raise CheckFailed(f"{label}: a GloVe model answered a request")
+    finally:
+        svc.close()
+    out["serve_launches"] = {"encoder_attention":
+                             _counts()["encoder_attention"]}
+    return out
+
+
+def phase_families(seed: int, card: str, dev: str = "cuda",
+                   small: dict | None = None) -> dict:
+    """Phase 18 (see the module docstring): expts 10 and 12 (the modern
+    LM, dense and MoE), 3 (the LSTM over RoBERTa, bf16), 1 and 2 (GloVe)
+    trained at the YAMLs' full width with random weights from the seed.
+    `small` narrows each expt by an override ({expt: {"model": ...}}) and
+    takes the tiny RoBERTa for a CPU rehearsal. Returns the launches of B
+    and E on this path and the readings."""
+    from tell_tpu_torch.bridge import init_roberta
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.models.backbones.roberta import RobertaConfig
+    t0 = time.perf_counter()
+    roberta = "tiny" if small else "large"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    res = {"launches": {}}
+    try:
+        # one seeded RoBERTa for every command (the towers beside the
+        # shards), its vocabulary's ids in the synthetic articles
+        rcfg = getattr(RobertaConfig, roberta)()
+        os.makedirs(os.path.join(tmp, "towers", "roberta"))
+        torch.save(init_roberta(torch.Generator().manual_seed(seed + 18),
+                                rcfg),
+                   os.path.join(tmp, "towers", "roberta", "state.pt"))
+        vf, mf = _family_vocab(tmp, 50265)
+        res["setup_seconds"] = time.perf_counter() - t0
+        # (a) and (b): expts 10 and 12
+        for expt in (10, 12):
+            path = FAMILY_EXPTS[expt]
+            label = f"phase 18 ({card or dev}) expt {expt}"
+            t1 = time.perf_counter()
+            over = _family_over(tmp, expt, vf, mf, roberta, small)
+            model_over = json.dumps({"model": over.get("model", {})})
+            line = {"grads": _family_grads(seed, path, dev, model_over,
+                                           label)}
+            cfg = load_experiment(path, json.dumps(over)).model
+            _write_shards(np.random.default_rng(seed + expt), cfg,
+                          rcfg.vocab_size, over["data"]["shards_dir"],
+                          n_train=2 * FAMILY_ROWS, n_valid=FAMILY_ROWS)
+            line["train"] = _family_train(path, over, dev, label)
+            line["recover"] = _family_recover(path, over, dev, label)
+            line["seconds"] = time.perf_counter() - t1
+            res[expt] = line
+            log(f"{label}: {json.dumps(line)}")
+            torch.cuda.empty_cache() if dev == "cuda" else None
+        # (c): expt 3
+        path = FAMILY_EXPTS[3]
+        label = f"phase 18 ({card or dev}) expt 3"
+        t1 = time.perf_counter()
+        over = _family_over(tmp, 3, vf, mf, roberta, small)
+        line = {"grads": _family_grads(seed, path, dev, json.dumps(
+            {"model": {**over.get("model", {}),
+                       "compute_dtype": "float32"}}), label)}
+        cfg = load_experiment(path, json.dumps(over)).model
+        _write_shards(np.random.default_rng(seed + 3), cfg,
+                      rcfg.vocab_size, over["data"]["shards_dir"],
+                      n_train=2 * FAMILY_ROWS, n_valid=FAMILY_ROWS)
+        line["train"] = _family_train(path, over, dev, label)
+        from tell_tpu_torch.commands.__main__ import build_trainer
+        trainer = build_trainer(load_experiment(path, json.dumps(over)),
+                                torch.device(dev))
+        require(trainer.recover(), f"{label}: nothing to recover")
+        line["steady"] = _steady(trainer, dev, False)
+        del trainer
+        line.update(_family_lstm_decode(path, over, dev, label))
+        line["seconds"] = time.perf_counter() - t1
+        res[3] = line
+        log(f"{label}: {json.dumps(line)}")
+        # (d): expts 1 and 2
+        label = f"phase 18 ({card or dev}) expts 1, 2"
+        res["glove"] = _family_glove(tmp, vf, mf, roberta, dev, small, label)
+        log(f"{label}: {json.dumps(res['glove'])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # (e): B's and E's launches on each sub-part
+    b = {"b_expt10": res[10]["train"]["launches"]["encoder_attention"],
+         "b_expt12": res[12]["train"]["launches"]["encoder_attention"],
+         "c_train": res[3]["train"]["launches"]["encoder_attention"],
+         "c_evaluate": sum(res[3][f"evaluate_{n}"]["launches"][
+             "encoder_attention"] for n in ("card", "card_fused")),
+         "c_serve": res[3]["serve_launches"]["encoder_attention"],
+         "d_serve": res["glove"]["serve_launches"]["encoder_attention"]}
+    e = {"c_evaluate_fused": res[3]["evaluate_card_fused"]["launches"][
+             "topk_logits"],
+         "c_evaluate_exact": res[3]["evaluate_card"]["launches"][
+             "topk_logits"]}
+    res["launches"] = {"encoder_attention": b, "topk_logits": e}
+    if dev == "cuda":
+        require(all(n > 0 for n in b.values()),
+                f"phase 18: kernel B must launch in every part: {b}")
+        require(e["c_evaluate_fused"] > 0 and e["c_evaluate_exact"] == 0,
+                f"phase 18: kernel E must launch under --fused-topk only: "
+                f"{e}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 18 ({card or dev}): launches {json.dumps(res['launches'])}; "
+        f"done in {res['seconds']:.1f} s")
     return res
 
 
@@ -4921,6 +5708,19 @@ def ptxas_summary(report: str) -> list[str]:
     return lines
 
 
+def _mark(marks) -> None:
+    """Note the end of the phase that follows the last mark."""
+    marks.append((f"phase {len(marks) + 2}", time.perf_counter()))
+
+
+def _phase_seconds(marks, t0) -> dict:
+    """Each mark's phase and its wall seconds: the first mark's from t0,
+    each later one's from the mark before it."""
+    times = [t0] + [t for _, t in marks]
+    return {name: round(times[k + 1] - times[k], 1)
+            for k, (name, _) in enumerate(marks)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4951,6 +5751,8 @@ def main() -> int:
                     help="after the build, phase 16 only (no result line)")
     ap.add_argument("--modern", action="store_true",
                     help="after the build, phase 17 only (no result line)")
+    ap.add_argument("--train-families", action="store_true",
+                    help="after the build, phase 18 only (no result line)")
     ap.add_argument("--quality", action="store_true",
                     help="after the build, the full quality loop on "
                     f"{QUALITY_EXPT} with its acceptance thresholds (no "
@@ -5028,12 +5830,17 @@ def main() -> int:
     if args.modern:
         phase_modern(args.seed, smi)
         return 0
+    if args.train_families:
+        phase_families(args.seed, smi)
+        return 0
     if args.quality:
         return quality_run(smi, args.quality_out)
     # phase 3
+    marks = [("phases 1-2", time.perf_counter())]
     res = phase_kernels(args.seed, only)
     if args.kernels:
         return 0
+    _mark(marks)
     # phase 4
     from tell_tpu_torch.config import CaptionerConfig
     from tell_tpu_torch.models.backbones.roberta import RobertaConfig
@@ -5041,27 +5848,33 @@ def main() -> int:
         args.seed, CaptionerConfig(), RobertaConfig.large(), "cuda",
         routes=True)
     launches.pop("routes")
+    _mark(marks)
     # phase 5
     phase_cpu_vs_card(svc, req0, caption0)
     del svc
     torch.cuda.empty_cache()
+    _mark(marks)
     # phase 6
     phase_train_cpu_vs_card(args.seed, CaptionerConfig())
+    _mark(marks)
     # phase 7
     trained = phase_trainer(args.seed, CaptionerConfig(
         compute_dtype="bfloat16"), RobertaConfig.large(), smi)
     launches["fused_dynamic_conv"] = trained["launches"][
         "fused_dynamic_conv"]
     torch.cuda.empty_cache()
+    _mark(marks)
     # phase 8
     svc, reqs, eng_launches, _ = phase_engine(
         args.seed, CaptionerConfig(), RobertaConfig.large())
     for name in ("decode_attention_q8", "topk_logits"):
         launches[name] = eng_launches[name]
+    _mark(marks)
     # phase 9
     phase_numerics(svc, reqs)
     del svc
     torch.cuda.empty_cache()
+    _mark(marks)
     # phase 10: the long-article configuration
     from tell_tpu_torch.config import with_article_len
     long_cfg = with_article_len(CaptionerConfig(), LONG_ARTICLE)
@@ -5077,28 +5890,43 @@ def main() -> int:
         f"{long_eng}")
     del svc
     torch.cuda.empty_cache()
+    _mark(marks)
     # phase 11: the measurement tools
     tools = phase_tools(args.seed)
     for name in ("decode_attention_single", "decode_attention_q4split"):
         launches[name] = tools["launches"][name]
     torch.cuda.empty_cache()
+    _mark(marks)
     # phase 12: text in, scored captions out, through the command line
     phase_cli(smi)
     torch.cuda.empty_cache()
+    _mark(marks)
     # phase 13: the flagship's siblings
     siblings = phase_siblings(args.seed, RobertaConfig.large())
     torch.cuda.empty_cache()
+    _mark(marks)
     # phase 14: images in
     images = phase_images(args.seed, smi)
     torch.cuda.empty_cache()
+    _mark(marks)
     # phase 15: faces and objects from a photo
     faces_objects = phase_faces_objects(args.seed, smi)
     torch.cuda.empty_cache()
+    _mark(marks)
     # phase 16: what tell_tpu users hold
     forms = phase_forms(args.seed, smi, trees=faces_objects.pop("trees"))
     torch.cuda.empty_cache()
+    _mark(marks)
     # phase 17: the modern family
     modern = phase_modern(args.seed, smi)
+    torch.cuda.empty_cache()
+    _mark(marks)
+    # phase 18: the other families trained
+    families = phase_families(args.seed, smi)
+    _mark(marks)
+    log("phase seconds (host clock, each phase from the end of the one "
+        "before; phases 1-2 from the end of the script's imports): "
+        + json.dumps(_phase_seconds(marks, T0)))
 
     # MG=20/S=637, B=4 S=512, K=31 at T=32, int8 S=637, N=40 V=30265 k=5,
     # F S=637, F int4-split S=637
@@ -5177,6 +6005,12 @@ def main() -> int:
             # phase 17's own path: A and B in micro-batch and engine mode,
             # D in the int8 engine, both expts
             entry["phase17_launches"] = modern["launches"][name]
+        if name in families["launches"]:
+            # phase 18's own path: B in the frozen encode of every
+            # family's training, evaluate and served request, E in expt
+            # 3's fused top-k evaluate
+            entry["phase18_launches"] = sum(
+                families["launches"][name].values())
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

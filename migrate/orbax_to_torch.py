@@ -15,8 +15,8 @@ best_metric and bad_epochs over (best/'s epoch and metric). Then `python
 -m tell_tpu_torch.commands train CFG -r`, `evaluate`, `serve` and a
 `warm_start` read the run. The params go across as they are, whatever the
 family: a modern run's (expts 10 and 12: the tied embedding, the
-self-attention, the stacked experts [E, D, F] and the router) is read by
-`evaluate` and `serve` (its training is not ported yet).
+self-attention, the stacked experts [E, D, F] and the router) and an LSTM
+run's (expts 1 and 3) are read by `train -r`, `evaluate` and `serve`.
 
 `towers`: each tower directory tools/convert_towers.py saved (roberta,
 resnet152, mtcnn, facenet, yolov3, vit) becomes `<out>/<name>/state.pt`,

@@ -10,8 +10,9 @@
 * ParamTree: an nn.Module that owns such a tree (nested dicts and lists of
   tensors), so .to(device) and state_dict() work on it; tree() gives the
   nested dict back with the module's current tensors.
-* init_captioner / init_llm_decoder / init_roberta / init_resnet /
-  init_vit / init_mtcnn / init_facenet / init_yolov3: torch-side
+* init_captioner / init_llm_decoder / init_lstm_decoder /
+  init_lstm_captioner / init_roberta / init_resnet / init_vit /
+  init_mtcnn / init_facenet / init_yolov3: torch-side
   initialisers with the same keys, shapes and
   init distributions as tell_tpu's, drawing from an explicit
   torch.Generator on the generator's device. (The two frameworks
@@ -19,6 +20,8 @@
   and carry them across with to_torch.)
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -239,6 +242,57 @@ def init_captioner(generator: torch.Generator, cfg: CaptionerConfig
                    ) -> dict:
     """tell_tpu.models.captioner.init_captioner."""
     params = {"decoder": init_decoder(generator, cfg.decoder)}
+    if cfg.weigh_bert:
+        params["bert_weight"] = _uniform(generator, (cfg.num_bert_layers,),
+                                         0.0, 1.0)
+    return params
+
+
+def init_lstm_decoder(generator: torch.Generator, cfg: DecoderConfig,
+                      num_layers: int = 4, image_dim: int = 2048,
+                      article_dim: int = 1024) -> dict:
+    """tell_tpu.models.lstm_decoder.init_lstm_decoder: init_decoder's
+    embedding and adaptive softmax with no conv layers (kernel_sizes=()),
+    and under "lstm" num_layers cells (the first over [x; input feed]) in
+    torch LSTMCell's gate order i, f, g, o with W_ih [in, 4H], W_hh
+    [H, 4H] and their biases U(-0.1, 0.1), zero initial h and c, the
+    image and article attentions (gehring input and output projections)
+    and attn_proj. num_layers is 4 whatever cfg.kernel_sizes says, as in
+    tell_tpu."""
+    g = generator
+    H = cfg.embed_dim
+    base = init_decoder(g, dataclasses.replace(cfg, kernel_sizes=()))
+
+    def cell(din):
+        return {"w_ih": _uniform(g, (din, 4 * H), -0.1, 0.1),
+                "w_hh": _uniform(g, (H, 4 * H), -0.1, 0.1),
+                "b_ih": _uniform(g, (4 * H,), -0.1, 0.1),
+                "b_hh": _uniform(g, (4 * H,), -0.1, 0.1)}
+
+    def attention(source_dim):
+        return {"input_proj": _gehring(g, H, source_dim),
+                "output_proj": _gehring(g, H + source_dim, H)}
+
+    base["lstm"] = {
+        "cells": [cell(2 * H if i == 0 else H) for i in range(num_layers)],
+        "h0": [_zeros(g, H) for _ in range(num_layers)],
+        "c0": [_zeros(g, H) for _ in range(num_layers)],
+        "image_attn": attention(image_dim),
+        "article_attn": attention(article_dim),
+        "attn_proj": _gehring(g, 2 * H, H),
+    }
+    return base
+
+
+def init_lstm_captioner(generator: torch.Generator, cfg: CaptionerConfig
+                        ) -> dict:
+    """tell_tpu.models.lstm_decoder.init_lstm_captioner: the LSTM decoder
+    over the image and article contexts' widths, and bert_weight where
+    weigh_bert."""
+    d = cfg.decoder
+    params = {"decoder": init_lstm_decoder(
+        generator, d, image_dim=d.context("image").kv_dim,
+        article_dim=d.context("article").kv_dim)}
     if cfg.weigh_bert:
         params["bert_weight"] = _uniform(generator, (cfg.num_bert_layers,),
                                          0.0, 1.0)

@@ -9,9 +9,12 @@ numerics levers are flags: `--kv-cache {fp,int8,int4}`, `--fused-topk`
 and `--gelu {erf,tanh}` (the frozen encoder's GELU; tell_tpu's
 TELL_TPU_FAST_GELU). `serve --attention` adds the word-attention payload.
 What tnt runs and the port does not yet is refused with its ROADMAP queue
-item: `bench` (item 1), `--coordinator` and `--mesh-data` (item 10), the
-pointer and LSTM families (models/registry.py), and `train` on the modern
-family (expts 10 and 12), whose `serve` and `evaluate` run.
+item: `bench` (item 1), `--coordinator` and `--mesh-data` (item 10) and
+the pointer family (models/registry.py, item 9). Every other family
+(the captioner and its siblings, the GloVe captioner, the LSTM and the
+modern LM) trains, evaluates and serves through its registry adapter;
+`preprocess` writes GloVe article features where data.glove_file names
+a vectors file (data/glove.py).
 
 The frozen RoBERTa is read from <shards_dir>/../towers/roberta/state.pt
 (the port's torch format: the param tree saved with torch.save, as
@@ -277,9 +280,9 @@ def _report_launches(args) -> None:
 
 
 def build_trainer(exp, device):
-    """The Trainer that `train` runs for the experiment: the shards of
-    exp.data read through the C++ reader and packed by bucket_batches, the
-    frozen towers on `device`."""
+    """The Trainer that `train` runs for the experiment: its family's
+    adapter, the shards of exp.data read through the C++ reader and packed
+    by bucket_batches, the frozen towers on `device`."""
     from ..data.bucketing import bucket_batches
     from ..data.records import RecordDataset
     from ..training.trainer import Trainer
@@ -302,7 +305,8 @@ def build_trainer(exp, device):
                               exp.bucketing)
 
     return Trainer(exp.model, exp.trainer, train_batches, val_batches,
-                   _frozen_towers(exp, device), device=device)
+                   _frozen_towers(exp, device), device=device,
+                   adapter=_adapter(exp))
 
 
 def cmd_train(args) -> int:
@@ -310,11 +314,6 @@ def cmd_train(args) -> int:
         raise NotPortedError("multi-host training is not ported yet (ROADMAP "
                              "queue 1 item 10, parallelism)")
     exp = _load(args)
-    if _adapter(exp).loss is None:
-        from ..models.registry import MODERN_TRAINING
-        raise NotPortedError(f"{exp.name}: training model_type "
-                             f"{exp.model_type!r} is not ported yet "
-                             f"(ROADMAP {MODERN_TRAINING})")
     trainer = build_trainer(exp, _device(args))
     if args.recover and not trainer.recover():
         print(f"train -r: no checkpoint to recover in "
@@ -345,10 +344,15 @@ def preprocess(exp, split: str, use_native: bool = True,
                device="cuda") -> tuple[int, str]:
     """The split's articles into shards under exp.data.shards_dir, tokenized
     through the C++ BPE (use_native=False: the Python ByteBPE), raw photos
-    embedded on `device` by the converted ResNet-152; returns the example
+    embedded on `device` by the converted ResNet-152, and with
+    data.glove_file each article's GloVe features; returns the example
     count and the BPE's class name."""
     from ..data.pipeline import (load_objects_jsonl, make_image_grid_fn,
                                  preprocess_split, read_articles_jsonl)
+    glove = None
+    if exp.data.glove_file:
+        from ..data.glove import GloveVectors
+        glove = GloveVectors.from_file(exp.data.glove_file)
     objects_lookup = None
     if exp.data.objects_jsonl:
         objects_lookup = load_objects_jsonl(exp.data.objects_jsonl)
@@ -360,7 +364,7 @@ def preprocess(exp, split: str, use_native: bool = True,
     n = preprocess_split(
         read_articles_jsonl(exp.data.articles_jsonl), tok, exp.reader,
         exp.data.shards_dir, split, image_grid_fn=image_grid_fn,
-        objects_lookup=objects_lookup)
+        objects_lookup=objects_lookup, glove=glove)
     bpe = type(tok.bpe).__name__
     log.info("preprocess %s: %d examples tokenized by %s", split, n, bpe)
     return n, bpe
@@ -398,9 +402,10 @@ def cmd_serve(args) -> int:
         print(f"warmed article widths {w['widths']} in {w['seconds']:.1f}s")
     if args.numerics_ab:
         ab = service.numerics_ab()
-        print(f"numerics A/B: int8-KV token agreement "
-              f"{ab['kv8_token_agreement']:.3f}, tanh-GELU "
-              f"{ab['fast_gelu_token_agreement']:.3f} (active modes: "
+        agree = ", ".join(f"{k[:-len('_token_agreement')]} {v:.3f}"
+                          for k, v in ab.items()
+                          if k.endswith("_token_agreement"))
+        print(f"numerics A/B token agreement: {agree} (active modes: "
               f"{ab['kv_cache_mode']}, {ab['gelu_mode']}; "
               f"{ab['seconds']:.1f}s)")
     print(f"serving on {args.host}:{args.port}"

@@ -3,7 +3,8 @@ score it (counterpart of tell_tpu/commands/evaluate.py:
 persistent_analyze, evaluate_split, score_generations and score_file).
 
 The model is the experiment's family (models/registry.py's get_model:
-the captioner, or the modern LM of expts 10 and 12). Each batch is
+the captioner, the modern LM of expts 10 and 12, or the LSTM of expts 1
+and 3, which decodes greedily only). Each batch is
 encoded by its frozen towers (the adapter's encode: RoBERTa, kernel B on
 the card) and decoded greedily (the adapter's generate) or by beam search
 (its beam), through kernel A on the card, or kernel D with the int8/int4
@@ -82,7 +83,13 @@ def evaluate_split(exp: ExperimentConfig, params: dict, frozen: dict,
         raise ValueError(f"kv_cache {kv_cache!r} not in {KV_CACHE_MODES}")
     adapter = get_model(exp.model_type, exp.model)
     cfg = adapter.config
-    adapter.check_levers(fused_topk)
+    adapter.check_levers(fused_topk, kv_cache)
+    if beam_size > 1 and adapter.beam is None:
+        # tell_tpu asserts the same (evaluate.py:86-87)
+        raise ValueError("beam search is implemented for the captioner and "
+                         "modern models (the reference likewise decodes "
+                         f"pointer/LSTM greedily); {exp.model_type!r} decodes "
+                         "with --beam 1")
     levers = {"kv_cache": kv_cache}
     if fused_topk:
         levers["fused_topk"] = True

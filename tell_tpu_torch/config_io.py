@@ -37,23 +37,21 @@ CONTEXT_PRESETS = {
     "no_image": NO_IMAGE_CONTEXTS,
 }
 
-# the captioner family of tell_tpu/models/registry.py::get_model
+# the model types of tell_tpu/models/registry.py::get_model whose YAML
+# model: builds a CaptionerConfig: the captioner family (with the GloVe
+# captioner) and the LSTM family
 CAPTIONER_TYPES = ("captioner", "transformer_faces_objects",
-                   "transformer_faces", "transformer_flattened")
+                   "transformer_faces", "transformer_flattened",
+                   "transformer_glove", "lstm", "baseline_glove",
+                   "lstm_decoder_flattened")
 # the modern family: the YAML's model: builds an LLMConfig
 MODERN_TYPES = ("modern", "transformer_modern", "vit_modern")
 # the other model types tell_tpu knows, with the ROADMAP item that ports
 # each (queue 1)
 OTHER_TYPES = {
-    "transformer_glove": "queue 1 item 9 (GloVe features, data/glove.py)",
-    "pointer": "queue 1 item 9 (models/pointer.py)",
-    "transformer_pointer": "queue 1 item 9 (models/pointer.py)",
-    "pointer_2": "queue 1 item 9 (models/pointer.py)",
-    "transformer_pointer_2": "queue 1 item 9 (models/pointer.py)",
-    "lstm": "queue 1 item 9 (models/lstm_decoder.py)",
-    "baseline_glove": "queue 1 item 9 (models/lstm_decoder.py, GloVe)",
-    "lstm_decoder_flattened": "queue 1 item 9 (models/lstm_decoder.py)",
-}
+    name: "queue 1 item 9 (models/pointer.py)"
+    for name in ("pointer", "transformer_pointer", "pointer_2",
+                 "transformer_pointer_2")}
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +334,8 @@ class DataConfig:
     val_limit: int | None = None
     # frozen article tower: "large", "base" or "tiny"
     roberta: str = "large"
-    # GloVe vectors (expts 1-2): refused, see check_supported
+    # GloVe vectors file for the GloVe experiments (expts 1-2): preprocess
+    # writes each article's [S, 300] features into the shards
     glove_file: str = ""
 
 
@@ -392,13 +391,10 @@ def check_supported(exp: ExperimentConfig) -> None:
         raise NotPortedError(f"{exp.name}: {what} is not ported yet "
                              f"(ROADMAP {item})")
 
-    t, d = exp.trainer, exp.data
+    t = exp.trainer
     if t.n_data not in (None, 1) or t.n_model != 1:
         refuse(f"a device mesh (trainer.n_data={t.n_data}, n_model="
                f"{t.n_model})", "queue 1 item 10 (parallelism)")
-    if d.glove_file:
-        refuse("data.glove_file (GloVe article features)",
-               "queue 1 item 9 (data/glove.py)")
 
 
 def load_experiment(path: str, overrides: str | dict | None = None

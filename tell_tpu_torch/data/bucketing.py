@@ -7,9 +7,10 @@ within the token budget, floored to a power of two (16 x 512 with 32-token
 captions at the default budget). A handful of shapes keeps the step's
 allocations and kernel shapes stable on the card, as it kept XLA's
 compiled programs few on the TPU. The fields are the flagship's and its
-siblings' (ids, image grid, faces, objects), the pointer models' copy and
-proper masks (padded with -1) and, for evaluation, the string metadata;
-tell_tpu's precomputed GloVe article features come with data/glove.py.
+siblings' (ids, image grid, faces, objects), the GloVe experiments'
+article features (zero rows past each article's end, which the article
+mask marks), the pointer models' copy and proper masks (padded with -1)
+and, for evaluation, the string metadata.
 
 A batch of LazyExamples over the C++ shard reader is packed in C++
 (_native_pack: one gather per field, straight from the shard mappings);
@@ -84,6 +85,12 @@ def _native_pack(examples: list, article_len: int, caption_len: int,
              "caption_ids": gather("caption_ids", (caption_len,), PAD_ID,
                                    np.int32)}
     batch["article_mask"] = batch["context_ids"] == PAD_ID
+    if "article" in e0:
+        batch["article"] = gather(
+            "article", (article_len, e0.field_shape("article")[-1]), 0)
+        lens = np.asarray([min(e.field_len("article"), article_len)
+                           for e in examples])
+        batch["article_mask"] = np.arange(article_len)[None] >= lens[:, None]
     for field, length in (("proper_masks", article_len),
                           ("caption_copy_masks", caption_len)):
         if field in e0:
@@ -136,6 +143,16 @@ def _numpy_pack(examples: list, article_len: int, caption_len: int,
                    "caption_ids": fill_ids("caption_ids", caption_len)}
     batch["article_mask"] = batch["context_ids"] == PAD_ID
     e0 = examples[0]
+    if "article" in e0:
+        dim = np.asarray(e0["article"]).shape[-1]
+        feats = np.zeros((B, article_len, dim), np.float32)
+        mask = np.ones((B, article_len), bool)
+        for i, e in enumerate(examples):
+            a = np.asarray(e["article"], np.float32)[:article_len]
+            feats[i, :len(a)] = a
+            mask[i, :len(a)] = False
+        batch["article"] = feats
+        batch["article_mask"] = mask
     for field, length in (("proper_masks", article_len),
                           ("caption_copy_masks", caption_len)):
         if field in e0:

@@ -11,8 +11,9 @@ An image is a precomputed <hash>.npy grid, or a raw <hash>.jpg / .jpeg
 photo that the converted ResNet-152 in the towers directory embeds on the
 device (decoded by data/jpeg.py, resized and cropped by data/images.py,
 as tell_tpu does through Pillow). PNG and the JPEG forms the port's
-decoder refuses wait for ROADMAP queue 1 item 8; GloVe article features
-wait for data/glove.py (item 9).
+decoder refuses wait for ROADMAP queue 1 item 8. With a GloVe table
+(data/glove.py) each record also carries its article's [S, 300] GloVe
+features (`article`, fp16), the GloVe experiments' article context.
 """
 from __future__ import annotations
 
@@ -23,7 +24,6 @@ from typing import Callable, Iterator
 
 import numpy as np
 
-from ..config import NotPortedError
 from ..models.backbones.resnet import ResNetConfig, image_grid, load_tower
 from .images import decode_image, resize_shortest_crop
 from .readers import ReaderConfig, iter_examples
@@ -113,10 +113,8 @@ def preprocess_split(articles: Iterator[dict], tokenizer: RobertaTokenizer,
                      objects_lookup=None, shard_size: int = 512,
                      max_caption_len: int = 100, glove=None) -> int:
     """Write `split`-NNNNN.npz shards to out_dir; returns the number of
-    examples written."""
-    if glove is not None:
-        raise NotPortedError("GloVe article features are not ported yet "
-                             "(ROADMAP queue 1 item 9, data/glove.py)")
+    examples written. glove: a GloveVectors, whose features of the
+    example's context each record carries as `article`."""
     os.makedirs(out_dir, exist_ok=True)
     count_tokens = lambda s: len(tokenizer.bpe.encode(s))  # noqa: E731
 
@@ -165,6 +163,9 @@ def preprocess_split(articles: Iterator[dict], tokenizer: RobertaTokenizer,
                     "caption": ex["caption"],
                     "web_url": ex.get("web_url", ""),
                 }
+            if glove is not None:
+                rec["article"] = glove.embed_text(ex["context"]).astype(
+                    np.float16)
             if ex.get("face_embeds") is not None:
                 rec["face_embeds"] = ex["face_embeds"]
             if ex.get("obj_embeds") is not None:

@@ -79,13 +79,16 @@ def _positional_table(params: dict, cfg: DecoderConfig,
 
 def embed_tokens(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                  gen: torch.Generator | None = None,
-                 deterministic: bool = True) -> torch.Tensor:
-    """Adaptive + positional embeddings of ids [B, T], dropout."""
+                 deterministic: bool = True,
+                 start_pos: torch.Tensor | int = 0) -> torch.Tensor:
+    """Adaptive + positional embeddings of ids [B, T], dropout. start_pos
+    shifts the non-pad positions (a decode step's token at step t)."""
     x = adaptive_embed(params["embed"], ids, cfg.full_cutoffs, cfg.embed_dim,
                        padding_idx=cfg.embed_padding_idx,
                        scale_embeds=cfg.scale_embeds)
     table = _positional_table(params, cfg, ids.device)
-    x = x + sinusoidal_embed(table, ids.long(), cfg.pad_id).to(x.dtype)
+    x = x + sinusoidal_embed(table, ids.long(), cfg.pad_id,
+                             start_pos).to(x.dtype)
     return dropout(x, cfg.dropout, gen, deterministic)
 
 

@@ -1,10 +1,11 @@
-"""The modern captioning LM, decode side (counterpart of
-tell_tpu/models/llm_decoder.py: rms_norm, rope_cos_sin, apply_rope, the
-decode step's blocks, _build_contexts, modern_encode_contexts,
+"""The modern captioning LM (counterpart of tell_tpu/models/
+llm_decoder.py): rms_norm, rope_cos_sin, apply_rope, the blocks of the
+full-sequence path and of the decode step, llm_forward, llm_xent,
+llm_loss, llm_loss_e2e, _build_contexts, modern_encode_contexts,
 init_llm_decode_state, llm_decoder_step, tied_log_probs, tied_top_k,
-llm_generate and llm_beam_search). LLMConfig is in config.py and
-init_llm_decoder in bridge.py; training (llm_forward, llm_xent, llm_loss)
-is not ported yet.
+llm_generate and llm_beam_search. LLMConfig is in config.py and
+init_llm_decoder in bridge.py; the pipelined forward (llm_forward_pp) is
+not ported (ROADMAP queue 1 item 10).
 
     x = x + o(self_attn(rms(x)))             causal, RoPE, GQA, K/V cache
     x = x + context_fc(concat_m cross_attn_m(rms(x)))    four contexts
@@ -32,16 +33,27 @@ is not ported yet.
   logsumexp; ties go to the lower id, as lax.top_k's.
 * The article context is RoBERTa's final hidden state (no layer sum):
   kernel B runs in its encode.
+* Training runs the layers over the whole caption: causal self-attention
+  with RoPE from arange(T) and the K/V heads repeated for GQA (no key-pad
+  mask, as tell_tpu's), the contexts' plain cross-attention, the MoE at
+  moe_capacity_factor with the caption's pads taking no slot. The loss
+  streams the tied head over the vocabulary in loss_vocab_chunk columns
+  with an online logsumexp, so the [N, V] logits are never built in the
+  forward (autograd keeps each chunk's for the backward, as lax.scan's
+  residuals are). Dropout draws from fold_in generators laid out as
+  tell_tpu's fold_in keys: one stream per call site.
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..config import LLMConfig
-from ..ops.common import top_k
+from ..ops.attention import cross_attention_with_kv, precompute_kv
+from ..ops.common import dropout, fold_in, top_k
 from ..ops.linear import linear
 from ..ops.moe import moe_ffn
 from .backbones.resnet import resnet_forward
@@ -165,6 +177,152 @@ def _ffn(lp: dict, cfg: LLMConfig, x: torch.Tensor, no_drop: bool = False,
         torch.zeros((), device=x.device)
 
 
+# ---------------------------------------------------------------------------
+# teacher-forced forward and loss (training)
+# ---------------------------------------------------------------------------
+
+def _self_attn_full(sp: dict, cfg: LLMConfig, x: torch.Tensor,
+                    gen: torch.Generator | None = None,
+                    deterministic: bool = True) -> torch.Tensor:
+    """Causal self-attention over the whole sequence. x [B, T, E]. The K/V
+    heads are repeated to the query heads (query head h reads K/V head
+    h // (H / KV), as the decode step's grouping); fp32 scores, dropout
+    on the probabilities."""
+    B, T, E = x.shape
+    H, hd, KV = cfg.num_heads, cfg.head_dim, cfg.kv_heads
+    q = linear(sp["q"], x).reshape(B, T, H, hd)
+    k = linear(sp["k"], x).reshape(B, T, KV, hd)
+    v = linear(sp["v"], x).reshape(B, T, KV, hd)
+    cos, sin = rope_cos_sin(torch.arange(T, device=x.device), hd,
+                            cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    if KV != H:
+        k = k.repeat_interleave(H // KV, dim=2)
+        v = v.repeat_interleave(H // KV, dim=2)
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) \
+        * (hd ** -0.5)
+    causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+    scores = scores.masked_fill(~causal, float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    probs = dropout(probs, cfg.attention_dropout, gen, deterministic)
+    o = torch.einsum("bhts,bshd->bthd", probs.float(), v.float())
+    return linear(sp["o"], o.to(x.dtype).reshape(B, T, E))
+
+
+def _cross_block_full(lp: dict, cfg: LLMConfig, x: torch.Tensor,
+                      contexts: dict, gen: torch.Generator | None = None,
+                      deterministic: bool = True) -> torch.Tensor:
+    """Each context's plain cross-attention over the whole sequence (its
+    own dropout stream, fold_in(gen, j)), the branches concatenated in
+    context order into context_fc. x [B, T, E]."""
+    branches = []
+    for j, spec in enumerate(cfg.contexts):
+        p = lp["attn"][spec.name]
+        k, v, kmask = precompute_kv(p, *contexts[spec.name])
+        out, _ = cross_attention_with_kv(
+            p, x, k, v, kmask, num_heads=cfg.num_heads,
+            attn_dropout=cfg.attention_dropout, gen=fold_in(gen, j),
+            deterministic=deterministic)
+        branches.append(out)
+    return linear(lp["context_fc"], torch.cat(branches, dim=-1))
+
+
+def _layer_full(lp: dict, cfg: LLMConfig, x: torch.Tensor, contexts: dict,
+                gen: torch.Generator | None = None,
+                deterministic: bool = True,
+                token_mask: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One layer over the whole sequence -> (x, the MoE aux loss, 0 when
+    dense). token_mask [B, T] (True = not pad) keeps pads out of the MoE's
+    capacity and statistics."""
+    h = rms_norm(lp["attn_norm"], x, cfg.rms_eps)
+    x = x + dropout(_self_attn_full(lp["self_attn"], cfg, h,
+                                    fold_in(gen, 9), deterministic),
+                    cfg.dropout, gen, deterministic)
+    h = rms_norm(lp["cross_norm"], x, cfg.rms_eps)
+    out = _cross_block_full(lp, cfg, h, contexts, fold_in(gen, 10),
+                            deterministic)
+    x = x + dropout(out, cfg.dropout, fold_in(gen, 1), deterministic)
+    h = rms_norm(lp["ffn_norm"], x, cfg.rms_eps)
+    f, moe_aux = _ffn(lp["ffn"], cfg, h, token_mask=token_mask)
+    x = x + dropout(f, cfg.dropout, fold_in(gen, 2), deterministic)
+    return x, moe_aux
+
+
+def llm_forward(params: dict, cfg: LLMConfig, ids: torch.Tensor,
+                contexts: dict, gen: torch.Generator | None = None,
+                deterministic: bool = True
+                ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """Teacher-forced forward. ids [B, T] -> (features [B, T, E], each
+    layer's MoE aux loss)."""
+    x = F.embedding(ids.long(), params["tok_embed"])
+    x = dropout(x, cfg.dropout, fold_in(gen, 0), deterministic)
+    token_mask = ids != cfg.pad_id
+    aux = []
+    for i, lp in enumerate(params["layers"]):
+        x, a = _layer_full(lp, cfg, x, contexts, fold_in(gen, 1 + i),
+                           deterministic, token_mask)
+        aux.append(a)
+    return rms_norm(params["final_norm"], x, cfg.rms_eps), aux
+
+
+def llm_xent(params: dict, cfg: LLMConfig, feats: torch.Tensor,
+             targets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tied-head cross entropy over vocabulary chunks. feats [N, E],
+    targets [N] -> (the summed loss in nats over non-pad targets, their
+    count). Each chunk of loss_vocab_chunk rows of the table updates a
+    running max and sum of exponentials, and the chunk that holds a
+    target gives its logit. tell_tpu pads the table to whole chunks and
+    masks the pad columns to -inf; the port's last chunk is the table's
+    ragged rest, which is the same sum."""
+    N = feats.shape[0]
+    V = cfg.vocab_size
+    C = min(cfg.loss_vocab_chunk, V)
+    table = params["tok_embed"].to(feats.dtype)
+    f32 = feats.float()
+    m = torch.full((N,), float("-inf"), device=feats.device)
+    s = torch.zeros(N, device=feats.device)
+    tgt = torch.zeros(N, device=feats.device)
+    for base in range(0, V, C):
+        logits = f32 @ table[base:base + C].float().T          # [N, <= C]
+        new_m = torch.maximum(m, logits.max(dim=-1).values)
+        s = s * torch.exp(m - new_m) + torch.exp(
+            logits - new_m[:, None]).sum(dim=-1)
+        m = new_m
+        col = targets.long() - base
+        here = (col >= 0) & (col < logits.shape[1])
+        picked = logits.gather(1, col.clamp(0, logits.shape[1] - 1)[:, None])
+        tgt = tgt + torch.where(here, picked[:, 0], 0.0)
+    nll = m + torch.log(s) - tgt
+    keep = targets != cfg.pad_id
+    return torch.where(keep, nll, 0.0).sum(), keep.sum()
+
+
+def llm_loss(params: dict, cfg: LLMConfig, batch: dict,
+             gen: torch.Generator | None = None, deterministic: bool = True
+             ) -> tuple[torch.Tensor, dict]:
+    """Mean per-token loss in BITS over batch["caption_ids"] [B, T]
+    (right-shifted targets, pads excluded), plus moe_aux_coef x the
+    layers' mean MoE aux loss when moe_experts is set. Returns (loss,
+    {"sample_size", and "moe_aux" with the MoE})."""
+    contexts = _build_contexts(params, cfg, batch)
+    ids = batch["caption_ids"]
+    feats, layer_aux = llm_forward(params, cfg, ids[:, :-1], contexts, gen,
+                                   deterministic)
+    B, T, E = feats.shape
+    loss_sum, size = llm_xent(params, cfg, feats.reshape(B * T, E),
+                              ids[:, 1:].reshape(-1))
+    size = size.clamp_min(1)
+    loss = loss_sum / math.log(2.0) / size
+    aux = {"sample_size": size}
+    if cfg.moe_experts:
+        moe_aux = sum(layer_aux) / len(layer_aux)
+        aux["moe_aux"] = moe_aux
+        loss = loss + cfg.moe_aux_coef * moe_aux
+    return loss, aux
+
+
 def _build_contexts(params: dict, cfg: LLMConfig, batch: dict) -> dict:
     """{name: (features, pad mask)} as the flagship's build_contexts, with
     no article layer sum: the model reads the tower's final hidden state
@@ -210,6 +368,15 @@ def modern_encode_contexts(frozen: dict, cfg: LLMConfig, batch: dict
                 out["image_grid"] = resnet_forward(
                     frozen["resnet"], frozen["resnet_cfg"], batch["image"])
     return out
+
+
+def llm_loss_e2e(params: dict, frozen: dict, cfg: LLMConfig, batch: dict,
+                 gen: torch.Generator | None = None,
+                 deterministic: bool = True) -> tuple[torch.Tensor, dict]:
+    """llm_loss with the frozen towers' encode first (kernel B in the
+    article's)."""
+    return llm_loss(params, cfg, modern_encode_contexts(frozen, cfg, batch),
+                    gen, deterministic)
 
 
 def init_llm_decode_state(params: dict, cfg: LLMConfig, contexts: dict,

@@ -1,11 +1,11 @@
 """Model-family registry (counterpart of tell_tpu/models/registry.py):
 tell_tpu's model_type names mapped onto adapters over the port's model
-implementations, the multi-context captioner and the modern LM.
+implementations: the multi-context captioner (transformer_glove is the
+captioner over GloVe article features), the modern LM and the LSTM
+baseline (baseline_glove, lstm_decoder_flattened).
 
-The pointer and LSTM families are not ported yet: their names raise
-NotPortedError with the ROADMAP item. The modern family's training (its
-loss) is not ported either: its adapter has loss None, and `train`
-refuses it.
+The pointer family is not ported yet: its names raise NotPortedError with
+the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -15,30 +15,38 @@ from typing import Any, Callable
 from ..config import CaptionerConfig, LLMConfig, NotPortedError, \
     VIT_CONTEXTS
 
-MODERN_TRAINING = ("queue 1 item 9, the modern family's training "
-                   "(llm_forward, llm_xent, llm_loss, the MoE aux loss)")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelAdapter:
     name: str
     config: Any                       # the model config object
     init: Callable                    # init(generator, cfg) -> params
-    loss: Callable | None             # loss(params, cfg, batch, ...)
+    loss: Callable                    # loss(params, cfg, batch, ...)
     loss_e2e: Callable | None         # incl. frozen towers, or None
     generate: Callable                # generate(params, cfg, batch, ...)
     # encode(frozen, batch) -> batch with frozen-tower features added
     encode: Callable | None = None
     # beam(params, cfg, batch, beam_size, ...) -> {"token_ids": [B, K, T]}
+    # None = greedy only (tell_tpu decodes the LSTM greedily too)
     beam: Callable | None = None
+    # what the family decodes with: the adaptive softmax's fused top-k
+    # lever (kernel E), the int8/int4 K/V cache levers, and a continuous-
+    # batching engine
+    fused_topk: bool = True
+    kv_cache_levers: bool = True
+    engine: bool = True
 
-    def check_levers(self, fused_topk: bool = False) -> None:
+    def check_levers(self, fused_topk: bool = False,
+                     kv_cache: str = "fp") -> None:
         """Refuse a decode numerics lever the family lacks: fused_topk is
         the adaptive softmax's, and the modern family's tied head has
-        none."""
-        if fused_topk and self.name == "modern":
+        none; the LSTM attends to its contexts without a K/V cache."""
+        if fused_topk and not self.fused_topk:
             raise ValueError("fused_topk is the adaptive softmax's lever; "
-                             "the modern family's tied head has none")
+                             f"the {self.name} family's tied head has "
+                             "none")
+        if kv_cache != "fp" and not self.kv_cache_levers:
+            raise ValueError(f"kv_cache {kv_cache!r}: the {self.name} "
+                             "family keeps no K/V cache")
 
 
 def _captioner(cfg: CaptionerConfig) -> ModelAdapter:
@@ -56,8 +64,8 @@ def _captioner(cfg: CaptionerConfig) -> ModelAdapter:
 
 def _modern(cfg, vit: bool = False) -> ModelAdapter:
     from ..bridge import init_llm_decoder
-    from .llm_decoder import (llm_beam_search, llm_generate,
-                              modern_encode_contexts)
+    from .llm_decoder import (llm_beam_search, llm_generate, llm_loss,
+                              llm_loss_e2e, modern_encode_contexts)
     if isinstance(cfg, CaptionerConfig):
         # a captioner YAML reused: its contexts and token-level ids carry
         # over, and vit swaps the ResNet grid's image spec for ViT-L's
@@ -71,22 +79,30 @@ def _modern(cfg, vit: bool = False) -> ModelAdapter:
                         bos_id=d.bos_id, eos_id=d.eos_id,
                         max_target_positions=d.max_target_positions)
     return ModelAdapter(
-        name="modern", config=cfg, init=init_llm_decoder, loss=None,
-        loss_e2e=None, generate=llm_generate,
+        name="modern", config=cfg, init=init_llm_decoder, loss=llm_loss,
+        loss_e2e=llm_loss_e2e, generate=llm_generate,
         encode=lambda frozen, batch: modern_encode_contexts(frozen, cfg,
                                                             batch),
-        beam=llm_beam_search)
+        beam=llm_beam_search, fused_topk=False)
 
 
-def _not_ported(what: str):
-    def refuse(cfg):
-        raise NotPortedError(f"{what} is not ported yet (ROADMAP queue 1 "
-                             "item 9)")
-    return refuse
+def _lstm(cfg: CaptionerConfig) -> ModelAdapter:
+    """tell_tpu's _lstm adapter: no e2e loss of its own (the Trainer
+    builds one from encode + loss), the captioner's encode, greedy or
+    top-k sampled decode only."""
+    from ..bridge import init_lstm_captioner
+    from .captioner import encode_contexts
+    from .lstm_decoder import lstm_captioner_loss, lstm_generate
+    return ModelAdapter(
+        name="lstm", config=cfg, init=init_lstm_captioner,
+        loss=lstm_captioner_loss, loss_e2e=None, generate=lstm_generate,
+        encode=lambda frozen, batch: encode_contexts(frozen, cfg, batch),
+        kv_cache_levers=False, engine=False)
 
 
-_POINTER = _not_ported("the pointer family (models/pointer.py)")
-_LSTM = _not_ported("the LSTM family (models/lstm_decoder.py)")
+def _pointer(cfg):
+    raise NotPortedError("the pointer family (models/pointer.py) is not "
+                         "ported yet (ROADMAP queue 1 item 9)")
 
 
 def get_model(model_type: str, cfg) -> ModelAdapter:
@@ -98,9 +114,9 @@ def get_model(model_type: str, cfg) -> ModelAdapter:
         return _captioner(cfg)
     if mt in ("pointer", "transformer_pointer", "pointer_2",
               "transformer_pointer_2"):
-        return _POINTER(cfg)
+        return _pointer(cfg)
     if mt in ("lstm", "baseline_glove", "lstm_decoder_flattened"):
-        return _LSTM(cfg)
+        return _lstm(cfg)
     if mt in ("modern", "transformer_modern"):
         return _modern(cfg)
     if mt == "vit_modern":

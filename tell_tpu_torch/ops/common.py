@@ -3,11 +3,27 @@
 Params are the JAX package's nested dicts, holding torch tensors. Dropout
 draws from an explicit torch.Generator (the JAX rng key's counterpart) and
 has no global training mode: it is off when `deterministic` is set, the
-rate is 0 or no generator is given.
+rate is 0 or no generator is given. fold_in derives a call site's own
+generator from a parent's seed, as jax.random.fold_in derives a key.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+def fold_in(gen: torch.Generator | None, data: int
+            ) -> torch.Generator | None:
+    """A generator for call site `data`, on gen's device: a pure function
+    of gen's seed and data (what it has drawn does not matter), as
+    jax.random.fold_in(key, data) is of the key. None stays None."""
+    if gen is None:
+        return None
+    state = np.random.SeedSequence([gen.initial_seed(), data]
+                                   ).generate_state(2)
+    g = torch.Generator(device=gen.device)
+    g.manual_seed(int(state[0]) << 32 | int(state[1]))
+    return g
 
 
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,

@@ -39,7 +39,13 @@ registry.py's get_model), the modern family (expts 10 and 12): its
 micro-batch mode decodes with llm_generate (with need_weights for the
 attention payload), its engine mode with LLMDecodeEngine, which refuses
 need_attention as tell_tpu's does (no replay for the modern family), and
-its article is the tower's final hidden state (modern_encode_contexts).
+its article is the tower's final hidden state (modern_encode_contexts);
+or the LSTM family (expts 1 and 3), served in micro-batch mode only
+(lstm_generate, greedy; its need_weights maps {image, article} [T, B, S]
+carry no bias or zero column): the engine refuses it, with tell_tpu's
+error. A model whose article context is not the RoBERTa's width (the
+GloVe experiments' 300-d article) fails each request, as tell_tpu's
+service does: neither has a GloVe encode.
 
 A request may carry its photo instead of its image grid: `image_b64` (an
 encoded JPEG), `image` (an [H, W, 3] list) or, from the scrape flow,
@@ -127,7 +133,11 @@ class CaptionService:
                              "and needs a tokenizer")
         self.adapter = adapter or get_model("captioner", cfg)
         self.modern = self.adapter.name == "modern"
-        self.adapter.check_levers(fused_topk)
+        self.adapter.check_levers(fused_topk, kv_cache)
+        if engine_slots and not self.adapter.engine:
+            raise ValueError("continuous batching serves the captioner and "
+                             "modern families only (got adapter "
+                             f"{self.adapter.name!r})")
         if self.modern and engine_slots and need_attention:
             raise ValueError("attention replay is captioner-only; drop "
                              "--attention for the modern engine")
@@ -135,10 +145,11 @@ class CaptionService:
         self.cfg = cfg
         self.dcfg = getattr(cfg, "decoder", cfg)
         self.device = torch.device(device)
-        # the flagship's params as an nn.Module (.model); the modern family
-        # decodes through its adapter alone
+        # the flagship's params as an nn.Module (.model); the modern and
+        # LSTM families decode through their adapters alone
         self.params = to_torch(params, self.device)
-        self.model = None if self.modern else Captioner(self.params, cfg)
+        self.model = (Captioner(self.params, cfg)
+                      if self.adapter.name == "captioner" else None)
         if self.model is not None:
             self.params = self.model.tree()
         self.roberta = roberta.to(self.device)
@@ -218,8 +229,19 @@ class CaptionService:
 
     def _encode(self, batch: dict, frozen: dict | None = None) -> dict:
         """The model's frozen-tower encode (the adapter's) of a batch of
-        tensors; frozen defaults to the service's RoBERTa."""
-        return self.adapter.encode(frozen or self.roberta.frozen(), batch)
+        tensors; frozen defaults to the service's RoBERTa. Raises where
+        the article context takes features of another width than the
+        encode gives (a GloVe model's 300-d article)."""
+        out = self.adapter.encode(frozen or self.roberta.frozen(), batch)
+        art = out.get("article", out.get("article_hiddens"))
+        want = {c.name: c.kv_dim for c in self.dcfg.contexts}.get("article")
+        if art is not None and want not in (None, art.shape[-1]):
+            raise ValueError(
+                f"the article context takes {want}-d features and the "
+                f"service's RoBERTa encodes {art.shape[-1]}-d ones (a GloVe "
+                "model: the service has no GloVe encode, nor has "
+                "tell_tpu's)")
+        return out
 
     def _encode_many(self, batch: dict) -> dict:
         """Numpy payload rows -> features on the device: the RoBERTa
@@ -376,9 +398,14 @@ class CaptionService:
             enc = self._encode(tb)
             out = self._generate(enc, need_weights=self.need_attention)
             token_ids = out["token_ids"][:n].cpu().numpy()
-            if self.need_attention:    # layer 0: {name: [T, B, 1, S']}
-                layer0 = {name: a[:, :n, 0].cpu().numpy()
-                          for name, a in out["attns"][0].items()}
+            if self.need_attention:
+                # layer 0 of per-layer {name: [T, B, 1, S']}, or the LSTM's
+                # one {name: [T, B, S]}
+                attns = out["attns"]
+                layer0 = ({name: a[:, :n, 0] for name, a in attns[0].items()}
+                          if isinstance(attns, list) else
+                          {name: a[:, :n] for name, a in attns.items()})
+                layer0 = {k: a.cpu().numpy() for k, a in layer0.items()}
         results = []
         for i in range(n):
             r = {"token_ids": token_ids[i].tolist()}
@@ -489,11 +516,12 @@ class CaptionService:
         tower encoded with the tanh GELU). Counted over the live (non-pad)
         target tokens of `requests` (default: one canned request) at full
         article width. The result also lands in /status under
-        "numerics_ab". The modern family has no teacher-forced decode in
-        the port (nor in tell_tpu's service): its levers (int8 and int4
-        K/V, the tanh-GELU encode) are compared free-running, token by
-        token over the fp path's live targets (method "free_running"),
-        and it has no fused top-k."""
+        "numerics_ab". The modern and LSTM families have no teacher-forced
+        decode in the port (nor in tell_tpu's service): their levers are
+        compared free-running, token by token over the fp path's live
+        targets (method "free_running"): the modern family's int8 and
+        int4 K/V (it has no fused top-k), the LSTM's fused top-k (it has
+        no K/V cache), and both families' tanh-GELU encode."""
         t0 = time.perf_counter()
         if requests is None:
             requests = [{"context": "the mayor spoke in the city today"}
@@ -519,21 +547,23 @@ class CaptionService:
             report = {"kv_cache_mode": self.kv_cache,
                       "topk_mode": self._topk_mode(),
                       "gelu_mode": self.roberta.cfg.gelu,
-                      "method": ("free_running" if self.modern
+                      "method": ("free_running" if self.model is None
                                  else "forced_per_step"),
                       "tokens": int(live.sum())}
 
             def agreement(features, **lever):
-                if self.modern:
+                if self.model is None:
                     preds = self._generate(features,
                                            **lever)["token_ids"][:, 1:]
                 else:
                     preds = self.model.predict_forced(features, ref, **lever)
                 return float((preds == target)[live].float().mean())
 
-            levers = [("kv8_token_agreement", {"kv_cache": "int8"}),
-                      ("kv4_token_agreement", {"kv_cache": "int4"})]
-            if not self.modern:
+            levers = []
+            if self.adapter.kv_cache_levers:
+                levers += [("kv8_token_agreement", {"kv_cache": "int8"}),
+                           ("kv4_token_agreement", {"kv_cache": "int4"})]
+            if self.adapter.fused_topk:
                 levers.append(("fused_topk_token_agreement",
                                {"fused_topk": True}))
             for key, lever in levers:

@@ -24,6 +24,11 @@ steps [profile_at, profile_at + profile_steps) run under torch.profiler
 window closes at the end of its epoch's steps at the latest (a window
 that would cross it is cut there, and holds no validation), in a finally
 that also closes it when the epoch fails inside it.
+
+The model is a registry adapter (models/registry.py; default the
+captioner's): its init, its loss and its e2e loss, which the Trainer
+builds from encode + loss where the adapter has none (the LSTM's), as
+tell_tpu's does, so a family never trains against another's objective.
 """
 from __future__ import annotations
 
@@ -41,15 +46,15 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from ..bridge import init_captioner, tree_map
+from ..bridge import tree_map
 from ..config import CaptionerConfig, NotPortedError, orbax_refusal
 from ..data.bucketing import BucketingConfig, bucket_batches
 from ..data.prefetch import DevicePrefetcher
 from ..data.records import RecordDataset
-from ..models.captioner import captioner_loss, encode_contexts
+from ..models.registry import get_model
 from .checkpoint import CheckpointManager
 from .optimizer import BertAdamState, bert_adam
-from .train_step import cast_tree, make_train_step
+from .train_step import cast_tree, compute_dtype_of, make_train_step
 
 log = logging.getLogger("tell_tpu_torch.trainer")
 
@@ -100,13 +105,18 @@ class Trainer:
     def __init__(self, cfg: CaptionerConfig, tcfg: TrainerConfig,
                  train_batches: Callable[[int], Iterator[dict]],
                  val_batches: Callable[[], Iterator[dict]] | None,
-                 frozen: dict | None, *, device):
+                 frozen: dict | None, *, device, adapter=None):
         """train_batches(epoch) / val_batches() yield fixed-shape numpy
         batches (data/bucketing.py). frozen: {"roberta": params tree,
         "roberta_cfg": RobertaConfig}, moved to `device` and cast to the
         compute dtype once, here, not on every step. device: where training
-        runs (explicit: no default that could quietly train on the CPU)."""
-        self.cfg = cfg
+        runs (explicit: no default that could quietly train on the CPU).
+        adapter: get_model's adapter of the model family (default the
+        captioner's over cfg); its config replaces cfg."""
+        if adapter is None:
+            adapter = get_model("captioner", cfg)
+        self.adapter = adapter
+        self.cfg = cfg = adapter.config
         self.tcfg = tcfg
         self.device = torch.device(device)
         self.train_batches = train_batches
@@ -115,7 +125,7 @@ class Trainer:
             frozen = cast_tree(
                 tree_map(lambda x: x.to(self.device)
                          if isinstance(x, torch.Tensor) else x, frozen),
-                cfg.compute_dtype)
+                compute_dtype_of(cfg))
         self.frozen = frozen
         self.optimizer = bert_adam(
             lr=tcfg.lr, b1=tcfg.b1, b2=tcfg.b2,
@@ -125,7 +135,13 @@ class Trainer:
         self.ckpt = CheckpointManager(
             os.path.join(tcfg.serialization_dir, "checkpoints"),
             keep=tcfg.keep_checkpoints)
-        self._step_fn = make_train_step(cfg, self.optimizer)
+        loss_e2e = adapter.loss_e2e
+        if loss_e2e is None and adapter.encode is not None:
+            def loss_e2e(p, fz, c, b, gen=None, deterministic=True):
+                return adapter.loss(p, c, adapter.encode(fz, b), gen,
+                                    deterministic)
+        self._step_fn = make_train_step(cfg, self.optimizer,
+                                        loss=adapter.loss, loss_e2e=loss_e2e)
         self._tb = None
         self._profiler = None
         self._best_pending: tuple | None = None
@@ -151,7 +167,7 @@ class Trainer:
     # -- state -----------------------------------------------------------
     def initialize(self) -> None:
         g = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        params = init_captioner(g, self.cfg)
+        params = self.adapter.init(g, self.cfg)
         if self.tcfg.warm_start:
             params = self._warm_start(params)
         self.state = {"params": params,
@@ -391,9 +407,10 @@ class Trainer:
 
     @torch.no_grad()
     def _validate(self) -> dict:
-        """Mean deterministic loss over val_batches. The frozen encode runs
-        in the compute dtype and the loss on the fp32 params, as tell_tpu's
-        eval does (its bf16 hiddens promote to fp32 at the first
+        """Mean deterministic loss over val_batches through the adapter:
+        its encode with the frozen towers (in the compute dtype), then its
+        loss on the fp32 params, which is its e2e loss as tell_tpu's eval
+        runs it (the bf16 hiddens promote to fp32 at the first
         projection); no weight dropout, so kernel C runs."""
         if self.val_batches is None:
             return {}
@@ -401,12 +418,12 @@ class Trainer:
         with self._prefetched(self.val_batches()) as pf:
             for batch in pf:
                 if self.frozen is not None:
-                    batch = encode_contexts(self.frozen, self.cfg, batch)
+                    batch = self.adapter.encode(self.frozen, batch)
                 batch = tree_map(lambda x: x.float()
                                  if isinstance(x, torch.Tensor)
                                  and x.is_floating_point() else x, batch)
-                loss, _ = captioner_loss(self.state["params"], self.cfg,
-                                         batch)
+                loss, _ = self.adapter.loss(self.state["params"], self.cfg,
+                                            batch)
                 losses.append(loss)
         return ({"val_loss": float(torch.stack(losses).mean())}
                 if losses else {})
@@ -420,10 +437,11 @@ class Trainer:
 
 def make_trainer(cfg: CaptionerConfig, tcfg: TrainerConfig,
                  bcfg: BucketingConfig, shards_dir: str,
-                 frozen: dict | None, *, device) -> Trainer:
-    """A Trainer over shards_dir/train-*.npz (shuffled, in an order that is
-    a pure function of the dataset seed and the epoch) and
-    shards_dir/valid-*.npz (in shard order)."""
+                 frozen: dict | None, *, device, adapter=None) -> Trainer:
+    """A Trainer of the adapter's model (default the captioner) over
+    shards_dir/train-*.npz (shuffled, in an order that is a pure function
+    of the dataset seed and the epoch) and shards_dir/valid-*.npz (in
+    shard order)."""
     train_ds = RecordDataset(os.path.join(shards_dir, "train-*.npz"))
     val_ds = RecordDataset(os.path.join(shards_dir, "valid-*.npz"))
 
@@ -435,18 +453,18 @@ def make_trainer(cfg: CaptionerConfig, tcfg: TrainerConfig,
         return bucket_batches(val_ds.epoch(lazy=True), bcfg)
 
     return Trainer(cfg, tcfg, train_batches, val_batches, frozen,
-                   device=device)
+                   device=device, adapter=adapter)
 
 
 def train_from_shards(cfg: CaptionerConfig, tcfg: TrainerConfig,
                       bcfg: BucketingConfig, shards_dir: str,
                       frozen: dict | None, recover: bool = False, *,
-                      device) -> dict:
+                      device, adapter=None) -> dict:
     """`tnt train`'s sequence without YAML: build the Trainer over the
     shards, recover first when asked (raising when there is nothing to
     recover, as `tnt train --recover` fails), then train."""
     trainer = make_trainer(cfg, tcfg, bcfg, shards_dir, frozen,
-                           device=device)
+                           device=device, adapter=adapter)
     if recover and not trainer.recover():
         raise FileNotFoundError(f"no checkpoint to recover in "
                                 f"{tcfg.serialization_dir}")

@@ -2,11 +2,13 @@
 tell_tpu.config_io.
 
 parse_yaml equals yaml.safe_load on every expt/*/*.yaml and on the edge
-cases of the subset; every YAML of the captioner family and of the modern
-family (expts 10 and 12, an LLMConfig) loads, overrides included, into
-configs equal field by field to tell_tpu's; every other YAML is refused
-with the ROADMAP queue item that ports it; an unknown key fails as it does
-in tell_tpu.
+cases of the subset; every YAML of the captioner family (the GloVe
+captioner, expt 2, among them), of the LSTM family (expts 1 and 3) and of
+the modern family (expts 10 and 12, an LLMConfig) loads, overrides
+included, into configs equal field by field to tell_tpu's, and
+data.glove_file is taken as tell_tpu takes it; the pointer YAMLs are
+refused with the ROADMAP queue item that ports them; an unknown key fails
+as it does in tell_tpu.
 """
 import dataclasses
 import glob
@@ -24,8 +26,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAMLS = sorted(os.path.relpath(p, ROOT)
                for p in glob.glob(os.path.join(ROOT, "expt", "*", "*.yaml")))
 
-# the YAMLs of the captioner family; every other one names its item
+# the YAMLs of the captioner and LSTM families; every other one names its
+# item
 LOADS = {
+    "expt/goodnews/1_lstm_glove.yaml",
+    "expt/goodnews/2_transformer_glove.yaml",
+    "expt/goodnews/3_lstm_roberta.yaml", "expt/nytimes/1_lstm_glove.yaml",
+    "expt/nytimes/2_transformer_glove.yaml",
+    "expt/nytimes/3_lstm_roberta.yaml",
     "expt/goodnews/4_no_image.yaml",
     "expt/goodnews/5_transformer_roberta.yaml",
     "expt/goodnews/6_transformer_weighted_roberta.yaml",
@@ -44,9 +52,8 @@ LOADS = {
 MODERN = {"expt/nytimes/10_vit_modern.yaml",
           "expt/nytimes/12_moe_modern.yaml"}
 REFUSED = {
-    "1_lstm_glove": "queue 1 item 9", "2_transformer_glove": "queue 1 item 9",
-    "3_lstm_roberta": "queue 1 item 9", "a1_pointer": "queue 1 item 9",
-    "a2_copy_fix": "queue 1 item 9", "a3_pointer_2": "queue 1 item 9",
+    "a1_pointer": "queue 1 item 9", "a2_copy_fix": "queue 1 item 9",
+    "a3_pointer_2": "queue 1 item 9",
 }
 OVERRIDES = ('{"trainer": {"serialization_dir": "/tmp/x", "num_epochs": 2},'
              ' "data": {"shards_dir": "/tmp/s"}, "model": {"gen_len": 7,'
@@ -113,13 +120,25 @@ def test_other_yamls_are_refused_with_their_item(path):
 @pytest.mark.parametrize("over, item", [
     ({"trainer": {"n_data": 2}}, "queue 1 item 10"),
     ({"trainer": {"n_model": 2}}, "queue 1 item 10"),
-    ({"data": {"glove_file": "glove.txt"}}, "queue 1 item 9"),
 ])
 def test_keys_the_port_cannot_honour_are_refused(over, item):
     path = os.path.join(ROOT, "expt/nytimes/9_transformer_objects.yaml")
     j_load(path, over)   # tell_tpu takes it
     with pytest.raises(NotPortedError, match=item):
         load_experiment(path, over)
+
+
+@pytest.mark.parametrize("path", ["expt/goodnews/1_lstm_glove.yaml",
+                                  "expt/nytimes/2_transformer_glove.yaml"])
+def test_glove_file_is_honoured_as_in_jax(path):
+    """data.glove_file (refused before data/glove.py) loads into the same
+    DataConfig as tell_tpu's; preprocess reads it (tests/
+    test_torch_glove.py)."""
+    full = os.path.join(ROOT, path)
+    over = {"data": {"glove_file": "/data/glove.840B.300d.txt"}}
+    exp = load_experiment(full, over)
+    assert exp.data.glove_file == "/data/glove.840B.300d.txt"
+    _assert_configs_equal(exp, j_load(full, over))
 
 
 @pytest.mark.parametrize("over", [

@@ -18,8 +18,10 @@ generate, a train step, the continuous-batching engine with the int8 K/V
 cache and the fused top-k, and kernel F's two forms; the modern family:
 expt 12's YAML loaded, a tiny ViT and RoBERTa through
 modern_encode_contexts, an MoE LM's greedy generate and LLMDecodeEngine
-with the int8 K/V cache) and checks that the plain paths ran: the
-kernels' launch counters stay 0.
+with the int8 K/V cache; the modern and LSTM families' train steps
+through their adapters' losses, the LSTM's greedy decode with the fused
+top-k, a GloVe lookup) and checks that the plain paths ran: the kernels'
+launch counters stay 0.
 """
 import json
 import os
@@ -165,6 +167,33 @@ leng = LLMDecodeEngine(lparams, lcfg, "cpu", slots=2, beam=2,
 lfut = leng.submit({k: v[:1] for k, v in menc.items()
                     if k != "context_ids"})
 leng.run_until_drained()
+from tell_tpu_torch.bridge import init_lstm_captioner
+from tell_tpu_torch.data.glove import GloveVectors
+from tell_tpu_torch.models.registry import get_model
+# the other families' training: expt 12's MoE LM and the LSTM (expt 3's
+# form) one train step each through their adapters' losses (the e2e one
+# encoding context_ids), the LSTM's greedy decode with the fused top-k
+lstm_cfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+    dec, contexts=dec.contexts[:2]), weigh_bert=False)
+steps = {}
+for name, mcfg, ids in (("modern", lcfg, batch["caption_ids"] % 300),
+                        ("lstm", lstm_cfg, batch["caption_ids"])):
+    ad = get_model(name, mcfg)
+    pp = ad.init(g, mcfg)
+    tb = {"context_ids": batch["context_ids"], "caption_ids": ids,
+          "image_grid": torch.randn(2, 5, 16, generator=g)
+          if name == "modern" else batch["image_grid"]}
+    loss_e2e = ad.loss_e2e or (lambda p, fz, c, b, gen, deterministic:
+                               ad.loss(p, c, ad.encode(fz, b), gen,
+                                       deterministic))
+    _, _, sm = make_train_step(mcfg, opt, loss=ad.loss, loss_e2e=loss_e2e)(
+        pp, opt.init(pp), tb, g, enc.frozen())
+    steps[name] = bool(torch.isfinite(sm["loss"]))
+    if name == "lstm":
+        with torch.inference_mode():
+            lstm_ids = ad.generate(pp, mcfg, ad.encode(enc.frozen(), tb),
+                                   fused_topk=True)["token_ids"]
+glove = GloveVectors({"the": torch.ones(300).numpy()}).embed_text("the cat")
 print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "text_round_trip": tok.decode(tok.encode(text)) == text,
                   "bpe": type(tok.bpe).__name__,
@@ -188,6 +217,8 @@ print(json.dumps({"modules": names, "jax_package": jax_pkg,
                              list(lfut.result(timeout=0)["token_ids"]
                                   .shape)],
                   "single": [list(single.shape), list(q4split.shape)],
+                  "other_families": [steps, list(lstm_ids.shape),
+                                     float(glove.sum())],
                   "launches": [decode_attention.launches,
                                encoder_attention.launches,
                                fused_dynamic_conv.launches,
@@ -228,7 +259,8 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                  "models.backbones.mtcnn", "models.backbones.facenet",
                  "models.backbones.yolov3", "ops.image_resize",
                  "models.llm_decoder", "models.registry", "ops.moe",
-                 "models.backbones.vit"):
+                 "models.backbones.vit", "models.lstm_decoder",
+                 "data.glove"):
         assert f"tell_tpu_torch.{name}" in res["modules"]
     assert res["jax_package"] == []
     assert res["jax_loaded"] is False
@@ -251,4 +283,6 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
     assert res["engine_beams"] == [2, 4]
     assert res["modern"] == ["LLMConfig", 8, [2, 5, 16], [2, 4], [2, 4]]
     assert res["single"] == [[2, 2, 4, 8], [2, 2, 4, 8]]
+    assert res["other_families"] == [{"modern": True, "lstm": True}, [2, 4],
+                                     300.0]
     assert res["launches"] == [0, 0, 0, 0, 0, 0, 0]

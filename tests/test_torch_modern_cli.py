@@ -9,9 +9,11 @@ weights (bridge.init_llm_decoder) stands in for a trained run. `evaluate`
 decodes and scores the valid split greedily and at beam 5 and refuses
 --fused-topk (the tied head has none); `serve` answers /caption in
 micro-batch and engine mode, and the engine refuses --attention as
-tell_tpu's does; `train` refuses the family by name, in the command.
-(tests/test_torch_llm_decoder.py and test_torch_modern_serving.py hold
-the decode and the service to tell_tpu's.)
+tell_tpu's does; `train` runs each expt for two epochs from the train
+split (the YAMLs' dropouts, 12's MoE at capacity 1.25), validates, and
+its best checkpoint evaluates. (tests/test_torch_llm_decoder.py,
+test_torch_llm_training.py and test_torch_modern_serving.py hold the
+decode, the loss and the service to tell_tpu's.)
 """
 import contextlib
 import io
@@ -24,7 +26,6 @@ import torch
 
 from tell_tpu_torch.bridge import init_llm_decoder
 from tell_tpu_torch.commands.__main__ import main
-from tell_tpu_torch.config import NotPortedError
 from tell_tpu_torch.config_io import load_experiment
 from tests.test_e2e_cli import _articles
 from tests.test_tokenizer import build_synthetic_vocab
@@ -120,10 +121,31 @@ def test_serve_answers_in_both_modes(runs, path):
               "--engine-slots", "2", "--attention"])
 
 
-def test_train_refuses_the_modern_family_by_name(runs):
-    yaml, over, _ = runs[EXPTS[1]]
-    with pytest.raises(NotPortedError, match="modern family's training"):
-        main(["train", yaml, "-o", over, "--device", "cpu"])
+@pytest.fixture(scope="module")
+def train_split(runs):
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert main(["preprocess", runs[EXPTS[0]][0], "-o",
+                     runs[EXPTS[0]][1], "-s", "train"]) == 0
+
+
+@pytest.mark.parametrize("path", EXPTS)
+def test_train_runs_the_modern_family(runs, train_split, path, capsys):
+    yaml, over, exp = runs[path]
+    run = exp.trainer.serialization_dir + "-train"
+    over = json.loads(over)
+    over["model"].update(dropout=0.1, attention_dropout=0.1)
+    over["trainer"].update(serialization_dir=run, num_epochs=2)
+    over = json.dumps(over)
+    assert main(["train", yaml, "-o", over, "--device", "cpu"]) == 0
+    assert _last_json(capsys)["epochs"] == 2
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        hist = [json.loads(line) for line in f]
+    assert len(hist) == 2 and all(h["batches"] == 3 and h["skipped"] == 0
+                                  and np.isfinite(h["val_loss"])
+                                  for h in hist)
+    assert main(["evaluate", yaml, "-o", over, "-s", "valid",
+                 "--device", "cpu"]) == 0
+    assert _last_json(capsys)["n_samples"] == 10
 
 
 def test_a_converted_vit_tower_is_loaded(runs, tmp_path):

@@ -3,8 +3,9 @@ serving/engine.py's LLMDecodeEngine, serving/server.py's adapter path)
 against tell_tpu on the CPU.
 
 get_model maps tell_tpu's names as tell_tpu does (vit_modern over a
-captioner config swaps in ViT-L's contexts; the pointer and LSTM names
-are refused with their ROADMAP item). LLMDecodeEngine, dense and MoE, fp
+captioner config swaps in ViT-L's contexts; the modern adapter carries
+llm_loss, the LSTM names tell_tpu's _lstm adapter; the pointer names are
+refused with their ROADMAP item). LLMDecodeEngine, dense and MoE, fp
 and int8 K/V: every schedule (staggered admissions, slot reuse, the
 max_lag=1 drain) answers each request with the port's one-shot
 llm_beam_search on it alone (ids and finished equal, scores within 1e-5),
@@ -163,15 +164,25 @@ def test_registry_maps_names_as_jax_does():
     for name in ("modern", "transformer_modern", "vit_modern"):
         ad = get_model(name, pcfg)
         assert ad.name == "modern" and ad.config is pcfg
-        assert ad.loss is None and ad.beam is P.llm_beam_search
+        assert ad.loss is P.llm_loss and ad.loss_e2e is P.llm_loss_e2e
+        assert ad.beam is P.llm_beam_search
     # a captioner YAML reused: vit swaps the ResNet grid's image spec
     for name, vit in (("transformer_modern", False), ("vit_modern", True)):
         got = get_model(name, cap).config
         want = j_get_model(name, JCaptioner()).config
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
         assert (got.contexts == VIT_CONTEXTS) is vit
-    for name in ("transformer_pointer", "pointer_2", "baseline_glove",
-                 "lstm_decoder_flattened"):
+    # the LSTM family: tell_tpu's _lstm adapter (no e2e loss of its own,
+    # no beam); transformer_glove is the captioner
+    from tell_tpu_torch.models import lstm_decoder as L
+    for name in ("lstm", "baseline_glove", "lstm_decoder_flattened"):
+        ad, jad = get_model(name, cap), j_get_model(name, JCaptioner())
+        assert (ad.name, ad.loss_e2e, ad.beam) == (jad.name, None, None)
+        assert ad.loss is L.lstm_captioner_loss
+        assert ad.generate is L.lstm_generate and ad.encode is not None
+    assert get_model("transformer_glove", cap).name == "captioner"
+    for name in ("pointer", "transformer_pointer", "pointer_2",
+                 "transformer_pointer_2"):
         with pytest.raises(NotPortedError, match="queue 1 item 9"):
             get_model(name, cap)
     with pytest.raises(KeyError):

@@ -7,6 +7,11 @@ to tell_tpu's ids for ids, warm start taking them, and `--recover`'s next
 epoch equal to tell_tpu's next epoch within the train-parity tolerance
 (1e-4); before the conversion each of the port's readers refuses the
 orbax run naming the converter. (The towers: test_torch_orbax_towers.py.)
+The other families' runs likewise: tell_tpu's Trainer trains the modern
+LM (dense, and with 2 experts at top-2) and the LSTM for two epochs
+through its registry adapter; converted, the port's Trainer with the
+port's adapter recovers the epoch-0 checkpoint (what `train -r` does) and
+its epoch 1 equals tell_tpu's within 1e-4.
 
 The run is test_torch_trainer_options.py's setup: small_test_config with
 a 32-wide article context, 3 batches an epoch, two epochs (ckpt-0, ckpt-1
@@ -48,15 +53,17 @@ torch.set_num_threads(2)
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
-def _jax_trainer(data, run_dir, **kw):
-    """tell_tpu's Trainer with its initial state made under jit (as
+def _jax_trainer(data, run_dir, adapter=None, **kw):
+    """tell_tpu's Trainer (of `adapter`'s family, default the captioner)
+    with its initial state made under jit (as
     test_torch_trainer_options.py makes it: the eager init is slow)."""
     train, valid = _feeds(data)
     jt = JTrainer(JCFG, JTrainerConfig(serialization_dir=str(run_dir),
                                        n_data=1, **{**RUN, **kw}),
-                  train, valid, frozen=data[2])
-    init = shard_params(jax.jit(lambda r: j_init_captioner(r, JCFG))(
-        jax.random.PRNGKey(0)), jt.mesh)
+                  train, valid, frozen=data[2], adapter=adapter)
+    init_fn = (lambda r: j_init_captioner(r, JCFG)) if adapter is None \
+        else (lambda r: adapter.init(r, adapter.config))
+    init = shard_params(jax.jit(init_fn)(jax.random.PRNGKey(0)), jt.mesh)
     opt = jt.optimizer.init(init)
     opt = opt._replace(step=jax.device_put(opt.step, NamedSharding(
         jt.mesh, PartitionSpec())))
@@ -65,11 +72,11 @@ def _jax_trainer(data, run_dir, **kw):
     return jt
 
 
-def _port_trainer(data, run_dir, **kw):
+def _port_trainer(data, run_dir, adapter=None, **kw):
     train, valid = _feeds(data)
     return Trainer(CFG, TrainerConfig(serialization_dir=str(run_dir),
                                       **{**RUN, **kw}),
-                   train, valid, data[3], device="cpu")
+                   train, valid, data[3], device="cpu", adapter=adapter)
 
 
 @pytest.fixture(scope="module")
@@ -201,3 +208,45 @@ def test_warm_start_and_recover_continue_as_tell_tpu(data, runs, tmp_path):
                     jax.tree.leaves(jax.tree.map(np.asarray,
                                                  jstate[0]["params"]))):
         np.testing.assert_allclose(g, w, **TOL)
+
+
+def _family(name):
+    """(tell_tpu's adapter, the port's) of a small config over the data's
+    contexts: the modern LM (dense or 2 experts) or the LSTM over the
+    image and the article."""
+    from tell_tpu.config import ContextSpec as JSpec
+    from tell_tpu.models.llm_decoder import LLMConfig as JLLM
+    from tell_tpu.models.registry import get_model as j_get_model
+    from tell_tpu_torch.config import ContextSpec, LLMConfig
+    from tell_tpu_torch.models.registry import get_model
+    if name == "lstm":
+        flat = lambda cfg: dataclasses.replace(cfg, decoder=(  # noqa: E731
+            dataclasses.replace(cfg.decoder,
+                                contexts=cfg.decoder.contexts[:2])))
+        return j_get_model("lstm", flat(JCFG)), get_model("lstm", flat(CFG))
+    specs = [(c.name, c.kv_dim, c.max_len) for c in CFG.decoder.contexts]
+    fields = dict(vocab_size=500, dim=16, num_layers=2, num_heads=2,
+                  num_kv_heads=1, ffn_dim=24, dropout=0.0,
+                  attention_dropout=0.0,
+                  max_target_positions=16, gen_len=5, loss_vocab_chunk=128,
+                  moe_experts=2 if name == "moe" else None)
+    return (j_get_model("modern", JLLM(**fields, contexts=tuple(
+                JSpec(*c) for c in specs))),
+            get_model("modern", LLMConfig(**fields, contexts=tuple(
+                ContextSpec(*c) for c in specs))))
+
+
+@pytest.mark.parametrize("family", ["modern", "moe", "lstm"])
+def test_other_families_recover_as_tell_tpu(data, tmp_path, family):
+    jad, pad = _family(family)
+    jt = _jax_trainer(data, tmp_path / "jax", adapter=jad, num_epochs=2)
+    jt.train()
+    orbax_to_torch.convert_run(str(tmp_path / "jax"), str(tmp_path / "port"))
+    shutil.rmtree(tmp_path / "port" / "checkpoints" / "ckpt-1")
+    tt = _port_trainer(data, tmp_path / "port", adapter=pad, num_epochs=2)
+    assert tt.recover() and tt.state["step"] == 3
+    tt.train()
+    assert tt.state["step"] == jt.state["step"] == 6
+    for key in ("loss", "val_loss"):
+        np.testing.assert_allclose(tt.metrics_history[-1][key],
+                                   jt.metrics_history[-1][key], **TOL)

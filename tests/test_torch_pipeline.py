@@ -5,7 +5,8 @@ corpus. Features: the port's write_features writes the JAX tool's bytes.
 Shards: preprocess_split (train and valid) writes the same members, array
 by array and string by string, on the quality corpus (grids and objects
 from the features) and on tests/test_e2e_cli.py's synthetic corpus. What
-the port cannot preprocess yet is refused with its ROADMAP item.
+the port cannot preprocess yet is refused with its ROADMAP item (GloVe
+features are held in tests/test_torch_glove.py).
 """
 import importlib.util
 import json
@@ -205,14 +206,6 @@ def test_raw_images_skip_without_a_tower_and_refuse_with_one(tmp_path):
         fn("c")
     with pytest.raises(ValueError, match="truncated"):
         fn("b")
-
-
-def test_glove_is_refused(tmp_path):
-    vf, mf = build_synthetic_vocab(tmp_path)
-    with pytest.raises(NotPortedError, match="queue 1 item 9"):
-        preprocess_split(iter([]), RobertaTokenizer.from_files(vf, mf),
-                         ReaderConfig(), str(tmp_path), "train",
-                         glove=object())
 
 
 def test_entity_occurrences_equal_jax():
