@@ -8,8 +8,8 @@ every phase passed):
   1. device and setup: needs CUDA; prints the card's name and power limit;
      TF32 off for matmuls and cuDNN (fp32 means fp32).
   2. build: compiles the hand-written kernels of tell_tpu_torch/csrc/ with
-     nvcc for sm_90a, and the host library of native/*.cpp (the C++ BPE,
-     shard reader and batch gather) with g++.
+     nvcc for sm_90a, and beside them the host library of native/*.cpp
+     (the C++ BPE, shard reader and batch gather) with g++.
   3. kernel vs plain on the card: kernel B (encoder attention; H=16,
      hd=64, S=128 and 512 at B=4 with 3/4, 1/3 and 1 key of S real, and
      at S=512 B=1 (the engine's single-request encode) and B=32 (phase
@@ -120,7 +120,8 @@ every phase passed):
      articles; kernel A must attend a source of >= 2048 columns and kernel
      B must encode four 512-token windows per article row; card vs CPU
      >= 15/16. Then the engine service (8 slots, beam 5, buckets
-     512/1024/2048, fp cache, exact top-k): 8 requests over the three
+     512/1024/2048, fp cache, exact top-k; not warmed up, as phase 8's
+     is, to keep the script inside its time): 8 requests over the three
      buckets, each held to a one-shot beam_search as in phase 8, with no
      near tie allowed: every answer equal; kernels A and B must launch, D
      and E must not.
@@ -131,7 +132,9 @@ every phase passed):
      per ablation); every variant within its error limit, and kernel F
      (both forms), A and D launched.
  12. text in, scored captions out, through `python -m
-     tell_tpu_torch.commands` at full width: expt/quality/overfit_flagship
+     tell_tpu_torch.commands` at full width (each command through the
+     module's main() in this process, its log captured, and `score` as a
+     program of its own): expt/quality/overfit_flagship
      .yaml (transformer_faces_objects, RoBERTa-large, bf16 training, 512
      article tokens) with an override that puts the run, the shards and
      the features in a temporary directory and num_epochs at 2: the
@@ -258,8 +261,9 @@ every phase passed):
  17. the modern family (expts 10 and 12, RoPE + GQA decoder over the four
      contexts, dense and 8-expert top-2 MoE) at the YAMLs' full width
      (dim 1024, 16 heads, 4 KV heads, FFN 2816, vocab 50265, gen_len 100;
-     contexts 197x1024, 512x1024, 4x512, 64x2048) and MODERN_LAYERS = 4 of
-     their 8 layers (phase 18 trains all 8), with random
+     contexts 197x1024, 512x1024, 4x512, 64x2048), expt 10 at
+     MODERN_LAYERS = 3 and expt 12 at FAMILY_LAYERS = 2 of their 8
+     layers, with random
      weights from the seed, RoBERTa-large and a full ViT-L/16: (a) two
      224 x 224 images through modern_encode_contexts' ViT, card vs CPU
      within FEATURE_REL_TOL, then ViT-L ms per image at B=1 and 16 and
@@ -279,9 +283,11 @@ every phase passed):
      features the engine encodes for it under phase 8's near-tie rule;
      (c) expt 10's engine again under the int8 K/V lever on 8 of them
      (kernel D required, A not), held the same way.
- 18. the other families trained, each YAML at full width with random
+ 18. the other families trained, each YAML at full width (expts 10 and
+     12 at FAMILY_LAYERS = 2 of their 8 layers) with random
      weights from the seed and one seeded RoBERTa-large saved as the
-     command line's tower: (a) expts 10 and 12 (fp32, TF32 off): the
+     command line's tower (shared with phase 19): (a) expts 10 and 12
+     (fp32, TF32 off): the
      deterministic llm_loss and every gradient at B=2 with 32-token
      captions and precomputed contexts (image 197 x 1024, article 512 x
      1024, faces, objects), card vs CPU within phase 6's limits, and for
@@ -306,12 +312,43 @@ every phase passed):
      data.glove_file, train two steps, evaluate greedily on the card, and
      one served request of expt 1, which fails as tell_tpu's does after
      kernel B encodes its article; (e) B's and E's launches per part.
+ 19. the pointer family (expts a1 and a3: the faces captioner, E 1024,
+     kernel sizes 3/7/15/31, contexts image 49 x 2048, article 512 x 1024
+     as RoBERTa-large's 25 layers mixed (weigh_bert), faces 4 x 512, so
+     S = 565 + 6 bias and zero columns; the entity and copy heads) at the
+     YAMLs' full width with random weights from the seed and phase 18's
+     RoBERTa-large tower: (a) pointer_loss v1 (a1) and v2 (a3) and every
+     gradient at B=2, 32-token captions with three entities planted, fp32,
+     card vs CPU within phase 6's limits (the adaptive softmax, which only
+     the reported generation loss reads, gets no gradient); (b) a
+     micro-batch service over HTTP (max_batch 4) with four /caption
+     requests on the quality corpus's articles: entities as strings, as
+     NER dicts, absent from the text, and none; kernels A at MG=3 and B
+     counted and required, a copy step in a request with entities and
+     none in the other two, and the two entity requests' greedy ids on the
+     CPU from the features the card was given: equal, or split where the
+     CPU's decode along the card's prefix has a near tie (POINTER_TIE) in
+     the entity head's logits, the generator's top two or the two best
+     copy masses, the margins printed; (c) `train` a1 (2 epochs of 2
+     steps of 16 x (512, 32), bf16, the YAML's dropouts) on synthetic
+     shards with copy masks, warm-started from a seeded faces captioner's
+     checkpoint (params["captioner"] equal to it bit for bit before step
+     1), then a3 (v2) one epoch the same way; B and C (validation)
+     required; CUDA-event ms of a1's steady steps and the peak memory;
+     (d) `evaluate` a1 greedily on 4 captions (A and B, the shards' proper
+     masks reaching the decode); (e) `serve --engine-slots 2` refused with
+     tell_tpu's error; the launches of A, B and C per part.
 Then a line of each phase's wall seconds, one JSON line describing the
 kernels and, last, the result line.
 
     python3 chip_smoke.py --cli
 
 runs phases 1-2, then phase 12 only; no result line.
+
+    python3 chip_smoke.py --pointer
+
+runs phases 1-2, then phase 19 only (its own RoBERTa-large tower); no
+result line.
 
     python3 chip_smoke.py --quality [--quality-out DIR]
 
@@ -1559,10 +1596,26 @@ def _rel_l2(grads, ref):
             for a, b in zip(grads, ref)]
 
 
-def _loss_grads(loss, params, batch, where, label) -> tuple:
+def _leaf_paths(tree, prefix: str = "") -> list:
+    """The "a/b/c" path of every leaf of a nested dict/list/tuple tree,
+    in bridge.tree_leaves' order."""
+    if isinstance(tree, dict):
+        return [q for k, v in tree.items()
+                for q in _leaf_paths(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [q for i, v in enumerate(tree)
+                for q in _leaf_paths(v, f"{prefix}{i}/")]
+    return [prefix.rstrip("/")]
+
+
+def _loss_grads(loss, params, batch, where, label,
+                unused: str | None = None) -> tuple:
     """loss(params, batch) -> (loss, aux) on fresh leaf copies of params
     and of the numpy batch on `where`, then its backward: (the loss, aux,
-    every leaf's gradient)."""
+    every leaf's gradient). unused: the path prefix of a subtree that the
+    loss must not reach (the pointer's adaptive softmax, which only its
+    reported generation loss reads): its leaves must get no gradient and
+    are left out of the returned list; every other leaf must get one."""
     from tell_tpu_torch.bridge import to_torch, tree_leaves, tree_map
     p = tree_map(lambda t: t.detach().clone().requires_grad_(),
                  to_torch(params, where))
@@ -1570,6 +1623,12 @@ def _loss_grads(loss, params, batch, where, label) -> tuple:
     value, aux = loss(p, tb)
     value.backward()
     grads = [x.grad for x in tree_leaves(p)]
+    if unused is not None:
+        skip = [q.startswith(unused + "/") for q in _leaf_paths(p)]
+        require(any(skip), f"{label}: no leaf under {unused}")
+        require(all(g is None for g, s in zip(grads, skip) if s),
+                f"{label}: a leaf under {unused} got a gradient")
+        grads = [g for g, s in zip(grads, skip) if not s]
     require(all(g is not None for g in grads), f"{label}: a leaf got no "
             "gradient")
     return value.item(), aux, grads
@@ -1660,12 +1719,16 @@ def phase_train_cpu_vs_card(seed: int, cfg, dev: str = "cuda") -> dict:
 # phase 7: the trainer on the card
 # ---------------------------------------------------------------------------
 
-def _write_shards(rng, cfg, vocab, directory, n_train=48, n_valid=16):
+def _write_shards(rng, cfg, vocab, directory, n_train=48, n_valid=16,
+                  copy_masks=False):
     """Synthetic examples for the (512, 32) bucket of cfg's contexts (a
     CaptionerConfig's or an LLMConfig's): 512 context ids, a caption of
     17-32 ids, the image context's grid precomputed (49 x 2048 at the
     flagship, 197 x 1024 ViT tokens for the modern family), and 0-4 faces
-    and 0-64 objects where the contexts have them (the rest absent)."""
+    and 0-64 objects where the contexts have them (the rest absent).
+    copy_masks adds the pointer models' proper_masks and
+    caption_copy_masks: 1-3 entities, each an article id at two positions
+    and in the caption, indexed from 1 (0 elsewhere)."""
     from tell_tpu_torch.data.records import write_shard
     dcfg = getattr(cfg, "decoder", cfg)
     spec = {c.name: (c.max_len, c.kv_dim) for c in dcfg.contexts}
@@ -1687,6 +1750,19 @@ def _write_shards(rng, cfg, vocab, directory, n_train=48, n_valid=16):
                 n, dim = spec[name]
                 ex[key] = rng.normal(size=(int(rng.integers(0, n + 1)),
                                            dim)).astype(np.float32)
+        if copy_masks:
+            ctx, cap = ex["context_ids"], ex["caption_ids"]
+            proper = np.zeros(len(ctx), np.int32)
+            cmask = np.zeros(len(cap), np.int32)
+            places = rng.choice(np.arange(1, len(cap) - 1),
+                                size=min(3, len(cap) - 2), replace=False)
+            for e, c in enumerate(places[:int(rng.integers(1, 4))], 1):
+                a, b = rng.choice(np.arange(1, len(ctx) - 1), 2,
+                                  replace=False)
+                ctx[[a, b]] = cap[c] = rng.integers(3, dcfg.vocab_size)
+                proper[[a, b]] = e
+                cmask[c] = e
+            ex["proper_masks"], ex["caption_copy_masks"] = proper, cmask
         return ex
 
     os.makedirs(directory, exist_ok=True)
@@ -2040,14 +2116,14 @@ LONG_ENGINE_ROUTED = {512: 2, 1024: 2, 2048: 4}
 # phase 10's engine: fp cache, exact top-k, every answer equal
 LONG_ENGINE = dict(label="phase 10", articles=LONG_ENGINE_ARTICLES,
                    routed_want=LONG_ENGINE_ROUTED, kv_cache="fp",
-                   fused_topk=False, int4=False, tie_tol=None)
+                   fused_topk=False, int4=False, tie_tol=None, warm=False)
 
 
 def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda",
                  label: str = "phase 8", articles=ENGINE_ARTICLES,
                  routed_want=ENGINE_ROUTED, kv_cache: str = "int8",
                  fused_topk: bool = True, int4: bool = True,
-                 tie_tol: float | None = TIE_TOL):
+                 tie_tol: float | None = TIE_TOL, warm: bool = True):
     """The engine service over HTTP (see the module docstring, phases 8
     and 10): built without article_len, engine_buckets on, the requests in
     staggered bursts of four, each answer held to a one-shot beam_search
@@ -2056,7 +2132,9 @@ def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda",
     searches split (_beam_split). Kernel A launches exactly where the
     cache is fp, kernel D where it is quantised, kernel E where
     fused_topk is on; kernel B always. With int4, one int4 beam_search
-    at B=8 after. Returns the service, the requests, the kernels' launch
+    at B=8 after. warm: the service's warm-up runs before the requests
+    (phase 8 drives it; phase 10 goes without, for the script's time).
+    Returns the service, the requests, the kernels' launch
     counts and the differing answers' (request, gap). Where an answer
     differs, both searches' ranked candidates at the step where they split
     are logged (_engine_trace, _log_candidates)."""
@@ -2078,10 +2156,16 @@ def phase_engine(seed: int, cfg, rcfg, dev: str = "cuda",
                          dev, engine_slots=8, engine_beam=5,
                          engine_buckets=True, encode_batch=8,
                          kv_cache=kv_cache, fused_topk=fused_topk)
-    warm = svc.warmup()
+    what = (f"{kv_cache} cache, {'fused' if fused_topk else 'exact'} "
+            "top-k")
+    if warm:
+        w = svc.warmup()
+        what = (f"warm-up {w['seconds']:.1f} s over widths {w['widths']}; "
+                + what)
+    else:
+        what = "no warm-up; " + what
     log(f"{label}: engine service up in {time.perf_counter() - t0:.1f} s "
-        f"(warm-up {warm['seconds']:.1f} s over widths {warm['widths']}; "
-        f"{kv_cache} cache, {'fused' if fused_topk else 'exact'} top-k)")
+        f"({what})")
     rng = np.random.default_rng(seed + 3)
     reqs = [_request(rng, cfg, n, int(rng.integers(0, 5)),
                      int(rng.integers(0, 65)), rcfg.vocab_size)
@@ -2319,21 +2403,56 @@ GENERATION_FIELDS = {"caption", "generation", "image_hash", "web_url",
                      "gen_np"}
 
 
-def _cli(argv, label, module="tell_tpu_torch.commands"
-         ) -> tuple[dict, float, str]:
-    """`python -m <module> argv` from the repo root; returns the last JSON
-    object it printed, its wall seconds and its stderr (the log)."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = {**os.environ, "PYTHONPATH": root}
-    t = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", module] + argv, cwd=root,
-                          env=env, capture_output=True, text=True)
-    dt = time.perf_counter() - t
-    require(proc.returncode == 0, f"{label}: {argv[0]} exited "
-            f"{proc.returncode}\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    out = proc.stdout
+def _cli(argv, label, module="tell_tpu_torch.commands",
+         program: bool = False) -> tuple[dict, float, str]:
+    """`python -m <module> argv`: in this process through the module's
+    main(), its stdout captured and its log (INFO, the format of
+    logging.basicConfig) as the program's stderr would hold it; or, with
+    `program`, as a program of its own from the repo root (an interpreter
+    and torch start, 10-15 s on the card's host). Returns the last JSON
+    object it printed, its wall seconds and its log."""
+    if program:
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = {**os.environ, "PYTHONPATH": root}
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", module] + argv,
+                              cwd=root, env=env, capture_output=True,
+                              text=True)
+        dt = time.perf_counter() - t
+        rc, out, err = proc.returncode, proc.stdout, proc.stderr
+    else:
+        import importlib
+        import logging
+        mod = importlib.import_module(module)
+        main = getattr(mod, "main", None) or importlib.import_module(
+            module + ".__main__").main
+        out_buf, err_buf = io.StringIO(), io.StringIO()
+        handler = logging.StreamHandler(err_buf)
+        handler.setFormatter(logging.Formatter(logging.BASIC_FORMAT))
+        root_log = logging.getLogger()
+        level = root_log.level
+        root_log.addHandler(handler)
+        root_log.setLevel(logging.INFO)
+        t = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out_buf), \
+                    contextlib.redirect_stderr(err_buf):
+                rc = main(argv)
+        finally:
+            root_log.removeHandler(handler)
+            root_log.setLevel(level)
+        dt = time.perf_counter() - t
+        out, err = out_buf.getvalue(), err_buf.getvalue()
+    require(rc == 0, f"{label}: {argv[0]} exited {rc}\n{out[-3000:]}\n"
+            f"{err[-3000:]}")
     return ((json.loads(out[out.index("{"):]) if "{" in out else {}), dt,
-            proc.stderr)
+            err)
+
+
+def _cli_json(argv, label) -> dict:
+    """_cli in this process (where the kernels' launch counters count the
+    command's launches): its last JSON object."""
+    return _cli(argv, label)[0]
 
 
 def _cli_overrides(tmp, extra=None) -> dict:
@@ -2401,7 +2520,9 @@ def phase_cli(card: str, dev: str = "cuda", expt: str = QUALITY_EXPT,
                 metrics = out
         run = exp.trainer.serialization_dir
         gen_path = os.path.join(run, "generations-train.jsonl")
-        scored, secs["score"], _ = _cli(["score", gen_path], "phase 12")
+        # the one command run as a program: `python -m` itself starts
+        scored, secs["score"], _ = _cli(["score", gen_path], "phase 12",
+                                        program=True)
         with open(os.path.join(run, "metrics.jsonl")) as f:
             hist = [json.loads(line) for line in f]
         with open(gen_path) as f:
@@ -2809,6 +2930,7 @@ def _sibling_request(rng, cfg, n_ids, vocab, n_faces=2, n_objs=10):
 def _reset_counts():
     from tell_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, decode_attention_q8)
+    from tell_tpu_torch.ops.kernels.dynamic_conv import fused_dynamic_conv
     from tell_tpu_torch.ops.kernels.encoder_attention import (
         encoder_attention)
     from tell_tpu_torch.ops.kernels.topk_logits import topk_logits
@@ -2816,11 +2938,13 @@ def _reset_counts():
         fn.launches, fn.rows = 0, collections.Counter()
     encoder_attention.launches = encoder_attention.sequences = 0
     topk_logits.launches, topk_logits.ks = 0, collections.Counter()
+    fused_dynamic_conv.launches = 0
 
 
 def _counts() -> dict:
     from tell_tpu_torch.ops.kernels.decode_attention import (
         decode_attention, decode_attention_q8)
+    from tell_tpu_torch.ops.kernels.dynamic_conv import fused_dynamic_conv
     from tell_tpu_torch.ops.kernels.encoder_attention import (
         encoder_attention)
     from tell_tpu_torch.ops.kernels.topk_logits import topk_logits
@@ -2832,7 +2956,8 @@ def _counts() -> dict:
             "decode_attention_q8_rows": dict(sorted(decode_attention_q8.rows
                                                     .items())),
             "topk_logits": topk_logits.launches,
-            "topk_logits_ks": dict(sorted(topk_logits.ks.items()))}
+            "topk_logits_ks": dict(sorted(topk_logits.ks.items())),
+            "fused_dynamic_conv": fused_dynamic_conv.launches}
 
 
 def _forced_rows(svc, reqs, captions, dev, steps=16):
@@ -4325,7 +4450,6 @@ def _check_towers_verify(trees: dict, seed: int, dev) -> dict:
     from tell_tpu_torch.commands import towers as verify
     from tell_tpu_torch.models.backbones.roberta import RobertaConfig
     from tell_tpu_torch.models.backbones.vit import ViTConfig
-    root = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_verify_")
     try:
         g = torch.Generator().manual_seed(seed + 16)
@@ -4337,17 +4461,18 @@ def _check_towers_verify(trees: dict, seed: int, dev) -> dict:
             os.makedirs(os.path.join(tmp, name))
             torch.save(to_torch(tree, "cpu"),
                        os.path.join(tmp, name, "state.pt"))
+        # the command through its main() in this process (an interpreter
+        # start is 10-15 s on the card's host); its stdout is the rows
+        from tell_tpu_torch.commands.__main__ import main as cli_main
+        buf = io.StringIO()
         t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "tell_tpu_torch.commands", "towers",
-             "verify", tmp, "--json", "--device", dev], cwd=root,
-            env={**os.environ, "PYTHONPATH": root}, capture_output=True,
-            text=True)
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["towers", "verify", tmp, "--json", "--device",
+                           dev])
         verify_s = time.perf_counter() - t
-        require(proc.returncode == 0, "phase 16: towers verify exited "
-                f"{proc.returncode}\n{proc.stdout[-3000:]}\n"
-                f"{proc.stderr[-3000:]}")
-        rows = {r["tower"]: r for r in json.loads(proc.stdout)}
+        require(rc == 0, f"phase 16: towers verify exited {rc}\n"
+                f"{buf.getvalue()[-3000:]}")
+        rows = {r["tower"]: r for r in json.loads(buf.getvalue())}
         for name, shapes in VERIFY_SHAPES.items():
             require(rows[name]["status"] == "CONVERTED"
                     and rows[name]["outputs"] == shapes,
@@ -4422,13 +4547,15 @@ MODERN_EXPTS = ("expt/nytimes/10_vit_modern.yaml",
 # requests decoded card vs CPU, greedy and beam 5 (2, not 3, since phase
 # 18 joined the script: the CPU's searches are most of phase 17's time)
 MODERN_SEARCH_ROWS = 2
-# the LM's depth in phase 17: 4 of the YAMLs' 8 layers. Every layer has
-# the same shapes, so each kernel still runs at the full width's; phase 18
-# trains all 8. Cut when phase 18 joined the script, to keep the whole run
-# inside its time limit. At 2 layers the int8 beam search split card vs
+# the LM's depth in phase 17: 3 of the YAMLs' 8 layers for expt 10,
+# FAMILY_LAYERS for expt 12. Every layer has the same shapes, so each
+# kernel still runs at the full width's. Cut to 4 when phase 18 joined
+# the script and to 3 when phase 19 did, to keep the whole run inside
+# its time limit. At 2 layers expt 10's int8 beam search split card vs
 # CPU 2 steps after a 1.5e-5 near tie, by a margin (4.6e-2) that
-# _modern_int8_search's rule refuses, so the cut stops at 4.
-MODERN_LAYERS = 4
+# _modern_int8_search's rule refuses, so its cut stops at 3; expt 12 has
+# no int8 check and goes to 2.
+MODERN_LAYERS = 3
 # their greedy log-probs and beam-5 scores (sums over up to 100 steps),
 # card vs CPU: 1.9e-6 and 0 at one request per expt, fp cache, on an
 # H100; a wrong kernel moves them by O(1)
@@ -4822,7 +4949,8 @@ def _modern_expt(exp_path, seed, rcfg, roberta, dev, card, shrink, rng,
 def phase_modern(seed: int, card: str, dev: str = "cuda", rcfg=None,
                  vcfg=None, shrink=None) -> dict:
     """Phase 17 (see the module docstring): the ViT-L/16 tower, then expts
-    10 and 12 at the YAMLs' full width and MODERN_LAYERS of their layers,
+    10 and 12 at the YAMLs' full width and MODERN_LAYERS (10) or
+    FAMILY_LAYERS (12) of their layers,
     on one RoBERTa (rcfg, default RoBERTa-large) with random weights from
     the seed; the int8 engine on expt 10. A CPU rehearsal passes a small
     rcfg and vcfg and a shrink that narrows the LM. Returns the launches
@@ -4836,7 +4964,8 @@ def phase_modern(seed: int, card: str, dev: str = "cuda", rcfg=None,
     rcfg = rcfg or RobertaConfig.large()
     vcfg = vcfg or ViTConfig.large()
     shrink = shrink or (lambda cfg: dataclasses.replace(
-        cfg, num_layers=MODERN_LAYERS))
+        cfg, num_layers=(FAMILY_LAYERS if cfg.moe_experts
+                         else MODERN_LAYERS)))
     res = {"vit": _check_vit(seed, shrink(load_experiment(
         MODERN_EXPTS[0]).model), vcfg, dev, card)}
     g = torch.Generator(device=dev).manual_seed(seed + 1)
@@ -4871,6 +5000,12 @@ FAMILY_EXPTS = {10: "expt/nytimes/10_vit_modern.yaml",
                 1: "expt/nytimes/1_lstm_glove.yaml",
                 2: "expt/nytimes/2_transformer_glove.yaml",
                 3: "expt/nytimes/3_lstm_roberta.yaml"}
+# the LM's depth in phase 18 (its trained modern expts) and of phase 17's
+# MoE expt 12: 2 of the YAMLs' 8 layers, each at the full width's shapes.
+# Neither holds an int8 decode against a near-tie rule, so they go below
+# MODERN_LAYERS; cut when phase 19 joined the script, to keep the whole
+# run inside its time limit.
+FAMILY_LAYERS = 2
 # expt 12 card vs CPU: a (token, choice) pair routed to another expert, or
 # kept on one side and dropped on the other, passes only where the CPU's
 # router probabilities of the two experts lie within ROUTER_TIE (the two
@@ -4982,11 +5117,13 @@ def _routing_split(card, cpu) -> dict:
             "max_gap": worst}
 
 
-def _family_grads(seed, path, dev, over, label) -> dict:
+def _family_grads(seed, path, dev, over, label, make_batch=None,
+                  unused: str | None = None) -> dict:
     """The deterministic loss of the expt's family and every gradient,
     fp32, on the card and on the CPU from the same weights and batch
     (phase 6's limits, _hold_card_vs_cpu); expt 12's routing compared pair
-    by pair."""
+    by pair. make_batch(rng, cfg) makes the batch (default
+    _family_batch); unused as _loss_grads'."""
     from tell_tpu_torch.config_io import load_experiment
     from tell_tpu_torch.models.registry import get_model
     t0 = time.perf_counter()
@@ -4995,7 +5132,7 @@ def _family_grads(seed, path, dev, over, label) -> dict:
     cfg = adapter.config
     moe = bool(getattr(cfg, "moe_experts", None))
     params = adapter.init(torch.Generator(device=dev).manual_seed(seed), cfg)
-    batch = _family_batch(np.random.default_rng(seed), cfg)
+    batch = (make_batch or _family_batch)(np.random.default_rng(seed), cfg)
     out, routes = {}, {}
     for where in (dev, "cpu"):
         calls = routes[where] = []
@@ -5005,9 +5142,12 @@ def _family_grads(seed, path, dev, over, label) -> dict:
                   else contextlib.nullcontext()):
                 return adapter.loss(p, cfg, tb)
 
-        value, aux, grads = _loss_grads(loss, params, batch, where, label)
+        value, aux, grads = _loss_grads(loss, params, batch, where, label,
+                                        unused)
         out[where] = (value, grads)
-    line = {"expt": exp.name, "sample_size": int(aux["sample_size"])}
+    line = {"expt": exp.name,
+            **{k: float(torch.as_tensor(v).detach()) for k, v in aux.items()
+               if k != "tail_dropped"}}
     if moe:
         line["routing"] = _routing_split(routes[dev], routes["cpu"])
         line["routing"]["pairs_total"] = sum(
@@ -5057,20 +5197,6 @@ def _family_over(tmp, expt, vf, mf, roberta, small, **extra) -> dict:
     return over
 
 
-def _run_cli(argv, label) -> dict:
-    """`python -m tell_tpu_torch.commands argv` run in this process through
-    its main(): unlike _cli's subprocess, the kernels' launch counters of
-    this process then count the command's launches. Its last JSON
-    object."""
-    from tell_tpu_torch.commands.__main__ import main
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = main(argv)
-    require(rc == 0, f"{label}: {argv[0]} exited {rc}")
-    text = buf.getvalue()
-    return json.loads(text[text.index("{"):]) if "{" in text else {}
-
-
 def _family_train(path, over, dev, label) -> dict:
     """`train` through the command line; the epochs' readings, the
     launches and the peak memory above the start."""
@@ -5080,7 +5206,7 @@ def _family_train(path, over, dev, label) -> dict:
         before = torch.cuda.memory_allocated()
     _reset_counts()
     t = time.perf_counter()
-    result = _run_cli(["train", path, "-o", json.dumps(over), "--device",
+    result = _cli_json(["train", path, "-o", json.dumps(over), "--device",
                        dev], label)
     wall = time.perf_counter() - t
     counts = _counts()
@@ -5099,7 +5225,8 @@ def _family_train(path, over, dev, label) -> dict:
                                           "epoch_seconds")} for h in hist],
             "wall_s": wall, "launches": {
                 k: counts[k] for k in ("encoder_attention", "topk_logits",
-                                       "decode_attention")}}
+                                       "decode_attention",
+                                       "fused_dynamic_conv")}}
     if dev == "cuda":
         line["peak_gib"] = (torch.cuda.max_memory_allocated()
                             - before) / 2**30
@@ -5280,7 +5407,7 @@ def _family_lstm_decode(path, over, dev, label) -> dict:
         inner = _record_generate(LD, "lstm_generate", calls)
         _reset_counts()
         try:
-            metrics = _run_cli(argv + extra, f"{label} evaluate {name}")
+            metrics = _cli_json(argv + extra, f"{label} evaluate {name}")
         finally:
             LD.lstm_generate = inner
         require(metrics.get("n_samples") == FAMILY_EVAL and len(calls) == 1,
@@ -5403,7 +5530,7 @@ def _family_glove(tmp, vf, mf, roberta, dev, small, label) -> dict:
         t = time.perf_counter()
         line = {"examples": {}}
         for split in ("train", "valid"):
-            n = _run_cli(["preprocess", path, "-o", json.dumps(over), "-s",
+            n = _cli_json(["preprocess", path, "-o", json.dumps(over), "-s",
                           split], label)["examples"]
             require(n > 0, f"{label}: preprocess {split} wrote nothing")
             line["examples"][split] = n
@@ -5412,7 +5539,7 @@ def _family_glove(tmp, vf, mf, roberta, dev, small, label) -> dict:
         _reset_counts()
         ev = {**over, "bucketing": {**over["bucketing"],
                                     "max_batch": FAMILY_EVAL}}
-        metrics = _run_cli(["evaluate", path, "-o", json.dumps(ev), "-s",
+        metrics = _cli_json(["evaluate", path, "-o", json.dumps(ev), "-s",
                             "valid", "--limit", str(FAMILY_EVAL),
                             "--device", dev], f"{label} expt {expt}")
         require(metrics.get("n_samples") == FAMILY_EVAL,
@@ -5449,37 +5576,68 @@ def _family_glove(tmp, vf, mf, roberta, dev, small, label) -> dict:
     return out
 
 
+SHARED_SETUP = ("towers", "vocab.json", "merges.txt")
+
+
+def _family_setup(tmp, seed, roberta) -> tuple:
+    """One seeded RoBERTa saved as the command line's tower (towers/
+    roberta, beside the shards under tmp) and the smoke vocabulary's
+    files, made once for phases 18 and 19 (SHARED_SETUP): (rcfg, vf,
+    mf). The synthetic articles hold that vocabulary's ids."""
+    from tell_tpu_torch.bridge import init_roberta
+    from tell_tpu_torch.models.backbones.roberta import RobertaConfig
+    rcfg = getattr(RobertaConfig, roberta)()
+    state = os.path.join(tmp, "towers", "roberta", "state.pt")
+    if not os.path.exists(state):
+        os.makedirs(os.path.dirname(state), exist_ok=True)
+        torch.save(init_roberta(torch.Generator().manual_seed(seed + 18),
+                                rcfg), state)
+    vf, mf = os.path.join(tmp, "vocab.json"), os.path.join(tmp,
+                                                            "merges.txt")
+    if not os.path.exists(mf):
+        vf, mf = _family_vocab(tmp, 50265)
+    return rcfg, vf, mf
+
+
+def _clear_runs(tmp, own: bool) -> None:
+    """The phase's directory gone, or, where the caller shares it, all
+    but SHARED_SETUP (the runs' checkpoints are GBs)."""
+    if own:
+        shutil.rmtree(tmp, ignore_errors=True)
+        return
+    for name in os.listdir(tmp):
+        if name not in SHARED_SETUP:
+            path = os.path.join(tmp, name)
+            (shutil.rmtree(path, ignore_errors=True) if os.path.isdir(path)
+             else os.remove(path))
+
+
 def phase_families(seed: int, card: str, dev: str = "cuda",
-                   small: dict | None = None) -> dict:
+                   small: dict | None = None, tmp: str | None = None
+                   ) -> dict:
     """Phase 18 (see the module docstring): expts 10 and 12 (the modern
     LM, dense and MoE), 3 (the LSTM over RoBERTa, bf16), 1 and 2 (GloVe)
     trained at the YAMLs' full width with random weights from the seed.
     `small` narrows each expt by an override ({expt: {"model": ...}}) and
-    takes the tiny RoBERTa for a CPU rehearsal. Returns the launches of B
-    and E on this path and the readings."""
-    from tell_tpu_torch.bridge import init_roberta
+    takes the tiny RoBERTa for a CPU rehearsal. tmp: a directory shared
+    with phase 19 (its _family_setup kept), else one of its own. Returns
+    the launches of B and E on this path and the readings."""
     from tell_tpu_torch.config_io import load_experiment
-    from tell_tpu_torch.models.backbones.roberta import RobertaConfig
     t0 = time.perf_counter()
     roberta = "tiny" if small else "large"
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    own = tmp is None
+    tmp = tmp or tempfile.mkdtemp(prefix="chip_smoke_families_")
     res = {"launches": {}}
     try:
-        # one seeded RoBERTa for every command (the towers beside the
-        # shards), its vocabulary's ids in the synthetic articles
-        rcfg = getattr(RobertaConfig, roberta)()
-        os.makedirs(os.path.join(tmp, "towers", "roberta"))
-        torch.save(init_roberta(torch.Generator().manual_seed(seed + 18),
-                                rcfg),
-                   os.path.join(tmp, "towers", "roberta", "state.pt"))
-        vf, mf = _family_vocab(tmp, 50265)
+        rcfg, vf, mf = _family_setup(tmp, seed, roberta)
         res["setup_seconds"] = time.perf_counter() - t0
         # (a) and (b): expts 10 and 12
         for expt in (10, 12):
             path = FAMILY_EXPTS[expt]
             label = f"phase 18 ({card or dev}) expt {expt}"
             t1 = time.perf_counter()
-            over = _family_over(tmp, expt, vf, mf, roberta, small)
+            over = _family_over(tmp, expt, vf, mf, roberta, small, **(
+                {} if small else {"model": {"num_layers": FAMILY_LAYERS}}))
             model_over = json.dumps({"model": over.get("model", {})})
             line = {"grads": _family_grads(seed, path, dev, model_over,
                                            label)}
@@ -5521,7 +5679,7 @@ def phase_families(seed: int, card: str, dev: str = "cuda",
         res["glove"] = _family_glove(tmp, vf, mf, roberta, dev, small, label)
         log(f"{label}: {json.dumps(res['glove'])}")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        _clear_runs(tmp, own)
     # (e): B's and E's launches on each sub-part
     b = {"b_expt10": res[10]["train"]["launches"]["encoder_attention"],
          "b_expt12": res[12]["train"]["launches"]["encoder_attention"],
@@ -5544,6 +5702,404 @@ def phase_families(seed: int, card: str, dev: str = "cuda",
     res["seconds"] = time.perf_counter() - t0
     log(f"phase 18 ({card or dev}): launches {json.dumps(res['launches'])}; "
         f"done in {res['seconds']:.1f} s")
+    return res
+
+
+POINTER_EXPTS = {"a1": "expt/nytimes/a1_pointer.yaml",
+                 "a3": "expt/nytimes/a3_pointer_2.yaml"}
+# phase 19: greedy ids card vs CPU on the same features are equal, or
+# split where, at the first differing step of the CPU's decode along the
+# card's prefix, one of its three decisions is a near tie: the entity
+# head's two logits, the generator's top two log-probs (each within
+# POINTER_TIE; a card-vs-CPU drift of the features is ~1e-5 there) or the
+# copy masses of the two best distinct tokens (within POINTER_TIE
+# relative)
+POINTER_TIE = 1e-3
+POINTER_EVAL = 4           # captions evaluated (expt a1)
+POINTER_ROWS = 16          # the YAML's bucket: 16384 // (512 + 32) -> 16
+
+
+def _pointer_batch(rng, cfg, B=2, T=32):
+    """_family_batch at the pointer's captioner contexts, the article as
+    its hidden layers [B, 512, 25, 1024] (weigh_bert: both layer
+    weightings get gradients), its context ids (pads where the article
+    mask is) and the copy masks: entities 1-3 at two article positions
+    each, copied into the caption (entity 3 twice)."""
+    cap = cfg.captioner
+    batch = _family_batch(rng, cap, B, T)
+    art = batch.pop("article")
+    S, D = art.shape[1:]
+    batch["article_hiddens"] = rng.normal(
+        size=(B, S, cap.num_bert_layers, D)).astype(np.float32)
+    ids = rng.integers(3, cap.decoder.vocab_size, (B, S)).astype(np.int32)
+    ids[:, 0], ids[batch["article_mask"]] = 0, 1
+    proper = np.where(batch["article_mask"], -1, 0).astype(np.int32)
+    cmask = np.zeros((B, T), np.int32)
+    cmask[batch["caption_ids"] == cap.decoder.pad_id] = -1
+    for b in range(B):
+        for e, (a, c, t) in enumerate(((5, 40, 2), (9, 77, 5),
+                                       (120, 200, 9)), 1):
+            ids[b, c] = ids[b, a]
+            proper[b, [a, c]] = e
+            batch["caption_ids"][b, t] = ids[b, a]
+            cmask[b, t] = e
+        batch["caption_ids"][b, 13] = ids[b, 120]
+        cmask[b, 13] = 3
+    batch.update(context_ids=ids, proper_masks=proper,
+                 caption_copy_masks=cmask)
+    return batch
+
+
+def _pointer_margins(params, cfg, batch, ids, t) -> dict:
+    """One row's decode on its device forced along ids[: t + 1] (its
+    token ids with the seed): at step t, the entity head's logit gap, the
+    generator's top-2 log-prob gap and the relative gap of the copy masses
+    of the two best distinct proper tokens (pointer_generate's decisions,
+    step by step)."""
+    from tell_tpu_torch.models.captioner import _decode_setup
+    from tell_tpu_torch.models.decoder import decoder_step, decoder_top_k
+    from tell_tpu_torch.models.pointer import _copy_article
+    from tell_tpu_torch.ops.linear import gehring_linear
+    from tell_tpu_torch.ops.self_attention import (copy_attention_keys,
+                                                   copy_attention_scores,
+                                                   self_attention)
+    cap, dcfg = cfg.captioner, cfg.captioner.decoder
+    _, dev, state, _ = _decode_setup(params["captioner"], cap, batch)
+    ctx = batch["context_ids"].long()
+    proper = batch["proper_masks"] >= 1
+    keys = copy_attention_keys(params["copy_attn"],
+                               _copy_article(params, cfg, batch))
+    match = ((ctx[:, None, :] == ctx[:, :, None]) & proper[:, None, :]
+             & proper[:, :, None]).float()
+    hist = torch.zeros(1, cap.gen_len, dcfg.embed_dim, device=dev,
+                       dtype=keys.dtype)
+    steps = torch.arange(cap.gen_len, device=dev)
+    dec = params["captioner"]["decoder"]
+    for s in range(t + 1):
+        feats, state = decoder_step(dec, dcfg, ids[None, s].to(dev), state)
+        hist[:, s] = feats
+    x = self_attention(params["entity_attn"], feats[:, None],
+                       num_heads=dcfg.num_heads, q_offset=t, kv=hist,
+                       kv_valid=(steps <= t)[None])
+    ent = gehring_linear(params["entity_fc"], x[:, 0])[0].float()
+    scores = copy_attention_scores(
+        params["copy_attn"], feats[:, None], keys,
+        batch.get("article_mask"), num_heads=dcfg.num_heads)[:, 0, :-2] \
+        * proper
+    mass = torch.einsum("bs,bts->bt", scores, match)[0]
+    per_token = {}
+    for i in proper[0].nonzero()[:, 0].tolist():
+        per_token[int(ctx[0, i])] = float(mass[i])
+    best = sorted(per_token.values(), reverse=True)
+    top_lp, _ = decoder_top_k(dec, dcfg, feats, 2)
+    return {"step": t, "entity_gap": abs(float(ent[1] - ent[0])),
+            "generator_gap": float(top_lp[0, 0] - top_lp[0, 1]),
+            "copy_rel_gap": ((best[0] - best[1]) / best[0]
+                             if len(best) > 1 and best[0] > 0 else None)}
+
+
+def _pointer_ids_agree(label, card_out, cpu_out, cpu_params, cfg,
+                       batch_cpu) -> dict:
+    """A row's greedy ids card vs CPU: equal, or split at a near tie of
+    one of the decode's decisions (POINTER_TIE; the margins printed)."""
+    a, b = card_out["token_ids"][0].cpu(), cpu_out["token_ids"][0]
+    diff = (a != b).nonzero()
+    line = {"copy_steps_card": int(card_out["should_copy"].sum()),
+            "copy_steps_cpu": int(cpu_out["should_copy"].sum()),
+            "split": None}
+    if len(diff):
+        t = int(diff[0]) - 1           # the decode step that emitted it
+        with torch.inference_mode():
+            m = _pointer_margins(cpu_params, cfg, batch_cpu, b, t)
+        line["split"] = m
+        log(f"{label}: ids split card vs CPU at step {t}: {json.dumps(m)}")
+        require(m["entity_gap"] < POINTER_TIE
+                or m["generator_gap"] < POINTER_TIE
+                or (m["copy_rel_gap"] is not None
+                    and m["copy_rel_gap"] < POINTER_TIE),
+                f"{label}: ids split away from a near tie: {m}")
+    return line
+
+
+def _pointer_requests(rng, cfg, root) -> list:
+    """Four /caption requests on the quality corpus's articles: entities
+    as strings, as NER dicts ({"text", "label"}), absent from the text,
+    and none; each with an image grid and two faces."""
+    import re
+    arts = _quality_articles(root)
+    cap = cfg.captioner
+    img = cap.decoder.context("image")
+    face = cap.decoder.context("faces")
+    reqs = []
+    for i, kind in enumerate(("strings", "dicts", "absent", "none")):
+        text = " ".join(s["text"] for s in arts[i]["parsed_section"])
+        names = list(dict.fromkeys(re.findall(r"\b[A-Z][a-z]{2,}\b",
+                                              text)))[:4]
+        ents = {"strings": names,
+                "dicts": [{"text": n, "label": "PERSON"} for n in names],
+                "absent": ["Zyxwvut Qqqq"], "none": None}[kind]
+        req = {"context": text,
+               "image_grid": rng.normal(size=(img.max_len, img.kv_dim)
+                                        ).round(3).tolist(),
+               "face_embeds": rng.normal(size=(2, face.kv_dim)
+                                         ).round(3).tolist()}
+        if ents is not None:
+            req["entities"] = ents
+        reqs.append(req)
+    return reqs
+
+
+def _pointer_service(exp, params, tmp, dev, tok, seed, label) -> dict:
+    """(b): expt a1 with random weights from the seed in a micro-batch
+    CaptionService over HTTP (the command line's tower, max_batch 4):
+    four requests (_pointer_requests), each decode recorded; kernels A at
+    MG=3 and B required; a copy step in a request with entities, none in
+    the others; the ids of the two requests with entities card vs CPU on
+    the features the card was given (_pointer_ids_agree)."""
+    from tell_tpu_torch.bridge import to_torch, tree_map
+    from tell_tpu_torch.commands.__main__ import _frozen_towers
+    from tell_tpu_torch.models import pointer as PM
+    from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
+    from tell_tpu_torch.models.registry import get_model
+    from tell_tpu_torch.serving import CaptionService, serve
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    calls = []
+    inner = _record_generate(PM, "pointer_generate", calls)
+    try:
+        adapter = get_model(exp.model_type, exp.model)
+        cfg = adapter.config
+        reqs = _pointer_requests(np.random.default_rng(seed), cfg, root)
+        frozen = _frozen_towers(exp, torch.device(dev))
+        svc = CaptionService(
+            params, RobertaEncoder(frozen["roberta"], frozen["roberta_cfg"]),
+            exp.model, dev, adapter=adapter, tokenizer=tok,
+            max_batch=len(reqs))
+        del frozen
+        _reset_counts()
+        httpd = serve(svc, port=0, block=False)
+        try:
+            answers = _post_all(httpd.server_address[1], reqs)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            svc.close()
+        counts = _counts()
+        # the packed rows of each request, to find it in the decodes
+        packed, errors = svc._pack(reqs)
+        require(not any(errors), f"{label}: {errors}")
+    finally:
+        PM.pointer_generate = inner
+    del svc
+    for status, body in answers:
+        require(status == 200 and "error" not in body,
+                f"{label}: served {status} {body}")
+    rows = []                  # (request, its batch row, the decode's out)
+    for batch, out in calls:
+        live = batch.get("row_live", torch.ones(
+            len(batch["context_ids"]), dtype=torch.bool))
+        for r in range(len(batch["context_ids"])):
+            if not bool(live[r]):
+                continue
+            ids = batch["context_ids"][r].cpu().numpy()
+            for i in range(len(reqs)):
+                n = int((packed["context_ids"][i] != 1).sum())
+                if (np.array_equal(ids[:n], packed["context_ids"][i][:n])
+                        and not (ids[n:] != 1).any()):
+                    rows.append((i, {k: v[r:r + 1] for k, v in
+                                     batch.items()},
+                                 {k: v[r:r + 1] for k, v in out.items()}))
+    require(sorted(i for i, _, _ in rows) == list(range(len(reqs))),
+            f"{label}: decoded rows {[i for i, _, _ in rows]}")
+    copies = {i: int(out["should_copy"].sum()) for i, _, out in rows}
+    for i, _, out in rows:
+        require(answers[i][1]["token_ids"]
+                == out["token_ids"][0].tolist(),
+                f"{label}: request {i} answered other ids than decoded")
+    require(copies[0] + copies[1] > 0 and copies[2] == copies[3] == 0,
+            f"{label}: copy steps per request {copies}")
+    require(dev != "cuda" or (counts["decode_attention_rows"].get(3, 0) > 0
+                              and counts["encoder_attention"] > 0),
+            f"{label}: kernels A at MG=3 and B must launch: {counts}")
+    # card vs CPU on the features the card was given: the entity
+    # requests' rows decoded in one CPU batch where their widths agree
+    cpu_params = tree_map(lambda x: x.detach().cpu(), params)
+    ent = [(i, {k: v.cpu() for k, v in b.items() if k != "row_live"}, o)
+           for i, b, o in rows if i < 2]
+    groups = ([ent] if len({tuple(b["context_ids"].shape)
+                            for _, b, _ in ent}) == 1
+              else [[e] for e in ent])
+    agree = {}
+    for group in groups:
+        b_cpu = {k: torch.cat([b[k] for _, b, _ in group])
+                 for k in group[0][1]}
+        with torch.inference_mode():
+            cpu_out = PM.pointer_generate(cpu_params, cfg, b_cpu)
+        for r, (i, b1, out) in enumerate(group):
+            agree[i] = _pointer_ids_agree(
+                f"{label} request {i}", out,
+                {k: v[r:r + 1] for k, v in cpu_out.items()}, cpu_params,
+                cfg, b1)
+    return {"copy_steps": copies, "ids": agree,
+            "launches": {k: counts[k] for k in (
+                "decode_attention", "decode_attention_rows",
+                "encoder_attention")},
+            "seconds": time.perf_counter() - t0}
+
+
+def _pointer_warm_start(path, over, dev, ckpt, label) -> None:
+    """The Trainer `train` builds, warm-started from the captioner's
+    checkpoint: before step 1 its params["captioner"] equal the
+    checkpoint's bit for bit."""
+    from tell_tpu_torch.bridge import tree_leaves
+    from tell_tpu_torch.commands.__main__ import build_trainer
+    from tell_tpu_torch.config_io import load_experiment
+    trainer = build_trainer(load_experiment(path, json.dumps(over)),
+                            torch.device(dev))
+    trainer.initialize()
+    saved = torch.load(os.path.join(ckpt, "state.pt"), map_location=dev,
+                       weights_only=True)["params"]
+    pairs = list(zip(tree_leaves(trainer.state["params"]["captioner"]),
+                     tree_leaves(saved)))
+    require(len(pairs) == len(tree_leaves(saved))
+            and all(a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in pairs),
+            f"{label}: params['captioner'] differ from the checkpoint")
+
+
+def phase_pointer(seed: int, card: str, dev: str = "cuda",
+                  small: dict | None = None, tmp: str | None = None
+                  ) -> dict:
+    """Phase 19 (see the module docstring): the pointer family (expts a1
+    and a3) at the YAMLs' full width with random weights from the seed.
+    `small` narrows each expt by an override ({"a1": {"model": ...}, "a3":
+    ...}) and takes the tiny RoBERTa for a CPU rehearsal. tmp: phase 18's
+    directory with its _family_setup, else one of its own. Returns the
+    launches of A, B and C on this path and the readings."""
+    from tell_tpu_torch.bridge import init_captioner
+    from tell_tpu_torch.commands.__main__ import _tokenizer
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.models import pointer as PM
+    from tell_tpu_torch.models.registry import get_model
+    t0 = time.perf_counter()
+    roberta = "tiny" if small else "large"
+    own = tmp is None
+    tmp = tmp or tempfile.mkdtemp(prefix="chip_smoke_pointer_")
+    res = {}
+    try:
+        rcfg, vf, mf = _family_setup(tmp, seed, roberta)
+        overs = {e: _family_over(tmp, e, vf, mf, roberta, small)
+                 for e in POINTER_EXPTS}
+        res["setup_seconds"] = time.perf_counter() - t0
+        # (a): v1 and v2, loss and gradients card vs CPU (fp32)
+        for e, path in POINTER_EXPTS.items():
+            res[f"grads_{e}"] = _family_grads(
+                seed, path, dev, json.dumps({"model": {
+                    **overs[e].get("model", {}),
+                    "compute_dtype": "float32"}}),
+                f"phase 19 ({card or dev}) expt {e}",
+                make_batch=_pointer_batch,
+                unused="captioner/decoder/adaptive_softmax")
+        # (b): the micro-batch service
+        label = f"phase 19 ({card or dev}) serve"
+        exp = load_experiment(POINTER_EXPTS["a1"], json.dumps(overs["a1"]))
+        adapter = get_model(exp.model_type, exp.model)
+        params = adapter.init(torch.Generator(device=dev).manual_seed(seed),
+                              adapter.config)
+        res["serve"] = _pointer_service(exp, params, tmp, dev,
+                                        _tokenizer(exp), seed, label)
+        del params
+        log(f"{label}: {json.dumps(res['serve'])}")
+        # (c): train a1 (v1) warm-started from a seeded faces captioner,
+        # then a3 (v2)
+        ckpt = os.path.join(tmp, "captioner")
+        os.makedirs(ckpt)
+        torch.save({"params": init_captioner(
+            torch.Generator().manual_seed(seed + 19), exp.model)},
+            os.path.join(ckpt, "state.pt"))
+        for e, epochs in (("a1", 2), ("a3", 1)):
+            label = f"phase 19 ({card or dev}) expt {e}"
+            path = POINTER_EXPTS[e]
+            over = overs[e]
+            over["trainer"].update(warm_start=ckpt, num_epochs=epochs,
+                                   checkpoint_every=epochs)
+            cfg = load_experiment(path, json.dumps(over)).model
+            if e == "a1":
+                _write_shards(np.random.default_rng(seed + 19), cfg,
+                              rcfg.vocab_size, over["data"]["shards_dir"],
+                              n_train=2 * POINTER_ROWS, n_valid=POINTER_ROWS,
+                              copy_masks=True)
+            else:
+                over["data"]["shards_dir"] = overs["a1"]["data"][
+                    "shards_dir"]
+            _pointer_warm_start(path, over, dev, ckpt, label)
+            res[f"train_{e}"] = _family_train(path, over, dev, label)
+            log(f"{label}: train {json.dumps(res[f'train_{e}'])}")
+        from tell_tpu_torch.commands.__main__ import build_trainer
+        trainer = build_trainer(load_experiment(
+            POINTER_EXPTS["a1"], json.dumps(overs["a1"])), torch.device(dev))
+        require(trainer.recover(), "phase 19: nothing to recover")
+        res["steady_a1"] = _steady(trainer, dev, False)
+        del trainer
+        # (d): evaluate a1 greedily
+        label = f"phase 19 ({card or dev}) evaluate"
+        ev = {**overs["a1"], "bucketing": {"max_batch": POINTER_EVAL}}
+        calls = []
+        inner = _record_generate(PM, "pointer_generate", calls)
+        _reset_counts()
+        try:
+            t = time.perf_counter()
+            metrics = _cli_json(["evaluate", POINTER_EXPTS["a1"], "-o",
+                                json.dumps(ev), "-s", "valid", "--limit",
+                                str(POINTER_EVAL), "--device", dev], label)
+        finally:
+            PM.pointer_generate = inner
+        counts = _counts()
+        require(metrics.get("n_samples") == POINTER_EVAL and calls
+                and all("proper_masks" in b for b, _ in calls),
+                f"{label}: {metrics.get('n_samples')} samples in "
+                f"{len(calls)} decodes")
+        res["evaluate"] = {
+            "seconds": time.perf_counter() - t,
+            "captions_per_sec": metrics["captions_per_sec"],
+            "copy_steps": sum(int(o["should_copy"].sum()) for _, o in calls),
+            "launches": {k: counts[k] for k in ("decode_attention",
+                                                "encoder_attention")}}
+        # (e): the engine refused, with tell_tpu's words
+        try:
+            _cli_json(["serve", POINTER_EXPTS["a1"], "-o",
+                      json.dumps(overs["a1"]), "--engine-slots", "2",
+                      "--device", dev], f"phase 19 ({card or dev}) serve")
+        except ValueError as err:
+            require("captioner and modern families only" in str(err),
+                    f"phase 19: --engine-slots refused with {err}")
+            res["engine_refused"] = str(err)
+        else:
+            raise CheckFailed("phase 19: serve --engine-slots took the "
+                              "pointer family")
+    finally:
+        _clear_runs(tmp, own)
+    launches = {
+        "decode_attention": {
+            "serve": res["serve"]["launches"]["decode_attention"],
+            "evaluate": res["evaluate"]["launches"]["decode_attention"]},
+        "encoder_attention": {
+            "serve": res["serve"]["launches"]["encoder_attention"],
+            "train_a1": res["train_a1"]["launches"]["encoder_attention"],
+            "train_a3": res["train_a3"]["launches"]["encoder_attention"],
+            "evaluate": res["evaluate"]["launches"]["encoder_attention"]},
+        "fused_dynamic_conv": {
+            e: res[f"train_{e}"]["launches"]["fused_dynamic_conv"]
+            for e in POINTER_EXPTS}}
+    res["launches"] = launches
+    if dev == "cuda":
+        require(all(n > 0 for part in launches.values()
+                    for n in part.values()),
+                f"phase 19: kernels A, B and C must launch on every part: "
+                f"{launches}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 19 ({card or dev}): " + json.dumps(
+        {k: v for k, v in res.items() if k != "serve"}))
     return res
 
 
@@ -5753,6 +6309,8 @@ def main() -> int:
                     help="after the build, phase 17 only (no result line)")
     ap.add_argument("--train-families", action="store_true",
                     help="after the build, phase 18 only (no result line)")
+    ap.add_argument("--pointer", action="store_true",
+                    help="after the build, phase 19 only (no result line)")
     ap.add_argument("--quality", action="store_true",
                     help="after the build, the full quality loop on "
                     f"{QUALITY_EXPT} with its acceptance thresholds (no "
@@ -5784,8 +6342,22 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}")
 
-    # phase 2
+    # phase 2: the host library's g++ build runs beside the kernels' nvcc
+    from tell_tpu_torch.data import native
     from tell_tpu_torch.ops.kernels import build
+    found = native.library_path().exists()
+    host = {}
+
+    def build_host():
+        t0 = time.perf_counter()
+        try:
+            native.load_library()
+        except BaseException as err:    # re-raised in the main thread
+            host["error"] = err
+        host["seconds"] = time.perf_counter() - t0
+
+    host_thread = threading.Thread(target=build_host)
+    host_thread.start()
     t = time.perf_counter()
     build.load_library()
     log(f"phase 2: built and loaded {build.library_path().name} in "
@@ -5794,13 +6366,12 @@ def main() -> int:
     if report.exists():
         for line in ptxas_summary(report.read_text()):
             log("phase 2: ptxas: " + line)
-    from tell_tpu_torch.data import native
-    found = native.library_path().exists()
-    t = time.perf_counter()
-    native.load_library()
+    host_thread.join()
+    if "error" in host:
+        raise host["error"]
     log(f"phase 2: {'found' if found else 'built'} and loaded the host "
         f"library {native.library_path().name} (g++, native/*.cpp) in "
-        f"{time.perf_counter() - t:.2f} s")
+        f"{host['seconds']:.2f} s, beside the kernels' build")
 
     if args.engine_repeats:
         engine_repeats(args.seed, args.engine_repeats)
@@ -5832,6 +6403,9 @@ def main() -> int:
         return 0
     if args.train_families:
         phase_families(args.seed, smi)
+        return 0
+    if args.pointer:
+        phase_pointer(args.seed, smi)
         return 0
     if args.quality:
         return quality_run(smi, args.quality_out)
@@ -5921,9 +6495,19 @@ def main() -> int:
     modern = phase_modern(args.seed, smi)
     torch.cuda.empty_cache()
     _mark(marks)
-    # phase 18: the other families trained
-    families = phase_families(args.seed, smi)
-    _mark(marks)
+    # phases 18 and 19 share one seeded RoBERTa-large tower and vocabulary
+    shared = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    try:
+        # phase 18: the other families trained
+        families = phase_families(args.seed, smi, tmp=shared)
+        torch.cuda.empty_cache()
+        _mark(marks)
+        # phase 19: the pointer family
+        pointer = phase_pointer(args.seed, smi, tmp=shared)
+        torch.cuda.empty_cache()
+        _mark(marks)
+    finally:
+        shutil.rmtree(shared, ignore_errors=True)
     log("phase seconds (host clock, each phase from the end of the one "
         "before; phases 1-2 from the end of the script's imports): "
         + json.dumps(_phase_seconds(marks, T0)))
@@ -6011,6 +6595,12 @@ def main() -> int:
             # 3's fused top-k evaluate
             entry["phase18_launches"] = sum(
                 families["launches"][name].values())
+        if name in pointer["launches"]:
+            # phase 19's own path: A in the pointer's served and
+            # evaluated decodes, B in their encodes and in training, C in
+            # training's validation
+            entry["phase19_launches"] = sum(
+                pointer["launches"][name].values())
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

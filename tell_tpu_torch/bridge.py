@@ -11,8 +11,9 @@
   tensors), so .to(device) and state_dict() work on it; tree() gives the
   nested dict back with the module's current tensors.
 * init_captioner / init_llm_decoder / init_lstm_decoder /
-  init_lstm_captioner / init_roberta / init_resnet / init_vit /
-  init_mtcnn / init_facenet / init_yolov3: torch-side
+  init_lstm_captioner / init_pointer (with init_self_attention,
+  init_copy_attention, init_gated_linear) / init_roberta / init_resnet /
+  init_vit / init_mtcnn / init_facenet / init_yolov3: torch-side
   initialisers with the same keys, shapes and
   init distributions as tell_tpu's, drawing from an explicit
   torch.Generator on the generator's device. (The two frameworks
@@ -165,12 +166,15 @@ def _linear(g: torch.Generator, din: int, dout: int, bias: bool = True
     return p
 
 
-def _gehring(g: torch.Generator, din: int, dout: int) -> dict:
+def _gehring(g: torch.Generator, din: int, dout: int, bias: bool = True
+             ) -> dict:
     """tell_tpu.ops.linear.init_gehring_linear (dropout 0, weight norm):
     v ~ N(0, 1/din), g = ||v|| over axis 0 so the effective weight is v."""
     v = _normal(g, (din, dout), (1.0 / din) ** 0.5)
-    return {"v": v, "g": torch.linalg.vector_norm(v, dim=0),
-            "b": _zeros(g, dout)}
+    p = {"v": v, "g": torch.linalg.vector_norm(v, dim=0)}
+    if bias:
+        p["b"] = _zeros(g, dout)
+    return p
 
 
 def _cross_attention(g: torch.Generator, E: int, kv_dim: int) -> dict:
@@ -296,6 +300,59 @@ def init_lstm_captioner(generator: torch.Generator, cfg: CaptionerConfig
     if cfg.weigh_bert:
         params["bert_weight"] = _uniform(generator, (cfg.num_bert_layers,),
                                          0.0, 1.0)
+    return params
+
+
+def init_gated_linear(generator: torch.Generator, in_dim: int, out_dim: int,
+                      bias: bool = True) -> dict:
+    """tell_tpu.ops.self_attention.init_gated_linear."""
+    g = generator
+    return {"l1": _gehring(g, in_dim, out_dim * 4, bias),
+            "l2": _gehring(g, out_dim * 2, out_dim * 2, bias),
+            "l3": _gehring(g, out_dim, out_dim, bias)}
+
+
+def init_self_attention(generator: torch.Generator, dim: int) -> dict:
+    """tell_tpu.ops.self_attention.init_self_attention: the gated
+    self-attention's q/k/v/out projections and its LayerNorm."""
+    g = generator
+    return {"in_proj_q": _gehring(g, dim, dim),
+            "in_proj_k": _gehring(g, dim, dim),
+            "in_proj_v": _gehring(g, dim, dim),
+            "out_proj": _gehring(g, dim, dim), "ln": _ln(g, dim)}
+
+
+def init_copy_attention(generator: torch.Generator, dim: int,
+                        kdim: int | None = None) -> dict:
+    """tell_tpu.ops.self_attention.init_copy_attention: q/k in-projections
+    [in, out] xavier-uniform over the packed [2E, E], zero biases and a
+    learned bias-k column N(0, 2 / (1 + E))."""
+    g = generator
+    kdim = dim if kdim is None else kdim
+    bound = (6.0 / (2 * dim + dim)) ** 0.5
+    return {"q_w": _uniform(g, (dim, dim), -bound, bound),
+            "k_w": _uniform(g, (kdim, dim), -bound, bound),
+            "q_b": _zeros(g, dim), "k_b": _zeros(g, dim),
+            "bias_k": _normal(g, (dim,), (2.0 / (1 + dim)) ** 0.5)}
+
+
+def init_pointer(generator: torch.Generator, cfg) -> dict:
+    """tell_tpu.models.pointer.init_pointer over a PointerConfig: the
+    captioner, the entity head (gated self-attention and a 2-way
+    classifier), the copy attention over the article's width, and
+    bert_weight_2 where weigh_bert."""
+    cap = cfg.captioner
+    dim = cap.decoder.embed_dim
+    params = {
+        "captioner": init_captioner(generator, cap),
+        "entity_attn": init_self_attention(generator, dim),
+        "entity_fc": _gehring(generator, dim, 2),
+        "copy_attn": init_copy_attention(
+            generator, dim, kdim=cap.decoder.context("article").kv_dim),
+    }
+    if cap.weigh_bert:
+        params["bert_weight_2"] = _uniform(
+            generator, (cap.num_bert_layers,), 0.0, 1.0)
     return params
 
 

@@ -9,10 +9,13 @@ numerics levers are flags: `--kv-cache {fp,int8,int4}`, `--fused-topk`
 and `--gelu {erf,tanh}` (the frozen encoder's GELU; tell_tpu's
 TELL_TPU_FAST_GELU). `serve --attention` adds the word-attention payload.
 What tnt runs and the port does not yet is refused with its ROADMAP queue
-item: `bench` (item 1), `--coordinator` and `--mesh-data` (item 10) and
-the pointer family (models/registry.py, item 9). Every other family
-(the captioner and its siblings, the GloVe captioner, the LSTM and the
-modern LM) trains, evaluates and serves through its registry adapter;
+item: `bench` (item 1), `--coordinator` and `--mesh-data` (item 10).
+Every family (the captioner and its siblings, the GloVe captioner, the
+pointer models of expts a1-a3, the LSTM and the modern LM) trains,
+evaluates and serves through its registry adapter (the pointer and the
+LSTM decode greedily and serve in micro-batch mode only; the pointer's
+requests may carry `entities`, and its train takes a captioner checkpoint
+as trainer.warm_start);
 `preprocess` writes GloVe article features where data.glove_file names
 a vectors file (data/glove.py).
 

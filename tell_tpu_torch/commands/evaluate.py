@@ -4,7 +4,9 @@ persistent_analyze, evaluate_split, score_generations and score_file).
 
 The model is the experiment's family (models/registry.py's get_model:
 the captioner, the modern LM of expts 10 and 12, or the LSTM of expts 1
-and 3, which decodes greedily only). Each batch is
+and 3 and the pointer models of expts a1-a3, which decode greedily only;
+the pointer's batches carry the shards' proper_masks to its copy head).
+Each batch is
 encoded by its frozen towers (the adapter's encode: RoBERTa, kernel B on
 the card) and decoded greedily (the adapter's generate) or by beam search
 (its beam), through kernel A on the card, or kernel D with the int8/int4

@@ -39,19 +39,16 @@ CONTEXT_PRESETS = {
 
 # the model types of tell_tpu/models/registry.py::get_model whose YAML
 # model: builds a CaptionerConfig: the captioner family (with the GloVe
-# captioner) and the LSTM family
+# captioner), the pointer family (its adapter wraps the CaptionerConfig
+# in a PointerConfig; the YAML's reader.emit_copy_masks writes its masks)
+# and the LSTM family
 CAPTIONER_TYPES = ("captioner", "transformer_faces_objects",
                    "transformer_faces", "transformer_flattened",
-                   "transformer_glove", "lstm", "baseline_glove",
-                   "lstm_decoder_flattened")
+                   "transformer_glove", "pointer", "transformer_pointer",
+                   "pointer_2", "transformer_pointer_2", "lstm",
+                   "baseline_glove", "lstm_decoder_flattened")
 # the modern family: the YAML's model: builds an LLMConfig
 MODERN_TYPES = ("modern", "transformer_modern", "vit_modern")
-# the other model types tell_tpu knows, with the ROADMAP item that ports
-# each (queue 1)
-OTHER_TYPES = {
-    name: "queue 1 item 9 (models/pointer.py)"
-    for name in ("pointer", "transformer_pointer", "pointer_2",
-                 "transformer_pointer_2")}
 
 
 # ---------------------------------------------------------------------------
@@ -408,10 +405,6 @@ def load_experiment(path: str, overrides: str | dict | None = None
         spec = _deep_merge(spec, overrides)
     model_type = spec.get("model_type", "captioner")
     name = spec.get("name", "experiment")
-    if model_type.lower() in OTHER_TYPES:
-        raise NotPortedError(f"{name}: model_type {model_type!r} is not "
-                             f"ported yet (ROADMAP "
-                             f"{OTHER_TYPES[model_type.lower()]})")
     if model_type.lower() not in CAPTIONER_TYPES + MODERN_TYPES:
         raise KeyError(f"unknown model_type {model_type!r}")
     model_cls = (LLMConfig if model_type.lower() in MODERN_TYPES

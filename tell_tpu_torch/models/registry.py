@@ -1,19 +1,16 @@
 """Model-family registry (counterpart of tell_tpu/models/registry.py):
 tell_tpu's model_type names mapped onto adapters over the port's model
 implementations: the multi-context captioner (transformer_glove is the
-captioner over GloVe article features), the modern LM and the LSTM
-baseline (baseline_glove, lstm_decoder_flattened).
-
-The pointer family is not ported yet: its names raise NotPortedError with
-the ROADMAP item.
+captioner over GloVe article features), the pointer models
+(transformer_pointer and transformer_pointer_2, expts a1-a3), the modern
+LM and the LSTM baseline (baseline_glove, lstm_decoder_flattened).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
-from ..config import CaptionerConfig, LLMConfig, NotPortedError, \
-    VIT_CONTEXTS
+from ..config import CaptionerConfig, LLMConfig, VIT_CONTEXTS
 
 @dataclasses.dataclass(frozen=True)
 class ModelAdapter:
@@ -34,6 +31,13 @@ class ModelAdapter:
     fused_topk: bool = True
     kv_cache_levers: bool = True
     engine: bool = True
+    # whether generate takes need_weights (the attention maps); the
+    # pointer decode does not, as in tell_tpu, and a service asked for
+    # --attention answers its captions without maps
+    attention_maps: bool = True
+    # whether a request's entities pack proper_masks (the pointer's copy
+    # head reads them; tell_tpu's service's _needs_copy_masks)
+    copy_masks: bool = False
 
     def check_levers(self, fused_topk: bool = False,
                      kv_cache: str = "fp") -> None:
@@ -100,9 +104,27 @@ def _lstm(cfg: CaptionerConfig) -> ModelAdapter:
         kv_cache_levers=False, engine=False)
 
 
-def _pointer(cfg):
-    raise NotPortedError("the pointer family (models/pointer.py) is not "
-                         "ported yet (ROADMAP queue 1 item 9)")
+def _pointer(cfg: CaptionerConfig, version: int) -> ModelAdapter:
+    """tell_tpu's _pointer adapter: PointerConfig over the captioner's
+    config, its loss and an e2e loss that encodes through the captioner's
+    encode_contexts, greedy (or top-k sampled) decode only, with the K/V
+    cache and fused top-k levers; no engine (tell_tpu's service refuses
+    one) and no attention maps."""
+    from ..bridge import init_pointer
+    from .captioner import encode_contexts
+    from .pointer import PointerConfig, pointer_generate, pointer_loss
+    pcfg = PointerConfig(captioner=cfg, copy_loss_version=version)
+
+    def loss_e2e(params, frozen, c, batch, gen=None, deterministic=True):
+        return pointer_loss(params, c, encode_contexts(frozen, c.captioner,
+                                                       batch),
+                            gen, deterministic)
+
+    return ModelAdapter(
+        name=f"pointer_v{version}", config=pcfg, init=init_pointer,
+        loss=pointer_loss, loss_e2e=loss_e2e, generate=pointer_generate,
+        encode=lambda frozen, batch: encode_contexts(frozen, cfg, batch),
+        engine=False, attention_maps=False, copy_masks=True)
 
 
 def get_model(model_type: str, cfg) -> ModelAdapter:
@@ -112,9 +134,10 @@ def get_model(model_type: str, cfg) -> ModelAdapter:
     if mt in ("captioner", "transformer_faces_objects", "transformer_faces",
               "transformer_flattened", "transformer_glove"):
         return _captioner(cfg)
-    if mt in ("pointer", "transformer_pointer", "pointer_2",
-              "transformer_pointer_2"):
-        return _pointer(cfg)
+    if mt in ("pointer", "transformer_pointer"):
+        return _pointer(cfg, 1)
+    if mt in ("pointer_2", "transformer_pointer_2"):
+        return _pointer(cfg, 2)
     if mt in ("lstm", "baseline_glove", "lstm_decoder_flattened"):
         return _lstm(cfg)
     if mt in ("modern", "transformer_modern"):

@@ -43,9 +43,17 @@ its article is the tower's final hidden state (modern_encode_contexts);
 or the LSTM family (expts 1 and 3), served in micro-batch mode only
 (lstm_generate, greedy; its need_weights maps {image, article} [T, B, S]
 carry no bias or zero column): the engine refuses it, with tell_tpu's
-error. A model whose article context is not the RoBERTa's width (the
-GloVe experiments' 300-d article) fails each request, as tell_tpu's
-service does: neither has a GloVe encode.
+error; or the pointer family (expts a1-a3), in micro-batch mode only
+(pointer_generate, greedy): a request's `entities` (plain strings, or
+named-entity dicts with a "text" field) are found in its article text
+(entity_occurrences) and give each article token the 1-based index of the
+entity it lies in (encode_with_indexed_spans), packed as proper_masks
+with -1 at pads; a request without entities, or with context_ids and no
+text, never copies. The pointer decode records no attention maps, as in
+tell_tpu: with need_attention its answers carry none. A model whose
+article context is not the RoBERTa's width (the GloVe experiments' 300-d
+article) fails each request, as tell_tpu's service does: neither has a
+GloVe encode.
 
 A request may carry its photo instead of its image grid: `image_b64` (an
 encoded JPEG), `image` (an [H, W, 3] list) or, from the scrape flow,
@@ -75,6 +83,7 @@ import torch
 
 from ..bridge import to_torch
 from ..config import CaptionerConfig, with_article_len
+from ..data.pipeline import entity_occurrences
 from ..data.readers import assemble_location_aware
 from ..models.backbones.roberta import RobertaEncoder
 from ..models.captioner import Captioner, weighted_layer_sum
@@ -143,7 +152,10 @@ class CaptionService:
                              "--attention for the modern engine")
         cfg = self.adapter.config
         self.cfg = cfg
-        self.dcfg = getattr(cfg, "decoder", cfg)
+        # the pointer's PointerConfig wraps a captioner's config
+        self.cap_cfg = getattr(cfg, "captioner", cfg)
+        self.dcfg = getattr(self.cap_cfg, "decoder", self.cap_cfg)
+        self.copy_masks = self.adapter.copy_masks
         self.device = torch.device(device)
         # the flagship's params as an nn.Module (.model); the modern and
         # LSTM families decode through their adapters alone
@@ -223,8 +235,13 @@ class CaptionService:
             if not any(live):
                 time.sleep(0.002)
 
-    def _generate(self, enc: dict, **levers) -> dict:
-        """The model's greedy decode (the adapter's) of encoded features."""
+    def _generate(self, enc: dict, need_weights: bool = False,
+                  **levers) -> dict:
+        """The model's greedy decode (the adapter's) of encoded features;
+        need_weights asks for the attention maps where the family's
+        generate records them."""
+        if need_weights and self.adapter.attention_maps:
+            levers["need_weights"] = True
         return self.adapter.generate(self.params, self.cfg, enc, **levers)
 
     def _encode(self, batch: dict, frozen: dict | None = None) -> dict:
@@ -300,6 +317,32 @@ class CaptionService:
                 text, max_len=self.article_len), np.int64)
         return np.zeros(0, np.int64)
 
+    def _request_ids_masks(self, req: dict
+                           ) -> tuple[np.ndarray, np.ndarray]:
+        """The pointer family's article ids and their proper-noun masks,
+        as tell_tpu's _pack makes them: the request's `entities` found in
+        its text, one indexed-span encode giving both; without entities
+        every mask is 0, and ids sent as context_ids (no text to find an
+        entity in) get zero masks."""
+        if "context_ids" in req or not ("context" in req
+                                         or "sections" in req):
+            ids = self._request_ids(req)
+            return ids, np.zeros(ids.size, np.int64)
+        if self.tokenizer is None:
+            raise ValueError("text context needs a tokenizer; send "
+                             "context_ids")
+        text = (req["context"] if "context" in req
+                else self._sections_text(req))
+        try:
+            ents = [e["text"] if isinstance(e, dict) else str(e)
+                    for e in (req.get("entities") or [])]
+            spans = entity_occurrences(text, ents)
+        except (KeyError, TypeError) as e:
+            raise ValueError(f"bad entities: {e!r}") from e
+        ids, masks = self.tokenizer.encode_with_indexed_spans(
+            text, spans, max_len=self.article_len)
+        return np.asarray(ids, np.int64), np.asarray(masks, np.int64)
+
     @staticmethod
     def _request_image(req: dict) -> dict:
         """The request with its photo where VisionPipeline looks: the scrape
@@ -341,13 +384,16 @@ class CaptionService:
                 req = {"context": req["context"]} if "context" in req else {}
             prepped.append(req)
         requests = prepped
-        all_toks = []
+        all_toks, all_masks = [], []
         for i, req in enumerate(requests):
             try:
-                all_toks.append(self._request_ids(req))
+                toks, pm = (self._request_ids_masks(req) if self.copy_masks
+                            else (self._request_ids(req), None))
             except ValueError as e:
                 errors[i] = errors[i] or f"bad context: {e}"
-                all_toks.append(np.zeros(0, np.int64))
+                toks = pm = np.zeros(0, np.int64)
+            all_toks.append(toks)
+            all_masks.append(pm)
         width = self.article_len
         if bucketed:
             longest = max(len(t) for t in all_toks)
@@ -356,6 +402,11 @@ class CaptionService:
         for i, toks in enumerate(all_toks):
             ids[i, : len(toks)] = toks
         batch = {"context_ids": ids}
+        if self.copy_masks:
+            masks = np.full((B, width), -1, np.int64)
+            for i, pm in enumerate(all_masks):
+                masks[i, : len(pm)] = pm
+            batch["proper_masks"] = masks
         n_img, img_dim = self._spec["image"]
         if n_img:
             grids = np.zeros((B, n_img, img_dim), np.float32)
@@ -398,7 +449,8 @@ class CaptionService:
             enc = self._encode(tb)
             out = self._generate(enc, need_weights=self.need_attention)
             token_ids = out["token_ids"][:n].cpu().numpy()
-            if self.need_attention:
+            maps = self.need_attention and "attns" in out
+            if maps:
                 # layer 0 of per-layer {name: [T, B, 1, S']}, or the LSTM's
                 # one {name: [T, B, S]}
                 attns = out["attns"]
@@ -413,7 +465,7 @@ class CaptionService:
                 r["caption"] = self.tokenizer.decode(token_ids[i])
             if errors[i]:
                 r["error"] = errors[i]
-            if self.need_attention:
+            if maps:
                 r.update(self._attention_payload(
                     token_ids[i], {k: a[:, i] for k, a in layer0.items()},
                     batch["context_ids"][i]))
@@ -585,7 +637,7 @@ class CaptionService:
                 "max_batch": self.max_batch,
                 "article_len": self.article_len,
                 "contexts": [c.name for c in self.dcfg.contexts],
-                "gen_len": self.cfg.gen_len,
+                "gen_len": self.cap_cfg.gen_len,
                 "device": str(self.device),
                 "need_attention": self.need_attention,
                 "kv_cache_mode": self.kv_cache,

@@ -41,7 +41,8 @@ def make_train_step(cfg, optimizer: BertAdam, loss=None, loss_e2e=None):
     """loss(params, cfg, batch, gen, deterministic) and loss_e2e(params,
     frozen, cfg, batch, gen, deterministic) are the model's objective
     (default: the captioner's), each returning (loss, aux) with aux
-    holding sample_size (and tail_dropped, 0 where absent).
+    holding sample_size and tail_dropped (each 0 where absent: the
+    pointer's aux holds its gen, entity and copy losses instead).
 
     Returns step(params, opt_state, batch, gen, frozen=None) ->
     (params', opt_state', metrics). params: a tree of fp32 tensors (not
@@ -84,7 +85,7 @@ def make_train_step(cfg, optimizer: BertAdam, loss=None, loss_e2e=None):
             new_opt = tree_map(lambda n, o: torch.where(ok, n, o),
                                new_opt, opt_state)
             metrics = {"loss": value, "skipped": (~ok).int(),
-                       "sample_size": aux["sample_size"],
+                       "sample_size": aux.get("sample_size", 0),
                        "tail_dropped": aux.get("tail_dropped", 0)}
         return new_params, new_opt, metrics
 

@@ -81,7 +81,8 @@ class TrainerConfig:
     n_data: int | None = None
     n_model: int = 1
     # a checkpoint directory (the one holding state.pt) whose params the
-    # fresh init takes, e.g. a trained captioner for the pointer models
+    # fresh init takes; for the pointer models a trained captioner's, which
+    # becomes their base
     warm_start: str = ""
     # TensorBoard scalars under <serialization_dir>/tb at this step
     # interval (0 = none)
@@ -177,8 +178,11 @@ class Trainer:
 
     def _warm_start(self, params: dict) -> dict:
         """The params of the checkpoint at tcfg.warm_start, on the device,
-        in place of the fresh init's; they must have its tree and
-        shapes."""
+        in place of the fresh init's; they must have its tree, shapes and
+        dtypes. For a model whose params hold a "captioner" (the pointer
+        family), the checkpoint is a captioner's: it fills
+        params["captioner"] and the heads keep their init, as tell_tpu's
+        warm start restores into that subtree."""
         path = os.path.abspath(self.tcfg.warm_start)
         state_pt = os.path.join(path, "state.pt")
         if not os.path.exists(state_pt):
@@ -189,13 +193,18 @@ class Trainer:
         # optimizer's moments, which stay off the card
         saved = torch.load(state_pt, map_location="cpu",
                            weights_only=True)["params"]
-        want = tree_map(lambda x: (x.shape, x.dtype), params)
+        target = params.get("captioner", params)
+        want = tree_map(lambda x: (x.shape, x.dtype), target)
         got = tree_map(lambda x: (x.shape, x.dtype), saved)
         if got != want:
+            what = "captioner's" if "captioner" in params else "model's"
             raise ValueError(f"warm_start: the params in {state_pt} do not "
-                             "have this model's tree, shapes and dtypes")
+                             f"have this {what} tree, shapes and dtypes")
         log.info("warm-started from %s", path)
-        return tree_map(lambda x: x.to(self.device), saved)
+        saved = tree_map(lambda x: x.to(self.device), saved)
+        if "captioner" in params:
+            return {**params, "captioner": saved}
+        return saved
 
     def _train_state(self) -> dict:
         return {"params": self.state["params"],

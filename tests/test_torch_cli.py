@@ -273,8 +273,8 @@ def test_model_commands_need_the_card_or_device_cpu(tmp_path, cmd):
      "queue 1 item 10"),
     (["serve", "{cfg}", "--mesh-data", "2", "--device", "cpu"],
      "queue 1 item 10"),
-    (["train", "expt/nytimes/a1_pointer.yaml", "--device", "cpu"],
-     "queue 1 item 9"),
+    (["evaluate", "{cfg}", "-o", '{{"trainer": {{"n_data": 2}}}}',
+      "--device", "cpu"], "queue 1 item 10"),
     (["train", "{cfg}", "-o", '{{"trainer": {{"n_data": 2}}}}', "--device",
       "cpu"], "queue 1 item 10"),
 ])

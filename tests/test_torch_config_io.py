@@ -3,12 +3,12 @@ tell_tpu.config_io.
 
 parse_yaml equals yaml.safe_load on every expt/*/*.yaml and on the edge
 cases of the subset; every YAML of the captioner family (the GloVe
-captioner, expt 2, among them), of the LSTM family (expts 1 and 3) and of
-the modern family (expts 10 and 12, an LLMConfig) loads, overrides
-included, into configs equal field by field to tell_tpu's, and
-data.glove_file is taken as tell_tpu takes it; the pointer YAMLs are
-refused with the ROADMAP queue item that ports them; an unknown key fails
-as it does in tell_tpu.
+captioner, expt 2, among them), of the pointer family (expts a1-a3), of
+the LSTM family (expts 1 and 3) and of the modern family (expts 10 and
+12, an LLMConfig) loads, overrides included, into configs equal field by
+field to tell_tpu's, and data.glove_file is taken as tell_tpu takes it;
+a mesh is refused with the ROADMAP queue item that ports it; an unknown
+key fails as it does in tell_tpu.
 """
 import dataclasses
 import glob
@@ -26,8 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAMLS = sorted(os.path.relpath(p, ROOT)
                for p in glob.glob(os.path.join(ROOT, "expt", "*", "*.yaml")))
 
-# the YAMLs of the captioner and LSTM families; every other one names its
-# item
+# the YAMLs of the captioner, pointer and LSTM families (a CaptionerConfig)
 LOADS = {
     "expt/goodnews/1_lstm_glove.yaml",
     "expt/goodnews/2_transformer_glove.yaml",
@@ -47,14 +46,13 @@ LOADS = {
     "expt/nytimes/11_long_article.yaml",
     "expt/nytimes/13_learned_positional.yaml",
     "expt/quality/overfit_flagship.yaml", "expt/quality/overfit_small.yaml",
+    "expt/goodnews/a1_pointer.yaml", "expt/goodnews/a2_copy_fix.yaml",
+    "expt/goodnews/a3_pointer_2.yaml", "expt/nytimes/a1_pointer.yaml",
+    "expt/nytimes/a2_copy_fix.yaml", "expt/nytimes/a3_pointer_2.yaml",
 }
 # the modern family's YAMLs: an LLMConfig
 MODERN = {"expt/nytimes/10_vit_modern.yaml",
           "expt/nytimes/12_moe_modern.yaml"}
-REFUSED = {
-    "a1_pointer": "queue 1 item 9", "a2_copy_fix": "queue 1 item 9",
-    "a3_pointer_2": "queue 1 item 9",
-}
 OVERRIDES = ('{"trainer": {"serialization_dir": "/tmp/x", "num_epochs": 2},'
              ' "data": {"shards_dir": "/tmp/s"}, "model": {"gen_len": 7,'
              ' "decoder": {"dropout": 0.0}}, "bucketing": {"max_batch": 8}}')
@@ -71,8 +69,7 @@ def _assert_configs_equal(exp, jexp):
 
 def test_every_yaml_is_covered():
     assert len(YAMLS) == 29
-    assert set(YAMLS) == LOADS | MODERN | {
-        p for p in YAMLS if os.path.basename(p)[:-5] in REFUSED}
+    assert set(YAMLS) == LOADS | MODERN
 
 
 @pytest.mark.parametrize("path", YAMLS)
@@ -108,13 +105,6 @@ def test_modern_yamls_load_as_jax_does(path):
     over = load_experiment(full, MODERN_OVERRIDES)
     _assert_configs_equal(over, j_load(full, MODERN_OVERRIDES))
     assert (over.model.kv_heads, len(over.model.contexts)) == (8, 3)
-
-
-@pytest.mark.parametrize("path", sorted(set(YAMLS) - LOADS - MODERN))
-def test_other_yamls_are_refused_with_their_item(path):
-    item = REFUSED[os.path.basename(path)[:-5]]
-    with pytest.raises(NotPortedError, match=item):
-        load_experiment(os.path.join(ROOT, path))
 
 
 @pytest.mark.parametrize("over, item", [

@@ -20,7 +20,9 @@ expt 12's YAML loaded, a tiny ViT and RoBERTa through
 modern_encode_contexts, an MoE LM's greedy generate and LLMDecodeEngine
 with the int8 K/V cache; the modern and LSTM families' train steps
 through their adapters' losses, the LSTM's greedy decode with the fused
-top-k, a GloVe lookup) and checks that the plain paths ran: the kernels'
+top-k, a GloVe lookup; the pointer family's train step with copy masks
+and its greedy decode under the int8 K/V cache and the fused top-k) and
+checks that the plain paths ran: the kernels'
 launch counters stay 0.
 """
 import json
@@ -194,6 +196,26 @@ for name, mcfg, ids in (("modern", lcfg, batch["caption_ids"] % 300),
             lstm_ids = ad.generate(pp, mcfg, ad.encode(enc.frozen(), tb),
                                    fused_topk=True)["token_ids"]
 glove = GloveVectors({"the": torch.ones(300).numpy()}).embed_text("the cat")
+# the pointer family (expts a1-a3): a train step through its adapter's e2e
+# loss on a batch with copy masks, and its greedy decode under the int8
+# K/V cache and the fused top-k
+pcfg = dataclasses.replace(cfg, decoder=dataclasses.replace(
+    dec, contexts=dec.contexts[:3]))
+pad = get_model("transformer_pointer", pcfg)
+pparams = pad.init(g, pad.config)
+pb = {k: batch[k].clone() for k in ("context_ids", "caption_ids",
+                                    "image_grid", "face_embeds")}
+pb["proper_masks"] = torch.zeros(2, 16, dtype=torch.long)
+pb["proper_masks"][:, 3] = 1
+pb["caption_copy_masks"] = torch.zeros(2, 6, dtype=torch.long)
+pb["caption_copy_masks"][:, 2] = 1
+pb["caption_ids"][:, 2] = pb["context_ids"][:, 3]
+_, _, psm = make_train_step(pad.config, opt, loss=pad.loss,
+                            loss_e2e=pad.loss_e2e)(
+    pparams, opt.init(pparams), pb, g, enc.frozen())
+with torch.inference_mode():
+    pout = pad.generate(pparams, pad.config, pad.encode(enc.frozen(), pb),
+                        kv_cache="int8", fused_topk=True)
 print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "text_round_trip": tok.decode(tok.encode(text)) == text,
                   "bpe": type(tok.bpe).__name__,
@@ -219,6 +241,10 @@ print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "single": [list(single.shape), list(q4split.shape)],
                   "other_families": [steps, list(lstm_ids.shape),
                                      float(glove.sum())],
+                  "pointer": [bool(torch.isfinite(psm["loss"])),
+                              float(psm["loss"]) > 0,
+                              list(pout["token_ids"].shape),
+                              list(pout["should_copy"].shape)],
                   "launches": [decode_attention.launches,
                                encoder_attention.launches,
                                fused_dynamic_conv.launches,
@@ -260,7 +286,7 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                  "models.backbones.yolov3", "ops.image_resize",
                  "models.llm_decoder", "models.registry", "ops.moe",
                  "models.backbones.vit", "models.lstm_decoder",
-                 "data.glove"):
+                 "data.glove", "models.pointer", "ops.self_attention"):
         assert f"tell_tpu_torch.{name}" in res["modules"]
     assert res["jax_package"] == []
     assert res["jax_loaded"] is False
@@ -285,4 +311,5 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
     assert res["single"] == [[2, 2, 4, 8], [2, 2, 4, 8]]
     assert res["other_families"] == [{"modern": True, "lstm": True}, [2, 4],
                                      300.0]
+    assert res["pointer"] == [True, True, [2, 4], [2, 3]]
     assert res["launches"] == [0, 0, 0, 0, 0, 0, 0]

@@ -4,8 +4,8 @@ against tell_tpu on the CPU.
 
 get_model maps tell_tpu's names as tell_tpu does (vit_modern over a
 captioner config swaps in ViT-L's contexts; the modern adapter carries
-llm_loss, the LSTM names tell_tpu's _lstm adapter; the pointer names are
-refused with their ROADMAP item). LLMDecodeEngine, dense and MoE, fp
+llm_loss, the LSTM names tell_tpu's _lstm adapter and the pointer names
+its _pointer adapters). LLMDecodeEngine, dense and MoE, fp
 and int8 K/V: every schedule (staggered admissions, slot reuse, the
 max_lag=1 drain) answers each request with the port's one-shot
 llm_beam_search on it alone (ids and finished equal, scores within 1e-5),
@@ -39,7 +39,7 @@ from tell_tpu.models import llm_decoder as J
 from tell_tpu.models.registry import get_model as j_get_model
 from tell_tpu_torch.bridge import init_llm_decoder, to_torch
 from tell_tpu_torch.config import (CaptionerConfig, ContextSpec, LLMConfig,
-                                   NotPortedError, VIT_CONTEXTS)
+                                   VIT_CONTEXTS)
 from tell_tpu_torch.models import llm_decoder as P
 from tell_tpu_torch.models.backbones.roberta import (RobertaConfig,
                                                      RobertaEncoder)
@@ -181,10 +181,20 @@ def test_registry_maps_names_as_jax_does():
         assert ad.loss is L.lstm_captioner_loss
         assert ad.generate is L.lstm_generate and ad.encode is not None
     assert get_model("transformer_glove", cap).name == "captioner"
+    # the pointer family: tell_tpu's _pointer adapters (a PointerConfig
+    # over the captioner's, an e2e loss, no beam), no engine, no maps
     for name in ("pointer", "transformer_pointer", "pointer_2",
                  "transformer_pointer_2"):
-        with pytest.raises(NotPortedError, match="queue 1 item 9"):
-            get_model(name, cap)
+        ad, jad = get_model(name, cap), j_get_model(name, JCaptioner())
+        assert ad.name == jad.name == ("pointer_v2" if name.endswith("2")
+                                       else "pointer_v1")
+        assert (dataclasses.asdict(ad.config)
+                == dataclasses.asdict(jad.config))
+        assert (ad.beam, jad.beam) == (None, None)
+        assert ad.loss_e2e is not None and ad.encode is not None
+        assert (ad.engine, ad.attention_maps, ad.copy_masks) == (
+            False, False, True)
+    assert not get_model("transformer_faces", cap).copy_masks
     with pytest.raises(KeyError):
         get_model("bogus", cap)
 
