@@ -9,7 +9,8 @@ every phase passed):
      TF32 off for matmuls and cuDNN (fp32 means fp32).
   2. build: compiles the hand-written kernels of tell_tpu_torch/csrc/ with
      nvcc for sm_90a, and beside them the host library of native/*.cpp
-     (the C++ BPE, shard reader and batch gather) with g++.
+     (the C++ BPE, shard reader and batch gather) and the JPEG encoder
+     (csrc/host/jpeg_encode.cpp) with g++.
   3. kernel vs plain on the card: kernel B (encoder attention; H=16,
      hd=64, S=128 and 512 at B=4 with 3/4, 1/3 and 1 key of S real, and
      at S=512 B=1 (the engine's single-request encode) and B=32 (phase
@@ -338,6 +339,26 @@ every phase passed):
      (d) `evaluate` a1 greedily on 4 captions (A and B, the shards' proper
      masks reaching the decode); (e) `serve --engine-slots 2` refused with
      tell_tpu's error; the launches of A, B and C per part.
+ 20. the dataset build (docs/getting_data.md steps 2, 4 and 5) with phase
+     15's full-width towers written as the port's state.pt files: the
+     news photos and their progressive and PNG twins, each a <hash>.jpg
+     (sha256 of a URL, as the scraper names them), and one .png name
+     through `tell_tpu_torch.tools.process_images` (every JPEG's sha256
+     equal to the committed digest of tell_tpu's Pillow file, the PNG's
+     pixels the crop's; host ms of encode_jpeg at 224 x 224, median of
+     20); an articles JSONL naming them through `detect_faces` and
+     `annotate_objects` on the card twice (cold and warm, equal output)
+     and on the CPU for the two news photos (objects: the first 8): face
+     boxes within BOX_TOL_PX, confidences within SCORE_TOL and FaceNet
+     rows on the card's boxes within FEATURE_REL_TOL of the CPU's; each
+     CPU object box matched to a distinct card box within BOX_TOL_PX, its
+     score within SCORE_TOL, its int() crop equal but for an edge within
+     1e-3 px of an integer (flips counted), rows on equal crops within
+     FEATURE_REL_TOL; then `preprocess` with the flagship's YAML
+     (expt/nytimes/9_transformer_objects.yaml) over the tools' outputs on
+     the card: one example a photo, the shards' face and object rows equal
+     to the tools', a 49-row grid each; images/s of each tool run. No
+     kernel A-F runs in it.
 Then a line of each phase's wall seconds, one JSON line describing the
 kernels and, last, the result line.
 
@@ -348,6 +369,11 @@ runs phases 1-2, then phase 12 only; no result line.
     python3 chip_smoke.py --pointer
 
 runs phases 1-2, then phase 19 only (its own RoBERTa-large tower); no
+result line.
+
+    python3 chip_smoke.py --dataset
+
+runs phases 1-2, then phase 20 only (phase 15's towers made again); no
 result line.
 
     python3 chip_smoke.py --quality [--quality-out DIR]
@@ -6103,6 +6129,362 @@ def phase_pointer(seed: int, card: str, dev: str = "cuda",
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the dataset build -- process_images, detect_faces and
+# annotate_objects over news photos, then the flagship's preprocess
+# ---------------------------------------------------------------------------
+
+FLAGSHIP_EXPT = "expt/nytimes/9_transformer_objects.yaml"
+DATASET_SOURCES = NEWS_PHOTOS + tuple(t for n in NEWS_PHOTOS
+                                      for t in FORM_TWINS[n])
+DATASET_CPU_SOURCES = NEWS_PHOTOS       # faces and objects also on the CPU
+DATASET_CPU_OBJECTS = 8   # object rows the CPU embeds a photo (ResNet-152)
+FLIP_PX = 1e-3            # an int() crop edge may flip this near an integer
+SCORE_TOL = 1e-4          # face confidences and object scores, card vs CPU
+ENCODE_CALLS = 20         # host encode_jpeg calls timed (the median is kept)
+
+
+def _dataset_articles(hashes: dict) -> list:
+    """One article per news photo, each of its forms a caption section
+    (named by its <hash>) between paragraphs."""
+    arts = []
+    for i, photo in enumerate(NEWS_PHOTOS):
+        names = [n for n in DATASET_SOURCES if n.startswith(photo[:6])]
+        sections = [{"type": "paragraph",
+                     "text": f"Paragraph {i}.{k} of a story about the "
+                             "harbour and the city council."}
+                    for k in range(2)]
+        positions = []
+        for k, name in enumerate(names):
+            positions.append(len(sections))
+            sections.append({"type": "caption", "hash": hashes[name],
+                             "text": f"Photo {k} of story {i}: the harbour "
+                                     "at dawn."})
+            sections.append({"type": "paragraph", "text": "More text."})
+        arts.append({"_id": f"chip-smoke-{i}",
+                     "web_url": f"https://www.nytimes.com/chip-smoke/{i}",
+                     "headline": {"main": f"Story {i}"},
+                     "parsed_section": sections,
+                     "image_positions": positions})
+    return arts
+
+
+def _write_jsonl(path: str, rows) -> None:
+    with open(path, "w", encoding="utf-8") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+
+
+def _read_jsonl(path: str) -> list:
+    with open(path, encoding="utf-8") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def _tool(module: str, argv, label) -> tuple[str, float]:
+    """`python -m tell_tpu_torch.tools.<module> argv` in this process: its
+    stdout and wall seconds."""
+    main = importlib.import_module(f"tell_tpu_torch.tools.{module}").main
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    dt = time.perf_counter() - t
+    require(rc == 0, f"{label}: {module} exited {rc}")
+    return buf.getvalue(), dt
+
+
+def _check_processed(root, raw, out, hashes, label) -> dict:
+    """Every processed JPEG equal to the committed digest of tell_tpu's
+    (Pillow's) file for its source; the PNG output the crop's pixels."""
+    import hashlib
+    from tell_tpu_torch.data.images import decode_image, resize_shortest_crop
+    with open(os.path.join(root, IMAGES_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, h in hashes.items():
+        with open(os.path.join(out, f"{h}.jpg"), "rb") as f:
+            got = hashlib.sha256(f.read()).hexdigest()
+        want = manifest[name]["processed"]["sha256"]
+        require(got == want, f"{label}: {name}'s processed JPEG sha256 "
+                f"{got} is not tell_tpu's {want}")
+    with open(os.path.join(out, "twin.png"), "rb") as f:
+        png = decode_image(f.read())
+    with open(os.path.join(raw, "twin.png"), "rb") as f:
+        want = resize_shortest_crop(decode_image(f.read()))
+    require(np.array_equal(png, want),
+            f"{label}: the processed PNG's pixels are not the crop's")
+    return {"jpeg_digests_equal": len(hashes), "png_pixels_equal": 1}
+
+
+def _encode_ms(out, hashes) -> float:
+    from tell_tpu_torch.data.images import decode_image
+    from tell_tpu_torch.data.jpeg import encode_jpeg
+    with open(os.path.join(out, f"{hashes[NEWS_PHOTOS[0]]}.jpg"), "rb") as f:
+        rgb = decode_image(f.read())
+    times = []
+    for _ in range(ENCODE_CALLS):
+        t = time.perf_counter()
+        encode_jpeg(rgb)
+        times.append(time.perf_counter() - t)
+    return 1e3 * float(np.median(times))
+
+
+def _sections_by_hash(arts) -> dict:
+    """The image positions' sections by their hash."""
+    return {a["parsed_section"][p]["hash"]: a["parsed_section"][p]
+            for a in arts for p in a["image_positions"]}
+
+
+def _check_faces(card_arts, cpu_arts, images, towers_dir, label) -> dict:
+    """The CPU tool's faces against the card's on the photos both ran:
+    boxes within BOX_TOL_PX, confidences within SCORE_TOL, and FaceNet rows on
+    the card's boxes within FEATURE_REL_TOL of the CPU's."""
+    from tell_tpu_torch.data.images import decode_image
+    from tell_tpu_torch.models.backbones.facenet import (facenet_forward,
+                                                         load_facenet)
+    from tell_tpu_torch.models.backbones.mtcnn import extract_faces
+    card, cpu = _sections_by_hash(card_arts), _sections_by_hash(cpu_arts)
+    facenet = load_facenet(os.path.join(towers_dir, "facenet"), "cpu")
+    out = {"faces": 0, "max_box_px": 0.0, "max_rel_err": 0.0}
+    for h, sec in cpu.items():
+        want, got = sec.get("facenet_details"), card[h].get(
+            "facenet_details")
+        require((want is None) == (got is None),
+                f"{label}: faces on one side only for {h}")
+        if want is None:
+            continue
+        require(got["n_faces"] == want["n_faces"],
+                f"{label}: {got['n_faces']} faces on the card, "
+                f"{want['n_faces']} on the CPU for {h}")
+        boxes = torch.tensor([f["bbox"] for f in got["frame_faces"]])
+        m = _match_boxes(boxes, torch.tensor(
+            [f["bbox"] for f in want["frame_faces"]]), f"{label}: {h}")
+        require(m["moved"] == [], f"{label}: the faces of {h} are in "
+                "another order on the card")
+        conf = max(abs(g["confidence"] - w["confidence"]) for g, w in
+                   zip(got["frame_faces"], want["frame_faces"]))
+        require(conf <= SCORE_TOL, f"{label}: confidences {conf:.2e} apart")
+        with open(os.path.join(images, f"{h}.jpg"), "rb") as f:
+            img = torch.from_numpy(decode_image(f.read()).astype(np.float32))
+        with torch.inference_mode():
+            ref = facenet_forward(facenet, extract_faces(img, boxes))
+        err = _rel(torch.tensor(got["embeddings"]), ref)
+        require(err <= FEATURE_REL_TOL, f"{label}: {h}'s face rows are "
+                f"{err:.3e} off the CPU's on the same boxes")
+        out["faces"] += got["n_faces"]
+        out["max_box_px"] = max(out["max_box_px"], m["max_px"])
+        out["max_rel_err"] = max(out["max_rel_err"], err)
+    require(out["faces"] >= 1, f"{label}: no face found")
+    return out
+
+
+def _check_objects(card_lines, cpu_lines, label) -> dict:
+    """The CPU tool's objects (its first DATASET_CPU_OBJECTS) against the
+    card's: each CPU box matched to a distinct card box within BOX_TOL_PX
+    (among those, the one whose score is nearest: class-aware NMS keeps
+    boxes of other classes at the same place), the scores within
+    SCORE_TOL; the int() crops equal but for an edge within FLIP_PX of an
+    integer (a flip, counted); the rows on equal crops within
+    FEATURE_REL_TOL."""
+    card = {d["hash"]: d for d in card_lines}
+    out = {"objects": 0, "matched": 0, "crops_compared": 0, "flips": 0,
+           "max_score_err": 0.0, "max_rel_err": 0.0}
+    for want in cpu_lines:
+        got = card[want["hash"]]
+        require(got["_id"] == got["hash"] == want["_id"],
+                f"{label}: the line's keys")
+        cb = torch.tensor(got["boxes"], dtype=torch.float64)
+        wb = torch.tensor(want["boxes"], dtype=torch.float64)
+        free = list(range(len(cb)))
+        for i in range(len(wb)):
+            d = (cb[free] - wb[i]).abs().amax(dim=1)
+            near = [k for k in range(len(free)) if float(d[k]) <= BOX_TOL_PX]
+            require(near, f"{label}: CPU box {i} {wb[i].tolist()} of "
+                    f"{want['hash']} is within {BOX_TOL_PX} px of no "
+                    "unmatched card box")
+            k = min(near, key=lambda k: abs(got["scores"][free[k]]
+                                            - want["scores"][i]))
+            j = free.pop(k)
+            sd = abs(got["scores"][j] - want["scores"][i])
+            require(sd <= SCORE_TOL, f"{label}: object {i} of "
+                    f"{want['hash']} scores {want['scores'][i]} on the CPU, "
+                    f"{got['scores'][j]} on the card")
+            out["matched"] += 1
+            out["max_score_err"] = max(out["max_score_err"], sd)
+            gs = [int(v) for v in got["boxes"][j]]
+            ws = [int(v) for v in want["boxes"][i]]
+            if gs != ws:
+                flip = [abs(v - round(v)) <= FLIP_PX
+                        for v in want["boxes"][i]]
+                require(all(flip[k] for k in range(4) if gs[k] != ws[k]),
+                        f"{label}: crop {ws} on the CPU, {gs} on the card")
+                out["flips"] += 1
+                continue
+            err = _rel(torch.tensor(got["object_features"][j]),
+                       torch.tensor(want["object_features"][i]))
+            require(err <= FEATURE_REL_TOL, f"{label}: object row {i} of "
+                    f"{want['hash']} is {err:.3e} off the CPU's")
+            out["crops_compared"] += 1
+            out["max_rel_err"] = max(out["max_rel_err"], err)
+        out["objects"] += len(got["boxes"])
+    require(out["crops_compared"] >= 2, f"{label}: {out}")
+    return out
+
+
+def _check_shards(exp, faces_arts, object_lines, label) -> dict:
+    """The shards' face and object rows equal to the tools' outputs (the
+    reader's first max_faces embeddings and max_objects rows, as the
+    shard stores them)."""
+    from tell_tpu_torch.data.records import ShardReader
+    sections = _sections_by_hash(faces_arts)
+    objects = {d["hash"]: d for d in object_lines}
+    n = rows = 0
+    for p in sorted(os.listdir(exp.data.shards_dir)):
+        reader = ShardReader(os.path.join(exp.data.shards_dir, p))
+        for i in range(len(reader)):
+            rec = reader[i]
+            h = str(rec["image_hash"])
+            det = sections[h].get("facenet_details")
+            want = np.asarray(det["embeddings"][:exp.reader.max_faces]
+                              if det else np.zeros((0, 512)))
+            got = rec["face_embeds"]
+            require(np.array_equal(got, want.astype(got.dtype)),
+                    f"{label}: {p}[{i}]'s face rows are not the tool's")
+            want = np.asarray(objects[h]["object_features"]
+                              [:exp.reader.max_objects])
+            got = rec["obj_embeds"]
+            require(np.array_equal(got, want.astype(got.dtype)),
+                    f"{label}: {p}[{i}]'s object rows are not the tool's")
+            require(rec["image_grid"].shape[0] == 49,
+                    f"{label}: {p}[{i}]'s grid")
+            n += 1
+            rows += len(rec["face_embeds"]) + len(rec["obj_embeds"])
+    return {"examples": n, "rows": rows}
+
+
+def phase_dataset(seed: int, card: str, dev: str = "cuda",
+                  trees=None) -> dict:
+    """Phase 20 (see the module docstring): the port's dataset build over
+    the news photos and their twins, each a <hash>.jpg: process_images
+    (every JPEG equal to the committed digest of tell_tpu's), detect_faces
+    and annotate_objects on `dev` and on the CPU (phase 15's towers as the
+    port's state.pt files), then preprocess with the flagship's YAML, its
+    shards holding the tools' rows. trees: phase 15's _vision_towers(seed),
+    made again when not given."""
+    from tell_tpu_torch.bridge import to_torch
+    from tell_tpu_torch.commands.__main__ import preprocess
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.tools.get_articles_nytimes import image_hash
+    label = "phase 20"
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    trees = trees or _vision_towers(seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dataset_")
+    res = {}
+    try:
+        towers = os.path.join(tmp, "towers")
+        for name, key in (("mtcnn", "mtcnn"), ("facenet", "facenet"),
+                          ("yolov3", "yolov3"), ("resnet152", "resnet")):
+            os.makedirs(os.path.join(towers, name))
+            torch.save(to_torch(trees[key], "cpu"),
+                       os.path.join(towers, name, "state.pt"))
+        raw, images = os.path.join(tmp, "raw"), os.path.join(tmp, "images")
+        os.makedirs(raw)
+        hashes = {n: image_hash(f"https://static01.nyt.com/chip-smoke/{n}")
+                  for n in DATASET_SOURCES}
+        for name, h in hashes.items():
+            shutil.copy(os.path.join(root, IMAGES_DIR, name),
+                        os.path.join(raw, f"{h}.jpg"))
+        shutil.copy(os.path.join(root, IMAGES_DIR, FORM_TWINS[
+            NEWS_PHOTOS[1]][1]), os.path.join(raw, "twin.png"))
+        out, dt = _tool("process_images", ["--images", raw, "--out", images],
+                        label)
+        n_raw = len(hashes) + 1
+        require(out.strip() == f"processed {n_raw} images (0 failed)",
+                f"{label}: process_images said {out!r}")
+        res["process_images"] = {"images_per_s": n_raw / dt,
+                                 **_check_processed(root, raw, images,
+                                                    hashes, label)}
+        res["process_images"]["encode_ms"] = _encode_ms(images, hashes)
+        articles = os.path.join(tmp, "articles.jsonl")
+        arts = _dataset_articles(hashes)
+        _write_jsonl(articles, arts)
+        cpu_articles = os.path.join(tmp, "cpu_articles.jsonl")
+        _write_jsonl(cpu_articles, [
+            {**a, "image_positions": [p for p in a["image_positions"]
+                                      if a["parsed_section"][p]["hash"]
+                                      in {hashes[n] for n in
+                                          DATASET_CPU_SOURCES}]}
+            for a in arts])
+        n_img = len(hashes)
+        common = ["--images", images, "--towers", towers]
+        runs, load_s = {}, {}
+        for tool, flags in (("detect_faces", []),
+                            ("annotate_objects", [])):
+            # each run loads its towers from state.pt first: timed apart
+            load = importlib.import_module(
+                f"tell_tpu_torch.tools.{tool}").load_towers
+            t = time.perf_counter()
+            load(towers, dev)
+            _sync(dev)
+            load_s[tool] = time.perf_counter() - t
+            for where, arts_in, extra in (
+                    ("card", articles, ["--device", dev]),
+                    ("card_warm", articles, ["--device", dev]),
+                    ("cpu", cpu_articles,
+                     ["--device", "cpu"] + (["--max-objects",
+                                             str(DATASET_CPU_OBJECTS)]
+                                            if tool == "annotate_objects"
+                                            else []))):
+                dst = os.path.join(tmp, f"{tool}_{where}.jsonl")
+                said, dt = _tool(tool, ["--articles", arts_in, *common,
+                                        "--out", dst, *flags, *extra],
+                                 label)
+                n = n_img if where != "cpu" else len(DATASET_CPU_SOURCES)
+                runs[f"{tool}_{where}"] = {"said": said.strip(),
+                                           "images_per_s": n / dt,
+                                           "out": _read_jsonl(dst)}
+                if where == "card_warm":
+                    runs[f"{tool}_{where}"]["after_load_images_per_s"] = (
+                        n / max(dt - load_s[tool], 1e-9))
+        res["faces"] = _check_faces(
+            runs["detect_faces_card"]["out"], runs["detect_faces_cpu"]["out"],
+            images, towers, label)
+        res["objects"] = _check_objects(runs["annotate_objects_card"]["out"],
+                                        runs["annotate_objects_cpu"]["out"],
+                                        label)
+        for tool in ("detect_faces", "annotate_objects"):
+            require(runs[f"{tool}_card"]["out"]
+                    == runs[f"{tool}_card_warm"]["out"],
+                    f"{label}: two card runs of {tool} differ")
+        res["rates"] = {k: {kk: vv for kk, vv in v.items() if kk != "out"}
+                        for k, v in runs.items()}
+        res["card_load_s"] = load_s
+        # the flagship's preprocess over the tools' outputs
+        over = {"data": {
+            "shards_dir": os.path.join(tmp, "shards"),
+            "articles_jsonl": os.path.join(tmp, "detect_faces_card.jsonl"),
+            "objects_jsonl": os.path.join(tmp,
+                                          "annotate_objects_card.jsonl"),
+            "images_dir": images,
+            "vocab_file": "tests/fixtures/quality/vocab.json",
+            "merges_file": "tests/fixtures/quality/merges.txt"}}
+        exp = load_experiment(FLAGSHIP_EXPT, json.dumps(over))
+        t = time.perf_counter()
+        n, _ = preprocess(exp, "train", device=dev)
+        res["preprocess"] = {"seconds": time.perf_counter() - t, "examples": n,
+                             **_check_shards(
+                                 exp, runs["detect_faces_card"]["out"],
+                                 runs["annotate_objects_card"]["out"],
+                                 label)}
+        require(n == res["preprocess"]["examples"] == n_img,
+                f"{label}: preprocess wrote {n} examples of {n_img} photos")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"{label} ({card or dev}): " + json.dumps(res))
+    return res
+
+
 def quality_run(card: str, out_dir: str | None) -> int:
     """tell_tpu_torch.tools.quality_loop on overfit_flagship.yaml as it is
     (200 epochs of 2 steps, trainer seed 0), runs and shards in a
@@ -6311,6 +6693,8 @@ def main() -> int:
                     help="after the build, phase 18 only (no result line)")
     ap.add_argument("--pointer", action="store_true",
                     help="after the build, phase 19 only (no result line)")
+    ap.add_argument("--dataset", action="store_true",
+                    help="after the build, phase 20 only (no result line)")
     ap.add_argument("--quality", action="store_true",
                     help="after the build, the full quality loop on "
                     f"{QUALITY_EXPT} with its acceptance thresholds (no "
@@ -6342,8 +6726,9 @@ def main() -> int:
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn.allow_tf32="
         f"{torch.backends.cudnn.allow_tf32}")
 
-    # phase 2: the host library's g++ build runs beside the kernels' nvcc
-    from tell_tpu_torch.data import native
+    # phase 2: the host library's and the JPEG encoder's g++ builds run
+    # beside the kernels' nvcc
+    from tell_tpu_torch.data import jpeg, native
     from tell_tpu_torch.ops.kernels import build
     found = native.library_path().exists()
     host = {}
@@ -6352,6 +6737,7 @@ def main() -> int:
         t0 = time.perf_counter()
         try:
             native.load_library()
+            jpeg.load_encoder()
         except BaseException as err:    # re-raised in the main thread
             host["error"] = err
         host["seconds"] = time.perf_counter() - t0
@@ -6370,8 +6756,8 @@ def main() -> int:
     if "error" in host:
         raise host["error"]
     log(f"phase 2: {'found' if found else 'built'} and loaded the host "
-        f"library {native.library_path().name} (g++, native/*.cpp) in "
-        f"{host['seconds']:.2f} s, beside the kernels' build")
+        f"library {native.library_path().name} (g++, native/*.cpp) and the "
+        f"JPEG encoder in {host['seconds']:.2f} s, beside the kernels' build")
 
     if args.engine_repeats:
         engine_repeats(args.seed, args.engine_repeats)
@@ -6406,6 +6792,9 @@ def main() -> int:
         return 0
     if args.pointer:
         phase_pointer(args.seed, smi)
+        return 0
+    if args.dataset:
+        phase_dataset(args.seed, smi)
         return 0
     if args.quality:
         return quality_run(smi, args.quality_out)
@@ -6487,8 +6876,9 @@ def main() -> int:
     faces_objects = phase_faces_objects(args.seed, smi)
     torch.cuda.empty_cache()
     _mark(marks)
-    # phase 16: what tell_tpu users hold
-    forms = phase_forms(args.seed, smi, trees=faces_objects.pop("trees"))
+    # phase 16: what tell_tpu users hold (phase 15's towers, kept for 20)
+    trees = faces_objects.pop("trees")
+    forms = phase_forms(args.seed, smi, trees=trees)
     torch.cuda.empty_cache()
     _mark(marks)
     # phase 17: the modern family
@@ -6508,6 +6898,11 @@ def main() -> int:
         _mark(marks)
     finally:
         shutil.rmtree(shared, ignore_errors=True)
+    # phase 20: the dataset build (phase 15's towers)
+    phase_dataset(args.seed, smi, trees=trees)
+    del trees
+    torch.cuda.empty_cache()
+    _mark(marks)
     log("phase seconds (host clock, each phase from the end of the one "
         "before; phases 1-2 from the end of the script's imports): "
         + json.dumps(_phase_seconds(marks, T0)))

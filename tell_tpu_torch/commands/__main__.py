@@ -36,8 +36,10 @@ directory that holds no state.pt (tell_tpu's orbax tree) is refused,
 naming migrate/orbax_to_torch.py, which converts tell_tpu's orbax runs and
 towers where JAX and orbax are installed. `towers verify DIR [--tower
 NAME] [--json] [--device D]` probes each converted tower
-(commands/towers.py). What remains of item 8: the image forms
-data/jpeg.py and data/png.py refuse, and the dataset tools.
+(commands/towers.py). The dataset build's tools (get_articles_nytimes,
+process_images, detect_faces, annotate_objects) are modules of
+tell_tpu_torch.tools. What remains of item 8: the image forms data/jpeg.py
+and data/png.py refuse.
 """
 from __future__ import annotations
 

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import functools
 import math
+import struct
+import zlib
 
 import numpy as np
 
@@ -182,3 +184,77 @@ def decode_image(data: bytes) -> np.ndarray:
                                  "and PNG only (ROADMAP queue 1 item 8)")
     raise NotPortedError("an image in no format the port decodes (neither "
                          "JPEG nor PNG; ROADMAP queue 1 item 8)")
+
+
+def _jpeg_comment(data: bytes) -> bytes | None:
+    """The last COM segment before the first SOS, as Pillow's JPEG header
+    walk stores it in info["comment"] (bytes past junk, fill bytes and
+    stand-alone markers skipped as it skips them)."""
+    comment, pos = None, 2
+    while pos + 1 < len(data):
+        if data[pos] != 0xFF:
+            pos += 1                  # junk between segments
+            continue
+        marker = data[pos + 1]
+        if marker in (0x00, 0xFF):    # an escaped 0xFF or fill: move on
+            pos += 1 if marker == 0xFF else 2
+            continue
+        if marker == 0xDA or pos + 4 > len(data):
+            break
+        if marker == 0x01 or 0xD0 <= marker <= 0xD8:
+            pos += 2                  # TEM, RSTn, SOI: no length
+            continue
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if marker == 0xFE:
+            comment = data[pos + 4:pos + 2 + length]
+        pos += 2 + length
+    return comment
+
+
+def _png_comment(data: bytes) -> bytes | None:
+    """A text chunk keyed "comment" (tEXt, zTXt or iTXt, the last one
+    read), as Pillow's PNG reader stores it in info["comment"] (a str,
+    which its JPEG writer encodes as UTF-8)."""
+    comment, pos = None, 8
+    while pos + 8 <= len(data):
+        length, cid = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if cid == b"IEND":
+            break
+        if cid not in (b"tEXt", b"zTXt", b"iTXt"):
+            continue
+        key, sep, value = body.partition(b"\0")
+        if key != b"comment":
+            continue
+        try:
+            if cid == b"tEXt":
+                text = value.decode("latin-1")
+            elif cid == b"zTXt":
+                if value[:1] not in (b"", b"\0"):
+                    continue
+                text = zlib.decompress(value[1:]).decode("latin-1")
+            else:
+                flag, method, rest = value[0], value[1], value[2:]
+                _lang, _key, text_b = rest.split(b"\0", 2)
+                if flag and method:
+                    continue
+                text = (zlib.decompress(text_b) if flag
+                        else text_b).decode("utf-8")
+        except (ValueError, IndexError, zlib.error):
+            continue
+        comment = text.encode("utf-8")
+    return comment
+
+
+def image_comment(data: bytes) -> bytes | None:
+    """The comment Pillow keeps in info["comment"] when it opens these
+    bytes (a JPEG's COM marker, a PNG's "comment" text chunk), which its
+    JPEG writer puts back as a COM marker of the image saved from them
+    (tools/process_images.py's output); None when there is none."""
+    data = bytes(data)
+    if data[:2] == b"\xff\xd8":
+        return _jpeg_comment(data)
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return _png_comment(data)
+    return None

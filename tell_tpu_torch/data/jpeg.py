@@ -1,4 +1,5 @@
-"""The port's JPEG decoder (csrc/host/jpeg.cpp) through ctypes.
+"""The port's JPEG decoder (csrc/host/jpeg.cpp) and encoder
+(csrc/host/jpeg_encode.cpp) through ctypes.
 
 tell_tpu decodes images through Pillow; the port has no Pillow, so it
 decodes news photos itself, to the bytes Pillow gives on its
@@ -24,6 +25,12 @@ refused form, 2 data that ends early or does not decode, 3 an output
 buffer too small, 4 a frame above Pillow's decompression-bomb limit
 (178956970 pixels, where tell_tpu's Image.open raises); 2 and 4 raise a
 ValueError.
+
+The encoder writes what the dataset build saves: ``encode_jpeg(rgb)``
+equals the bytes of ``Image.fromarray(rgb).save(f, "JPEG")`` (Pillow's
+defaults: quality 75, 4:2:0, JFIF 1.01, the standard Huffman tables), and
+``encode_jpeg(rgb, comment)`` those of an image whose ``info["comment"]``
+Pillow writes as a COM marker. It has no other options.
 """
 from __future__ import annotations
 
@@ -37,30 +44,54 @@ from ..config import NotPortedError
 from .native import BUILD_DIR, compile_shared
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "host" / "jpeg.cpp"
+ENCODER_SOURCE = SOURCE.with_name("jpeg_encode.cpp")
 CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-shared")
 ITEM = "ROADMAP queue 1 item 8"
 
 _lock = threading.Lock()
-_libs: dict[Path, ctypes.CDLL] = {}
+_libs: dict[tuple[Path, str], ctypes.CDLL] = {}
+
+
+def _load(source: Path, stem: str, bind, build_dir: Path) -> ctypes.CDLL:
+    """Build (first call only) and load `source` as `stem`, its functions'
+    types set by bind(lib); raises on failure."""
+    key = (Path(build_dir), stem)
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            lib = ctypes.CDLL(str(compile_shared(
+                [source], [], CXX_FLAGS, key[0], stem)))
+            bind(lib)
+            _libs[key] = lib
+    return lib
+
+
+def _bind_decoder(lib: ctypes.CDLL) -> None:
+    buf, i64 = ctypes.c_char_p, ctypes.c_int64
+    lib.tnt_jpeg_info.restype = ctypes.c_int
+    lib.tnt_jpeg_info.argtypes = [
+        buf, i64, ctypes.POINTER(ctypes.c_int32), buf, ctypes.c_int]
+    lib.tnt_jpeg_decode.restype = ctypes.c_int
+    lib.tnt_jpeg_decode.argtypes = [buf, i64, ctypes.c_void_p, i64, buf,
+                                    ctypes.c_int]
+
+
+def _bind_encoder(lib: ctypes.CDLL) -> None:
+    i32, i64, ptr = ctypes.c_int32, ctypes.c_int64, ctypes.c_void_p
+    lib.tnt_jpeg_encode.restype = ctypes.c_int
+    lib.tnt_jpeg_encode.argtypes = [ptr, i32, i32, ctypes.c_char_p, i32, ptr,
+                                    i64, ctypes.POINTER(i64)]
 
 
 def load_library(build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
     """Build (first call only) and load the decoder; raises on failure."""
-    build_dir = Path(build_dir)
-    with _lock:
-        lib = _libs.get(build_dir)
-        if lib is None:
-            lib = ctypes.CDLL(str(compile_shared(
-                [SOURCE], [], CXX_FLAGS, build_dir, "libtnt_jpeg")))
-            buf, i64 = ctypes.c_char_p, ctypes.c_int64
-            lib.tnt_jpeg_info.restype = ctypes.c_int
-            lib.tnt_jpeg_info.argtypes = [
-                buf, i64, ctypes.POINTER(ctypes.c_int32), buf, ctypes.c_int]
-            lib.tnt_jpeg_decode.restype = ctypes.c_int
-            lib.tnt_jpeg_decode.argtypes = [buf, i64, ctypes.c_void_p, i64,
-                                            buf, ctypes.c_int]
-            _libs[build_dir] = lib
-    return lib
+    return _load(SOURCE, "libtnt_jpeg", _bind_decoder, build_dir)
+
+
+def load_encoder(build_dir: Path = BUILD_DIR) -> ctypes.CDLL:
+    """Build (first call only) and load the encoder; raises on failure."""
+    return _load(ENCODER_SOURCE, "libtnt_jpeg_encode", _bind_encoder,
+                 build_dir)
 
 
 def _raise(code: int, err) -> None:
@@ -100,3 +131,35 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     if code:
         _raise(code, err)
     return out
+
+
+def encode_jpeg(rgb: np.ndarray, comment: bytes | None = None) -> bytes:
+    """uint8 [H, W, 3] RGB -> the JPEG Pillow writes for it at its
+    defaults, with `comment` (at most 65533 bytes) as a COM marker."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected uint8 [H, W, 3], got {rgb.dtype} "
+                         f"{list(rgb.shape)}")
+    h, w = rgb.shape[:2]
+    if not (1 <= h <= 65500 and 1 <= w <= 65500):
+        raise ValueError(f"a {w} x {h} image: JPEG holds 1 to 65500 pixels "
+                         "a side")
+    comment = bytes(comment or b"")
+    if len(comment) > 65533:
+        raise ValueError(f"a comment of {len(comment)} bytes: a COM marker "
+                         "holds at most 65533")
+    lib = load_encoder()
+    rgb = np.ascontiguousarray(rgb)
+    n = ctypes.c_int64(0)
+    cap = h * w * 3 + 4096 + len(comment)
+    while True:
+        out = np.empty(cap, np.uint8)
+        code = lib.tnt_jpeg_encode(rgb.ctypes.data, h, w, comment,
+                                   len(comment), out.ctypes.data, cap,
+                                   ctypes.byref(n))
+        if code != 3:
+            break
+        cap = n.value
+    if code:
+        raise ValueError(f"the encoder refused a {w} x {h} image")
+    return out[:n.value].tobytes()

@@ -23,6 +23,11 @@ The C++ (unfiltering, Adam7, bit depths 1/2/4/8/16 for colour types
 0/2/3/4/6) is compiled with g++ into tell_tpu_torch/build/ at the first
 call, as data/jpeg.py builds its decoder. Malformed files raise a
 ValueError; nothing here needs Pillow.
+
+``encode_png(rgb)`` writes an 8-bit RGB PNG (IHDR, one IDAT of the
+standard library's zlib over unfiltered scanlines, IEND): the dataset
+build's `.png` outputs. PNG is lossless, so it decodes to the input's
+pixels, as the file Pillow would write does; its bytes are not Pillow's.
 """
 from __future__ import annotations
 
@@ -167,3 +172,27 @@ def decode_png(data: bytes) -> np.ndarray:
     if code:
         raise _corrupt(err.value.decode(errors="replace"))
     return out
+
+
+def _chunk(cid: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + cid + body
+            + struct.pack(">I", zlib.crc32(body, zlib.crc32(cid))
+                          & 0xFFFFFFFF))
+
+
+def encode_png(rgb: np.ndarray) -> bytes:
+    """uint8 [H, W, 3] RGB -> an 8-bit RGB PNG of those pixels."""
+    rgb = np.asarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected uint8 [H, W, 3], got {rgb.dtype} "
+                         f"{list(rgb.shape)}")
+    h, w = rgb.shape[:2]
+    if not (1 <= h < 2 ** 31 and 1 <= w < 2 ** 31):
+        raise ValueError(f"a {w} x {h} image: PNG holds 1 to 2**31 - 1 "
+                         "pixels a side")
+    rows = np.zeros((h, 1 + w * 3), np.uint8)    # filter type 0 (None)
+    rows[:, 1:] = rgb.reshape(h, w * 3)
+    return (SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _chunk(b"IEND", b""))

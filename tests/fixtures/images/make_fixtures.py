@@ -13,8 +13,11 @@ np.asarray(Image.open(f).convert("RGB")) and of its 224 crop (tell_tpu's
 resize_shortest_crop); for each refused one the form the port must name
 ("refused", a NotPortedError) or the words of its corrupt-data error
 ("corrupt", a ValueError; Pillow raises too); and for the news photos'
-twins the baseline file whose decode they equal ("twin_of"). Needs Pillow
-(a test dependency; the port itself has none).
+twins the baseline file whose decode they equal ("twin_of"). For the news
+photos, their twins and one odd size, `processed` names the file under
+processed/ that tell_tpu's tools/process_images.py writes for the photo
+as a .jpg (Pillow's JPEG at its defaults) and its sha256. Needs Pillow (a
+test dependency; the port itself has none).
 """
 import hashlib
 import io
@@ -426,6 +429,34 @@ def new_files(news):
     return files, refused, twins
 
 
+# the sources of processed/: the news photos, their twins and one odd size
+PROCESSED = ("news_a_320x240_420.jpg", "news_a_320x240_420_progressive.jpg",
+             "news_a_320x240_420.png", "news_b_200x300_420.jpg",
+             "news_b_200x300_420_progressive.jpg", "news_b_200x300_420.png",
+             "rgb_67x101_422.jpg")
+
+
+def processed_name(name):
+    """processed/'s file for the source `name` (a .png source's gets
+    _png)."""
+    stem, ext = os.path.splitext(name)
+    return f"processed/{stem}{'_png' if ext == '.png' else ''}.jpg"
+
+
+def write_processed(manifest):
+    """tell_tpu's process_image over each PROCESSED source, written as a
+    .jpg under processed/, its digest in the source's manifest entry."""
+    from tools.process_images import process_image
+    os.makedirs(os.path.join(HERE, "processed"), exist_ok=True)
+    for name in PROCESSED:
+        rel = processed_name(name)
+        dst = os.path.join(HERE, rel)
+        assert process_image(os.path.join(HERE, name), dst)
+        with open(dst, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        manifest[name]["processed"] = {"file": rel, "sha256": digest}
+
+
 def _cmyk(rgb, **kw):
     f = io.BytesIO()
     Image.fromarray(rgb).convert("CMYK").save(f, "JPEG", quality=85, **kw)
@@ -491,6 +522,7 @@ def main():
         with open(os.path.join(HERE, name), "wb") as out:
             out.write(data)
         manifest[name] = {key: words}
+    write_processed(manifest)
     with open(os.path.join(HERE, "manifest.json"), "w") as out:
         json.dump(manifest, out, indent=1, sort_keys=True)
         out.write("\n")

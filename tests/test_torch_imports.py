@@ -12,7 +12,10 @@ page, writes and reads back a TensorBoard scalar, decodes and crops a JPEG
 and embeds it with a tiny ResNet, decodes a progressive JPEG and a PNG
 (Adam7) through decode_image with Pillow blocked, runs the photo through the vision
 pipeline with tiny MTCNN, FaceNet and YOLOv3 towers (the letterbox, the
-faces and the objects with Pillow blocked), then runs the slices on CPU
+faces and the objects with Pillow blocked), runs the dataset build's
+process_images on a news photo (its JPEG equal to the committed digest
+of tell_tpu's Pillow file) and the faces and objects tools' cores on a
+crop of it, then runs the slices on CPU
 tensors at a tiny size (greedy
 generate, a train step, the continuous-batching engine with the int8 K/V
 cache and the fused top-k, and kernel F's two forms; the modern family:
@@ -144,6 +147,22 @@ towers = {"mtcnn": mtcnn.prepare_mtcnn(init_mtcnn(g)),
           "resnet": prepare_resnet(init_resnet(g, rcfg_img)),
           "resnet_cfg": rcfg_img}
 feats = vision.VisionPipeline(towers).process({"image": photo})
+# the dataset build: process_images writes tell_tpu's processed JPEG, the
+# tower tools run on a crop of it, with Pillow blocked
+import hashlib, os, shutil
+from tell_tpu_torch.tools import annotate_objects as dobjects
+from tell_tpu_torch.tools import detect_faces as dfaces
+from tell_tpu_torch.tools import process_images
+raw, processed = tempfile.mkdtemp(), tempfile.mkdtemp()
+shutil.copy("tests/fixtures/images/news_a_320x240_420.jpg", raw)
+process_images.main(["--images", raw, "--out", processed])
+with open(os.path.join(processed, "news_a_320x240_420.jpg"), "rb") as f:
+    processed_jpeg = f.read()
+piece = decode_image(processed_jpeg)[:64, :64].astype("float32")
+faces_n = dfaces.detect_and_embed(towers, piece, 4)[3]
+objs = dobjects.annotate(towers, piece, max_objects=4)
+dataset = [hashlib.sha256(processed_jpeg).hexdigest(), faces_n <= 4,
+           objs is None or list(objs[0].shape[1:])]
 from tell_tpu_torch.bridge import init_llm_decoder, init_vit
 from tell_tpu_torch.config import ContextSpec, LLMConfig
 from tell_tpu_torch.models.backbones.vit import ViTConfig
@@ -224,6 +243,7 @@ print(json.dumps({"modules": names, "jax_package": jax_pkg,
                   "photo": [list(photo.shape), list(grid.shape)],
                   "forms": forms,
                   "vision": {k: list(v.shape) for k, v in feats.items()},
+                  "dataset": dataset,
                   "expt_kernel_sizes": list(exp.model.decoder.kernel_sizes),
                   "blocked_loaded": [m for m in BLOCKED
                                      if sys.modules.get(m) is not None],
@@ -286,7 +306,9 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                  "models.backbones.yolov3", "ops.image_resize",
                  "models.llm_decoder", "models.registry", "ops.moe",
                  "models.backbones.vit", "models.lstm_decoder",
-                 "data.glove", "models.pointer", "ops.self_attention"):
+                 "data.glove", "models.pointer", "ops.self_attention",
+                 "tools.get_articles_nytimes", "tools.process_images",
+                 "tools.detect_faces", "tools.annotate_objects"):
         assert f"tell_tpu_torch.{name}" in res["modules"]
     assert res["jax_package"] == []
     assert res["jax_loaded"] is False
@@ -303,6 +325,12 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
     assert res["vision"] == {"image_grid": [49, 256],
                              "face_embeds": [4, 512],
                              "obj_embeds": [64, 256]}
+    with open(os.path.join(root, "tests", "fixtures", "images",
+                           "manifest.json")) as f:
+        processed = json.load(f)["news_a_320x240_420.jpg"]["processed"]
+    assert res["dataset"][0] == processed["sha256"]
+    assert res["dataset"][1] is True
+    assert res["dataset"][2] in (True, [256])
     assert res["expt_kernel_sizes"] == [3, 7, 15, 31]
     assert res["token_ids"] == [2, 4]
     assert res["train_loss_finite"] is True
