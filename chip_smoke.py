@@ -359,6 +359,33 @@ every phase passed):
      the card: one example a photo, the shards' face and object rows equal
      to the tools', a 49-row grid each; images/s of each tool run. No
      kernel A-F runs in it.
+ 21. parallelism over torch.distributed (tell_tpu_torch/parallel), each
+     leg's backend logged: leg (a)'s Trainer runs on the whole batch in
+     no process group (the reference), then (e) this process joins an
+     NCCL group of one rank (tcp://127.0.0.1:<free port>) and runs it
+     again; then two ranks spawned once,
+     sharing the card on gloo (NCCL refuses two ranks on one device; the
+     exchanges go through host memory), run (a) the flagship in bf16 with
+     the frozen RoBERTa-large and dropout off, 2 steps of 16 x 512 global
+     (8 a rank, each batch's longest captions on rank 0) and one
+     validation batch: losses and validation loss within DP_LOSS_RTOL of
+     the same Trainer's in no process group (which leg (e) is held to
+     too), the first step's reduced gradients (before clipping) and the
+     params after the steps within DP_REL_L2 (relative L2: a leaf's at
+     the median, the whole tree's), B and C launched in each rank;
+     (b) RoBERTa-large at
+     B=4, S=512: the Ulysses encode (kernel B on 8 heads a rank) and the
+     ring (256 columns a rank) within SEQ_ATOL of the one-rank encode, the
+     ring's gradients of layers 0 and 23's q/k/v/out weights within
+     RING_GRAD_REL_L2; (c) expts 10 and 12 at PP_LAYERS of their 8
+     layers over 2 stages and 4 microbatches (B=8), loss within
+     PP_LOSS_RTOL and each gradient leaf of the stage's layers, tok_embed
+     and the final norm within PP_GRAD_REL_L2 of one rank's (for the MoE
+     with the per-microbatch capacity and aux the pipeline has); and (d)
+     here, the flagship's micro-batch service on ["cuda:0",
+     "cuda:0"] answering four requests with the one-replica service's
+     ids, A and B launched. Step times of two ranks sharing
+     one card are no scaling numbers.
 Then a line of each phase's wall seconds, one JSON line describing the
 kernels and, last, the result line.
 
@@ -375,6 +402,10 @@ result line.
 
 runs phases 1-2, then phase 20 only (phase 15's towers made again); no
 result line.
+
+    python3 chip_smoke.py --parallel
+
+runs phases 1-2, then phase 21 only; no result line.
 
     python3 chip_smoke.py --quality [--quality-out DIR]
 
@@ -6485,6 +6516,562 @@ def phase_dataset(seed: int, card: str, dev: str = "cuda",
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 21: parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 2          # ranks sharing the one card
+PARALLEL_STEPS = 2          # leg (a): train steps before the validation
+PP_LAYERS = 4               # leg (c): expts 10 and 12 at 4 of their 8 layers
+PP_MICRO = 4
+PP_BATCH = 8
+# Leg (a) runs in bf16 and is held to its Trainer in no process group
+# (the reference): two ranks' encodes and steps at B=8 against one at
+# B=16 sum in other orders. Losses agree to DP_LOSS_RTOL. DP_REL_L2 holds
+# the first step's gradients as BertAdam gets them (before clipping) and
+# the params after the steps, as the relative L2 error a leaf at the
+# median and of the whole tree. Its limits lie between the sound run and
+# four faults planted in the step's reduction, read in the CPU rehearsal
+# in bf16 (grads median / all; params median / all): sound 4.7e-3 /
+# 5.5e-3, 2.0e-6 / 2.9e-6; the ranks' means averaged 7.1e-2 / 8.6e-2,
+# 2.8e-5 / 4.6e-5; the sum divided by the rank's own size 0.69 / 0.69,
+# 2.8e-6 / 3.0e-6; not divided 366 / 366, 4.7e-6 / 3.3e-6; each rank's
+# own gradients 0.31 / 0.39, 8.9e-5 / 1.5e-4. On an NVIDIA H100 the sound
+# run read 4.9e-3 / 4.5e-3 and 7.1e-6 / 4.3e-6. BertAdam's updates do not
+# see a gradient's scale, so only the gradients catch a wrong divisor;
+# the worst param leaf (a zero-initialised bias, all update: 0.13 sound
+# on the CPU, 0.12 on the card) is logged and not held.
+DP_LOSS_RTOL = 1e-3
+DP_REL_L2 = {"grads_rel_l2_median": 1e-2, "grads_rel_l2_all": 1e-2,
+             "params_rel_l2_median": 2e-5, "params_rel_l2_all": 2e-5}
+# Leg (b), fp32: kernel B (3xTF32) against the ring's plain fp32 blocks
+# after 24 layers, and the ring's gradients against the one-rank encode's
+# (plain attention) in fp32.
+SEQ_ATOL = 2e-3
+RING_GRAD_REL_L2 = 1e-4
+# Leg (c), fp32: the pipelined loss and gradients against one rank's: the
+# same sums at B=2 a microbatch against B=8, so the worst leaf moved by
+# 7.8e-5 (expt 10) and 1.2e-7 (expt 12) on an NVIDIA H100; a stage that
+# lost a microbatch or a hop's gradient is off by O(1e-1) or more.
+PP_LOSS_RTOL = 1e-5
+PP_GRAD_REL_L2 = 1e-3
+
+
+def _parallel_spec(seed: int, dev: str, small: dict | None) -> dict:
+    """The configurations of phase 21's legs: full width (small: the CPU
+    rehearsal's overrides, keys cfg, rcfg, expt10, expt12, S)."""
+    from tell_tpu_torch.config import CaptionerConfig, DecoderConfig
+    from tell_tpu_torch.config_io import load_experiment
+    from tell_tpu_torch.models.backbones.roberta import RobertaConfig
+    small = small or {}
+    llm = {}
+    for name, path in (("expt10", "expt/nytimes/10_vit_modern.yaml"),
+                       ("expt12", "expt/nytimes/12_moe_modern.yaml")):
+        over = small.get(name, {"model": {"num_layers": PP_LAYERS,
+                                          "dropout": 0.0,
+                                          "attention_dropout": 0.0}})
+        llm[name] = load_experiment(path, over).model
+    # leg (a) with dropout off: each rank draws its own masks, which no
+    # one-rank run draws
+    off = DecoderConfig(dropout=0.0, weight_dropout=0.0, input_dropout=0.0,
+                        attention_dropout=0.0, relu_dropout=0.0,
+                        adaptive_softmax_dropout=0.0)
+    return {"seed": seed, "dev": dev,
+            "cfg": small.get("cfg", CaptionerConfig(
+                decoder=off, compute_dtype="bfloat16")),
+            "rcfg": small.get("rcfg", RobertaConfig.large()),
+            "S": small.get("S", 512), "llm": llm}
+
+
+def _parallel_batches(spec: dict, tmp: str) -> tuple[list, list]:
+    """Leg (a)'s global batches: PARALLEL_STEPS train batches and one
+    validation batch of 16 (512, 32)-bucket examples, from phase 7's
+    synthetic shards, each batch's rows in order of caption length,
+    longest first: rank 0's half holds more tokens than rank 1's, so a
+    step that weighed the ranks' losses equally (a mean of their means)
+    would move the gradients."""
+    from tell_tpu_torch.data.bucketing import BucketingConfig, bucket_batches
+    from tell_tpu_torch.data.records import RecordDataset
+    cfg = spec["cfg"]
+    _write_shards(np.random.default_rng(spec["seed"] + 21), cfg,
+                  spec["rcfg"].vocab_size, tmp, n_train=32, n_valid=16)
+    faces, objs = cfg.decoder.context("faces"), cfg.decoder.context("obj")
+    art = cfg.decoder.context("article").max_len
+    bcfg = BucketingConfig(article_lengths=(art,), caption_lengths=(32,),
+                           max_batch=16, max_faces=faces.max_len,
+                           face_dim=faces.kv_dim, max_objects=objs.max_len,
+                           object_dim=objs.kv_dim)
+
+    def batches(split):
+        out = []
+        for b in bucket_batches(RecordDataset(os.path.join(
+                tmp, f"{split}-*.npz")).epoch(lazy=True), bcfg):
+            b.pop("real", None)
+            n = (b["caption_ids"] != cfg.decoder.pad_id).sum(1)
+            order = np.argsort(-n, kind="stable")
+            out.append({k: v[order] for k, v in b.items()})
+        return out
+    return batches("train")[:PARALLEL_STEPS], batches("valid")[:1]
+
+
+def _dp_run(spec: dict, rank: int, world: int, train, val, run_dir: str
+            ) -> dict:
+    """Leg (a)'s Trainer: the flagship in bf16 over this rank's rows of
+    each global batch (all of them on one rank), the frozen RoBERTa from
+    the seed; losses, validation loss, the first step's gradients as
+    BertAdam gets them (reduced over the ranks, before clipping), the
+    params after the steps and launches."""
+    from tell_tpu_torch.bridge import init_roberta
+    from tell_tpu_torch.ops.kernels.dynamic_conv import fused_dynamic_conv
+    from tell_tpu_torch.ops.kernels.encoder_attention import (
+        encoder_attention)
+    from tell_tpu_torch.training.trainer import Trainer, TrainerConfig
+    dev, rcfg = spec["dev"], spec["rcfg"]
+    g = torch.Generator(device=dev).manual_seed(spec["seed"] + 21)
+    frozen = {"roberta": init_roberta(g, rcfg), "roberta_cfg": rcfg}
+
+    def rows(b):
+        k = len(b["caption_ids"]) // world
+        return {n: v[rank * k:(rank + 1) * k] for n, v in b.items()}
+    local, local_val = [rows(b) for b in train], [rows(b) for b in val]
+    tcfg = TrainerConfig(serialization_dir=run_dir, num_epochs=1,
+                         summary_interval=0, t_total=100,
+                         seed=spec["seed"], log_every=1000)
+    trainer = Trainer(spec["cfg"], tcfg,
+                      lambda epoch: iter([dict(b) for b in local]),
+                      lambda: iter([dict(b) for b in local_val]), frozen,
+                      device=dev)
+    losses, step = [], trainer._step
+
+    def recorded(batch):
+        m = step(batch)
+        losses.append(float(m["loss"]))
+        return m
+    trainer._step = recorded
+    grads, update = [], trainer.optimizer.update
+
+    def recorded_update(g, state, params):
+        if not grads:
+            grads.append(_cpu_tree(g))
+        return update(g, state, params)
+    trainer.optimizer.update = recorded_update
+    encoder_attention.launches = fused_dynamic_conv.launches = 0
+    t = time.perf_counter()
+    trainer.train()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return {"losses": losses,
+            "val_loss": trainer.metrics_history[0]["val_loss"],
+            "params": trainer.state["params"], "grads": grads[0],
+            "seconds": time.perf_counter() - t,
+            "launches": {"encoder_attention": encoder_attention.launches,
+                         "fused_dynamic_conv": fused_dynamic_conv.launches}}
+
+
+def _leaf_rel(got, want) -> list[float]:
+    from tell_tpu_torch.bridge import tree_leaves
+    return [float((a.double().cpu() - b.double().cpu()).norm()
+                  / b.double().norm().clamp_min(1e-30))
+            for a, b in zip(tree_leaves(got), tree_leaves(want))]
+
+
+def _tree_rel(got, want) -> float:
+    """The relative L2 error of the whole tree, as one vector."""
+    from tell_tpu_torch.bridge import tree_leaves
+    pairs = [(a.double().cpu(), b.double().cpu())
+             for a, b in zip(tree_leaves(got), tree_leaves(want))]
+    err = sum(float((a - b).norm() ** 2) for a, b in pairs)
+    ref = sum(float(b.norm() ** 2) for _, b in pairs)
+    return math.sqrt(err / max(ref, 1e-60))
+
+
+def _seq_legs(spec: dict, rank: int, world: int) -> dict:
+    """Leg (b): RoBERTa at B=4, S over the ranks, Ulysses (kernel B on
+    H/P heads) and the ring, each rank's shard against its rows of the
+    one-rank roberta_encode; the ring's gradients of layer 0's and the
+    last layer's q/k/v/out weights, summed over the ranks, against the
+    one-rank encode's with plain attention (kernel B has no backward)."""
+    from tell_tpu_torch.bridge import init_roberta
+    from tell_tpu_torch.models.backbones import roberta as rob
+    from tell_tpu_torch.ops.kernels.encoder_attention import (
+        encoder_attention, encoder_attention_plain)
+    from tell_tpu_torch.parallel import sequence
+    from tell_tpu_torch.parallel.comm import all_reduce
+    from tell_tpu_torch.parallel.ring import roberta_encode_ring
+    dev, rcfg, S = spec["dev"], spec["rcfg"], spec["S"]
+    g = torch.Generator(device=dev).manual_seed(spec["seed"] + 22)
+    params = init_roberta(g, rcfg)
+    rng = np.random.default_rng(spec["seed"] + 22)
+    ids = rng.integers(3, rcfg.vocab_size, (4, S))
+    ids[:, 0] = 0
+    for row, real in enumerate((S, S * 3 // 4, S // 3, S // 2 + 7)):
+        ids[row, real:] = rcfg.pad_id
+    ids = torch.as_tensor(ids, device=dev)
+    S_loc = S // world
+    mine = slice(rank * S_loc, (rank + 1) * S_loc)
+    out = {}
+    with torch.no_grad():
+        ref = rob.roberta_encode(params, rcfg, ids)[:, mine]
+        heads = []
+        real = sequence.encoder_attention
+
+        def recorded(q, k, v, key_pad):
+            heads.append(tuple(q.shape))
+            return real(q, k, v, key_pad)
+        sequence.encoder_attention = recorded
+        before = encoder_attention.launches
+        try:
+            uly = sequence.roberta_encode_seq_parallel(params, rcfg, ids)
+        finally:
+            sequence.encoder_attention = real
+        out["ulysses"] = {
+            "max_abs_err": float((uly - ref).abs().max()),
+            "kernel_b_launches": encoder_attention.launches - before,
+            "kernel_b_shape": heads[0]}
+        ring = roberta_encode_ring(params, rcfg, ids)
+        out["ring"] = {"max_abs_err": float((ring - ref).abs().max()),
+                       "columns": S_loc}
+    last = rcfg.num_layers - 1
+    names = [(i, n) for i in (0, last) for n in ("q", "k", "v", "attn_out")]
+    w = torch.as_tensor(rng.normal(size=(4, S, rcfg.dim)), dtype=torch.float32,
+                        device=dev) * (ids != rcfg.pad_id)[..., None]
+
+    def grads(encode, weight):
+        leaves = [params["layers"][i][n]["w"].detach().requires_grad_()
+                  for i, n in names]
+        p = {**params, "layers": [dict(lp) for lp in params["layers"]]}
+        for (i, n), leaf in zip(names, leaves):
+            p["layers"][i][n] = {**p["layers"][i][n], "w": leaf}
+        h = encode(p)
+        return torch.autograd.grad((weight * h.float()).sum(), leaves)
+    got = grads(lambda p: roberta_encode_ring(p, rcfg, ids,
+                                              return_all_hiddens=False),
+                w[:, mine])
+    got = [all_reduce(x) for x in got]
+    real = rob.encoder_attention
+    rob.encoder_attention = encoder_attention_plain
+    try:
+        want = grads(lambda p: rob.roberta_encode(
+            p, rcfg, ids, return_all_hiddens=False), w)
+    finally:
+        rob.encoder_attention = real
+    out["ring"]["grad_rel_l2"] = max(_leaf_rel(got, want))
+    return out
+
+
+def _microbatched_llm_loss(params, cfg, batch, n_micro):
+    """One rank's loss with the pipeline's conventions: the layers run per
+    microbatch (so the MoE's capacity and aux are per microbatch), the
+    tied head's cross entropy over the whole batch."""
+    import math as _math
+    from tell_tpu_torch.models.llm_decoder import (_build_contexts,
+                                                   llm_forward, llm_xent)
+    ids = batch["caption_ids"]
+    mb = ids.shape[0] // n_micro
+    feats, aux = [], 0.0
+    for m in range(n_micro):
+        part = {k: v[m * mb:(m + 1) * mb] for k, v in batch.items()}
+        f, layer_aux = llm_forward(params, cfg, part["caption_ids"][:, :-1],
+                                   _build_contexts(params, cfg, part))
+        feats.append(f)
+        aux = aux + sum(layer_aux)
+    feats = torch.cat(feats)
+    B, T, E = feats.shape
+    loss_sum, size = llm_xent(params, cfg, feats.reshape(B * T, E),
+                              ids[:, 1:].reshape(-1))
+    loss = loss_sum / _math.log(2.0) / size.clamp_min(1)
+    if cfg.moe_experts:
+        loss = loss + cfg.moe_aux_coef * aux / (cfg.num_layers * n_micro)
+    return loss
+
+
+def _grad_tree(tree, fn):
+    """(fn(tree), the gradient tree of fn over tree's leaves)."""
+    from tell_tpu_torch.bridge import tree_leaves
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(tree)]
+    value = fn(_fill(tree, iter(leaves)))
+    grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    return value.detach(), _fill(tree, iter(grads))
+
+
+def _fill(tree, it):
+    """tree's structure with the next leaves of `it`."""
+    if isinstance(tree, dict):
+        return {k: _fill(v, it) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_fill(v, it) for v in tree)
+    return next(it)
+
+
+def _pp_legs(spec: dict, rank: int, world: int) -> dict:
+    """Leg (c): expts 10 (dense) and 12 (MoE) pipelined over the ranks,
+    PP_MICRO microbatches: the loss and the gradients of this stage's
+    layers, tok_embed and the final norm against one rank's (llm_loss for
+    the dense LM; for the MoE the same layers run per microbatch, the
+    pipeline's convention)."""
+    from tell_tpu_torch.bridge import init_llm_decoder, to_torch, tree_map
+    from tell_tpu_torch.models.llm_decoder import (llm_loss, llm_loss_pp,
+                                                   stack_llm_layers)
+    dev = spec["dev"]
+    out = {}
+    for name, cfg in spec["llm"].items():
+        g = torch.Generator(device=dev).manual_seed(spec["seed"] + 23)
+        params = init_llm_decoder(g, cfg)
+        batch = to_torch(_family_batch(np.random.default_rng(
+            spec["seed"] + 23), cfg, B=PP_BATCH), dev)
+        t = time.perf_counter()
+        value, g_pp = _grad_tree(
+            stack_llm_layers(params, world),
+            lambda p: llm_loss_pp(p, cfg, batch, None, PP_MICRO)[0])
+        seconds = time.perf_counter() - t
+        if cfg.moe_experts:
+            def ref_fn(p):
+                return _microbatched_llm_loss(p, cfg, batch, PP_MICRO)
+        else:
+            def ref_fn(p):
+                return llm_loss(p, cfg, batch)[0]
+        ref, g_ref = _grad_tree(params, ref_fn)
+        g_ref = stack_llm_layers(g_ref, world)
+        stage = lambda t: tree_map(lambda a: a[rank], t)  # noqa: E731
+        rels = _leaf_rel(stage(g_pp["layers"]), stage(g_ref["layers"]))
+        for key in ("tok_embed", "final_norm"):
+            rels += _leaf_rel(g_pp[key], g_ref[key])
+        out[name] = {"loss": float(value), "ref_loss": float(ref),
+                     "loss_rel": abs(float(value) - float(ref))
+                     / abs(float(ref)),
+                     "grad_rel_l2": max(rels), "seconds": seconds,
+                     "layers": cfg.num_layers,
+                     "moe_experts": cfg.moe_experts}
+    return out
+
+
+def _dp_errors(dp: dict, ref: dict) -> dict:
+    """dp (a _dp_run result) with its first step's gradients and its
+    params replaced by their relative L2 errors from ref's: a leaf's at
+    the median and on the worst (named), and the whole tree's."""
+    from tell_tpu_torch.bridge import tree_leaves_with_path
+    paths = [p for p, _ in tree_leaves_with_path(ref["params"])]
+    for name in ("grads", "params"):
+        got = dp.pop(name)
+        rels = _leaf_rel(got, ref[name])
+        worst = int(np.argmax(rels))
+        dp.update({f"{name}_rel_l2_max": rels[worst],
+                   f"{name}_rel_l2_worst": paths[worst],
+                   f"{name}_rel_l2_median": float(np.median(rels)),
+                   f"{name}_rel_l2_all": _tree_rel(got, ref[name])})
+    return dp
+
+
+def _dp_line(dp: dict) -> str:
+    """A _dp_errors result's gradient and param readings, for the log."""
+    return (f"first step's gradients rel L2 median "
+            f"{dp['grads_rel_l2_median']:.2e}, all "
+            f"{dp['grads_rel_l2_all']:.2e}, max {dp['grads_rel_l2_max']:.2e}"
+            f" ({dp['grads_rel_l2_worst']}), params rel L2 median "
+            f"{dp['params_rel_l2_median']:.2e}, all "
+            f"{dp['params_rel_l2_all']:.2e}, max "
+            f"{dp['params_rel_l2_max']:.2e} ({dp['params_rel_l2_worst']})")
+
+
+def _parallel_rank(rank: int, world: int, spec: dict, ref_path: str,
+                   train, val, run_dir: str) -> dict:
+    """Legs (a)-(c) in one of the ranks sharing the card."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"backend": dist.get_backend(), "rank": rank}
+    t = time.perf_counter()
+    dp = _dp_run(spec, rank, world, train, val, run_dir)
+    out["dp"] = _dp_errors(dp, torch.load(ref_path, map_location="cpu",
+                                          weights_only=True))
+    if spec["dev"] == "cuda":
+        torch.cuda.empty_cache()
+    out["seq"] = _seq_legs(spec, rank, world)
+    out["pp"] = _pp_legs(spec, rank, world)
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def _dp_serving(spec: dict) -> dict:
+    """Leg (d): the flagship's micro-batch service on one device and on
+    two replicas of it (["cuda:0", "cuda:0"], or the CPU twice): four
+    requests' ids equal; kernels A and B launched (the micro-batch's
+    greedy decode takes the exact top-1, so no E)."""
+    from tell_tpu_torch.bridge import init_captioner, init_roberta
+    from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
+    from tell_tpu_torch.ops.kernels.decode_attention import decode_attention
+    from tell_tpu_torch.ops.kernels.encoder_attention import (
+        encoder_attention)
+    from tell_tpu_torch.serving import CaptionService
+    dev = spec["dev"]
+    cfg = dataclasses.replace(spec["cfg"], compute_dtype="float32")
+    rcfg = spec["rcfg"]
+    g = torch.Generator(device=dev).manual_seed(spec["seed"] + 24)
+    params = init_captioner(g, cfg)
+    roberta = RobertaEncoder(init_roberta(g, rcfg), rcfg)
+    rng = np.random.default_rng(spec["seed"] + 24)
+    art = cfg.decoder.context("article").max_len
+    reqs = [_request(rng, cfg, n, f, o, rcfg.vocab_size)
+            for n, f, o in zip((art, art * 3 // 5, art // 5, 40),
+                               (4, 2, 1, 0), (64, 20, 0, 5))]
+    devices = [f"{dev}:0" if dev == "cuda" else dev] * 2
+    one = CaptionService(params, roberta, cfg, dev, max_batch=4)
+    two = CaptionService(params, roberta, cfg, dev, max_batch=4,
+                         devices=devices)
+    try:
+        want = one._run(reqs)
+        kernels = (decode_attention, encoder_attention)
+        before = {f.__name__: f.launches for f in kernels}
+        t = time.perf_counter()
+        got = two._run(reqs)
+        seconds = time.perf_counter() - t
+        launches = {f.__name__: f.launches - before[f.__name__]
+                    for f in kernels}
+    finally:
+        one.close()
+        two.close()
+    require(all("error" not in r for r in got), got)
+    return {"equal": [a["token_ids"] == b["token_ids"]
+                      for a, b in zip(got, want)],
+            "devices": devices, "launches": launches, "seconds": seconds}
+
+
+def phase_parallel(seed: int, card: str, dev: str = "cuda",
+                   small: dict | None = None) -> dict:
+    """Phase 21: leg (a)'s reference, its Trainer on the whole batch in no
+    process group (so the step reduces nothing), and leg (e), the same
+    under an NCCL (gloo on the CPU) process group of one rank, in this
+    process; legs (a)-(c) in
+    PARALLEL_RANKS spawned gloo ranks sharing the card (NCCL refuses two
+    ranks on one device: "Duplicate GPU detected", NCCL 2.28.9 on an
+    NVIDIA H100); then leg (d) here."""
+    import socket
+    import torch.distributed as dist
+    from tell_tpu_torch.parallel.multihost import (backend_for,
+                                                   init_multihost, run_ranks,
+                                                   shutdown_multihost)
+    spec = _parallel_spec(seed, dev, small)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        t0 = time.perf_counter()
+        train, val = _parallel_batches(spec, tmp)
+        plain = _dp_run(spec, 0, 1, train, val, os.path.join(tmp, "plain"))
+        ref_path = os.path.join(tmp, "ref.pt")
+        ref = {"params": _cpu_tree(plain.pop("params")),
+               "grads": plain.pop("grads")}
+        torch.save(ref, ref_path)
+        shape = "x".join(str(n) for n in train[0]["context_ids"].shape)
+        log(f"phase 21 {card}: leg (a)'s reference, one process: "
+            f"{PARALLEL_STEPS} steps of {shape} + validation in "
+            f"{plain['seconds']:.1f} s, losses {plain['losses']}, val loss "
+            f"{plain['val_loss']:.6f}, launches {plain['launches']}")
+        require(all(math.isfinite(x) for x in plain["losses"]),
+                f"non-finite losses {plain['losses']}")
+        # leg (e): the production backend at world size 1, on the same
+        # Trainer
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        init_multihost(f"127.0.0.1:{port}", 1, 0, backend_for(dev), 300)
+        try:
+            backend = dist.get_backend()
+            one = _dp_errors(_dp_run(spec, 0, 1, train, val,
+                                     os.path.join(tmp, "one")), ref)
+        finally:
+            shutdown_multihost()
+        del ref
+        log(f"phase 21 (e) {card}: one rank on {backend} "
+            f"(tcp://127.0.0.1:{port}): the same in "
+            f"{one['seconds']:.1f} s, losses {one['losses']}, val loss "
+            f"{one['val_loss']:.6f}, {_dp_line(one)}, launches "
+            f"{one['launches']}")
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        ranks = run_ranks(_parallel_rank, PARALLEL_RANKS,
+                          (spec, ref_path, train, val,
+                           os.path.join(tmp, "two")),
+                          backend="gloo", deadline_s=600)
+        spawn_s = time.perf_counter() - t
+        for r in ranks:
+            dp, seq = r["dp"], r["seq"]
+            log(f"phase 21 (a) rank {r['rank']} on {r['backend']}: "
+                f"{PARALLEL_STEPS} steps of half of {shape} + validation in "
+                f"{dp['seconds']:.1f} s, losses {dp['losses']}, val loss "
+                f"{dp['val_loss']:.6f}, {_dp_line(dp)}, launches "
+                f"{dp['launches']}")
+            log(f"phase 21 (b) rank {r['rank']}: Ulysses {seq['ulysses']}, "
+                f"ring {seq['ring']}")
+            for name, pp in r["pp"].items():
+                log(f"phase 21 (c) rank {r['rank']} {name}: {pp}")
+        H = spec["rcfg"].num_heads // PARALLEL_RANKS
+        for name, dp in [("(e)", one)] + [
+                (f"(a) rank {r['rank']}", r["dp"]) for r in ranks]:
+            for a, b in zip(dp["losses"] + [dp["val_loss"]],
+                            plain["losses"] + [plain["val_loss"]]):
+                require(abs(a - b) <= DP_LOSS_RTOL * abs(b),
+                        f"{name}: loss {a} vs the reference's {b}")
+            for key, limit in DP_REL_L2.items():
+                require(dp[key] <= limit,
+                        f"{name}: {key} {dp[key]} above {limit}")
+        for r in ranks:
+            dp, seq = r["dp"], r["seq"]
+            require(dp["losses"] == ranks[0]["dp"]["losses"],
+                    "the ranks' losses differ")
+            require(seq["ulysses"]["max_abs_err"] <= SEQ_ATOL
+                    and seq["ring"]["max_abs_err"] <= SEQ_ATOL,
+                    f"rank {r['rank']}: sequence-parallel encode off: {seq}")
+            require(seq["ring"]["grad_rel_l2"] <= RING_GRAD_REL_L2,
+                    f"rank {r['rank']}: ring gradient off: {seq['ring']}")
+            require(seq["ulysses"]["kernel_b_shape"][2] == H,
+                    f"kernel B saw {seq['ulysses']['kernel_b_shape']}, not "
+                    f"{H} heads a rank")
+            for name, pp in r["pp"].items():
+                require(pp["loss_rel"] <= PP_LOSS_RTOL
+                        and pp["grad_rel_l2"] <= PP_GRAD_REL_L2,
+                        f"rank {r['rank']}: pipelined {name} off: {pp}")
+            if dev == "cuda":
+                require(dp["launches"]["encoder_attention"] > 0
+                        and dp["launches"]["fused_dynamic_conv"] > 0
+                        and seq["ulysses"]["kernel_b_launches"] > 0,
+                        f"rank {r['rank']}: kernels B/C did not launch")
+        serving = _dp_serving(spec)
+        log(f"phase 21 (d): CaptionService on {serving['devices']}, "
+            f"micro-batch, 4 requests in {serving['seconds']:.2f} s: ids "
+            f"equal to one replica's {serving['equal']}, launches "
+            f"{serving['launches']} (one process, no collective)")
+        require(all(serving["equal"]), "two replicas answered other ids")
+        if dev == "cuda":
+            require(all(n > 0 for n in serving["launches"].values()),
+                    f"serving launches {serving['launches']}")
+        log(f"phase 21 {card}: {time.perf_counter() - t0:.1f} s "
+            f"(the ranks' spawn and legs (a)-(c) {spawn_s:.1f} s); step "
+            "times of two ranks sharing one card are no scaling numbers")
+        launches = {
+            "encoder_attention": sum(
+                r["dp"]["launches"]["encoder_attention"]
+                + r["seq"]["ulysses"]["kernel_b_launches"] for r in ranks)
+            + one["launches"]["encoder_attention"]
+            + plain["launches"]["encoder_attention"]
+            + serving["launches"]["encoder_attention"],
+            "fused_dynamic_conv": sum(
+                r["dp"]["launches"]["fused_dynamic_conv"] for r in ranks)
+            + one["launches"]["fused_dynamic_conv"]
+            + plain["launches"]["fused_dynamic_conv"],
+            "decode_attention": serving["launches"]["decode_attention"]}
+        return {"launches": launches, "ranks": ranks, "one": one,
+                "plain": plain, "serving": serving}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _cpu_tree(tree):
+    from tell_tpu_torch.bridge import tree_map
+    return tree_map(lambda x: x.detach().cpu(), tree)
+
+
 def quality_run(card: str, out_dir: str | None) -> int:
     """tell_tpu_torch.tools.quality_loop on overfit_flagship.yaml as it is
     (200 epochs of 2 steps, trainer seed 0), runs and shards in a
@@ -6695,6 +7282,8 @@ def main() -> int:
                     help="after the build, phase 19 only (no result line)")
     ap.add_argument("--dataset", action="store_true",
                     help="after the build, phase 20 only (no result line)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="after the build, phase 21 only (no result line)")
     ap.add_argument("--quality", action="store_true",
                     help="after the build, the full quality loop on "
                     f"{QUALITY_EXPT} with its acceptance thresholds (no "
@@ -6795,6 +7384,9 @@ def main() -> int:
         return 0
     if args.dataset:
         phase_dataset(args.seed, smi)
+        return 0
+    if args.parallel:
+        phase_parallel(args.seed, smi)
         return 0
     if args.quality:
         return quality_run(smi, args.quality_out)
@@ -6903,6 +7495,10 @@ def main() -> int:
     del trees
     torch.cuda.empty_cache()
     _mark(marks)
+    # phase 21: parallelism over torch.distributed
+    parallel = phase_parallel(args.seed, smi)
+    torch.cuda.empty_cache()
+    _mark(marks)
     log("phase seconds (host clock, each phase from the end of the one "
         "before; phases 1-2 from the end of the script's imports): "
         + json.dumps(_phase_seconds(marks, T0)))
@@ -6996,6 +7592,11 @@ def main() -> int:
             # training's validation
             entry["phase19_launches"] = sum(
                 pointer["launches"][name].values())
+        if name in parallel["launches"]:
+            # phase 21's own path: B in every rank's frozen encode (and
+            # the one-rank run's) and in the Ulysses encode's heads, C in
+            # the validations, A and B in the two replicas' decode
+            entry["phase21_launches"] = parallel["launches"][name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

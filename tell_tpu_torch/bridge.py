@@ -44,6 +44,20 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_leaves_with_path(tree, prefix=()):
+    """(path, leaf) of every leaf, in tree order; a path joins the dict
+    keys and list indices from the root with "/" (tell_tpu's path
+    strings, as "decoder/layers/0/fc1/w")."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves_with_path(v, prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves_with_path(v, prefix + (str(i),))
+    else:
+        yield "/".join(prefix), tree
+
+
 def _rebuild(tree, items):
     """A list, tuple or named tuple of tree's type holding `items`."""
     items = list(items)

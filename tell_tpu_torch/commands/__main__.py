@@ -8,8 +8,21 @@ model runs on `--device` (default cuda): without a card and without
 numerics levers are flags: `--kv-cache {fp,int8,int4}`, `--fused-topk`
 and `--gelu {erf,tanh}` (the frozen encoder's GELU; tell_tpu's
 TELL_TPU_FAST_GELU). `serve --attention` adds the word-attention payload.
-What tnt runs and the port does not yet is refused with its ROADMAP queue
-item: `bench` (item 1), `--coordinator` and `--mesh-data` (item 10).
+
+Several devices: `train` with trainer.n_data N > 1 and no coordinator
+spawns N local ranks, one a device (N gloo ranks under --device cpu;
+a null n_data, which in tell_tpu meshes every device of its process,
+trains on one, with a warning where more GPUs are visible);
+`train --coordinator HOST:PORT --num-processes P --process-id I` is one
+rank of P, run on every host (the backend follows --device: NCCL for
+cuda, gloo for cpu; the process uses GPU I mod the visible count, or
+LOCAL_RANK where set). With more than one rank the bucketing config must
+have one shape, and bucketing.max_batch is the global batch. `serve
+--mesh-data N` keeps a replica on each of N devices and splits each
+micro-batch's rows over them. What tnt runs and the port does not yet is
+refused with its ROADMAP queue item: `bench` (item 1), and item 10's
+rest: trainer.n_model > 1 (tensor parallelism) and `--mesh-data` with
+`--engine-slots` (the engine's slots sharded over devices).
 Every family (the captioner and its siblings, the GloVe captioner, the
 pointer models of expts a1-a3, the LSTM and the modern LM) trains,
 evaluates and serves through its registry adapter (the pointer and the
@@ -94,7 +107,11 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("-r", "--recover", action="store_true",
                    help="resume from the latest checkpoint")
     t.add_argument("--coordinator", default=None,
-                   help="multi-host training (not ported)")
+                   help="multi-host training: rank 0's host:port (or an "
+                   "init URL, file://...); run the same command on every "
+                   "host with its own --process-id")
+    t.add_argument("--num-processes", type=int, default=1)
+    t.add_argument("--process-id", type=int, default=0)
 
     e = sub.add_parser("evaluate", help="decode a split and score it")
     _add_common(e)
@@ -123,7 +140,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="add per-step and per-word attention maps to "
                     "every answer")
     sv.add_argument("--mesh-data", type=int, default=1,
-                    help="data-parallel serving (not ported; 1 only)")
+                    help="data-parallel serving: a replica on each of N "
+                    "devices, each micro-batch's rows split over them")
     sv.add_argument("--engine-slots", type=int, default=0,
                     help="continuous-batching beam decode with this many "
                     "request slots (0 = micro-batch mode)")
@@ -287,44 +305,117 @@ def _report_launches(args) -> None:
 def build_trainer(exp, device):
     """The Trainer that `train` runs for the experiment: its family's
     adapter, the shards of exp.data read through the C++ reader and packed
-    by bucket_batches, the frozen towers on `device`."""
+    by bucket_batches, the frozen towers on `device`; in a process group,
+    this rank's stride of each epoch, in batches of its share of the
+    global batch size."""
     from ..data.bucketing import bucket_batches
     from ..data.records import RecordDataset
-    from ..training.trainer import Trainer
+    from ..training.trainer import Trainer, data_ranks
 
     d = exp.data
     train_ds = RecordDataset(os.path.join(d.shards_dir, "train-*.npz"),
                              seed=d.seed)
     val_ds = RecordDataset(os.path.join(d.shards_dir, "valid-*.npz"),
                            seed=d.seed)
+    pi, pc = data_ranks(exp.bucketing)
 
     def train_batches(epoch):
         # an order that is a pure function of (seed, epoch), so a
         # recovered run repeats the interrupted epoch's batches
         return bucket_batches(
             train_ds.epoch(epoch_index=epoch, lazy=True,
-                           limit=d.instances_per_epoch), exp.bucketing)
+                           limit=d.instances_per_epoch, process_index=pi,
+                           process_count=pc), exp.bucketing, ranks=pc)
 
     def val_batches():
-        return bucket_batches(val_ds.epoch(lazy=True, limit=d.val_limit),
-                              exp.bucketing)
+        return bucket_batches(val_ds.epoch(lazy=True, limit=d.val_limit,
+                                           process_index=pi,
+                                           process_count=pc),
+                              exp.bucketing, ranks=pc)
 
     return Trainer(exp.model, exp.trainer, train_batches, val_batches,
                    _frozen_towers(exp, device), device=device,
                    adapter=_adapter(exp))
 
 
-def cmd_train(args) -> int:
-    if args.coordinator is not None:
-        raise NotPortedError("multi-host training is not ported yet (ROADMAP "
-                             "queue 1 item 10, parallelism)")
-    exp = _load(args)
-    trainer = build_trainer(exp, _device(args))
-    if args.recover and not trainer.recover():
+def _train(exp, device, recover: bool):
+    """Build and run the Trainer; (exit code, result or None)."""
+    trainer = build_trainer(exp, device)
+    if recover and not trainer.recover():
         print(f"train -r: no checkpoint to recover in "
               f"{exp.trainer.serialization_dir}", file=sys.stderr)
-        return 1
-    result = trainer.train()
+        return 1, None
+    return 0, trainer.train()
+
+
+def _rank_device(device: torch.device, index: int) -> torch.device:
+    """A rank's device: GPU `index` modulo the visible ones on cuda."""
+    if device.type != "cuda":
+        return device
+    return torch.device("cuda", index % torch.cuda.device_count())
+
+
+def _train_rank(rank: int, world: int, config: str, overrides, device: str,
+                recover: bool) -> tuple:
+    """One of `train`'s spawned local ranks: (exit code, result, the
+    kernel launches of this rank)."""
+    logging.basicConfig(level=logging.INFO)
+    from ..config_io import load_experiment
+    before = _kernel_launches()
+    code, result = _train(load_experiment(config, overrides),
+                          _rank_device(torch.device(device), rank), recover)
+    return code, result, {k: n - before[k]
+                          for k, n in _kernel_launches().items()}
+
+
+def _spawn_train(args, exp, device: torch.device) -> int:
+    """trainer.n_data local ranks, one a device, each a process."""
+    from ..parallel.mesh import check_mesh_size
+    from ..parallel.multihost import backend_for, run_ranks
+    n = exp.trainer.n_data
+    available = (torch.cuda.device_count() if device.type == "cuda"
+                 else n)
+    check_mesh_size(n, exp.trainer.n_model, available)
+    outs = run_ranks(_train_rank, n, (args.config, args.overrides,
+                                      str(device), args.recover),
+                     backend=backend_for(device), deadline_s=None)
+    code, result = outs[0][:2]
+    if code:
+        return code
+    if getattr(args, "report_launches", None):
+        with open(args.report_launches, "w") as f:
+            json.dump({k: sum(o[2][k] for o in outs) for k in outs[0][2]},
+                      f)
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_train(args) -> int:
+    device = _device(args)
+    exp = _load(args)            # a refused config fails before the group
+    if args.coordinator is not None:
+        # one rank of --num-processes, before anything touches the group
+        from ..config_io import check_data_parallel
+        from ..parallel.multihost import backend_for, init_multihost
+        check_data_parallel(exp, args.num_processes)
+        local = int(os.environ.get("LOCAL_RANK", args.process_id))
+        device = _rank_device(device, local)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        init_multihost(args.coordinator, args.num_processes,
+                       args.process_id, backend_for(device))
+    if args.coordinator is None and (exp.trainer.n_data or 1) > 1:
+        return _spawn_train(args, exp, device)
+    if (args.coordinator is None and exp.trainer.n_data is None
+            and device.type == "cuda" and torch.cuda.device_count() > 1):
+        # tell_tpu's null n_data meshes every device of its one process;
+        # here one rank is one process, and the ranks are asked for
+        log.warning("trainer.n_data is null: training on one of the %d "
+                    "visible GPUs; set trainer.n_data to train on more",
+                    torch.cuda.device_count())
+    code, result = _train(exp, device, args.recover)
+    if code:
+        return code
     _report_launches(args)
     print(json.dumps(result))
     return 0
@@ -384,11 +475,20 @@ def cmd_preprocess(args) -> int:
 def cmd_serve(args) -> int:
     from ..models.backbones.roberta import RobertaEncoder
     from ..serving import CaptionService, serve
-    if args.mesh_data != 1:
-        raise NotPortedError("data-parallel serving is not ported yet "
-                             "(ROADMAP queue 1 item 10, parallelism)")
+    if args.mesh_data > 1 and args.engine_slots:
+        raise NotPortedError(
+            "--mesh-data with --engine-slots (the engine's slots sharded "
+            "over devices) is not ported yet (ROADMAP queue 1 item 10's "
+            "rest); serve --mesh-data in micro-batch mode")
     exp = _load(args)
     device = _device(args)
+    devices = None
+    if args.mesh_data > 1:
+        from ..parallel.mesh import check_mesh_size
+        available = (torch.cuda.device_count() if device.type == "cuda"
+                     else args.mesh_data)
+        check_mesh_size(args.mesh_data, 1, available)
+        devices = [_rank_device(device, i) for i in range(args.mesh_data)]
     frozen = _frozen_towers(exp, device, args.gelu)
     service = CaptionService(
         _restore_params(exp, args.model, device),
@@ -401,7 +501,8 @@ def cmd_serve(args) -> int:
         kv_cache=args.kv_cache, fused_topk=args.fused_topk,
         need_attention=args.attention,
         towers={k: frozen[k] for k in ("resnet", "resnet_cfg", "mtcnn",
-                                       "facenet", "yolov3") if k in frozen})
+                                       "facenet", "yolov3") if k in frozen},
+        devices=devices)
     if args.warmup:
         w = service.warmup()
         print(f"warmed article widths {w['widths']} in {w['seconds']:.1f}s")
@@ -414,6 +515,7 @@ def cmd_serve(args) -> int:
               f"{ab['kv_cache_mode']}, {ab['gelu_mode']}; "
               f"{ab['seconds']:.1f}s)")
     print(f"serving on {args.host}:{args.port}"
+          + (f" (data-parallel x{args.mesh_data})" if devices else "")
           + (f" (continuous batching: {args.engine_slots} slots, beam "
              f"{args.engine_beam})" if args.engine_slots else ""))
     try:

@@ -389,9 +389,26 @@ def check_supported(exp: ExperimentConfig) -> None:
                              f"(ROADMAP {item})")
 
     t = exp.trainer
-    if t.n_data not in (None, 1) or t.n_model != 1:
-        refuse(f"a device mesh (trainer.n_data={t.n_data}, n_model="
-               f"{t.n_model})", "queue 1 item 10 (parallelism)")
+    if t.n_model != 1:
+        refuse(f"tensor parallelism (trainer.n_model={t.n_model})",
+               "queue 1 item 10's rest")
+    if t.n_data is not None and t.n_data > 1:
+        check_data_parallel(exp, t.n_data)
+
+
+def check_data_parallel(exp: ExperimentConfig, ranks: int) -> None:
+    """Refuse training exp over `ranks` data-parallel ranks where its
+    family's objective is not a mean over tokens (the registry adapter's
+    data_parallel: the pointer models, the MoE)."""
+    from .models.registry import get_model
+    adapter = get_model(exp.model_type, exp.model)
+    if ranks > 1 and not adapter.data_parallel:
+        moe = getattr(exp.model, "moe_experts", 0)
+        what = exp.model_type + (f" (moe_experts={moe})" if moe else "")
+        raise NotPortedError(
+            f"{exp.name}: data-parallel training of {what} "
+            f"({ranks} ranks; its objective is not a mean over tokens) is "
+            "not ported yet (ROADMAP queue 1 item 10's rest)")
 
 
 def load_experiment(path: str, overrides: str | dict | None = None

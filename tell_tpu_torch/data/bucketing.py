@@ -186,11 +186,21 @@ def _numpy_pack(examples: list, article_len: int, caption_len: int,
 
 
 def bucket_batches(examples: Iterator, cfg: BucketingConfig,
-                   include_meta: bool = False) -> Iterator[dict]:
+                   include_meta: bool = False,
+                   ranks: int = 1) -> Iterator[dict]:
     """Group a stream of examples into fixed-shape batches: each example
     goes to its (article, caption) length bucket and a bucket is emitted
     when it fills. The ragged rest of each bucket is padded by repeating
-    its last example, and a bool "real" [B] marks the genuine rows."""
+    its last example, and a bool "real" [B] marks the genuine rows.
+    ranks: the stream is one of that many data-parallel ranks' strides,
+    and a batch is this rank's 1/ranks of the bucket's global batch size
+    (which must divide, as tell_tpu's batch_sharding requires)."""
+    if ranks > 1:
+        from ..parallel.mesh import check_rows_divisible
+        for al in cfg.article_lengths:
+            for cl in cfg.caption_lengths:
+                check_rows_divisible("caption_ids", _batch_size(al, cl, cfg),
+                                     ranks)
     buckets: dict[tuple[int, int], list] = {}
     for ex in examples:
         if hasattr(ex, "field_len"):
@@ -200,12 +210,12 @@ def bucket_batches(examples: Iterator, cfg: BucketingConfig,
         key = (_bucket_len(nc, cfg.article_lengths),
                _bucket_len(nk, cfg.caption_lengths))
         buckets.setdefault(key, []).append(ex)
-        b = _batch_size(*key, cfg)
+        b = _batch_size(*key, cfg) // ranks
         if len(buckets[key]) >= b:
             yield pack_batch(buckets[key][:b], *key, cfg, include_meta)
             buckets[key] = buckets[key][b:]
     for (al, cl), rest in buckets.items():
-        b = _batch_size(al, cl, cfg)
+        b = _batch_size(al, cl, cfg) // ranks
         while rest:
             chunk = rest[:b]
             batch = pack_batch(chunk + [chunk[-1]] * (b - len(chunk)),

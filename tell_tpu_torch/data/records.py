@@ -151,10 +151,10 @@ class LazyExample:
 
 
 class RecordDataset:
-    """A set of shards with seeded epoch shuffling at example granularity.
-    (tell_tpu's persistent-RandomState shuffle and multi-host striding
-    have no caller in the port yet.) use_native=False reads through the
-    Python ShardReader instead of the C++ one."""
+    """A set of shards with seeded epoch shuffling at example granularity,
+    strided over data-parallel ranks. (tell_tpu's persistent-RandomState
+    shuffle has no caller in the port.) use_native=False reads through
+    the Python ShardReader instead of the C++ one."""
 
     def __init__(self, pattern: str | list[str], seed: int = 1234,
                  use_native: bool = True):
@@ -173,19 +173,26 @@ class RecordDataset:
         return len(self.index)
 
     def epoch(self, epoch_index: int | None = None,
-              lazy: bool = False, limit: int | None = None) -> Iterator:
+              lazy: bool = False, limit: int | None = None,
+              process_index: int = 0, process_count: int = 1) -> Iterator:
         """Examples in shard order (epoch_index None, as for validation) or
         shuffled in an order that is a pure function of (seed,
         epoch_index), the same as tell_tpu's epoch(epoch_index=...): a
         resumed run reproduces an epoch's order without replaying earlier
         epochs. lazy yields LazyExample views; limit keeps the first
-        `limit` examples of the order."""
+        `limit` examples of the order. process_index / process_count
+        stride the order over data-parallel ranks, cut first to a
+        multiple of process_count so every rank yields as many examples
+        (tell_tpu's epoch, records.py:174-203)."""
         order = np.arange(len(self.index))
         if epoch_index is not None:
             np.random.RandomState(
                 [self.seed & 0xFFFFFFFF, epoch_index]).shuffle(order)
         if limit is not None:
             order = order[:limit]
+        if process_count > 1:
+            usable = len(order) - len(order) % process_count
+            order = order[process_index:usable:process_count]
         for o in order:
             s, i = self.index[o]
             if s not in self._open_lru:

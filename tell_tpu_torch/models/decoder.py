@@ -54,6 +54,7 @@ from ..ops.kernels.decode_attention import (decode_attention,
                                             segment_bias)
 from ..ops.linear import gehring_linear
 from ..ops.positional import sinusoidal_embed, sinusoidal_table
+from ..parallel.comm import world_size
 
 
 @functools.lru_cache(maxsize=8)
@@ -161,11 +162,13 @@ def decoder_forward(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
 
 def decoder_loss(params: dict, cfg: DecoderConfig, caption_ids: torch.Tensor,
                  contexts: dict, gen: torch.Generator | None = None,
-                 deterministic: bool = True
+                 deterministic: bool = True, group=None
                  ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Adaptive-softmax loss on right-shifted targets. caption_ids: [B, T] =
     <s> tokens </s> pads; inputs ids[:, :-1], targets ids[:, 1:].
-    Returns (loss_sum in nats, sample_size, aux)."""
+    Returns (loss_sum in nats, sample_size, aux). group: the data-parallel
+    ranks, each holding B rows of the global batch (None: one rank), whose
+    tail capacity is the global batch's."""
     inputs = caption_ids[:, :-1]
     targets = caption_ids[:, 1:]
     feats = decoder_forward(params, cfg, inputs, contexts, gen,
@@ -173,13 +176,14 @@ def decoder_loss(params: dict, cfg: DecoderConfig, caption_ids: torch.Tensor,
     B, T, E = feats.shape
     cap = None
     if cfg.tail_capacity_frac is not None:
-        cap = tuple(max(int(B * T * f), 8) for f in cfg.tail_capacity_frac)
+        n = B * T * (1 if group is None else world_size(group))
+        cap = tuple(max(int(n * f), 8) for f in cfg.tail_capacity_frac)
     return adaptive_softmax_loss(
         params["adaptive_softmax"], params["embed"], feats.reshape(B * T, E),
         targets.reshape(-1), cfg.full_cutoffs, pad_id=cfg.pad_id,
         padding_idx=cfg.embed_padding_idx, tail_capacity=cap,
         drop_rate=cfg.adaptive_softmax_dropout, gen=gen,
-        deterministic=deterministic)
+        deterministic=deterministic, tail_group=group)
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,10 @@ llm_decoder.py): rms_norm, rope_cos_sin, apply_rope, the blocks of the
 full-sequence path and of the decode step, llm_forward, llm_xent,
 llm_loss, llm_loss_e2e, _build_contexts, modern_encode_contexts,
 init_llm_decode_state, llm_decoder_step, tied_log_probs, tied_top_k,
-llm_generate and llm_beam_search. LLMConfig is in config.py and
-init_llm_decoder in bridge.py; the pipelined forward (llm_forward_pp) is
-not ported (ROADMAP queue 1 item 10).
+llm_generate and llm_beam_search, and the pipelined forward and loss
+(stack_llm_layers, llm_pp_sharding, llm_forward_pp, llm_loss_pp over
+parallel/pipeline.py). LLMConfig is in config.py and init_llm_decoder in
+bridge.py.
 
     x = x + o(self_attn(rms(x)))             causal, RoPE, GQA, K/V cache
     x = x + context_fc(concat_m cross_attn_m(rms(x)))    four contexts
@@ -51,6 +52,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..bridge import tree_leaves_with_path
 from ..config import LLMConfig
 from ..ops.attention import cross_attention_with_kv, precompute_kv
 from ..ops.common import dropout, fold_in, top_k
@@ -300,12 +302,15 @@ def llm_xent(params: dict, cfg: LLMConfig, feats: torch.Tensor,
 
 
 def llm_loss(params: dict, cfg: LLMConfig, batch: dict,
-             gen: torch.Generator | None = None, deterministic: bool = True
-             ) -> tuple[torch.Tensor, dict]:
+             gen: torch.Generator | None = None, deterministic: bool = True,
+             group=None) -> tuple[torch.Tensor, dict]:
     """Mean per-token loss in BITS over batch["caption_ids"] [B, T]
     (right-shifted targets, pads excluded), plus moe_aux_coef x the
     layers' mean MoE aux loss when moe_experts is set. Returns (loss,
-    {"sample_size", and "moe_aux" with the MoE})."""
+    {"sample_size", and "moe_aux" with the MoE}). group: the data-parallel
+    ranks; the dense loss has no batch-wide budget, so it reads nothing of
+    them (the MoE's capacity and aux are this batch's: the Trainer refuses
+    it data-parallel)."""
     contexts = _build_contexts(params, cfg, batch)
     ids = batch["caption_ids"]
     feats, layer_aux = llm_forward(params, cfg, ids[:, :-1], contexts, gen,
@@ -372,11 +377,99 @@ def modern_encode_contexts(frozen: dict, cfg: LLMConfig, batch: dict
 
 def llm_loss_e2e(params: dict, frozen: dict, cfg: LLMConfig, batch: dict,
                  gen: torch.Generator | None = None,
-                 deterministic: bool = True) -> tuple[torch.Tensor, dict]:
+                 deterministic: bool = True, group=None
+                 ) -> tuple[torch.Tensor, dict]:
     """llm_loss with the frozen towers' encode first (kernel B in the
     article's)."""
     return llm_loss(params, cfg, modern_encode_contexts(frozen, cfg, batch),
-                    gen, deterministic)
+                    gen, deterministic, group)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism (a pipe group of ranks, one stage each)
+# ---------------------------------------------------------------------------
+
+def stack_llm_layers(params: dict, n_stages: int) -> dict:
+    """params["layers"] [L dicts] -> one tree with leading [n_stages, L/P]
+    dims (parallel/pipeline.py's stage layout); the embedding and the
+    final norm stay as they are."""
+    from ..parallel.pipeline import stack_stages
+    return {**params, "layers": stack_stages(params["layers"], n_stages)}
+
+
+def llm_pp_sharding(stacked: dict) -> dict:
+    """{path: spec} of stack_llm_layers' tree, the axis each dim rides as
+    tell_tpu's llm_pp_sharding gives them: the layer stack's stage dim on
+    "pipe" (rank s of the pipe group computes stage s's layers), the rest
+    replicated ()."""
+    return {path: ("pipe",) + (None,) * (a.ndim - 1)
+            if path.startswith("layers/") else ()
+            for path, a in tree_leaves_with_path(stacked)}
+
+
+def llm_forward_pp(stacked: dict, cfg: LLMConfig, ids: torch.Tensor,
+                   contexts: dict, group, n_micro: int, data_group=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced forward with the layer stack pipelined over `group`
+    (deterministic, as tell_tpu's): rank s of the group computes stage
+    s's layers of stack_llm_layers' tree. Returns (features, the MoE aux
+    summed over every layer and microbatch: zero when dense); the MoE's
+    capacity and aux are per microbatch (the GShard per-shard
+    convention). With data_group, ids and contexts are the whole batch
+    and the features are this rank's rows of each microbatch."""
+    from ..parallel.pipeline import pipeline_apply
+    x = F.embedding(ids.long(), stacked["tok_embed"])
+    token_mask = ids != cfg.pad_id
+
+    def layer_fn(lp, h, extras):
+        ctx_mb, mask_mb = extras[-1]
+        return _layer_full(lp, cfg, h, ctx_mb, token_mask=mask_mb)
+
+    x, aux = pipeline_apply(stacked["layers"], layer_fn, x, group, n_micro,
+                            batched=(contexts, token_mask),
+                            data_group=data_group, layer_aux=True)
+    return rms_norm(stacked["final_norm"], x, cfg.rms_eps), aux
+
+
+def llm_loss_pp(stacked: dict, cfg: LLMConfig, batch: dict, group,
+                n_micro: int, data_group=None) -> tuple[torch.Tensor, dict]:
+    """Pipeline-parallel llm_loss (deterministic): differentiable end to
+    end: each rank's gradients land on its stage's slice of the layer
+    stack (and are zero on the other stages' slices), tok_embed's and the
+    final norm's are whole on every rank. With
+    data_group (dp x pp) the loss sum and the token count are summed over
+    it, so the loss is the global batch's, and each rank's gradients are
+    its part (the caller sums them over data_group). With the MoE, the
+    aux is the mean over layers and microbatches of per-microbatch terms,
+    an estimator of, not equal to, llm_loss's full-batch aux (tell_tpu's
+    llm_loss_pp's convention)."""
+    from ..parallel.comm import SumOverRanks, all_reduce
+    contexts = _build_contexts(stacked, cfg, batch)
+    ids = batch["caption_ids"]
+    inputs, targets = ids[:, :-1], ids[:, 1:]
+    feats, moe_aux_sum = llm_forward_pp(stacked, cfg, inputs, contexts,
+                                        group, n_micro, data_group)
+    if data_group is not None:
+        from ..parallel.comm import rank, world_size
+        n_d, d = world_size(data_group), rank(data_group)
+        B = targets.shape[0]
+        mb = B // n_micro
+        k = mb // n_d
+        targets = targets.reshape(n_micro, mb, -1)[:, d * k:(d + 1) * k]
+    N = feats.shape[0] * feats.shape[1]
+    loss_sum, size = llm_xent(stacked, cfg, feats.reshape(N, -1),
+                              targets.reshape(-1))
+    if data_group is not None:
+        loss_sum = SumOverRanks.apply(loss_sum, data_group)
+        size = all_reduce(size, data_group)
+    size = size.clamp_min(1)
+    loss = loss_sum / math.log(2.0) / size
+    aux = {"sample_size": size}
+    if cfg.moe_experts:
+        moe_aux = moe_aux_sum / (cfg.num_layers * n_micro)
+        aux["moe_aux"] = moe_aux
+        loss = loss + cfg.moe_aux_coef * moe_aux
+    return loss, aux
 
 
 def init_llm_decode_state(params: dict, cfg: LLMConfig, contexts: dict,

@@ -147,11 +147,13 @@ def lstm_decoder_loss(params: dict, cfg: DecoderConfig,
 
 def lstm_captioner_loss(params: dict, cfg: CaptionerConfig, batch: dict,
                         gen: torch.Generator | None = None,
-                        deterministic: bool = True
+                        deterministic: bool = True, group=None
                         ) -> tuple[torch.Tensor, dict]:
     """Mean per-token loss in BITS over the image and article contexts
     (build_contexts: the article layer-mixed where weigh_bert). Returns
-    (loss, {"sample_size", "tail_dropped"})."""
+    (loss, {"sample_size", "tail_dropped"}). group: the data-parallel
+    ranks; the loss has no batch-wide budget, so it reads nothing of
+    them."""
     contexts = build_contexts(params, cfg, batch)
     loss_sum, size, aux = lstm_decoder_loss(
         params["decoder"], cfg.decoder, batch["caption_ids"], contexts, gen,

@@ -128,7 +128,7 @@ def adaptive_softmax_loss(sm: dict, emb: dict, x: torch.Tensor,
                           tail_capacity: tuple[int, ...] | None = None,
                           drop_rate: float = 0.0,
                           gen: torch.Generator | None = None,
-                          deterministic: bool = True
+                          deterministic: bool = True, tail_group=None
                           ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Summed cross entropy over the head and the tail clusters.
     x: [N, D] decoder outputs, targets: [N] token ids. Returns (loss_sum,
@@ -138,7 +138,12 @@ def adaptive_softmax_loss(sm: dict, emb: dict, x: torch.Tensor,
     to the front with a stable argsort and gathered, so the tail matmul
     runs on `cap` rows instead of N; rows past the budget keep only their
     head loss and are counted in tail_dropped (tell_tpu's compaction,
-    adaptive.py:271-284). None: dense tails over every row."""
+    adaptive.py:271-284). None: dense tails over every row.
+    tail_group: the data-parallel ranks whose rows, in rank order, are the
+    global batch (None: this call holds all of it); tail_capacity is then
+    the global batch's budget, and a rank's in-band rows are taken while
+    the ranks before it have not used it up, as one rank takes the first
+    `cap` in-band rows of the whole batch."""
     ranges = band_ranges(cutoffs)
     c0 = ranges[0][1]
     targets = targets.long()
@@ -163,11 +168,17 @@ def adaptive_softmax_loss(sm: dict, emb: dict, x: torch.Tensor,
         cap = tail_capacity[i]
         idx = torch.argsort((~in_band).int(), stable=True)[:cap]
         valid = in_band[idx]
+        if tail_group is not None:
+            from ..parallel.comm import all_gather, rank
+            counts = all_gather(in_band.sum(), tail_group)
+            before = counts[:rank(tail_group)].sum()
+            valid = valid & (before + torch.arange(
+                len(idx), device=x.device) < cap)
         tl = _tail_logits(sm, emb, x[idx], i, padding_idx, drop_rate, gen,
                           deterministic)
         ce = _xent(tl, (targets[idx] - lo).clamp(0, hi - lo - 1))
         loss = loss + (ce * valid).sum()
-        n_dropped = n_dropped + (in_band.sum() - cap).clamp_min(0)
+        n_dropped = n_dropped + in_band.sum() - valid.sum()
     return loss, not_pad.sum(), {"tail_dropped": n_dropped}
 
 

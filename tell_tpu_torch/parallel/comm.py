@@ -1,0 +1,258 @@
+"""The collectives of the port's parallel paths, over torch.distributed.
+
+tell_tpu's shard_map bodies call lax.psum, lax.all_to_all and
+lax.ppermute, and XLA routes them; here each is a call on a process
+group. Every function takes the group (None: the default group) and
+returns a new tensor; the input is left as it was.
+
+Host staging. NCCL refuses two ranks on one device, and gloo's
+collectives on CUDA tensors are all_reduce and broadcast only. So where
+the group's backend is not NCCL and a tensor lies on the card, the
+exchange runs on a host copy and the result is copied back onto the
+card. What decides it is the backend the caller initialised the group
+with, never a failure: a failed collective raises.
+
+Autograd. torch's point-to-point calls are not differentiable, so each
+hop of the ring and of the pipeline is a torch.autograd.Function whose
+backward sends the gradient the other way, as lax.ppermute's transpose
+is the reverse permutation (tell_tpu/parallel/pipeline.py:16-18,
+ring.py:77-80). A rank runs its backward hops in the order of its
+forward ones reversed; the pipeline threads a token through its hops so
+that this order is fixed (pipeline.py).
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def grouped() -> bool:
+    """Whether this process is in a process group (of any size: one rank
+    still runs every collective through the group's backend)."""
+    return dist.is_available() and dist.is_initialized()
+
+
+def world_size(group=None) -> int:
+    """The group's size; 1 where no process group is initialised."""
+    if not grouped():
+        return 1
+    return dist.get_world_size(group)
+
+
+def rank(group=None) -> int:
+    """This process's rank in the group; 0 where none is initialised."""
+    if not grouped():
+        return 0
+    return dist.get_rank(group)
+
+
+def global_rank(group, group_rank: int) -> int:
+    """The default group's rank of the group's rank `group_rank`."""
+    if group is None or group is dist.group.WORLD:
+        return group_rank
+    return dist.get_global_rank(group, group_rank)
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and dist.get_backend(group) != "nccl"
+
+
+def _host(t: torch.Tensor, group) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True) if _staged(t, group) \
+        else t.detach().clone()
+
+
+def _back(out: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return out.to(like.device) if out.device != like.device else out
+
+
+def all_reduce(t: torch.Tensor, group=None,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The elementwise reduction of `t` over the group."""
+    if not grouped():
+        return t.detach().clone()
+    buf = _host(t.contiguous(), group)
+    dist.all_reduce(buf, op=op, group=group)
+    return _back(buf, t)
+
+
+def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """Group rank `src`'s `t` on every rank (`t` gives the shape and dtype
+    elsewhere)."""
+    if not grouped():
+        return t.detach().clone()
+    buf = _host(t.contiguous(), group)
+    dist.broadcast(buf, global_rank(group, src), group=group)
+    return _back(buf, t)
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """[P, *t.shape]: every rank's `t`, in group rank order."""
+    n = world_size(group)
+    if not grouped():
+        return t.detach().clone()[None]
+    buf = _host(t.contiguous(), group)
+    out = [torch.empty_like(buf) for _ in range(n)]
+    dist.all_gather(out, buf, group=group)
+    return _back(torch.stack(out), t)
+
+
+def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
+    """all_to_all_single: dim 0 in P equal chunks, chunk j to group rank
+    j; the result's chunk i is what rank i sent this rank."""
+    n = world_size(group)
+    if not grouped():
+        return t.detach().clone()
+    if t.shape[0] % n:
+        raise ValueError(f"all_to_all: leading dim {t.shape[0]} is not "
+                         f"divisible by the group size {n}")
+    buf = _host(t.contiguous(), group)
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=group)
+    return _back(out, t)
+
+
+def sendrecv(t: torch.Tensor, dst: int | None, src: int | None,
+             group=None) -> torch.Tensor | None:
+    """Send `t` to group rank `dst` and receive a tensor of t's shape and
+    dtype from group rank `src`, as one batch of point-to-point calls
+    (either may be None). Returns what was received, or None."""
+    buf = _host(t.contiguous(), group) if dst is not None else None
+    out = None
+    ops = []
+    if dst is not None:
+        ops.append(dist.P2POp(dist.isend, buf, global_rank(group, dst),
+                              group))
+    if src is not None:
+        like = t.to("cpu") if _staged(t, group) else t
+        out = torch.empty(t.shape, dtype=t.dtype, device=like.device)
+        ops.append(dist.P2POp(dist.irecv, out, global_rank(group, src),
+                              group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return None if out is None else _back(out, t)
+
+
+class RingHop(torch.autograd.Function):
+    """Each rank's tensors go to group rank (r + shift) mod P and it
+    receives those of (r - shift) mod P; the backward sends the gradients
+    back by -shift. One hop moves a tuple (K and V together), so every
+    rank runs the same hops in the same order."""
+
+    @staticmethod
+    def forward(ctx, group, shift: int, *ts):
+        ctx.group, ctx.shift = group, shift
+        n, r = world_size(group), rank(group)
+        return tuple(sendrecv(t, (r + shift) % n, (r - shift) % n, group)
+                     for t in ts)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n, r = world_size(ctx.group), rank(ctx.group)
+        s = ctx.shift
+        return (None, None) + tuple(
+            sendrecv(g.contiguous(), (r - s) % n, (r + s) % n, ctx.group)
+            for g in grads)
+
+
+class PipeSend(torch.autograd.Function):
+    """Forward: send x to group rank dst and return the next token.
+    Backward: receive x's gradient from dst."""
+
+    @staticmethod
+    def forward(ctx, x, token, dst: int, group):
+        ctx.dst, ctx.group = dst, group
+        ctx.shape, ctx.dtype, ctx.device = x.shape, x.dtype, x.device
+        sendrecv(x, dst, None, group)
+        return token.detach().clone()
+
+    @staticmethod
+    def backward(ctx, g_token):
+        like = torch.empty(ctx.shape, dtype=ctx.dtype, device=ctx.device)
+        gx = sendrecv(like, None, ctx.dst, ctx.group)
+        return gx, torch.zeros_like(g_token), None, None
+
+
+class PipeRecv(torch.autograd.Function):
+    """Forward: receive a tensor shaped like `like` from group rank src;
+    returns it and the next token. Backward: send its gradient to src."""
+
+    @staticmethod
+    def forward(ctx, token, like, src: int, group):
+        ctx.src, ctx.group = src, group
+        x = sendrecv(like, None, src, group)
+        return x, token.detach().clone()
+
+    @staticmethod
+    def backward(ctx, gx, g_token):
+        sendrecv(gx.contiguous(), ctx.src, None, ctx.group)
+        return torch.zeros_like(g_token), None, None, None
+
+
+class Tie(torch.autograd.Function):
+    """token -> token, with `ts` in its graph: their gradient from here is
+    zero. A backward that asks for the gradients of any of `ts` (as
+    torch.autograd.grad on the params does, running only the nodes on a
+    path to them) then runs every hop of the chain, on every rank, and
+    reaches `ts` through here only after the chain."""
+
+    @staticmethod
+    def forward(ctx, token, *ts):
+        ctx.shapes = [(t.shape, t.dtype, t.device) for t in ts]
+        return token.detach().clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + tuple(torch.zeros((), dtype=d, device=v).expand(s)
+                            for s, d, v in ctx.shapes)
+
+
+class Replicated(torch.autograd.Function):
+    """Identity forward on a tensor every rank of the group holds alike;
+    the backward sums its gradient over the group (the transpose of a
+    replicated input, as shard_map's is)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class SumOverRanks(torch.autograd.Function):
+    """The sum of x over the group; the backward passes the gradient
+    through unchanged, which is right where every rank computes the same
+    loss from the sum (lax.psum inside shard_map with a replicated
+    output)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class FromRank(torch.autograd.Function):
+    """Group rank src's x on every rank (others pass a tensor shaped like
+    it); the backward keeps src's own gradient and gives the other ranks'
+    inputs none, which is right where every rank computes the same loss
+    from the result."""
+
+    @staticmethod
+    def forward(ctx, x, token, src: int, group):
+        ctx.src, ctx.group = src, group
+        ctx.x_shape = x.shape
+        ctx.token = (token.dtype, token.device)
+        return broadcast(x, src, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        gx = g if rank(ctx.group) == ctx.src else \
+            torch.zeros(ctx.x_shape, dtype=g.dtype, device=g.device)
+        dtype, device = ctx.token
+        return gx, torch.zeros((), dtype=dtype, device=device), None, None

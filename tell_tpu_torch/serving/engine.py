@@ -34,8 +34,8 @@ positions and the rows' cache write positions).
 A slot's caption never depends on which other requests share the engine:
 tests/test_torch_engine.py and tests/test_torch_modern_serving.py hold
 every schedule to the port's one-shot beam searches. Not ported here (see
-ROADMAP.md): the mesh path, and the DEC8 / merged-vocab levers (None, as
-in JAX by default).
+ROADMAP.md): the mesh path (slots sharded over devices, item 10's rest),
+and the DEC8 / merged-vocab levers (None, as in JAX by default).
 """
 from __future__ import annotations
 

@@ -23,6 +23,17 @@ serving/client.py is the client. Two decode modes:
   configuration's 2048), each request routed to the smallest that fits.
   The answer is the best beam, its score and the other beams.
 
+Data-parallel serving (tell_tpu's --mesh-data: batch rows over the
+mesh's "data" axis, params and towers replicated): `devices` lists N
+devices, each of which holds a replica of the params and the RoBERTa
+(one copy where a device repeats); a micro-batch is packed once, its
+max_batch rows split evenly over the replicas (max_batch % N == 0, as
+tell_tpu checks), each shard encoded and decoded on its device in a
+thread of its own, and the answers go out in row order. The vision
+towers run in the pack, on the first device. Engine mode on several
+devices (tell_tpu shards the engine's slots over "data") is not ported
+(ROADMAP queue 1 item 10's rest).
+
 kv_cache ("fp", "int8", "int4") and fused_topk are the decode numerics
 levers (tell_tpu's TELL_TPU_KV8 / TELL_TPU_KV4 / TELL_TPU_TOPK, off by
 default as off the TPU); numerics_ab() measures each one's teacher-forced
@@ -69,6 +80,7 @@ behaviour; the ViT is not on the photo path).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import logging
@@ -76,13 +88,14 @@ import os
 import queue as _queue
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
 
 from ..bridge import to_torch
-from ..config import CaptionerConfig, with_article_len
+from ..config import CaptionerConfig, NotPortedError, with_article_len
 from ..data.pipeline import entity_occurrences
 from ..data.readers import assemble_location_aware
 from ..models.backbones.roberta import RobertaEncoder
@@ -126,7 +139,9 @@ class CaptionService:
     ResNetConfig, "mtcnn", "facenet", "yolov3"}: VisionPipeline's frozen
     dict), which give raw-image requests their grid, faces and objects.
     adapter: get_model's adapter of the model family (default: the
-    captioner over cfg); its config replaces cfg."""
+    captioner over cfg); its config replaces cfg. devices: the
+    replicas' devices for data-parallel micro-batch serving (the first
+    is `device`'s place; None: `device` alone)."""
 
     def __init__(self, params: dict, roberta: RobertaEncoder,
                  cfg: CaptionerConfig, device, tokenizer=None,
@@ -136,7 +151,8 @@ class CaptionService:
                  engine_buckets: bool = False, encode_batch: int = 8,
                  kv_cache: str = "fp",
                  fused_topk: bool = False, need_attention: bool = False,
-                 towers: dict | None = None, adapter=None):
+                 towers: dict | None = None, adapter=None,
+                 devices: list | None = None):
         if need_attention and tokenizer is None:
             raise ValueError("need_attention merges the maps into words "
                              "and needs a tokenizer")
@@ -150,6 +166,17 @@ class CaptionService:
         if self.modern and engine_slots and need_attention:
             raise ValueError("attention replay is captioner-only; drop "
                              "--attention for the modern engine")
+        devices = [torch.device(d) for d in devices or [device]]
+        if len(devices) > 1 and engine_slots:
+            raise NotPortedError(
+                "data-parallel serving with the engine (its slots sharded "
+                "over devices) is not ported yet (ROADMAP queue 1 item "
+                "10's rest)")
+        if max_batch % len(devices):
+            raise ValueError(
+                f"max_batch {max_batch} must be divisible by the mesh "
+                f"data axis {len(devices)}")
+        device = devices[0]
         cfg = self.adapter.config
         self.cfg = cfg
         # the pointer's PointerConfig wraps a captioner's config
@@ -190,6 +217,10 @@ class CaptionService:
         self.vision = VisionPipeline(
             to_torch(towers or {}, self.device),
             wanted={k: n for k, (n, _) in self._spec.items()})
+        self.devices = devices
+        self._replicas = self._make_replicas()
+        self._pool = (ThreadPoolExecutor(len(devices), "replica")
+                      if len(devices) > 1 else None)
         self.batcher = MicroBatcher(self._run, max_batch=max_batch)
         self._close_lock = threading.Lock()
         self._closed = False
@@ -198,6 +229,23 @@ class CaptionService:
             self._start_engines(engine_slots, engine_beam,
                                 engine_length_penalty, engine_buckets,
                                 encode_batch)
+
+    def _make_replicas(self) -> list[tuple]:
+        """(device, params, frozen RoBERTa) of each of self.devices; a
+        device that repeats shares its first replica's tensors."""
+        made = {}
+        out = []
+        for d in self.devices:
+            if d not in made:
+                if d == self.device:
+                    made[d] = (d, self.params, self.roberta.frozen())
+                else:
+                    fz = self.roberta.frozen()
+                    made[d] = (d, to_torch(self.params, d),
+                               {**fz, "roberta": to_torch(fz["roberta"],
+                                                          d)})
+            out.append(made[d])
+        return out
 
     def _start_engines(self, slots: int, beam: int, length_penalty: float,
                        buckets: bool, encode_batch: int) -> None:
@@ -236,13 +284,15 @@ class CaptionService:
                 time.sleep(0.002)
 
     def _generate(self, enc: dict, need_weights: bool = False,
-                  **levers) -> dict:
-        """The model's greedy decode (the adapter's) of encoded features;
-        need_weights asks for the attention maps where the family's
-        generate records them."""
+                  params: dict | None = None, **levers) -> dict:
+        """The model's greedy decode (the adapter's) of encoded features
+        (with `params`, a replica's; default the service's); need_weights
+        asks for the attention maps where the family's generate records
+        them."""
         if need_weights and self.adapter.attention_maps:
             levers["need_weights"] = True
-        return self.adapter.generate(self.params, self.cfg, enc, **levers)
+        return self.adapter.generate(params or self.params, self.cfg, enc,
+                                     **levers)
 
     def _encode(self, batch: dict, frozen: dict | None = None) -> dict:
         """The model's frozen-tower encode (the adapter's) of a batch of
@@ -443,21 +493,21 @@ class CaptionService:
         # article_len, with fewer RoBERTa windows and decode columns
         batch, errors = self._pack(padded, bucketed=True)
         batch["row_live"] = np.arange(self.max_batch) < n
-        with torch.inference_mode():
-            tb = {k: torch.from_numpy(v).to(self.device)
-                  for k, v in batch.items()}
-            enc = self._encode(tb)
-            out = self._generate(enc, need_weights=self.need_attention)
-            token_ids = out["token_ids"][:n].cpu().numpy()
-            maps = self.need_attention and "attns" in out
-            if maps:
-                # layer 0 of per-layer {name: [T, B, 1, S']}, or the LSTM's
-                # one {name: [T, B, S]}
-                attns = out["attns"]
-                layer0 = ({name: a[:, :n, 0] for name, a in attns[0].items()}
-                          if isinstance(attns, list) else
-                          {name: a[:, :n] for name, a in attns.items()})
-                layer0 = {k: a.cpu().numpy() for k, a in layer0.items()}
+        if self._pool is None:
+            token_ids, layer0 = self._decode_rows(batch, self._replicas[0])
+        else:
+            k = self.max_batch // len(self._replicas)
+            parts = list(self._pool.map(
+                lambda i: self._decode_rows(
+                    {key: v[i * k:(i + 1) * k] for key, v in batch.items()},
+                    self._replicas[i]), range(len(self._replicas))))
+            token_ids = np.concatenate([t for t, _ in parts])
+            layer0 = (None if parts[0][1] is None else
+                      {name: np.concatenate([m[name] for _, m in parts],
+                                            axis=1)
+                       for name in parts[0][1]})
+        token_ids = token_ids[:n]
+        maps = layer0 is not None
         results = []
         for i in range(n):
             r = {"token_ids": token_ids[i].tolist()}
@@ -471,6 +521,30 @@ class CaptionService:
                     batch["context_ids"][i]))
             results.append(r)
         return results
+
+    def _decode_rows(self, batch: dict, replica: tuple
+                     ) -> tuple[np.ndarray, dict | None]:
+        """Encode and decode packed rows on a replica: (token ids, and
+        with need_attention the first layer's maps {name: [T, rows, S']},
+        else None)."""
+        device, params, frozen = replica
+        with torch.inference_mode(), (
+                torch.cuda.device(device) if device.type == "cuda"
+                else contextlib.nullcontext()):
+            tb = {k: torch.from_numpy(v).to(device)
+                  for k, v in batch.items()}
+            enc = self._encode(tb, frozen)
+            out = self._generate(enc, need_weights=self.need_attention,
+                                 params=params)
+            token_ids = out["token_ids"].cpu().numpy()
+            if not (self.need_attention and "attns" in out):
+                return token_ids, None
+            # layer 0 of per-layer {name: [T, B, 1, S']}, or the LSTM's one
+            # {name: [T, B, S]}
+            attns = out["attns"]
+            layer0 = ({name: a[:, :, 0] for name, a in attns[0].items()}
+                      if isinstance(attns, list) else attns)
+            return token_ids, {k: a.cpu().numpy() for k, a in layer0.items()}
 
     def _attention_payload(self, token_ids: np.ndarray, maps: dict,
                            context_ids: np.ndarray) -> dict:
@@ -639,6 +713,7 @@ class CaptionService:
                 "contexts": [c.name for c in self.dcfg.contexts],
                 "gen_len": self.cap_cfg.gen_len,
                 "device": str(self.device),
+                "devices": [str(d) for d in self.devices],
                 "need_attention": self.need_attention,
                 "kv_cache_mode": self.kv_cache,
                 "topk_mode": self._topk_mode(),
@@ -695,6 +770,8 @@ class CaptionService:
                 for fut in leftovers:
                     fut.set_exception(RuntimeError("service closed"))
             self.batcher.shutdown()
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
             self._closed = True
 
 

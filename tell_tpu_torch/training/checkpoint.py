@@ -19,6 +19,12 @@ save waits out the previous one), restore() and list() flush first, and
 flush() is the barrier: it waits for the in-flight save and re-raises its
 error, so no failed save goes unseen. A synchronous save is save()
 followed by flush().
+
+Under data parallelism every rank holds the same state, and rank 0
+alone (primary=True) writes, renames and collects old checkpoints; every
+rank meets the others at a barrier before a save, as tell_tpu's ranks do
+before theirs (checkpoint.py:60-80), and every rank restores the same
+files.
 """
 from __future__ import annotations
 
@@ -42,9 +48,11 @@ def _stage(state: dict) -> dict:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 10):
+    def __init__(self, directory: str, keep: int = 10,
+                 primary: bool = True):
         self.dir = os.path.abspath(directory)
         self.keep = keep
+        self.primary = primary
         os.makedirs(self.dir, exist_ok=True)
         self._worker = ThreadPoolExecutor(1, "checkpoint")
         self._pending: Future | None = None
@@ -83,7 +91,11 @@ class CheckpointManager:
 
     def _save(self, path: str, state: dict, metadata: dict | None,
               gc: bool) -> None:
+        from ..parallel.multihost import barrier
         self.flush()                       # one save in flight at a time
+        barrier("checkpoint")
+        if not self.primary:
+            return
         self._pending = self._worker.submit(self._write, path,
                                             _stage(state), metadata, gc)
 

@@ -9,13 +9,33 @@ analogue): with compute_dtype "bfloat16" the whole param tree and batch are
 cast to bf16 INSIDE the differentiated function, so the gradients land on
 the fp32 master leaves. (torch.autocast picks per-op dtypes that differ
 from JAX's blanket cast, so it is not used.)
+
+Data parallelism (in a process group, of any size): each rank holds its
+rows of the global batch, and the step is tell_tpu's on the whole of it.
+The loss is normalised over the global batch, so a rank weighs its loss
+by its sample size (its non-pad tokens: aux["sample_size"]), and one
+all_reduce sums the weighted gradients, the weighted losses, the weights
+and the metrics' counts; the sums over the summed weights are the global
+loss and gradients. This is exact for an objective that is a mean over
+tokens; one that is not (the pointer's per-entity terms, the MoE's
+per-batch capacity and aux) has no data-parallel step, and the Trainer
+refuses it. The loss gets the group, for the batch-wide budget of the
+adaptive softmax's tails. Clipping and BertAdam act after the
+reduction, so every rank updates the same params. With more than one
+rank, each draws its dropout masks from fold_in(gen, rank): its own
+masks, not its rows of the masks one rank would draw for the whole
+batch (tell_tpu's sharded key draws those; the bits differ from JAX's
+anyway).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..bridge import tree_leaves, tree_map
 from ..models.captioner import captioner_loss, captioner_loss_e2e
+from ..ops.common import fold_in
+from ..parallel.comm import all_reduce, grouped, rank, world_size
 from .optimizer import BertAdam, apply_updates
 
 
@@ -37,9 +57,21 @@ def compute_dtype_of(cfg) -> str:
                    "float32")
 
 
-def make_train_step(cfg, optimizer: BertAdam, loss=None, loss_e2e=None):
-    """loss(params, cfg, batch, gen, deterministic) and loss_e2e(params,
-    frozen, cfg, batch, gen, deterministic) are the model's objective
+def loss_weight(aux: dict) -> torch.Tensor:
+    """A rank's share of the global normaliser: its sample size."""
+    n = aux.get("sample_size")
+    if not isinstance(n, torch.Tensor):
+        raise ValueError("a data-parallel step weighs each rank's loss by "
+                         "its sample_size, which this objective does not "
+                         "return")
+    return n.detach().float().reshape(())
+
+
+def make_train_step(cfg, optimizer: BertAdam, loss=None, loss_e2e=None,
+                    group=None):
+    """loss(params, cfg, batch, gen, deterministic[, group]) and
+    loss_e2e(params, frozen, cfg, batch, gen, deterministic[, group]) are
+    the model's objective
     (default: the captioner's), each returning (loss, aux) with aux
     holding sample_size and tail_dropped (each 0 where absent: the
     pointer's aux holds its gen, entity and copy losses instead).
@@ -50,31 +82,45 @@ def make_train_step(cfg, optimizer: BertAdam, loss=None, loss_e2e=None):
     generator; frozen: the frozen towers, whose presence makes the step
     encode context_ids itself (the Trainer casts them to the compute dtype
     once, so the cast here finds nothing to do). metrics are device
-    tensors (no host sync)."""
+    tensors (no host sync). group: the data-parallel ranks (None: the
+    default group where one is initialised); batch then is this rank's
+    rows, and with more than one rank the losses get group= and the
+    objective must return its sample_size."""
     loss_f = loss or captioner_loss
     loss_e2e_f = loss_e2e or captioner_loss_e2e
     compute_dtype = compute_dtype_of(cfg)
+    reduce = grouped()
+    if reduce and group is None:
+        group = dist.group.WORLD
+    world = world_size(group)
+    kw = {"group": group} if world > 1 else {}
 
     def step(params, opt_state, batch, gen, frozen=None):
         batch_c = cast_tree(batch, compute_dtype)
         frozen_c = cast_tree(frozen, compute_dtype)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        if world > 1:
+            gen = fold_in(gen, rank(group))
         with torch.enable_grad():
             p = cast_tree(leaves, compute_dtype)
             if frozen is not None:
                 value, aux = loss_e2e_f(p, frozen_c, cfg, batch_c, gen,
-                                        deterministic=False)
+                                        deterministic=False, **kw)
             else:
                 value, aux = loss_f(p, cfg, batch_c, gen,
-                                    deterministic=False)
+                                    deterministic=False, **kw)
             value = value.float()
             flat = tree_leaves(leaves)
             grads = torch.autograd.grad(value, flat, allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for x, g in zip(flat, grads)]
+        value = value.detach()
+        counts = {k: aux.get(k, 0) for k in ("sample_size", "tail_dropped")}
+        if reduce:
+            w = loss_weight(aux) if world > 1 else value.new_ones(())
+            grads, value, counts = _reduce(grads, value, w, counts, group)
         it = iter(grads)
         grads = tree_map(lambda _: next(it), params)
-        value = value.detach()
         with torch.no_grad():
             updates, new_opt = optimizer.update(grads, opt_state, params)
             new_params = apply_updates(params, updates)
@@ -84,9 +130,30 @@ def make_train_step(cfg, optimizer: BertAdam, loss=None, loss_e2e=None):
                                   new_params, params)
             new_opt = tree_map(lambda n, o: torch.where(ok, n, o),
                                new_opt, opt_state)
-            metrics = {"loss": value, "skipped": (~ok).int(),
-                       "sample_size": aux.get("sample_size", 0),
-                       "tail_dropped": aux.get("tail_dropped", 0)}
+            metrics = {"loss": value, "skipped": (~ok).int(), **counts}
         return new_params, new_opt, metrics
 
     return step
+
+
+def _reduce(grads: list, value: torch.Tensor, w: torch.Tensor,
+            counts: dict, group) -> tuple[list, torch.Tensor, dict]:
+    """One all_reduce of [the gradients weighted by w, w * loss, w, the
+    counts] -> the global gradients and loss (sums over the summed w) and
+    the summed counts. The weighing is in fp32, after the backward, so a
+    group of one rank gives the gradients of no group to rounding."""
+    extra = torch.stack([value * w, w] + [
+        torch.as_tensor(c, dtype=torch.float32, device=value.device)
+        .reshape(()) for c in counts.values()])
+    buf = torch.cat([g.reshape(-1).float() * w for g in grads] + [extra])
+    buf = all_reduce(buf, group)
+    tail = buf[-len(extra):]
+    total = tail[1]
+    out, at = [], 0
+    for g in grads:
+        out.append((buf[at:at + g.numel()] / total).reshape(g.shape)
+                   .to(g.dtype))
+        at += g.numel()
+    counts = {k: tail[2 + i].round().long()
+              for i, k in enumerate(counts)}
+    return out, tail[0] / total, counts

@@ -1,5 +1,5 @@
-"""The training loop on one device (counterpart of
-tell_tpu/training/trainer.py) and its entry point, train_from_shards
+"""The training loop (counterpart of tell_tpu/training/trainer.py) and
+its entry point, train_from_shards
 (the sequence `tnt train` runs: RecordDataset over train-*.npz and
 valid-*.npz, bucket_batches with an epoch_index-seeded order, then
 Trainer.train, or Trainer.recover first).
@@ -13,8 +13,22 @@ warning, metrics.jsonl, TensorBoard scalars under <serialization_dir>/tb
 epoch/<name>), warm start from a checkpoint's params and the profiler
 window. Dropout draws from a generator seeded from (seed, step), as
 tell_tpu folds the step into its key, so a resumed step draws the same
-masks. Not ported yet (ROADMAP queue 1 item 10): the mesh and multi-host
-parts.
+masks.
+
+Data parallelism: the Trainer runs in every rank of a process group
+(parallel/multihost.py), on the rank's own device, with a ("data",
+"model") mesh from tcfg.n_data (None: every rank); tensor parallelism
+(n_model > 1) is refused, and so is a family whose objective is not a
+mean over tokens (the adapter's data_parallel: the pointer models, the
+MoE). Each rank's train_batches / val_batches yield
+its rows of each global batch (its stride of the epoch order: make_trainer
+and the CLI's build_trainer), and the train step reduces the loss and
+gradients over the ranks (train_step.py), so every rank holds the same
+params; they start from rank 0's. A stop is agreed through global_any at
+every batch boundary, so a SIGTERM on one rank stops every rank at the
+same batch, as tell_tpu's _check_stop does. Validation losses are summed
+over the ranks, as the step's are. Rank 0 alone writes metrics.jsonl, the
+TensorBoard events, the profile and the checkpoints.
 
 The profiler window is PyTorch's idiom for tell_tpu's jax.profiler trace:
 steps [profile_at, profile_at + profile_steps) run under torch.profiler
@@ -46,15 +60,19 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from ..bridge import tree_map
+from ..bridge import tree_leaves, tree_map
 from ..config import CaptionerConfig, NotPortedError, orbax_refusal
 from ..data.bucketing import BucketingConfig, bucket_batches
 from ..data.prefetch import DevicePrefetcher
 from ..data.records import RecordDataset
 from ..models.registry import get_model
+from ..parallel.comm import all_reduce, broadcast, grouped, rank, world_size
+from ..parallel.mesh import make_mesh
+from ..parallel.multihost import barrier, global_any, is_primary
 from .checkpoint import CheckpointManager
 from .optimizer import BertAdamState, bert_adam
-from .train_step import cast_tree, compute_dtype_of, make_train_step
+from .train_step import (cast_tree, compute_dtype_of, loss_weight,
+                         make_train_step)
 
 log = logging.getLogger("tell_tpu_torch.trainer")
 
@@ -76,8 +94,9 @@ class TrainerConfig:
     max_grad_norm: float = 0.1
     b1: float = 0.9
     b2: float = 0.98
-    # a mesh (tell_tpu's fields; config_io refuses one of more than one
-    # device: ROADMAP queue 1 item 10)
+    # the mesh: n_data ranks of data parallelism (None: every rank);
+    # n_model > 1, tensor parallelism, is refused (ROADMAP queue 1 item
+    # 10's rest)
     n_data: int | None = None
     n_model: int = 1
     # a checkpoint directory (the one holding state.pt) whose params the
@@ -133,16 +152,30 @@ class Trainer:
             weight_decay=tcfg.weight_decay,
             max_grad_norm=tcfg.max_grad_norm, t_total=tcfg.t_total,
             warmup=tcfg.warmup)
+        if tcfg.n_model != 1:
+            raise NotPortedError(
+                f"tensor parallelism (trainer.n_model={tcfg.n_model}) is not "
+                "ported yet (ROADMAP queue 1 item 10's rest)")
+        self.mesh = make_mesh(tcfg.n_data)
+        self.group = self.mesh.group("data")
+        if self.mesh.shape["data"] > 1 and not adapter.data_parallel:
+            raise NotPortedError(
+                f"data-parallel training of the {adapter.name} family "
+                f"({self.mesh.shape['data']} ranks) is not ported yet "
+                "(ROADMAP queue 1 item 10's rest): its objective is not a "
+                "mean over tokens, so the step's global normalisation "
+                "would not be tell_tpu's")
         self.ckpt = CheckpointManager(
             os.path.join(tcfg.serialization_dir, "checkpoints"),
-            keep=tcfg.keep_checkpoints)
+            keep=tcfg.keep_checkpoints, primary=is_primary())
         loss_e2e = adapter.loss_e2e
         if loss_e2e is None and adapter.encode is not None:
-            def loss_e2e(p, fz, c, b, gen=None, deterministic=True):
+            def loss_e2e(p, fz, c, b, gen=None, deterministic=True, **kw):
                 return adapter.loss(p, c, adapter.encode(fz, b), gen,
-                                    deterministic)
+                                    deterministic, **kw)
         self._step_fn = make_train_step(cfg, self.optimizer,
-                                        loss=adapter.loss, loss_e2e=loss_e2e)
+                                        loss=adapter.loss, loss_e2e=loss_e2e,
+                                        group=self.group)
         self._tb = None
         self._profiler = None
         self._best_pending: tuple | None = None
@@ -155,11 +188,22 @@ class Trainer:
         Thread- and signal-safe: it only sets a flag."""
         self._stop_requested = True
 
+    def _check_stop(self) -> bool:
+        """The stop decision at a batch boundary, agreed over the ranks:
+        a SIGTERM lands on one rank, and one that broke out alone would
+        leave the others waiting in their next collective."""
+        agreed = global_any(self._stop_requested)
+        if agreed:
+            self._stop_requested = True
+        return agreed
+
     @property
     def tb(self):
         """The TensorBoard writer, made at its first use (one events file
-        per trainer); None when summary_interval is 0."""
-        if self._tb is None and self.tcfg.summary_interval:
+        per trainer, rank 0's); None when summary_interval is 0 and on
+        the other ranks."""
+        if (self._tb is None and self.tcfg.summary_interval
+                and is_primary()):
             from .tensorboard import TensorBoardWriter
             self._tb = TensorBoardWriter(
                 os.path.join(self.tcfg.serialization_dir, "tb"))
@@ -171,10 +215,24 @@ class Trainer:
         params = self.adapter.init(g, self.cfg)
         if self.tcfg.warm_start:
             params = self._warm_start(params)
+        params = self._from_primary(params)
         self.state = {"params": params,
                       "opt": self.optimizer.init(params),
                       "step": 0, "epoch": 0,
                       "best_metric": float("inf"), "bad_epochs": 0}
+
+    def _from_primary(self, tree):
+        """Rank 0's tensors of the tree on every data rank (a no-op
+        outside a process group), so the ranks start from the same
+        params."""
+        if not grouped():
+            return tree
+        leaves = tree_leaves(tree)
+        flat = broadcast(torch.cat([x.reshape(-1) for x in leaves]), 0,
+                         self.group)          # one exchange, not one a leaf
+        parts = iter(flat.split([x.numel() for x in leaves]))
+        return tree_map(lambda x: next(parts).reshape(x.shape).to(x.dtype),
+                        tree)
 
     def _warm_start(self, params: dict) -> dict:
         """The params of the checkpoint at tcfg.warm_start, on the device,
@@ -241,6 +299,7 @@ class Trainer:
         self._install_sigterm()
         result = self._train()
         self.ckpt.flush()            # the async save barrier
+        barrier("train_done")        # no rank returns before rank 0's save
         return result
 
     def _train(self) -> dict:
@@ -256,7 +315,7 @@ class Trainer:
                 self._stop_profile()
             cursor = em.pop("cursor")
             stopped_mid = em.pop("stopped_mid")
-            if self._stop_requested:
+            if self._check_stop():
                 # a mid-epoch stop records the batch cursor: the resumed
                 # run continues at the NEXT batch of the same order
                 if self._best_pending is not None:
@@ -339,7 +398,7 @@ class Trainer:
         """One train step, inside the profiler window where it falls in
         [profile_at, profile_at + profile_steps)."""
         t, step = self.tcfg, self.state["step"]
-        if t.profile_steps and step == t.profile_at:
+        if t.profile_steps and step == t.profile_at and is_primary():
             self._start_profile()
         gen = step_generator(t.seed, step, self.device)
         with (torch.profiler.record_function(f"train_step:{step}")
@@ -374,7 +433,7 @@ class Trainer:
             log.info("resuming epoch %d at batch %d", epoch, resume_at)
         with self._prefetched(batches) as pf:
             for batch in pf:
-                if self._stop_requested:
+                if self._check_stop():
                     stopped_mid = True
                     break
                 m = self._step(batch)
@@ -388,7 +447,7 @@ class Trainer:
                     log.info("epoch %d step %d loss %.6f", epoch,
                              self.state["step"], float(m["loss"]))
                 si = self.tcfg.summary_interval
-                if si and self.state["step"] % si == 0:
+                if si and self.state["step"] % si == 0 and self.tb:
                     # float() syncs once per interval, as the log line does
                     self.tb.add_scalar("train/loss", float(m["loss"]),
                                        self.state["step"])
@@ -420,10 +479,13 @@ class Trainer:
         its encode with the frozen towers (in the compute dtype), then its
         loss on the fp32 params, which is its e2e loss as tell_tpu's eval
         runs it (the bf16 hiddens promote to fp32 at the first
-        projection); no weight dropout, so kernel C runs."""
+        projection); no weight dropout, so kernel C runs. Under data
+        parallelism a batch's loss is the global batch's, reduced as the
+        train step reduces it."""
         if self.val_batches is None:
             return {}
-        losses = []
+        kw = {"group": self.group} if self.mesh.shape["data"] > 1 else {}
+        parts = []
         with self._prefetched(self.val_batches()) as pf:
             for batch in pf:
                 if self.frozen is not None:
@@ -431,17 +493,43 @@ class Trainer:
                 batch = tree_map(lambda x: x.float()
                                  if isinstance(x, torch.Tensor)
                                  and x.is_floating_point() else x, batch)
-                loss, _ = self.adapter.loss(self.state["params"], self.cfg,
-                                            batch)
-                losses.append(loss)
-        return ({"val_loss": float(torch.stack(losses).mean())}
-                if losses else {})
+                loss, aux = self.adapter.loss(self.state["params"],
+                                              self.cfg, batch, **kw)
+                w = loss_weight(aux) if kw else torch.ones(
+                    (), device=loss.device)
+                parts.append(torch.stack([loss.float() * w, w]))
+        if not parts:
+            return {}
+        parts = torch.stack(parts)
+        if grouped():
+            parts = all_reduce(parts, self.group)
+        return {"val_loss": float((parts[:, 0] / parts[:, 1]).mean())}
 
     def _write_metrics(self, em: dict) -> None:
+        if not is_primary():
+            return
         os.makedirs(self.tcfg.serialization_dir, exist_ok=True)
         path = os.path.join(self.tcfg.serialization_dir, "metrics.jsonl")
         with open(path, "a") as f:
             f.write(json.dumps(em) + "\n")
+
+
+def data_ranks(bcfg: BucketingConfig) -> tuple[int, int]:
+    """(this process's rank, the rank count) of data-parallel training,
+    refusing, as tell_tpu's train does with more than one process, a
+    bucketing config of more than one shape: the ranks' strides would
+    fill different buckets, and their batch schedules diverge and
+    deadlock at the first collective."""
+    pi, pc = rank(), world_size()
+    if pc > 1 and (len(bcfg.article_lengths) > 1
+                   or len(bcfg.caption_lengths) > 1):
+        raise SystemExit(
+            "multi-host training requires a single-shape bucketing "
+            "config (one article length, one caption length) so every "
+            f"process runs an identical batch schedule; got "
+            f"article_lengths={bcfg.article_lengths} "
+            f"caption_lengths={bcfg.caption_lengths}")
+    return pi, pc
 
 
 def make_trainer(cfg: CaptionerConfig, tcfg: TrainerConfig,
@@ -450,16 +538,20 @@ def make_trainer(cfg: CaptionerConfig, tcfg: TrainerConfig,
     """A Trainer of the adapter's model (default the captioner) over
     shards_dir/train-*.npz (shuffled, in an order that is a pure function
     of the dataset seed and the epoch) and shards_dir/valid-*.npz (in
-    shard order)."""
+    shard order); in a process group, this rank's stride of each, in
+    batches of its share of the global batch size."""
     train_ds = RecordDataset(os.path.join(shards_dir, "train-*.npz"))
     val_ds = RecordDataset(os.path.join(shards_dir, "valid-*.npz"))
+    pi, pc = data_ranks(bcfg)
 
     def train_batches(epoch):
-        return bucket_batches(train_ds.epoch(epoch_index=epoch, lazy=True),
-                              bcfg)
+        return bucket_batches(train_ds.epoch(
+            epoch_index=epoch, lazy=True, process_index=pi,
+            process_count=pc), bcfg, ranks=pc)
 
     def val_batches():
-        return bucket_batches(val_ds.epoch(lazy=True), bcfg)
+        return bucket_batches(val_ds.epoch(
+            lazy=True, process_index=pi, process_count=pc), bcfg, ranks=pc)
 
     return Trainer(cfg, tcfg, train_batches, val_batches, frozen,
                    device=device, adapter=adapter)

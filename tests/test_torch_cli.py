@@ -269,20 +269,32 @@ def test_model_commands_need_the_card_or_device_cpu(tmp_path, cmd):
     (["bench"], "queue 1 item 1"),
     (["serve", "{cfg}", "-o", '{{"trainer": {{"n_model": 2}}}}',
       "--device", "cpu"], "queue 1 item 10"),
-    (["train", "{cfg}", "--coordinator", "h:1", "--device", "cpu"],
+    (["train", "{cfg}", "--coordinator", "h:1", "-o",
+      '{{"trainer": {{"n_model": 2}}}}', "--device", "cpu"],
      "queue 1 item 10"),
-    (["serve", "{cfg}", "--mesh-data", "2", "--device", "cpu"],
-     "queue 1 item 10"),
-    (["evaluate", "{cfg}", "-o", '{{"trainer": {{"n_data": 2}}}}',
+    (["serve", "{cfg}", "--mesh-data", "2", "--engine-slots", "4",
       "--device", "cpu"], "queue 1 item 10"),
-    (["train", "{cfg}", "-o", '{{"trainer": {{"n_data": 2}}}}', "--device",
-      "cpu"], "queue 1 item 10"),
+    (["evaluate", "{cfg}", "-o", '{{"trainer": {{"n_model": 2}}}}',
+      "--device", "cpu"], "queue 1 item 10"),
+    (["train", "{cfg}", "-o", '{{"trainer": {{"n_data": 2, "n_model": 2}}}}',
+      "--device", "cpu"], "queue 1 item 10"),
+    (["train", "{cfg}", "--coordinator", "h:1", "--num-processes", "2",
+      "-o", '{{"model_type": "transformer_pointer"}}', "--device", "cpu"],
+     "queue 1 item 10"),
 ])
 def test_what_is_not_ported_is_refused_with_its_item(tmp_path, argv, item):
+    """bench (item 1), and item 10's rest: tensor parallelism
+    (trainer.n_model > 1, also with --coordinator, refused before the
+    process group starts), --mesh-data with --engine-slots, and the
+    pointer models on several ranks (refused before the group). Training
+    with n_data or --coordinator, and serve --mesh-data, run:
+    tests/test_torch_parallel_cli.py, tests/test_torch_mesh_serving.py."""
     cfg = write_e2e_config(tmp_path)
     argv = [a.format(cfg=cfg) for a in argv]
-    with pytest.raises(NotPortedError, match=item):
+    with pytest.raises(NotPortedError, match=item) as err:
         main(argv)
+    if item.endswith("item 10"):
+        assert "item 10's rest" in str(err.value)
 
 
 def test_orbax_roberta_tower_is_refused(tmp_path):

@@ -108,14 +108,43 @@ def test_modern_yamls_load_as_jax_does(path):
 
 
 @pytest.mark.parametrize("over, item", [
-    ({"trainer": {"n_data": 2}}, "queue 1 item 10"),
+    ({"trainer": {"n_data": 2, "n_model": 2}}, "queue 1 item 10"),
     ({"trainer": {"n_model": 2}}, "queue 1 item 10"),
 ])
 def test_keys_the_port_cannot_honour_are_refused(over, item):
+    """Tensor parallelism (n_model > 1) is item 10's rest; n_data alone
+    loads (test_n_data_loads_as_jax_does)."""
     path = os.path.join(ROOT, "expt/nytimes/9_transformer_objects.yaml")
     j_load(path, over)   # tell_tpu takes it
-    with pytest.raises(NotPortedError, match=item):
+    with pytest.raises(NotPortedError, match=item) as err:
         load_experiment(path, over)
+    assert "item 10's rest" in str(err.value)
+
+
+@pytest.mark.parametrize("path", ["expt/nytimes/a1_pointer.yaml",
+                                  "expt/nytimes/a3_pointer_2.yaml",
+                                  "expt/nytimes/12_moe_modern.yaml"])
+def test_data_parallel_pointer_and_moe_are_refused(path):
+    """Their objectives are not means over tokens (the pointer's entity
+    and copy terms, the MoE's per-batch capacity and aux), so n_data > 1
+    is item 10's rest; one rank loads."""
+    path = os.path.join(ROOT, path)
+    over = {"trainer": {"n_data": 2}}
+    j_load(path, over)   # tell_tpu takes it
+    with pytest.raises(NotPortedError, match="item 10's rest"):
+        load_experiment(path, over)
+    assert load_experiment(path, {"trainer": {"n_data": 1}})
+
+
+@pytest.mark.parametrize("n_data", [None, 2, 8])
+def test_n_data_loads_as_jax_does(n_data):
+    """trainer.n_data, refused before data parallelism was ported, loads
+    into the TrainerConfig tell_tpu's loader gives."""
+    path = os.path.join(ROOT, "expt/nytimes/9_transformer_objects.yaml")
+    over = {"trainer": {"n_data": n_data}}
+    exp = load_experiment(path, over)
+    assert exp.trainer.n_data == j_load(path, over).trainer.n_data == n_data
+    _assert_configs_equal(exp, j_load(path, over))
 
 
 @pytest.mark.parametrize("path", ["expt/goodnews/1_lstm_glove.yaml",

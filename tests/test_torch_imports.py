@@ -308,7 +308,10 @@ def test_port_imports_no_jax_and_runs_plain_on_cpu():
                  "models.backbones.vit", "models.lstm_decoder",
                  "data.glove", "models.pointer", "ops.self_attention",
                  "tools.get_articles_nytimes", "tools.process_images",
-                 "tools.detect_faces", "tools.annotate_objects"):
+                 "tools.detect_faces", "tools.annotate_objects",
+                 "parallel", "parallel.mesh", "parallel.multihost",
+                 "parallel.comm", "parallel.sequence", "parallel.ring",
+                 "parallel.pipeline"):
         assert f"tell_tpu_torch.{name}" in res["modules"]
     assert res["jax_package"] == []
     assert res["jax_loaded"] is False
