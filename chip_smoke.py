@@ -304,9 +304,10 @@ every phase passed):
      device share and the host's waits at its syncs (torch.profiler);
      (c) expt 3 (the LSTM over RoBERTa, bf16): loss and gradients card vs
      CPU in fp32, `train` 2 x 2 steps (B required), its steady steps,
-     `evaluate` greedy on 4 captions on the card, again with --fused-topk
-     (kernel E required, and none without it), and on the CPU: ids equal
-     or split at a near tie (LSTM_TIE), the same for 4 requests served
+     `evaluate` greedy on FAMILY_EVAL captions on the card, again with
+     --fused-topk (kernel E required, and none without it), and on the
+     CPU: ids equal or split at a near tie (LSTM_TIE), the same for
+     FAMILY_EVAL requests served
      over HTTP on the card against the CPU's micro-batch, and
      --engine-slots refused; (d) expts 1 and 2: a 300-d GloVe file from
      the seed for the quality corpus's words, preprocess with
@@ -373,10 +374,10 @@ every phase passed):
      too), the first step's reduced gradients (before clipping) and the
      params after the steps within DP_REL_L2 (relative L2: a leaf's at
      the median, the whole tree's), B and C launched in each rank;
-     (b) RoBERTa-large at
+     (b) RoBERTa-large's widths at SEQ_LAYERS of its layers,
      B=4, S=512: the Ulysses encode (kernel B on 8 heads a rank) and the
      ring (256 columns a rank) within SEQ_ATOL of the one-rank encode, the
-     ring's gradients of layers 0 and 23's q/k/v/out weights within
+     ring's gradients of the first and last layers' q/k/v/out weights within
      RING_GRAD_REL_L2; (c) expts 10 and 12 at PP_LAYERS of their 8
      layers over 2 stages and 4 microbatches (B=8), loss within
      PP_LOSS_RTOL and each gradient leaf of the stage's layers, tok_embed
@@ -384,8 +385,22 @@ every phase passed):
      with the per-microbatch capacity and aux the pipeline has); and (d)
      here, the flagship's micro-batch service on ["cuda:0",
      "cuda:0"] answering four requests with the one-replica service's
-     ids, A and B launched. Step times of two ranks sharing
-     one card are no scaling numbers.
+     ids, A and B launched. The same two ranks then run (g) leg (a) at
+     n_data 1 x n_model 2 (tensor parallelism: each rank the whole
+     batches and its shards by tell_tpu's rules), held to the reference
+     within TP_LOSS_RTOL and TP_REL_L2 (the gradients and params gathered
+     whole), B and C launched in each rank; and (h) in fp32 expt 12 at
+     FAMILY_LAYERS routed over the global batch at n_data 2 and with its
+     experts over "model" at n_model 2, and expt a1 at n_data 2, each
+     against one rank's loss of the whole batch: every routing pair
+     (expert, slot, drop) equal, the losses and the pointer's parts
+     within GLOBAL_RTOL. Then (f) here: the engine's 8 slots over
+     ["cuda:0", "cuda:0"] (4 a shard, beam 5) against one 8-slot engine,
+     the flagship with the int8 cache and kernel E (ENGINE_SHARD_REQS
+     requests) and expt 10 at MODERN_LAYERS (8 requests): every answer
+     equal or a near tie within TIE_TOL (phase 8's rule), A or D and E
+     launched on each shard. Step times of two ranks sharing one card
+     are no scaling numbers.
 Then a line of each phase's wall seconds, one JSON line describing the
 kernels and, last, the result line.
 
@@ -4601,9 +4616,10 @@ def phase_forms(seed: int, card: str, dev: str = "cuda", cfg=None,
 
 MODERN_EXPTS = ("expt/nytimes/10_vit_modern.yaml",
                 "expt/nytimes/12_moe_modern.yaml")
-# requests decoded card vs CPU, greedy and beam 5 (2, not 3, since phase
-# 18 joined the script: the CPU's searches are most of phase 17's time)
-MODERN_SEARCH_ROWS = 2
+# requests decoded card vs CPU, greedy and beam 5 (3 until phase 18
+# joined the script, 2 until phase 21's legs (f)-(h) did: the CPU's
+# searches are most of phase 17's time)
+MODERN_SEARCH_ROWS = 1
 # the LM's depth in phase 17: 3 of the YAMLs' 8 layers for expt 10,
 # FAMILY_LAYERS for expt 12. Every layer has the same shapes, so each
 # kernel still runs at the full width's. Cut to 4 when phase 18 joined
@@ -4620,6 +4636,10 @@ MODERN_SEARCH_ATOL = 1e-3
 MODERN_STEP_ROWS = 8       # B of the timed decode steps
 MODERN_STEP_RUNS = 3       # timed runs of each (the median is kept)
 MODERN_INT8_REQUESTS = 8   # expt 10's engine again under the int8 K/V
+# requests through each expt's micro-batch service and fp engine (the
+# first of ENGINE_ARTICLES; 16 until the whole script's time was cut
+# after phase 21's legs (f)-(h) joined it)
+MODERN_REQUESTS = 8
 VIT_IMAGES = 2             # 224 x 224 images through the ViT, card vs CPU
 VIT_BATCHES = (1, 16)      # ms per image at these B
 VIT_REPEATS = 10
@@ -4934,7 +4954,8 @@ def _modern_expt(exp_path, seed, rcfg, roberta, dev, card, shrink, rng,
                          adapter=adapter, max_batch=4)
     M = len(cfg.contexts)
     vocab = rcfg.vocab_size
-    reqs = [_modern_request(rng, cfg, n, vocab) for n in ENGINE_ARTICLES]
+    reqs = [_modern_request(rng, cfg, n, vocab)
+            for n in ENGINE_ARTICLES[:MODERN_REQUESTS]]
     httpd = serve(svc, port=0, block=False)
     port = httpd.server_address[1]
     try:
@@ -5073,7 +5094,10 @@ ROUTER_TIE = 1e-5
 # LSTM_TIE (a card-vs-CPU drift of the features is ~1e-5 there)
 LSTM_TIE = 1e-3
 FAMILY_ROWS = 16           # the YAMLs' bucket: 16384 // (512 + 32) -> 16
-FAMILY_EVAL = 4            # captions evaluated card vs CPU (expt 3)
+# captions evaluated and requests served card vs CPU (expt 3; 4 until
+# phase 21's legs (f)-(h) joined the script: the CPU's full-width LSTM
+# decodes were most of phase 18's time)
+FAMILY_EVAL = 2
 GLOVE_DIM = 300
 
 
@@ -5126,7 +5150,8 @@ def _routing_recorder(calls):
     from tell_tpu_torch.ops import moe
     inner = L.moe_ffn
 
-    def recorded(params, x, top_k=2, capacity_factor=1.25, token_mask=None):
+    def recorded(params, x, top_k=2, capacity_factor=1.25, token_mask=None,
+                 **kw):
         with torch.no_grad():
             probs, chosen, _ = moe._route(params, x, top_k)
             N, E = x.shape[0], params["w1"].shape[0]
@@ -5138,7 +5163,7 @@ def _routing_recorder(calls):
                         "kept": _kept(chosen, live, E, cap).cpu(),
                         "live": live.cpu()})
         return inner(params, x, top_k=top_k, capacity_factor=capacity_factor,
-                     token_mask=token_mask)
+                     token_mask=token_mask, **kw)
 
     L.moe_ffn = recorded
     try:
@@ -5489,7 +5514,7 @@ def _family_lstm_decode(path, over, dev, label) -> dict:
     reqs = [{"context_ids": [0] + rng.integers(3, 1000, n - 2).tolist() + [2],
              "image_grid": rng.normal(size=(img.max_len, img.kv_dim)
                                       ).round(3).tolist()}
-            for n in (128, 100, 60, 40)]
+            for n in (128, 100, 60, 40)[:FAMILY_EVAL]]
     def service(where):
         frozen = _frozen_towers(exp, torch.device(where))
         params = torch.load(os.path.join(best, "state.pt"),
@@ -6522,7 +6547,9 @@ def phase_dataset(seed: int, card: str, dev: str = "cuda",
 
 PARALLEL_RANKS = 2          # ranks sharing the one card
 PARALLEL_STEPS = 2          # leg (a): train steps before the validation
-PP_LAYERS = 4               # leg (c): expts 10 and 12 at 4 of their 8 layers
+# leg (c): expts 10 and 12 at 2 of their 8 layers, one a stage (4 until
+# legs (f)-(h) joined the phase)
+PP_LAYERS = 2
 PP_MICRO = 4
 PP_BATCH = 8
 # Leg (a) runs in bf16 and is held to its Trainer in no process group
@@ -6544,17 +6571,49 @@ PP_BATCH = 8
 DP_LOSS_RTOL = 1e-3
 DP_REL_L2 = {"grads_rel_l2_median": 1e-2, "grads_rel_l2_all": 1e-2,
              "params_rel_l2_median": 2e-5, "params_rel_l2_all": 2e-5}
-# Leg (b), fp32: kernel B (3xTF32) against the ring's plain fp32 blocks
-# after 24 layers, and the ring's gradients against the one-rank encode's
-# (plain attention) in fp32.
+# Leg (b), fp32, at SEQ_LAYERS of RoBERTa-large's 24 layers (24 until
+# legs (f)-(h) joined the phase, 12 until the whole script's time was
+# cut again): kernel B (3xTF32) against the ring's
+# plain fp32 blocks after those layers, and the ring's gradients against
+# the one-rank encode's (plain attention) in fp32.
+SEQ_LAYERS = 6
 SEQ_ATOL = 2e-3
 RING_GRAD_REL_L2 = 1e-4
 # Leg (c), fp32: the pipelined loss and gradients against one rank's: the
 # same sums at B=2 a microbatch against B=8, so the worst leaf moved by
-# 7.8e-5 (expt 10) and 1.2e-7 (expt 12) on an NVIDIA H100; a stage that
-# lost a microbatch or a hop's gradient is off by O(1e-1) or more.
+# 7.8e-5 (expt 10) and 1.2e-7 (expt 12) on an NVIDIA H100 at 4 layers; a
+# stage that lost a microbatch or a hop's gradient is off by O(1e-1) or
+# more.
 PP_LOSS_RTOL = 1e-5
 PP_GRAD_REL_L2 = 1e-3
+# Leg (f): the engine's 8 slots over ["cuda:0", "cuda:0"] (4 a shard)
+# against one engine of 8 on the card, the flagship in int8 with kernel E
+# (ENGINE_SHARD_REQS requests) and expt 10 at MODERN_LAYERS (8): every
+# answer equal, or a near tie within phase 8's TIE_TOL where the beams
+# split (a shard's GEMMs run 20 rows a step, the one engine's 40).
+ENGINE_SHARD_REQS = 16
+# Leg (g): the flagship in bf16 at n_data 1 x n_model 2 against leg (a)'s
+# one-rank reference, as leg (a)'s readings, with BertAdam's first
+# moments after the first step (the clipped gradients' share) held too
+# (TP_REL_L2: the gradients and moments gathered whole, and the params
+# after the steps, at a leaf's median and over the tree). Its limits lie
+# between the sound run and two faults planted in a copy, read in the CPU
+# rehearsal in bf16 (rank 0; grads median / all, moments median / all,
+# params median / all): sound 1.4e-2 / 1.5e-2, 1.4e-2 / 1.9e-2, 7.4e-6 /
+# 1.1e-5; fc2's row-parallel sum skipped 0.41 / 0.42, 0.34 / 0.34, 8.6e-5
+# / 1.2e-4; each shard clipped by its own norm 1.4e-2 / 1.5e-2 (the
+# gradients come before the clip), 2.2e-2 / 0.27, 7.8e-6 / 1.2e-5.
+TP_LOSS_RTOL = 1e-3
+TP_REL_L2 = {"grads_rel_l2_median": 5e-2, "grads_rel_l2_all": 5e-2,
+             "moments_rel_l2_all": 1e-1,
+             "params_rel_l2_median": 6e-5, "params_rel_l2_all": 6e-5}
+# Leg (h), fp32: expt 12 at FAMILY_LAYERS routed over the global batch at
+# n_data 2 and with its experts over "model" at n_model 2, and expt a1 at
+# n_data 2, each against one rank's loss on the whole batch: every
+# routing pair (expert, slot, drop) equal, losses and parts within
+# GLOBAL_RTOL.
+GLOBAL_RTOL = 1e-5
+GLOBAL_BATCH = 4
 
 
 def _parallel_spec(seed: int, dev: str, small: dict | None) -> dict:
@@ -6571,6 +6630,12 @@ def _parallel_spec(seed: int, dev: str, small: dict | None) -> dict:
                                           "dropout": 0.0,
                                           "attention_dropout": 0.0}})
         llm[name] = load_experiment(path, over).model
+    from tell_tpu_torch.models.registry import get_model
+    moe = load_experiment("expt/nytimes/12_moe_modern.yaml", small.get(
+        "moe", {"model": {"num_layers": FAMILY_LAYERS, "dropout": 0.0,
+                          "attention_dropout": 0.0}})).model
+    a1 = load_experiment(POINTER_EXPTS["a1"], small.get(
+        "pointer", {"model": {"compute_dtype": "float32"}}))
     # leg (a) with dropout off: each rank draws its own masks, which no
     # one-rank run draws
     off = DecoderConfig(dropout=0.0, weight_dropout=0.0, input_dropout=0.0,
@@ -6580,7 +6645,8 @@ def _parallel_spec(seed: int, dev: str, small: dict | None) -> dict:
             "cfg": small.get("cfg", CaptionerConfig(
                 decoder=off, compute_dtype="bfloat16")),
             "rcfg": small.get("rcfg", RobertaConfig.large()),
-            "S": small.get("S", 512), "llm": llm}
+            "S": small.get("S", 512), "llm": llm, "moe": moe,
+            "pointer": get_model(a1.model_type, a1.model).config}
 
 
 def _parallel_batches(spec: dict, tmp: str) -> tuple[list, list]:
@@ -6614,29 +6680,43 @@ def _parallel_batches(spec: dict, tmp: str) -> tuple[list, list]:
     return batches("train")[:PARALLEL_STEPS], batches("valid")[:1]
 
 
-def _dp_run(spec: dict, rank: int, world: int, train, val, run_dir: str
-            ) -> dict:
+def _frozen_roberta(spec: dict) -> dict:
+    """Leg (a)'s frozen RoBERTa from the seed, which every _dp_run of a
+    process shares."""
+    from tell_tpu_torch.bridge import init_roberta
+    g = torch.Generator(device=spec["dev"]).manual_seed(spec["seed"] + 21)
+    return {"roberta": init_roberta(g, spec["rcfg"]),
+            "roberta_cfg": spec["rcfg"]}
+
+
+def _dp_run(spec: dict, rank: int, world: int, train, val, run_dir: str,
+            frozen: dict, n_model: int = 1) -> dict:
     """Leg (a)'s Trainer: the flagship in bf16 over this rank's rows of
     each global batch (all of them on one rank), the frozen RoBERTa from
     the seed; losses, validation loss, the first step's gradients as
     BertAdam gets them (reduced over the ranks, before clipping), the
-    params after the steps and launches."""
-    from tell_tpu_torch.bridge import init_roberta
+    params after the steps and launches; BertAdam's first moments after
+    the first step too (its clipped gradients' share). n_model > 1 (leg
+    (g)): the ranks
+    form world / n_model x n_model grid, each rank holds its "data"
+    index's rows and its "model" shards, and the gradients and params
+    are gathered whole."""
     from tell_tpu_torch.ops.kernels.dynamic_conv import fused_dynamic_conv
     from tell_tpu_torch.ops.kernels.encoder_attention import (
         encoder_attention)
     from tell_tpu_torch.training.trainer import Trainer, TrainerConfig
-    dev, rcfg = spec["dev"], spec["rcfg"]
-    g = torch.Generator(device=dev).manual_seed(spec["seed"] + 21)
-    frozen = {"roberta": init_roberta(g, rcfg), "roberta_cfg": rcfg}
+    dev = spec["dev"]
+
+    n_data, i = world // n_model, rank // n_model
 
     def rows(b):
-        k = len(b["caption_ids"]) // world
-        return {n: v[rank * k:(rank + 1) * k] for n, v in b.items()}
+        k = len(b["caption_ids"]) // n_data
+        return {n: v[i * k:(i + 1) * k] for n, v in b.items()}
     local, local_val = [rows(b) for b in train], [rows(b) for b in val]
+    grid = {"n_data": n_data, "n_model": n_model} if n_model > 1 else {}
     tcfg = TrainerConfig(serialization_dir=run_dir, num_epochs=1,
                          summary_interval=0, t_total=100,
-                         seed=spec["seed"], log_every=1000)
+                         seed=spec["seed"], log_every=1000, **grid)
     trainer = Trainer(spec["cfg"], tcfg,
                       lambda epoch: iter([dict(b) for b in local]),
                       lambda: iter([dict(b) for b in local_val]), frozen,
@@ -6650,10 +6730,12 @@ def _dp_run(spec: dict, rank: int, world: int, train, val, run_dir: str
     trainer._step = recorded
     grads, update = [], trainer.optimizer.update
 
-    def recorded_update(g, state, params):
+    def recorded_update(g, state, params, *rest):
+        out = update(g, state, params, *rest)
         if not grads:
-            grads.append(_cpu_tree(g))
-        return update(g, state, params)
+            grads.append(_cpu_tree(trainer._whole(g)))
+            grads.append(_cpu_tree(trainer._whole(out[1].m)))
+        return out
     trainer.optimizer.update = recorded_update
     encoder_attention.launches = fused_dynamic_conv.launches = 0
     t = time.perf_counter()
@@ -6662,7 +6744,8 @@ def _dp_run(spec: dict, rank: int, world: int, train, val, run_dir: str
         torch.cuda.synchronize()
     return {"losses": losses,
             "val_loss": trainer.metrics_history[0]["val_loss"],
-            "params": trainer.state["params"], "grads": grads[0],
+            "params": trainer._whole(trainer.state["params"]),
+            "grads": grads[0], "moments": grads[1],
             "seconds": time.perf_counter() - t,
             "launches": {"encoder_attention": encoder_attention.launches,
                          "fused_dynamic_conv": fused_dynamic_conv.launches}}
@@ -6686,11 +6769,12 @@ def _tree_rel(got, want) -> float:
 
 
 def _seq_legs(spec: dict, rank: int, world: int) -> dict:
-    """Leg (b): RoBERTa at B=4, S over the ranks, Ulysses (kernel B on
-    H/P heads) and the ring, each rank's shard against its rows of the
-    one-rank roberta_encode; the ring's gradients of layer 0's and the
-    last layer's q/k/v/out weights, summed over the ranks, against the
-    one-rank encode's with plain attention (kernel B has no backward)."""
+    """Leg (b): RoBERTa at B=4, S over the ranks, SEQ_LAYERS of its
+    layers, Ulysses (kernel B on H/P heads) and the ring, each rank's
+    shard against its rows of the one-rank roberta_encode; the ring's
+    gradients of layer 0's and the last layer's q/k/v/out weights, summed
+    over the ranks, against the one-rank encode's with plain attention
+    (kernel B has no backward)."""
     from tell_tpu_torch.bridge import init_roberta
     from tell_tpu_torch.models.backbones import roberta as rob
     from tell_tpu_torch.ops.kernels.encoder_attention import (
@@ -6698,7 +6782,9 @@ def _seq_legs(spec: dict, rank: int, world: int) -> dict:
     from tell_tpu_torch.parallel import sequence
     from tell_tpu_torch.parallel.comm import all_reduce
     from tell_tpu_torch.parallel.ring import roberta_encode_ring
-    dev, rcfg, S = spec["dev"], spec["rcfg"], spec["S"]
+    dev, S = spec["dev"], spec["S"]
+    rcfg = dataclasses.replace(spec["rcfg"], num_layers=min(
+        SEQ_LAYERS, spec["rcfg"].num_layers))
     g = torch.Generator(device=dev).manual_seed(spec["seed"] + 22)
     params = init_roberta(g, rcfg)
     rng = np.random.default_rng(spec["seed"] + 22)
@@ -6853,7 +6939,7 @@ def _dp_errors(dp: dict, ref: dict) -> dict:
     the median and on the worst (named), and the whole tree's."""
     from tell_tpu_torch.bridge import tree_leaves_with_path
     paths = [p for p, _ in tree_leaves_with_path(ref["params"])]
-    for name in ("grads", "params"):
+    for name in ("grads", "moments", "params"):
         got = dp.pop(name)
         rels = _leaf_rel(got, ref[name])
         worst = int(np.argmax(rels))
@@ -6869,27 +6955,137 @@ def _dp_line(dp: dict) -> str:
     return (f"first step's gradients rel L2 median "
             f"{dp['grads_rel_l2_median']:.2e}, all "
             f"{dp['grads_rel_l2_all']:.2e}, max {dp['grads_rel_l2_max']:.2e}"
-            f" ({dp['grads_rel_l2_worst']}), params rel L2 median "
+            f" ({dp['grads_rel_l2_worst']}), its first moments median "
+            f"{dp['moments_rel_l2_median']:.2e}, all "
+            f"{dp['moments_rel_l2_all']:.2e}, params rel L2 median "
             f"{dp['params_rel_l2_median']:.2e}, all "
             f"{dp['params_rel_l2_all']:.2e}, max "
             f"{dp['params_rel_l2_max']:.2e} ({dp['params_rel_l2_worst']})")
 
 
+def _routing_pairs_recorder():
+    """Wraps ops.moe.moe_routing to record each call's (experts, slots,
+    kept) [k, N] on the host; returns (the list, a restore function)."""
+    from tell_tpu_torch.ops import moe
+    real, calls = moe.moe_routing, []
+
+    def recorded(*a, **kw):
+        r = real(*a, **kw)
+        k = r["k"]
+        calls.append(tuple(r[n].reshape(k, -1).cpu().numpy()
+                           for n in ("flat_e", "pos", "keep")))
+        return r
+    moe.moe_routing = recorded
+
+    def restore():
+        moe.moe_routing = real
+    return calls, restore
+
+
+def _pairs_apart(got, want, cols) -> tuple[int, int]:
+    """(routing pairs that differ, pairs compared) of recorded calls
+    `got` against `want`'s token columns `cols`: a pair differs in its
+    expert, its kept flag, or a kept pair's slot."""
+    apart = total = 0
+    for (e, p, k), (we, wp, wk) in zip(got, want):
+        we, wp, wk = we[:, cols], wp[:, cols], wk[:, cols]
+        apart += int(((e != we) | (k != wk) | (k & (p != wp))).sum())
+        total += e.size
+    return apart, total
+
+
+def _global_legs(spec: dict, rank: int, world: int) -> dict:
+    """Leg (h): expt 12 (fp32, FAMILY_LAYERS) at n_data = world, its
+    routing over the global batch, then at n_model = world, its experts
+    over "model"; expt a1 at n_data = world. Each against one rank's loss
+    of the whole GLOBAL_BATCH rows (no group), computed here."""
+    from tell_tpu_torch.bridge import init_llm_decoder, init_pointer, to_torch
+    from tell_tpu_torch.models.llm_decoder import llm_loss
+    from tell_tpu_torch.models.pointer import pointer_loss
+    from tell_tpu_torch.parallel.mesh import Mesh, shard_params
+    dev, out = spec["dev"], {}
+    n = GLOBAL_BATCH // world
+    mine = slice(rank * n, (rank + 1) * n)
+    cfg = spec["moe"]
+    g = torch.Generator(device=dev).manual_seed(spec["seed"] + 25)
+    params = init_llm_decoder(g, cfg)
+    batch = to_torch(_family_batch(np.random.default_rng(spec["seed"] + 25),
+                                   cfg, B=GLOBAL_BATCH), dev)
+    T = batch["caption_ids"].shape[1] - 1
+    calls, restore = _routing_pairs_recorder()
+    try:
+        with torch.no_grad():
+            ref = float(llm_loss(params, cfg, batch)[0])
+            want = list(calls)
+            calls.clear()
+            data = Mesh((world, 1), ("data", "model"))
+            got = float(llm_loss(params, cfg,
+                                 {k: v[mine] for k, v in batch.items()},
+                                 group=data.group("data"))[0])
+            apart = _pairs_apart(calls, want, slice(rank * n * T,
+                                                    (rank + 1) * n * T))
+            out["moe_dp"] = {"loss": got, "ref_loss": ref,
+                             "loss_rel": abs(got - ref) / abs(ref),
+                             "pairs_apart": apart[0], "pairs": apart[1]}
+            calls.clear()
+            model = Mesh((1, world), ("data", "model"))
+            local = shard_params(params, model)
+            got = float(llm_loss(local, cfg, batch,
+                                 tp=model.model_axis())[0])
+            apart = _pairs_apart(calls, want, slice(None))
+            out["moe_tp"] = {"loss": got, "ref_loss": ref,
+                             "loss_rel": abs(got - ref) / abs(ref),
+                             "pairs_apart": apart[0], "pairs": apart[1],
+                             "experts_here": local["layers"][0]["ffn"][
+                                 "w1"].shape[0]}
+    finally:
+        restore()
+    del params, local
+    pcfg = spec["pointer"]
+    g = torch.Generator(device=dev).manual_seed(spec["seed"] + 26)
+    params = init_pointer(g, pcfg)
+    batch = to_torch(_pointer_batch(np.random.default_rng(spec["seed"] + 26),
+                                    pcfg, B=GLOBAL_BATCH), dev)
+    with torch.no_grad():
+        rl, raux = pointer_loss(params, pcfg, batch)
+        gl, gaux = pointer_loss(params, pcfg,
+                                {k: v[mine] for k, v in batch.items()},
+                                group=data.group("data"))
+    parts = {"loss": (float(gl), float(rl))}
+    for key in ("gen_loss", "entity_loss", "copy_loss"):
+        parts[key] = (float(gaux[key]), float(raux[key]))
+    out["pointer_dp"] = {k: {"got": a, "ref": b,
+                             "rel": abs(a - b) / max(abs(b), 1e-30)}
+                         for k, (a, b) in parts.items()}
+    return out
+
+
 def _parallel_rank(rank: int, world: int, spec: dict, ref_path: str,
                    train, val, run_dir: str) -> dict:
-    """Legs (a)-(c) in one of the ranks sharing the card."""
+    """Legs (a)-(c), (g) and (h) in one of the ranks sharing the card."""
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"backend": dist.get_backend(), "rank": rank}
     t = time.perf_counter()
-    dp = _dp_run(spec, rank, world, train, val, run_dir)
-    out["dp"] = _dp_errors(dp, torch.load(ref_path, map_location="cpu",
-                                          weights_only=True))
+    ref = torch.load(ref_path, map_location="cpu", weights_only=True)
+    frozen = _frozen_roberta(spec)
+    dp = _dp_run(spec, rank, world, train, val, run_dir, frozen)
+    out["dp"] = _dp_errors(dp, ref)
     if spec["dev"] == "cuda":
         torch.cuda.empty_cache()
     out["seq"] = _seq_legs(spec, rank, world)
     out["pp"] = _pp_legs(spec, rank, world)
+    if spec["dev"] == "cuda":
+        torch.cuda.empty_cache()
+    tp = _dp_run(spec, rank, world, train, val, run_dir + "-tp", frozen,
+                 n_model=world)
+    del frozen
+    out["tp"] = _dp_errors(tp, ref)
+    del ref
+    if spec["dev"] == "cuda":
+        torch.cuda.empty_cache()
+    out["global"] = _global_legs(spec, rank, world)
     out["seconds"] = time.perf_counter() - t
     return out
 
@@ -6938,6 +7134,151 @@ def _dp_serving(spec: dict) -> dict:
             "devices": devices, "launches": launches, "seconds": seconds}
 
 
+def _drive_engine(eng, reqs) -> list:
+    """Submit reqs in bursts of four, a tick after each, then drain; the
+    answers in submission order."""
+    futs = []
+    for first in range(0, len(reqs), 4):
+        futs += [eng.submit(r) for r in reqs[first:first + 4]]
+        eng.tick()
+    eng.run_until_drained()
+    return [f.result(timeout=0) for f in futs]
+
+
+def _shard_devices(dev: str) -> list[str]:
+    """Leg (f)'s devices: every card where the machine has 2, 4 or 8
+    (each shard on its own card), else the one card (or the CPU) twice."""
+    n = torch.cuda.device_count() if dev == "cuda" else 1
+    if n in (2, 4, 8):
+        return [f"cuda:{i}" for i in range(n)]
+    return [f"{dev}:0" if dev == "cuda" else dev] * 2
+
+
+def _engine_shards(spec: dict) -> dict:
+    """Leg (f): the engine's 8 slots sharded over _shard_devices against
+    one engine of 8 slots on the first of them, on the same requests,
+    beam 5: the flagship in fp32 with the int8 cache and kernel E
+    (ENGINE_SHARD_REQS requests), and expt 10 at MODERN_LAYERS (8
+    requests). An answer that differs is held to the one-shot beam
+    search on its features under phase 8's near-tie rule (_beam_split).
+    Kernels A, D and E are counted on each shard's chunks, each of which
+    must run with its shard's device current. Both engines' runs are
+    timed (host clock, to the last report; the one-device run goes first
+    and bears the first launches)."""
+    from tell_tpu_torch.bridge import init_captioner, init_llm_decoder
+    from tell_tpu_torch.models.beam import beam_search
+    from tell_tpu_torch.models.llm_decoder import llm_beam_search
+    from tell_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention, decode_attention_q8)
+    from tell_tpu_torch.ops.kernels.topk_logits import topk_logits
+    from tell_tpu_torch.serving.engine import DecodeEngine, LLMDecodeEngine
+    dev = spec["dev"]
+    devices = _shard_devices(dev)
+    kernels = (decode_attention, decode_attention_q8, topk_logits)
+    flag = dataclasses.replace(spec["cfg"], compute_dtype="float32")
+    lm = dataclasses.replace(spec["llm"]["expt10"],
+                             num_layers=MODERN_LAYERS)
+    cases = (("flagship", DecodeEngine, init_captioner, flag,
+              ENGINE_SHARD_REQS, {"kv_cache": "int8", "fused_topk": True}),
+             ("expt10", LLMDecodeEngine, init_llm_decoder, lm, 8, {}))
+    out = {}
+    for name, Engine, init, cfg, n, levers in cases:
+        g = torch.Generator(device=dev).manual_seed(spec["seed"] + 27)
+        params = init(g, cfg)
+        rng = np.random.default_rng(spec["seed"] + 27)
+        reqs = []
+        for _ in range(n):
+            b = _family_batch(rng, cfg, B=1)
+            b.pop("caption_ids")
+            reqs.append({k: torch.as_tensor(v, device=dev)
+                         for k, v in b.items()})
+        with torch.inference_mode():
+            one = Engine(params, cfg, dev, slots=8, beam=5, **levers)
+            t = time.perf_counter()
+            want = _drive_engine(one, reqs)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            one_seconds = time.perf_counter() - t
+            del one
+            two = Engine(params, cfg, devices, slots=8, beam=5, **levers)
+            shard_launches = [{f.__name__: 0 for f in kernels}
+                              for _ in two._shards]
+
+            def counted(j, chunk):
+                want_dev = two._shards[j].device
+
+                def run():
+                    if want_dev.type == "cuda":
+                        require(torch.cuda.current_device()
+                                == want_dev.index, f"(f) shard {j}'s chunk "
+                                f"ran with cuda:"
+                                f"{torch.cuda.current_device()} current, "
+                                f"not {want_dev}")
+                    before = {f.__name__: f.launches for f in kernels}
+                    r = chunk()
+                    for f in kernels:
+                        shard_launches[j][f.__name__] += (
+                            f.launches - before[f.__name__])
+                    return r
+                return run
+            for j, sh in enumerate(two._shards):
+                sh._chunk = counted(j, sh._chunk)
+            t = time.perf_counter()
+            got = _drive_engine(two, reqs)
+            if dev == "cuda":
+                for d in set(devices):
+                    torch.cuda.synchronize(d)
+            seconds = time.perf_counter() - t
+            del two
+            equal, gaps = 0, []
+            for i, (a, b) in enumerate(zip(got, want)):
+                if np.array_equal(a["token_ids"], b["token_ids"]):
+                    equal += 1
+                    continue
+                with _beam_trace() as steps:
+                    if name == "flagship":
+                        beam_search(params, cfg, reqs[i], beam_size=5,
+                                    **levers)
+                    else:
+                        llm_beam_search(params, cfg, reqs[i], beam_size=5)
+                split = _beam_split(steps, a["token_ids"])
+                gaps.append((i, math.inf if split is None
+                             else split["gap"]))
+        out[name] = {"equal": equal, "requests": n, "near_ties": gaps,
+                     "shard_launches": shard_launches,
+                     "seconds": seconds, "one_seconds": one_seconds,
+                     "devices": devices, "levers": levers,
+                     "layers": getattr(cfg, "num_layers", None)}
+        del params
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _check_engine_shards(shards: dict, dev: str) -> None:
+    """Leg (f)'s log lines and checks: each answer equal or a near tie
+    within TIE_TOL, and on the card A (fp cache) or D and E (int8 + fused
+    top-k) launched on every shard."""
+    for name, e in shards.items():
+        log(f"phase 21 (f) {name}: 8 slots over {e['devices']}, beam "
+            f"5, {e['levers'] or 'fp cache, exact top-k'}: "
+            f"{e['equal']}/{e['requests']} answers equal to one "
+            f"8-slot engine's, near ties {e['near_ties']}; served in "
+            f"{e['seconds']:.2f} s sharded, {e['one_seconds']:.2f} s "
+            f"on one device (host clock, one host thread drives the "
+            f"shards in turn); launches by shard {e['shard_launches']}")
+        for i, gap in e["near_ties"]:
+            require(gap <= TIE_TOL, f"(f) {name} request {i}: the "
+                    f"sharded engine's answer differs with a gap of "
+                    f"{gap:.3e} (near tie allowed: {TIE_TOL})")
+        if dev == "cuda":
+            want = (("decode_attention_q8", "topk_logits")
+                    if e["levers"] else ("decode_attention",))
+            for j, n in enumerate(e["shard_launches"]):
+                require(all(n[k] > 0 for k in want),
+                        f"(f) {name} shard {j}: launches {n}")
+
+
 def phase_parallel(seed: int, card: str, dev: str = "cuda",
                    small: dict | None = None) -> dict:
     """Phase 21: leg (a)'s reference, its Trainer on the whole batch in no
@@ -6957,10 +7298,13 @@ def phase_parallel(seed: int, card: str, dev: str = "cuda",
     try:
         t0 = time.perf_counter()
         train, val = _parallel_batches(spec, tmp)
-        plain = _dp_run(spec, 0, 1, train, val, os.path.join(tmp, "plain"))
+        frozen = _frozen_roberta(spec)
+        plain = _dp_run(spec, 0, 1, train, val, os.path.join(tmp, "plain"),
+                        frozen)
         ref_path = os.path.join(tmp, "ref.pt")
         ref = {"params": _cpu_tree(plain.pop("params")),
-               "grads": plain.pop("grads")}
+               "grads": plain.pop("grads"),
+               "moments": plain.pop("moments")}
         torch.save(ref, ref_path)
         shape = "x".join(str(n) for n in train[0]["context_ids"].shape)
         log(f"phase 21 {card}: leg (a)'s reference, one process: "
@@ -6978,10 +7322,10 @@ def phase_parallel(seed: int, card: str, dev: str = "cuda",
         try:
             backend = dist.get_backend()
             one = _dp_errors(_dp_run(spec, 0, 1, train, val,
-                                     os.path.join(tmp, "one")), ref)
+                                     os.path.join(tmp, "one"), frozen), ref)
         finally:
             shutdown_multihost()
-        del ref
+        del ref, frozen
         log(f"phase 21 (e) {card}: one rank on {backend} "
             f"(tcp://127.0.0.1:{port}): the same in "
             f"{one['seconds']:.1f} s, losses {one['losses']}, val loss "
@@ -7037,6 +7381,37 @@ def phase_parallel(seed: int, card: str, dev: str = "cuda",
                         and dp["launches"]["fused_dynamic_conv"] > 0
                         and seq["ulysses"]["kernel_b_launches"] > 0,
                         f"rank {r['rank']}: kernels B/C did not launch")
+        for r in ranks:
+            tp, gl = r["tp"], r["global"]
+            log(f"phase 21 (g) rank {r['rank']}: n_data 1 x n_model "
+                f"{PARALLEL_RANKS}, {PARALLEL_STEPS} steps of {shape} + "
+                f"validation in {tp['seconds']:.1f} s, losses "
+                f"{tp['losses']}, val loss {tp['val_loss']:.6f}, "
+                f"{_dp_line(tp)}, launches {tp['launches']}")
+            log(f"phase 21 (h) rank {r['rank']}: {json.dumps(gl)}")
+            for a, b in zip(tp["losses"] + [tp["val_loss"]],
+                            plain["losses"] + [plain["val_loss"]]):
+                require(abs(a - b) <= TP_LOSS_RTOL * abs(b),
+                        f"(g) rank {r['rank']}: loss {a} vs the "
+                        f"reference's {b}")
+            for key, limit in TP_REL_L2.items():
+                require(tp[key] <= limit, f"(g) rank {r['rank']}: {key} "
+                        f"{tp[key]} above {limit}")
+            if dev == "cuda":
+                require(tp["launches"]["encoder_attention"] > 0
+                        and tp["launches"]["fused_dynamic_conv"] > 0,
+                        f"(g) rank {r['rank']}: kernels B/C did not launch")
+            for leg in ("moe_dp", "moe_tp"):
+                require(gl[leg]["pairs_apart"] == 0
+                        and gl[leg]["loss_rel"] <= GLOBAL_RTOL,
+                        f"(h) rank {r['rank']} {leg}: {gl[leg]}")
+            for key, v in gl["pointer_dp"].items():
+                require(v["rel"] <= GLOBAL_RTOL,
+                        f"(h) rank {r['rank']} a1 {key}: {v}")
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        shards = _engine_shards(spec)
+        _check_engine_shards(shards, dev)
         serving = _dp_serving(spec)
         log(f"phase 21 (d): CaptionService on {serving['devices']}, "
             f"micro-batch, 4 requests in {serving['seconds']:.2f} s: ids "
@@ -7049,20 +7424,27 @@ def phase_parallel(seed: int, card: str, dev: str = "cuda",
         log(f"phase 21 {card}: {time.perf_counter() - t0:.1f} s "
             f"(the ranks' spawn and legs (a)-(c) {spawn_s:.1f} s); step "
             "times of two ranks sharing one card are no scaling numbers")
+        by_shard = [n for e in shards.values() for n in e["shard_launches"]]
         launches = {
             "encoder_attention": sum(
                 r["dp"]["launches"]["encoder_attention"]
+                + r["tp"]["launches"]["encoder_attention"]
                 + r["seq"]["ulysses"]["kernel_b_launches"] for r in ranks)
             + one["launches"]["encoder_attention"]
             + plain["launches"]["encoder_attention"]
             + serving["launches"]["encoder_attention"],
             "fused_dynamic_conv": sum(
-                r["dp"]["launches"]["fused_dynamic_conv"] for r in ranks)
+                r["dp"]["launches"]["fused_dynamic_conv"]
+                + r["tp"]["launches"]["fused_dynamic_conv"] for r in ranks)
             + one["launches"]["fused_dynamic_conv"]
             + plain["launches"]["fused_dynamic_conv"],
-            "decode_attention": serving["launches"]["decode_attention"]}
+            "decode_attention": serving["launches"]["decode_attention"]
+            + sum(n["decode_attention"] for n in by_shard),
+            "decode_attention_q8": sum(n["decode_attention_q8"]
+                                       for n in by_shard),
+            "topk_logits": sum(n["topk_logits"] for n in by_shard)}
         return {"launches": launches, "ranks": ranks, "one": one,
-                "plain": plain, "serving": serving}
+                "plain": plain, "serving": serving, "shards": shards}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -7284,6 +7666,10 @@ def main() -> int:
                     help="after the build, phase 20 only (no result line)")
     ap.add_argument("--parallel", action="store_true",
                     help="after the build, phase 21 only (no result line)")
+    ap.add_argument("--engine-shards", action="store_true",
+                    help="after the build, phase 21's leg (f) only, its "
+                    "shards one a card on a machine of 2, 4 or 8 cards "
+                    "(no result line)")
     ap.add_argument("--quality", action="store_true",
                     help="after the build, the full quality loop on "
                     f"{QUALITY_EXPT} with its acceptance thresholds (no "
@@ -7387,6 +7773,10 @@ def main() -> int:
         return 0
     if args.parallel:
         phase_parallel(args.seed, smi)
+        return 0
+    if args.engine_shards:
+        _check_engine_shards(_engine_shards(_parallel_spec(
+            args.seed, "cuda", None)), "cuda")
         return 0
     if args.quality:
         return quality_run(smi, args.quality_out)
@@ -7594,8 +7984,10 @@ def main() -> int:
                 pointer["launches"][name].values())
         if name in parallel["launches"]:
             # phase 21's own path: B in every rank's frozen encode (and
-            # the one-rank run's) and in the Ulysses encode's heads, C in
-            # the validations, A and B in the two replicas' decode
+            # the one-rank run's, the tensor-parallel ranks' too) and in
+            # the Ulysses encode's heads, C in the train steps and
+            # validations, A and B in the two replicas' decode, A, D and
+            # E in the sharded engines' chunks
             entry["phase21_launches"] = parallel["launches"][name]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))

@@ -19,10 +19,11 @@ cuda, gloo for cpu; the process uses GPU I mod the visible count, or
 LOCAL_RANK where set). With more than one rank the bucketing config must
 have one shape, and bucketing.max_batch is the global batch. `serve
 --mesh-data N` keeps a replica on each of N devices and splits each
-micro-batch's rows over them. What tnt runs and the port does not yet is
-refused with its ROADMAP queue item: `bench` (item 1), and item 10's
-rest: trainer.n_model > 1 (tensor parallelism) and `--mesh-data` with
-`--engine-slots` (the engine's slots sharded over devices).
+micro-batch's rows over them, or, with `--engine-slots S`, shards the
+engine's S slots over them (S/N a device). `train` with trainer.n_model
+> 1 runs tensor-parallel on n_data x n_model ranks (spawned locally, or
+one a process with --coordinator). What tnt runs and the port does not
+yet is refused with its ROADMAP queue item: `bench` (item 1).
 Every family (the captioner and its siblings, the GloVe captioner, the
 pointer models of expts a1-a3, the LSTM and the modern LM) trains,
 evaluates and serves through its registry adapter (the pointer and the
@@ -317,7 +318,7 @@ def build_trainer(exp, device):
                              seed=d.seed)
     val_ds = RecordDataset(os.path.join(d.shards_dir, "valid-*.npz"),
                            seed=d.seed)
-    pi, pc = data_ranks(exp.bucketing)
+    pi, pc = data_ranks(exp.bucketing, exp.trainer.n_model)
 
     def train_batches(epoch):
         # an order that is a pure function of (seed, epoch), so a
@@ -369,13 +370,15 @@ def _train_rank(rank: int, world: int, config: str, overrides, device: str,
 
 
 def _spawn_train(args, exp, device: torch.device) -> int:
-    """trainer.n_data local ranks, one a device, each a process."""
+    """trainer.n_data x trainer.n_model local ranks, one a device, each a
+    process."""
     from ..parallel.mesh import check_mesh_size
     from ..parallel.multihost import backend_for, run_ranks
-    n = exp.trainer.n_data
+    t = exp.trainer
+    n = (t.n_data or 1) * t.n_model
     available = (torch.cuda.device_count() if device.type == "cuda"
                  else n)
-    check_mesh_size(n, exp.trainer.n_model, available)
+    check_mesh_size(t.n_data or 1, t.n_model, available)
     outs = run_ranks(_train_rank, n, (args.config, args.overrides,
                                       str(device), args.recover),
                      backend=backend_for(device), deadline_s=None)
@@ -392,19 +395,18 @@ def _spawn_train(args, exp, device: torch.device) -> int:
 
 def cmd_train(args) -> int:
     device = _device(args)
-    exp = _load(args)            # a refused config fails before the group
+    exp = _load(args)            # a bad config fails before the group
     if args.coordinator is not None:
         # one rank of --num-processes, before anything touches the group
-        from ..config_io import check_data_parallel
         from ..parallel.multihost import backend_for, init_multihost
-        check_data_parallel(exp, args.num_processes)
         local = int(os.environ.get("LOCAL_RANK", args.process_id))
         device = _rank_device(device, local)
         if device.type == "cuda":
             torch.cuda.set_device(device)
         init_multihost(args.coordinator, args.num_processes,
                        args.process_id, backend_for(device))
-    if args.coordinator is None and (exp.trainer.n_data or 1) > 1:
+    if args.coordinator is None and (
+            (exp.trainer.n_data or 1) * exp.trainer.n_model > 1):
         return _spawn_train(args, exp, device)
     if (args.coordinator is None and exp.trainer.n_data is None
             and device.type == "cuda" and torch.cuda.device_count() > 1):
@@ -475,11 +477,6 @@ def cmd_preprocess(args) -> int:
 def cmd_serve(args) -> int:
     from ..models.backbones.roberta import RobertaEncoder
     from ..serving import CaptionService, serve
-    if args.mesh_data > 1 and args.engine_slots:
-        raise NotPortedError(
-            "--mesh-data with --engine-slots (the engine's slots sharded "
-            "over devices) is not ported yet (ROADMAP queue 1 item 10's "
-            "rest); serve --mesh-data in micro-batch mode")
     exp = _load(args)
     device = _device(args)
     devices = None

@@ -24,8 +24,7 @@ from dataclasses import dataclass, field
 
 from .config import (CaptionerConfig, ContextSpec, DecoderConfig,
                      FACES_CONTEXTS, FACES_OBJECTS_CONTEXTS,
-                     FLATTENED_CONTEXTS, LLMConfig, NO_IMAGE_CONTEXTS,
-                     NotPortedError)
+                     FLATTENED_CONTEXTS, LLMConfig, NO_IMAGE_CONTEXTS)
 from .data.bucketing import BucketingConfig
 from .data.readers import ReaderConfig
 from .training.trainer import TrainerConfig
@@ -381,36 +380,6 @@ def _deep_merge(base: dict, over: dict) -> dict:
     return out
 
 
-def check_supported(exp: ExperimentConfig) -> None:
-    """Refuse what tell_tpu runs and the port does not yet, naming the
-    ROADMAP queue item that ports it."""
-    def refuse(what: str, item: str):
-        raise NotPortedError(f"{exp.name}: {what} is not ported yet "
-                             f"(ROADMAP {item})")
-
-    t = exp.trainer
-    if t.n_model != 1:
-        refuse(f"tensor parallelism (trainer.n_model={t.n_model})",
-               "queue 1 item 10's rest")
-    if t.n_data is not None and t.n_data > 1:
-        check_data_parallel(exp, t.n_data)
-
-
-def check_data_parallel(exp: ExperimentConfig, ranks: int) -> None:
-    """Refuse training exp over `ranks` data-parallel ranks where its
-    family's objective is not a mean over tokens (the registry adapter's
-    data_parallel: the pointer models, the MoE)."""
-    from .models.registry import get_model
-    adapter = get_model(exp.model_type, exp.model)
-    if ranks > 1 and not adapter.data_parallel:
-        moe = getattr(exp.model, "moe_experts", 0)
-        what = exp.model_type + (f" (moe_experts={moe})" if moe else "")
-        raise NotPortedError(
-            f"{exp.name}: data-parallel training of {what} "
-            f"({ranks} ranks; its objective is not a mean over tokens) is "
-            "not ported yet (ROADMAP queue 1 item 10's rest)")
-
-
 def load_experiment(path: str, overrides: str | dict | None = None
                     ) -> ExperimentConfig:
     """The experiment of the YAML at `path` with `overrides` (a JSON
@@ -435,5 +404,4 @@ def load_experiment(path: str, overrides: str | dict | None = None
         reader=_build(ReaderConfig, spec.get("reader"), "reader"),
         bucketing=_build(BucketingConfig, spec.get("bucketing"), "bucketing"),
     )
-    check_supported(exp)
     return exp

@@ -17,6 +17,7 @@ from torch import nn
 
 from ..bridge import ParamTree
 from ..config import CaptionerConfig
+from ..parallel.comm import ONE_RANK, ModelAxis
 from .backbones.resnet import resnet_forward
 from .backbones.roberta import roberta_encode_windowed
 from .decoder import (attn_segment_bounds, decoder_loss, decoder_step,
@@ -90,27 +91,29 @@ def encode_contexts(frozen: dict, cfg: CaptionerConfig, batch: dict) -> dict:
 
 def captioner_loss(params: dict, cfg: CaptionerConfig, batch: dict,
                    gen: torch.Generator | None = None,
-                   deterministic: bool = True, group=None
-                   ) -> tuple[torch.Tensor, dict]:
+                   deterministic: bool = True, group=None,
+                   tp: ModelAxis = ONE_RANK) -> tuple[torch.Tensor, dict]:
     """Mean per-token loss in BITS (loss_sum / ln 2 / non-pad tokens).
     batch["caption_ids"]: [B, T]. Returns (loss, {"sample_size",
     "tail_dropped"}). group: the data-parallel ranks holding the rest of
-    the global batch (decoder_loss)."""
+    the global batch (decoder_loss); tp: the "model" axis the params'
+    shards lie over."""
     contexts = build_contexts(params, cfg, batch)
     loss_sum, size, aux = decoder_loss(params["decoder"], cfg.decoder,
                                        batch["caption_ids"], contexts, gen,
-                                       deterministic, group)
+                                       deterministic, group, tp)
     size = size.clamp_min(1)
     return loss_sum / math.log(2.0) / size, {"sample_size": size, **aux}
 
 
 def captioner_loss_e2e(params: dict, frozen: dict, cfg: CaptionerConfig,
                        batch: dict, gen: torch.Generator | None = None,
-                       deterministic: bool = True, group=None
+                       deterministic: bool = True, group=None,
+                       tp: ModelAxis = ONE_RANK
                        ) -> tuple[torch.Tensor, dict]:
     """The loss including the frozen RoBERTa encode (the full objective)."""
     return captioner_loss(params, cfg, encode_contexts(frozen, cfg, batch),
-                          gen, deterministic, group)
+                          gen, deterministic, group, tp)
 
 
 def _decode_setup(params: dict, cfg: CaptionerConfig, batch: dict,

@@ -31,6 +31,16 @@ returns no probabilities (tell_tpu routes the same way, decoder.py:452).
 Positions come from the static sinusoidal table or, with positional
 "learned", from the trainable params["pos_embed"]["table"], both looked
 up at pad-aware positions.
+
+Under tensor parallelism (the `tp` argument, a parallel/comm.py
+ModelAxis of more than one rank; training only) a rank holds its heads' cross-attention q/k/v columns and
+out_proj rows, fc1's columns and fc2's rows (the row-parallel outputs
+summed over "model"; fc2's weight norm sums the ranks' squares), and
+its rows of each vocabulary band (a masked lookup summed over "model";
+the tied softmax gathers each band whole: ops/adaptive.py's
+whole_bands). The conv block, the layer norms and context_fc run on
+every rank alike. The default `tp`, ONE_RANK, shards nothing: the same
+code is then the one-rank forward.
 """
 from __future__ import annotations
 
@@ -41,7 +51,7 @@ import torch
 from ..config import DecoderConfig
 from ..ops.adaptive import (adaptive_embed, adaptive_log_probs,
                             adaptive_softmax_loss, adaptive_top_k,
-                            merged_embed_table)
+                            merged_embed_table, whole_bands)
 from ..ops.attention import cross_attention_with_kv, precompute_kv
 from ..ops.common import dropout, glu, layer_norm
 from ..ops.dynamic_conv import (dynamic_conv, dynamic_conv_step,
@@ -54,7 +64,7 @@ from ..ops.kernels.decode_attention import (decode_attention,
                                             segment_bias)
 from ..ops.linear import gehring_linear
 from ..ops.positional import sinusoidal_embed, sinusoidal_table
-from ..parallel.comm import world_size
+from ..parallel.comm import ONE_RANK, ModelAxis, world_size
 
 
 @functools.lru_cache(maxsize=8)
@@ -81,12 +91,13 @@ def _positional_table(params: dict, cfg: DecoderConfig,
 def embed_tokens(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                  gen: torch.Generator | None = None,
                  deterministic: bool = True,
-                 start_pos: torch.Tensor | int = 0) -> torch.Tensor:
+                 start_pos: torch.Tensor | int = 0,
+                 tp: ModelAxis = ONE_RANK) -> torch.Tensor:
     """Adaptive + positional embeddings of ids [B, T], dropout. start_pos
     shifts the non-pad positions (a decode step's token at step t)."""
     x = adaptive_embed(params["embed"], ids, cfg.full_cutoffs, cfg.embed_dim,
                        padding_idx=cfg.embed_padding_idx,
-                       scale_embeds=cfg.scale_embeds)
+                       scale_embeds=cfg.scale_embeds, tp=tp)
     table = _positional_table(params, cfg, ids.device)
     x = x + sinusoidal_embed(table, ids.long(), cfg.pad_id,
                              start_pos).to(x.dtype)
@@ -111,50 +122,149 @@ def _conv_block_full(lp: dict, cfg: DecoderConfig, kernel_size: int,
     return layer_norm(lp["conv_ln"], residual + h)
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism (the `tp` axis): a rank holds its heads' q/k/v
+# columns and out_proj rows, fc1's columns and fc2's rows
+# ---------------------------------------------------------------------------
+
+# the cross-attention leaves the rules shard, with the dim: q/k/v along
+# their E output columns, out_proj along its E input rows; each divides
+# as E does, so one rule decides them all (out_proj's bias is replicated)
+_CROSS_SHARDS = (("q_proj", "w", 1), ("q_proj", "b", 0), ("k_proj", "w", 1),
+                 ("k_proj", "b", 0), ("v_proj", "w", 1), ("v_proj", "b", 0),
+                 ("out_proj", "w", 0))
+
+
+def tp_cross_attention(p: dict, num_heads: int, tp: ModelAxis) -> dict:
+    """How this rank runs one cross-attention: {"params", "heads",
+    "split", "out_b"}. Split by heads where the rules shard the
+    projections and the heads divide over "model": q/k/v are the rank's
+    columns, bias_k/bias_v its slice, out_proj its rows with the bias
+    left for after the sum. Otherwise every leaf is read whole (a shard
+    gathered) and the branch runs as on one rank."""
+    E = p["q_proj"]["w"].shape[0]
+    sharded = tp.split("/attn/c/q_proj/w", (E, E))
+    if not sharded or num_heads % tp.size:
+        whole = {n: dict(p[n]) for n in ("q_proj", "k_proj", "v_proj",
+                                         "out_proj")}
+        for n, k, dim in _CROSS_SHARDS:
+            if k in whole[n]:
+                whole[n][k] = tp.whole(p[n][k], dim, sharded)
+        return {"params": {**p, **whole}, "heads": num_heads,
+                "split": False, "out_b": None}
+    local = {**p, "out_proj": {"w": p["out_proj"]["w"]}}
+    for n in ("bias_k", "bias_v"):
+        if n in p:
+            local[n] = tp.part(p[n], -1)
+    return {"params": local, "heads": num_heads // tp.size, "split": True,
+            "out_b": p["out_proj"].get("b")}
+
+
+def tp_context_kv(a: dict, feats: torch.Tensor, mask, tp: ModelAxis):
+    """precompute_kv of one context with tp_cross_attention's params."""
+    return precompute_kv(a["params"], tp.enter(feats) if a["split"]
+                         else feats, mask)
+
+
+def tp_attend(a: dict, x: torch.Tensor, k, v, mask, cfg, gen,
+              deterministic: bool, tp: ModelAxis) -> torch.Tensor:
+    """The branch's attention output [B, T, E], whole on every rank: a
+    split branch sums its heads' out_proj parts over "model"."""
+    out, _ = cross_attention_with_kv(
+        a["params"], tp.enter(x) if a["split"] else x, k, v, mask,
+        num_heads=a["heads"], attn_dropout=cfg.attention_dropout, gen=gen,
+        deterministic=deterministic,
+        head_shard=tp.shard(1) if a["split"] else None)
+    if not a["split"]:
+        return out
+    y = tp.reduce(out.float())
+    if a["out_b"] is not None:
+        y = y + a["out_b"]
+    return y.to(x.dtype)
+
+
+def row_parallel_linear(p: dict, h: torch.Tensor, tp: ModelAxis
+                        ) -> torch.Tensor:
+    """h [..., F/n] (this rank's columns) @ the layer's rows, summed over
+    "model", plus the bias. A weight-normed layer's norm over its split
+    input axis sums the ranks' squares first (the effective weight is the
+    one-rank layer's, rows sliced)."""
+    if "w" in p:
+        w = p["w"]
+    else:
+        v = p["v"]
+        sq = tp.reduce(v.float().square().sum(dim=0, keepdim=True))
+        scale = p["g"] / sq.sqrt().clamp_min(1e-12)
+        w = tp.enter(scale).to(v.dtype) * v
+    y = tp.reduce(torch.matmul(h, w).float())
+    if "b" in p:
+        y = y + p["b"]
+    return y.to(h.dtype)
+
+
+def _ffn_block(lp: dict, cfg: DecoderConfig, h: torch.Tensor,
+               gen: torch.Generator | None, deterministic: bool,
+               tp: ModelAxis) -> torch.Tensor:
+    """relu(fc1) -> dropout -> fc2; column- then row-parallel where the
+    rules shard fc1's columns and fc2's rows."""
+    if not tp.split("/fc1/w", (cfg.embed_dim, cfg.ffn_dim)):
+        h = torch.relu(gehring_linear(lp["fc1"], h))
+        h = dropout(h, cfg.relu_dropout, gen, deterministic)
+        return gehring_linear(lp["fc2"], h)
+    h = torch.relu(gehring_linear(lp["fc1"], tp.enter(h)))
+    h = dropout(h, cfg.relu_dropout, gen, deterministic, shard=tp.shard(-1))
+    return row_parallel_linear(lp["fc2"], h, tp)
+
+
 def _attn_and_ffn(lp: dict, cfg: DecoderConfig, x: torch.Tensor, kv: dict,
-                  gen: torch.Generator | None,
-                  deterministic: bool) -> torch.Tensor:
+                  gen: torch.Generator | None, deterministic: bool,
+                  tp: ModelAxis) -> torch.Tensor:
     """The cross-attention branches + context_fc + FFN of one layer over the
-    whole sequence, given each context's precomputed K/V."""
+    whole sequence, given each context's precomputed K/V and, under "tp",
+    its tp_cross_attention."""
     branches = []
     for spec in cfg.contexts:
         k, v, mask = kv[spec.name]
-        out, _ = cross_attention_with_kv(
-            lp["attn"][spec.name], x, k, v, mask, num_heads=cfg.num_heads,
-            attn_dropout=cfg.attention_dropout, gen=gen,
-            deterministic=deterministic)
+        out = tp_attend(kv["tp"][spec.name], x, k, v, mask, cfg, gen,
+                        deterministic, tp)
         out = dropout(out, cfg.dropout, gen, deterministic)
         branches.append(layer_norm(lp["attn_ln"][spec.name], x + out))
     h = gehring_linear(lp["context_fc"], torch.cat(branches, dim=-1))
     residual = h
-    h = torch.relu(gehring_linear(lp["fc1"], h))
-    h = dropout(h, cfg.relu_dropout, gen, deterministic)
-    h = gehring_linear(lp["fc2"], h)
+    h = _ffn_block(lp, cfg, h, gen, deterministic, tp)
     h = dropout(h, cfg.dropout, gen, deterministic)
     return layer_norm(lp["final_ln"], residual + h)
 
 
-def precompute_context_kv(params: dict, cfg: DecoderConfig,
-                          contexts: dict) -> list[dict]:
+def precompute_context_kv(params: dict, cfg: DecoderConfig, contexts: dict,
+                          tp: ModelAxis = ONE_RANK) -> list[dict]:
     """Per-layer, per-context projected K/V (+bias/zero columns) and masks.
-    contexts: {name: (features [B, S, D], padding mask [B, S] True = pad)}."""
-    return [{spec.name: precompute_kv(lp["attn"][spec.name],
-                                      *contexts[spec.name])
+    contexts: {name: (features [B, S, D], padding mask [B, S] True = pad)}.
+    Under tensor parallelism each is this rank's heads' K/V; "tp" holds
+    each context's tp_cross_attention."""
+    out = []
+    for lp in params["layers"]:
+        a = {spec.name: tp_cross_attention(lp["attn"][spec.name],
+                                           cfg.num_heads, tp)
              for spec in cfg.contexts}
-            for lp in params["layers"]]
+        kv = {n: tp_context_kv(a[n], *contexts[n], tp) for n in a}
+        out.append({**kv, "tp": a})
+    return out
 
 
 def decoder_forward(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                     contexts: dict, gen: torch.Generator | None = None,
-                    deterministic: bool = True) -> torch.Tensor:
+                    deterministic: bool = True, tp: ModelAxis = ONE_RANK
+                    ) -> torch.Tensor:
     """Teacher-forced forward. ids: [B, T] -> features [B, T, E]. (tell_tpu
     also returns attention maps here; the port's maps come from the decode
-    path, decoder_step(need_weights=True).)"""
-    x = embed_tokens(params, cfg, ids, gen, deterministic)
-    kvs = precompute_context_kv(params, cfg, contexts)
+    path, decoder_step(need_weights=True).) tp: the "model" axis the
+    params' shards lie over."""
+    x = embed_tokens(params, cfg, ids, gen, deterministic, tp=tp)
+    kvs = precompute_context_kv(params, cfg, contexts, tp)
     for lp, k, kv in zip(params["layers"], cfg.kernel_sizes, kvs):
         x = _conv_block_full(lp, cfg, k, x, gen, deterministic)
-        x = _attn_and_ffn(lp, cfg, x, kv, gen, deterministic)
+        x = _attn_and_ffn(lp, cfg, x, kv, gen, deterministic, tp)
     if "final_ln" in params:
         x = layer_norm(params["final_ln"], x)
     return x
@@ -162,24 +272,27 @@ def decoder_forward(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
 
 def decoder_loss(params: dict, cfg: DecoderConfig, caption_ids: torch.Tensor,
                  contexts: dict, gen: torch.Generator | None = None,
-                 deterministic: bool = True, group=None
+                 deterministic: bool = True, group=None,
+                 tp: ModelAxis = ONE_RANK
                  ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Adaptive-softmax loss on right-shifted targets. caption_ids: [B, T] =
     <s> tokens </s> pads; inputs ids[:, :-1], targets ids[:, 1:].
     Returns (loss_sum in nats, sample_size, aux). group: the data-parallel
     ranks, each holding B rows of the global batch (None: one rank), whose
-    tail capacity is the global batch's."""
+    tail capacity is the global batch's. tp: the "model" axis."""
     inputs = caption_ids[:, :-1]
     targets = caption_ids[:, 1:]
     feats = decoder_forward(params, cfg, inputs, contexts, gen,
-                            deterministic)
+                            deterministic, tp)
     B, T, E = feats.shape
     cap = None
     if cfg.tail_capacity_frac is not None:
         n = B * T * (1 if group is None else world_size(group))
         cap = tuple(max(int(n * f), 8) for f in cfg.tail_capacity_frac)
     return adaptive_softmax_loss(
-        params["adaptive_softmax"], params["embed"], feats.reshape(B * T, E),
+        params["adaptive_softmax"],
+        whole_bands(params["embed"], cfg.full_cutoffs, tp),
+        feats.reshape(B * T, E),
         targets.reshape(-1), cfg.full_cutoffs, pad_id=cfg.pad_id,
         padding_idx=cfg.embed_padding_idx, tail_capacity=cap,
         drop_rate=cfg.adaptive_softmax_dropout, gen=gen,

@@ -43,6 +43,14 @@ bridge.py.
   forward (autograd keeps each chunk's for the backward, as lax.scan's
   residuals are). Dropout draws from fold_in generators laid out as
   tell_tpu's fold_in keys: one stream per call site.
+* Under tensor parallelism (the `tp` argument, a parallel/comm.py
+  ModelAxis of more than one rank; ONE_RANK, the default, shards
+  nothing and is the one-rank forward) a rank
+  runs its query and K/V heads with o's rows, SwiGLU's w1/w3 columns
+  and w2 rows, the cross-attention split as the flagship's, its
+  tok_embed rows in a masked lookup summed over "model", and llm_xent
+  vocabulary-parallel; the MoE runs its experts (ops/moe.py). With a
+  data-parallel group the MoE routes over the global batch.
 """
 from __future__ import annotations
 
@@ -54,17 +62,19 @@ import torch.nn.functional as F
 
 from ..bridge import tree_leaves_with_path
 from ..config import LLMConfig
-from ..ops.attention import cross_attention_with_kv, precompute_kv
 from ..ops.common import dropout, fold_in, top_k
 from ..ops.linear import linear
 from ..ops.moe import moe_ffn
+from ..parallel.comm import ONE_RANK, ModelAxis, SumOverRanks, all_reduce
 from .backbones.resnet import resnet_forward
 from .backbones.roberta import roberta_encode_windowed
 from .backbones.vit import vit_encode
 from .beam import beam_search_core
 from .captioner import mask_nan_embeds
 from .decoder import (attn_segment_bounds, precompute_context_kv_cat,
-                      split_attn_segments, stacked_attention_core)
+                      row_parallel_linear, split_attn_segments,
+                      stacked_attention_core, tp_attend, tp_context_kv,
+                      tp_cross_attention)
 
 
 def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -161,22 +171,31 @@ def _cross_block_step(lp: dict, cfg: LLMConfig, x: torch.Tensor, cat: dict,
 
 
 def _ffn(lp: dict, cfg: LLMConfig, x: torch.Tensor, no_drop: bool = False,
-         token_mask: torch.Tensor | None = None
-         ) -> tuple[torch.Tensor, torch.Tensor]:
+         token_mask: torch.Tensor | None = None, group=None,
+         tp: ModelAxis = ONE_RANK) -> tuple[torch.Tensor, torch.Tensor]:
     """Dense SwiGLU or the MoE (cfg.moe_experts) -> (out, MoE aux loss, 0
     when dense). no_drop (decoding) raises the capacity so that no row is
-    dropped; token_mask keeps pads from taking expert capacity."""
+    dropped; token_mask keeps pads from taking expert capacity; group: the
+    data-parallel ranks the MoE routes over. Under tensor parallelism w1
+    and w3 are column shards and w2 row shards (summed over "model"), and
+    the MoE's experts are this rank's (ops/moe.py)."""
     if cfg.moe_experts:
         shape = x.shape
         cf = float(cfg.moe_experts) if no_drop else cfg.moe_capacity_factor
         out, aux = moe_ffn(lp, x.reshape(-1, shape[-1]), top_k=cfg.moe_top_k,
                            capacity_factor=cf,
                            token_mask=(None if token_mask is None
-                                       else token_mask.reshape(-1)))
+                                       else token_mask.reshape(-1)),
+                           group=group, tp=tp)
         return out.reshape(shape), aux
+    zero = torch.zeros((), device=x.device)
+    if tp.split("/ffn/w1/w", (cfg.dim, cfg.ffn_dim)):
+        x = tp.enter(x)
+        h = F.silu(linear(lp["w1"], x).float()).to(x.dtype)
+        return row_parallel_linear(lp["w2"], h * linear(lp["w3"], x),
+                                   tp), zero
     h = F.silu(linear(lp["w1"], x).float()).to(x.dtype)
-    return linear(lp["w2"], h * linear(lp["w3"], x)), \
-        torch.zeros((), device=x.device)
+    return linear(lp["w2"], h * linear(lp["w3"], x)), zero
 
 
 # ---------------------------------------------------------------------------
@@ -185,13 +204,15 @@ def _ffn(lp: dict, cfg: LLMConfig, x: torch.Tensor, no_drop: bool = False,
 
 def _self_attn_full(sp: dict, cfg: LLMConfig, x: torch.Tensor,
                     gen: torch.Generator | None = None,
-                    deterministic: bool = True) -> torch.Tensor:
+                    deterministic: bool = True, tp: ModelAxis = ONE_RANK
+                    ) -> torch.Tensor:
     """Causal self-attention over the whole sequence. x [B, T, E]. The K/V
     heads are repeated to the query heads (query head h reads K/V head
     h // (H / KV), as the decode step's grouping); fp32 scores, dropout
     on the probabilities."""
     B, T, E = x.shape
     H, hd, KV = cfg.num_heads, cfg.head_dim, cfg.kv_heads
+    sp, x, H, KV, shard = _tp_self_attn(sp, cfg, x, tp)
     q = linear(sp["q"], x).reshape(B, T, H, hd)
     k = linear(sp["k"], x).reshape(B, T, KV, hd)
     v = linear(sp["v"], x).reshape(B, T, KV, hd)
@@ -207,120 +228,197 @@ def _self_attn_full(sp: dict, cfg: LLMConfig, x: torch.Tensor,
     causal = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
     scores = scores.masked_fill(~causal, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    probs = dropout(probs, cfg.attention_dropout, gen, deterministic)
+    probs = dropout(probs, cfg.attention_dropout, gen, deterministic,
+                    shard=shard)
     o = torch.einsum("bhts,bshd->bthd", probs.float(), v.float())
-    return linear(sp["o"], o.to(x.dtype).reshape(B, T, E))
+    o = o.to(x.dtype).reshape(B, T, H * hd)
+    if shard is not None:
+        return row_parallel_linear(sp["o"], o, tp)
+    return linear(sp["o"], o)
+
+
+def _tp_self_attn(sp: dict, cfg: LLMConfig, x: torch.Tensor,
+                  tp: ModelAxis):
+    """(params, input, query heads, K/V heads, dropout shard) of this
+    rank's self-attention: its query and K/V heads' columns and o's rows
+    where the rules shard the projections and the K/V heads divide over
+    "model" (GQA keeps each query head with its K/V head); otherwise
+    every leaf whole (a shard gathered) and no shard."""
+    E = x.shape[-1]
+    H, hd, KV = cfg.num_heads, cfg.head_dim, cfg.kv_heads
+    q_split = tp.split("/self_attn/q/w", (E, H * hd))
+    kv_split = tp.split("/self_attn/k/w", (E, KV * hd))
+    if q_split and kv_split and KV % tp.size == 0:
+        return (sp, tp.enter(x), H // tp.size, KV // tp.size,
+                tp.shard(2))
+    # o's rows divide as q's columns do
+    whole = {n: {**sp[n], "w": tp.whole(sp[n]["w"], 0 if n == "o" else 1,
+                                        kv_split if n in ("k", "v")
+                                        else q_split)}
+             for n in ("q", "k", "v", "o")}
+    return whole, x, H, KV, None
 
 
 def _cross_block_full(lp: dict, cfg: LLMConfig, x: torch.Tensor,
                       contexts: dict, gen: torch.Generator | None = None,
-                      deterministic: bool = True) -> torch.Tensor:
+                      deterministic: bool = True, tp: ModelAxis = ONE_RANK
+                      ) -> torch.Tensor:
     """Each context's plain cross-attention over the whole sequence (its
-    own dropout stream, fold_in(gen, j)), the branches concatenated in
-    context order into context_fc. x [B, T, E]."""
+    own dropout stream, fold_in(gen, j)), split as the flagship's under
+    tp, the branches concatenated in context order into context_fc. x
+    [B, T, E]."""
     branches = []
     for j, spec in enumerate(cfg.contexts):
-        p = lp["attn"][spec.name]
-        k, v, kmask = precompute_kv(p, *contexts[spec.name])
-        out, _ = cross_attention_with_kv(
-            p, x, k, v, kmask, num_heads=cfg.num_heads,
-            attn_dropout=cfg.attention_dropout, gen=fold_in(gen, j),
-            deterministic=deterministic)
-        branches.append(out)
+        a = tp_cross_attention(lp["attn"][spec.name], cfg.num_heads, tp)
+        k, v, kmask = tp_context_kv(a, *contexts[spec.name], tp)
+        branches.append(tp_attend(a, x, k, v, kmask, cfg, fold_in(gen, j),
+                                  deterministic, tp))
     return linear(lp["context_fc"], torch.cat(branches, dim=-1))
 
 
 def _layer_full(lp: dict, cfg: LLMConfig, x: torch.Tensor, contexts: dict,
                 gen: torch.Generator | None = None,
                 deterministic: bool = True,
-                token_mask: torch.Tensor | None = None
+                token_mask: torch.Tensor | None = None, group=None,
+                tp: ModelAxis = ONE_RANK
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One layer over the whole sequence -> (x, the MoE aux loss, 0 when
     dense). token_mask [B, T] (True = not pad) keeps pads out of the MoE's
-    capacity and statistics."""
+    capacity and statistics; group: the data-parallel ranks the MoE
+    routes over; tp: the "model" axis."""
     h = rms_norm(lp["attn_norm"], x, cfg.rms_eps)
     x = x + dropout(_self_attn_full(lp["self_attn"], cfg, h,
-                                    fold_in(gen, 9), deterministic),
+                                    fold_in(gen, 9), deterministic, tp),
                     cfg.dropout, gen, deterministic)
     h = rms_norm(lp["cross_norm"], x, cfg.rms_eps)
     out = _cross_block_full(lp, cfg, h, contexts, fold_in(gen, 10),
-                            deterministic)
+                            deterministic, tp)
     x = x + dropout(out, cfg.dropout, fold_in(gen, 1), deterministic)
     h = rms_norm(lp["ffn_norm"], x, cfg.rms_eps)
-    f, moe_aux = _ffn(lp["ffn"], cfg, h, token_mask=token_mask)
+    f, moe_aux = _ffn(lp["ffn"], cfg, h, token_mask=token_mask, group=group,
+                      tp=tp)
     x = x + dropout(f, cfg.dropout, fold_in(gen, 2), deterministic)
     return x, moe_aux
 
 
 def llm_forward(params: dict, cfg: LLMConfig, ids: torch.Tensor,
                 contexts: dict, gen: torch.Generator | None = None,
-                deterministic: bool = True
+                deterministic: bool = True, group=None,
+                tp: ModelAxis = ONE_RANK
                 ) -> tuple[torch.Tensor, list[torch.Tensor]]:
     """Teacher-forced forward. ids [B, T] -> (features [B, T, E], each
-    layer's MoE aux loss)."""
-    x = F.embedding(ids.long(), params["tok_embed"])
+    layer's MoE aux loss). group: the data-parallel ranks the MoE routes
+    over (None: this call's batch alone); tp: the "model" axis."""
+    x = _embed_tokens(params["tok_embed"], ids.long(), cfg.vocab_size, tp)
     x = dropout(x, cfg.dropout, fold_in(gen, 0), deterministic)
     token_mask = ids != cfg.pad_id
     aux = []
     for i, lp in enumerate(params["layers"]):
         x, a = _layer_full(lp, cfg, x, contexts, fold_in(gen, 1 + i),
-                           deterministic, token_mask)
+                           deterministic, token_mask, group, tp)
         aux.append(a)
     return rms_norm(params["final_norm"], x, cfg.rms_eps), aux
 
 
+def _vocab_first_row(table: torch.Tensor, V: int, tp: ModelAxis
+                     ) -> int | None:
+    """This rank's first row where the rules shard the tied table's V
+    vocabulary rows over tp, else None (the table whole)."""
+    if not tp.split("/tok_embed", (V, table.shape[1])):
+        return None
+    return tp.index * table.shape[0]
+
+
+def _embed_tokens(table: torch.Tensor, ids: torch.Tensor, V: int,
+                  tp: ModelAxis = ONE_RANK) -> torch.Tensor:
+    """The tied table's rows of ids; over a vocabulary shard, this rank's
+    rows looked up, the others' zero, summed over "model"."""
+    lo = _vocab_first_row(table, V, tp)
+    if lo is None:
+        return F.embedding(ids, table)
+    rows = table.shape[0]
+    e = F.embedding((ids - lo).clamp(0, rows - 1), table)
+    here = ((ids >= lo) & (ids < lo + rows))[..., None]
+    return tp.reduce(torch.where(here, e, torch.zeros((), dtype=e.dtype,
+                                                      device=e.device)))
+
+
 def llm_xent(params: dict, cfg: LLMConfig, feats: torch.Tensor,
-             targets: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+             targets: torch.Tensor, tp: ModelAxis = ONE_RANK
+             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Tied-head cross entropy over vocabulary chunks. feats [N, E],
     targets [N] -> (the summed loss in nats over non-pad targets, their
     count). Each chunk of loss_vocab_chunk rows of the table updates a
     running max and sum of exponentials, and the chunk that holds a
     target gives its logit. tell_tpu pads the table to whole chunks and
     masks the pad columns to -inf; the port's last chunk is the table's
-    ragged rest, which is the same sum."""
+    ragged rest, which is the same sum. Over a vocabulary shard (tensor
+    parallelism) each rank runs its rows' chunks, and the ranks' maxima,
+    rescaled sums and target logits meet over "model" (vocabulary-
+    parallel: no rank builds another's logits)."""
     N = feats.shape[0]
     V = cfg.vocab_size
     C = min(cfg.loss_vocab_chunk, V)
+    lo = _vocab_first_row(params["tok_embed"], V, tp)
+    if lo is not None:
+        feats = tp.enter(feats)
     table = params["tok_embed"].to(feats.dtype)
     f32 = feats.float()
     m = torch.full((N,), float("-inf"), device=feats.device)
     s = torch.zeros(N, device=feats.device)
     tgt = torch.zeros(N, device=feats.device)
-    for base in range(0, V, C):
+    for base in range(0, table.shape[0], C):
         logits = f32 @ table[base:base + C].float().T          # [N, <= C]
         new_m = torch.maximum(m, logits.max(dim=-1).values)
         s = s * torch.exp(m - new_m) + torch.exp(
             logits - new_m[:, None]).sum(dim=-1)
         m = new_m
-        col = targets.long() - base
+        col = targets.long() - (lo or 0) - base
         here = (col >= 0) & (col < logits.shape[1])
         picked = logits.gather(1, col.clamp(0, logits.shape[1] - 1)[:, None])
         tgt = tgt + torch.where(here, picked[:, 0], 0.0)
-    nll = m + torch.log(s) - tgt
+    if lo is None:
+        nll = m + torch.log(s) - tgt
+    else:
+        top = all_reduce(m.detach(), tp.group, op=torch.distributed
+                         .ReduceOp.MAX)
+        parts = tp.reduce(torch.stack([s * torch.exp(m - top), tgt]))
+        nll = top + torch.log(parts[0]) - parts[1]
     keep = targets != cfg.pad_id
     return torch.where(keep, nll, 0.0).sum(), keep.sum()
 
 
 def llm_loss(params: dict, cfg: LLMConfig, batch: dict,
              gen: torch.Generator | None = None, deterministic: bool = True,
-             group=None) -> tuple[torch.Tensor, dict]:
+             group=None, tp: ModelAxis = ONE_RANK
+             ) -> tuple[torch.Tensor, dict]:
     """Mean per-token loss in BITS over batch["caption_ids"] [B, T]
     (right-shifted targets, pads excluded), plus moe_aux_coef x the
     layers' mean MoE aux loss when moe_experts is set. Returns (loss,
     {"sample_size", and "moe_aux" with the MoE}). group: the data-parallel
-    ranks; the dense loss has no batch-wide budget, so it reads nothing of
-    them (the MoE's capacity and aux are this batch's: the Trainer refuses
-    it data-parallel)."""
+    ranks. The dense loss has no batch-wide budget, so it reads nothing of
+    them. The MoE routes over the global batch (ops/moe.py), and its loss
+    is the global batch's on every rank: the token sums meet over the
+    group, and aux["global_loss"] tells the train step that the ranks'
+    gradients add (train_step.py). tp: the "model" axis the params' shards
+    lie over."""
     contexts = _build_contexts(params, cfg, batch)
     ids = batch["caption_ids"]
+    moe_group = group if cfg.moe_experts else None
     feats, layer_aux = llm_forward(params, cfg, ids[:, :-1], contexts, gen,
-                                   deterministic)
+                                   deterministic, moe_group, tp)
     B, T, E = feats.shape
     loss_sum, size = llm_xent(params, cfg, feats.reshape(B * T, E),
-                              ids[:, 1:].reshape(-1))
+                              ids[:, 1:].reshape(-1), tp)
+    aux = {}
+    if moe_group is not None:
+        tot = SumOverRanks.apply(torch.stack([loss_sum, size.float()]),
+                                 moe_group)
+        loss_sum, size = tot[0], tot[1].detach().round().long()
+        aux["global_loss"] = True
     size = size.clamp_min(1)
     loss = loss_sum / math.log(2.0) / size
-    aux = {"sample_size": size}
+    aux["sample_size"] = size
     if cfg.moe_experts:
         moe_aux = sum(layer_aux) / len(layer_aux)
         aux["moe_aux"] = moe_aux
@@ -377,12 +475,12 @@ def modern_encode_contexts(frozen: dict, cfg: LLMConfig, batch: dict
 
 def llm_loss_e2e(params: dict, frozen: dict, cfg: LLMConfig, batch: dict,
                  gen: torch.Generator | None = None,
-                 deterministic: bool = True, group=None
-                 ) -> tuple[torch.Tensor, dict]:
+                 deterministic: bool = True, group=None,
+                 tp: ModelAxis = ONE_RANK) -> tuple[torch.Tensor, dict]:
     """llm_loss with the frozen towers' encode first (kernel B in the
     article's)."""
     return llm_loss(params, cfg, modern_encode_contexts(frozen, cfg, batch),
-                    gen, deterministic, group)
+                    gen, deterministic, group, tp)
 
 
 # ---------------------------------------------------------------------------

@@ -36,9 +36,11 @@ import math
 import torch
 
 from ..config import CaptionerConfig, DecoderConfig
-from ..ops.adaptive import adaptive_softmax_loss, adaptive_top_k
+from ..ops.adaptive import (adaptive_softmax_loss, adaptive_top_k,
+                            whole_bands)
 from ..ops.common import dropout, fold_in
 from ..ops.linear import gehring_linear
+from ..parallel.comm import ONE_RANK, ModelAxis
 from .captioner import build_contexts, sample_top_k
 from .decoder import embed_tokens
 
@@ -117,9 +119,13 @@ def init_lstm_state(params: dict, batch: int,
 
 def lstm_decoder_forward(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
                          contexts: dict, gen: torch.Generator | None = None,
-                         deterministic: bool = True) -> torch.Tensor:
-    """Teacher-forced forward: ids [B, T] -> features [B, T, E]."""
-    x = embed_tokens(params, cfg, ids, fold_in(gen, 0), deterministic)
+                         deterministic: bool = True,
+                         tp: ModelAxis = ONE_RANK) -> torch.Tensor:
+    """Teacher-forced forward: ids [B, T] -> features [B, T, E]. tp: the
+    "model" axis the embedding's bands may be shards over (the LSTM's
+    other leaves are replicated)."""
+    x = embed_tokens(params, cfg, ids, fold_in(gen, 0), deterministic,
+                     tp=tp)
     state = init_lstm_state(params, ids.shape[0], x.dtype)
     lp, ctx = _prepare(params["lstm"], contexts)
     outs = []
@@ -133,31 +139,34 @@ def lstm_decoder_forward(params: dict, cfg: DecoderConfig, ids: torch.Tensor,
 def lstm_decoder_loss(params: dict, cfg: DecoderConfig,
                       caption_ids: torch.Tensor, contexts: dict,
                       gen: torch.Generator | None = None,
-                      deterministic: bool = True):
+                      deterministic: bool = True, tp: ModelAxis = ONE_RANK):
     """The adaptive-softmax loss on right-shifted targets -> (loss_sum in
     nats, sample_size, aux)."""
     feats = lstm_decoder_forward(params, cfg, caption_ids[:, :-1], contexts,
-                                 gen, deterministic)
+                                 gen, deterministic, tp)
     B, T, E = feats.shape
     return adaptive_softmax_loss(
-        params["adaptive_softmax"], params["embed"], feats.reshape(B * T, E),
-        caption_ids[:, 1:].reshape(-1), cfg.full_cutoffs, pad_id=cfg.pad_id,
+        params["adaptive_softmax"], whole_bands(params["embed"],
+                                                cfg.full_cutoffs, tp),
+        feats.reshape(B * T, E), caption_ids[:, 1:].reshape(-1),
+        cfg.full_cutoffs, pad_id=cfg.pad_id,
         padding_idx=cfg.embed_padding_idx)
 
 
 def lstm_captioner_loss(params: dict, cfg: CaptionerConfig, batch: dict,
                         gen: torch.Generator | None = None,
-                        deterministic: bool = True, group=None
+                        deterministic: bool = True, group=None,
+                        tp: ModelAxis = ONE_RANK
                         ) -> tuple[torch.Tensor, dict]:
     """Mean per-token loss in BITS over the image and article contexts
     (build_contexts: the article layer-mixed where weigh_bert). Returns
     (loss, {"sample_size", "tail_dropped"}). group: the data-parallel
     ranks; the loss has no batch-wide budget, so it reads nothing of
-    them."""
+    them. tp: the "model" axis."""
     contexts = build_contexts(params, cfg, batch)
     loss_sum, size, aux = lstm_decoder_loss(
         params["decoder"], cfg.decoder, batch["caption_ids"], contexts, gen,
-        deterministic)
+        deterministic, tp)
     size = size.clamp_min(1)
     return loss_sum / math.log(2.0) / size, {"sample_size": size, **aux}
 

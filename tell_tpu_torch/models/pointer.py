@@ -40,11 +40,13 @@ import math
 import torch
 
 from ..config import CaptionerConfig
-from ..ops.adaptive import adaptive_softmax_loss
+from ..ops.adaptive import adaptive_softmax_loss, whole_bands
 from ..ops.common import fold_in
 from ..ops.linear import gehring_linear
 from ..ops.self_attention import (copy_attention_keys,
                                   copy_attention_scores, self_attention)
+from ..parallel.comm import (ONE_RANK, ModelAxis, SumOverRanks, all_gather,
+                             all_reduce)
 from .captioner import (_decode_setup, build_contexts, sample_top_k,
                         weighted_layer_sum)
 from .decoder import decoder_forward, decoder_step, decoder_top_k
@@ -91,15 +93,20 @@ def _copy_target_probs(copy_attn: torch.Tensor, context_ids: torch.Tensor,
     return (copy_attn * match).sum(dim=-1)
 
 
-def _per_entity_mean_sum(values: torch.Tensor, cap_masks: torch.Tensor
-                         ) -> torch.Tensor:
+def _per_entity_mean_sum(values: torch.Tensor, cap_masks: torch.Tensor,
+                         group=None) -> torch.Tensor:
     """The sum over entity indices i in 1..MAX_COPY_ENTITIES of the mean
     of `values` [B, L] over the caption tokens of entity i (an index
-    without tokens adds 0)."""
+    without tokens adds 0). group: the data-parallel ranks, whose sums
+    and counts meet before the division (the global batch's means)."""
     idx = torch.arange(1, MAX_COPY_ENTITIES + 1, device=values.device)
     m = cap_masks[..., None] == idx                             # [B, L, N]
     cnt = m.sum(dim=(0, 1))
     tot = torch.where(m, values[..., None], 0.0).sum(dim=(0, 1))
+    if group is not None:
+        both = SumOverRanks.apply(torch.stack([tot, cnt.to(tot.dtype)]),
+                                  group)
+        tot, cnt = both[0], both[1].detach().round().long()
     return torch.where(cnt > 0, tot / cnt.clamp_min(1), 0.0).sum()
 
 
@@ -111,7 +118,7 @@ def _count_unique(ids: torch.Tensor) -> torch.Tensor:
 
 
 def _copy_loss_v2(scores: torch.Tensor, batch: dict, targets: torch.Tensor,
-                  lp_tgt: torch.Tensor, cap_masks: torch.Tensor
+                  lp_tgt: torch.Tensor, cap_masks: torch.Tensor, group=None
                   ) -> torch.Tensor:
     """transformer_pointer_2's cross entropy over the reduced vocabulary,
     as tell_tpu computes it: the stitched log-prob vector is taken as
@@ -121,8 +128,10 @@ def _copy_loss_v2(scores: torch.Tensor, batch: dict, targets: torch.Tensor,
     context_ids = batch["context_ids"].long()
     proper = batch["proper_masks"] >= 1
     B = scores.shape[0]
-    U = _count_unique(torch.cat([context_ids.reshape(-1),
-                                 targets.long().reshape(-1)]))
+    ids = torch.cat([context_ids.reshape(-1), targets.long().reshape(-1)])
+    if group is not None:          # the global batch's distinct ids
+        ids = all_gather(ids, group).reshape(-1)
+    U = _count_unique(ids)
     # distinct proper tokens per row: non-proper pushed to a sentinel
     sentinel = 1 << 30
     srt = torch.sort(torch.where(proper, context_ids, sentinel),
@@ -134,38 +143,50 @@ def _copy_loss_v2(scores: torch.Tensor, batch: dict, targets: torch.Tensor,
     mass = scores.sum(dim=-1)                                   # [B, L]
     Z = mass + (U - distinct)[:, None].to(mass.dtype)
     ce = -(lp_tgt - torch.log(Z.clamp_min(1e-30)))
-    return _per_entity_mean_sum(ce, cap_masks)
+    return _per_entity_mean_sum(ce, cap_masks, group)
 
 
 def pointer_loss(params: dict, cfg: PointerConfig, batch: dict,
                  gen: torch.Generator | None = None,
-                 deterministic: bool = True) -> tuple[torch.Tensor, dict]:
+                 deterministic: bool = True, group=None,
+                 tp: ModelAxis = ONE_RANK) -> tuple[torch.Tensor, dict]:
     """The captioner's batch plus context_ids [B, S], proper_masks [B, S]
     (an entity index at proper-noun positions, 0 elsewhere, -1 at pads)
     and caption_copy_masks [B, T] (the same for the caption). Returns
     (loss = (entity + copy) / ln 2, {gen_loss, entity_loss,
-    copy_loss})."""
+    copy_loss}). group: the data-parallel ranks, each holding its rows of
+    the batch: every mean is then the global batch's (its sums and counts
+    meet over the group before the division), has_entities is the global
+    batch's, and aux["global_loss"] tells the train step that the ranks'
+    gradients add. tp: the "model" axis of the captioner's shards (the
+    pointer heads are replicated)."""
     cap = cfg.captioner
     dcfg = cap.decoder
     contexts = build_contexts(params["captioner"], cap, batch)
     caption_ids = batch["caption_ids"]
     inputs, targets = caption_ids[:, :-1], caption_ids[:, 1:]
     X = decoder_forward(params["captioner"]["decoder"], dcfg, inputs,
-                        contexts, fold_in(gen, 0), deterministic)
+                        contexts, fold_in(gen, 0), deterministic, tp)
     B, L, E = X.shape
 
     # the generation loss: reported, not optimised
     dec = params["captioner"]["decoder"]
     with torch.no_grad():
         gen_sum, gen_size, _ = adaptive_softmax_loss(
-            dec["adaptive_softmax"], dec["embed"],
+            dec["adaptive_softmax"], whole_bands(dec["embed"],
+                                                 dcfg.full_cutoffs, tp),
             X.detach().reshape(B * L, E), targets.reshape(-1),
             dcfg.full_cutoffs, pad_id=dcfg.pad_id,
             padding_idx=dcfg.embed_padding_idx)
+        if group is not None:
+            gen_sum, gen_size = all_reduce(torch.stack(
+                [gen_sum.float(), gen_size.float()]), group)
         gen_loss = gen_sum / gen_size.clamp_min(1) / LN2
 
     cap_masks = batch["caption_copy_masks"][:, 1:]          # the targets'
     has_entities = (cap_masks >= 1).any()
+    if group is not None:
+        has_entities = all_reduce(has_entities.float(), group) > 0
 
     # the entity-presence loss
     x_entity = self_attention(params["entity_attn"], X,
@@ -175,8 +196,11 @@ def pointer_loss(params: dict, cfg: PointerConfig, batch: dict,
     valid = ent_targets >= 0
     ent_lp = torch.log_softmax(ent_logits.float(), dim=-1)
     picked = ent_lp.gather(-1, ent_targets.clamp_min(0)[..., None])[..., 0]
-    entity_loss = (-torch.where(valid, picked, 0.0).sum()
-                   / valid.sum().clamp_min(1))
+    ent = torch.stack([-torch.where(valid, picked, 0.0).sum(),
+                       valid.sum().to(picked.dtype)])
+    if group is not None:
+        ent = SumOverRanks.apply(ent, group)
+    entity_loss = ent[0] / ent[1].detach().clamp_min(1)
 
     # the copy loss
     keys = copy_attention_keys(params["copy_attn"],
@@ -190,17 +214,21 @@ def pointer_loss(params: dict, cfg: PointerConfig, batch: dict,
     p_tgt = _copy_target_probs(scores, batch["context_ids"], proper, targets)
     lp_tgt = torch.where(p_tgt > 0, torch.log(p_tgt.clamp_min(1e-30)), 0.0)
     if cfg.copy_loss_version == 1:
-        copy_loss = _per_entity_mean_sum(-lp_tgt, cap_masks)
+        copy_loss = _per_entity_mean_sum(-lp_tgt, cap_masks, group)
     else:
-        copy_loss = _copy_loss_v2(scores, batch, targets, lp_tgt, cap_masks)
+        copy_loss = _copy_loss_v2(scores, batch, targets, lp_tgt, cap_masks,
+                                  group)
 
     zero = torch.zeros((), device=X.device)
     loss = torch.where(has_entities, (entity_loss + copy_loss) / LN2, zero)
-    return loss, {
+    aux = {
         "gen_loss": gen_loss,
         "entity_loss": torch.where(has_entities, entity_loss, zero) / LN2,
         "copy_loss": torch.where(has_entities, copy_loss, zero) / LN2,
     }
+    if group is not None:
+        aux["global_loss"] = True
+    return loss, aux
 
 
 def pointer_generate(params: dict, cfg: PointerConfig, batch: dict,

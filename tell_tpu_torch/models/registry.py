@@ -38,12 +38,6 @@ class ModelAdapter:
     # whether a request's entities pack proper_masks (the pointer's copy
     # head reads them; tell_tpu's service's _needs_copy_masks)
     copy_masks: bool = False
-    # whether the family trains data-parallel: its loss is a mean over
-    # tokens that returns its sample_size, so the step's global
-    # normalisation is tell_tpu's. The pointer's entity and copy losses
-    # are means over other counts, and the MoE routes each rank's tokens
-    # against its own capacity and aux (ROADMAP queue 1 item 10's rest).
-    data_parallel: bool = True
 
     def check_levers(self, fused_topk: bool = False,
                      kv_cache: str = "fp") -> None:
@@ -93,8 +87,7 @@ def _modern(cfg, vit: bool = False) -> ModelAdapter:
         loss_e2e=llm_loss_e2e, generate=llm_generate,
         encode=lambda frozen, batch: modern_encode_contexts(frozen, cfg,
                                                             batch),
-        beam=llm_beam_search, fused_topk=False,
-        data_parallel=not cfg.moe_experts)
+        beam=llm_beam_search, fused_topk=False)
 
 
 def _lstm(cfg: CaptionerConfig) -> ModelAdapter:
@@ -122,17 +115,17 @@ def _pointer(cfg: CaptionerConfig, version: int) -> ModelAdapter:
     from .pointer import PointerConfig, pointer_generate, pointer_loss
     pcfg = PointerConfig(captioner=cfg, copy_loss_version=version)
 
-    def loss_e2e(params, frozen, c, batch, gen=None, deterministic=True):
+    def loss_e2e(params, frozen, c, batch, gen=None, deterministic=True,
+                 **kw):
         return pointer_loss(params, c, encode_contexts(frozen, c.captioner,
                                                        batch),
-                            gen, deterministic)
+                            gen, deterministic, **kw)
 
     return ModelAdapter(
         name=f"pointer_v{version}", config=pcfg, init=init_pointer,
         loss=pointer_loss, loss_e2e=loss_e2e, generate=pointer_generate,
         encode=lambda frozen, batch: encode_contexts(frozen, cfg, batch),
-        engine=False, attention_maps=False, copy_masks=True,
-        data_parallel=False)
+        engine=False, attention_maps=False, copy_masks=True)
 
 
 def get_model(model_type: str, cfg) -> ModelAdapter:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.comm import ONE_RANK, ModelAxis
 from .common import dropout, top_k
 from .kernels.topk_logits import MAX_K, topk_logits
 from .linear import linear
@@ -43,20 +44,33 @@ def _pinned_table(table: torch.Tensor, padding_idx: int) -> torch.Tensor:
 
 def adaptive_embed(params: dict, ids: torch.Tensor, cutoffs: tuple[int, ...],
                    output_dim: int, padding_idx: int = 0,
-                   scale_embeds: bool = True) -> torch.Tensor:
+                   scale_embeds: bool = True, tp: ModelAxis = ONE_RANK
+                   ) -> torch.Tensor:
     """ids: int tensor of any shape -> [..., output_dim] in the params'
-    dtype; each band's rows are gathered, projected and summed in fp32."""
+    dtype; each band's rows are gathered, projected and summed in fp32.
+    A band whose rows the rules shard over tp (tensor parallelism) looks
+    up this rank's rows, the others' zero, summed over "model"."""
     out_dtype = params["bands"][0]["proj"].dtype
     ids = ids.long()
     result = torch.zeros(ids.shape + (output_dim,), dtype=torch.float32,
                          device=ids.device)
     for i, (lo, hi) in enumerate(band_ranges(cutoffs)):
         band = params["bands"][i]
-        table = _pinned_table(band["embed"], padding_idx)
+        rows = band["embed"].shape[0]
+        sharded = tp.split(f"/embed/bands/{i}/embed",
+                           (hi - lo, band["embed"].shape[1]))
+        pad = padding_idx
+        if sharded:
+            lo += tp.index * rows
+            hi = lo + rows
+            pad -= tp.index * rows
+        table = _pinned_table(band["embed"], pad)
         e = table[(ids - lo).clamp(0, hi - lo - 1)]
         in_band = ((ids >= lo) & (ids < hi))[..., None]
         e = torch.where(in_band, e, torch.zeros((), dtype=e.dtype,
                                                 device=e.device))
+        if sharded:
+            e = tp.reduce(e)
         result = result + torch.matmul(e, band["proj"]).float()
     if scale_embeds:
         result = result * (output_dim ** 0.5)
@@ -78,6 +92,19 @@ def merged_embed_table(params: dict, cutoffs: tuple[int, ...],
     if scale_embeds:
         full = full * (output_dim ** 0.5)
     return full.to(params["bands"][0]["proj"].dtype)
+
+
+def whole_bands(params: dict, cutoffs: tuple[int, ...],
+                tp: ModelAxis = ONE_RANK) -> dict:
+    """The embedding with every band's table whole, for the tied softmax,
+    which every rank then computes alike: a band whose rows the rules
+    shard over tp is gathered (its gradient back to the shard)."""
+    bands = [{**band, "embed": tp.whole(
+        band["embed"], 0, tp.split(f"/embed/bands/{i}/embed",
+                                   (hi - lo, band["embed"].shape[1])))}
+             for i, (band, (lo, hi)) in enumerate(zip(params["bands"],
+                                                      band_ranges(cutoffs)))]
+    return {**params, "bands": bands}
 
 
 def _pad_col_mask(n: int, padding_idx: int, device) -> torch.Tensor | None:

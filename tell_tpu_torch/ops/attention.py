@@ -46,15 +46,19 @@ def cross_attention_with_kv(params: dict, query: torch.Tensor,
                             attn_dropout: float = 0.0,
                             gen: torch.Generator | None = None,
                             deterministic: bool = True,
-                            need_weights: bool = False
+                            need_weights: bool = False,
+                            head_shard: tuple[int, int, int] | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Attention against precomputed K/V. query: [B, T, E]; k, v:
     [B, S', E]; mask: [B, S'] True = masked. fp32 scores and softmax; the
     (dropped-out) probabilities are cast to the query's dtype before the
     value contraction. Returns (out [B, T, E], head-averaged probabilities
-    [B, T, S'] when need_weights)."""
-    B, T, E = query.shape
+    [B, T, S'] when need_weights). A tensor-parallel rank passes its
+    num_heads heads' q/k/v columns (E is then q_proj's width) and
+    head_shard, dropout's shard of the probabilities' head dim."""
+    B, T, _ = query.shape
     H = num_heads
+    E = params["q_proj"]["w"].shape[1]
     hd = E // H
     q = linear(params["q_proj"], query) * (hd ** -0.5)
     qh = q.reshape(B, T, H, hd)
@@ -63,7 +67,8 @@ def cross_attention_with_kv(params: dict, query: torch.Tensor,
     scores = torch.einsum("bthd,bshd->bhts", qh.float(), kh.float())
     scores = scores.masked_fill(mask[:, None, None, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
-    probs_d = dropout(probs, attn_dropout, gen, deterministic)
+    probs_d = dropout(probs, attn_dropout, gen, deterministic,
+                      shard=head_shard)
     out = torch.einsum("bhts,bshd->bthd", probs_d.to(query.dtype), vh)
     out = linear(params["out_proj"], out.reshape(B, T, E))
     attn = probs.mean(dim=1) if need_weights else None

@@ -27,13 +27,26 @@ def fold_in(gen: torch.Generator | None, data: int
 
 
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None,
-            deterministic: bool) -> torch.Tensor:
+            deterministic: bool,
+            shard: tuple[int, int, int] | None = None) -> torch.Tensor:
     """Inverted dropout with a keep mask drawn from `gen` (on x's device).
-    The bits differ from JAX's for the same seed; the semantics do not."""
+    The bits differ from JAX's for the same seed; the semantics do not.
+    shard (dim, index, n): x is the index-th of n equal slices along dim
+    of a whole tensor (a tensor-parallel rank's heads or columns); the
+    whole mask is drawn and its slice kept, so every rank's generator
+    advances alike and the masks are the unsharded run's."""
     if deterministic or rate == 0.0 or gen is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    if shard is None:
+        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    else:
+        dim, i, n = shard
+        shape = list(x.shape)
+        k = shape[dim]
+        shape[dim] = k * n
+        mask = (torch.rand(shape, generator=gen, device=x.device)
+                < keep).narrow(dim, i * k, k)
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -11,11 +11,27 @@ choice 1; pads take no slot). tell_tpu expresses the dispatch as dense
 here each expert gathers the rows routed to it, runs its SwiGLU on them
 and index_add_s the gated result back. The experts' products stay
 torch.matmul: tell_tpu has no Pallas kernel here.
+
+Across ranks the routing is the global batch's, as tell_tpu's moe_ffn
+under GSPMD sees one batch. With `group` (the data-parallel ranks, each
+holding its rows of the batch, in rank order) the capacity comes from
+the global token count, a (token, choice) pair's slot follows every
+earlier choice's pairs of all ranks and the same choice's pairs of the
+lower ranks, and the aux's f and P are the global batch's: one
+gather_counts of the per-choice, per-expert counts a call (and the
+P numerators summed over the group). Under tensor parallelism (the
+`tp` axis, where the rules shard the stacked experts) w1/w2/w3 hold
+this rank's E / n_model experts; the tokens are the same on every "model" rank, so
+each runs its experts and the outputs are summed over "model" (expert
+parallelism riding the "model" axis, as tell_tpu's rules place it).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.comm import (ONE_RANK, ModelAxis, SumOverRanks, gather_counts,
+                             rank)
 
 
 def init_moe_ffn(generator: torch.Generator, dim: int, ffn_dim: int,
@@ -39,7 +55,7 @@ def init_moe_ffn(generator: torch.Generator, dim: int, ffn_dim: int,
 def _route(params: dict, x: torch.Tensor, top_k: int
            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(probs [N, E] fp32, chosen [k, N] expert ids, gate [N, k] fp32)."""
-    E = params["w1"].shape[0]
+    E = params["router"]["w"].shape[1]
     k = min(top_k, E)
     logits = x.float() @ params["router"]["w"].float()
     probs = torch.softmax(logits, dim=-1)
@@ -63,8 +79,8 @@ def _swiglu(params: dict, e: int, x: torch.Tensor) -> torch.Tensor:
 
 def moe_ffn(params: dict, x: torch.Tensor, top_k: int = 2,
             capacity_factor: float = 1.25,
-            token_mask: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+            token_mask: torch.Tensor | None = None, group=None,
+            tp: ModelAxis = ONE_RANK) -> tuple[torch.Tensor, torch.Tensor]:
     """MoE SwiGLU. x: [N, D] -> ([N, D] in x's dtype, aux loss fp32).
 
     Each expert takes at most cap = min(N, int(ceil(N k / E) *
@@ -73,26 +89,30 @@ def moe_ffn(params: dict, x: torch.Tensor, top_k: int = 2,
     token_mask [N] (True = real token): a pad takes no slot, gets zero
     output and is left out of the aux statistics. aux is the Switch
     load-balancing term E * sum_e f_e P_e over the top-1 choices.
+    group: the data-parallel ranks whose rows, in rank order, make the
+    batch (N is then the global count, as above); every rank returns
+    the global aux. tp: the "model" axis the experts shard over.
 
-    One host synchronisation a call: the per-expert row counts."""
+    One host synchronisation a call (two with a group): the per-expert
+    row counts."""
+    routing = moe_routing(params, x, top_k, capacity_factor, token_mask,
+                          group)
     N, D = x.shape
-    E = params["w1"].shape[0]
-    k = min(top_k, E)
-    cap = min(max(1, int(-(-N * k // E) * capacity_factor)), N)
-    probs, chosen, gate = _route(params, x, top_k)
-    live = (torch.ones(N, dtype=torch.bool, device=x.device)
-            if token_mask is None else token_mask.to(torch.bool))
-    # slot of each (choice, token) pair in its expert's buffer: the count
-    # of earlier live pairs, in [k, N] priority order, routed to it
-    flat_e = chosen.reshape(k * N)
-    flat_live = live.repeat(k)
-    sel = F.one_hot(flat_e, E) * flat_live[:, None]              # [kN, E]
-    pos = (torch.cumsum(sel, dim=0) - sel).gather(1, flat_e[:, None])[:, 0]
-    keep = flat_live & (pos < cap)
-    # the kept pairs grouped by expert (a stable sort keeps priority order)
-    expert_of = torch.where(keep, flat_e, E)
+    E, k = routing["E"], routing["k"]
+    keep, flat_e, gate = routing["keep"], routing["flat_e"], routing["gate"]
+    # this rank's experts: all of them at one rank
+    sharded = tp.split("/ffn/w1", (E,) + tuple(params["w1"].shape[1:]))
+    local_e = params["w1"].shape[0]
+    first = tp.index * local_e if sharded else 0
+    if sharded:
+        x, gate = tp.enter(x), tp.enter(gate)
+    # the kept pairs of this rank's experts grouped by expert (a stable
+    # sort keeps priority order)
+    mine = keep & (flat_e >= first) & (flat_e < first + local_e)
+    expert_of = torch.where(mine, flat_e - first, local_e)
     order = torch.argsort(expert_of, stable=True)
-    counts = torch.bincount(expert_of, minlength=E + 1)[:E].tolist()
+    counts = torch.bincount(expert_of, minlength=local_e + 1)[
+        :local_e].tolist()
     tokens = order % N
     gates = gate.T.reshape(k * N)[order]
     out = torch.zeros(N, D, dtype=torch.float32, device=x.device)
@@ -103,10 +123,62 @@ def moe_ffn(params: dict, x: torch.Tensor, top_k: int = 2,
             y = _swiglu(params, e, x[rows]).float()
             out.index_add_(0, rows, gates[start:start + n, None] * y)
         start += n
-    n_live = live.float().sum().clamp_min(1.0)
-    f = sel[:N].float().sum(dim=0) / n_live
-    P = (probs * live[:, None].float()).sum(dim=0) / n_live
+    if sharded:
+        out = tp.reduce(out)
+    live, probs = routing["live"], routing["probs"]
+    psum = (probs * live[:, None].float()).sum(dim=0)
+    if group is not None:
+        psum = SumOverRanks.apply(psum, group)
+    n_live = routing["n_live"].float().clamp_min(1.0)
+    f = routing["top1"].float() / n_live
+    P = psum / n_live
     return out.to(x.dtype), E * (f * P).sum()
+
+
+def moe_routing(params: dict, x: torch.Tensor, top_k: int,
+                capacity_factor: float,
+                token_mask: torch.Tensor | None = None, group=None
+                ) -> dict:
+    """moe_ffn's routing: {"probs" [N, E], "gate" [N, k], "flat_e" and
+    "pos" [k N] (each (choice, token) pair's expert and slot, choice-major
+    as tell_tpu's priority order), "keep" [k N], "cap", "live" [N], and
+    the aux's counts over the (global) batch: "top1" [E] pairs of choice
+    0 and "n_live"}. With a group, the positions are those of the global
+    batch (the ranks' rows in rank order)."""
+    N = x.shape[0]
+    E = params["router"]["w"].shape[1]
+    k = min(top_k, E)
+    probs, chosen, gate = _route(params, x, top_k)
+    live = (torch.ones(N, dtype=torch.bool, device=x.device)
+            if token_mask is None else token_mask.to(torch.bool))
+    flat_e = chosen.reshape(k * N)
+    sel = (F.one_hot(chosen, E) * live[None, :, None]).long()  # [k, N, E]
+    within = (torch.cumsum(sel, dim=1) - sel).gather(
+        2, chosen[:, :, None])[:, :, 0]                        # [k, N]
+    per_choice = sel.sum(dim=1)                                 # [k, E]
+    n_live = live.sum()
+    if group is None:
+        n_total = N
+        earlier = torch.cumsum(per_choice, dim=0) - per_choice
+        top1 = per_choice[0]
+    else:
+        got = gather_counts(torch.cat([per_choice.reshape(-1),
+                                       n_live.reshape(1),
+                                       torch.tensor([N], device=x.device)]),
+                            group)                              # [P, kE+2]
+        counts = got[:, :k * E].reshape(-1, k, E)
+        n_total = int(got[:, -1].sum())
+        n_live = got[:, -2].sum()
+        every = counts.sum(dim=0)                               # [k, E]
+        earlier = (torch.cumsum(every, dim=0) - every
+                   + counts[:rank(group)].sum(dim=0))
+        top1 = every[0]
+    cap = min(max(1, int(-(-n_total * k // E) * capacity_factor)), n_total)
+    pos = (earlier.gather(1, chosen) + within).reshape(k * N)
+    flat_live = live.repeat(k)
+    return {"probs": probs, "gate": gate, "flat_e": flat_e, "pos": pos,
+            "keep": flat_live & (pos < cap), "cap": cap, "live": live,
+            "top1": top1, "n_live": n_live, "E": E, "k": k}
 
 
 def moe_ffn_dense_reference(params: dict, x: torch.Tensor, top_k: int = 2

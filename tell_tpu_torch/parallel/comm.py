@@ -12,6 +12,16 @@ exchange runs on a host copy and the result is copied back onto the
 card. What decides it is the backend the caller initialised the group
 with, never a failure: a failed collective raises.
 
+Tensor parallelism (the rank grid's "model" axis, ModelAxis below, which
+a tensor-parallel forward takes as its `tp` argument) uses three hops,
+each a torch.autograd.Function:
+Replicated (identity forward, all_reduce backward: a replicated tensor
+entering rank-local work), SumOverRanks (all_reduce forward, identity
+backward: the partial sums of a row-parallel product) and AllGather (the
+shards concatenated along a dim, the backward taking this rank's slice:
+a sharded table read whole by work every rank repeats). gather_counts is
+the MoE's exchange of its small per-expert counts.
+
 Autograd. torch's point-to-point calls are not differentiable, so each
 hop of the ring and of the pipeline is a torch.autograd.Function whose
 backward sends the gradient the other way, as lax.ppermute's transpose
@@ -24,6 +34,8 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from .rules import leaf_spec
 
 
 def grouped() -> bool:
@@ -95,6 +107,12 @@ def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     out = [torch.empty_like(buf) for _ in range(n)]
     dist.all_gather(out, buf, group=group)
     return _back(torch.stack(out), t)
+
+
+def gather_counts(t: torch.Tensor, group=None) -> torch.Tensor:
+    """[P, n] int64: every rank's small integer vector `t` [n], in group
+    rank order (one all_gather; the MoE's per-expert counts)."""
+    return all_gather(t.reshape(-1).long(), group)
 
 
 def all_to_all(t: torch.Tensor, group=None) -> torch.Tensor:
@@ -256,3 +274,72 @@ class FromRank(torch.autograd.Function):
             torch.zeros(ctx.x_shape, dtype=g.dtype, device=g.device)
         dtype, device = ctx.token
         return gx, torch.zeros((), dtype=dtype, device=device), None, None
+
+
+class AllGather(torch.autograd.Function):
+    """The group's shards of x concatenated along `dim` in group rank
+    order; the backward keeps this rank's slice of the gradient, which is
+    right where every rank of the group repeats the work that reads the
+    whole (each holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.n = x.shape[dim]
+        parts = all_gather(x, group)
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+class ModelAxis:
+    """The "model" axis of the rank grid as a forward sees it (its `tp`
+    argument, passed down as the "data" group is): its group, size and
+    this rank's index, the hops between replicated and rank-local work,
+    and which leaves tell_tpu's rules make shards. The axis of one rank
+    (ONE_RANK, every forward's default) shards no leaf and its hops are
+    identities, so a forward's one-rank run is its tensor-parallel code
+    at size 1. Mesh.model_axis gives a grid's."""
+
+    def __init__(self, group=None, size: int = 1, index: int = 0):
+        self.group, self.size, self.index = group, size, index
+
+    def split(self, path: str, shape: tuple[int, ...]) -> bool:
+        """Whether the rules (parallel/rules.py) shard the leaf at `path`,
+        whole shape `shape`, over this axis: never at size 1."""
+        return self.size > 1 and "model" in leaf_spec(
+            path, tuple(shape), {"model": self.size})
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated tensor entering rank-local work (a column-parallel
+        product, a head's slice): the backward sums the ranks' parts."""
+        return x if self.size == 1 else Replicated.apply(x, self.group)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the ranks' partial results, which every rank then
+        uses alike (a row-parallel product's output)."""
+        return x if self.size == 1 else SumOverRanks.apply(x, self.group)
+
+    def whole(self, t: torch.Tensor, dim: int, sharded: bool
+              ) -> torch.Tensor:
+        """t whole along dim: gathered where it is a shard, else t."""
+        return AllGather.apply(t, dim, self.group) if sharded else t
+
+    def part(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice along dim of a replicated tensor that
+        rank-local work reads (its gradient summed over the ranks)."""
+        k = t.shape[dim] // self.size
+        return self.enter(t).narrow(dim, self.index * k, k)
+
+    def shard(self, dim: int) -> tuple[int, int, int] | None:
+        """(dim, index, size): the dropout of a tensor whose dim is this
+        rank's slice draws the whole mask and keeps its slice
+        (ops/common.dropout), so the ranks' generators stay in step; None
+        (the whole mask) at size 1."""
+        return None if self.size == 1 else (dim, self.index, self.size)
+
+
+ONE_RANK = ModelAxis()

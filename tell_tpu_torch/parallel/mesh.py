@@ -10,21 +10,30 @@ over "data": each rank holds its rows, and gradients are summed over the
 
 param_sharding_rules is tell_tpu's rule table carried as data: per leaf,
 the dim and the axis that tell_tpu shards it over, with the same
-divisibility and short-leaf fallbacks. Tensor parallelism, the rules'
-"model" axis, is not ported (ROADMAP queue 1 item 10's rest): the trainer
-refuses n_model > 1, and shard_params on a mesh of model size 1
-replicates, which is what the rules give there.
+divisibility and short-leaf fallbacks. shard_params keeps, on each rank,
+the slice of every leaf that its spec names: the index("model")-th of
+mesh.shape["model"] equal slices along the rule's dim; gather_params is
+its inverse (one all_gather a sharded leaf over "model").
+
+Tensor parallelism. Mesh.model_axis() is the grid's "model" axis as a
+comm.ModelAxis, which the losses take as `tp` and pass down to the
+forwards (models/decoder.py, models/llm_decoder.py, ops/adaptive.py,
+ops/moe.py), as they take the "data" group. Attention heads, FFN
+columns and rows, the experts and the vocabulary rows then split over
+"model" as tell_tpu's rules (rules.py) split them, and every rank of a
+"model" group computes the same loss. A leaf whose spec is replicated (a
+dim that does not divide) is read whole, as the rules leave it.
 """
 from __future__ import annotations
-
-import re
 
 import torch
 import torch.distributed as dist
 
-from ..bridge import tree_leaves_with_path
+from ..bridge import _rebuild, tree_leaves_with_path
+from .comm import ONE_RANK, ModelAxis, all_gather
 from .comm import rank as _rank
 from .comm import world_size
+from .rules import leaf_spec
 
 
 class Mesh:
@@ -84,6 +93,14 @@ class Mesh:
         """This rank's coordinate along axis `name`."""
         return self._coords[self.names.index(name)]
 
+    def model_axis(self) -> ModelAxis:
+        """The "model" axis as the tensor-parallel forwards take it (their
+        `tp`): ONE_RANK where it has one rank."""
+        n = self.shape.get("model", 1)
+        if n == 1:
+            return ONE_RANK
+        return ModelAxis(self.group("model"), n, self.index("model"))
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
 
@@ -110,45 +127,6 @@ def make_mesh(n_data: int | None = None, n_model: int = 1) -> Mesh:
     return Mesh((n_data, n_model), ("data", "model"))
 
 
-# (path regex, spec) — first match wins; a spec names each dim's axis or
-# None. Paths look like "decoder/layers/0/attn/image/q_proj/w".
-# tell_tpu/parallel/mesh.py:35-62, rule for rule.
-_RULES: list[tuple[str, tuple]] = [
-    (r".*/attn/[^/]+/(q_proj|k_proj|v_proj)/w$", (None, "model")),
-    (r".*/attn/[^/]+/(q_proj|k_proj|v_proj)/b$", ("model",)),
-    (r".*/attn/[^/]+/out_proj/w$", ("model", None)),
-    (r".*/fc1/(v|w)$", (None, "model")),
-    (r".*/fc1/(g|b)$", ("model",)),
-    (r".*/fc2/(v|w)$", ("model", None)),
-    (r".*/embed/bands/\d+/embed$", ("model", None)),
-    (r".*/embed/bands/\d+/proj$", (None, None)),
-    (r".*/self_attn/(q|k|v)/w$", (None, "model")),
-    (r".*/self_attn/o/w$", ("model", None)),
-    (r".*/ffn/(w1|w3)/w$", (None, "model")),
-    (r".*/ffn/w2/w$", ("model", None)),
-    (r".*/ffn/(w1|w2|w3)$", ("model", None, None)),
-    (r".*/ffn/router/w$", ()),
-    (r".*tok_embed$", ("model", None)),
-    (r".*", ()),
-]
-
-
-def leaf_spec(path: str, shape: tuple[int, ...], mesh_shape: dict
-              ) -> tuple:
-    """The spec tell_tpu gives the leaf at `path`: the first matching
-    rule's, or () (replicated) where the rule names more dims than the
-    leaf has or a sharded dim does not divide by its axis."""
-    for pattern, spec in _RULES:
-        if re.fullmatch(pattern, path):
-            if len(spec) > len(shape):
-                return ()
-            for dim, axis in enumerate(spec):
-                if axis is not None and shape[dim] % mesh_shape[axis]:
-                    return ()
-            return spec
-    return ()
-
-
 def param_sharding_rules(params, mesh: Mesh) -> dict:
     """{path: spec} for every leaf of `params` by the rule table."""
     return {path: leaf_spec(path, tuple(leaf.shape), mesh.shape)
@@ -156,18 +134,68 @@ def param_sharding_rules(params, mesh: Mesh) -> dict:
             if isinstance(leaf, torch.Tensor)}
 
 
-def shard_params(params, mesh: Mesh):
-    """The params as this rank holds them. Every rank holds every leaf
-    whole: a mesh of model size 1 shards nothing (the rules give every
-    leaf the replicated spec or a "model" axis of size 1); a larger model
-    axis is refused, as tensor parallelism is not ported."""
-    if mesh.shape.get("model", 1) != 1:
-        from ..config import NotPortedError
-        raise NotPortedError(
-            f"tensor parallelism (a mesh with model size "
-            f"{mesh.shape['model']}) is not ported yet (ROADMAP queue 1 "
-            "item 10's rest)")
-    return params
+def _model_dim(spec: tuple) -> int | None:
+    """The dim a spec shards over "model", or None."""
+    return spec.index("model") if "model" in spec else None
+
+
+def shard_params(params, mesh: Mesh, specs: dict | None = None):
+    """The params as this rank holds them: each leaf whose spec names
+    "model" cut to this rank's slice along that dim (a copy), every other
+    leaf whole. specs: param_sharding_rules of the whole tree (default:
+    computed from `params`, which must then be whole)."""
+    n = mesh.shape.get("model", 1)
+    if n == 1:
+        return params
+    if specs is None:
+        specs = param_sharding_rules(params, mesh)
+    i = mesh.index("model")
+
+    def cut(path, leaf):
+        dim = _model_dim(specs.get(path, ()))
+        if dim is None:
+            return leaf
+        k = leaf.shape[dim] // n
+        return leaf.narrow(dim, i * k, k).clone()
+    return _map_with_path(cut, params)
+
+
+def gather_params(params, mesh: Mesh, specs: dict):
+    """The whole tree from every rank's shards (shard_params' inverse):
+    one all_gather over "model" for each sharded leaf, on every rank."""
+    if mesh.shape.get("model", 1) == 1:
+        return params
+    group = mesh.group("model")
+
+    def whole(path, leaf):
+        dim = _model_dim(specs.get(path, ()))
+        if dim is None:
+            return leaf
+        parts = all_gather(leaf, group)
+        return torch.cat(list(parts.unbind(0)), dim=dim)
+    return _map_with_path(whole, params)
+
+
+def _map_with_path(fn, tree, prefix: str = ""):
+    """fn(path, leaf) over the tensor leaves of a tree of dicts and lists,
+    paths as tree_leaves_with_path spells them; other leaves pass."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return _rebuild(tree, (_map_with_path(fn, v, f"{prefix}{i}/")
+                               for i, v in enumerate(tree)))
+    if isinstance(tree, torch.Tensor):
+        return fn(prefix[:-1], tree)
+    return tree
+
+
+def sharded_mask(params, specs: dict) -> list[bool]:
+    """Whether each tensor leaf of `params` (tree_leaves order) is a
+    "model" shard."""
+    return [_model_dim(specs.get(path, ())) is not None
+            for path, leaf in tree_leaves_with_path(params)
+            if isinstance(leaf, torch.Tensor)]
 
 
 def check_rows_divisible(name: str, rows: int, n_data: int) -> None:

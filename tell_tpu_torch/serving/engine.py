@@ -31,15 +31,30 @@ LLMDecodeEngine for the modern family (the per-row state is the
 self-attention K/V caches, and the per-slot step counters are the RoPE
 positions and the rows' cache write positions).
 
+Over a list of N devices (tell_tpu's slot-sharded mesh) the S slots lie
+in N contiguous shards of S/N: slot i on device i // (S/N). Each shard is
+an engine of S/N slots on its device, with the params copied there; the
+host loop (one queue, one free list, the admission generations, the
+reports) is this engine's and speaks of global slots. An admission
+writes each request into its slot's shard, a chunk runs on every shard
+that holds a live slot, and the report concatenates the shards' in slot
+order. Each shard's work runs with its device current (its launches,
+report copy and event on that device's stream). A shard's rows never
+meet another's, as in tell_tpu, whose chunk's only cross-device traffic
+is the all-done reduction. One host thread drives the shards in turn:
+their launches queue without waiting, so the cards run side by side,
+but the host's launch time adds up over the shards (PERF.md).
+
 A slot's caption never depends on which other requests share the engine:
 tests/test_torch_engine.py and tests/test_torch_modern_serving.py hold
 every schedule to the port's one-shot beam searches. Not ported here (see
-ROADMAP.md): the mesh path (slots sharded over devices, item 10's rest),
-and the DEC8 / merged-vocab levers (None, as in JAX by default).
+ROADMAP.md): the DEC8 / merged-vocab levers (None, as in JAX by
+default).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import queue as _queue
 import threading
 from concurrent.futures import Future
@@ -47,6 +62,7 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from ..bridge import to_torch
 from ..models.beam import beam_select, length_normalised
 from ..models.captioner import build_contexts
 from ..models.decoder import (decoder_step, decoder_top_k,
@@ -59,21 +75,49 @@ from ..models.llm_decoder import (_build_contexts, init_llm_decode_state,
 _SHARED_KV = frozenset(("seg", "wq", "bq", "wo", "bo", "ln_s", "ln_b"))
 
 
+def _on(device: torch.device):
+    """The context that makes `device` the current CUDA device, so that
+    the work launched inside, and the streams and events it names, are
+    that device's (nothing for the CPU)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def _to_host(t: torch.Tensor) -> tuple[torch.Tensor, object]:
     """Start t's copy to the host: (host tensor, CUDA event or None). On
-    CUDA the copy goes to pinned memory without blocking; it is ordered on
-    the stream before any later in-place write to t."""
+    CUDA the copy goes to pinned memory without blocking, on t's device's
+    current stream, and the event is recorded on that stream after it; the
+    copy is ordered before any later in-place write to t."""
     if t.device.type != "cuda":
         return t.clone(), None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
+    stream = torch.cuda.current_stream(t.device)
+    with torch.cuda.stream(stream):
+        host.copy_(t, non_blocking=True)
     event = torch.cuda.Event()
-    event.record()
+    event.record(stream)
     return host, event
 
 
 def _ready(event) -> bool:
+    if isinstance(event, list):
+        return all(_ready(e) for e in event)
     return event is None or event.query()
+
+
+def _wait(event) -> None:
+    for e in event if isinstance(event, list) else [event]:
+        if e is not None:
+            e.synchronize()
+
+
+def _host_array(report) -> np.ndarray:
+    """A report's host tensor, or a sharded engine's list of them in
+    slot order, as one array."""
+    if isinstance(report, list):
+        return np.concatenate([r.numpy() for r in report])
+    return report.numpy()
 
 
 class DecodeEngine:
@@ -87,15 +131,34 @@ class DecodeEngine:
     (numpy, best first) comes back: beam_search's result minus the batch
     dim. kv_cache ("fp", "int8", "int4") and fused_topk are the decode
     numerics levers of models/decoder.py. The state is fp32, as the
-    flagship serves."""
+    flagship serves. device: one device, or a list of N over which the
+    slots shard (S/N a device; the params are copied to each)."""
 
     def __init__(self, params: dict, cfg, device, *, slots: int = 8,
                  beam: int = 5, chunk_steps: int = 8,
                  length_penalty: float = 0.0, max_lag: int = 8,
                  admit_batch: int = 16, kv_cache: str = "fp",
-                 fused_topk: bool = False):
-        if slots < 2:
+                 fused_topk: bool = False, _shard: bool = False):
+        if slots < 2 and not _shard:
             raise ValueError("a 1-slot engine is just beam_search")
+        devices = (list(device) if isinstance(device, (list, tuple))
+                   else [device])
+        if slots % len(devices):
+            raise ValueError(f"engine slots {slots} must divide over the "
+                             f"mesh data axis {len(devices)}")
+        self._shards, self._last = None, None
+        if len(devices) > 1:
+            per = slots // len(devices)
+            self._shards = []
+            for d in map(torch.device, devices):
+                with _on(d):
+                    self._shards.append(type(self)(
+                        to_torch(params, d), cfg, d, slots=per, beam=beam,
+                        chunk_steps=chunk_steps,
+                        length_penalty=length_penalty, max_lag=max_lag,
+                        admit_batch=admit_batch, kv_cache=kv_cache,
+                        fused_topk=fused_topk, _shard=True))
+        device = devices[0]
         dcfg = self._decode_cfg(cfg)
         if cfg.gen_len > dcfg.max_target_positions:
             raise ValueError(f"gen_len {cfg.gen_len} exceeds "
@@ -108,7 +171,32 @@ class DecodeEngine:
         self.chunk_steps = chunk_steps
         self.length_penalty = length_penalty
         self.kv_cache, self.fused_topk = kv_cache, fused_topk
-        B, K, L = slots, beam, cfg.gen_len
+        if self._shards is None:
+            self._init_state()
+        # admission bursts coalesce up to this many requests (floored to a
+        # power of two, so burst padding and warm() meet the same sizes)
+        cap = max(1, min(slots, admit_batch))
+        self._admit_cap = 1 << (cap.bit_length() - 1)
+
+        self.max_lag = max_lag
+        self.free: list[int] = list(range(slots))
+        self.pending: dict[int, Future] = {}
+        self.queue: "_queue.Queue[tuple[dict, Future]]" = _queue.Queue()
+        self.stats = {"requests": 0, "chunks": 0}
+        self._poisoned: BaseException | None = None
+        self._lock = threading.Lock()
+        # submit() must not wait behind tick(); poison() takes both locks
+        # (_lock first), so a put can never land after poison() drained
+        self._submit_lock = threading.Lock()
+        # per-slot admission generation + in-flight reports, oldest first:
+        # (report_i, report_f, event, gen-at-chunk-time)
+        self._gen = np.zeros(slots, np.int64)
+        self._reports: collections.deque = collections.deque()
+
+    def _init_state(self) -> None:
+        """The resident state of every slot, on the device."""
+        dcfg = self.dcfg
+        B, K, L = self.slots, self.beam, self.cfg.gen_len
         with torch.inference_mode():
             # slots start empty: zero contexts, every slot finished
             self._aux, kv, dyn = self._model_init()
@@ -133,25 +221,6 @@ class DecodeEngine:
             self._fin_lp[0] = 0.0
             self._row_base = torch.arange(B, device=dev)[:, None] * K
             self._positions = torch.arange(L + 1, device=dev)
-        # admission bursts coalesce up to this many requests (floored to a
-        # power of two, so burst padding and warm() meet the same sizes)
-        cap = max(1, min(slots, admit_batch))
-        self._admit_cap = 1 << (cap.bit_length() - 1)
-
-        self.max_lag = max_lag
-        self.free: list[int] = list(range(slots))
-        self.pending: dict[int, Future] = {}
-        self.queue: "_queue.Queue[tuple[dict, Future]]" = _queue.Queue()
-        self.stats = {"requests": 0, "chunks": 0}
-        self._poisoned: BaseException | None = None
-        self._lock = threading.Lock()
-        # submit() must not wait behind tick(); poison() takes both locks
-        # (_lock first), so a put can never land after poison() drained
-        self._submit_lock = threading.Lock()
-        # per-slot admission generation + in-flight reports, oldest first:
-        # (report_i, report_f, event, gen-at-chunk-time)
-        self._gen = np.zeros(slots, np.int64)
-        self._reports: collections.deque = collections.deque()
 
     # ------------------------------------------------------------------
     # model hooks (the flagship captioner; LLMDecodeEngine overrides)
@@ -227,7 +296,19 @@ class DecodeEngine:
 
     def _admit(self, batchN: dict, bs: torch.Tensor) -> None:
         """Encode N requests' features into context K/V and write them,
-        with fresh beam bookkeeping, into slots `bs` [N], in place."""
+        with fresh beam bookkeeping, into slots `bs` [N], in place (over
+        shards: each request into its slot's shard)."""
+        if self._shards is not None:
+            per = self.slots // len(self._shards)
+            for j, shard in enumerate(self._shards):
+                rows = (bs // per == j).nonzero()[:, 0]
+                if len(rows):
+                    with _on(shard.device):
+                        shard._admit(
+                            {k: v[rows].to(shard.device)
+                             for k, v in batchN.items()},
+                            (bs[rows] % per).to(shard.device))
+            return
         st = self.state
         for full, new in zip(st["kv"], self._encode_kv(batchN)):
             for name, leaf in full.items():
@@ -270,7 +351,20 @@ class DecodeEngine:
 
     def _chunk(self) -> tuple:
         """chunk_steps steps, then the packed report, copied to the host
-        asynchronously: (report_i, report_f, event)."""
+        asynchronously: (report_i, report_f, event). Over shards, each
+        shard that holds a live slot runs its chunk; the others' rows of
+        the report (no pending slot reads them) are their last ones, and
+        the three are lists in shard order."""
+        if self._shards is not None:
+            per = self.slots // len(self._shards)
+            live = {b // per for b in self.pending}
+            parts = []
+            for j, shard in enumerate(self._shards):
+                if j in live or shard._last is None:
+                    with _on(shard.device):
+                        shard._last = shard._chunk()
+                parts.append(shard._last)
+            return tuple(list(x) for x in zip(*parts))
         for _ in range(self.chunk_steps):
             self._step()
         st, B = self.state, self.slots
@@ -364,8 +458,8 @@ class DecodeEngine:
         the slots' admission generations at the report's chunk; a slot
         re-admitted since is skipped."""
         K, L = self.beam, self.cfg.gen_len
-        ri = report_i.numpy()
-        scores_all = report_f.numpy().astype(np.float32)
+        ri = _host_array(report_i)
+        scores_all = _host_array(report_f).astype(np.float32)
         t = ri[:, 0]
         fin = ri[:, 1:1 + K].astype(bool)
         lengths_all = ri[:, 1 + K:1 + 2 * K]
@@ -390,8 +484,7 @@ class DecodeEngine:
             report_i, report_f, event, gen = self._reports[0]
             if not block_first and not _ready(event):
                 return
-            if event is not None:
-                event.synchronize()
+            _wait(event)
             self._reports.popleft()
             self._harvest_report(report_i, report_f, gen)
             block_first = False

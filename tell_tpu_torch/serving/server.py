@@ -30,9 +30,10 @@ devices, each of which holds a replica of the params and the RoBERTa
 max_batch rows split evenly over the replicas (max_batch % N == 0, as
 tell_tpu checks), each shard encoded and decoded on its device in a
 thread of its own, and the answers go out in row order. The vision
-towers run in the pack, on the first device. Engine mode on several
-devices (tell_tpu shards the engine's slots over "data") is not ported
-(ROADMAP queue 1 item 10's rest).
+towers run in the pack, on the first device. In engine mode the
+engine's slots shard over the devices instead (serving/engine.py: S/N
+slots a device, as tell_tpu shards them over "data"); the encode runs on
+the first device.
 
 kv_cache ("fp", "int8", "int4") and fused_topk are the decode numerics
 levers (tell_tpu's TELL_TPU_KV8 / TELL_TPU_KV4 / TELL_TPU_TOPK, off by
@@ -95,7 +96,7 @@ import numpy as np
 import torch
 
 from ..bridge import to_torch
-from ..config import CaptionerConfig, NotPortedError, with_article_len
+from ..config import CaptionerConfig, with_article_len
 from ..data.pipeline import entity_occurrences
 from ..data.readers import assemble_location_aware
 from ..models.backbones.roberta import RobertaEncoder
@@ -167,11 +168,6 @@ class CaptionService:
             raise ValueError("attention replay is captioner-only; drop "
                              "--attention for the modern engine")
         devices = [torch.device(d) for d in devices or [device]]
-        if len(devices) > 1 and engine_slots:
-            raise NotPortedError(
-                "data-parallel serving with the engine (its slots sharded "
-                "over devices) is not ported yet (ROADMAP queue 1 item "
-                "10's rest)")
         if max_batch % len(devices):
             raise ValueError(
                 f"max_batch {max_batch} must be divisible by the mesh "
@@ -218,9 +214,11 @@ class CaptionService:
             to_torch(towers or {}, self.device),
             wanted={k: n for k, (n, _) in self._spec.items()})
         self.devices = devices
-        self._replicas = self._make_replicas()
-        self._pool = (ThreadPoolExecutor(len(devices), "replica")
-                      if len(devices) > 1 else None)
+        # in engine mode the engine's shards hold the other devices' copy
+        self._replicas = self._make_replicas(
+            devices[:1] if engine_slots else devices)
+        self._pool = (ThreadPoolExecutor(len(self._replicas), "replica")
+                      if len(self._replicas) > 1 else None)
         self.batcher = MicroBatcher(self._run, max_batch=max_batch)
         self._close_lock = threading.Lock()
         self._closed = False
@@ -230,12 +228,12 @@ class CaptionService:
                                 engine_length_penalty, engine_buckets,
                                 encode_batch)
 
-    def _make_replicas(self) -> list[tuple]:
-        """(device, params, frozen RoBERTa) of each of self.devices; a
+    def _make_replicas(self, devices: list) -> list[tuple]:
+        """(device, params, frozen RoBERTa) of each of `devices`; a
         device that repeats shares its first replica's tensors."""
         made = {}
         out = []
-        for d in self.devices:
+        for d in devices:
             if d not in made:
                 if d == self.device:
                     made[d] = (d, self.params, self.roberta.frozen())
@@ -252,9 +250,10 @@ class CaptionService:
         widths = self._article_buckets if buckets else (self.article_len,)
         params = self.params
         engine = LLMDecodeEngine if self.modern else DecodeEngine
+        where = self.devices if len(self.devices) > 1 else self.device
         self.engines = {
             w: engine(params, with_article_len(self.cfg, w),
-                            self.device, slots=slots, beam=beam,
+                            where, slots=slots, beam=beam,
                             length_penalty=length_penalty,
                             kv_cache=self.kv_cache,
                             fused_topk=self.fused_topk)

@@ -24,7 +24,9 @@ Under data parallelism every rank holds the same state, and rank 0
 alone (primary=True) writes, renames and collects old checkpoints; every
 rank meets the others at a barrier before a save, as tell_tpu's ranks do
 before theirs (checkpoint.py:60-80), and every rank restores the same
-files.
+files. Under tensor parallelism the Trainer hands save() the whole tree
+(parallel/mesh.py's gather_params on every rank) and cuts what restore()
+returns to its shards, so a checkpoint is the same file at any n_model.
 """
 from __future__ import annotations
 

@@ -26,6 +26,23 @@ rank, each draws its dropout masks from fold_in(gen, rank): its own
 masks, not its rows of the masks one rank would draw for the whole
 batch (tell_tpu's sharded key draws those; the bits differ from JAX's
 anyway).
+
+An objective that is the global batch's on every rank (the MoE's routed
+loss, the pointer's per-entity means: aux["global_loss"]) builds its
+cross-rank sums from SumOverRanks, so each rank's gradient is its share
+of the global one: the step adds the ranks' gradients unweighted and
+keeps the loss and its counts as they are.
+
+Tensor parallelism (mesh with a "model" axis of more than one rank): the
+loss takes the grid's "model" axis as tp (Mesh.model_axis), on params of
+which the rules' leaves are this rank's shards. Every rank of a "model" group
+computes the same loss, and each holds the whole gradient of its shards
+and of the replicated leaves. The shards' gradients are summed over
+"data"; the replicated leaves' over every rank, divided by the model
+size, so they stay bit-equal across "model" whatever order the card
+summed them in. The dropout generator is folded by the "data" index, so
+the ranks of a "model" group draw alike. BertAdam's moments are shards
+where the leaf is, and its clip takes the whole leaf's norm.
 """
 from __future__ import annotations
 
@@ -36,6 +53,7 @@ from ..bridge import tree_leaves, tree_map
 from ..models.captioner import captioner_loss, captioner_loss_e2e
 from ..ops.common import fold_in
 from ..parallel.comm import all_reduce, grouped, rank, world_size
+from ..parallel.mesh import sharded_mask
 from .optimizer import BertAdam, apply_updates
 
 
@@ -68,10 +86,10 @@ def loss_weight(aux: dict) -> torch.Tensor:
 
 
 def make_train_step(cfg, optimizer: BertAdam, loss=None, loss_e2e=None,
-                    group=None):
-    """loss(params, cfg, batch, gen, deterministic[, group]) and
-    loss_e2e(params, frozen, cfg, batch, gen, deterministic[, group]) are
-    the model's objective
+                    group=None, mesh=None, specs: dict | None = None):
+    """loss(params, cfg, batch, gen, deterministic[, group][, tp]) and
+    loss_e2e(params, frozen, cfg, batch, gen, deterministic[, group][, tp])
+    are the model's objective
     (default: the captioner's), each returning (loss, aux) with aux
     holding sample_size and tail_dropped (each 0 where absent: the
     pointer's aux holds its gen, entity and copy losses instead).
@@ -83,22 +101,31 @@ def make_train_step(cfg, optimizer: BertAdam, loss=None, loss_e2e=None,
     encode context_ids itself (the Trainer casts them to the compute dtype
     once, so the cast here finds nothing to do). metrics are device
     tensors (no host sync). group: the data-parallel ranks (None: the
-    default group where one is initialised); batch then is this rank's
-    rows, and with more than one rank the losses get group= and the
-    objective must return its sample_size."""
+    default group where one is initialised and mesh is None); batch then
+    is this rank's rows, and with more than one rank the losses get
+    group= and the objective must return its sample_size or be global.
+    mesh, specs: the rank grid when its "model" axis has more than one
+    rank (the losses then get tp=, its "model" axis), and the rules' specs
+    of the whole tree (param_sharding_rules), which say which of the
+    params are "model" shards."""
     loss_f = loss or captioner_loss
     loss_e2e_f = loss_e2e or captioner_loss_e2e
     compute_dtype = compute_dtype_of(cfg)
     reduce = grouped()
-    if reduce and group is None:
+    n_model = 1 if mesh is None else mesh.shape["model"]
+    if reduce and group is None and n_model == 1:
         group = dist.group.WORLD
-    world = world_size(group)
+    world = world_size(group) if group is not None else 1
+    model_group = mesh.group("model") if n_model > 1 else None
     kw = {"group": group} if world > 1 else {}
+    if n_model > 1:
+        kw["tp"] = mesh.model_axis()
 
     def step(params, opt_state, batch, gen, frozen=None):
         batch_c = cast_tree(batch, compute_dtype)
         frozen_c = cast_tree(frozen, compute_dtype)
         leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+        sharded = sharded_mask(params, specs) if n_model > 1 else None
         if world > 1:
             gen = fold_in(gen, rank(group))
         with torch.enable_grad():
@@ -117,12 +144,17 @@ def make_train_step(cfg, optimizer: BertAdam, loss=None, loss_e2e=None,
         value = value.detach()
         counts = {k: aux.get(k, 0) for k in ("sample_size", "tail_dropped")}
         if reduce:
-            w = loss_weight(aux) if world > 1 else value.new_ones(())
-            grads, value, counts = _reduce(grads, value, w, counts, group)
+            glob = bool(aux.get("global_loss"))
+            w = (loss_weight(aux) if world > 1 and not glob
+                 else value.new_ones(()))
+            grads, value, counts = _reduce(
+                grads, value, w, counts, group if world > 1 else None,
+                n_model, sharded, glob)
         it = iter(grads)
         grads = tree_map(lambda _: next(it), params)
         with torch.no_grad():
-            updates, new_opt = optimizer.update(grads, opt_state, params)
+            updates, new_opt = optimizer.update(grads, opt_state, params,
+                                                sharded, model_group)
             new_params = apply_updates(params, updates)
             # NaN-loss batches are skipped (reference :225-227): old state
             ok = torch.isfinite(value)
@@ -137,23 +169,53 @@ def make_train_step(cfg, optimizer: BertAdam, loss=None, loss_e2e=None,
 
 
 def _reduce(grads: list, value: torch.Tensor, w: torch.Tensor,
-            counts: dict, group) -> tuple[list, torch.Tensor, dict]:
-    """One all_reduce of [the gradients weighted by w, w * loss, w, the
-    counts] -> the global gradients and loss (sums over the summed w) and
-    the summed counts. The weighing is in fp32, after the backward, so a
-    group of one rank gives the gradients of no group to rounding."""
+            counts: dict, data_group, n_model: int = 1,
+            sharded: list[bool] | None = None, global_loss: bool = False
+            ) -> tuple[list, torch.Tensor, dict]:
+    """The global gradients, loss and counts from every rank's.
+
+    One all_reduce of [the gradients weighted by w, w * loss, w, the
+    counts] over the ranks; the sums over the summed w are the global
+    gradients and loss, and the counts are summed. The weighing is in
+    fp32, after the backward, so a group of one rank gives the gradients
+    of no group to rounding. With global_loss (w is 1) the gradients are
+    summed unweighted, and the loss and counts are each rank's already.
+
+    With a "model" axis of n_model > 1 ranks, the replicated leaves and
+    the scalars take that all_reduce over every rank (each "model" rank
+    adds the same terms: the sums are divided by n_model), and the
+    sharded leaves a second one over data_group alone (none without
+    one)."""
+    sharded = sharded if n_model > 1 else None
+    rep = [i for i in range(len(grads)) if not (sharded and sharded[i])]
+    shd = [i for i in range(len(grads)) if sharded and sharded[i]]
     extra = torch.stack([value * w, w] + [
         torch.as_tensor(c, dtype=torch.float32, device=value.device)
         .reshape(()) for c in counts.values()])
-    buf = torch.cat([g.reshape(-1).float() * w for g in grads] + [extra])
-    buf = all_reduce(buf, group)
-    tail = buf[-len(extra):]
-    total = tail[1]
-    out, at = [], 0
-    for g in grads:
-        out.append((buf[at:at + g.numel()] / total).reshape(g.shape)
-                   .to(g.dtype))
+    buf = torch.cat([grads[i].reshape(-1).float() * w for i in rep]
+                    + [extra])
+    buf = all_reduce(buf, data_group if n_model == 1 else None)
+    tail = buf[-len(extra):] / n_model
+    total = torch.ones((), device=value.device) if global_loss else tail[1]
+    out = list(grads)
+    at = 0
+    for i in rep:
+        g = grads[i]
+        out[i] = (buf[at:at + g.numel()] / n_model / total).reshape(
+            g.shape).to(g.dtype)
         at += g.numel()
+    if shd:
+        sbuf = torch.cat([grads[i].reshape(-1).float() * w for i in shd])
+        if data_group is not None:
+            sbuf = all_reduce(sbuf, data_group)
+        at = 0
+        for i in shd:
+            g = grads[i]
+            out[i] = (sbuf[at:at + g.numel()] / total).reshape(
+                g.shape).to(g.dtype)
+            at += g.numel()
+    if global_loss:
+        return out, value, counts
     counts = {k: tail[2 + i].round().long()
               for i, k in enumerate(counts)}
     return out, tail[0] / total, counts

@@ -15,16 +15,22 @@ window. Dropout draws from a generator seeded from (seed, step), as
 tell_tpu folds the step into its key, so a resumed step draws the same
 masks.
 
-Data parallelism: the Trainer runs in every rank of a process group
+Parallelism: the Trainer runs in every rank of a process group
 (parallel/multihost.py), on the rank's own device, with a ("data",
-"model") mesh from tcfg.n_data (None: every rank); tensor parallelism
-(n_model > 1) is refused, and so is a family whose objective is not a
-mean over tokens (the adapter's data_parallel: the pointer models, the
-MoE). Each rank's train_batches / val_batches yield
-its rows of each global batch (its stride of the epoch order: make_trainer
-and the CLI's build_trainer), and the train step reduces the loss and
-gradients over the ranks (train_step.py), so every rank holds the same
-params; they start from rank 0's. A stop is agreed through global_any at
+"model") mesh from tcfg.n_data (None: every rank over n_model) and
+tcfg.n_model. Each rank's train_batches / val_batches yield the rows of
+each global batch that its "data" index holds (its stride of the epoch
+order: make_trainer and the CLI's build_trainer; the ranks of a "model"
+group read the same rows), and the train step reduces the loss and
+gradients over the ranks (train_step.py), so the ranks of a "model"
+index hold the same params; they start from rank 0's. With n_model > 1
+the params and BertAdam's moments are each rank's shards by tell_tpu's
+rules (parallel/mesh.py), the loss runs tensor-parallel, and a
+checkpoint holds the whole tree (gather_params before rank 0 writes it;
+shard_params after a restore), so a run saved at one n_model resumes at
+another. Every family trains on any grid: the pointer's per-entity means
+and the MoE's routing are the global batch's (models/pointer.py,
+ops/moe.py). A stop is agreed through global_any at
 every batch boundary, so a SIGTERM on one rank stops every rank at the
 same batch, as tell_tpu's _check_stop does. Validation losses are summed
 over the ranks, as the step's are. Rank 0 alone writes metrics.jsonl, the
@@ -67,7 +73,8 @@ from ..data.prefetch import DevicePrefetcher
 from ..data.records import RecordDataset
 from ..models.registry import get_model
 from ..parallel.comm import all_reduce, broadcast, grouped, rank, world_size
-from ..parallel.mesh import make_mesh
+from ..parallel.mesh import (gather_params, make_mesh, param_sharding_rules,
+                             shard_params)
 from ..parallel.multihost import barrier, global_any, is_primary
 from .checkpoint import CheckpointManager
 from .optimizer import BertAdamState, bert_adam
@@ -94,9 +101,8 @@ class TrainerConfig:
     max_grad_norm: float = 0.1
     b1: float = 0.9
     b2: float = 0.98
-    # the mesh: n_data ranks of data parallelism (None: every rank);
-    # n_model > 1, tensor parallelism, is refused (ROADMAP queue 1 item
-    # 10's rest)
+    # the mesh: n_data ranks of data parallelism (None: every rank over
+    # n_model) by n_model ranks of tensor parallelism
     n_data: int | None = None
     n_model: int = 1
     # a checkpoint directory (the one holding state.pt) whose params the
@@ -152,19 +158,12 @@ class Trainer:
             weight_decay=tcfg.weight_decay,
             max_grad_norm=tcfg.max_grad_norm, t_total=tcfg.t_total,
             warmup=tcfg.warmup)
-        if tcfg.n_model != 1:
-            raise NotPortedError(
-                f"tensor parallelism (trainer.n_model={tcfg.n_model}) is not "
-                "ported yet (ROADMAP queue 1 item 10's rest)")
-        self.mesh = make_mesh(tcfg.n_data)
-        self.group = self.mesh.group("data")
-        if self.mesh.shape["data"] > 1 and not adapter.data_parallel:
-            raise NotPortedError(
-                f"data-parallel training of the {adapter.name} family "
-                f"({self.mesh.shape['data']} ranks) is not ported yet "
-                "(ROADMAP queue 1 item 10's rest): its objective is not a "
-                "mean over tokens, so the step's global normalisation "
-                "would not be tell_tpu's")
+        self.mesh = make_mesh(tcfg.n_data, tcfg.n_model)
+        # the "data" ranks' group; none on a grid of one "data" index and
+        # several "model" ones (the mesh has no group for that axis)
+        self.group = (self.mesh.group("data")
+                      if self.mesh.shape["data"] > 1 or tcfg.n_model == 1
+                      else None)
         self.ckpt = CheckpointManager(
             os.path.join(tcfg.serialization_dir, "checkpoints"),
             keep=tcfg.keep_checkpoints, primary=is_primary())
@@ -173,9 +172,13 @@ class Trainer:
             def loss_e2e(p, fz, c, b, gen=None, deterministic=True, **kw):
                 return adapter.loss(p, c, adapter.encode(fz, b), gen,
                                     deterministic, **kw)
-        self._step_fn = make_train_step(cfg, self.optimizer,
-                                        loss=adapter.loss, loss_e2e=loss_e2e,
-                                        group=self.group)
+        # the rules' specs of the whole tree, filled by _place; the step
+        # reads them at each call
+        self.specs: dict = {}
+        self._step_fn = make_train_step(
+            cfg, self.optimizer, loss=adapter.loss, loss_e2e=loss_e2e,
+            group=self.group,
+            mesh=self.mesh if tcfg.n_model > 1 else None, specs=self.specs)
         self._tb = None
         self._profiler = None
         self._best_pending: tuple | None = None
@@ -215,21 +218,43 @@ class Trainer:
         params = self.adapter.init(g, self.cfg)
         if self.tcfg.warm_start:
             params = self._warm_start(params)
-        params = self._from_primary(params)
+        params = self._place(self._from_primary(params))
         self.state = {"params": params,
                       "opt": self.optimizer.init(params),
                       "step": 0, "epoch": 0,
                       "best_metric": float("inf"), "bad_epochs": 0}
 
+    def _place(self, tree):
+        """A whole tree of the params' shape (the params, or a moment) as
+        this rank holds it: cut to its "model" shards by tell_tpu's rules
+        (a no-op at n_model 1). The first call takes the rules' specs
+        from it."""
+        if self.tcfg.n_model > 1 and not self.specs:
+            self.specs.update(param_sharding_rules(tree, self.mesh))
+        return shard_params(tree, self.mesh, self.specs or None)
+
+    def _whole(self, tree):
+        """_place's inverse on every rank (a no-op at n_model 1)."""
+        return gather_params(tree, self.mesh, self.specs)
+
+    def load_params(self, params, opt: BertAdamState | None = None):
+        """Whole params (and moments) in place of the state's, placed as
+        this rank holds them; fresh moments without `opt`."""
+        params = self._place(params)
+        if opt is None:
+            opt = self.optimizer.init(params)
+        else:
+            opt = opt._replace(m=self._place(opt.m), v=self._place(opt.v))
+        self.state["params"], self.state["opt"] = params, opt
+
     def _from_primary(self, tree):
-        """Rank 0's tensors of the tree on every data rank (a no-op
-        outside a process group), so the ranks start from the same
-        params."""
+        """Rank 0's tensors of the tree on every rank (a no-op outside a
+        process group), so the ranks start from the same params."""
         if not grouped():
             return tree
         leaves = tree_leaves(tree)
         flat = broadcast(torch.cat([x.reshape(-1) for x in leaves]), 0,
-                         self.group)          # one exchange, not one a leaf
+                         None)                # one exchange, not one a leaf
         parts = iter(flat.split([x.numel() for x in leaves]))
         return tree_map(lambda x: next(parts).reshape(x.shape).to(x.dtype),
                         tree)
@@ -265,8 +290,12 @@ class Trainer:
         return saved
 
     def _train_state(self) -> dict:
-        return {"params": self.state["params"],
-                "opt": self.state["opt"]._asdict()}
+        """The state a checkpoint holds: the whole tree, gathered on every
+        rank (rank 0 writes it)."""
+        opt = self.state["opt"]
+        return {"params": self._whole(self.state["params"]),
+                "opt": opt._replace(m=self._whole(opt.m),
+                                    v=self._whole(opt.v))._asdict()}
 
     def recover(self) -> bool:
         """Resume from the latest checkpoint; False when there is none."""
@@ -276,8 +305,7 @@ class Trainer:
         if restored is None:
             return False
         state, meta = restored
-        self.state["params"] = state["params"]
-        self.state["opt"] = BertAdamState(**state["opt"])
+        self.load_params(state["params"], BertAdamState(**state["opt"]))
         self.state.update({k: meta[k] for k in
                            ("step", "epoch", "best_metric", "bad_epochs",
                             "batch_cursor") if k in meta})
@@ -288,7 +316,7 @@ class Trainer:
 
     def _save_best(self) -> None:
         ep, metric = self._best_pending
-        self.ckpt.save_best({"params": self.state["params"]},
+        self.ckpt.save_best({"params": self._whole(self.state["params"])},
                             {"epoch": ep, "metric": metric})
         self._best_pending = None
 
@@ -485,6 +513,8 @@ class Trainer:
         if self.val_batches is None:
             return {}
         kw = {"group": self.group} if self.mesh.shape["data"] > 1 else {}
+        tp = ({"tp": self.mesh.model_axis()} if self.tcfg.n_model > 1
+              else {})
         parts = []
         with self._prefetched(self.val_batches()) as pf:
             for batch in pf:
@@ -493,15 +523,15 @@ class Trainer:
                 batch = tree_map(lambda x: x.float()
                                  if isinstance(x, torch.Tensor)
                                  and x.is_floating_point() else x, batch)
-                loss, aux = self.adapter.loss(self.state["params"],
-                                              self.cfg, batch, **kw)
-                w = loss_weight(aux) if kw else torch.ones(
-                    (), device=loss.device)
+                loss, aux = self.adapter.loss(self.state["params"], self.cfg,
+                                              batch, **kw, **tp)
+                w = loss_weight(aux) if kw and not aux.get(
+                    "global_loss") else torch.ones((), device=loss.device)
                 parts.append(torch.stack([loss.float() * w, w]))
         if not parts:
             return {}
         parts = torch.stack(parts)
-        if grouped():
+        if kw:
             parts = all_reduce(parts, self.group)
         return {"val_loss": float((parts[:, 0] / parts[:, 1]).mean())}
 
@@ -514,13 +544,16 @@ class Trainer:
             f.write(json.dumps(em) + "\n")
 
 
-def data_ranks(bcfg: BucketingConfig) -> tuple[int, int]:
-    """(this process's rank, the rank count) of data-parallel training,
-    refusing, as tell_tpu's train does with more than one process, a
-    bucketing config of more than one shape: the ranks' strides would
-    fill different buckets, and their batch schedules diverge and
-    deadlock at the first collective."""
-    pi, pc = rank(), world_size()
+def data_ranks(bcfg: BucketingConfig, n_model: int = 1
+               ) -> tuple[int, int]:
+    """(this process's "data" index, the "data" size) of training on a
+    grid of n_model ranks a "model" group (rank r holds data index
+    r // n_model, as make_mesh lays the grid out), refusing, as tell_tpu's
+    train does with more than one process, a bucketing config of more
+    than one shape across "data" ranks: their strides would fill
+    different buckets, and their batch schedules diverge and deadlock at
+    the first collective."""
+    pi, pc = rank() // n_model, world_size() // n_model
     if pc > 1 and (len(bcfg.article_lengths) > 1
                    or len(bcfg.caption_lengths) > 1):
         raise SystemExit(
@@ -542,7 +575,7 @@ def make_trainer(cfg: CaptionerConfig, tcfg: TrainerConfig,
     batches of its share of the global batch size."""
     train_ds = RecordDataset(os.path.join(shards_dir, "train-*.npz"))
     val_ds = RecordDataset(os.path.join(shards_dir, "valid-*.npz"))
-    pi, pc = data_ranks(bcfg)
+    pi, pc = data_ranks(bcfg, tcfg.n_model)
 
     def train_batches(epoch):
         return bucket_batches(train_ds.epoch(

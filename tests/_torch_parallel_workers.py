@@ -219,32 +219,38 @@ def train_steps(rank, world, cfg, params, train, val, run_dir,
 
 def train_cases(rank, world, cases):
     """train_steps for each (name, kwargs) of `cases`, in one spawn, and
-    the Trainer's refusals of the families with no data-parallel step."""
+    the Trainers of the families once refused on several ranks."""
     out = {name: train_steps(rank, world, **kw) for name, kw in cases}
     out["refused"] = trainer_refusals(rank, world)
     return out
 
 
 def trainer_refusals(rank, world):
-    """The NotPortedError text of a Trainer of the pointer models and of
-    the MoE LM over `world` data-parallel ranks."""
-    from tell_tpu_torch.config import LLMConfig, NotPortedError
-    from tell_tpu_torch.config import small_test_config
+    """For the pointer models and the MoE LM, each once refused on
+    `world` data-parallel ranks (ROADMAP item 10's rest): None where a
+    Trainer over the ranks is built and initialised, else the error."""
+    from tell_tpu_torch.config import LLMConfig, small_test_config
     from tell_tpu_torch.models.registry import get_model
     from tell_tpu_torch.training.trainer import Trainer, TrainerConfig
     out = {}
     for name, model_type, cfg in (
             ("pointer", "transformer_pointer", small_test_config()),
             ("pointer_2", "transformer_pointer_2", small_test_config()),
-            ("moe", "transformer_modern", LLMConfig(moe_experts=4))):
+            ("moe", "transformer_modern", LLMConfig(
+                moe_experts=4, dim=32, num_layers=1, num_heads=4,
+                num_kv_heads=2, ffn_dim=48, vocab_size=300,
+                contexts=small_test_config().decoder.contexts[:2]))):
         adapter = get_model(model_type, cfg)
         try:
-            Trainer(adapter.config, TrainerConfig(serialization_dir="unused"),
-                    lambda epoch: iter(()), None, None, device="cpu",
-                    adapter=adapter)
-            out[name] = None
-        except NotPortedError as e:
-            out[name] = str(e)
+            trainer = Trainer(adapter.config,
+                              TrainerConfig(serialization_dir="unused"),
+                              lambda epoch: iter(()), None, None,
+                              device="cpu", adapter=adapter)
+            trainer.initialize()
+            out[name] = None if trainer.mesh.shape["data"] == world \
+                else "not data-parallel"
+        except Exception as e:  # noqa: BLE001 - reported to the test
+            out[name] = f"{type(e).__name__}: {e}"
     return out
 
 
@@ -344,3 +350,156 @@ def data_ranks_of(rank, world, bucketing):
         return data_ranks(bucketing)
     except SystemExit as e:
         raise RuntimeError(str(e)) from None
+
+
+# -- tensor parallelism, the MoE's and the pointer's global batch -----------
+
+def _grid(world, n_model):
+    from tell_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(world // n_model, n_model)
+
+
+def tp_train(rank, world, n_model, cfg, params, train, val, run_dir,
+             adapter=None):
+    """A Trainer of `cfg` on a (world / n_model) x n_model grid from the
+    whole `params` (numpy), over this rank's "data" rows of the global
+    `train` and `val` batches (one epoch, dropout as cfg says). Returns
+    this rank's shards of the initial params, the first step's gradients
+    after the reduction and its first moments (BertAdam's m: the clipped
+    gradients' share), both gathered whole, each step's loss, the
+    validation loss and the params after the epoch (gathered whole)."""
+    from tell_tpu_torch.models.registry import get_model
+    from tell_tpu_torch.parallel.mesh import gather_params
+    from tell_tpu_torch.training.trainer import Trainer, TrainerConfig
+    torch.set_num_threads(1)
+    n_data = world // n_model
+    tcfg = TrainerConfig(serialization_dir=run_dir, num_epochs=1,
+                         n_data=n_data, n_model=n_model, summary_interval=0,
+                         warmup=0.0, t_total=100, seed=3)
+    i = rank // n_model
+    local = [_rows_of(b, i, n_data) for b in train]
+    local_val = [_rows_of(b, i, n_data) for b in val]
+    adapter = adapter or get_model("captioner", cfg)
+    trainer = Trainer(cfg, tcfg, lambda epoch: iter([dict(b) for b in local]),
+                      lambda: iter([dict(b) for b in local_val]), None,
+                      device="cpu", adapter=adapter)
+    trainer.initialize()
+    trainer.load_params(to_torch(params, "cpu"))
+    shards = to_numpy(trainer.state["params"])
+    losses, grads = [], []
+    step, update = trainer._step, trainer.optimizer.update
+
+    def counted_step(batch):
+        m = step(batch)
+        losses.append(float(m["loss"]))
+        return m
+
+    def recorded_update(g, state, p, *rest):
+        out = update(g, state, p, *rest)
+        if not grads:
+            grads.append((g, out[1].m))
+        return out
+    trainer._step = counted_step
+    trainer.optimizer.update = recorded_update
+    trainer.train()
+    whole = trainer._whole
+    return {"shards": shards, "grads": to_numpy(whole(grads[0][0])),
+            "moments": to_numpy(whole(grads[0][1])), "losses": losses,
+            "val_loss": trainer.metrics_history[0]["val_loss"],
+            "params": to_numpy(whole(trainer.state["params"]))}
+
+
+def tp_loss(rank, world, n_model, family, cfg, params, batch):
+    """The loss (and its aux's floats) and the gradients (summed over
+    "data", gathered whole) of `family`'s objective ("llm", "pointer" or
+    "lstm") on a (world / n_model) x n_model grid, each rank on its
+    "data" rows of `batch`, its params the rules' shards of `params`."""
+    from tell_tpu_torch.models.llm_decoder import llm_loss
+    from tell_tpu_torch.models.lstm_decoder import lstm_captioner_loss
+    from tell_tpu_torch.models.pointer import pointer_loss
+    from tell_tpu_torch.parallel.comm import all_reduce
+    from tell_tpu_torch.parallel.mesh import (gather_params,
+                                              param_sharding_rules,
+                                              shard_params)
+    torch.set_num_threads(1)
+    mesh = _grid(world, n_model)
+    n_data = world // n_model
+    whole = to_torch(params, "cpu")
+    specs = param_sharding_rules(whole, mesh)
+    local = shard_params(whole, mesh, specs)
+    rows = to_torch(_rows_of(batch, mesh.index("data"), n_data), "cpu")
+    kw = {"group": mesh.group("data")} if n_data > 1 else {}
+    kw["tp"] = mesh.model_axis()
+    fn = {"llm": llm_loss, "pointer": pointer_loss,
+          "lstm": lstm_captioner_loss}[family]
+    aux_out = {}
+
+    def loss(p):
+        value, aux = fn(p, cfg, rows, **kw)
+        aux_out.update(aux)
+        return value
+    value, g = _grads(local, loss)
+    if n_data > 1:
+        g = tree_map(lambda t: all_reduce(t, mesh.group("data")), g)
+    return {"loss": float(value),
+            "aux": {k: float(v.detach()) for k, v in aux_out.items()
+                    if isinstance(v, torch.Tensor)},
+            "grads": to_numpy(gather_params(g, mesh, specs)),
+            "shards": to_numpy(local)}
+
+
+def moe_dp(rank, world, params, x, mask, top_k, capacity_factor):
+    """ops/moe.py's routing, output and aux of this rank's rows of x over
+    the data-parallel group of every rank, and its routing of the same
+    rows alone (group None)."""
+    from tell_tpu_torch.ops.moe import moe_ffn, moe_routing
+    from tell_tpu_torch.parallel.comm import world_size
+    torch.set_num_threads(1)
+    n = x.shape[0] // world_size()
+    xs = torch.as_tensor(x[rank * n:(rank + 1) * n])
+    ms = torch.as_tensor(mask[rank * n:(rank + 1) * n])
+    p = to_torch(params, "cpu")
+    out = {}
+    for name, group in (("global", torch.distributed.group.WORLD),
+                        ("local", None)):
+        r = moe_routing(p, xs, top_k, capacity_factor, ms, group)
+        out[name] = {"expert": r["flat_e"].numpy(), "pos": r["pos"].numpy(),
+                     "keep": r["keep"].numpy(), "cap": r["cap"]}
+    y, aux = moe_ffn(p, xs, top_k, capacity_factor, ms,
+                     group=torch.distributed.group.WORLD)
+    out["out"], out["aux"] = y.numpy(), float(aux)
+    return out
+
+
+def tp_resume(rank, world, n_model, cfg, params, train, run_dir,
+              stop_after=None):
+    """One epoch of a Trainer on a 1 x n_model grid over `train` (every
+    rank the whole batches): from the whole `params` (numpy), or, with
+    params None, recovered from run_dir's checkpoint; stopped by
+    request_stop after `stop_after` steps. Returns the params (gathered
+    whole), the state's step and each step's loss."""
+    from tell_tpu_torch.training.trainer import Trainer, TrainerConfig
+    torch.set_num_threads(1)
+    tcfg = TrainerConfig(serialization_dir=run_dir, num_epochs=1,
+                         n_data=world // n_model, n_model=n_model,
+                         summary_interval=0, warmup=0.0, t_total=100,
+                         seed=3)
+    trainer = Trainer(cfg, tcfg, lambda epoch: iter([dict(b) for b in train]),
+                      None, None, device="cpu")
+    if params is None:
+        assert trainer.recover()
+    else:
+        trainer.initialize()
+        trainer.load_params(to_torch(params, "cpu"))
+    losses, step = [], trainer._step
+
+    def counted_step(batch):
+        m = step(batch)
+        losses.append(float(m["loss"]))
+        if stop_after is not None and len(losses) == stop_after:
+            trainer.request_stop()
+        return m
+    trainer._step = counted_step
+    trainer.train()
+    return {"params": to_numpy(trainer._whole(trainer.state["params"])),
+            "step": trainer.state["step"], "losses": losses}

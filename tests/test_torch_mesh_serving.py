@@ -5,9 +5,9 @@ A service on ["cpu", "cpu"] splits each 4-row micro-batch over its two
 replicas and answers four text requests with the ids (and, with
 need_attention, the maps) of the one-device service, and with the ids of
 tell_tpu's CaptionService on a 2-device mesh of the virtual CPU mesh,
-from tell_tpu-initialised weights. Engine mode on several devices is
-refused naming ROADMAP item 10's rest, and a max_batch that the devices
-do not divide with tell_tpu's message. `serve --mesh-data 2` answers as
+from tell_tpu-initialised weights. Engine mode on two devices (the
+slots sharded over them) answers as on one, and a max_batch that the
+devices do not divide is refused with tell_tpu's message. `serve --mesh-data 2` answers as
 `--mesh-data 1` does.
 """
 import dataclasses
@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from tell_tpu_torch.bridge import init_captioner, to_torch
-from tell_tpu_torch.config import NotPortedError
 from tell_tpu_torch.models.backbones.roberta import RobertaEncoder
 from tell_tpu_torch.serving import CaptionService
 from tests.test_torch_cli import _start_serve, write_e2e_config
@@ -83,8 +82,27 @@ def test_two_replicas_answer_as_one_and_as_tell_tpu(weights, monkeypatch):
 
 
 def test_what_stays_refused(weights):
-    with pytest.raises(NotPortedError, match="item 10's rest"):
-        _service(weights, ["cpu", "cpu"], engine_slots=2)
+    """Engine mode over two devices, once refused as item 10's rest,
+    answers each request as the one-device engine does (the slots shard
+    over the devices: serving/engine.py); a max_batch that the devices do
+    not divide stays refused with tell_tpu's message."""
+    reqs = _requests(4)
+    answers = []
+    for devices in (None, ["cpu", "cpu"]):
+        svc = _service(weights, devices, engine_slots=2, engine_beam=2)
+        try:
+            if devices:
+                assert [s.device.type for s in svc.engine._shards] == \
+                    ["cpu", "cpu"]
+            answers.append([svc.caption(r) for r in reqs])
+        finally:
+            svc.close()
+    for a, b in zip(*answers):
+        assert "error" not in b and a["token_ids"] == b["token_ids"]
+        np.testing.assert_allclose(
+            [a["score"]] + [x["score"] for x in a["alternatives"]],
+            [b["score"]] + [x["score"] for x in b["alternatives"]],
+            rtol=1e-5)
     with pytest.raises(ValueError, match="max_batch 4 must be divisible by "
                        "the mesh data axis 3"):
         _service(weights, ["cpu"] * 3)

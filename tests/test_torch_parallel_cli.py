@@ -7,7 +7,8 @@ batch is whole):
 * --coordinator file://<store> --num-processes 2 --process-id I, run as
   two commands, is one rank each;
 both end with the params of the one-rank run after the same steps
-(1e-5), rank 0 alone writing the run's files.
+(1e-5), rank 0 alone writing the run's files. trainer.n_model: 2 (tensor
+parallelism) runs the same two ways and ends with those params too.
 """
 import contextlib
 import io
@@ -92,3 +93,39 @@ def test_n_data_and_coordinator_runs_equal_one_rank(corpus, tmp_path):
         "decode_attention", "encoder_attention", "fused_dynamic_conv",
         "decode_attention_q8", "topk_logits"}
 
+
+
+def test_n_model_runs_locally_and_across_coordinator(corpus, tmp_path):
+    """trainer.n_model 2: two local ranks, and two commands joined by
+    --coordinator; each checkpoint is the whole tree, within 1e-5 of the
+    one-rank run's."""
+    cfg, root = corpus
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    store = tmp_path / "store"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tell_tpu_torch.commands", "train", cfg,
+         "-o", _over(tmp_path / "coord", 1, n_model=2), "--device", "cpu",
+         "--coordinator", f"file://{store}", "--num-processes", "2",
+         "--process-id", str(i)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(["train", cfg, "-o", _over(tmp_path / "one", 1),
+                         "--device", "cpu"]) == 0
+            assert main(["train", cfg, "-o",
+                         _over(tmp_path / "tp", 1, n_model=2),
+                         "--device", "cpu"]) == 0
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    one = _params(tmp_path / "one")
+    for run in ("tp", "coord"):
+        got = _params(tmp_path / run)
+        assert [a.shape for a in got] == [b.shape for b in one]
+        for a, b in zip(got, one):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -5,9 +5,9 @@ The rule table gives, leaf for leaf, the spec tell_tpu's
 param_sharding_rules gives on the flagship's, expt 10's and expt 12's
 param trees (shapes only: jax.eval_shape, and meta tensors on the port's
 side), over a mesh with a "model" axis of 2 and of 3 (where the
-divisibility fallback replicates). make_mesh, batch_sharding and
-shard_params raise tell_tpu's messages, or name ROADMAP item 10's rest
-for tensor parallelism.
+divisibility fallback replicates). make_mesh and batch_sharding raise
+tell_tpu's messages, and shard_params keeps a rank's slice of each leaf
+that the rules shard over "model".
 """
 import jax
 import numpy as np
@@ -19,7 +19,6 @@ from tell_tpu.config_io import load_experiment as j_load
 from tell_tpu.parallel import batch_sharding as j_batch_sharding
 from tell_tpu.parallel import make_mesh as j_make_mesh
 from tell_tpu.parallel import param_sharding_rules as j_rules
-from tell_tpu_torch.config import NotPortedError
 from tell_tpu_torch.parallel import (Mesh, batch_sharding, make_mesh,
                                      param_sharding_rules, shard_params)
 from tell_tpu_torch.bridge import tree_leaves_with_path
@@ -72,8 +71,16 @@ def test_make_mesh_and_shard_params_errors():
         check_mesh_size(4, 2, 3)
     params = {"w": torch.ones(2)}
     assert shard_params(params, mesh) is params
-    with pytest.raises(NotPortedError, match="queue 1 item 10's rest"):
-        shard_params(params, Mesh((1, 2), ("data", "model")))
+    # a "model" axis of 2 (this process is rank 0 of the grid): the
+    # rules' leaves cut to their first slice, the rest whole
+    tree = {"layers": [{"fc1": {"v": torch.arange(8.).reshape(2, 4)},
+                        "fc2": {"v": torch.arange(8.).reshape(4, 2)},
+                        "norm": {"scale": torch.ones(3)}}]}
+    cut = shard_params(tree, Mesh((1, 2), ("data", "model")))
+    lp = cut["layers"][0]
+    assert torch.equal(lp["fc1"]["v"], tree["layers"][0]["fc1"]["v"][:, :2])
+    assert torch.equal(lp["fc2"]["v"], tree["layers"][0]["fc2"]["v"][:2])
+    assert lp["norm"]["scale"] is tree["layers"][0]["norm"]["scale"]
 
 
 def test_batch_sharding_rows_and_error_equal_tell_tpu():
