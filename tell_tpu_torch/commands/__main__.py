@@ -5,9 +5,14 @@ tell_tpu/commands/__main__.py, `tnt`).
 The subcommands and flags are tnt's where they mean the same thing. The
 model runs on `--device` (default cuda): without a card and without
 `--device cpu` a model command raises; nothing falls back to the CPU. The
-numerics levers are flags: `--kv-cache {fp,int8,int4}`, `--fused-topk`
-and `--gelu {erf,tanh}` (the frozen encoder's GELU; tell_tpu's
-TELL_TPU_FAST_GELU). `serve --attention` adds the word-attention payload.
+numerics levers are flags: `--kv-cache {fp,int8,int4}`, `--fused-topk`,
+`--gelu {erf,tanh}` (the frozen encoder's GELU; tell_tpu's
+TELL_TPU_FAST_GELU), and the int8 ones, tell_tpu's environment switches:
+`--dec8`, `--dec8-sm` and `--merged-vocab` on evaluate and serve
+(TELL_TPU_DEC8, _DEC8_SM, _MERGED_VOCAB; a family refuses those its
+decode does not read), and `--enc8` on train, evaluate and serve
+(TELL_TPU_ENC8: the frozen RoBERTa quantised once at load). `serve
+--attention` adds the word-attention payload.
 
 Several devices: `train` with trainer.n_data N > 1 and no coordinator
 spawns N local ranks, one a device (N gloo ranks under --device cpu;
@@ -89,6 +94,19 @@ def _add_levers(p):
     p.add_argument("--gelu", default="erf", choices=("erf", "tanh"),
                    help="the frozen RoBERTa's FFN GELU (tanh: the "
                    "approximation, gated by fast_gelu_token_agreement)")
+    p.add_argument("--dec8", action="store_true",
+                   help="the decode step's projections in int8 (kernel G)")
+    p.add_argument("--dec8-sm", action="store_true",
+                   help="the adaptive softmax's decode tables in int8 "
+                   "(kernel G)")
+    p.add_argument("--merged-vocab", action="store_true",
+                   help="the decode's softmax from one merged fp32 table")
+
+
+def _add_enc8(p):
+    p.add_argument("--enc8", action="store_true",
+                   help="the frozen RoBERTa's dense layers in int8 "
+                   "(w8a8, kernel G), quantised once at load")
 
 
 def _add_report(p):
@@ -113,10 +131,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "host with its own --process-id")
     t.add_argument("--num-processes", type=int, default=1)
     t.add_argument("--process-id", type=int, default=0)
+    _add_enc8(t)
 
     e = sub.add_parser("evaluate", help="decode a split and score it")
     _add_common(e)
     _add_levers(e)
+    _add_enc8(e)
     _add_report(e)
     e.add_argument("-m", "--model", default=None,
                    help="checkpoint dir (default: <run>/checkpoints/best)")
@@ -131,6 +151,7 @@ def build_parser() -> argparse.ArgumentParser:
     sv = sub.add_parser("serve", help="start the caption HTTP service")
     _add_common(sv)
     _add_levers(sv)
+    _add_enc8(sv)
     sv.add_argument("-m", "--model", default=None)
     sv.add_argument("-p", "--port", type=int, default=5558)
     sv.add_argument("-b", "--max-batch", type=int, default=32)
@@ -223,9 +244,11 @@ def _towers_dir(exp) -> str:
                                          "towers"))
 
 
-def _frozen_towers(exp, device, gelu: str = "erf") -> dict:
-    """{"roberta": params on `device`, "roberta_cfg": RobertaConfig with
-    the FFN's GELU mode `gelu`}, and each converted vision tower in the
+def _frozen_towers(exp, device, gelu: str = "erf",
+                   enc8: bool = False) -> dict:
+    """{"roberta": params on `device` (in int8 under enc8: ops/quant.py's
+    maybe_quantize_frozen), "roberta_cfg": RobertaConfig with the FFN's
+    GELU mode `gelu`}, and each converted vision tower in the
     towers directory on `device` in its forward's layout: "resnet" (with
     "resnet_cfg": ResNetConfig.resnet152()), "vit" (with "vit_cfg":
     ViTConfig.large(), as tell_tpu's), "mtcnn", "facenet" and "yolov3"
@@ -267,7 +290,8 @@ def _frozen_towers(exp, device, gelu: str = "erf") -> dict:
         path = os.path.join(_towers_dir(exp), name)
         if os.path.exists(path):
             frozen[name] = load(path, device)
-    return frozen
+    from ..ops.quant import maybe_quantize_frozen
+    return maybe_quantize_frozen(frozen, enc8)
 
 
 def _restore_params(exp, model_dir, device) -> dict:
@@ -303,12 +327,13 @@ def _report_launches(args) -> None:
                        for k, n in now.items()}, f)
 
 
-def build_trainer(exp, device):
+def build_trainer(exp, device, enc8: bool = False):
     """The Trainer that `train` runs for the experiment: its family's
     adapter, the shards of exp.data read through the C++ reader and packed
-    by bucket_batches, the frozen towers on `device`; in a process group,
-    this rank's stride of each epoch, in batches of its share of the
-    global batch size."""
+    by bucket_batches, the frozen towers on `device` (the RoBERTa in int8
+    under enc8, quantised by the Trainer after its dtype cast); in a
+    process group, this rank's stride of each epoch, in batches of its
+    share of the global batch size."""
     from ..data.bucketing import bucket_batches
     from ..data.records import RecordDataset
     from ..training.trainer import Trainer, data_ranks
@@ -336,12 +361,12 @@ def build_trainer(exp, device):
 
     return Trainer(exp.model, exp.trainer, train_batches, val_batches,
                    _frozen_towers(exp, device), device=device,
-                   adapter=_adapter(exp))
+                   adapter=_adapter(exp), enc8=enc8)
 
 
-def _train(exp, device, recover: bool):
+def _train(exp, device, recover: bool, enc8: bool = False):
     """Build and run the Trainer; (exit code, result or None)."""
-    trainer = build_trainer(exp, device)
+    trainer = build_trainer(exp, device, enc8)
     if recover and not trainer.recover():
         print(f"train -r: no checkpoint to recover in "
               f"{exp.trainer.serialization_dir}", file=sys.stderr)
@@ -357,14 +382,15 @@ def _rank_device(device: torch.device, index: int) -> torch.device:
 
 
 def _train_rank(rank: int, world: int, config: str, overrides, device: str,
-                recover: bool) -> tuple:
+                recover: bool, enc8: bool = False) -> tuple:
     """One of `train`'s spawned local ranks: (exit code, result, the
     kernel launches of this rank)."""
     logging.basicConfig(level=logging.INFO)
     from ..config_io import load_experiment
     before = _kernel_launches()
     code, result = _train(load_experiment(config, overrides),
-                          _rank_device(torch.device(device), rank), recover)
+                          _rank_device(torch.device(device), rank), recover,
+                          enc8)
     return code, result, {k: n - before[k]
                           for k, n in _kernel_launches().items()}
 
@@ -380,7 +406,7 @@ def _spawn_train(args, exp, device: torch.device) -> int:
                  else n)
     check_mesh_size(t.n_data or 1, t.n_model, available)
     outs = run_ranks(_train_rank, n, (args.config, args.overrides,
-                                      str(device), args.recover),
+                                      str(device), args.recover, args.enc8),
                      backend=backend_for(device), deadline_s=None)
     code, result = outs[0][:2]
     if code:
@@ -415,7 +441,7 @@ def cmd_train(args) -> int:
         log.warning("trainer.n_data is null: training on one of the %d "
                     "visible GPUs; set trainer.n_data to train on more",
                     torch.cuda.device_count())
-    code, result = _train(exp, device, args.recover)
+    code, result = _train(exp, device, args.recover, args.enc8)
     if code:
         return code
     _report_launches(args)
@@ -429,10 +455,11 @@ def cmd_evaluate(args) -> int:
     device = _device(args)
     metrics = evaluate_split(
         exp, _restore_params(exp, args.model, device),
-        _frozen_towers(exp, device, args.gelu), _tokenizer(exp),
+        _frozen_towers(exp, device, args.gelu, args.enc8), _tokenizer(exp),
         split=args.split,
         beam_size=args.beam, limit=args.limit, device=device,
-        kv_cache=args.kv_cache, fused_topk=args.fused_topk)
+        kv_cache=args.kv_cache, fused_topk=args.fused_topk, dec8=args.dec8,
+        dec8_sm=args.dec8_sm, merged_vocab=args.merged_vocab)
     _report_launches(args)
     print(json.dumps(metrics, indent=2))
     return 0
@@ -486,7 +513,9 @@ def cmd_serve(args) -> int:
                      else args.mesh_data)
         check_mesh_size(args.mesh_data, 1, available)
         devices = [_rank_device(device, i) for i in range(args.mesh_data)]
-    frozen = _frozen_towers(exp, device, args.gelu)
+    # under --enc8 the tower is quantised here, so no fp copy stays
+    # resident; the service's own quantisation then finds nothing to do
+    frozen = _frozen_towers(exp, device, args.gelu, args.enc8)
     service = CaptionService(
         _restore_params(exp, args.model, device),
         RobertaEncoder(frozen["roberta"], frozen["roberta_cfg"]), exp.model,
@@ -495,8 +524,9 @@ def cmd_serve(args) -> int:
         engine_slots=args.engine_slots, engine_beam=args.engine_beam,
         engine_length_penalty=args.engine_length_penalty,
         engine_buckets=args.engine_buckets, encode_batch=args.encode_batch,
-        kv_cache=args.kv_cache, fused_topk=args.fused_topk,
-        need_attention=args.attention,
+        kv_cache=args.kv_cache, fused_topk=args.fused_topk, dec8=args.dec8,
+        dec8_sm=args.dec8_sm, merged_vocab=args.merged_vocab,
+        enc8=args.enc8, need_attention=args.attention,
         towers={k: frozen[k] for k in ("resnet", "resnet_cfg", "mtcnn",
                                        "facenet", "yolov3") if k in frozen},
         devices=devices)

@@ -75,17 +75,21 @@ def evaluate_split(exp: ExperimentConfig, params: dict, frozen: dict,
                    tokenizer: RobertaTokenizer, split: str = "test",
                    beam_size: int = 1, out_dir: str | None = None,
                    limit: int | None = None, *, device,
-                   kv_cache: str = "fp", fused_topk: bool = False) -> dict:
+                   kv_cache: str = "fp", fused_topk: bool = False,
+                   dec8: bool = False, dec8_sm: bool = False,
+                   merged_vocab: bool = False) -> dict:
     """Decode <shards_dir>/<split>-*.npz and score it. params: the model's
     tree and frozen {"roberta", "roberta_cfg"} (and the towers the encode
-    takes), both already on `device`. kv_cache ("fp", "int8", "int4") and
-    fused_topk are the decode numerics levers (models/captioner.py::
-    generate; the modern family has no fused top-k)."""
+    takes), both already on `device` (an int8 RoBERTa, ops/quant.py's
+    maybe_quantize_frozen, is the enc8 lever). kv_cache ("fp", "int8",
+    "int4"), fused_topk, dec8, dec8_sm and merged_vocab are the decode
+    numerics levers (models/captioner.py::generate); a family refuses the
+    ones it lacks (ModelAdapter.check_levers)."""
     if kv_cache not in KV_CACHE_MODES:
         raise ValueError(f"kv_cache {kv_cache!r} not in {KV_CACHE_MODES}")
     adapter = get_model(exp.model_type, exp.model)
     cfg = adapter.config
-    adapter.check_levers(fused_topk, kv_cache)
+    adapter.check_levers(fused_topk, kv_cache, dec8, dec8_sm, merged_vocab)
     if beam_size > 1 and adapter.beam is None:
         # tell_tpu asserts the same (evaluate.py:86-87)
         raise ValueError("beam search is implemented for the captioner and "
@@ -93,8 +97,10 @@ def evaluate_split(exp: ExperimentConfig, params: dict, frozen: dict,
                          f"pointer/LSTM greedily); {exp.model_type!r} decodes "
                          "with --beam 1")
     levers = {"kv_cache": kv_cache}
-    if fused_topk:
-        levers["fused_topk"] = True
+    for name, on in (("fused_topk", fused_topk), ("dec8", dec8),
+                     ("dec8_sm", dec8_sm), ("merged_vocab", merged_vocab)):
+        if on:
+            levers[name] = True
     device = torch.device(device)
     out_dir = out_dir or exp.trainer.serialization_dir
     os.makedirs(out_dir, exist_ok=True)

@@ -6,6 +6,11 @@ RoBERTa's +2 offset. Self-attention runs through kernel B
 (ops/kernels/encoder_attention.py) on CUDA and its plain version, the JAX
 package's einsum path with a -1e9 key-padding mask, on the CPU.
 
+A dense leaf quantised to int8 ({"q8", "scale", "b"}: ops/quant.py's
+quantize_roberta, tell_tpu's TELL_TPU_ENC8 lever) runs through kernel G
+(`_lin` dispatches on the leaf, as tell_tpu's does), so a quantised tower
+goes wherever a frozen tower is accepted.
+
 The FFN's GELU is exact (erf) unless the caller asks for the tanh
 approximation (RobertaConfig(gelu="tanh"), tell_tpu's TELL_TPU_FAST_GELU
 lever): erf is the default on every device; the serving
@@ -29,6 +34,7 @@ from ...ops.common import layer_norm
 from ...ops.kernels.encoder_attention import encoder_attention
 from ...ops.linear import linear
 from ...ops.positional import make_positions
+from ...ops.quant import int8_linear
 
 
 GELU_MODES = ("erf", "tanh")
@@ -69,6 +75,13 @@ class RobertaConfig:
                              ffn_dim=1024)
 
 
+def _lin(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """A dense layer: kernel G over a quantised leaf, else x @ w + b."""
+    if "q8" in p:
+        return int8_linear(p, x)
+    return linear(p, x)
+
+
 def roberta_encode(params: dict, cfg: RobertaConfig, ids: torch.Tensor,
                    return_all_hiddens: bool = True) -> torch.Tensor:
     """ids: [B, S] -> [B, S, L+1, D] all hidden states (or [B, S, D]).
@@ -86,16 +99,16 @@ def roberta_encode(params: dict, cfg: RobertaConfig, ids: torch.Tensor,
     hd = cfg.dim // H
     key_pad = ids == cfg.pad_id
     for lp in params["layers"]:
-        q = linear(lp["q"], x).reshape(B, S, H, hd)
-        k = linear(lp["k"], x).reshape(B, S, H, hd)
-        v = linear(lp["v"], x).reshape(B, S, H, hd)
+        q = _lin(lp["q"], x).reshape(B, S, H, hd)
+        k = _lin(lp["k"], x).reshape(B, S, H, hd)
+        v = _lin(lp["v"], x).reshape(B, S, H, hd)
         o = encoder_attention(q, k, v, key_pad)
-        o = linear(lp["attn_out"], o.reshape(B, S, cfg.dim))
+        o = _lin(lp["attn_out"], o.reshape(B, S, cfg.dim))
         x = layer_norm(lp["attn_ln"], x + o, cfg.ln_eps)
-        h = F.gelu(linear(lp["fc1"], x).float(),
+        h = F.gelu(_lin(lp["fc1"], x).float(),
                    approximate="tanh" if cfg.gelu == "tanh" else "none"
                    ).to(x.dtype)
-        h = linear(lp["fc2"], h)
+        h = _lin(lp["fc2"], h)
         x = layer_norm(lp["ffn_ln"], x + h, cfg.ln_eps)
         hiddens.append(x)
     if return_all_hiddens:

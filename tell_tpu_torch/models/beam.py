@@ -23,7 +23,7 @@ import torch
 from ..config import CaptionerConfig
 from ..ops.common import top_k
 from .captioner import _decode_setup
-from .decoder import decoder_step, decoder_top_k
+from .decoder import decode_levers, decoder_step, decoder_top_k
 
 
 def beam_select(scores, finished, lengths, cand_lp, cand_ids, fin_lp,
@@ -128,21 +128,25 @@ def beam_search_core(step_fn: Callable, state0, B: int, K: int,
 def beam_search(params: dict, cfg: CaptionerConfig, batch: dict,
                 beam_size: int = 5, length_penalty: float = 0.0,
                 early_stop: bool = True, kv_cache: str = "fp",
-                fused_topk: bool = False) -> dict:
+                fused_topk: bool = False, dec8: bool = False,
+                dec8_sm: bool = False, merged_vocab: bool = False) -> dict:
     """Flagship-captioner beam decode (see beam_search_core). A `row_live`
     bool vector in the batch marks filler rows as finished from step 0.
-    kv_cache and fused_topk are the decode numerics levers (see
-    captioner.generate)."""
+    kv_cache, fused_topk, dec8, dec8_sm and merged_vocab are the decode
+    numerics levers (see captioner.generate), their tables built once."""
     dcfg = cfg.decoder
     K = beam_size
     B, device, state, _ = _decode_setup(params, cfg, batch, beam=K,
                                         kv_cache=kv_cache)
+    lev = decode_levers(params["decoder"], dcfg, dec8, dec8_sm, merged_vocab)
 
     def step_fn(tokens, dyn, row_gather):
         feats, new_state = decoder_step(params["decoder"], dcfg, tokens, dyn,
-                                        row_gather=row_gather)
+                                        row_gather=row_gather,
+                                        quant=lev["step_quant"])
         cand_lp, cand_ids = decoder_top_k(params["decoder"], dcfg, feats, K,
-                                          fused_topk)
+                                          fused_topk, lev["vocab_table"],
+                                          lev["quant_sm"])
         return cand_lp, cand_ids, new_state
 
     finished0 = ~batch["row_live"] if "row_live" in batch else None

@@ -20,8 +20,9 @@ from ..config import CaptionerConfig
 from ..parallel.comm import ONE_RANK, ModelAxis
 from .backbones.resnet import resnet_forward
 from .backbones.roberta import roberta_encode_windowed
-from .decoder import (attn_segment_bounds, decoder_loss, decoder_step,
-                      decoder_top_k, init_decode_state, split_attn_segments)
+from .decoder import (attn_segment_bounds, decode_levers, decoder_loss,
+                      decoder_step, decoder_top_k, init_decode_state,
+                      split_attn_segments)
 
 
 def weighted_layer_sum(params: dict, hiddens: torch.Tensor) -> torch.Tensor:
@@ -157,10 +158,13 @@ def sample_top_k(top_lp: torch.Tensor, temp: float,
 def generate(params: dict, cfg: CaptionerConfig, batch: dict,
              early_stop: bool = True, kv_cache: str = "fp",
              fused_topk: bool = False, gen: torch.Generator | None = None,
-             need_weights: bool = False) -> dict:
+             need_weights: bool = False, dec8: bool = False,
+             dec8_sm: bool = False, merged_vocab: bool = False) -> dict:
     """Greedy generation, or top-k sampled where cfg.sampling_topk > 1.
     kv_cache ("fp", "int8", "int4") and fused_topk are the decode numerics
-    levers of decoder.init_decode_state and decoder.decoder_top_k.
+    levers of decoder.init_decode_state and decoder.decoder_top_k; dec8,
+    dec8_sm and merged_vocab the int8 and merged-table ones, their tables
+    built once here (decoder.decode_levers).
 
     Sampling draws from `gen` (a torch.Generator on the batch's device;
     default: seed 0 there) among decoder_top_k's k candidates, with
@@ -179,6 +183,7 @@ def generate(params: dict, cfg: CaptionerConfig, batch: dict,
     dcfg = cfg.decoder
     B, device, state, contexts = _decode_setup(params, cfg, batch,
                                                kv_cache=kv_cache)
+    lev = decode_levers(params["decoder"], dcfg, dec8, dec8_sm, merged_vocab)
     k = cfg.sampling_topk
     if k > 1 and gen is None:
         gen = torch.Generator(device=device).manual_seed(0)
@@ -195,10 +200,12 @@ def generate(params: dict, cfg: CaptionerConfig, batch: dict,
         if early_stop and not need_weights and bool(finished.all()):
             break
         feats, state, *attns = decoder_step(params["decoder"], dcfg, tokens,
-                                            state, need_weights=need_weights)
+                                            state, need_weights=need_weights,
+                                            quant=lev["step_quant"])
         maps += attns
         top_lp, top_idx = decoder_top_k(params["decoder"], dcfg, feats, k,
-                                        fused_topk)
+                                        fused_topk, lev["vocab_table"],
+                                        lev["quant_sm"])
         if k == 1:
             choice = torch.zeros(B, dtype=torch.long, device=device)
         else:
@@ -219,21 +226,27 @@ def generate(params: dict, cfg: CaptionerConfig, batch: dict,
 
 def predict_forced(params: dict, cfg: CaptionerConfig, batch: dict,
                    token_ids: torch.Tensor, with_log_probs: bool = False,
-                   kv_cache: str = "fp", fused_topk: bool = False):
+                   kv_cache: str = "fp", fused_topk: bool = False,
+                   dec8: bool = False, dec8_sm: bool = False,
+                   merged_vocab: bool = False):
     """Teacher-forced next-token argmax for a KNOWN sequence: feeds
     token_ids[:, t] through the incremental decode path and records each
     step's top-1 without letting it steer the next step (the numerics-gate
     primitive: no greedy cascade). token_ids: [B, T+1] incl. the seed.
-    Returns [B, T] predictions; with_log_probs also their log-probs."""
+    The levers are generate's. Returns [B, T] predictions; with_log_probs
+    also their log-probs."""
     dcfg = cfg.decoder
     _, _, state, _ = _decode_setup(params, cfg, batch,
                                    steps=token_ids.shape[1] - 1,
                                    kv_cache=kv_cache)
+    lev = decode_levers(params["decoder"], dcfg, dec8, dec8_sm, merged_vocab)
     preds, lps = [], []
     for t in range(token_ids.shape[1] - 1):
         feats, state = decoder_step(params["decoder"], dcfg,
-                                    token_ids[:, t], state)
-        lp, idx = decoder_top_k(params["decoder"], dcfg, feats, 1, fused_topk)
+                                    token_ids[:, t], state,
+                                    quant=lev["step_quant"])
+        lp, idx = decoder_top_k(params["decoder"], dcfg, feats, 1, fused_topk,
+                                lev["vocab_table"], lev["quant_sm"])
         preds.append(idx[:, 0])
         lps.append(lp[:, 0])
     preds = torch.stack(preds, dim=1)
@@ -241,21 +254,26 @@ def predict_forced(params: dict, cfg: CaptionerConfig, batch: dict,
 
 
 def replay_attention(params: dict, cfg: CaptionerConfig, batch: dict,
-                     token_ids: torch.Tensor, kv_cache: str = "fp") -> list:
+                     token_ids: torch.Tensor, kv_cache: str = "fp",
+                     dec8: bool = False) -> list:
     """Attention maps of a KNOWN token sequence, teacher-forced: a step's
     cross-attention depends only on the token prefix, so replaying a
     finished caption gives the maps the decode loop would have recorded.
     The engine serves its attention payload this way. token_ids: [B, T+1]
-    incl. the seed. Returns per layer {context: [T, B, 1, S_m]}."""
+    incl. the seed. dec8: the step's projections in int8, as the decode
+    that made the caption ran them (the softmax levers move no map; tell_tpu
+    replays in fp, which is these maps only without dec8). Returns per
+    layer {context: [T, B, 1, S_m]}."""
     dcfg = cfg.decoder
     _, _, state, contexts = _decode_setup(params, cfg, batch,
                                           steps=token_ids.shape[1] - 1,
                                           kv_cache=kv_cache)
+    quant = decode_levers(params["decoder"], dcfg, dec8)["step_quant"]
     maps = []
     for t in range(token_ids.shape[1] - 1):
         _, state, attns = decoder_step(params["decoder"], dcfg,
                                        token_ids[:, t], state,
-                                       need_weights=True)
+                                       need_weights=True, quant=quant)
         maps.append(attns)
     return _split_maps(cfg, contexts, maps)
 
@@ -275,24 +293,26 @@ class Captioner(nn.Module):
     def generate(self, batch: dict, early_stop: bool = True,
                  kv_cache: str = "fp", fused_topk: bool = False,
                  gen: torch.Generator | None = None,
-                 need_weights: bool = False) -> dict:
+                 need_weights: bool = False, **levers) -> dict:
         return generate(self.tree(), self.cfg, batch, early_stop, kv_cache,
-                        fused_topk, gen, need_weights)
+                        fused_topk, gen, need_weights, **levers)
 
     def beam_search(self, batch: dict, beam_size: int = 5,
                     length_penalty: float = 0.0, early_stop: bool = True,
-                    kv_cache: str = "fp", fused_topk: bool = False) -> dict:
+                    kv_cache: str = "fp", fused_topk: bool = False,
+                    **levers) -> dict:
         from .beam import beam_search
         return beam_search(self.tree(), self.cfg, batch, beam_size,
-                           length_penalty, early_stop, kv_cache, fused_topk)
+                           length_penalty, early_stop, kv_cache, fused_topk,
+                           **levers)
 
     def predict_forced(self, batch: dict, token_ids: torch.Tensor,
                        with_log_probs: bool = False, kv_cache: str = "fp",
-                       fused_topk: bool = False):
+                       fused_topk: bool = False, **levers):
         return predict_forced(self.tree(), self.cfg, batch, token_ids,
-                              with_log_probs, kv_cache, fused_topk)
+                              with_log_probs, kv_cache, fused_topk, **levers)
 
     def replay_attention(self, batch: dict, token_ids: torch.Tensor,
-                         kv_cache: str = "fp") -> list:
+                         kv_cache: str = "fp", dec8: bool = False) -> list:
         return replay_attention(self.tree(), self.cfg, batch, token_ids,
-                                kv_cache)
+                                kv_cache, dec8)

@@ -28,6 +28,14 @@ CUDA graph. decoder_step(need_weights=True) also returns the head-averaged
 attention maps; that route takes the plain attention, since kernel A
 returns no probabilities (tell_tpu routes the same way, decoder.py:452).
 
+The int8 numerics levers (decode_levers) are built once a decode call:
+dec8 (tell_tpu's TELL_TPU_DEC8) runs the step's linear1, linear2,
+context_fc, fc1 and fc2 through kernel G on weights quantised once from
+their weight-normed form (decode_step_quant); dec8_sm (TELL_TPU_DEC8_SM)
+the softmax's head and tails on int8 tables (decode_softmax_quant);
+merged_vocab (TELL_TPU_MERGED_VOCAB) every cluster's logits from one fp32
+table (decode_vocab_table).
+
 Positions come from the static sinusoidal table or, with positional
 "learned", from the trainable params["pos_embed"]["table"], both looked
 up at pad-aware positions.
@@ -51,7 +59,8 @@ import torch
 from ..config import DecoderConfig
 from ..ops.adaptive import (adaptive_embed, adaptive_log_probs,
                             adaptive_softmax_loss, adaptive_top_k,
-                            merged_embed_table, whole_bands)
+                            merged_decode_table, merged_embed_table,
+                            quantize_softmax_tables, whole_bands)
 from ..ops.attention import cross_attention_with_kv, precompute_kv
 from ..ops.common import dropout, glu, layer_norm
 from ..ops.dynamic_conv import (dynamic_conv, dynamic_conv_step,
@@ -62,7 +71,8 @@ from ..ops.kernels.decode_attention import (decode_attention,
                                             decode_attention_q8,
                                             decode_attention_q8_plain,
                                             segment_bias)
-from ..ops.linear import gehring_linear
+from ..ops.linear import gehring_linear, gehring_weight
+from ..ops.quant import int8_linear, quantize_weight_int8
 from ..ops.positional import sinusoidal_embed, sinusoidal_table
 from ..parallel.comm import ONE_RANK, ModelAxis, world_size
 
@@ -481,19 +491,31 @@ def _attn_group(cfg: DecoderConfig, x: torch.Tensor, cat: dict,
     return _ln_stacked(cat["ln_s"], cat["ln_b"], x[:, None] + out), probs
 
 
+def _step_lin(lp: dict, q8: dict | None, name: str, x: torch.Tensor
+              ) -> torch.Tensor:
+    """A decode step's dense layer: kernel G over the layer's
+    decode_step_quant tables, or the exact weight-normed matmul."""
+    if q8 is not None:
+        return int8_linear(q8[name], x)
+    return gehring_linear(lp[name], x)
+
+
 def _attn_and_ffn_cat(lp: dict, cfg: DecoderConfig, x: torch.Tensor,
-                      cat: dict, need_weights: bool = False
+                      cat: dict, need_weights: bool = False,
+                      q8: dict | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Cross-attention branches + context_fc + FFN for one decode step.
-    x: [B, G, E] (G = beam or 1) -> (x', probs [B, M, G, S] or None)."""
+    x: [B, G, E] (G = beam or 1) -> (x', probs [B, M, G, S] or None). q8:
+    the layer's decode_step_quant tables (context_fc and the FFN in
+    int8)."""
     B, G, E = x.shape
     branches, probs = _attn_group(cfg, x, cat, need_weights)
     # concat(branches) in context order: [B, M, G, E] -> [B, G, M*E]
     h = branches.transpose(1, 2).reshape(B, G, -1)
-    h = gehring_linear(lp["context_fc"], h)
+    h = _step_lin(lp, q8, "context_fc", h)
     residual = h
-    h = torch.relu(gehring_linear(lp["fc1"], h))
-    h = gehring_linear(lp["fc2"], h)
+    h = torch.relu(_step_lin(lp, q8, "fc1", h))
+    h = _step_lin(lp, q8, "fc2", h)
     return layer_norm(lp["final_ln"], residual + h), probs
 
 
@@ -510,15 +532,75 @@ def decoder_log_probs(params: dict, cfg: DecoderConfig,
 
 
 def decoder_top_k(params: dict, cfg: DecoderConfig, feats: torch.Tensor,
-                  k: int, fused_topk: bool = False
+                  k: int, fused_topk: bool = False,
+                  vocab_table: torch.Tensor | None = None,
+                  quant_sm: dict | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k next-token log-probs from step features [B, E]; the
     [B, V] distribution is never built. fused_topk streams each cluster's
-    logits through kernel E (tell_tpu's TELL_TPU_TOPK, off by default)."""
+    logits through kernel E (tell_tpu's TELL_TPU_TOPK, off by default);
+    vocab_table (decode_vocab_table) and quant_sm (decode_softmax_quant)
+    are the merged-table and int8-table routes, which take precedence
+    (ops/adaptive.py::adaptive_top_k)."""
     return adaptive_top_k(params["adaptive_softmax"], params["embed"],
                           feats, cfg.full_cutoffs, k,
                           padding_idx=cfg.embed_padding_idx,
-                          fused=fused_topk)
+                          fused=fused_topk, vocab_table=vocab_table,
+                          quant_sm=quant_sm)
+
+
+def decode_vocab_table(params: dict, cfg: DecoderConfig) -> torch.Tensor:
+    """The merged fp32 [E, V + n_tails] softmax table of the decode loop
+    (ops/adaptive.py::merged_decode_table; tell_tpu's TELL_TPU_MERGED_VOCAB
+    lever), kept fp32 whatever the compute dtype: rounding the composed
+    tail products to bf16 can flip near-tie top-k ids."""
+    return merged_decode_table(params["adaptive_softmax"], params["embed"],
+                               cfg.full_cutoffs,
+                               padding_idx=cfg.embed_padding_idx)
+
+
+def decode_softmax_quant(params: dict, cfg: DecoderConfig) -> dict:
+    """The int8 decode softmax tables (ops/adaptive.py::
+    quantize_softmax_tables; tell_tpu's TELL_TPU_DEC8_SM lever)."""
+    return quantize_softmax_tables(params["adaptive_softmax"],
+                                   params["embed"], cfg.full_cutoffs,
+                                   padding_idx=cfg.embed_padding_idx)
+
+
+_STEP_DENSE = ("linear1", "linear2", "context_fc", "fc1", "fc2")
+
+
+def decode_step_quant(params: dict) -> list[dict]:
+    """Per layer, the decode step's linear1, linear2, context_fc, fc1 and
+    fc2 in int8 (tell_tpu's TELL_TPU_DEC8 lever): each weight-normed weight
+    made once (gehring_weight), then quantised per output channel, its bias
+    kept fp32."""
+    out = []
+    for lp in params["layers"]:
+        layer = {}
+        for name in _STEP_DENSE:
+            q = quantize_weight_int8(gehring_weight(lp[name]))
+            if "b" in lp[name]:
+                q["b"] = lp[name]["b"].float()
+            layer[name] = q
+        out.append(layer)
+    return out
+
+
+def decode_levers(params: dict, cfg: DecoderConfig, dec8: bool = False,
+                  dec8_sm: bool = False, merged_vocab: bool = False) -> dict:
+    """The tables of the int8 numerics levers that are on, built once a
+    decode call and read by every step: {"step_quant": decode_step_quant
+    or None, "quant_sm": decode_softmax_quant or None, "vocab_table":
+    decode_vocab_table or None}. The merged table wins over the int8
+    softmax tables (adaptive_top_k), so with both asked for only it is
+    built."""
+    return {
+        "step_quant": decode_step_quant(params) if dec8 else None,
+        "quant_sm": (decode_softmax_quant(params, cfg)
+                     if dec8_sm and not merged_vocab else None),
+        "vocab_table": (decode_vocab_table(params, cfg) if merged_vocab
+                        else None)}
 
 
 def init_decode_state(params: dict, cfg: DecoderConfig, contexts: dict,
@@ -549,7 +631,7 @@ def init_decode_state(params: dict, cfg: DecoderConfig, contexts: dict,
 
 def decoder_step(params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
                  state: dict, row_gather: torch.Tensor | None = None,
-                 need_weights: bool = False):
+                 need_weights: bool = False, quant: list | None = None):
     """One decode step. tokens: [B*beam] -> (features [B*beam, E], state'),
     with need_weights (features, state', per-layer head-averaged maps
     [B, M, beam, S]).
@@ -557,7 +639,8 @@ def decoder_step(params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
     row_gather [B*beam]: beam parent indices applied to the conv windows
     as they are read (beam_search's fused reorder). K/V are per batch
     element and never need gathering. state["step"] is a scalar or, in the
-    engine, one start position per row."""
+    engine, one start position per row. quant: decode_step_quant's
+    per-layer int8 tables (the dec8 lever), or None."""
     R = tokens.shape[0]
     B = state["kv"][0]["k"].shape[0]
     G = R // B
@@ -570,8 +653,9 @@ def decoder_step(params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
                  else lightweight_conv_step)
     new_conv, attns = [], []
     for i, (lp, k) in enumerate(zip(params["layers"], cfg.kernel_sizes)):
+        q8 = quant[i] if quant else None
         residual = x
-        h = gehring_linear(lp["linear1"], x)
+        h = _step_lin(lp, q8, "linear1", x)
         if cfg.glu:
             h = glu(h)
         h, buf = conv_step(lp["conv"], h, state["conv"][i], kernel_size=k,
@@ -579,10 +663,10 @@ def decoder_step(params: dict, cfg: DecoderConfig, tokens: torch.Tensor,
                            weight_softmax=cfg.weight_softmax,
                            row_gather=row_gather)
         new_conv.append(buf)
-        h = gehring_linear(lp["linear2"], h)
+        h = _step_lin(lp, q8, "linear2", h)
         h = layer_norm(lp["conv_ln"], residual + h)
         h, probs = _attn_and_ffn_cat(lp, cfg, h.reshape(B, G, -1),
-                                     state["kv"][i], need_weights)
+                                     state["kv"][i], need_weights, q8)
         attns.append(probs)
         x = h.reshape(R, -1)
     if "final_ln" in params:

@@ -49,7 +49,8 @@ from ..parallel.comm import (ONE_RANK, ModelAxis, SumOverRanks, all_gather,
                              all_reduce)
 from .captioner import (_decode_setup, build_contexts, sample_top_k,
                         weighted_layer_sum)
-from .decoder import decoder_forward, decoder_step, decoder_top_k
+from .decoder import (decode_vocab_table, decoder_forward, decoder_step,
+                      decoder_top_k)
 
 MAX_COPY_ENTITIES = 24  # static bound on distinct entities per caption
 LN2 = math.log(2.0)
@@ -233,7 +234,8 @@ def pointer_loss(params: dict, cfg: PointerConfig, batch: dict,
 
 def pointer_generate(params: dict, cfg: PointerConfig, batch: dict,
                      gen: torch.Generator | None = None,
-                     kv_cache: str = "fp", fused_topk: bool = False) -> dict:
+                     kv_cache: str = "fp", fused_topk: bool = False,
+                     merged_vocab: bool = False) -> dict:
     """Generation with the copy mechanism: at each step the entity head
     decides should-copy; a copy emits the proper context token with the
     highest copy mass (its mass summed over every proper position holding
@@ -242,7 +244,9 @@ def pointer_generate(params: dict, cfg: PointerConfig, batch: dict,
     else a draw among the top k from `gen` at sampling_temp, default seed
     0 on the batch's device). kv_cache ("fp", "int8", "int4") and
     fused_topk are the decode numerics levers of init_decode_state and
-    decoder_top_k.
+    decoder_top_k; merged_vocab the merged fp32 softmax table
+    (decode_vocab_table, built once here), the only table lever tell_tpu's
+    pointer decode reads.
 
     Returns {token_ids [B, gen_len + 1] with the seed <s>, log_probs
     [B, gen_len] (of the token emitted: the copy mass's log on a copy
@@ -281,6 +285,7 @@ def pointer_generate(params: dict, cfg: PointerConfig, batch: dict,
     cprobs = torch.zeros(G, B, device=device)
     steps = torch.arange(G, device=device)
     dec = params["captioner"]["decoder"]
+    vocab_table = decode_vocab_table(dec, dcfg) if merged_vocab else None
     for t in range(G):
         if bool(finished.all()):
             break
@@ -303,7 +308,8 @@ def pointer_generate(params: dict, cfg: PointerConfig, batch: dict,
         has_copied = (copied == copy_id[:, None]).any(dim=-1)
         should_copy = should_copy & ~(copy_prob < 1e-6) & ~has_copied
 
-        top_lp, top_idx = decoder_top_k(dec, dcfg, feats, k, fused_topk)
+        top_lp, top_idx = decoder_top_k(dec, dcfg, feats, k, fused_topk,
+                                        vocab_table)
         if k == 1:
             choice = torch.zeros(B, dtype=torch.long, device=device)
         else:

@@ -26,10 +26,14 @@ class ModelAdapter:
     # None = greedy only (tell_tpu decodes the LSTM greedily too)
     beam: Callable | None = None
     # what the family decodes with: the adaptive softmax's fused top-k
-    # lever (kernel E), the int8/int4 K/V cache levers, and a continuous-
-    # batching engine
+    # lever (kernel E), the int8/int4 K/V cache levers, the int8 decode
+    # step and softmax tables (dec8, dec8_sm), the merged decode table,
+    # and a continuous-batching engine; every family takes enc8 (its
+    # article encode is RoBERTa's)
     fused_topk: bool = True
     kv_cache_levers: bool = True
+    dec8_levers: bool = True
+    merged_vocab: bool = True
     engine: bool = True
     # whether generate takes need_weights (the attention maps); the
     # pointer decode does not, as in tell_tpu, and a service asked for
@@ -40,10 +44,15 @@ class ModelAdapter:
     copy_masks: bool = False
 
     def check_levers(self, fused_topk: bool = False,
-                     kv_cache: str = "fp") -> None:
-        """Refuse a decode numerics lever the family lacks: fused_topk is
-        the adaptive softmax's, and the modern family's tied head has
-        none; the LSTM attends to its contexts without a K/V cache."""
+                     kv_cache: str = "fp", dec8: bool = False,
+                     dec8_sm: bool = False,
+                     merged_vocab: bool = False) -> None:
+        """Refuse, by name, a decode numerics lever the family lacks, as
+        tell_tpu's code reads none for it: fused_topk is the adaptive
+        softmax's, and the modern family's tied head has none; the LSTM
+        attends to its contexts without a K/V cache; dec8 and dec8_sm are
+        the flagship decoder's (and its siblings'), merged_vocab also the
+        pointer's."""
         if fused_topk and not self.fused_topk:
             raise ValueError("fused_topk is the adaptive softmax's lever; "
                              f"the {self.name} family's tied head has "
@@ -51,6 +60,14 @@ class ModelAdapter:
         if kv_cache != "fp" and not self.kv_cache_levers:
             raise ValueError(f"kv_cache {kv_cache!r}: the {self.name} "
                              "family keeps no K/V cache")
+        for name, on, ok in (("dec8", dec8, self.dec8_levers),
+                             ("dec8_sm", dec8_sm, self.dec8_levers),
+                             ("merged_vocab", merged_vocab,
+                              self.merged_vocab)):
+            if on and not ok:
+                raise ValueError(f"{name} is the flagship decoder's lever; "
+                                 f"the {self.name} family's decode does "
+                                 "not read it")
 
 
 def _captioner(cfg: CaptionerConfig) -> ModelAdapter:
@@ -87,7 +104,8 @@ def _modern(cfg, vit: bool = False) -> ModelAdapter:
         loss_e2e=llm_loss_e2e, generate=llm_generate,
         encode=lambda frozen, batch: modern_encode_contexts(frozen, cfg,
                                                             batch),
-        beam=llm_beam_search, fused_topk=False)
+        beam=llm_beam_search, fused_topk=False, dec8_levers=False,
+        merged_vocab=False)
 
 
 def _lstm(cfg: CaptionerConfig) -> ModelAdapter:
@@ -101,7 +119,8 @@ def _lstm(cfg: CaptionerConfig) -> ModelAdapter:
         name="lstm", config=cfg, init=init_lstm_captioner,
         loss=lstm_captioner_loss, loss_e2e=None, generate=lstm_generate,
         encode=lambda frozen, batch: encode_contexts(frozen, cfg, batch),
-        kv_cache_levers=False, engine=False)
+        kv_cache_levers=False, dec8_levers=False, merged_vocab=False,
+        engine=False)
 
 
 def _pointer(cfg: CaptionerConfig, version: int) -> ModelAdapter:
@@ -125,7 +144,8 @@ def _pointer(cfg: CaptionerConfig, version: int) -> ModelAdapter:
         name=f"pointer_v{version}", config=pcfg, init=init_pointer,
         loss=pointer_loss, loss_e2e=loss_e2e, generate=pointer_generate,
         encode=lambda frozen, batch: encode_contexts(frozen, cfg, batch),
-        engine=False, attention_maps=False, copy_masks=True)
+        engine=False, attention_maps=False, copy_masks=True,
+        dec8_levers=False)
 
 
 def get_model(model_type: str, cfg) -> ModelAdapter:

@@ -1,8 +1,9 @@
 """Adaptive input embeddings and adaptive softmax (counterpart of
 tell_tpu/ops/adaptive.py: band_ranges, adaptive_embed, merged_embed_table,
 _head_logits, _tail_logits, _xent, adaptive_softmax_loss with dense tails
-or tail-capacity compaction, adaptive_log_probs and the EXACT path of
-adaptive_top_k).
+or tail-capacity compaction, adaptive_log_probs, merged_decode_table,
+quantize_softmax_tables and the exact path of adaptive_top_k with its
+vocab_table= and quant_sm= routes).
 
 Weights are tied as in the JAX package: the softmax reads the embedding's
 band tables. Every band's row `padding_idx` is pinned to zero: in the
@@ -10,8 +11,11 @@ embedding by zeroing the row (which also zeroes its gradient), in the
 softmax by multiplying the logits with a 0/1 column mask, so the padding
 column's logit is exactly 0 (not -inf), as in JAX (adaptive.py:187-207).
 adaptive_top_k(fused=True) is tell_tpu's TELL_TPU_TOPK route through
-kernel E (_adaptive_top_k_fused). Approximate top-k, the merged decode
-vocab table and the int8 tables are not ported (see ROADMAP.md).
+kernel E (_adaptive_top_k_fused); vocab_table= (merged_decode_table, its
+TELL_TPU_MERGED_VOCAB) takes every cluster's logits from one fp32 matmul,
+and quant_sm= (quantize_softmax_tables, its TELL_TPU_DEC8_SM) the head's
+and tails' from int8 tables through kernel G. Approximate top-k is a TPU
+lowering and is not ported.
 """
 from __future__ import annotations
 
@@ -19,8 +23,10 @@ import torch
 
 from ..parallel.comm import ONE_RANK, ModelAxis
 from .common import dropout, top_k
+from .kernels.int8_linear import int8_gemm
 from .kernels.topk_logits import MAX_K, topk_logits
 from .linear import linear
+from .quant import quantize_act_int8, quantize_weight_int8
 
 
 def band_ranges(cutoffs: tuple[int, ...]) -> list[tuple[int, int]]:
@@ -227,30 +233,131 @@ def adaptive_log_probs(sm: dict, emb: dict, x: torch.Tensor,
     return torch.cat(parts, dim=-1)
 
 
+def _fp32_table_math():
+    """The tables' collapsed tail products P_i @ T_i^T in full fp32 on the
+    card, TF32 off whatever the global switch says: TF32 would move the
+    values the int8 tables round to (models/backbones' pin)."""
+    from ..models.backbones import fp32_math
+    return fp32_math()
+
+
+def _pad_cols(padding_idx: int, c0: int, ranges) -> list[int]:
+    """Each block's padding column in the merged table's layout: band 0's
+    words, the class logits, then each tail band."""
+    cols = [padding_idx] if 0 <= padding_idx < c0 else []
+    off = c0 + len(ranges) - 1
+    for lo, hi in ranges[1:]:
+        if 0 <= padding_idx < hi - lo:
+            cols.append(off + padding_idx)
+        off += hi - lo
+    return cols
+
+
+def merged_decode_table(sm: dict, emb: dict, cutoffs: tuple[int, ...],
+                        padding_idx: int = 0) -> torch.Tensor:
+    """One fp32 [D, c0 + n_tails + sum(tail bands)] table for the decode's
+    top-k (tell_tpu's merged_decode_table): band 0's words ++ the class
+    logits ++ each tail band. Tail i's chain (x @ P_i) @ T_i^T collapses to
+    x @ (P_i @ T_i^T), exact up to float reassociation (no bias in the
+    chain); each block's padding column is zeroed as _pad_col_mask does.
+    Built once a decode call, and kept fp32 whatever the compute dtype."""
+    ranges = band_ranges(cutoffs)
+    c0 = ranges[0][1]
+    with _fp32_table_math():
+        blocks = [emb["bands"][0]["embed"].T.float(),
+                  sm["class_proj"]["w"].float()]
+        for i in range(len(ranges) - 1):
+            blocks.append(torch.matmul(sm["tail_projs"][i]["w"].float(),
+                                       emb["bands"][i + 1]["embed"].float().T))
+    w = torch.cat(blocks, dim=1)
+    cols = _pad_cols(padding_idx, c0, ranges)
+    if cols:
+        w[:, cols] = 0.0
+    return w
+
+
+def quantize_softmax_tables(sm: dict, emb: dict, cutoffs: tuple[int, ...],
+                            padding_idx: int = 0) -> dict:
+    """int8 decode softmax tables, built once a decode call (tell_tpu's
+    quantize_softmax_tables), in the split chain's layout: "head" band 0's
+    table^T and each of "tails" its collapsed P_i @ T_i^T, each a
+    quantize_weight_int8 dict ({"q8": int8 [band, D], "scale": fp32
+    [band]}) whose padding column is zeroed through its scale (0 times any
+    sum is 0); "class_w" the fp32 class projection [D, n_tails] (too small
+    to quantise)."""
+    ranges = band_ranges(cutoffs)
+
+    def q(table_t):
+        w = quantize_weight_int8(table_t)
+        if 0 <= padding_idx < table_t.shape[1]:
+            w["scale"][padding_idx] = 0.0
+        return w
+
+    head = q(emb["bands"][0]["embed"].T.float())
+    tails = []
+    for i in range(len(ranges) - 1):
+        with _fp32_table_math():
+            t = torch.matmul(sm["tail_projs"][i]["w"].float(),
+                             emb["bands"][i + 1]["embed"].float().T)
+        tails.append(q(t))
+    return {"head": head, "tails": tails,
+            "class_w": sm["class_proj"]["w"].float()}
+
+
 def adaptive_top_k(sm: dict, emb: dict, x: torch.Tensor,
                    cutoffs: tuple[int, ...], k: int, padding_idx: int = 0,
-                   fused: bool = False
+                   fused: bool = False,
+                   vocab_table: torch.Tensor | None = None,
+                   quant_sm: dict | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k of the full factored distribution without building the
     [N, V] log-probs: per-cluster top-k on raw logits, each shifted by its
     cluster's log-normaliser and prior, then a top-k over the candidates.
     fused (k <= 8, as in JAX) streams each cluster through kernel E
     instead, so not even one cluster's logits reach device memory.
-    Returns (log_probs [N, k] fp32, token_ids [N, k] int64)."""
+
+    vocab_table (merged_decode_table): every cluster's logits from one
+    [N, D] x [D, V + n_tails] fp32 matmul, the head and tail blocks its
+    slices; the table bakes in its build's padding_idx. quant_sm
+    (quantize_softmax_tables): one activation quant of x, then the head's
+    and each tail's logits through kernel G's int8 GEMM, the class logits
+    in fp32. As in tell_tpu, the merged table wins over the int8 tables,
+    and either one turns the fused route off. Returns (log_probs [N, k]
+    fp32, token_ids [N, k] int64)."""
     ranges = band_ranges(cutoffs)
     # tell_tpu also requires N * 2048 * 4 bytes < 8 MiB, a TPU VMEM bound
     # on its tile of logits (adaptive.py:440-443); kernel E's partials live
     # in device memory, so the port drops that condition.
-    if fused and k <= MAX_K:
+    if fused and k <= MAX_K and vocab_table is None and quant_sm is None:
         return _adaptive_top_k_fused(sm, emb, x, ranges, k, padding_idx)
     c0 = ranges[0][1]
-    head_logits = _head_logits(sm, emb, x, padding_idx).float()
+    n_tails = len(ranges) - 1
+    xq = sx = logits_all = None
+    if vocab_table is not None:
+        logits_all = torch.matmul(x.float(), vocab_table)
+        head_logits = logits_all[:, :c0 + n_tails]
+        tail_off = c0 + n_tails
+    elif quant_sm is not None:
+        xq, sx = quantize_act_int8(x)
+        word = int8_gemm(xq, sx, quant_sm["head"]["q8"],
+                         quant_sm["head"]["scale"])
+        cls = torch.matmul(x.float(), quant_sm["class_w"])
+        head_logits = torch.cat([word, cls], dim=-1)
+    else:
+        head_logits = _head_logits(sm, emb, x, padding_idx).float()
     head_lse = torch.logsumexp(head_logits, dim=-1)
     vals, ids = torch.topk(head_logits[:, :c0], k, dim=-1)
     all_vals = [vals - head_lse[:, None]]
     all_ids = [ids]
     for i, (lo, hi) in enumerate(ranges[1:]):
-        tl = _tail_logits(sm, emb, x, i, padding_idx).float()
+        if logits_all is not None:
+            tl = logits_all[:, tail_off:tail_off + hi - lo]
+            tail_off += hi - lo
+        elif xq is not None:
+            t8 = quant_sm["tails"][i]
+            tl = int8_gemm(xq, sx, t8["q8"], t8["scale"])
+        else:
+            tl = _tail_logits(sm, emb, x, i, padding_idx).float()
         lse = torch.logsumexp(tl, dim=-1)
         tv, ti = torch.topk(tl, min(k, hi - lo), dim=-1)
         prior = head_logits[:, c0 + i] - head_lse

@@ -47,9 +47,11 @@ but the host's launch time adds up over the shards (PERF.md).
 
 A slot's caption never depends on which other requests share the engine:
 tests/test_torch_engine.py and tests/test_torch_modern_serving.py hold
-every schedule to the port's one-shot beam searches. Not ported here (see
-ROADMAP.md): the DEC8 / merged-vocab levers (None, as in JAX by
-default).
+every schedule to the port's one-shot beam searches. The flagship's int8
+and merged-table decode levers (dec8, dec8_sm, merged_vocab: tell_tpu's
+TELL_TPU_DEC8, _DEC8_SM and _MERGED_VOCAB) are built once, in the step's
+constants (the aux), on one device and in every shard, as tell_tpu
+closes over them in every chunk.
 """
 from __future__ import annotations
 
@@ -65,7 +67,7 @@ import torch
 from ..bridge import to_torch
 from ..models.beam import beam_select, length_normalised
 from ..models.captioner import build_contexts
-from ..models.decoder import (decoder_step, decoder_top_k,
+from ..models.decoder import (decode_levers, decoder_step, decoder_top_k,
                               init_decode_state, precompute_context_kv_cat)
 from ..models.llm_decoder import (_build_contexts, init_llm_decode_state,
                                   llm_decoder_step, tied_top_k)
@@ -129,18 +131,23 @@ class DecodeEngine:
     numpy or torch) go in through `submit`; a Future resolving to
     {"token_ids": [beam, gen_len+1], "scores": [beam], "finished": [beam]}
     (numpy, best first) comes back: beam_search's result minus the batch
-    dim. kv_cache ("fp", "int8", "int4") and fused_topk are the decode
-    numerics levers of models/decoder.py. The state is fp32, as the
-    flagship serves. device: one device, or a list of N over which the
-    slots shard (S/N a device; the params are copied to each)."""
+    dim. kv_cache ("fp", "int8", "int4"), fused_topk, dec8, dec8_sm and
+    merged_vocab are the decode numerics levers of models/decoder.py. The
+    state is fp32, as the flagship serves. device: one device, or a list
+    of N over which the slots shard (S/N a device; the params are copied
+    to each)."""
 
     def __init__(self, params: dict, cfg, device, *, slots: int = 8,
                  beam: int = 5, chunk_steps: int = 8,
                  length_penalty: float = 0.0, max_lag: int = 8,
                  admit_batch: int = 16, kv_cache: str = "fp",
-                 fused_topk: bool = False, _shard: bool = False):
+                 fused_topk: bool = False, dec8: bool = False,
+                 dec8_sm: bool = False, merged_vocab: bool = False,
+                 _shard: bool = False):
         if slots < 2 and not _shard:
             raise ValueError("a 1-slot engine is just beam_search")
+        self.levers = {"dec8": dec8, "dec8_sm": dec8_sm,
+                       "merged_vocab": merged_vocab}
         devices = (list(device) if isinstance(device, (list, tuple))
                    else [device])
         if slots % len(devices):
@@ -157,7 +164,7 @@ class DecodeEngine:
                         chunk_steps=chunk_steps,
                         length_penalty=length_penalty, max_lag=max_lag,
                         admit_batch=admit_batch, kv_cache=kv_cache,
-                        fused_topk=fused_topk, _shard=True))
+                        fused_topk=fused_topk, **self.levers, _shard=True))
         device = devices[0]
         dcfg = self._decode_cfg(cfg)
         if cfg.gen_len > dcfg.max_target_positions:
@@ -237,8 +244,10 @@ class DecodeEngine:
         dstate = init_decode_state(self.params["decoder"], self.dcfg,
                                    contexts0, self.slots, beam=self.beam,
                                    kv_cache=self.kv_cache)
-        return ({"embed_table": dstate["embed_table"]}, dstate["kv"],
-                {"conv": dstate["conv"]})
+        aux = {"embed_table": dstate["embed_table"],
+               **decode_levers(self.params["decoder"], self.dcfg,
+                               **self.levers)}
+        return aux, dstate["kv"], {"conv": dstate["conv"]}
 
     def _encode_kv(self, batchN: dict) -> list:
         """N requests' features (leading dim N) -> their context K/V."""
@@ -259,10 +268,13 @@ class DecodeEngine:
         st, K = self.state, self.beam
         dyn = {"kv": st["kv"], "conv": st["conv"],
                "embed_table": self._aux["embed_table"], "step": step_rows}
+        aux = self._aux
         feats, dstate = decoder_step(self.params["decoder"], self.dcfg,
-                                     st["tokens"].reshape(-1), dyn)
+                                     st["tokens"].reshape(-1), dyn,
+                                     quant=aux["step_quant"])
         cand_lp, cand_ids = decoder_top_k(self.params["decoder"], self.dcfg,
-                                          feats, K, self.fused_topk)
+                                          feats, K, self.fused_topk,
+                                          aux["vocab_table"], aux["quant_sm"])
         return cand_lp, cand_ids, {"conv": dstate["conv"]}
 
     def _dyn_reorder(self, dyn: dict, flat: torch.Tensor) -> dict:
@@ -528,13 +540,19 @@ class LLMDecodeEngine(DecodeEngine):
     path). params: the LM's tree on `device`; cfg: an LLMConfig; requests
     carry image_grid, article, article_mask, face_embeds and obj_embeds
     (leading dim 1). kv_cache is the contexts' K/V numerics lever; the
-    tied head has no fused top-k (the adapter's check_levers refuses it
-    for the service), so the step never reads fused_topk."""
+    tied head has no fused top-k and the modern family none of the int8
+    decode levers (the adapter's check_levers refuses them for the
+    service), so the step never reads fused_topk, and the levers raise
+    here."""
 
     def _decode_cfg(self, cfg):
         return cfg
 
     def _model_init(self) -> tuple[dict, list, dict]:
+        on = [k for k, v in self.levers.items() if v]
+        if on:
+            raise ValueError(f"{on}: the modern family's decode has none of "
+                             "the flagship's int8 and merged-table levers")
         contexts0 = _build_contexts(self.params, self.cfg,
                                     self._zero_batch())
         dstate = init_llm_decode_state(self.params, self.cfg, contexts0,

@@ -35,10 +35,13 @@ engine's slots shard over the devices instead (serving/engine.py: S/N
 slots a device, as tell_tpu shards them over "data"); the encode runs on
 the first device.
 
-kv_cache ("fp", "int8", "int4") and fused_topk are the decode numerics
-levers (tell_tpu's TELL_TPU_KV8 / TELL_TPU_KV4 / TELL_TPU_TOPK, off by
-default as off the TPU); numerics_ab() measures each one's teacher-forced
-agreement with the fp path, and that of the tanh-GELU encode.
+kv_cache ("fp", "int8", "int4"), fused_topk, dec8, dec8_sm and
+merged_vocab are the decode numerics levers (tell_tpu's TELL_TPU_KV8 /
+TELL_TPU_KV4 / TELL_TPU_TOPK / TELL_TPU_DEC8 / _DEC8_SM / _MERGED_VOCAB,
+off by default), in micro-batch and engine mode alike, and enc8 the
+frozen encoder's (TELL_TPU_ENC8: the RoBERTa quantised to int8 once, at
+load); numerics_ab() measures each one's teacher-forced agreement with
+the fp path, and that of the tanh-GELU encode.
 
 need_attention adds the demo's attention payload to each answer: per-step
 maps of the first layer per context ("attns") merged into words
@@ -102,6 +105,7 @@ from ..data.readers import assemble_location_aware
 from ..models.backbones.roberta import RobertaEncoder
 from ..models.captioner import Captioner, weighted_layer_sum
 from ..models.registry import get_model
+from ..ops.quant import maybe_quantize_frozen
 from . import extractor
 from .batcher import MicroBatcher
 from .encode_batcher import EncodeBatcher
@@ -142,7 +146,10 @@ class CaptionService:
     adapter: get_model's adapter of the model family (default: the
     captioner over cfg); its config replaces cfg. devices: the
     replicas' devices for data-parallel micro-batch serving (the first
-    is `device`'s place; None: `device` alone)."""
+    is `device`'s place; None: `device` alone). dec8, dec8_sm and
+    merged_vocab are the int8 and merged-table decode levers (a family
+    refuses those its decode does not read); enc8 quantises the RoBERTa
+    to int8 here, once (ops/quant.py's maybe_quantize_frozen)."""
 
     def __init__(self, params: dict, roberta: RobertaEncoder,
                  cfg: CaptionerConfig, device, tokenizer=None,
@@ -153,13 +160,16 @@ class CaptionService:
                  kv_cache: str = "fp",
                  fused_topk: bool = False, need_attention: bool = False,
                  towers: dict | None = None, adapter=None,
-                 devices: list | None = None):
+                 devices: list | None = None, dec8: bool = False,
+                 dec8_sm: bool = False, merged_vocab: bool = False,
+                 enc8: bool = False):
         if need_attention and tokenizer is None:
             raise ValueError("need_attention merges the maps into words "
                              "and needs a tokenizer")
         self.adapter = adapter or get_model("captioner", cfg)
         self.modern = self.adapter.name == "modern"
-        self.adapter.check_levers(fused_topk, kv_cache)
+        self.adapter.check_levers(fused_topk, kv_cache, dec8, dec8_sm,
+                                  merged_vocab)
         if engine_slots and not self.adapter.engine:
             raise ValueError("continuous batching serves the captioner and "
                              "modern families only (got adapter "
@@ -188,6 +198,10 @@ class CaptionService:
         if self.model is not None:
             self.params = self.model.tree()
         self.roberta = roberta.to(self.device)
+        self.enc8 = enc8
+        if enc8:
+            self.roberta = RobertaEncoder(maybe_quantize_frozen(
+                self.roberta.frozen(), True)["roberta"], self.roberta.cfg)
         self.tokenizer = tokenizer
         self.need_attention = need_attention
         self.max_batch = max_batch
@@ -197,6 +211,8 @@ class CaptionService:
                                 if c.name == "article"), 512)
         self.article_len = article_len
         self.kv_cache, self.fused_topk = kv_cache, fused_topk
+        self.levers = {"dec8": dec8, "dec8_sm": dec8_sm,
+                       "merged_vocab": merged_vocab}
         self._article_buckets = tuple(sorted(
             {max(16, article_len // 4), max(16, article_len // 2),
              article_len}))  # 512 -> (128, 256, 512)
@@ -256,7 +272,7 @@ class CaptionService:
                             where, slots=slots, beam=beam,
                             length_penalty=length_penalty,
                             kv_cache=self.kv_cache,
-                            fused_topk=self.fused_topk)
+                            fused_topk=self.fused_topk, **self.levers)
             for w in widths}
         self.engine = self.engines[max(widths)]
         self.enc_batchers = {
@@ -281,6 +297,16 @@ class CaptionService:
                 return
             if not any(live):
                 time.sleep(0.002)
+
+    def _decode_levers(self) -> dict:
+        """The service's decode levers as the adapter's generate keywords:
+        only those that are on (a family's generate takes none it
+        lacks)."""
+        on = {"fused_topk": self.fused_topk, **self.levers}
+        out = {k: True for k, v in on.items() if v}
+        if self.kv_cache != "fp":
+            out["kv_cache"] = self.kv_cache
+        return out
 
     def _generate(self, enc: dict, need_weights: bool = False,
                   params: dict | None = None, **levers) -> dict:
@@ -534,7 +560,7 @@ class CaptionService:
                   for k, v in batch.items()}
             enc = self._encode(tb, frozen)
             out = self._generate(enc, need_weights=self.need_attention,
-                                 params=params)
+                                 params=params, **self._decode_levers())
             token_ids = out["token_ids"].cpu().numpy()
             if not (self.need_attention and "attns" in out):
                 return token_ids, None
@@ -563,13 +589,15 @@ class CaptionService:
                        context_ids: np.ndarray) -> dict:
         """The attention payload of a known caption on one request's
         encoded features `enc` (leading dim 1): replay_attention, teacher-
-        forced in the service's K/V cache numerics (the engine's path)."""
+        forced in the service's K/V cache and decode-step numerics (the
+        engine's path)."""
         with torch.inference_mode():
             ids = torch.as_tensor(np.asarray(token_ids)[None],
                                   device=self.device)
             feats = {k: torch.as_tensor(v).to(self.device)
                      for k, v in enc.items()}
-            maps = self.model.replay_attention(feats, ids, self.kv_cache)[0]
+            maps = self.model.replay_attention(
+                feats, ids, self.kv_cache, self.levers["dec8"])[0]
             maps = {k: a[:, 0, 0].cpu().numpy() for k, a in maps.items()}
         return self._attention_payload(np.asarray(token_ids), maps,
                                        context_ids)
@@ -636,9 +664,15 @@ class CaptionService:
         exact top-k, the erf-GELU encode), then each lever's teacher-forced
         top-1 agreement with them through predict_forced (no greedy
         cascade): the int8 cache (kv8_token_agreement, tell_tpu's gate),
-        the int4 cache, the fused top-k, and the tanh-GELU encode
-        (fast_gelu_token_agreement: the fp decode over features the
-        tower encoded with the tanh GELU). Counted over the live (non-pad)
+        the int4 cache, the fused top-k, the int8 decode step, the int8
+        softmax tables and the merged table (dec8_, dec8_sm_ and
+        merged_vocab_token_agreement, where the family's decode reads
+        them), the tanh-GELU encode (fast_gelu_token_agreement: the fp
+        decode over features the tower encoded with the tanh GELU) and the
+        int8 encode (enc8_token_agreement: over features the tower encoded
+        in int8, tell_tpu's bench gate; a service built with enc8 holds
+        only the int8 tower, so its fp path encodes in int8 already:
+        encoder_mode says which). Counted over the live (non-pad)
         target tokens of `requests` (default: one canned request) at full
         article width. The result also lands in /status under
         "numerics_ab". The modern and LSTM families have no teacher-forced
@@ -664,6 +698,7 @@ class CaptionService:
                 **frozen, "roberta_cfg": dataclasses.replace(
                     frozen["roberta_cfg"], gelu=gelu)})
                 for gelu in ("erf", "tanh"))
+            enc_int8 = self._encode(tb, maybe_quantize_frozen(frozen, True))
             ref = self._generate(enc)["token_ids"]
             target = ref[:, 1:]
             live = target != self.dcfg.pad_id
@@ -672,6 +707,7 @@ class CaptionService:
             report = {"kv_cache_mode": self.kv_cache,
                       "topk_mode": self._topk_mode(),
                       "gelu_mode": self.roberta.cfg.gelu,
+                      "encoder_mode": "int8" if self.enc8 else "fp",
                       "method": ("free_running" if self.model is None
                                  else "forced_per_step"),
                       "tokens": int(live.sum())}
@@ -691,9 +727,16 @@ class CaptionService:
             if self.adapter.fused_topk:
                 levers.append(("fused_topk_token_agreement",
                                {"fused_topk": True}))
+            if self.adapter.dec8_levers:
+                levers += [("dec8_token_agreement", {"dec8": True}),
+                           ("dec8_sm_token_agreement", {"dec8_sm": True})]
+            if self.adapter.merged_vocab:
+                levers.append(("merged_vocab_token_agreement",
+                               {"merged_vocab": True}))
             for key, lever in levers:
                 report[key] = agreement(enc, **lever)
             report["fast_gelu_token_agreement"] = agreement(enc_tanh)
+            report["enc8_token_agreement"] = agreement(enc_int8)
         report["seconds"] = time.perf_counter() - t0
         self.ab_report = report
         return report
@@ -717,6 +760,8 @@ class CaptionService:
                 "kv_cache_mode": self.kv_cache,
                 "topk_mode": self._topk_mode(),
                 "gelu_mode": self.roberta.cfg.gelu,
+                "encoder_mode": "int8" if self.enc8 else "fp",
+                **self.levers,
             },
         }
         if self.ab_report is not None:

@@ -15,11 +15,12 @@ import time
 import torch
 
 # NVIDIA's H100 SXM data sheet: device memory, fp32 outside the tensor
-# cores, and the dense tensor-core rates (TF32, bf16)
+# cores, and the dense tensor-core rates (TF32, bf16, int8)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 
 def device_ms(fn, device, calls: int = 100, warmup: int = 3) -> float:

@@ -52,6 +52,7 @@ import torch.distributed as dist
 from ..bridge import tree_leaves, tree_map
 from ..models.captioner import captioner_loss, captioner_loss_e2e
 from ..ops.common import fold_in
+from ..ops.quant import map_tree_preserving_quant
 from ..parallel.comm import all_reduce, grouped, rank, world_size
 from ..parallel.mesh import sharded_mask
 from .optimizer import BertAdam, apply_updates
@@ -59,12 +60,15 @@ from .optimizer import BertAdam, apply_updates
 
 def cast_tree(tree, compute_dtype: str):
     """fp32 leaves to bf16 under compute_dtype "bfloat16"; other leaves
-    (ints, bools, configs) and other dtypes pass through."""
+    (ints, bools, configs) and other dtypes pass through, and so does a
+    quantised dense dict ({"q8", "scale", ...}: an int8 frozen tower), whose
+    fp32 scales stay fp32 (tell_tpu's _cast through
+    map_tree_preserving_quant)."""
     if compute_dtype != "bfloat16":
         return tree
-    return tree_map(lambda x: x.to(torch.bfloat16)
-                    if isinstance(x, torch.Tensor)
-                    and x.dtype == torch.float32 else x, tree)
+    return map_tree_preserving_quant(
+        lambda x: x.to(torch.bfloat16) if isinstance(x, torch.Tensor)
+        and x.dtype == torch.float32 else x, tree)
 
 
 def compute_dtype_of(cfg) -> str:

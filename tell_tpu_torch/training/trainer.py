@@ -72,6 +72,7 @@ from ..data.bucketing import BucketingConfig, bucket_batches
 from ..data.prefetch import DevicePrefetcher
 from ..data.records import RecordDataset
 from ..models.registry import get_model
+from ..ops.quant import maybe_quantize_frozen
 from ..parallel.comm import all_reduce, broadcast, grouped, rank, world_size
 from ..parallel.mesh import (gather_params, make_mesh, param_sharding_rules,
                              shard_params)
@@ -131,14 +132,18 @@ class Trainer:
     def __init__(self, cfg: CaptionerConfig, tcfg: TrainerConfig,
                  train_batches: Callable[[int], Iterator[dict]],
                  val_batches: Callable[[], Iterator[dict]] | None,
-                 frozen: dict | None, *, device, adapter=None):
+                 frozen: dict | None, *, device, adapter=None,
+                 enc8: bool = False):
         """train_batches(epoch) / val_batches() yield fixed-shape numpy
         batches (data/bucketing.py). frozen: {"roberta": params tree,
         "roberta_cfg": RobertaConfig}, moved to `device` and cast to the
-        compute dtype once, here, not on every step. device: where training
-        runs (explicit: no default that could quietly train on the CPU).
-        adapter: get_model's adapter of the model family (default the
-        captioner's over cfg); its config replaces cfg."""
+        compute dtype once, here, not on every step; enc8 then quantises
+        its RoBERTa to int8 once (tell_tpu's TELL_TPU_ENC8, after the cast,
+        so the fp32 scales are not cast down; the encode runs through
+        kernel G). device: where training runs (explicit: no default that
+        could quietly train on the CPU). adapter: get_model's adapter of
+        the model family (default the captioner's over cfg); its config
+        replaces cfg."""
         if adapter is None:
             adapter = get_model("captioner", cfg)
         self.adapter = adapter
@@ -152,6 +157,7 @@ class Trainer:
                 tree_map(lambda x: x.to(self.device)
                          if isinstance(x, torch.Tensor) else x, frozen),
                 compute_dtype_of(cfg))
+            frozen = maybe_quantize_frozen(frozen, enc8)
         self.frozen = frozen
         self.optimizer = bert_adam(
             lr=tcfg.lr, b1=tcfg.b1, b2=tcfg.b2,
@@ -567,12 +573,14 @@ def data_ranks(bcfg: BucketingConfig, n_model: int = 1
 
 def make_trainer(cfg: CaptionerConfig, tcfg: TrainerConfig,
                  bcfg: BucketingConfig, shards_dir: str,
-                 frozen: dict | None, *, device, adapter=None) -> Trainer:
+                 frozen: dict | None, *, device, adapter=None,
+                 enc8: bool = False) -> Trainer:
     """A Trainer of the adapter's model (default the captioner) over
     shards_dir/train-*.npz (shuffled, in an order that is a pure function
     of the dataset seed and the epoch) and shards_dir/valid-*.npz (in
     shard order); in a process group, this rank's stride of each, in
-    batches of its share of the global batch size."""
+    batches of its share of the global batch size. enc8: the frozen
+    RoBERTa in int8 (Trainer)."""
     train_ds = RecordDataset(os.path.join(shards_dir, "train-*.npz"))
     val_ds = RecordDataset(os.path.join(shards_dir, "valid-*.npz"))
     pi, pc = data_ranks(bcfg, tcfg.n_model)
@@ -587,18 +595,18 @@ def make_trainer(cfg: CaptionerConfig, tcfg: TrainerConfig,
             lazy=True, process_index=pi, process_count=pc), bcfg, ranks=pc)
 
     return Trainer(cfg, tcfg, train_batches, val_batches, frozen,
-                   device=device, adapter=adapter)
+                   device=device, adapter=adapter, enc8=enc8)
 
 
 def train_from_shards(cfg: CaptionerConfig, tcfg: TrainerConfig,
                       bcfg: BucketingConfig, shards_dir: str,
                       frozen: dict | None, recover: bool = False, *,
-                      device, adapter=None) -> dict:
+                      device, adapter=None, enc8: bool = False) -> dict:
     """`tnt train`'s sequence without YAML: build the Trainer over the
     shards, recover first when asked (raising when there is nothing to
     recover, as `tnt train --recover` fails), then train."""
     trainer = make_trainer(cfg, tcfg, bcfg, shards_dir, frozen,
-                           device=device, adapter=adapter)
+                           device=device, adapter=adapter, enc8=enc8)
     if recover and not trainer.recover():
         raise FileNotFoundError(f"no checkpoint to recover in "
                                 f"{tcfg.serialization_dir}")
