@@ -68,14 +68,19 @@ every phase passed):
      and the int8 tensor-core GEMM with its fp32 epilogue) at the int8
      levers' route shapes (INT8_CASES: RoBERTa-large's q/k/v/attn_out,
      fc1 and fc2 at 2048 rows, the decode step's five projections and
-     the three softmax tables at the 8-slot engine's 40 rows): the int8
-     values and scales, the GEMM's and the layer's outputs (fp32, and
-     bf16 in and out) equal to its plain version bit for bit, the
-     100-repeat probe, its time (both launches, and the GEMM alone)
-     beside the plain version, its bound (the bytes over 3.35 TB/s or
+     the three softmax tables at the 8-slot engine's 40 rows) and at the
+     edges of its two routes (INT8_EDGE_CASES: 1, 8, 17, 65 and 129 rows,
+     the enc8 train step's 8192-row fc1, K 16 and 48, N 8 and 30265):
+     the int8 values and scales, the GEMM's and the layer's outputs (fp32,
+     and bf16 in and out) equal to its plain version bit for bit, the
+     100-repeat probe, its time (the one host call that launches both
+     kernels, and the GEMM alone) beside the plain version, each launch's
+     device time (torch.profiler), its bound (the bytes over 3.35 TB/s or
      2MNK over the dense int8 rate, 1979 TOP/s), torch._int_mm on the
-     same int8 operands where its shape rules hold, fp32 torch.matmul,
-     and the per-call transpose its [N, K] weight layout avoids.
+     same int8 operands where its shape rules hold (the weight padded to
+     a multiple of 8 rows where N is not one), fp32 torch.matmul, the
+     per-call transpose its [N, K] weight layout avoids, and the
+     wrappers' host floor beside one torch.add.
   4. full-width service: CaptionerConfig() + RobertaConfig.large() with
      random weights from the seed, served over HTTP on a local port (the
      service built without article_len takes 512 from the article
@@ -1331,44 +1336,76 @@ INT8_CASES = (
     ("softmax tail 1", 40, 1024, 15000, False),
     ("softmax tail 2", 40, 1024, 30265, False),
 )
+# ... and the edges of plan_gemm's routes and tiles, each held bit for bit
+# as the cases above: one row; the greedy decode's 8 (the mma route's
+# split K, and its guarded stores at 30265 columns); a partial 16-row
+# fragment; the wgmma route's first sizes, one row past a 64- and a
+# 128-row tile; the enc8 bf16 train step's fc1 at 16 x 512 rows; K of one
+# and three 16-byte pieces (TMA's zero fill past K); 8 columns; the last
+# tail band's 30265 columns (rows not 16-byte aligned) on the wgmma route.
+INT8_EDGE_CASES = (
+    ("one row", 1, 1024, 1024, True),
+    ("greedy decode fc1", 8, 1024, 4096, True),
+    ("greedy softmax tail 2", 8, 1024, 30265, False),
+    ("17 rows", 17, 4096, 1024, True),
+    ("65 rows", 65, 1024, 2048, True),
+    ("129 rows", 129, 1024, 1024, True),
+    ("enc8 train fc1", 8192, 1024, 4096, True),
+    ("K=16", 129, 16, 1000, True),
+    ("K=48", 40, 48, 1000, False),
+    ("N=8", 2048, 1024, 8, True),
+    ("tail 2 at 129 rows", 129, 1024, 30265, False),
+)
 
 
 def _int_mm_call(xq, wq):
     """torch._int_mm on kernel G's operands (its second operand [K, N]
     column-major: wq.T), or None where its shape rules refuse them (M <=
-    16, K or N not a multiple of 8), with the reason."""
+    16, K not a multiple of 8), with the reason. Where N is not a multiple
+    of 8 it takes the weight padded with zero rows to the next multiple,
+    and the reason names the padded width (its time is of that width)."""
     M, K = xq.shape
     N = wq.shape[0]
-    if M <= 16 or K % 8 or N % 8:
-        return None, f"M={M}, K={K}, N={N} outside its rules"
+    if M <= 16:
+        return None, f"M={M}: torch._int_mm takes M > 16"
+    if K % 8:
+        return None, f"K={K}: torch._int_mm takes K a multiple of 8"
+    note = None
+    if N % 8:
+        n8 = -(-N // 8) * 8
+        wq = torch.cat([wq, wq.new_zeros(n8 - N, K)])
+        note = f"N padded to {n8}"
     try:
         torch._int_mm(xq, wq.T)
     except RuntimeError as err:
         return None, str(err).splitlines()[0][:80]
-    return (lambda: torch._int_mm(xq, wq.T)), None
+    return (lambda: torch._int_mm(xq, wq.T)), note
 
 
-def check_int8_linear(g, name, M, K, N, bias, dev) -> dict:
+def check_int8_linear(g, name, M, K, N, bias, dev, yardsticks=True) -> dict:
     """Kernel G at one route shape: x [M, K] fp32 at unit scale, a weight
     [K, N] at 1/sqrt(K) quantised per output channel ([N, K] int8, fp32
     scales; the bias fp32 where the layer has one). The activation quant's
     int8 values and scales, the GEMM's output on them, and int8_linear's
     output (fp32, and bf16 x in and out) must equal the plain version's
     bit for bit; the 100-repeat probe. Times (CUDA events over weight
-    copies that together exceed the L2 cache where 8 copies do): the two
-    launches together (kernel ms), the GEMM alone, the plain version;
+    copies that together exceed the L2 cache where 8 copies do): the one
+    host call that launches both kernels (kernel ms), the GEMM alone, the
+    plain version; the device time of each launch (torch.profiler);
     torch._int_mm on the same int8 operands (the int8 product only, no
-    quant or epilogue) where its shape rules hold, fp32 torch.matmul of x
-    and the unquantised weight, and the transpose a [K, N] weight would
-    need at every call (the [N, K] layout is made once, at quantise
-    time). Bound: the larger of x, the weight, the scales, the bias and
-    the output moved once over 3.35 TB/s and 2MNK operations over the
-    dense int8 rate (1979 TOP/s)."""
+    quant or epilogue) where its shape rules hold, with the weight padded
+    to a multiple of 8 rows where N is not one; with yardsticks, fp32
+    torch.matmul of x and the unquantised weight, and the transpose a
+    [K, N] weight would need at every call (the [N, K] layout is made
+    once, at quantise time). Bound: the larger of x, the weight, the
+    scales, the bias and the output moved once over 3.35 TB/s and 2MNK
+    operations over the dense int8 rate (1979 TOP/s); the GEMM alone's
+    with xq and sx in place of x."""
     from tell_tpu_torch.ops.kernels.int8_linear import (
         int8_gemm, int8_gemm_plain, int8_linear, int8_linear_plain,
-        quantize_rows, quantize_rows_plain)
+        plan_gemm, quantize_rows, quantize_rows_plain)
     from tell_tpu_torch.ops.quant import quantize_weight_int8
-    from tell_tpu_torch.tools.timing import INT8_OPS
+    from tell_tpu_torch.tools.timing import INT8_OPS, profiled_device_ms
     shape = f"{name}: M={M} K={K} N={N}" + ("" if bias else ", no bias")
     x = torch.randn(M, K, generator=g).to(dev)
     x2 = torch.randn(M, K, generator=g).to(dev)
@@ -1386,6 +1423,9 @@ def check_int8_linear(g, name, M, K, N, bias, dev) -> dict:
             f"from its plain version in {n_q} values")
     gm = int8_gemm(xq, sx, wq, sw, b)
     n_g = int((gm != int8_gemm_plain(xq, sx, wq, sw, b)).sum())
+    gm16 = int8_gemm(xq, sx, wq, sw, b, torch.bfloat16)
+    n_g += int((gm16 != int8_gemm_plain(xq, sx, wq, sw, b,
+                                        torch.bfloat16)).sum())
     out = int8_linear(x, wq, sw, b)
     ref = int8_linear_plain(x, wq, sw, b)
     x16 = x.bfloat16()
@@ -1396,7 +1436,8 @@ def check_int8_linear(g, name, M, K, N, bias, dev) -> dict:
     n_16 = int((out16 != ref16).sum())
     require(n_g == 0 and n_o == 0 and n_16 == 0,
             f"int8_linear {shape}: outputs differ from the plain version "
-            f"(GEMM {n_g}, fp32 {n_o}, bf16 {n_16} of {M * N})")
+            f"(GEMM {n_g} in fp32 and bf16 out, fp32 {n_o}, bf16 {n_16} of "
+            f"{M * N})")
     check_repeats("int8_linear", int8_linear,
                   [[x, wq, sw, b], [x2, wq, sw, b]], shape)
     cyc = itertools.cycle(qs)
@@ -1407,28 +1448,69 @@ def check_int8_linear(g, name, M, K, N, bias, dev) -> dict:
 
     ms = cuda_ms(kernel)
     gemm_ms = cuda_ms(lambda: int8_gemm(xq, sx, next(cyc)["q8"], sw, b))
+    dev_ms = profiled_device_ms(kernel)
+    quant_dev = sum(t for k, t in dev_ms.items() if "quant_rows" in k)
+    gemm_dev = sum(t for k, t in dev_ms.items() if "gemm_kernel" in k)
     plain_ms = cuda_ms(lambda: int8_linear_plain(x, next(cyc)["q8"], sw, b))
     int_mm, why = _int_mm_call(xq, wq)
     library_ms = None if int_mm is None else cuda_ms(int_mm)
-    wf = [w.to(dev) for w in ws[:2]]
-    wcyc = itertools.cycle(wf)
-    fp32_ms = cuda_ms(lambda: torch.matmul(x, next(wcyc)))
-    transpose_ms = cuda_ms(lambda: wf[0].T.contiguous())
-    nbytes = _nbytes([x, wq, sw, out] + ([b] if bias else []))
-    bound_ms, bound_by = bound(nbytes, 2.0 * M * N * K, INT8_OPS)
-    log(f"phase 3: int8_linear {shape}: quant, GEMM and output equal to "
-        f"the plain version bit for bit (fp32, and bf16 in and out); "
-        f"kernel {ms:.4f} ms (GEMM alone {gemm_ms:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-        f"{bound_ms / ms:.1%} of it), torch._int_mm "
-        + (f"{library_ms:.4f} ms" if library_ms is not None
-           else f"none ({why})")
-        + f", fp32 torch.matmul {fp32_ms:.4f} ms, a [K, N] weight's "
-        f"per-call transpose {transpose_ms:.4f} ms")
+    fp32_ms = transpose_ms = None
+    if yardsticks:
+        wf = [w.to(dev) for w in ws[:2]]
+        wcyc = itertools.cycle(wf)
+        fp32_ms = cuda_ms(lambda: torch.matmul(x, next(wcyc)))
+        transpose_ms = cuda_ms(lambda: wf[0].T.contiguous())
+    extra = [] if b is None else [b]
+    bound_ms, bound_by = bound(_nbytes([x, wq, sw, out] + extra),
+                               2.0 * M * N * K, INT8_OPS)
+    gemm_bound, _ = bound(_nbytes([xq, sx, wq, sw, out] + extra),
+                          2.0 * M * N * K, INT8_OPS)
+    plan = plan_gemm(M, N, K)
+    route = ("mma" if plan.route == 0 else
+             f"wgmma {plan.tile[0]}x{plan.tile[1]}") + (
+        f", split {plan.split}" if plan.split > 1 else "") + (
+        f", grid {plan.grid}")
+    lib = ("none (" + why + ")" if library_ms is None else
+           f"{library_ms:.4f} ms" + (f" ({why})" if why else "")
+           + f", GEMM alone / _int_mm {gemm_ms / library_ms:.2f}")
+    gemm_share, gemm_dev_share = gemm_bound / gemm_ms, gemm_bound / gemm_dev
+    log(f"phase 3: int8_linear {shape}: {route}; quant, GEMM and output "
+        f"equal to the plain version bit for bit (fp32, and bf16 in and "
+        f"out); kernel {ms:.4f} ms (device: quant {quant_dev:.4f} + GEMM "
+        f"{gemm_dev:.4f} ms), GEMM alone {gemm_ms:.4f} ms ({gemm_share:.1%}"
+        f" of its bound {gemm_bound:.4f} ms; device {gemm_dev_share:.1%}), "
+        f"plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}, {bound_ms / ms:.1%} of it), "
+        f"torch._int_mm {lib}"
+        + ("" if fp32_ms is None else
+           f", fp32 torch.matmul {fp32_ms:.4f} ms, a [K, N] weight's "
+           f"per-call transpose {transpose_ms:.4f} ms"))
     return {"shape": shape, "err32": 0.0, "ms": ms, "gemm_ms": gemm_ms,
+            "device_ms": quant_dev + gemm_dev, "gemm_device_ms": gemm_dev,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms,
             "fp32_ms": fp32_ms, "transpose_ms": transpose_ms}
+
+
+def int8_linear_host_floor(dev) -> None:
+    """ms per call of kernel G's one-call int8_linear and of int8_gemm
+    alone on a tiny input (M=1, K=16, N=8: the wrappers' checks, the
+    allocations and the launches), beside one torch.add of the same tiny
+    tensors: where a call's CUDA-event time is set by the host, it cannot
+    go below its floor, and the add says what one PyTorch call costs on
+    this host."""
+    from tell_tpu_torch.ops.kernels.int8_linear import (int8_gemm,
+                                                        int8_linear)
+    x = torch.zeros(1, 16, device=dev)
+    wq = torch.zeros(8, 16, dtype=torch.int8, device=dev)
+    sw = torch.ones(8, device=dev)
+    xq = torch.zeros(1, 16, dtype=torch.int8, device=dev)
+    sx = torch.ones(1, 1, device=dev)
+    ms = cuda_ms(lambda: int8_linear(x, wq, sw, sw))
+    gemm_ms = cuda_ms(lambda: int8_gemm(xq, sx, wq, sw, sw))
+    add_ms = cuda_ms(lambda: torch.add(x, x))
+    log(f"phase 3: int8_linear host floor {ms:.4f} ms per call, int8_gemm "
+        f"{gemm_ms:.4f} ms (M=1, K=16, N=8), one torch.add {add_ms:.4f} ms")
 
 
 # The kernels of phase 3, as --kernels names them
@@ -1533,7 +1615,11 @@ def phase_kernels(seed: int, only: set[str] | None = None) -> dict:
         gi = torch.Generator().manual_seed(seed + 8)
         for case in INT8_CASES:
             res["int8_linear"].append(check_int8_linear(gi, *case, dev))
-        torch.cuda.empty_cache()
+        for case in INT8_EDGE_CASES:
+            res["int8_linear"].append(check_int8_linear(
+                gi, *case, dev, yardsticks=False))
+            torch.cuda.empty_cache()
+        int8_linear_host_floor(dev)
     if not run("decode_attention_single"):
         return res
     for article in (512, 2048):

@@ -47,10 +47,14 @@ _SIGNATURES = {
     # x, table, pv, pi, pm, ps, vals, ids, lse, N, V, D, k, zero_row,
     # dtype, stream
     "tt_topk_logits": [_P] * 9 + [_I] * 6 + [_P],
-    # x, q, s, M, K, dtype, stream
-    "tt_int8_quant_rows": [_P] * 3 + [_I] * 3 + [_P],
-    # xq, wq, sx, sw, bias, out, M, N, K, out_dtype, stream
-    "tt_int8_gemm": [_P] * 6 + [_I] * 4 + [_P],
+    # x, q, s, M, K, dtype, device, stream
+    "tt_int8_quant_rows": [_P] * 3 + [_I] * 4 + [_P],
+    # xq, wq, sx, sw, bias, out, M, N, K, out_dtype, route, split, chunk,
+    # grid, device, stream
+    "tt_int8_gemm": [_P] * 6 + [_I] * 9 + [_P],
+    # x, xq, sx, wq, sw, bias, out, M, N, K, dtype, route, split, chunk,
+    # grid, device, stream
+    "tt_int8_linear": [_P] * 7 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()
